@@ -1,0 +1,31 @@
+"""slate_tpu_torch — the PyTorch/CUDA port of ``slate_tpu`` for one
+NVIDIA H100.
+
+Same layout (``ops/``, ``linalg/``, ``perf/``, ``testing/``) and public
+names as the JAX package, so each module is held against its namesake;
+the Pallas kernels on the ported path are hand-written CUDA kernels
+(``csrc/``, :mod:`slate_tpu_torch.ops.kernels`).  Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.  The port imports no
+JAX and nothing of ``slate_tpu``.
+
+Ported so far: the fp32 single-device Cholesky path — ``gemm``,
+``potrf``, ``potrs``, ``posv``, ``trtri``, ``trtrm``, ``potri`` (plus
+``herk``/``syrk``, ``trmm``, ``trsm``).
+"""
+
+from . import config  # noqa: F401
+from .enums import (  # noqa: F401
+    Diag, GridOrder, Op, Option, Side, Target, Uplo,
+)
+from .exceptions import SlateError  # noqa: F401
+from .grid import ProcessGrid  # noqa: F401
+from .matrix import (  # noqa: F401
+    BaseMatrix, BaseTrapezoidMatrix, HermitianMatrix, Matrix, SymmetricMatrix,
+    TriangularMatrix, as_array,
+)
+from .options import Options, get_option  # noqa: F401
+from . import method  # noqa: F401
+from .linalg import *  # noqa: F401,F403
+from .interop import matrix_from_numpy, matrix_to_numpy  # noqa: F401
+
+__version__ = "0.1.0"

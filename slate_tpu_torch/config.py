@@ -1,0 +1,65 @@
+"""Global configuration.
+
+Precision: every fp32 product in this package is a full fp32 product.
+The JAX package accumulates its kernels at ``Precision.HIGHEST``
+(``slate_tpu/ops/pallas_kernels.py:83-87``), and the drivers' residual
+gates (≤ 3·ε·n in the reference tester's units) fail at TF32's ~1e-3, so
+TF32 is switched off here for cuBLAS products and cuDNN alike, and the
+hand-written kernels (``csrc/*.cu``) multiply in FFMA.
+
+Knobs (environment, read once at import; the ``SLATE_TPU_TORCH_`` prefix
+keeps them apart from the JAX package's ``SLATE_TPU_`` knobs, so both
+packages can run in one process):
+
+* ``SLATE_TPU_TORCH_NB`` — the global block size default (int, 256).
+* ``SLATE_TPU_TORCH_USE_KERNELS`` ∈ {auto, 1, 0} — the tri-state in
+  place of the reference's ``SLATE_TPU_USE_PALLAS``: ``auto`` and ``1``
+  route every eligible site to the hand-written kernel (its plain PyTorch
+  version for a tensor on the CPU); ``0`` routes every site to the stock
+  PyTorch op.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+default_block_size = int(os.environ.get("SLATE_TPU_TORCH_NB", "256"))
+
+
+def _tri_state(env: str):
+    """Parse a force-off / force-on / auto knob: False, True or ``"auto"``."""
+    raw = os.environ.get(env, "auto").strip().lower()
+    if raw in ("1", "true", "on", "yes"):
+        return True
+    if raw in ("0", "false", "off", "no", ""):
+        return False
+    return "auto"
+
+
+#: Route eligible sites through the hand-written kernels
+#: (:mod:`slate_tpu_torch.ops.kernels`); see the module docstring.
+use_kernels = _tri_state("SLATE_TPU_TORCH_USE_KERNELS")
+
+
+def use_kernels_mode() -> str:
+    """Resolve :data:`use_kernels` to ``"auto" | "on" | "off"`` (reads the
+    module global, so tests may monkeypatch it)."""
+    v = use_kernels
+    return "auto" if v == "auto" else ("on" if v else "off")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point places its host inputs on: ``cuda``
+    unless the caller names another.  Asking for ``cuda`` where there is
+    no card raises; nothing falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        from .exceptions import SlateError
+        raise SlateError("no CUDA device is available; pass device='cpu' "
+                         "to run on the host")
+    return dev

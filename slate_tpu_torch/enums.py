@@ -1,0 +1,76 @@
+"""Enumerations of the public surface — the port's own copy of
+``slate_tpu/enums.py`` (same names, same string values, so a value read
+from one package's enum names the same member in the other)."""
+
+from __future__ import annotations
+
+import enum
+
+
+class Target(enum.Enum):
+    """Execution target.  ``Devices`` is the CUDA card; the OpenMP-era
+    host variants are aliases of ``Host``."""
+
+    Host = "host"
+    Devices = "devices"
+
+    HostTask = "host"
+    HostNest = "host"
+    HostBatch = "host"
+
+
+class Op(enum.Enum):
+    NoTrans = "notrans"
+    Trans = "trans"
+    ConjTrans = "conjtrans"
+
+
+class Uplo(enum.Enum):
+    Lower = "lower"
+    Upper = "upper"
+    General = "general"
+
+
+class Diag(enum.Enum):
+    NonUnit = "nonunit"
+    Unit = "unit"
+
+
+class Side(enum.Enum):
+    Left = "left"
+    Right = "right"
+
+
+class GridOrder(enum.Enum):
+    Col = "col"
+    Row = "row"
+
+
+class Option(enum.Enum):
+    """Per-call option keys (reference ``enums.hh:69-101``)."""
+
+    ChunkSize = "chunk_size"
+    Lookahead = "lookahead"
+    BlockSize = "block_size"
+    InnerBlocking = "inner_blocking"
+    MaxPanelThreads = "max_panel_threads"
+    Tolerance = "tolerance"
+    Target = "target"
+    HoldLocalWorkspace = "hold_local_workspace"
+    Depth = "depth"
+    MaxIterations = "max_iterations"
+    UseFallbackSolver = "use_fallback_solver"
+    PivotThreshold = "pivot_threshold"
+    PrintVerbose = "print_verbose"
+    PrintEdgeItems = "print_edgeitems"
+    PrintWidth = "print_width"
+    PrintPrecision = "print_precision"
+    MethodCholQR = "method_cholqr"
+    MethodEig = "method_eig"
+    MethodFactor = "method_factor"
+    MethodGels = "method_gels"
+    MethodGemm = "method_gemm"
+    MethodHemm = "method_hemm"
+    MethodLU = "method_lu"
+    MethodTrsm = "method_trsm"
+    MethodSVD = "method_svd"

@@ -1,0 +1,52 @@
+"""State carried across from the JAX package's matrices: a JAX
+``Matrix``/``HermitianMatrix`` holds one array plus uplo/diag/mb/nb, and
+these two functions turn that content, as numpy and plain values, into
+the port's objects and back.  The port imports nothing of the JAX
+package, so the caller does the JAX side (``np.asarray(m.data)``,
+``m.uplo.value``, ...).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from . import matrix as _matrix
+from .enums import Diag, Uplo
+
+_KINDS = ("Matrix", "TriangularMatrix", "HermitianMatrix", "SymmetricMatrix")
+
+
+def _enum(cls, v):
+    return v if isinstance(v, cls) else cls(getattr(v, "value", v))
+
+
+def matrix_from_numpy(kind: str, data, *, uplo=None, diag=None,
+                      mb: int = 256, nb: int = 256, device=None):
+    """The port's ``kind`` matrix over ``data`` (placed on ``device``,
+    ``cuda`` by default).  ``uplo``/``diag`` take the port's enums, the
+    JAX package's enums or their value strings (``"lower"``,
+    ``"nonunit"``)."""
+    if kind not in _KINDS:
+        raise ValueError(f"unknown matrix kind {kind!r}; one of {_KINDS}")
+    cls = getattr(_matrix, kind)
+    data = np.asarray(data)
+    if kind == "Matrix":
+        return cls(data, mb=mb, nb=nb, device=device)
+    return cls(data, uplo=_enum(Uplo, uplo or Uplo.Lower),
+               diag=_enum(Diag, diag or Diag.NonUnit), mb=mb, nb=nb,
+               device=device)
+
+
+def matrix_to_numpy(m) -> dict:
+    """What ``m`` holds, as ``{"kind", "data", "uplo", "diag", "mb",
+    "nb"}`` with ``data`` a numpy array in storage orientation and the
+    enums as their value strings (``uplo``/``diag`` are None for a
+    general Matrix)."""
+    if m.op.value != "notrans":
+        raise ValueError("matrix_to_numpy takes a NoTrans view")
+    tri = isinstance(m, _matrix.BaseTrapezoidMatrix)
+    return {"kind": type(m).__name__,
+            "data": m.data.detach().cpu().resolve_conj().numpy(),
+            "uplo": m.uplo.value if tri else None,
+            "diag": m.diag.value if tri else None,
+            "mb": m.mb, "nb": m.nb}

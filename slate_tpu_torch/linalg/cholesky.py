@@ -1,0 +1,150 @@
+"""Cholesky family: potrf / potrs / posv / potri (+ trtri, trtrm) — the
+counterpart of ``slate_tpu/linalg/cholesky.py:31-247`` (reference
+``src/potrf.cc``, ``potrs.cc``, ``posv.cc``, ``potri.cc``, ``trtri.cc``,
+``trtrm.cc``).
+
+Branches of the JAX package not ported yet — out-of-core (``ooc``), the
+fp64 Ozaki/Newton panels (``ozaki``), the fused step and
+full-factorization kernels (``fused``/``full``) and the ABFT checksum
+envelope (off by default there) — are queued in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..enums import Diag, Side, Uplo
+from ..exceptions import SlateError
+from ..matrix import BaseMatrix, BaseTrapezoidMatrix, HermitianMatrix, \
+    TriangularMatrix
+from ..method import select_backend
+from ..ops import blocks
+from ..ops.tile_ops import hermitize
+from ..options import Options, get_option
+from ..perf.metrics import instrument_driver
+from .blas3 import _arr, _device_of, _diag_of, _nb, _uplo_of, _wrap_like
+
+
+def _hermitian_full(a, device):
+    """The full Hermitian tensor of ``a``'s stored triangle (a raw array
+    is taken as already full)."""
+    if isinstance(a, BaseTrapezoidMatrix):
+        return hermitize(a.logical_uplo, a.array)
+    return _arr(a, device)
+
+
+@instrument_driver("potrf")
+def potrf(a, opts: Optional[Options] = None, *, device=None):
+    """Cholesky factorization A = L·Lᴴ (or UᴴU).  Returns a
+    TriangularMatrix holding the factor in ``a``'s uplo, other triangle
+    zero."""
+    dev = _device_of(a, device=device)
+    uplo = _uplo_of(a)
+    nb = _nb(a, opts)
+    full = _hermitian_full(a, dev)
+    if full.shape[-1] != full.shape[-2]:
+        raise SlateError(f"potrf requires a square matrix, got {tuple(full.shape)}")
+    method = get_option(opts, "method_factor", "auto")
+    nbsel = 512 if nb <= 256 else nb
+    l = _potrf_dispatch(_potrf_branch(full, nb, nbsel, method), full, nb, nbsel)
+    fac = l if uplo is Uplo.Lower else l.mH.resolve_conj().contiguous()
+    return TriangularMatrix(fac, uplo=uplo, diag=Diag.NonUnit,
+                            mb=getattr(a, "mb", nb), nb=nb,
+                            grid=getattr(a, "grid", None), device=fac.device)
+
+
+def _potrf_branch(full, nb: int, nbsel: int, method) -> str:
+    """Which potrf branch runs: ``"panels"`` (the strip driver over the
+    ``chol_inv_panel`` kernel, fp32), ``"recursive"`` (an explicit
+    ``method_factor``: the nb recursion) or ``"stock"``
+    (``torch.linalg.cholesky``: fp64, complex, or kernels switched off).
+    The ``potrf_step`` site is consulted first, as in the JAX package; it
+    answers ``"composed"`` until the fused kernels are ported."""
+    if method != "auto":
+        return "recursive"
+    n = int(full.shape[-1])
+    if full.ndim == 2 and full.dtype.is_floating_point:
+        select_backend("potrf_step", n=n, nb=nbsel, dtype=full.dtype,
+                       device=full.device)
+    if full.ndim == 2 and select_backend(
+            "potrf_panel", n=n, nb=nbsel, dtype=full.dtype,
+            device=full.device) in ("kernel", "plain"):
+        return "panels"
+    return "stock"
+
+
+def _potrf_dispatch(branch: str, full, nb: int, nbsel: int):
+    """Run one resolved potrf branch (see :func:`_potrf_branch`)."""
+    if branch == "panels":
+        return blocks.potrf_panels(full, nbsel)
+    if branch == "recursive":
+        return blocks.potrf_rec(full, nb)
+    return torch.linalg.cholesky(full)
+
+
+@instrument_driver("potrs")
+def potrs(a_factor, b, opts: Optional[Options] = None, *, device=None):
+    """Solve A·X = B from the Cholesky factor: two triangular solves."""
+    dev = _device_of(a_factor, b, device=device)
+    uplo = _uplo_of(a_factor)
+    av = _arr(a_factor, dev)
+    bv = _arr(b, dev)
+    nb = _nb(a_factor, opts)
+    if uplo is Uplo.Lower:
+        # L y = b ; L^H x = y
+        y = blocks.trsm_rec(Side.Left, Uplo.Lower, Diag.NonUnit, av, bv, nb)
+        x = blocks.trsm_rec(Side.Left, Uplo.Upper, Diag.NonUnit, av.mH, y, nb)
+    else:
+        y = blocks.trsm_rec(Side.Left, Uplo.Lower, Diag.NonUnit, av.mH, bv, nb)
+        x = blocks.trsm_rec(Side.Left, Uplo.Upper, Diag.NonUnit, av, y, nb)
+    return _wrap_like(b, x)
+
+
+@instrument_driver("posv")
+def posv(a, b, opts: Optional[Options] = None, *, device=None):
+    """Factor + solve (reference ``slate::posv``).  Returns ``(factor, x)``."""
+    fac = potrf(a, opts, device=device)
+    x = potrs(fac, b, opts)
+    return fac, x
+
+
+@instrument_driver("trtri")
+def trtri(a, opts: Optional[Options] = None, hi: bool = False, *,
+          device=None):
+    """Triangular inverse.  ``hi`` routes the assembly products through
+    ``blocks.matmul_hi`` (potri)."""
+    dev = _device_of(a, device=device)
+    uplo = _uplo_of(a)
+    inv = blocks.trtri_rec(uplo, _diag_of(a), _arr(a, dev), _nb(a, opts), hi=hi)
+    inv = torch.tril(inv) if uplo is Uplo.Lower else torch.triu(inv)
+    return _wrap_like(a, inv)
+
+
+@instrument_driver("trtrm")
+def trtrm(a, opts: Optional[Options] = None, hi: bool = False, *,
+          device=None):
+    """Triangular × triangular product Lᴴ·L / U·Uᴴ (LAPACK ``lauum``)."""
+    dev = _device_of(a, device=device)
+    av = _arr(a, dev)
+    out = blocks.lauum_rec(_uplo_of(a), av, _nb(a, opts),
+                           conj=av.is_complex(), hi=hi)
+    return _wrap_like(a, out)
+
+
+@instrument_driver("potri")
+def potri(a_factor, opts: Optional[Options] = None, *, device=None):
+    """Inverse of a Hermitian positive-definite matrix from its Cholesky
+    factor: ``trtri`` then ``trtrm`` (A⁻¹ = L⁻ᴴ·L⁻¹), both with
+    full-precision products as in the JAX package.  Returns a
+    HermitianMatrix (stored triangle valid)."""
+    uplo = _uplo_of(a_factor)
+    inv_t = trtri(a_factor, opts, hi=True, device=device)
+    prod = trtrm(inv_t, opts, hi=True, device=device)
+    data = prod.data if isinstance(prod, BaseMatrix) else prod
+    return HermitianMatrix(data, uplo=uplo,
+                           mb=getattr(a_factor, "mb", 256),
+                           nb=getattr(a_factor, "nb", 256),
+                           grid=getattr(a_factor, "grid", None),
+                           device=data.device)

@@ -1,0 +1,106 @@
+"""Static backend decisions for the port's multi-backend sites — the
+counterpart of ``slate_tpu/perf/autotune.py``, without timing.
+
+Each site returns one of:
+
+* ``"kernel"`` — the hand-written CUDA kernel
+  (:mod:`slate_tpu_torch.ops.kernels`), for an eligible shape on a CUDA
+  tensor;
+* ``"plain"`` — the kernel's plain PyTorch version, for an eligible
+  shape on a CPU tensor;
+* ``"stock"`` — the stock PyTorch op (``torch.matmul``,
+  ``torch.linalg``), for shapes the kernel does not take or when
+  ``SLATE_TPU_TORCH_USE_KERNELS=0``.
+
+:func:`decisions` lists what each site resolved to, keyed
+``"<site>|<key>"``.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from .. import config
+
+_decisions: dict = {}
+_lock = threading.Lock()
+
+
+def _record(site: str, key: tuple, backend: str) -> str:
+    with _lock:
+        _decisions["%s|%s" % (site, ",".join(map(str, key)))] = backend
+    return backend
+
+
+def decisions() -> dict:
+    """Every site decision made so far in this process."""
+    with _lock:
+        return dict(_decisions)
+
+
+def _kernel_or_plain(device) -> str:
+    return "kernel" if torch.device(device).type == "cuda" else "plain"
+
+
+def choose_matmul(shape_a, shape_b, dtype, device) -> str:
+    """2-D product: the kernel for fp32 shapes with every dim a multiple
+    of 128 (the eligibility of ``slate_tpu/perf/autotune.py:921-924``,
+    narrowed to fp32 because the kernel is an fp32 kernel), else
+    ``torch.matmul``."""
+    m, k = int(shape_a[0]), int(shape_a[1])
+    n = int(shape_b[1])
+    key = (m, k, n, str(dtype).replace("torch.", ""),
+           torch.device(device).type)
+    eligible = (dtype == torch.float32 and m % 128 == 0 and k % 128 == 0
+                and n % 128 == 0)
+    if not eligible or config.use_kernels_mode() == "off":
+        return _record("matmul", key, "stock")
+    return _record("matmul", key, _kernel_or_plain(device))
+
+
+def choose_potrf_panel(n: int, nb: int, dtype, device) -> str:
+    """f32 Cholesky driver: the strip driver over the ``chol_inv_panel``
+    kernel (``"kernel"``/``"plain"``) or ``torch.linalg.cholesky``
+    (``"stock"``)."""
+    key = (n, nb, str(dtype).replace("torch.", ""), torch.device(device).type)
+    if dtype != torch.float32 or config.use_kernels_mode() == "off":
+        return _record("potrf_panel", key, "stock")
+    return _record("potrf_panel", key, _kernel_or_plain(device))
+
+
+def choose_potrf_step(n: int, nb: int, dtype, device) -> str:
+    """Step composition of the Cholesky driver: always ``"composed"``
+    (the strip driver) until the fused step and full-factorization
+    kernels are ported (see ROADMAP.md)."""
+    key = (n, nb, str(dtype).replace("torch.", ""), torch.device(device).type)
+    return _record("potrf_step", key, "composed")
+
+
+def choose_trtri_panel(n: int, dtype, device) -> str:
+    """Lower non-unit triangular-inverse tile: the ``trtri_panel`` kernel
+    or ``solve_triangular`` against I.  Eligibility (f32, power-of-two
+    n ≥ 32, 2-D) is checked by the call site
+    (:func:`slate_tpu_torch.ops.blocks.trtri_rec`)."""
+    key = (n, str(dtype).replace("torch.", ""), torch.device(device).type)
+    if config.use_kernels_mode() == "off":
+        return _record("trtri_panel", key, "stock")
+    return _record("trtri_panel", key, _kernel_or_plain(device))
+
+
+_SITES = {
+    "matmul": choose_matmul,
+    "potrf_panel": choose_potrf_panel,
+    "potrf_step": choose_potrf_step,
+    "trtri_panel": choose_trtri_panel,
+}
+
+
+def select(op: str, **key) -> str:
+    """Dispatch ``op`` to its site chooser with ``key`` as keywords."""
+    try:
+        fn = _SITES[op]
+    except KeyError:
+        raise KeyError(f"unknown backend site {op!r}") from None
+    return fn(**key)
