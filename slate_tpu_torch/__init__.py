@@ -10,12 +10,14 @@ JAX and nothing of ``slate_tpu``.
 
 Ported so far: the fp32 single-device Cholesky path — ``gemm``,
 ``potrf``, ``potrs``, ``posv``, ``trtri``, ``trtrm``, ``potri`` (plus
-``herk``/``syrk``, ``trmm``, ``trsm``).
+``herk``/``syrk``, ``trmm``, ``trsm``) — and the fp32 single-device LU
+path — ``getrf`` (partial pivot and no pivot), ``getrs``, ``gesv``,
+``getri``, ``getrf_nopiv``, ``getrs_nopiv``, ``gesv_nopiv``.
 """
 
 from . import config  # noqa: F401
 from .enums import (  # noqa: F401
-    Diag, GridOrder, Op, Option, Side, Target, Uplo,
+    Diag, GridOrder, MethodLU, Op, Option, Side, Target, Uplo,
 )
 from .exceptions import SlateError  # noqa: F401
 from .grid import ProcessGrid  # noqa: F401
@@ -26,6 +28,8 @@ from .matrix import (  # noqa: F401
 from .options import Options, get_option  # noqa: F401
 from . import method  # noqa: F401
 from .linalg import *  # noqa: F401,F403
-from .interop import matrix_from_numpy, matrix_to_numpy  # noqa: F401
+from .interop import (  # noqa: F401
+    lu_from_numpy, lu_to_numpy, matrix_from_numpy, matrix_to_numpy,
+)
 
 __version__ = "0.1.0"

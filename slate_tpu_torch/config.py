@@ -17,6 +17,11 @@ packages can run in one process):
   route every eligible site to the hand-written kernel (its plain PyTorch
   version for a tensor on the CPU); ``0`` routes every site to the stock
   PyTorch op.
+* ``SLATE_TPU_TORCH_SCATTERED_LU`` ∈ {1, 0}, default 1 — the LU driver
+  (``lu_driver`` site): ``1`` takes the scattered-row driver wherever it
+  is shape-eligible, ``0`` forces the blocked recursion
+  (:func:`slate_tpu_torch.linalg.lu.getrf_rec`) everywhere, to compare
+  the two drivers on one shape.
 """
 
 from __future__ import annotations
@@ -63,3 +68,8 @@ def resolve_device(device=None) -> torch.device:
         raise SlateError("no CUDA device is available; pass device='cpu' "
                          "to run on the host")
     return dev
+
+
+#: Partial-pivot LU driver knob (a bool; tests and ``chip_smoke.py`` set
+#: it to False to force the blocked recursion); see the module docstring.
+scattered_lu = _tri_state("SLATE_TPU_TORCH_SCATTERED_LU") is not False

@@ -74,3 +74,14 @@ class Option(enum.Enum):
     MethodLU = "method_lu"
     MethodTrsm = "method_trsm"
     MethodSVD = "method_svd"
+
+
+class MethodLU(enum.Enum):
+    """LU pivoting variant (reference ``method.hh:279-315``)."""
+
+    Auto = "auto"
+    PartialPiv = "partial"
+    CALU = "calu"
+    NoPiv = "nopiv"
+    RBT = "rbt"
+    BEAM = "beam"

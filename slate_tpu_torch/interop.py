@@ -9,6 +9,7 @@ package, so the caller does the JAX side (``np.asarray(m.data)``,
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from . import matrix as _matrix
 from .enums import Diag, Uplo
@@ -50,3 +51,20 @@ def matrix_to_numpy(m) -> dict:
             "uplo": m.uplo.value if tri else None,
             "diag": m.diag.value if tri else None,
             "mb": m.mb, "nb": m.nb}
+
+
+def lu_from_numpy(data, perm, *, mb: int = 256, nb: int = 256, device=None):
+    """An LU factor from the JAX package's ``getrf`` output: its packed
+    factor (``np.asarray(lu.data)``) and its int32 permutation become the
+    port's ``(Matrix, int64 tensor)`` on ``device``."""
+    lu = matrix_from_numpy("Matrix", data, mb=mb, nb=nb, device=device)
+    return lu, torch.as_tensor(np.asarray(perm, np.int64), device=lu.device)
+
+
+def lu_to_numpy(lu, perm) -> dict:
+    """The port's ``(Matrix, perm)`` as ``{"data", "perm", "mb", "nb"}``
+    with numpy arrays (perm int64), for the JAX package's
+    ``Matrix(jnp.asarray(d["data"]), ...)`` and a ``jnp`` perm."""
+    out = matrix_to_numpy(lu)
+    return {"data": out["data"], "perm": perm.detach().cpu().numpy(),
+            "mb": out["mb"], "nb": out["nb"]}

@@ -2,6 +2,11 @@
 
 from .blas3 import gemm, herk, syrk, trmm, trsm  # noqa: F401
 from .cholesky import posv, potrf, potri, potrs, trtri, trtrm  # noqa: F401
+from .lu import (  # noqa: F401
+    gesv, gesv_nopiv, getrf, getrf_nopiv, getri, getrs, getrs_nopiv,
+)
 
 __all__ = ["gemm", "herk", "syrk", "trmm", "trsm",
-           "posv", "potrf", "potri", "potrs", "trtri", "trtrm"]
+           "posv", "potrf", "potri", "potrs", "trtri", "trtrm",
+           "gesv", "gesv_nopiv", "getrf", "getrf_nopiv", "getri", "getrs",
+           "getrs_nopiv"]

@@ -14,3 +14,15 @@ def select_backend(op: str, **key) -> str:
     from .perf.autotune import select
 
     return select(op, **key)
+
+
+def select_lu(method, distributed: bool = False):
+    """LU variant (reference ``MethodLU::select_algo``,
+    ``method.hh:298-311``): an explicit choice stands; ``Auto`` is
+    PartialPiv on one device and CALU on a mesh, as in the JAX package."""
+
+    from .enums import MethodLU
+
+    if method is not MethodLU.Auto:
+        return method
+    return MethodLU.CALU if distributed else MethodLU.PartialPiv

@@ -33,6 +33,8 @@ SOURCES = {
     "matmul": ("matmul.cu", ()),
     "chol_inv_panel": ("chol_inv_panel.cu", ("tri_panel.cuh",)),
     "trtri_panel": ("trtri_panel.cu", ("tri_panel.cuh",)),
+    "getrf_panel_linv": ("getrf_panel_linv.cu", ("lu_panel.cuh",)),
+    "getrf_panel_fused": ("getrf_panel_fused.cu", ("lu_panel.cuh",)),
 }
 
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -3,8 +3,8 @@
 
 Each kernel has three things here:
 
-* a wrapper (:func:`matmul`, :func:`chol_inv_panel`, :func:`trtri_panel`)
-  that checks device, dtype, shape and strides, allocates its outputs and
+* a wrapper (:func:`matmul`, :func:`chol_inv_panel`, :func:`trtri_panel`,
+  :func:`getrf_panel_linv`, :func:`getrf_panel_fused`) that checks device, dtype, shape and strides, allocates its outputs and
   scratch with ``torch.empty``, launches the kernel on the current CUDA
   stream and raises if the launch fails.  Given CPU tensors it runs the
   plain version instead — only because the tensors are on the CPU; on a
@@ -25,17 +25,23 @@ import ctypes
 import torch
 
 #: kernel name -> launches since the last :func:`reset_launches`
-launches = {"matmul": 0, "chol_inv_panel": 0, "trtri_panel": 0}
+launches = {"matmul": 0, "chol_inv_panel": 0, "trtri_panel": 0,
+            "getrf_panel_linv": 0, "getrf_panel_fused": 0}
 
 IB = 32
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_LU_ARGS = [_P] * 7 + [_I] * 4
 _SIGNATURES = {
     "matmul": ("slate_matmul_f32",
                [_P, _I64, _I64, _P, _I64, _I64, _P, _I, _I, _I, _P]),
     "chol_inv_panel": ("slate_chol_inv_panel_f32",
                        [_P, _I64, _P, _P, _P, _I, _P]),
     "trtri_panel": ("slate_trtri_panel_f32", [_P, _I64, _P, _P, _I, _P]),
+    "getrf_panel_linv": ("slate_getrf_panel_linv_f32",
+                         [_P, _I64, _P] + _LU_ARGS + [_P]),
+    "getrf_panel_fused": ("slate_getrf_panel_fused_f32",
+                          [_P, _I64, _I64] + _LU_ARGS + [_P]),
 }
 _fns: dict = {}
 
@@ -245,3 +251,176 @@ def trtri_panel(l):
     _launch("trtri_panel", l.device, l.data_ptr(), l.stride(0),
             linv.data_ptr(), work.data_ptr(), nb)
     return linv
+
+
+# ---------------------------------------------------------------------------
+# Partial-pivot LU panels (replace pallas_kernels.getrf_panel_linv :873 and
+# getrf_panel_fused :1080)
+# ---------------------------------------------------------------------------
+
+def _lu_panel_plain(x, act, ib: int):
+    """In place on the (w, m) lane-major panel ``x``: the blocked
+    elimination of ``csrc/lu_panel.cuh`` in PyTorch ops.  Per column the
+    masked argmax (lowest lane among equal maxima), the multipliers in the
+    pivot row's lanes and the rank-1 update of the rows left in the ib
+    block; per block the U12 forward substitution, the delayed rank-ib
+    update of the rows past it and the block row of L11⁻¹.  Returns
+    ``(piv, act_out, linv)``."""
+    w, m = x.shape
+    dev, dt = x.device, x.dtype
+    act = act.reshape(-1).to(dt).clone()
+    lanes = torch.arange(m, device=dev)
+    piv = torch.empty(w, dtype=torch.int64, device=dev)
+    linv = torch.zeros((w, w), dtype=dt, device=dev)
+    eye = torch.eye(ib, dtype=dt, device=dev)
+    for b0 in range(0, w, ib):
+        b1 = b0 + ib
+        pcols = torch.empty((ib, w), dtype=dt, device=dev)
+        for jj in range(ib):
+            j = b0 + jj
+            mag = torch.where(act > 0, x[j].abs(), -1.0)
+            p = torch.argmax(mag)
+            found = mag[p] >= 0
+            p = torch.where(found, p, m)
+            pc = torch.where(found, x[:, p.clamp(max=m - 1)], 0.0)
+            pcols[jj] = pc
+            piv[j] = p
+            pval = pc[j]
+            safe = torch.where(pval == 0, 1.0, pval)
+            live = (act > 0) & (lanes != p)
+            mult = torch.where(live, x[j] / safe, 0.0)
+            x[j] = torch.where(live, mult, x[j])
+            if j + 1 < b1:
+                x[j + 1:b1] -= pc[j + 1:b1, None] * mult[None, :]
+            act = act * (lanes != p)
+        lb = torch.tril(pcols[:, b0:b1], -1)
+        if b1 < w:
+            u = pcols[:, b1:].clone()
+            for jj in range(1, ib):
+                u[jj] -= lb[jj, :jj] @ u[:jj]
+            x[b1:] -= u.T @ (x[b0:b1] * (act > 0))
+            pb = piv[b0:b1]
+            ok = pb < m
+            pbc = pb.clamp(max=m - 1)
+            x[b1:, pbc] = torch.where(ok[None, :], u.T, x[b1:, pbc])
+        xbb = torch.zeros((ib, ib), dtype=dt, device=dev)
+        for jj in range(ib):
+            xbb[jj] = eye[jj] - lb[jj, :jj] @ xbb[:jj]
+        linv[b0:b1, b0:b1] = xbb
+        if b0:
+            linv[b0:b1, :b0] = -(xbb @ (pcols[:, :b0] @ linv[:b0, :b0]))
+    return piv, act.reshape(1, m), linv
+
+
+def _check_lu_panel(name: str, x, act, w: int, m: int, ib: int) -> None:
+    _check_f32_2d(name, x)
+    if act.dtype != torch.float32 or act.numel() != m:
+        raise ValueError("%s needs a float32 active mask of %d lanes, got "
+                         "%s %s" % (name, m, act.dtype, tuple(act.shape)))
+    if not 1 <= ib <= 32 or w % ib:
+        raise ValueError("%s needs 1 <= ib <= 32 dividing the panel width, "
+                         "got w = %d, ib = %d" % (name, w, ib))
+
+
+_plans: dict = {}
+
+
+def _lu_launch(name: str, dev, act, m: int, w: int, ib: int, *head):
+    """Plan the cooperative grid (``lu_panel.cuh``'s ``plan_grid``),
+    allocate the outputs and the candidate scratch, launch.  ``head`` are
+    the kernel's leading arguments (panel pointers and strides).  Returns
+    ``(piv, act_out, linv)``."""
+    key = (name, dev.index, m, w, ib)
+    grid = _plans.get(key)
+    if grid is None:
+        from . import _build
+
+        plan = getattr(_build.library(name), "slate_%s_plan" % name)
+        plan.argtypes = [_I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+        plan.restype = ctypes.c_int
+        g = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = plan(m, w, ib, ctypes.byref(g))
+        if rc != 0:
+            raise RuntimeError("%s: no cooperative grid for a (%d, %d) panel "
+                               "(ib %d): CUDA error %d" % (name, w, m, ib, rc))
+        grid = _plans[key] = g.value
+    f32 = dict(dtype=torch.float32, device=dev)
+    act_out = torch.empty((1, m), **f32)
+    piv = torch.empty(w, dtype=torch.int64, device=dev)
+    linv = torch.empty((w, w), **f32)
+    cand = torch.empty((2, grid, w), **f32)
+    cval = torch.empty((2, grid), **f32)
+    clane = torch.empty((2, grid), dtype=torch.int32, device=dev)
+    act = act.reshape(-1).contiguous()
+    _launch(name, dev, *head, act.data_ptr(), act_out.data_ptr(),
+            piv.data_ptr(), linv.data_ptr(), cand.data_ptr(),
+            cval.data_ptr(), clane.data_ptr(), m, w, ib, grid)
+    return piv, act_out, linv
+
+
+def getrf_panel_linv_plain(slab, act, ib: int = 32):
+    """Plain version of :func:`getrf_panel_linv` (out of place)."""
+    out = slab.clone()
+    piv, act_out, linv = _lu_panel_plain(out, act, min(ib, slab.shape[0]))
+    return out, piv, act_out, linv
+
+
+def getrf_panel_linv(slab, act, ib: int = 32):
+    """TRUE partial-pivot LU of a transposed (w, m) fp32 panel, out of
+    place: returns ``(slab', piv, act_out, linv)`` with ``piv`` the w
+    pivot lanes (int64) in factorization order, ``act_out`` the (1, m)
+    active mask after the panel and ``linv`` the (w, w) inverse of the
+    unit-lower pivot block.  ``act`` is a float32 (1, m) or (m,) mask,
+    > 0 for an active lane.  ``slab`` needs unit lane stride."""
+    w, m = slab.shape
+    ib = min(ib, w)
+    _check_lu_panel("getrf_panel_linv", slab, act, w, m, ib)
+    if _on_cpu(slab, act):
+        return getrf_panel_linv_plain(slab, act, ib)
+    _check_rows("getrf_panel_linv", slab)
+    out = torch.empty((w, m), dtype=torch.float32, device=slab.device)
+    piv, act_out, linv = _lu_launch(
+        "getrf_panel_linv", slab.device, act, m, w, ib,
+        slab.data_ptr(), slab.stride(0), out.data_ptr())
+    return out, piv, act_out, linv
+
+
+def _check_fused(carry, k0: int, nb: int, bb: int, ib: int) -> None:
+    if nb % bb or bb % ib or k0 % bb or k0 < 0 or k0 + nb > carry.shape[0]:
+        raise ValueError("getrf_panel_fused needs bb | nb, ib | bb, bb | k0 "
+                         "and k0 + nb <= rows, got k0 = %d, nb = %d, bb = %d, "
+                         "ib = %d, rows = %d" % (k0, nb, bb, ib, carry.shape[0]))
+
+
+def getrf_panel_fused_plain(carry, act, k0: int, nb: int = 512,
+                            bb: int = 128, ib: int = 16):
+    """Plain version of :func:`getrf_panel_fused` (in place on ``carry``)."""
+    bb = min(bb, nb)
+    ib = min(ib, bb)
+    _check_fused(carry, k0, nb, bb, ib)
+    piv, act_out, linv = _lu_panel_plain(carry[k0:k0 + nb], act, ib)
+    return carry, piv, act_out, linv
+
+
+def getrf_panel_fused(carry, act, k0: int, nb: int = 512, bb: int = 128,
+                      ib: int = 16):
+    """TRUE partial-pivot LU of rows [k0, k0 + nb) of the transposed
+    (n, m) fp32 carry, IN PLACE (the counterpart of the TPU kernel's
+    aliased carry; no other row is read or written).  Returns
+    ``(carry, piv, act_out, linv)`` as :func:`getrf_panel_linv`.  ``bb``
+    is the reference's column-block step: it must divide ``nb`` and be a
+    multiple of ``ib``; the panel stays resident for its whole width
+    here, so it does not change the arithmetic."""
+    n_rows, m = carry.shape
+    bb = min(bb, nb)
+    ib = min(ib, bb)
+    _check_lu_panel("getrf_panel_fused", carry, act, nb, m, ib)
+    _check_fused(carry, k0, nb, bb, ib)
+    if _on_cpu(carry, act):
+        return getrf_panel_fused_plain(carry, act, k0, nb, bb, ib)
+    _check_rows("getrf_panel_fused", carry)
+    piv, act_out, linv = _lu_launch(
+        "getrf_panel_fused", carry.device, act, m, nb, ib,
+        carry.data_ptr(), carry.stride(0), k0)
+    return carry, piv, act_out, linv

@@ -89,7 +89,45 @@ def choose_trtri_panel(n: int, dtype, device) -> str:
     return _record("trtri_panel", key, _kernel_or_plain(device))
 
 
+def choose_lu_panel(m: int, w: int, dtype, device, eligible: bool) -> str:
+    """Panel leaf of the blocked LU recursion: the ``getrf_panel_linv``
+    kernel (``"kernel"``/``"plain"``) where the call site's shape and
+    shared-memory gate holds (``linalg.lu._use_kernel_panel``), else
+    ``torch.linalg.lu_factor`` (``"stock"``)."""
+    key = (m, w, str(dtype).replace("torch.", ""), torch.device(device).type)
+    if not eligible or config.use_kernels_mode() == "off":
+        return _record("lu_panel", key, "stock")
+    return _record("lu_panel", key, _kernel_or_plain(device))
+
+
+def choose_lu_driver(m: int, n: int, nb: int, dtype, device,
+                     eligible: bool) -> str:
+    """Partial-pivot getrf driver: ``"scattered"`` (the scattered-row
+    driver over the ``getrf_panel_fused`` kernel) where the call site's
+    gate holds (``linalg.lu._use_scattered``) and ``config.scattered_lu``
+    (``SLATE_TPU_TORCH_SCATTERED_LU``) is on, else ``"rec"`` (the
+    blocked recursion).  The JAX package defaults to ``"rec"`` off a TPU
+    only because it has no kernel there; the port has one on the card."""
+    key = (m, n, nb, str(dtype).replace("torch.", ""),
+           torch.device(device).type)
+    if not eligible or not config.scattered_lu:
+        return _record("lu_driver", key, "rec")
+    return _record("lu_driver", key, "scattered")
+
+
+def choose_lu_step(m: int, n: int, nb: int, dtype, device) -> str:
+    """Step composition of the scattered LU driver: always ``"composed"``
+    (panel kernel + PyTorch glue) until the fused step and
+    full-factorization kernels are ported (see ROADMAP.md)."""
+    key = (m, n, nb, str(dtype).replace("torch.", ""),
+           torch.device(device).type)
+    return _record("lu_step", key, "composed")
+
+
 _SITES = {
+    "lu_panel": choose_lu_panel,
+    "lu_driver": choose_lu_driver,
+    "lu_step": choose_lu_step,
     "matmul": choose_matmul,
     "potrf_panel": choose_potrf_panel,
     "potrf_step": choose_potrf_step,

@@ -114,8 +114,12 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     kernels.chol_inv_panel(a)
     kernels.trtri_panel(torch.tril(a))
     kernels.matmul(torch.zeros(128, 128), torch.zeros(128, 128))
-    assert kernels.launches == {"matmul": 0, "chol_inv_panel": 0,
-                                "trtri_panel": 0}
+    kernels.getrf_panel_linv(a, torch.ones(1, 64))
+    kernels.getrf_panel_fused(a.clone(), torch.ones(1, 64), 0, nb=32, bb=32)
+    assert set(kernels.launches) == {"matmul", "chol_inv_panel",
+                                     "trtri_panel", "getrf_panel_linv",
+                                     "getrf_panel_fused"}
+    assert all(v == 0 for v in kernels.launches.values())
 
 
 @pytest.fixture
@@ -174,3 +178,152 @@ def test_build_goes_to_the_checkout_build_dir(monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in _build.FLAGS
     monkeypatch.setenv("SLATE_TPU_TORCH_NVCC", "/usr/x/nvcc")
     assert _build.nvcc_path() == "/usr/x/nvcc"
+
+
+# ---------------------------------------------------------------------------
+# Partial-pivot LU panels: the plain versions against the Pallas kernels in
+# interpret mode.  Pivots must agree exactly (the inputs have no ties);
+# factors and inverses to 1e-4 relative (the two block the elimination
+# differently, so they round differently).
+# ---------------------------------------------------------------------------
+
+def _max_rel(x, ref):
+    x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+    return np.abs(x - ref).max() / np.abs(ref).max()
+
+
+def _panel_residual(out, piv, act_out, a_rows):
+    """‖L·U − A[perm]‖/(‖A‖·ε·m) of a factored (w, m) lane-major panel
+    whose untransposed input is ``a_rows`` (m, w) — the gate of
+    tests/test_lu_pallas_panel.py — and ‖L11·linv − I‖'s L11."""
+    w, m = out.shape
+    rest = np.argsort(act_out[0] < 0.5, kind="stable")[: m - w]
+    perm = np.concatenate([piv, rest])
+    lu = out[:, perm].T
+    low = np.tril(lu, -1) + np.eye(m, w, dtype=np.float32)
+    res = np.linalg.norm(low @ np.triu(lu[:w]) - a_rows[perm]) / (
+        np.linalg.norm(a_rows) * np.finfo(np.float32).eps * m)
+    return res, np.tril(lu[:w], -1) + np.eye(w, dtype=np.float32)
+
+
+def test_getrf_panel_linv_plain_matches_pallas():
+    rng = np.random.default_rng(30)
+    bb, m = 64, 256
+    slab = rng.standard_normal((bb, m)).astype(np.float32)
+    act = np.ones((1, m), np.float32)
+    ref = [np.asarray(t) for t in pk.getrf_panel_linv(
+        jnp.asarray(slab), jnp.asarray(act), ib=32)]
+    got = [t.numpy() for t in kernels.getrf_panel_linv(
+        torch.from_numpy(slab), torch.from_numpy(act), ib=32)]
+    np.testing.assert_array_equal(got[1], ref[1])
+    np.testing.assert_array_equal(got[2], ref[2])
+    assert _max_rel(got[0], ref[0]) <= 1e-4
+    assert _max_rel(got[3], ref[3]) <= 1e-4
+    res, l11 = _panel_residual(got[0], got[1], got[2], slab.T)
+    assert res < 60, res
+    assert np.linalg.norm(l11 @ got[3] - np.eye(bb)) < 1e-3
+    assert got[1].dtype == np.int64 and got[2].shape == (1, m)
+
+
+def test_getrf_panel_fused_plain_matches_pallas_in_place():
+    rng = np.random.default_rng(31)
+    m, nb, bb, ib = 256, 64, 32, 16
+    a = rng.standard_normal((m, m)).astype(np.float32)
+    at = a.T.copy()
+    act = np.ones((1, m), np.float32)
+    carry = torch.from_numpy(at.copy())
+    jc, ja = jnp.asarray(at), jnp.asarray(act)
+    tc_act = torch.from_numpy(act)
+    for k0 in (0, nb):
+        before = carry.clone()
+        jc, jpiv, ja, jlinv = pk.getrf_panel_fused(jc, ja, k0, nb=nb, bb=bb,
+                                                   ib=ib)
+        out, piv, tc_act, linv = kernels.getrf_panel_fused(
+            carry, tc_act, k0, nb=nb, bb=bb, ib=ib)
+        assert out is carry                         # in place
+        np.testing.assert_array_equal(piv.numpy(), np.asarray(jpiv))
+        np.testing.assert_array_equal(tc_act.numpy(), np.asarray(ja))
+        assert _max_rel(carry.numpy(), np.asarray(jc)) <= 1e-4
+        assert _max_rel(linv.numpy(), np.asarray(jlinv)) <= 1e-4
+        # rows outside the panel are untouched
+        assert torch.equal(carry[:k0], before[:k0])
+        assert torch.equal(carry[k0 + nb:], before[k0 + nb:])
+    assert len(set(np.asarray(jpiv).tolist())) == nb
+
+
+@pytest.mark.parametrize("which", ["linv", "fused"])
+def test_lu_panel_tie_takes_the_lowest_lane(which):
+    """Two lanes of equal magnitude lead column 0: both packages take the
+    lower lane index (pallas_kernels.py:725-728)."""
+    rng = np.random.default_rng(32)
+    w, m = 64, 256
+    slab = rng.standard_normal((w, m)).astype(np.float32)
+    slab[0, 200] = 9.0
+    slab[0, 37] = -9.0
+    act = np.ones((1, m), np.float32)
+    if which == "linv":
+        ref = np.asarray(pk.getrf_panel_linv(jnp.asarray(slab),
+                                             jnp.asarray(act), ib=32)[1])
+        got = kernels.getrf_panel_linv(torch.from_numpy(slab),
+                                       torch.from_numpy(act), ib=32)[1]
+    else:
+        ref = np.asarray(pk.getrf_panel_fused(
+            jnp.asarray(slab), jnp.asarray(act), 0, nb=w, bb=32, ib=16)[1])
+        got = kernels.getrf_panel_fused(torch.from_numpy(slab.copy()),
+                                        torch.from_numpy(act), 0, nb=w,
+                                        bb=32, ib=16)[1]
+    assert ref[0] == 37 and got[0].item() == 37
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("bad", ["ib", "act_dtype", "act_len", "k0", "rows"])
+def test_lu_panel_wrappers_reject_what_the_kernel_does_not_take(bad):
+    slab, act = torch.zeros(64, 128), torch.ones(1, 128)
+    with pytest.raises(ValueError):
+        if bad == "ib":
+            kernels.getrf_panel_linv(slab, act, ib=24)
+        elif bad == "act_dtype":
+            kernels.getrf_panel_linv(slab, act.double())
+        elif bad == "act_len":
+            kernels.getrf_panel_linv(slab, torch.ones(1, 64))
+        elif bad == "k0":
+            kernels.getrf_panel_fused(slab, act, 16, nb=32, bb=32)
+        else:
+            kernels.getrf_panel_fused(slab, act, 64, nb=32, bb=32)
+
+
+def test_lu_sites_pick_plain_on_cpu_and_stock_off_path(monkeypatch):
+    cpu, cuda, f32 = torch.device("cpu"), torch.device("cuda"), torch.float32
+    assert tauto.choose_lu_panel(1024, 256, f32, cpu, True) == "plain"
+    assert tauto.choose_lu_panel(1024, 256, f32, cuda, True) == "kernel"
+    assert tauto.choose_lu_panel(1024, 256, f32, cpu, False) == "stock"
+    assert tauto.choose_lu_driver(8192, 8192, 512, f32, cuda,
+                                  True) == "scattered"
+    assert tauto.choose_lu_driver(8192, 8192, 512, f32, cuda, False) == "rec"
+    assert tauto.choose_lu_step(8192, 8192, 512, f32, cuda) == "composed"
+    monkeypatch.setattr(tcfg, "scattered_lu", False)
+    assert tauto.choose_lu_driver(8192, 8192, 512, f32, cuda, True) == "rec"
+    monkeypatch.setattr(tcfg, "use_kernels", False)
+    assert tauto.choose_lu_panel(1024, 256, f32, cuda, True) == "stock"
+    assert tauto.select("lu_step", m=512, n=512, nb=512, dtype=f32,
+                        device=cpu) == "composed"
+    assert "lu_driver|8192,8192,512,float32,cuda" in tauto.decisions()
+
+
+def test_smem_plans_the_main_path_panels():
+    """The shared-memory gate of lu_panel.cuh's grid at the main-path
+    shapes, on the H100's constants: the 512-wide fused panel at
+    m = 8192 (132 blocks of 63 lanes) and the 256-wide leaf fit, and the
+    fused panel stops at m = 12144 (92 lanes × 512 rows a block)."""
+    from slate_tpu_torch.ops import smem
+
+    nbytes = smem.lu_panel_bytes(8192, 512, 16, 132)
+    assert smem.fits(nbytes) and nbytes > smem.BLOCK_SMEM_MAX // 2
+    assert smem.lu_panel_fits(8192, 512, 16)
+    assert smem.lu_panel_fits(8192, 256, 32)
+    assert smem.lu_panel_fits(256, 256, 32)          # 8 blocks of 32 lanes
+    assert not smem.lu_panel_fits(16384, 512, 16)
+    assert smem.lu_panel_fits(12144, 512, 16)
+    assert not smem.lu_panel_fits(12145, 512, 16)
+    assert not smem.lu_panel_fits(256, 64, 40)       # ib past the kernel's
+    assert not smem.lu_panel_fits(256, 48, 32)       # ib must divide w
