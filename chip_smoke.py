@@ -12,22 +12,36 @@
    the port never calls it in place of a kernel).
    The LU panel kernels are held to the same pivots as their plain
    versions (a near-tie, within 1e-5 relative, is printed and excepted),
-   to a panel residual < 60 and to ‖L11·linv − I‖ < 1e-3.
+   to a panel residual < 60 and to ‖L11·linv − I‖ < 1e-3; the batched
+   kernels (phase 2c) at (B, n) = (16, 32), (16, 64), (16, 128) and
+   (64, 256) to the same pivots, per-problem factor residuals ≤ 3 and
+   1e-4 of their plain versions.
 3. Drives the main paths through the public entry points, with the
    reference tester's scaled-residual gates (≤ 3):
    * Cholesky: ``posv`` of an n = 8192 fp32 HermitianMatrix (nb = 256,
      so 512-wide panels) with 128 right-hand sides, ``potri`` of its
-     factor and ``gemm`` at 8192;
+     factor and ``gemm`` at 8192, and a ``torch.profiler`` device split
+     of one more ``posv``;
    * LU: ``gesv`` of an n = 8192 Gaussian Matrix (nb = 256) with 128
      right-hand sides through the scattered driver (the default sites),
      ``gesv`` again through the blocked recursion
      (``config.scattered_lu`` off) and ``getri`` of the first factor,
      plus |L| ≤ 1 + 100ε; the first column where the two drivers' pivots
      differ is printed with both candidates' magnitudes, and one more
-     profiled ``gesv`` per driver prints its device time by kernel.
+     profiled ``gesv`` per driver prints its device time by kernel;
+   * batched: ``posv_batched`` and ``gesv_batched`` of 64 problems of
+     n = 256 on bench.py's inputs, each one launch of its kernel, every
+     problem's residual ≤ 3 by bench.py's criterion;
+   * serve: ``serve.warm_start`` for posv and gesv at n = 256 and batch
+     16, then 192 posv and 192 gesv requests from 4 threads through a
+     ``BatchQueue``: every answer's residual ≤ 3, no retry, singles
+     fallback, short circuit, error or on-demand build, each kernel
+     launched once per batched dispatch of its op; prints requests/s
+     and the p50/p99 latency from submit to future resolution.
    Every kernel's launch count is set to 0 just before each path (each
-   LU driver and ``getri`` a path of its own) and read just after it; a
-   kernel of the path that was not launched fails the run.
+   LU driver, ``getri``, each batched driver and the served requests a
+   path of its own) and read just after it; a kernel of the path that
+   was not launched fails the run.
 4. Prints one JSON line of per-kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -57,14 +71,25 @@ REPO = {"matmul": ("slate_tpu_torch/csrc/matmul.cu",
         "getrf_panel_linv": ("slate_tpu_torch/csrc/getrf_panel_linv.cu",
                              "slate_tpu/ops/pallas_kernels.py:873"),
         "getrf_panel_fused": ("slate_tpu_torch/csrc/getrf_panel_fused.cu",
-                              "slate_tpu/ops/pallas_kernels.py:1080")}
+                              "slate_tpu/ops/pallas_kernels.py:1080"),
+        "potrf_batched": ("slate_tpu_torch/csrc/potrf_batched.cu",
+                          "slate_tpu/ops/pallas_kernels.py:2323"),
+        "getrf_batched": ("slate_tpu_torch/csrc/getrf_batched.cu",
+                          "slate_tpu/ops/pallas_kernels.py:2433")}
 LU_NB, LU_BB, LU_IB = 512, 128, 16   # the scattered driver's panel call
 LEAF_W, LEAF_IB = 256, 32            # getrf_rec's kernel leaf at nb = 256
+#: bench.py's batched configuration (B, n) and serve configuration
+#: (max_batch, requests of each of posv and gesv, submitter threads)
+BATCH, BATCH_N = 64, 256
+SERVE_BATCH, SERVE_REQS, SERVE_THREADS = 16, 192, 4
 #: kernels of each main path; the path must launch every one of them
 PATHS = {"cholesky": ("matmul", "chol_inv_panel", "trtri_panel"),
          "lu_scattered": ("matmul", "getrf_panel_fused"),
          "lu_rec": ("matmul", "getrf_panel_linv"),
-         "getri": ("matmul",)}
+         "getri": ("matmul",),
+         "batched_posv": ("potrf_batched",),
+         "batched_gesv": ("getrf_batched",),
+         "serve": ("potrf_batched", "getrf_batched")}
 
 
 def fail(msg: str):
@@ -259,6 +284,11 @@ def main_path(torch, st, kernels, dev) -> dict:
     missing = [k for k in PATHS["cholesky"] if launches[k] <= 0]
     if missing:
         fail("the Cholesky path launched no %s kernel" % ", ".join(missing))
+    res["posv_split"] = device_split(
+        torch, "posv", lambda: st.posv(A, b),
+        {"chol_inv_panel kernel": "chol_inv_panel_kernel",
+         "trtri_panel kernel": "trtri_panel_kernel",
+         "matmul kernel": "matmul_f32_kernel"})
     return res
 
 
@@ -417,19 +447,19 @@ def check_lu_kernels(torch, kernels, dev) -> dict:
     return out
 
 
-def lu_split(torch, st, A, b, label: str) -> None:
-    """Where one more gesv's device time goes, from a torch.profiler
-    trace: the LU panel kernels, the matmul kernel, and everything else
-    (cuBLAS products and solves, copies, elementwise ops).  The caller
-    picks the driver.  Printed only; a trace with no device time prints
-    'not measured'.  A failure of the gesv fails the run."""
+def device_split(torch, label: str, fn, kernels_by_key: dict) -> dict:
+    """Where one call of ``fn`` spends device time, from a torch.profiler
+    trace: each kernel of ``kernels_by_key`` (key -> symbol substring)
+    and everything else (cuBLAS/cuSOLVER, copies, elementwise ops).
+    Printed and returned; a trace with no device time prints 'not
+    measured' and returns {}.  A failure of ``fn`` fails the run."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        st.gesv(A, b)
+        fn()
         torch.cuda.synchronize()
-    split = {"lu panel kernel": 0.0, "matmul kernel": 0.0, "other": 0.0}
+    split = dict.fromkeys(list(kernels_by_key) + ["other"], 0.0)
     for ev in prof.key_averages():
         # kernel events only: a CPU op's self device time repeats the
         # kernels it launched
@@ -440,17 +470,25 @@ def lu_split(torch, st, A, b, label: str) -> None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
         if not us:
             continue
-        key = ("lu panel kernel" if "lu_panel_kernel" in ev.key else
-               "matmul kernel" if "matmul_f32_kernel" in ev.key else "other")
+        key = next((k for k, sym in kernels_by_key.items() if sym in ev.key),
+                   "other")
         split[key] += us / 1e3
     total = sum(split.values())
     if not total:
-        print("LU split (%s): not measured (no device time in the trace)"
-              % label, flush=True)
-        return
-    print("LU split (%s gesv, device ms from torch.profiler): %s; total %.1f"
-          % (label, ", ".join("%s %.1f" % kv for kv in split.items()), total),
+        print("%s split: not measured (no device time in the trace)" % label,
+              flush=True)
+        return {}
+    print("%s split (device ms from torch.profiler): %s; total %.3f"
+          % (label, ", ".join("%s %.3f" % kv for kv in split.items()), total),
           flush=True)
+    return split
+
+
+def lu_split(torch, st, A, b, label: str) -> None:
+    """Device split of one more gesv; the caller picks the driver."""
+    device_split(torch, "LU (%s gesv)" % label, lambda: st.gesv(A, b),
+                 {"lu panel kernel": "lu_panel_kernel",
+                  "matmul kernel": "matmul_f32_kernel"})
 
 
 def run_path(torch, kernels, path: str, fn):
@@ -565,6 +603,305 @@ def main_path_lu(torch, st, kernels, dev) -> dict:
     return res
 
 
+def _batched_lu_gates(torch, label, a, out, piv, ref) -> float:
+    """The gates of one getrf_batched call on the (B, n, n) batch ``a``
+    (untransposed): pivots equal to the plain version's problem by
+    problem — a differing column must be a near-tie (the two candidates
+    within 1e-5 relative), printed with both magnitudes, and that
+    problem's later columns are not compared — the factored batch within
+    1e-4 (relative Frobenius) of the plain version's elsewhere, every
+    problem's ‖L·U − A[perm]‖/(‖A‖·ε·n) ≤ 3 and |L| ≤ 1 + 100ε.  Returns
+    the max abs difference over what was compared."""
+    eps = float(torch.finfo(torch.float32).eps)
+    rout, rpiv = ref
+    bsz, n, _ = a.shape
+    same = torch.ones(bsz, dtype=torch.bool, device=a.device)
+    errs = []
+    for b in (piv != rpiv).any(dim=1).nonzero()[:, 0].tolist():
+        j = int((piv[b] != rpiv[b]).nonzero()[0, 0])
+        pk, pp = int(piv[b, j]), int(rpiv[b, j])
+        mk = abs(float(out[b, j, pk]))
+        mp = abs(float(out[b, j, pp])) * mk     # |multiplier| · |pivot|
+        print("%s problem %d: first differing pivot at column %d: lanes %d "
+              "(kernel, |x| %.9g) and %d (plain, |x| %.9g)"
+              % (label, b, j, pk, mk, pp, mp), flush=True)
+        if not abs(mk - mp) <= 1e-5 * mk:
+            fail("%s problem %d: pivot %d differs from the plain version's "
+                 "and is not a near-tie" % (label, b, j))
+        same[b] = False
+        errs.append(float((out[b, :j] - rout[b, :j]).abs().max()) if j else 0.0)
+    if bool(same.any()):
+        err = rel_err(out[same], rout[same])
+        if not err <= 1e-4:
+            fail("%s disagrees with its plain version: rel %.3e" % (label, err))
+        errs.append(float((out[same] - rout[same]).abs().max()))
+    lu = out.gather(2, piv[:, None, :].expand_as(out)).mT.double()
+    low = torch.tril(lu, -1) + torch.eye(n, dtype=torch.float64, device=a.device)
+    ap = a.double().gather(1, piv[:, :, None].expand_as(a))
+    res = ((low @ torch.triu(lu) - ap).norm(dim=(1, 2))
+           / (a.double().norm(dim=(1, 2)) * eps * n))
+    lmax = float(torch.tril(lu, -1).abs().max())
+    if not (float(res.max()) <= 3 and lmax <= 1 + 100 * eps):
+        fail("%s: factor residual %.3g (<= 3), max |L| %.7f"
+             % (label, float(res.max()), lmax))
+    return max(errs)
+
+
+def check_batched_kernels(torch, kernels, dev) -> dict:
+    """Phase 2c: the batched kernels against their plain versions at the
+    drivers' (B, n) = (64, 256) and at n = 32, 64, 128 (B = 16, the
+    served batch), on plain Gaussian problems so that the argmax really
+    chooses; times at (64, 256)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    eps = float(torch.finfo(torch.float32).eps)
+    out = {}
+    for bsz, n in ((SERVE_BATCH, 32), (SERVE_BATCH, 64), (SERVE_BATCH, 128),
+                   (BATCH, BATCH_N)):
+        g = torch.randn((bsz, n, n), generator=gen, device=dev)
+        spd = g @ g.mT + n * torch.eye(n, device=dev)
+        spd = torch.tril(spd) + torch.triu(torch.full_like(spd, 1e3), 1)
+        l, lp = kernels.potrf_batched(spd), kernels.potrf_batched_plain(spd)
+        torch.cuda.synchronize()
+        err = rel_err(l, lp)
+        ld, ad = l.double(), torch.tril(spd.double())
+        ad = ad + torch.tril(ad, -1).mT
+        res = float(((ld @ ld.mT - ad).norm(dim=(1, 2))
+                     / (ad.norm(dim=(1, 2)) * eps * n)).max())
+        if not (err <= 1e-4 and res <= 3 and bool((torch.triu(l, 1) == 0).all())):
+            fail("potrf_batched (%d, %d): rel %.3e, residual %.3g"
+                 % (bsz, n, err, res))
+        at = g.mT.contiguous()                    # plain Gaussian, transposed
+        o, p = kernels.getrf_batched(at)
+        ref = kernels.getrf_batched_plain(at)
+        torch.cuda.synchronize()
+        lu_err = _batched_lu_gates(torch, "getrf_batched (%d, %d)" % (bsz, n),
+                                   g, o, p, ref)
+        print("batched kernels at (%d, %d): potrf rel %.3e residual %.3g; "
+              "getrf max abs diff %.3e, pivots equal to the plain version's"
+              % (bsz, n, err, res, lu_err), flush=True)
+    flops = {"potrf_batched": BATCH * BATCH_N ** 3 / 3.0,
+             "getrf_batched": BATCH * 2.0 * BATCH_N ** 3 / 3.0}
+    nbytes = {"potrf_batched": 2.0 * 4 * BATCH * BATCH_N ** 2,
+              "getrf_batched": 2.0 * 4 * BATCH * BATCH_N ** 2
+              + 8.0 * BATCH * BATCH_N}
+
+    def cusolver(fn, arg):
+        def call():
+            saved = torch.backends.cuda.preferred_linalg_library()
+            torch.backends.cuda.preferred_linalg_library("cusolver")
+            try:
+                return fn(arg)
+            finally:
+                torch.backends.cuda.preferred_linalg_library(saved)
+        return call
+
+    for name, arg, lib, lib_arg, err in (
+            ("potrf_batched", spd, torch.linalg.cholesky, spd,
+             float((l - lp).abs().max())),
+            ("getrf_batched", at, torch.linalg.lu_factor, g, lu_err)):
+        b_ms, b_by = bound(flops[name], nbytes[name])
+        kern, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+        out[name] = dict(
+            shape="(%d,%d,%d)" % (BATCH, BATCH_N, BATCH_N), max_abs_err=err,
+            tol="pivots exact (near-ties reported), rel 1e-4"
+            if name == "getrf_batched" else "rel Frobenius <= 1e-4",
+            ms=cuda_ms(torch, lambda: kern(arg), 20),
+            plain_ms=cuda_ms(torch, lambda: plain(arg), 2),
+            library_ms=cuda_ms(torch, cusolver(lib, lib_arg), 20),
+            bound_ms=b_ms, bound_by=b_by)
+        r = out[name]
+        print("kernel %s %s: max_abs_err %.3e (%s); kernel %.4f ms, plain "
+              "%.4f ms, library %.4f ms, bound %.5f ms (%s)"
+              % (name, r["shape"], r["max_abs_err"], r["tol"], r["ms"],
+                 r["plain_ms"], r["library_ms"], r["bound_ms"],
+                 r["bound_by"]), flush=True)
+    return out
+
+
+def _bench_resid(torch, a, b, x) -> float:
+    """bench.py:410-416's criterion, the max over the problems of
+    ‖A·x − b‖/(‖A‖·‖b‖·ε·n)."""
+    eps = float(torch.finfo(torch.float32).eps)
+    a, b, x = a.double(), b.double(), x.double()
+    r = ((a @ x[..., None])[..., 0] - b).norm(dim=-1)
+    den = a.norm(dim=(1, 2)) * b.norm(dim=-1) * eps * a.shape[-1]
+    return float((r / den).max())
+
+
+def _wall_ms(torch, fn, reps: int = 5) -> float:
+    """Median host wall time of ``fn`` ending in a synchronize."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def main_path_batched(torch, st, kernels, dev) -> dict:
+    """Phase 3c: posv_batched and gesv_batched at (B, n) = (64, 256) on
+    bench.py's inputs (bench.py:425-431, :447-452), each a path of its
+    own with one launch of its kernel, every problem's residual <= 3."""
+    import numpy as np
+
+    n, bsz = BATCH_N, BATCH
+    eye = np.eye(n, dtype=np.float32)
+    rng = np.random.default_rng(11)
+    g = rng.standard_normal((bsz, n, n)).astype(np.float32)
+    spd = g @ g.transpose(0, 2, 1) + n * eye
+    rhs_p = rng.standard_normal((bsz, n)).astype(np.float32)
+    rng = np.random.default_rng(12)
+    a = rng.standard_normal((bsz, n, n)).astype(np.float32) + n * eye
+    rhs_g = rng.standard_normal((bsz, n)).astype(np.float32)
+    tp, tbp, ta, tbg = (torch.from_numpy(v).to(dev)
+                        for v in (spd, rhs_p, a, rhs_g))
+    torch.cuda.synchronize()
+    (_, xp), ms_p, l_p = run_path(torch, kernels, "batched_posv",
+                                  lambda: st.posv_batched(tp, tbp))
+    (_, _, xg), ms_g, l_g = run_path(torch, kernels, "batched_gesv",
+                                     lambda: st.gesv_batched(ta, tbg))
+    res = {"posv_batched_residual": _bench_resid(torch, tp, tbp, xp),
+           "gesv_batched_residual": _bench_resid(torch, ta, tbg, xg),
+           "posv_batched_first_ms": ms_p, "gesv_batched_first_ms": ms_g,
+           "posv_batched_ms": _wall_ms(torch, lambda: st.posv_batched(tp, tbp)),
+           "gesv_batched_ms": _wall_ms(torch, lambda: st.gesv_batched(ta, tbg)),
+           "launches": {"batched_posv": l_p, "batched_gesv": l_g}}
+    print("batched path (B=%d, n=%d): posv_batched %.2f ms (first call %.1f "
+          "ms, residual %.3g; launches %s), gesv_batched %.2f ms (first call "
+          "%.1f ms, residual %.3g; launches %s)"
+          % (bsz, n, res["posv_batched_ms"], ms_p, res["posv_batched_residual"],
+             l_p, res["gesv_batched_ms"], ms_g, res["gesv_batched_residual"],
+             l_g), flush=True)
+    for name in ("posv_batched", "gesv_batched"):
+        if not res[name + "_residual"] <= 3:
+            fail("%s residual %.3f > 3" % (name, res[name + "_residual"]))
+    for path, launches, kernel in (("batched_posv", l_p, "potrf_batched"),
+                                   ("batched_gesv", l_g, "getrf_batched")):
+        if launches[kernel] != 1:
+            fail("%s launched %s %d times, not once"
+                 % (path, kernel, launches[kernel]))
+    res["posv_batched_split"] = device_split(
+        torch, "posv_batched", lambda: st.posv_batched(tp, tbp),
+        {"potrf_batched kernel": "potrf_batched_kernel"})
+    res["gesv_batched_split"] = device_split(
+        torch, "gesv_batched", lambda: st.gesv_batched(ta, tbg),
+        {"getrf_batched kernel": "getrf_batched_kernel"})
+    return res
+
+
+def serve_path(torch, kernels) -> dict:
+    """Phase 3d: the serving queue on the card — warm_start for posv and
+    gesv at n = 256 and batch 16, then 192 posv and 192 gesv requests
+    from 4 submitter threads (bench.py:462-530's configuration, gesv on
+    plain Gaussian problems).  Gates every answer's residual, the
+    degradation counters (retries, singles, short circuits, errors and
+    on-demand builds all 0) and each kernel's launches against its op's
+    batched dispatches.  Prints requests/s and the client-observed p50
+    and p99 latency, submit to future resolution."""
+    import threading
+
+    import numpy as np
+    from slate_tpu_torch import serve
+    from slate_tpu_torch.perf import metrics
+
+    n = BATCH_N
+    rng = np.random.default_rng(21)
+    mats = {"posv": [], "gesv": []}
+    for _ in range(4):
+        g = rng.standard_normal((n, n)).astype(np.float32)
+        mats["posv"].append(g @ g.T + n * np.eye(n, dtype=np.float32))
+        mats["gesv"].append(rng.standard_normal((n, n)).astype(np.float32))
+    rhs = [rng.standard_normal(n).astype(np.float32) for _ in range(4)]
+    reqs = [("posv" if i % 2 == 0 else "gesv", (i // 2) % 4, i % 4)
+            for i in range(2 * SERVE_REQS)]
+
+    metrics.on()
+    srv = serve.BatchQueue(serve.ServeConfig(max_batch=SERVE_BATCH,
+                                             max_wait_s=0.002))
+    try:
+        built = serve.warm_start(srv, specs=[
+            {"op": op, "batch": SERVE_BATCH, "dims": (n,)}
+            for op in ("posv", "gesv")])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        before = metrics.snapshot()
+        futs = [None] * len(reqs)
+        t_sub = [0.0] * len(reqs)
+        t_done = [0.0] * len(reqs)
+
+        def done_at(i):
+            def cb(_):
+                t_done[i] = time.perf_counter()
+            return cb
+
+        def worker(k):
+            for i in range(k, len(reqs), SERVE_THREADS):
+                op, m, r = reqs[i]
+                t_sub[i] = time.perf_counter()
+                futs[i] = srv.submit(op, mats[op][m], rhs[r])
+                futs[i].add_done_callback(done_at(i))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=worker, args=(k,))
+                   for k in range(SERVE_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        xs = [f.result(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        delta = metrics.snapshot_delta(before, metrics.snapshot())
+    finally:
+        srv.close()
+    eps = float(np.finfo(np.float32).eps)
+    worst = 0.0
+    for (op, m, r), x in zip(reqs, xs):
+        a, b = mats[op][m].astype(np.float64), rhs[r].astype(np.float64)
+        worst = max(worst, float(np.linalg.norm(a @ x - b) / (
+            np.linalg.norm(a) * np.linalg.norm(b) * eps * n)))
+    lat = np.asarray([d - s for s, d in zip(t_sub, t_done)]) * 1e3
+    c = delta["counters"]
+    n_disp = c.get("serve.dispatches", 0.0)
+    execute = delta["timers"].get("serve.dispatch", {"total_s": 0.0})
+    wait = delta["timers"].get("serve.wait", {"total_s": 0.0})
+    res = {"requests": len(reqs), "requests_per_s": len(reqs) / wall,
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "residual": worst, "warm_built": built,
+           "dispatches": {op: c.get("serve.dispatches." + op, 0.0)
+                          for op in ("posv", "gesv")},
+           # host clock: wall per dispatch, of it the executable (copies
+           # in, driver, copies out), and a request's mean queue wait
+           "wall_ms_per_dispatch": wall * 1e3 / max(n_disp, 1.0),
+           "execute_ms_per_dispatch": execute["total_s"] * 1e3
+           / max(n_disp, 1.0),
+           "wait_ms_per_request": wait["total_s"] * 1e3 / len(reqs),
+           "launches": {"serve": launches}}
+    print("serve path (n=%d, max_batch %d, %d requests from %d threads): "
+          "%.1f requests/s, p50 %.2f ms, p99 %.2f ms (submit to resolution); "
+          "dispatches %s, %.2f ms of wall each, of it %.2f ms executing "
+          "(host clock); mean queue wait %.2f ms; launches %s; worst "
+          "residual %.3g; %d executables built by warm_start"
+          % (n, SERVE_BATCH, len(reqs), SERVE_THREADS, res["requests_per_s"],
+             res["p50_ms"], res["p99_ms"], res["dispatches"],
+             res["wall_ms_per_dispatch"], res["execute_ms_per_dispatch"],
+             res["wait_ms_per_request"], launches, worst, built), flush=True)
+    if not worst <= 3:
+        fail("served residual %.3f > 3" % worst)
+    bad = {k: c[k] for k in ("serve.retries", "serve.fallback.singles",
+                             "serve.breaker.short_circuit", "serve.errors",
+                             "serve.compile.on_demand") if c.get(k)}
+    if bad:
+        fail("the serve path degraded: %s" % bad)
+    for op, kernel in (("posv", "potrf_batched"), ("gesv", "getrf_batched")):
+        if not 0 < launches[kernel] == res["dispatches"][op]:
+            fail("serve: %s launched %d times for %d %s dispatches"
+                 % (kernel, launches[kernel], res["dispatches"][op], op))
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -604,8 +941,11 @@ def main() -> int:
 
     measured = check_kernels(torch, kernels, dev)
     measured.update(check_lu_kernels(torch, kernels, dev))
+    measured.update(check_batched_kernels(torch, kernels, dev))
     paths = {"cholesky": main_path(torch, st, kernels, dev)["launches"]}
     paths.update(main_path_lu(torch, st, kernels, dev)["launches"])
+    paths.update(main_path_batched(torch, st, kernels, dev)["launches"])
+    paths.update(serve_path(torch, kernels)["launches"])
 
     rows = []
     for name, r in measured.items():

@@ -12,7 +12,9 @@ Ported so far: the fp32 single-device Cholesky path — ``gemm``,
 ``potrf``, ``potrs``, ``posv``, ``trtri``, ``trtrm``, ``potri`` (plus
 ``herk``/``syrk``, ``trmm``, ``trsm``) — and the fp32 single-device LU
 path — ``getrf`` (partial pivot and no pivot), ``getrs``, ``gesv``,
-``getri``, ``getrf_nopiv``, ``getrs_nopiv``, ``gesv_nopiv``.
+``getri``, ``getrf_nopiv``, ``getrs_nopiv``, ``gesv_nopiv`` — and the
+batched drivers (``potrf_batched`` … ``heev_batched``) with the serving
+queue in front of them (:mod:`slate_tpu_torch.serve`, also ``st.serve``).
 """
 
 from . import config  # noqa: F401
@@ -29,7 +31,9 @@ from .options import Options, get_option  # noqa: F401
 from . import method  # noqa: F401
 from .linalg import *  # noqa: F401,F403
 from .interop import (  # noqa: F401
-    lu_from_numpy, lu_to_numpy, matrix_from_numpy, matrix_to_numpy,
+    lu_batched_from_numpy, lu_batched_to_numpy, lu_from_numpy, lu_to_numpy,
+    matrix_from_numpy, matrix_to_numpy,
 )
+from . import serve  # noqa: F401
 
 __version__ = "0.1.0"

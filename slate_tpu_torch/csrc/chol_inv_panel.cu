@@ -44,20 +44,7 @@ chol_inv_panel_kernel(const float* A, int64_t lda, float* L, float* Linv,
     float* lkk = L + (int64_t)k0 * nb + k0;
     if (tid < 32) {
       load_lower_block_warp(s, lkk, nb);
-      // unblocked right-looking Cholesky of s.blk; lane r owns row r
-      const int r = tid;
-      for (int j = 0; j < IB; ++j) {
-        const float ajj = s.blk[j][j];
-        const float inv = 1.f / sqrtf(ajj);
-        __syncwarp();
-        const float v = s.blk[r][j] * inv;
-        if (r == j) s.blk[j][j] = ajj * inv;
-        else if (r > j) s.blk[r][j] = v;
-        __syncwarp();
-        if (r > j)
-          for (int c = j + 1; c <= r; ++c) s.blk[r][c] = fmaf(-v, s.blk[c][j], s.blk[r][c]);
-        __syncwarp();
-      }
+      chol_unblocked_warp(s);
       trtri_unblocked_warp(s);
     }
     __syncthreads();

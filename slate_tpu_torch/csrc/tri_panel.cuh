@@ -1,10 +1,10 @@
-// Device code shared by the two single-block triangular panel kernels,
-// chol_inv_panel.cu and trtri_panel.cu, as the Pallas kernels share
-// _trtri_unblocked and _block_inv_doubling
-// (slate_tpu/ops/pallas_kernels.py:315-363).
+// Device code shared by the single-block triangular kernels,
+// chol_inv_panel.cu, trtri_panel.cu and potrf_batched.cu, as the Pallas
+// kernels share _chol_unblocked, _trtri_unblocked and _block_inv_doubling
+// (slate_tpu/ops/pallas_kernels.py:282-363).
 //
 // Execution model: ONE block of 1024 threads owns the whole (nb, nb)
-// panel.  On the TPU the panel sits in VMEM; on an H100 a 512² fp32 panel
+// panel (potrf_batched: one block per problem).  On the TPU the panel sits in VMEM; on an H100 a 512² fp32 panel
 // (1 MB) does not fit one SM's 227 KB of shared memory, so the panel
 // stays in global memory (it is L2-resident: 50 MB of L2) and the block
 // stages 32-wide slabs through shared memory, with __syncthreads between
@@ -109,6 +109,25 @@ static __device__ void block_gemm(Smem& s, int M, int N, int K, float alpha,
     }
   }
   __syncthreads();
+}
+
+// Unblocked right-looking Cholesky of the lower (IB, IB) block in s.blk, in
+// place (the reference's _chol_unblocked, pallas_kernels.py:282).  Run by
+// one warp: lane r owns row r.
+static __device__ void chol_unblocked_warp(Smem& s) {
+  const int r = threadIdx.x % 32;
+  for (int j = 0; j < IB; ++j) {
+    const float ajj = s.blk[j][j];
+    const float inv = 1.f / sqrtf(ajj);
+    __syncwarp();
+    const float v = s.blk[r][j] * inv;
+    if (r == j) s.blk[j][j] = ajj * inv;
+    else if (r > j) s.blk[r][j] = v;
+    __syncwarp();
+    if (r > j)
+      for (int c = j + 1; c <= r; ++c) s.blk[r][c] = fmaf(-v, s.blk[c][j], s.blk[r][c]);
+    __syncwarp();
+  }
 }
 
 // Inverse of the lower non-unit (IB, IB) triangle in s.blk into s.inv by

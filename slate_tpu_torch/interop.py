@@ -1,7 +1,8 @@
-"""State carried across from the JAX package's matrices: a JAX
-``Matrix``/``HermitianMatrix`` holds one array plus uplo/diag/mb/nb, and
-these two functions turn that content, as numpy and plain values, into
-the port's objects and back.  The port imports nothing of the JAX
+"""State carried across from the JAX package: a JAX
+``Matrix``/``HermitianMatrix`` holds one array plus uplo/diag/mb/nb, an
+LU factor is a packed matrix and a permutation, a batched LU factor a
+(B, n, n) and a (B, n) array; these functions turn that content, as
+numpy and plain values, into the port's objects and back.  The port imports nothing of the JAX
 package, so the caller does the JAX side (``np.asarray(m.data)``,
 ``m.uplo.value``, ...).
 """
@@ -68,3 +69,29 @@ def lu_to_numpy(lu, perm) -> dict:
     out = matrix_to_numpy(lu)
     return {"data": out["data"], "perm": perm.detach().cpu().numpy(),
             "mb": out["mb"], "nb": out["nb"]}
+
+
+def lu_batched_from_numpy(lu, perm, *, device=None):
+    """A batched LU factor pair from the JAX package's ``getrf_batched``
+    output — ``lu`` (B, n, n) packed factors and ``perm`` (B, n) row
+    permutations (any integer type) — as the port's ``(float tensor,
+    int64 tensor)`` on ``device``, ready for
+    :func:`slate_tpu_torch.linalg.batched.getrs_batched`."""
+    from .config import resolve_device
+
+    dev = resolve_device(device)
+    lu = np.asarray(lu)
+    perm = np.asarray(perm, np.int64)
+    if lu.ndim != 3 or lu.shape[1] != lu.shape[2] \
+            or perm.shape != lu.shape[:2]:
+        raise ValueError("a batched LU pair is (B, n, n) and (B, n), got %s "
+                         "and %s" % (lu.shape, perm.shape))
+    return torch.tensor(lu, device=dev), torch.tensor(perm, device=dev)
+
+
+def lu_batched_to_numpy(lu, perm) -> dict:
+    """The port's batched ``(LU, perm)`` as ``{"lu", "perm"}`` numpy
+    arrays (perm int64), for the JAX package's
+    ``getrs_batched(jnp.asarray(d["lu"]), jnp.asarray(d["perm"]), b)``."""
+    return {"lu": lu.detach().cpu().numpy(),
+            "perm": perm.detach().cpu().numpy().astype(np.int64)}

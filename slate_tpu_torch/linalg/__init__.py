@@ -1,5 +1,9 @@
 """Drivers of the port (the slice ported so far)."""
 
+from .batched import (  # noqa: F401
+    gels_batched, geqrf_batched, gesv_batched, getrf_batched, getrs_batched,
+    heev_batched, posv_batched, potrf_batched, potrs_batched,
+)
 from .blas3 import gemm, herk, syrk, trmm, trsm  # noqa: F401
 from .cholesky import posv, potrf, potri, potrs, trtri, trtrm  # noqa: F401
 from .lu import (  # noqa: F401
@@ -9,4 +13,7 @@ from .lu import (  # noqa: F401
 __all__ = ["gemm", "herk", "syrk", "trmm", "trsm",
            "posv", "potrf", "potri", "potrs", "trtri", "trtrm",
            "gesv", "gesv_nopiv", "getrf", "getrf_nopiv", "getri", "getrs",
-           "getrs_nopiv"]
+           "getrs_nopiv",
+           "gels_batched", "geqrf_batched", "gesv_batched", "getrf_batched",
+           "getrs_batched", "heev_batched", "posv_batched", "potrf_batched",
+           "potrs_batched"]

@@ -35,6 +35,8 @@ SOURCES = {
     "trtri_panel": ("trtri_panel.cu", ("tri_panel.cuh",)),
     "getrf_panel_linv": ("getrf_panel_linv.cu", ("lu_panel.cuh",)),
     "getrf_panel_fused": ("getrf_panel_fused.cu", ("lu_panel.cuh",)),
+    "potrf_batched": ("potrf_batched.cu", ("tri_panel.cuh",)),
+    "getrf_batched": ("getrf_batched.cu", ("lu_panel.cuh",)),
 }
 
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -99,7 +101,8 @@ def build_all(names=None) -> dict:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed.
+    Safe to call from several threads: one lock covers build and load."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

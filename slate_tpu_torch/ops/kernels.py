@@ -4,15 +4,20 @@
 Each kernel has three things here:
 
 * a wrapper (:func:`matmul`, :func:`chol_inv_panel`, :func:`trtri_panel`,
-  :func:`getrf_panel_linv`, :func:`getrf_panel_fused`) that checks device, dtype, shape and strides, allocates its outputs and
-  scratch with ``torch.empty``, launches the kernel on the current CUDA
-  stream and raises if the launch fails.  Given CPU tensors it runs the
-  plain version instead — only because the tensors are on the CPU; on a
-  CUDA tensor it launches the kernel or raises;
+  :func:`getrf_panel_linv`, :func:`getrf_panel_fused`,
+  :func:`potrf_batched`, :func:`getrf_batched`) that checks device,
+  dtype, shape and strides, allocates its outputs and scratch with
+  ``torch.empty``, launches the kernel on the current CUDA stream and
+  raises if the launch fails.  Given CPU tensors it runs the plain
+  version instead — only because the tensors are on the CPU; on a CUDA
+  tensor it launches the kernel or raises;
 * a plain PyTorch version (``*_plain``) of the same blocked algorithm,
   which the CPU tests use and ``chip_smoke.py`` holds the kernel against;
 * a launch count in :data:`launches`, raised by one where the wrapper
   launches the kernel and nowhere else.
+
+Loading a library and counting a launch are safe from several threads
+(the serving queue launches from its dispatcher thread).
 
 The sources are ``slate_tpu_torch/csrc/*.cu``, built by
 :mod:`slate_tpu_torch.ops._build`.
@@ -21,12 +26,14 @@ The sources are ``slate_tpu_torch/csrc/*.cu``, built by
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 #: kernel name -> launches since the last :func:`reset_launches`
 launches = {"matmul": 0, "chol_inv_panel": 0, "trtri_panel": 0,
-            "getrf_panel_linv": 0, "getrf_panel_fused": 0}
+            "getrf_panel_linv": 0, "getrf_panel_fused": 0,
+            "potrf_batched": 0, "getrf_batched": 0}
 
 IB = 32
 
@@ -42,26 +49,31 @@ _SIGNATURES = {
                          [_P, _I64, _P] + _LU_ARGS + [_P]),
     "getrf_panel_fused": ("slate_getrf_panel_fused_f32",
                           [_P, _I64, _I64] + _LU_ARGS + [_P]),
+    "potrf_batched": ("slate_potrf_batched_f32", [_P, _P, _P, _I, _I, _P]),
+    "getrf_batched": ("slate_getrf_batched_f32", [_P, _P, _P, _I, _I, _P]),
 }
 _fns: dict = {}
+_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _lock:
+        for k in launches:
+            launches[k] = 0
 
 
 def _fn(name: str):
-    fn = _fns.get(name)
-    if fn is None:
-        from . import _build
+    with _lock:
+        fn = _fns.get(name)
+        if fn is None:
+            from . import _build
 
-        sym, argtypes = _SIGNATURES[name]
-        fn = getattr(_build.library(name), sym)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return fn
+            sym, argtypes = _SIGNATURES[name]
+            fn = getattr(_build.library(name), sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _fns[name] = fn
+        return fn
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -71,7 +83,12 @@ def _launch(name: str, device: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError("%s kernel launch failed: CUDA error %d"
                            % (name, rc))
-    launches[name] += 1
+    _count(name)
+
+
+def _count(name: str) -> None:
+    with _lock:
+        launches[name] += 1
 
 
 def _on_cpu(*ts) -> bool:
@@ -150,26 +167,47 @@ def matmul(a, b):
 
 def _chol_unblocked(blk):
     """Right-looking unblocked Cholesky of the lower triangle of an
-    (ib, ib) block (the reference's _chol_unblocked)."""
+    (..., ib, ib) block (the reference's _chol_unblocked)."""
     a = torch.tril(blk)
-    for j in range(a.shape[0]):
-        inv = 1.0 / torch.sqrt(a[j, j])
-        a[j, j] = a[j, j] * inv
-        a[j + 1:, j] *= inv
-        v = a[j + 1:, j]
-        a[j + 1:, j + 1:] -= torch.outer(v, v)
+    for j in range(a.shape[-1]):
+        inv = 1.0 / torch.sqrt(a[..., j, j])
+        a[..., j, j] = a[..., j, j] * inv
+        a[..., j + 1:, j] *= inv[..., None]
+        v = a[..., j + 1:, j]
+        a[..., j + 1:, j + 1:] -= v[..., :, None] * v[..., None, :]
     return torch.tril(a)
 
 
 def _trtri_unblocked(l):
     """Row-by-row forward substitution: inverse of a lower non-unit
-    (ib, ib) block (the reference's _trtri_unblocked)."""
-    ib = l.shape[0]
+    (..., ib, ib) block (the reference's _trtri_unblocked)."""
+    ib = l.shape[-1]
     x = torch.zeros_like(l)
     eye = torch.eye(ib, dtype=l.dtype, device=l.device)
     for i in range(ib):
-        x[i] = (eye[i] - l[i, :i] @ x[:i]) / l[i, i]
+        x[..., i, :] = ((eye[i] - (l[..., i, None, :i] @ x[..., :i, :])[..., 0, :])
+                        / l[..., i, i, None])
     return x
+
+
+def _chol_blocked(l, inv=None, ib: int = IB) -> None:
+    """In place on the lower-triangular (..., n, n) ``l``: the ib-blocked
+    right-looking Cholesky of ``_chol_blocked_value`` — per block the
+    unblocked Cholesky and its inverse B⁻¹, L21 = A21·B⁻ᵀ, the trailing
+    update (the full trailing square; the caller keeps the lower
+    triangle).  With ``inv``, every block inverse is stored on its
+    diagonal."""
+    n = l.shape[-1]
+    for k0 in range(0, n, ib):
+        blk = _chol_unblocked(l[..., k0:k0 + ib, k0:k0 + ib])
+        l[..., k0:k0 + ib, k0:k0 + ib] = blk
+        binv = _trtri_unblocked(blk)
+        if inv is not None:
+            inv[..., k0:k0 + ib, k0:k0 + ib] = binv
+        if k0 + ib < n:
+            l21 = l[..., k0 + ib:, k0:k0 + ib] @ binv.mT
+            l[..., k0 + ib:, k0:k0 + ib] = l21
+            l[..., k0 + ib:, k0 + ib:] -= l21 @ l21.mT
 
 
 def _block_inv_doubling(l, inv, nb: int, ib: int) -> None:
@@ -193,15 +231,7 @@ def chol_inv_panel_plain(a):
     ib = min(IB, nb)
     l = torch.tril(a)
     inv = torch.zeros_like(l)
-    for k0 in range(0, nb, ib):
-        blk = _chol_unblocked(l[k0:k0 + ib, k0:k0 + ib])
-        l[k0:k0 + ib, k0:k0 + ib] = blk
-        binv = _trtri_unblocked(blk)
-        inv[k0:k0 + ib, k0:k0 + ib] = binv
-        if k0 + ib < nb:
-            l21 = l[k0 + ib:, k0:k0 + ib] @ binv.T
-            l[k0 + ib:, k0:k0 + ib] = l21
-            l[k0 + ib:, k0 + ib:] -= l21 @ l21.T
+    _chol_blocked(l, inv, ib)
     l = torch.tril(l)
     _block_inv_doubling(l, inv, nb, ib)
     return l, inv
@@ -424,3 +454,112 @@ def getrf_panel_fused(carry, act, k0: int, nb: int = 512, bb: int = 128,
         "getrf_panel_fused", carry.device, act, m, nb, ib,
         carry.data_ptr(), carry.stride(0), k0)
     return carry, piv, act_out, linv
+
+
+# ---------------------------------------------------------------------------
+# Batched kernels (replace pallas_kernels.potrf_batched :2323 and
+# getrf_batched :2433): one block per problem
+# ---------------------------------------------------------------------------
+
+def _check_batched(name: str, a) -> tuple:
+    from . import smem
+
+    if a.dtype != torch.float32 or a.ndim != 3 or a.shape[1] != a.shape[2]:
+        raise ValueError("%s takes a (batch, n, n) float32 tensor, got %s %s"
+                         % (name, a.dtype, tuple(a.shape)))
+    bsz, n = a.shape[0], a.shape[-1]
+    if bsz < 1 or not smem.batched_fits(name, n):
+        raise ValueError("%s takes n >= 32, n %% 32 == 0 and a problem whose "
+                         "working set fits the kernel (ops/smem.py), got %s"
+                         % (name, tuple(a.shape)))
+    return bsz, n
+
+
+def _check_contiguous(name: str, a) -> None:
+    if not a.is_contiguous():
+        raise ValueError("%s needs a contiguous batch, got strides %s"
+                         % (name, a.stride()))
+
+
+def potrf_batched_plain(a):
+    """Plain version of :func:`potrf_batched`: :func:`_chol_blocked` on
+    every problem at once."""
+    l = torch.tril(a)
+    _chol_blocked(l)
+    return torch.tril(l)
+
+
+def potrf_batched(a):
+    """Lower Cholesky factors of B SPD problems: (B, n, n) fp32 → (B, n,
+    n), upper triangles zero.  Reads only each problem's lower triangle.
+    n ≥ 32 and n % 32 == 0 (:func:`slate_tpu_torch.ops.smem.batched_fits`);
+    on the card ``a`` must be contiguous."""
+    bsz, n = _check_batched("potrf_batched", a)
+    if _on_cpu(a):
+        return potrf_batched_plain(a)
+    _check_contiguous("potrf_batched", a)
+    l = torch.empty_like(a)
+    work = torch.empty((bsz, max(n - IB, 1), IB), dtype=torch.float32,
+                       device=a.device)
+    _launch("potrf_batched", a.device, a.data_ptr(), l.data_ptr(),
+            work.data_ptr(), bsz, n)
+    return l
+
+
+def getrf_batched_plain(at):
+    """Plain version of :func:`getrf_batched`: the elimination of
+    :func:`_lu_panel_plain` over a batch of square lane-major problems —
+    every column finds its pivot among the n − j active lanes, and no
+    L11⁻¹ is formed.  Per column the masked argmax (lowest lane among
+    equal maxima), the multipliers in the column's row and the unfused
+    rank-1 update of the rows left in the ib block; per block the U12
+    forward substitution and the delayed rank-ib update of the rows past
+    it, pivot lanes taking their U12 rows."""
+    x = at.clone()
+    bsz, n, _ = x.shape
+    ib = IB
+    act = torch.ones((bsz, n), dtype=torch.bool, device=x.device)
+    lanes = torch.arange(n, device=x.device)
+    piv = torch.empty((bsz, n), dtype=torch.int64, device=x.device)
+    for b0 in range(0, n, ib):
+        b1 = b0 + ib
+        for j in range(b0, b1):
+            p = torch.where(act, x[:, j].abs(), -1.0).argmax(-1)
+            piv[:, j] = p
+            pc = x[:, j:b1].gather(2, p[:, None, None].expand(bsz, b1 - j, 1))[..., 0]
+            safe = torch.where(pc[:, 0] == 0, 1.0, pc[:, 0])
+            act &= lanes != p[:, None]
+            mult = torch.where(act, x[:, j] / safe[:, None], 0.0)
+            x[:, j] = torch.where(act, mult, x[:, j])
+            if j + 1 < b1:
+                x[:, j + 1:b1] -= pc[:, 1:, None] * mult[:, None, :]
+        if b1 < n:
+            pb = piv[:, b0:b1]
+            lb = torch.tril(x[:, b0:b1].gather(
+                2, pb[:, None, :].expand(bsz, ib, ib)).mT, -1)
+            idx = pb[:, None, :].expand(bsz, n - b1, ib)
+            u = x[:, b1:].gather(2, idx).mT.contiguous()
+            for jj in range(1, ib):
+                u[:, jj] -= (lb[:, jj, None, :jj] @ u[:, :jj])[:, 0]
+            x[:, b1:] -= u.mT @ (x[:, b0:b1] * act[:, None, :])
+            x[:, b1:].scatter_(2, idx, u.mT)
+    return x, piv
+
+
+def getrf_batched(at):
+    """TRUE partial-pivot LU of B square problems held transposed
+    (lane-major): ``at`` (B, n, n) fp32 → ``(out, piv)`` with ``piv`` (B,
+    n) int64, the pivot lanes in factorization order; per problem
+    ``out[b][:, piv[b]].T`` is the LAPACK-packed LU of ``at[b].T`` and
+    ``piv[b]`` its row permutation.  n ≥ 32, n % 32 == 0 and n ≤ 864
+    (:func:`slate_tpu_torch.ops.smem.batched_fits`); on the card ``at``
+    must be contiguous."""
+    bsz, n = _check_batched("getrf_batched", at)
+    if _on_cpu(at):
+        return getrf_batched_plain(at)
+    _check_contiguous("getrf_batched", at)
+    out = torch.empty_like(at)
+    piv = torch.empty((bsz, n), dtype=torch.int64, device=at.device)
+    _launch("getrf_batched", at.device, at.data_ptr(), out.data_ptr(),
+            piv.data_ptr(), bsz, n)
+    return out, piv

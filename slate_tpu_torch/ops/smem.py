@@ -1,6 +1,8 @@
-"""What the LU panel kernels can hold on the card — the counterpart of
-``slate_tpu/ops/vmem.py`` (``fits``, ``:65``).
+"""What the kernels can hold on the card — the counterpart of
+``slate_tpu/ops/vmem.py`` (``fits``, ``:65``; ``batch_per_launch``,
+``:101``).
 
+**LU panels.**
 A TPU kernel keeps a whole panel in one core's VMEM (tens of MB).  On an
 H100 a block has at most 227 KB of dynamic shared memory, so the panel
 kernels (``csrc/lu_panel.cuh``) spread the panel's lanes over a
@@ -12,6 +14,23 @@ only then does it ask the occupancy query how many blocks may share an
 SM.  The gates in :mod:`slate_tpu_torch.linalg.lu` need only the first
 step, which this module repeats, so they decide what the kernel will
 accept.  The grid itself is sized by the launcher alone.
+
+**Batched kernels.**  The JAX package budgets ``bt`` whole problems of
+3·n²·4 bytes each against ~100 MB of VMEM per grid step
+(``slate_tpu/linalg/batched.py:114-128``).  One fp32 problem at n = 256
+is 256 KB, more than a block's 227 KB, so the port's batched kernels give
+each problem one block and keep it in device memory (L2-resident), not in
+shared memory; there is no ``bt`` to plan.  What they accept:
+
+* ``potrf_batched`` (``csrc/potrf_batched.cu``) — n ≥ 32 and n % 32 == 0;
+  its shared memory is a fixed 42 KB of staging tiles, so no n is too
+  large for it;
+* ``getrf_batched`` (``csrc/getrf_batched.cu``) — the same, and its
+  dynamic shared memory (the current 32-row block and the block's U12
+  rows, :func:`getrf_batched_bytes`) must fit one block: n ≤ 864.
+
+:func:`batched_fits` is that gate; the kernels' launchers refuse the
+same shapes.
 
 On the card the SM count comes from the device; everywhere else (the CPU
 tests) the H100's constants answer, so the gates decide the same way.
@@ -69,3 +88,31 @@ def lu_panel_fits(m: int, w: int, ib: int, device=None) -> bool:
         return False
     grid = max(1, min(sm_count(device), _ceildiv(m, MIN_LANES)))
     return fits(lu_panel_bytes(m, w, ib, grid))
+
+
+#: the batched kernels' inner block (potrf_batched.cu, getrf_batched.cu IB)
+BATCHED_IB = 32
+#: warps of a getrf_batched block (lu_panel.cuh NWARP)
+GETRF_BATCHED_WARPS = 8
+
+
+def getrf_batched_bytes(n: int) -> int:
+    """Dynamic shared memory of one ``getrf_batched`` block: the current
+    32 rows of its (n, n) problem, the block's U12 rows, the active mask
+    and block-pivot marks, the block's 32 pivots and the argmax scratch
+    (``getrf_batched.cu``, ``smem_floats``).  The kernel has no static
+    shared memory."""
+    ib = BATCHED_IB
+    return 4 * (2 * ib * n + 2 * n + ib + 2 * GETRF_BATCHED_WARPS + 4)
+
+
+def batched_fits(kernel: str, n: int) -> bool:
+    """The shape gate of the batched kernels (see the module docstring):
+    ``kernel`` is ``"potrf_batched"`` or ``"getrf_batched"``."""
+    if n < BATCHED_IB or n % BATCHED_IB:
+        return False
+    if kernel == "potrf_batched":
+        return True
+    if kernel == "getrf_batched":
+        return getrf_batched_bytes(n) <= BLOCK_SMEM_MAX
+    raise KeyError(f"no batched kernel {kernel!r}")

@@ -23,6 +23,7 @@ import threading
 import torch
 
 from .. import config
+from .sweep import pow2_bucket
 
 _decisions: dict = {}
 _lock = threading.Lock()
@@ -124,7 +125,66 @@ def choose_lu_step(m: int, n: int, nb: int, dtype, device) -> str:
     return _record("lu_step", key, "composed")
 
 
+def _batched_key(dims, dtype, device) -> tuple:
+    """A batched site's key: every dim pow2-bucketed (floor 8, the JAX
+    package's ``_bucket_dim``), so one decision serves a bucket — the
+    serving queue pads its batches to the same buckets."""
+    return tuple(pow2_bucket(d) for d in dims) + (
+        str(dtype).replace("torch.", ""), torch.device(device).type)
+
+
+def _batched_common(site: str, b: int, n: int, dtype, device,
+                    eligible: bool) -> str:
+    key = _batched_key((b, n), dtype, device)
+    if not eligible or config.use_kernels_mode() == "off":
+        return _record(site, key, "stock")
+    return _record(site, key, _kernel_or_plain(device))
+
+
+def choose_batched_potrf(b: int, n: int, dtype, device,
+                         eligible: bool) -> str:
+    """Leading-batch-dim Cholesky (:func:`slate_tpu_torch.linalg.batched.
+    potrf_batched`): the ``potrf_batched`` kernel (``"kernel"`` on CUDA,
+    its plain version ``"plain"`` on the CPU) where the call site's gate
+    holds (``linalg.batched._grid_eligible``: fp32, n ≥ 32, n % 32 == 0),
+    else ``torch.linalg.cholesky`` (``"stock"``, the counterpart of the
+    JAX package's ``"vmapped"``).  The JAX package defaults to
+    ``"vmapped"`` off a TPU only because it has no kernel there
+    (``slate_tpu/perf/autotune.py:1815-1820``); the port has one on the
+    card."""
+    return _batched_common("batched_potrf", b, n, dtype, device, eligible)
+
+
+def choose_batched_lu(b: int, n: int, dtype, device, eligible: bool) -> str:
+    """Leading-batch-dim partial-pivot LU (:func:`slate_tpu_torch.linalg.
+    batched.getrf_batched`): the ``getrf_batched`` kernel (``"kernel"`` /
+    ``"plain"``) where the call site's gate holds (fp32, n ≥ 32,
+    n % 32 == 0, n ≤ 864), else ``torch.linalg.lu_factor``
+    (``"stock"``).  As :func:`choose_batched_potrf`, the port takes its
+    kernel on the card where the JAX package would take ``"vmapped"``."""
+    return _batched_common("batched_lu", b, n, dtype, device, eligible)
+
+
+def choose_batched_qr(b: int, m: int, n: int, dtype, device) -> str:
+    """Leading-batch-dim QR and least squares: one candidate today,
+    ``"stock"`` (``torch.geqrf`` / ``torch.linalg.qr``), registered so
+    the site is enumerable, as in the JAX package."""
+    return _record("batched_qr", _batched_key((b, m, n), dtype, device),
+                   "stock")
+
+
+def choose_batched_heev(b: int, n: int, dtype, device) -> str:
+    """Leading-batch-dim Hermitian eigensolver: one candidate today,
+    ``"stock"`` (``torch.linalg.eigh``)."""
+    return _record("batched_heev", _batched_key((b, n), dtype, device),
+                   "stock")
+
+
 _SITES = {
+    "batched_heev": choose_batched_heev,
+    "batched_lu": choose_batched_lu,
+    "batched_potrf": choose_batched_potrf,
+    "batched_qr": choose_batched_qr,
     "lu_panel": choose_lu_panel,
     "lu_driver": choose_lu_driver,
     "lu_step": choose_lu_step,

@@ -116,10 +116,61 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     kernels.matmul(torch.zeros(128, 128), torch.zeros(128, 128))
     kernels.getrf_panel_linv(a, torch.ones(1, 64))
     kernels.getrf_panel_fused(a.clone(), torch.ones(1, 64), 0, nb=32, bb=32)
+    kernels.potrf_batched(a[None].clone())
+    kernels.getrf_batched(a[None].clone())
     assert set(kernels.launches) == {"matmul", "chol_inv_panel",
                                      "trtri_panel", "getrf_panel_linv",
-                                     "getrf_panel_fused"}
+                                     "getrf_panel_fused", "potrf_batched",
+                                     "getrf_batched"}
     assert all(v == 0 for v in kernels.launches.values())
+
+
+def test_library_loading_and_launch_counts_are_thread_safe(monkeypatch):
+    """Sixteen threads, with the interpreter switching threads every
+    microsecond: each kernel's library is loaded once and no launch
+    count is lost (the serving queue launches from its own thread)."""
+    import sys
+    import threading
+    import time
+
+    loads = []
+
+    class Lib:
+        def __getattr__(self, sym):
+            return lambda *args: 0
+
+    def library(name):
+        loads.append(name)
+        time.sleep(0.01)
+        return Lib()
+
+    monkeypatch.setattr(_build, "library", library)
+    monkeypatch.setattr(kernels, "_fns", {})
+    kernels.reset_launches()
+    fns = []
+
+    def worker():
+        for _ in range(200):
+            fns.append(kernels._fn("potrf_batched"))
+            kernels._count("getrf_batched")
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+        counted = kernels.launches["getrf_batched"]
+    finally:
+        sys.setswitchinterval(old)
+        kernels.reset_launches()
+        kernels._fns.clear()
+    assert counted == 16 * 200
+    assert loads == ["potrf_batched"]
+    assert len({id(f) for f in fns}) == 1 and len(fns) == 16 * 200
 
 
 @pytest.fixture
@@ -327,3 +378,118 @@ def test_smem_plans_the_main_path_panels():
     assert not smem.lu_panel_fits(12145, 512, 16)
     assert not smem.lu_panel_fits(256, 64, 40)       # ib past the kernel's
     assert not smem.lu_panel_fits(256, 48, 32)       # ib must divide w
+
+
+# ---------------------------------------------------------------------------
+# Batched kernels: the plain versions against the Pallas kernels in
+# interpret mode (pallas_kernels.potrf_batched / getrf_batched).
+# ---------------------------------------------------------------------------
+
+def _gauss_batch(b, n, seed):
+    """Plain Gaussian problems (no + n·I), so the argmax chooses pivots
+    off the diagonal; problem 1 gets an exact zero column."""
+    a = np.random.default_rng(seed).standard_normal((b, n, n)).astype(
+        np.float32)
+    a[1, :, 5] = 0.0
+    return a
+
+
+def _scipy_perm(a):
+    import scipy.linalg as sla
+
+    perm = list(range(a.shape[0]))
+    for k, p in enumerate(sla.lu_factor(a.astype(np.float64))[1]):
+        perm[k], perm[p] = perm[p], perm[k]
+    return np.asarray(perm)
+
+
+def test_getrf_batched_plain_matches_pallas_and_scipy_pivots():
+    """Pivots exactly equal to the JAX kernel's for every problem and to
+    scipy's for the nonsingular ones; the factored problems within 1e-4
+    of the JAX kernel's max (the two sum U12 and the rank-32 update in
+    different orders).  The zero column of problem 1 picks the lowest
+    active lane and divides by 1 in both: finite, equal pivots."""
+    b, n = 3, 64
+    a = _gauss_batch(b, n, 50)
+    at = np.ascontiguousarray(a.transpose(0, 2, 1))
+    jout, jpiv = map(np.asarray, pk.getrf_batched(jnp.asarray(at)))
+    out, piv = (t.numpy() for t in kernels.getrf_batched(torch.from_numpy(at)))
+    np.testing.assert_array_equal(piv, jpiv)
+    assert piv.dtype == np.int64 and np.isfinite(out).all()
+    assert _max_rel(out, jout) <= 1e-4
+    for i in (0, 2):
+        np.testing.assert_array_equal(piv[i], _scipy_perm(a[i]))
+    for i in range(b):
+        lu = out[i][:, piv[i]].T.astype(np.float64)
+        low = np.tril(lu, -1) + np.eye(n)
+        res = np.linalg.norm(low @ np.triu(lu) - a[i][piv[i]]) / (
+            np.linalg.norm(a[i]) * np.finfo(np.float32).eps * n)
+        assert res <= 3, (i, res)
+        assert np.abs(np.tril(lu, -1)).max() <= 1 + 100 * np.finfo(np.float32).eps
+
+
+def test_getrf_batched_tie_takes_the_lowest_lane():
+    rng = np.random.default_rng(51)
+    a = rng.standard_normal((2, 64, 64)).astype(np.float32)
+    a[0, 40, 0], a[0, 7, 0] = 9.0, -9.0
+    at = np.ascontiguousarray(a.transpose(0, 2, 1))
+    jpiv = np.asarray(pk.getrf_batched(jnp.asarray(at))[1])
+    piv = kernels.getrf_batched(torch.from_numpy(at))[1].numpy()
+    assert jpiv[0, 0] == 7 and piv[0, 0] == 7
+    np.testing.assert_array_equal(piv, jpiv)
+
+
+def test_potrf_batched_plain_matches_pallas():
+    """|ΔL| ≤ 1e-4·max|L| (both do the same blocked arithmetic in other
+    summation orders) and both factors pass the tester's ≤ 3."""
+    b, n = 3, 64
+    g = np.random.default_rng(52).standard_normal((b, n, n)).astype(np.float32)
+    spd = g @ g.transpose(0, 2, 1) + n * np.eye(n, dtype=np.float32)
+    ref = np.asarray(pk.potrf_batched(jnp.asarray(spd)))
+    got = kernels.potrf_batched(torch.from_numpy(spd)).numpy()
+    assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+    assert np.all(np.triu(got, 1) == 0)
+    for l in (got, ref):
+        for i in range(b):
+            li = l[i].astype(np.float64)
+            res = np.linalg.norm(li @ li.T - spd[i]) / (
+                np.linalg.norm(spd[i]) * np.finfo(np.float32).eps * n)
+            assert res <= 3, res
+    # only the lower triangle is read
+    junk = spd + np.triu(np.full_like(spd, 1e3), 1)
+    assert torch.equal(kernels.potrf_batched(torch.from_numpy(junk)),
+                       torch.from_numpy(got))
+
+
+@pytest.mark.parametrize("bad", ["f64", "2d", "not_square", "n48", "n16",
+                                 "n896"])
+def test_batched_wrappers_reject_what_the_kernels_do_not_take(bad):
+    x = {"f64": torch.zeros(2, 64, 64, dtype=torch.float64),
+         "2d": torch.zeros(64, 64),
+         "not_square": torch.zeros(2, 64, 32),
+         "n48": torch.zeros(2, 48, 48),
+         "n16": torch.zeros(2, 16, 16),
+         "n896": torch.zeros(1, 896, 896)}[bad]
+    fns = (kernels.getrf_batched,) if bad == "n896" else (
+        kernels.potrf_batched, kernels.getrf_batched)
+    for fn in fns:
+        with pytest.raises(ValueError):
+            fn(x)
+
+
+def test_smem_gates_the_batched_kernels():
+    """potrf_batched takes any n on the 32 grid (its problem lives in
+    device memory); getrf_batched also needs its 32-row block and U12
+    rows in one block's shared memory: n ≤ 864 on the H100."""
+    from slate_tpu_torch.ops import smem
+
+    assert smem.getrf_batched_bytes(256) == 4 * (66 * 256 + 52)
+    for n in (32, 64, 256, 864):
+        assert smem.batched_fits("getrf_batched", n)
+    assert not smem.batched_fits("getrf_batched", 896)
+    assert smem.batched_fits("potrf_batched", 4096)
+    for kernel in ("potrf_batched", "getrf_batched"):
+        assert not smem.batched_fits(kernel, 48)
+        assert not smem.batched_fits(kernel, 16)
+    with pytest.raises(KeyError):
+        smem.batched_fits("geqrf_batched", 64)
