@@ -681,7 +681,10 @@ def check_batched_kernels(torch, kernels, dev) -> dict:
               % (bsz, n, err, res, lu_err), flush=True)
     flops = {"potrf_batched": BATCH * BATCH_N ** 3 / 3.0,
              "getrf_batched": BATCH * 2.0 * BATCH_N ** 3 / 3.0}
-    nbytes = {"potrf_batched": 2.0 * 4 * BATCH * BATCH_N ** 2,
+    # potrf_batched reads each problem's lower triangle and writes the
+    # whole factor; getrf_batched reads and writes whole problems + pivots
+    nbytes = {"potrf_batched": 4.0 * BATCH * (BATCH_N * (BATCH_N + 1) / 2
+                                              + BATCH_N ** 2),
               "getrf_batched": 2.0 * 4 * BATCH * BATCH_N ** 2
               + 8.0 * BATCH * BATCH_N}
 

@@ -32,7 +32,10 @@
 // U12 rows stay in shared memory ((2·32·n + 2n + 52)·4 bytes, all
 // dynamic), so the column loop touches only shared memory and the rows
 // past the block are read and written once per block.  The shared memory
-// bounds n: n ≤ 864 (ops/smem.py repeats the same formula as its gate).
+// bounds n: n ≤ 864 (ops/smem.py repeats the same formula as its gate, and
+// ops/kernels.py checks the two agree when it loads this library).
+
+#include <atomic>
 
 #include "lu_panel.cuh"
 
@@ -44,7 +47,8 @@ using lu_panel::warp_best;
 
 constexpr int IB = 32;
 
-// Dynamic shared memory of one block, in floats (smem.getrf_batched_bytes / 4).
+// Dynamic shared memory of one block, in floats (smem.getrf_batched_bytes / 4,
+// checked at load through slate_getrf_batched_smem_bytes).
 __host__ __device__ inline int64_t smem_floats(int n) {
   return 2 * (int64_t)IB * n + 2 * (int64_t)n + IB + 2 * NWARP + 4;
 }
@@ -186,7 +190,41 @@ getrf_batched_kernel(const float* in, float* out, int64_t* piv, int n) {
   }
 }
 
+// The dynamic shared memory a block may take on the current device, the
+// kernel's limit raised to it on the first call there and cached after, so
+// a launch costs no attribute query.  Two threads racing the first call
+// set the same limit.
+constexpr int MAX_DEVICES = 64;
+std::atomic<int> dyn_max_of[MAX_DEVICES];   // 0: not set up yet
+
+cudaError_t dyn_smem_max(int* dyn_max) {
+  int dev = 0, optin = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && (*dyn_max = dyn_max_of[dev].load()) > 0)
+    return cudaSuccess;
+  if ((err = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) != cudaSuccess)
+    return err;
+  cudaFuncAttributes fa;
+  if ((err = cudaFuncGetAttributes(&fa, getrf_batched_kernel)) != cudaSuccess)
+    return err;
+  *dyn_max = optin - (int)fa.sharedSizeBytes;
+  if ((err = cudaFuncSetAttribute(getrf_batched_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  *dyn_max)) != cudaSuccess)
+    return err;
+  if (dev < MAX_DEVICES) dyn_max_of[dev].store(*dyn_max);
+  return cudaSuccess;
+}
+
 }  // namespace
+
+// Dynamic shared memory of one block at n, in bytes: ops/smem.py's gate
+// (getrf_batched_bytes) is checked against it when the library is loaded.
+extern "C" int64_t slate_getrf_batched_smem_bytes(int n) {
+  return 4 * smem_floats(n);
+}
 
 // in, out: (batch, n, n) contiguous, each problem transposed (lane-major);
 // out may equal in.  piv: (batch, n) int64.  n a multiple of 32 whose
@@ -195,23 +233,11 @@ extern "C" int slate_getrf_batched_f32(const float* in, float* out,
                                        int64_t* piv, int batch, int n,
                                        cudaStream_t stream) {
   if (batch < 1 || n < IB || n % IB != 0) return (int)cudaErrorInvalidValue;
-  int dev = 0, optin = 0;
+  int dyn_max = 0;
   cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(
-           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) != cudaSuccess)
-    return (int)err;
-  cudaFuncAttributes fa;
-  if ((err = cudaFuncGetAttributes(&fa, getrf_batched_kernel)) != cudaSuccess)
-    return (int)err;
-  const int dyn_max = optin - (int)fa.sharedSizeBytes;
+  if ((err = dyn_smem_max(&dyn_max)) != cudaSuccess) return (int)err;
   const int64_t bytes = 4 * smem_floats(n);
   if (bytes > dyn_max) return (int)cudaErrorInvalidValue;
-  // the same limit on every call, so launches from two threads agree
-  if ((err = cudaFuncSetAttribute(getrf_batched_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  dyn_max)) != cudaSuccess)
-    return (int)err;
   getrf_batched_kernel<<<batch, NT, (size_t)bytes, stream>>>(in, out, piv, n);
   return (int)cudaGetLastError();
 }

@@ -5,9 +5,10 @@
 // forward-substitution inverse B⁻¹, L21 = A21·B⁻ᵀ, the rank-32 trailing
 // update, and the upper triangle zeroed.
 //
-// What bounds it on an H100: at B = 64, n = 256 the batch moves 33.5 MB
-// (input and factor) and does 3.6e8 FLOP, ~0.01 ms at the card's memory
-// rate, but each problem is a chain of n/32 dependent steps.  The TPU
+// What bounds it on an H100: at B = 64, n = 256 the batch moves 25.2 MB
+// (each input's lower triangle read, each factor written whole) and does
+// 3.6e8 FLOP, ~0.0075 ms at the card's memory rate, but each problem is a
+// chain of n/32 dependent steps.  The TPU
 // kernel keeps whole problems in VMEM; one fp32 problem at n = 256 is
 // 256 KB, more than a block's 227 KB of shared memory.  So ONE BLOCK OF
 // 1024 THREADS OWNS ONE PROBLEM and works from its output buffer in device

@@ -32,7 +32,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .. import config
 from ..exceptions import SlateError
 from ..matrix import to_tensor
 from ..method import select_backend
@@ -88,9 +87,9 @@ def _getrf_stock(a):
 def _grid_eligible(kernel: str, bsz: int, n: int, m: int, dtype) -> bool:
     """Shape gate of the batched kernels: square fp32 problems that
     ``kernel`` takes (:func:`slate_tpu_torch.ops.smem.batched_fits`).
-    Whether an eligible shape takes the kernel is the site's decision."""
-    if config.use_kernels_mode() == "off":
-        return False
+    Whether an eligible shape takes the kernel is the site's decision
+    (:mod:`slate_tpu_torch.perf.autotune`, which also honours
+    ``config.use_kernels``)."""
     return (m == n and bsz >= 1 and dtype == torch.float32
             and smem.batched_fits(kernel, n))
 

@@ -17,7 +17,8 @@ Each kernel has three things here:
   launches the kernel and nowhere else.
 
 Loading a library and counting a launch are safe from several threads
-(the serving queue launches from its dispatcher thread).
+(the serving queue launches from its dispatcher thread); they take
+separate locks, so a count never waits on a build.
 
 The sources are ``slate_tpu_torch/csrc/*.cu``, built by
 :mod:`slate_tpu_torch.ops._build`.
@@ -53,7 +54,8 @@ _SIGNATURES = {
     "getrf_batched": ("slate_getrf_batched_f32", [_P, _P, _P, _I, _I, _P]),
 }
 _fns: dict = {}
-_lock = threading.Lock()
+_fns_lock = threading.Lock()     # the entry-point cache; held across a build
+_lock = threading.Lock()         # the launch counts
 
 
 def reset_launches() -> None:
@@ -63,17 +65,37 @@ def reset_launches() -> None:
 
 
 def _fn(name: str):
-    with _lock:
+    with _fns_lock:
         fn = _fns.get(name)
         if fn is None:
             from . import _build
 
+            lib = _build.library(name)
+            if name == "getrf_batched":
+                _check_getrf_batched_smem(lib)
             sym, argtypes = _SIGNATURES[name]
-            fn = getattr(_build.library(name), sym)
+            fn = getattr(lib, sym)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _fns[name] = fn
         return fn
+
+
+def _check_getrf_batched_smem(lib) -> None:
+    """Raise unless the kernel's shared-memory formula (its C entry
+    ``slate_getrf_batched_smem_bytes``) is :func:`smem.getrf_batched_bytes`
+    at every n the gate could pass, so the gate and the kernel cannot
+    drift apart."""
+    from . import smem
+
+    c_bytes = lib.slate_getrf_batched_smem_bytes
+    c_bytes.argtypes, c_bytes.restype = [_I], _I64
+    for n in range(smem.BATCHED_IB, 1025, smem.BATCHED_IB):
+        if c_bytes(n) != smem.getrf_batched_bytes(n):
+            raise RuntimeError(
+                "getrf_batched: the kernel takes %d B of shared memory at "
+                "n = %d, ops/smem.py counts %d B" % (c_bytes(n), n,
+                                                     smem.getrf_batched_bytes(n)))
 
 
 def _launch(name: str, device: torch.device, *args) -> None:

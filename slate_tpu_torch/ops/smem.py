@@ -100,8 +100,9 @@ def getrf_batched_bytes(n: int) -> int:
     """Dynamic shared memory of one ``getrf_batched`` block: the current
     32 rows of its (n, n) problem, the block's U12 rows, the active mask
     and block-pivot marks, the block's 32 pivots and the argmax scratch
-    (``getrf_batched.cu``, ``smem_floats``).  The kernel has no static
-    shared memory."""
+    (``getrf_batched.cu``, ``smem_floats``; ``ops/kernels.py`` checks the
+    two formulas agree when it loads the kernel).  The kernel has no
+    static shared memory."""
     ib = BATCHED_IB
     return 4 * (2 * ib * n + 2 * n + ib + 2 * GETRF_BATCHED_WARPS + 4)
 

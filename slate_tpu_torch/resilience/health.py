@@ -4,10 +4,10 @@
 quarantine and residual registry are not ported yet (ROADMAP.md, queue 1
 item 10).
 
-``SLATE_TPU_TORCH_HEALTH`` ∈ {off, warn, retry, strict} (default off).
-Today only the serving queue reads it: any tier but ``off`` makes a
-non-finite batch result a failed dispatch, retried and then served
-problem by problem on the safe backend."""
+``SLATE_TPU_TORCH_HEALTH=1`` turns the check on (default off).  The port
+has one behaviour for it, not the JAX package's warn/retry/strict tiers:
+the serving queue treats a non-finite batch result as a failed dispatch,
+retried and then served problem by problem on the safe backend."""
 
 from __future__ import annotations
 
@@ -15,17 +15,14 @@ import os
 import threading
 from contextlib import contextmanager
 
-__all__ = ["ENV_HEALTH", "MODES", "mode", "safe_backend"]
+__all__ = ["ENV_HEALTH", "mode", "safe_backend"]
 
 ENV_HEALTH = "SLATE_TPU_TORCH_HEALTH"
-MODES = ("off", "warn", "retry", "strict")
 
 
 def mode() -> str:
-    """The health tier from ``SLATE_TPU_TORCH_HEALTH``; ``off`` for
-    anything else."""
-    raw = os.environ.get(ENV_HEALTH, "").strip().lower()
-    return raw if raw in MODES else "off"
+    """``"on"`` when ``SLATE_TPU_TORCH_HEALTH`` is ``1``, else ``"off"``."""
+    return "on" if os.environ.get(ENV_HEALTH, "").strip() == "1" else "off"
 
 
 _safe_lock = threading.RLock()

@@ -37,7 +37,7 @@ serves the batch problem by problem on the stock backend
 (:func:`slate_tpu_torch.resilience.health.safe_backend`), explicit
 :class:`Backpressure` past ``max_queue_depth``, ``close()`` failing (never
 stranding) queued futures and ``flush(timeout)`` raising on expiry.  With
-``SLATE_TPU_TORCH_HEALTH`` on, a non-finite batch result counts as a
+``SLATE_TPU_TORCH_HEALTH=1``, a non-finite batch result counts as a
 transient failure.  A failure that is not transient (a kernel launch
 error among them) fails the batch's futures with that error.
 
@@ -85,8 +85,8 @@ class Backpressure(SlateError):
 
 
 class _UnhealthyBatch(SlateError):
-    """A batch result failed the finite check under an active health
-    tier — handled like a transient dispatch failure."""
+    """A batch result failed the finite check with the health check on
+    — handled like a transient dispatch failure."""
 
 
 def _finite_arrays(out) -> bool:
@@ -573,8 +573,8 @@ class BatchQueue:
                     r.future.set_exception(e)
 
     def _execute_batch(self, key: tuple, reqs: List[_Request]) -> tuple:
-        """The batched fast path: pad, run the executable, and — under an
-        active health tier — check finiteness.  Transient failures retry
+        """The batched fast path: pad, run the executable, and — with the
+        health check on — check finiteness.  Transient failures retry
         up to ``max_retries`` times with exponential backoff; the last
         one propagates to :meth:`_dispatch`."""
         def attempt():

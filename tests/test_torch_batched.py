@@ -273,8 +273,11 @@ def test_grid_gate_follows_the_kernels(monkeypatch):
     assert not tb._grid_eligible("potrf_batched", 4, 48, 48, f32)
     assert not tb._grid_eligible("potrf_batched", 4, 64, 64, torch.float64)
     assert not tb._grid_eligible("potrf_batched", 4, 64, 32, f32)
+    # the gate is the shape alone; with the kernels off the site says stock
     monkeypatch.setattr(tcfg, "use_kernels", False)
-    assert not tb._grid_eligible("potrf_batched", 4, 64, 64, f32)
+    assert tb._grid_eligible("potrf_batched", 4, 64, 64, f32)
+    assert tauto.choose_batched_potrf(4, 64, f32, CPU, True) == "stock"
+    assert tauto.choose_batched_lu(4, 64, f32, CPU, True) == "stock"
 
 
 def test_ineligible_n_takes_stock_with_the_same_answer():

@@ -358,7 +358,7 @@ def test_a_failure_that_is_not_transient_fails_the_futures(monkeypatch):
 
 
 def test_nonfinite_batch_under_health_goes_to_singles(monkeypatch):
-    monkeypatch.setenv(health.ENV_HEALTH, "warn")
+    monkeypatch.setenv(health.ENV_HEALTH, "1")
     srv = _queue(max_batch=2, max_wait_s=0.001, max_retries=1,
                  retry_backoff_s=0.001)
     srv.warm("posv", 2, 16)
@@ -382,7 +382,7 @@ def test_safe_backend_sends_every_site_to_stock():
     with health.safe_backend():
         assert tcfg.use_kernels is False and tcfg.scattered_lu is False
         assert tauto.choose_batched_potrf(8, 64, f32, cpu, True) == "stock"
-        assert not tb._grid_eligible("getrf_batched", 8, 64, 64, f32)
+        assert tauto.choose_batched_lu(8, 64, f32, cpu, True) == "stock"
     assert (tcfg.use_kernels, tcfg.scattered_lu) == saved
     assert health.mode() == "off"
 
