@@ -15,7 +15,16 @@
    to a panel residual < 60 and to ‖L11·linv − I‖ < 1e-3; the batched
    kernels (phase 2c) at (B, n) = (16, 32), (16, 64), (16, 128) and
    (64, 256) to the same pivots, per-problem factor residuals ≤ 3 and
-   1e-4 of their plain versions.
+   1e-4 of their plain versions.  The fused and full kernels of potrf and
+   getrf (phase 2d) at n = 2048, nb = 512: the step kernels at k0 = 0 and
+   512 (Cholesky) and at every k0 (getrf, with ``update`` on and off),
+   each from the same state as its plain version, to the same pivots and
+   1e-4 of it; the full kernels bitwise equal to the chain of their step
+   kernels and to factor residuals ≤ 3; whole factorizations against
+   the plain ones within 1e-4 (Cholesky) or, for LU, whose factors drift
+   apart over four steps of different rounding, with pivots equal up to
+   a near-tie (within 1e-5 relative in one of the two factors) and the
+   drift printed; then each timed at n = 8192.
 3. Drives the main paths through the public entry points, with the
    reference tester's scaled-residual gates (≤ 3):
    * Cholesky: ``posv`` of an n = 8192 fp32 HermitianMatrix (nb = 256,
@@ -37,11 +46,19 @@
      ``BatchQueue``: every answer's residual ≤ 3, no retry, singles
      fallback, short circuit, error or on-demand build, each kernel
      launched once per batched dispatch of its op; prints requests/s
-     and the p50/p99 latency from submit to future resolution.
+     and the p50/p99 latency from submit to future resolution;
+   * depths: ``posv`` at the ``fused`` and ``full`` depths and ``gesv`` at
+     ``fused_trsm``, ``fused`` and ``full`` (n = 8192, 128 right-hand
+     sides), each pinned through ``SLATE_TPU_TORCH_AUTOTUNE_FORCE``, which
+     this script sets per path: residuals ≤ 3, |L| ≤ 1 + 100ε, exact
+     launch counts (16 step launches or 1 full launch, and none of the
+     composed depth's panel kernel), the first column where each LU
+     depth's pivots depart from the composed depth's, the median wall of
+     every depth, and a ``torch.profiler`` split of posv and gesv at full.
    Every kernel's launch count is set to 0 just before each path (each
-   LU driver, ``getri``, each batched driver and the served requests a
-   path of its own) and read just after it; a kernel of the path that
-   was not launched fails the run.
+   LU driver, ``getri``, each batched driver, the served requests and
+   each depth a path of its own) and read just after it; a kernel of the
+   path that was not launched fails the run.
 4. Prints one JSON line of per-kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -75,7 +92,15 @@ REPO = {"matmul": ("slate_tpu_torch/csrc/matmul.cu",
         "potrf_batched": ("slate_tpu_torch/csrc/potrf_batched.cu",
                           "slate_tpu/ops/pallas_kernels.py:2323"),
         "getrf_batched": ("slate_tpu_torch/csrc/getrf_batched.cu",
-                          "slate_tpu/ops/pallas_kernels.py:2433")}
+                          "slate_tpu/ops/pallas_kernels.py:2433"),
+        "potrf_step_fused": ("slate_tpu_torch/csrc/potrf_step_fused.cu",
+                             "slate_tpu/ops/pallas_kernels.py:1631"),
+        "potrf_full_fused": ("slate_tpu_torch/csrc/potrf_full_fused.cu",
+                             "slate_tpu/ops/pallas_kernels.py:1738"),
+        "getrf_step_fused": ("slate_tpu_torch/csrc/getrf_step_fused.cu",
+                             "slate_tpu/ops/pallas_kernels.py:1317"),
+        "getrf_full_fused": ("slate_tpu_torch/csrc/getrf_full_fused.cu",
+                             "slate_tpu/ops/pallas_kernels.py:1481")}
 LU_NB, LU_BB, LU_IB = 512, 128, 16   # the scattered driver's panel call
 LEAF_W, LEAF_IB = 256, 32            # getrf_rec's kernel leaf at nb = 256
 #: bench.py's batched configuration (B, n) and serve configuration
@@ -89,7 +114,26 @@ PATHS = {"cholesky": ("matmul", "chol_inv_panel", "trtri_panel"),
          "getri": ("matmul",),
          "batched_posv": ("potrf_batched",),
          "batched_gesv": ("getrf_batched",),
-         "serve": ("potrf_batched", "getrf_batched")}
+         "serve": ("potrf_batched", "getrf_batched"),
+         "chol_fused": ("matmul", "potrf_step_fused"),
+         "chol_full": ("matmul", "potrf_full_fused"),
+         "lu_fused_trsm": ("matmul", "getrf_step_fused"),
+         "lu_fused": ("matmul", "getrf_step_fused"),
+         "lu_full": ("matmul", "getrf_full_fused")}
+#: the depth paths' exact launch counts at n = 8192 (16 steps of 512), the
+#: composed depth's panel kernels among them (never launched there)
+EXACT = {"chol_fused": {"potrf_step_fused": 16, "potrf_full_fused": 0,
+                        "chol_inv_panel": 0},
+         "chol_full": {"potrf_full_fused": 1, "potrf_step_fused": 0,
+                       "chol_inv_panel": 0},
+         "lu_fused_trsm": {"getrf_step_fused": 16, "getrf_full_fused": 0,
+                           "getrf_panel_fused": 0},
+         "lu_fused": {"getrf_step_fused": 16, "getrf_full_fused": 0,
+                      "getrf_panel_fused": 0},
+         "lu_full": {"getrf_full_fused": 1, "getrf_step_fused": 0,
+                     "getrf_panel_fused": 0}}
+FUSED_N = 2048                  # phase 2d's check size (four 512 steps)
+FORCE = "SLATE_TPU_TORCH_AUTOTUNE_FORCE"
 
 
 def fail(msg: str):
@@ -507,7 +551,8 @@ def run_path(torch, kernels, path: str, fn):
     return out, ms, launches
 
 
-def first_pivot_difference(torch, lu_s, perm_s, lu_r, perm_r):
+def first_pivot_difference(torch, lu_s, perm_s, lu_r, perm_r,
+                           tags=("scattered", "rec")):
     """The first column where the two drivers chose different pivot rows,
     with both candidates' updated magnitudes in each driver's factor: a
     pivot's is |U[j, j]|, the other row's |L[i, j]|·|U[j, j]|.  None when
@@ -517,8 +562,8 @@ def first_pivot_difference(torch, lu_s, perm_s, lu_r, perm_r):
         return None
     j = int(diff[0, 0])
     out = {"column": j, "rows": (int(perm_s[j]), int(perm_r[j]))}
-    for tag, lu, perm, other in (("scattered", lu_s, perm_s, perm_r[j]),
-                                 ("rec", lu_r, perm_r, perm_s[j])):
+    for tag, lu, perm, other in ((tags[0], lu_s, perm_s, perm_r[j]),
+                                 (tags[1], lu_r, perm_r, perm_s[j])):
         pos = int((perm == other).nonzero()[0, 0])
         u = abs(float(lu[j, j]))
         out[tag] = (u, abs(float(lu[pos, j])) * u)
@@ -905,6 +950,378 @@ def serve_path(torch, kernels) -> dict:
     return res
 
 
+def event_ms(torch, fn, setup=None, reps: int = 3, warm: bool = True) -> float:
+    """Mean device time of ``fn`` alone over ``reps`` calls, from CUDA
+    events around each call; ``setup`` (not timed) runs before each, and
+    one untimed call warms up first unless ``warm`` is False."""
+    if warm:
+        if setup:
+            setup()
+        fn()
+    total = 0.0
+    for _ in range(reps):
+        if setup:
+            setup()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def _cusolver(torch, fn):
+    """``fn`` with cuSOLVER as PyTorch's linear-algebra library."""
+    def call():
+        saved = torch.backends.cuda.preferred_linalg_library()
+        torch.backends.cuda.preferred_linalg_library("cusolver")
+        try:
+            return fn()
+        finally:
+            torch.backends.cuda.preferred_linalg_library(saved)
+    return call
+
+
+def _lu_factor_gates(torch, label, a, lu, perm):
+    """‖L·U − A[perm]‖/(‖A‖·ε·n) ≤ 3 and |L| ≤ 1 + 100ε of a packed
+    factor; returns the residual."""
+    eps = float(torch.finfo(torch.float32).eps)
+    n = a.shape[0]
+    lu = lu.double()
+    low = torch.tril(lu, -1) + torch.eye(n, dtype=torch.float64, device=a.device)
+    ad = a.double()
+    res = float((low @ torch.triu(lu) - ad[perm]).norm() / (ad.norm() * eps * n))
+    lmax = float(torch.tril(lu, -1).abs().max())
+    if not (res <= 3 and lmax <= 1 + 100 * eps):
+        fail("%s: factor residual %.3g (<= 3), max |L| %.7f" % (label, res, lmax))
+    return res
+
+
+def check_fused_kernels(torch, kernels, dev) -> dict:
+    """Phase 2d: the fused and full kernels of potrf and getrf against
+    their plain versions at n = 2048 (nb = 512: the step kernels at
+    k0 = 0 and at k0 = 512 on the kernel's own output; the full kernels
+    also bitwise against the chain of their step kernels), then timed at
+    the main path's n = 8192 (the step kernels at k0 = 0)."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    eps = float(torch.finfo(torch.float32).eps)
+    n, nb = FUSED_N, LU_NB
+    out = {}
+
+    # potrf_step_fused / potrf_full_fused on the tester's herm(n)
+    r = torch.randn((n, n), generator=gen, device=dev)
+    spd = (r + r.T) / 2 + n * torch.eye(n, device=dev)
+    ak = spd.clone()
+    errs = []
+    for k0 in (0, nb):
+        before = ak.clone()
+        kernels.potrf_step_fused(ak, k0, nb=nb)
+        ap = kernels.potrf_step_fused_plain(before.clone(), k0, nb=nb)
+        torch.cuda.synchronize()
+        err = rel_err(ak, ap)
+        if not (err <= 1e-4 and torch.equal(ak[:k0], before[:k0])):
+            fail("potrf_step_fused k0=%d: rel %.3e of its plain version, or "
+                 "it wrote rows above k0" % (k0, err))
+        errs.append(float((ak - ap).abs().max()))
+    af = kernels.potrf_full_fused(spd.clone(), nb=nb)
+    afp = kernels.potrf_full_fused_plain(spd.clone(), nb=nb)
+    chain = spd.clone()
+    for k0 in range(0, n, nb):
+        kernels.potrf_step_fused(chain, k0, nb=nb)
+    torch.cuda.synchronize()
+    low = torch.tril(af).double()
+    res = float((low @ low.T - spd.double()).norm() / (spd.double().norm() * eps * n))
+    err = rel_err(af, afp)
+    if not (err <= 1e-4 and res <= 3 and torch.equal(af, chain)):
+        fail("potrf_full_fused: rel %.3e of its plain version, residual %.3g, "
+             "bitwise equal to the step chain: %s"
+             % (err, res, torch.equal(af, chain)))
+    print("potrf fused kernels at n=%d nb=%d: step rel %.3e / %.3e (k0 = 0, "
+          "%d), full rel %.3e, residual %.3g, full == step chain bitwise"
+          % (n, nb, errs[0], errs[1], nb, err, res), flush=True)
+    pot_err = (max(errs), float((af - afp).abs().max()))
+    del ak, af, afp, chain
+
+    # getrf_step_fused (update True and False) on a plain Gaussian A,
+    # transposed: every step of the factorization against the plain step
+    # from the same state (the kernel chain's own); getrf_full_fused
+    # bitwise equal to the chain with update on
+    a = torch.randn((n, n), generator=gen, device=dev)
+    at0 = a.T.contiguous()
+    one = torch.ones((1, n), device=dev)
+    lu_errs = {True: [], False: []}
+    chains = {}
+    for update in (True, False):
+        ck, act, pivs = at0.clone(), one, []
+        for k0 in range(0, n, nb):
+            before = ck.clone()
+            name = "getrf_step_fused k0=%d update=%s" % (k0, update)
+            _, piv, act2, linv = kernels.getrf_step_fused(
+                ck, act, k0, nb=nb, bb=LU_BB, ib=LU_IB, update=update)
+            cp = before.clone()
+            _, rpiv, ract, rlinv = kernels.getrf_step_fused_plain(
+                cp, act, k0, nb=nb, bb=LU_BB, ib=LU_IB, update=update)
+            torch.cuda.synchronize()
+            if not torch.equal(ck[:k0], before[:k0]):
+                fail("%s wrote rows above k0" % name)
+            lu_errs[update].append(_panel_gates(
+                torch, name, before[k0:k0 + nb].T, ck[k0:k0 + nb], piv, act2,
+                linv, (cp[k0:k0 + nb], rpiv, ract, rlinv)))
+            if torch.equal(piv, rpiv) and k0 + nb < n:
+                err = rel_err(ck[k0 + nb:], cp[k0 + nb:])
+                if not err <= 1e-4:
+                    fail("%s: trailing rows rel %.3e of the plain version's"
+                         % (name, err))
+                lu_errs[update].append(float((ck - cp).abs().max()))
+            act = act2
+            pivs.append(piv)
+        chains[update] = (ck, torch.cat(pivs), act)
+    chain, cpiv, cact = chains[True]
+    ck = at0.clone()
+    _, piv, act_f = kernels.getrf_full_fused(ck, one, nb=nb, bb=LU_BB, ib=LU_IB)
+    cp = at0.clone()
+    _, rpiv, _ = kernels.getrf_full_fused_plain(cp, one, nb=nb, bb=LU_BB, ib=LU_IB)
+    torch.cuda.synchronize()
+    if not (torch.equal(ck, chain) and torch.equal(piv, cpiv)
+            and torch.equal(act_f, cact)):
+        fail("getrf_full_fused is not bitwise the chain of getrf_step_fused")
+    res = _lu_factor_gates(torch, "getrf_full_fused", a, ck[:, piv].T, piv)
+    # the whole factorization against the plain one: the two round
+    # differently for four steps, so the factors drift apart (2.4e-4
+    # relative at n = 2048 even on a κ₂ = 100 input, on an H100 80GB HBM3);
+    # the pivots must agree up to a near-tie (1e-5 relative in one of the
+    # factors) and the drift is printed
+    d = first_pivot_difference(torch, ck[:, piv].T, piv, cp[:, rpiv].T, rpiv,
+                               tags=("kernel", "plain"))
+    if d is None:
+        tie = "pivots equal to the plain version's, rel %.3e" % rel_err(ck, cp)
+    else:
+        gaps = [abs(p - o) / p for p, o in (d["kernel"], d["plain"])]
+        tie = ("near-tie at column %d: rows %d (kernel) and %d (plain); "
+               "kernel factor %.9g vs %.9g, plain factor %.9g vs %.9g"
+               % (d["column"], *d["rows"], *d["kernel"], *d["plain"]))
+        if not min(gaps) <= 1e-5:
+            fail("getrf_full_fused: pivots depart from the plain version's, "
+                 "not at a near-tie: " + tie)
+    full_err = max(lu_errs[True])
+    print("getrf fused kernels at n=%d nb=%d: every step max abs diff %.3e "
+          "(update) / %.3e (no update) from the same state, pivots equal; "
+          "full == step chain bitwise, residual %.3g; whole factorization "
+          "vs plain: %s" % (n, nb, max(lu_errs[True]), max(lu_errs[False]),
+                            res, tie), flush=True)
+    del ck, cp, before, chains, chain
+
+    # timing at the main path's n = 8192, nb = 512 (CUDA events around the
+    # kernel alone; each call starts from a fresh copy of the input)
+    N8, t = N, PANEL_NB
+    nt = N8 - t
+    r = torch.randn((N8, N8), generator=gen, device=dev)
+    spd = (r + r.T) / 2 + N8 * torch.eye(N8, device=dev)
+    del r
+    w = torch.empty_like(spd)
+
+    def reset_spd():
+        w.copy_(spd)
+
+    tiles = t * t * (nt // t) * (nt // t + 1) // 2     # the lower tile pairs
+    step_flops = t ** 3 / 3.0 + nt * t * t + 2.0 * t * tiles
+    step_bytes = 8.0 * (N8 * t + tiles)
+
+    def library_potrf_step():
+        l11 = torch.linalg.cholesky(w[:t, :t])
+        l21 = torch.linalg.solve_triangular(l11.T, w[t:, :t], upper=True,
+                                            left=False)
+        w[t:, t:] -= l21 @ l21.T
+
+    rows = []
+    rows.append(("potrf_step_fused", dict(
+        shape="(%d,%d) carry, k0=0, nb=%d tc=%d" % (N8, N8, t, t),
+        max_abs_err=pot_err[0], tol="rel Frobenius <= 1e-4",
+        ms=event_ms(torch, lambda: kernels.potrf_step_fused(w, 0, nb=t),
+                    reset_spd, 3),
+        plain_ms=event_ms(torch, lambda: kernels.potrf_step_fused_plain(
+            w, 0, nb=t), reset_spd, 1, warm=False),
+        library_ms=event_ms(torch, _cusolver(torch, library_potrf_step),
+                            reset_spd, 3),
+        library="cholesky + solve_triangular + matmul (composition)",
+        bound=bound(step_flops, step_bytes))))
+    rows.append(("potrf_full_fused", dict(
+        shape="(%d,%d), nb=%d tc=%d" % (N8, N8, t, t),
+        max_abs_err=pot_err[1], tol="rel Frobenius <= 1e-4, residual <= 3",
+        ms=event_ms(torch, lambda: kernels.potrf_full_fused(w, nb=t),
+                    reset_spd, 2),
+        plain_ms=event_ms(torch, lambda: kernels.potrf_full_fused_plain(
+            w, nb=t), reset_spd, 1, warm=False),
+        library_ms=event_ms(torch, _cusolver(torch, lambda: torch.linalg.cholesky(
+            spd)), None, 3),
+        library="cholesky (cuSOLVER)",
+        bound=bound(N8 ** 3 / 3.0, 8.0 * N8 * (N8 + 1) / 2))))
+    del spd
+    a8 = torch.randn((N8, N8), generator=gen, device=dev)
+    at8 = a8.T.contiguous()
+    del a8
+    w = torch.empty_like(at8)
+    one8 = torch.ones((1, N8), device=dev)
+
+    def reset_lu():
+        w.copy_(at8)
+
+    pan = at8[:t].T.contiguous()                     # A's first 512 columns
+
+    def library_getrf_step():
+        lu, _ = torch.linalg.lu_factor(pan)
+        u12 = torch.linalg.solve_triangular(lu[:t], w[t:, :t].T, upper=False,
+                                            unitriangular=True)
+        w[t:, t:] -= (lu[t:] @ u12).T
+
+    lu_step_flops = N8 * t * t - t ** 3 / 3.0 + nt * t * t + 2.0 * nt * t * nt
+    rows.append(("getrf_step_fused", dict(
+        shape="(%d,%d) carry, k0=0, nb=%d bb=%d ib=%d" % (N8, N8, t, LU_BB, LU_IB),
+        max_abs_err=max(lu_errs[True] + lu_errs[False]),
+        tol="pivots exact (near-ties reported), rel 1e-4",
+        ms=event_ms(torch, lambda: kernels.getrf_step_fused(
+            w, one8, 0, nb=t, bb=LU_BB, ib=LU_IB), reset_lu, 3),
+        plain_ms=event_ms(torch, lambda: kernels.getrf_step_fused_plain(
+            w, one8, 0, nb=t, bb=LU_BB, ib=LU_IB), reset_lu, 1, warm=False),
+        library_ms=event_ms(torch, _cusolver(torch, library_getrf_step),
+                            reset_lu, 3),
+        library="lu_factor + solve_triangular + matmul (composition, rows "
+                "not gathered)",
+        bound=bound(lu_step_flops, 8.0 * N8 * N8))))
+    rows.append(("getrf_full_fused", dict(
+        shape="(%d,%d) carry, nb=%d bb=%d ib=%d" % (N8, N8, t, LU_BB, LU_IB),
+        max_abs_err=full_err,
+        tol="bitwise the step chain, each step vs plain from its state: "
+            "pivots exact (near-ties reported), rel 1e-4; residual <= 3",
+        ms=event_ms(torch, lambda: kernels.getrf_full_fused(
+            w, one8, nb=t, bb=LU_BB, ib=LU_IB), reset_lu, 2),
+        plain_ms=event_ms(torch, lambda: kernels.getrf_full_fused_plain(
+            w, one8, nb=t, bb=LU_BB, ib=LU_IB), reset_lu, 1, warm=False),
+        library_ms=event_ms(torch, _cusolver(torch, lambda: torch.linalg.lu_factor(
+            at8.T)), None, 3),
+        library="lu_factor (cuSOLVER)",
+        bound=bound(2.0 * N8 ** 3 / 3.0, 8.0 * N8 * N8))))
+    # the same launch without its rank-nb update: the fused_trsm depth's
+    # kernel, and the panel + X₂ + U + scatter share of the step
+    no_update_ms = event_ms(torch, lambda: kernels.getrf_step_fused(
+        w, one8, 0, nb=t, bb=LU_BB, ib=LU_IB, update=False), reset_lu, 3)
+    print("kernel getrf_step_fused (%d,%d) carry, k0=0, update=False: "
+          "%.4f ms" % (N8, N8, no_update_ms), flush=True)
+    for name, r in rows:
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
+        out[name] = r
+        print("kernel %s %s: max_abs_err %.3e (%s); kernel %.4f ms, plain "
+              "%.4f ms, library %.4f ms (%s), bound %.5f ms (%s)"
+              % (name, r["shape"], r["max_abs_err"], r["tol"], r["ms"],
+                 r["plain_ms"], r["library_ms"], r.pop("library"),
+                 r["bound_ms"], r["bound_by"]), flush=True)
+    return out
+
+
+def main_path_depths(torch, st, kernels, dev) -> dict:
+    """Phase 3e: posv at the fused and full depths and gesv at fused_trsm,
+    fused and full, through the public entry points with the depth pinned
+    (SLATE_TPU_TORCH_AUTOTUNE_FORCE, set here per path), at n = 8192: the
+    tester's residual gates, the exact launch counts of EXACT, the first
+    column where each LU depth's pivots depart from the composed depth's,
+    the median wall of every depth (the composed ones included), and a
+    torch.profiler split of posv and gesv at full."""
+    import os
+
+    from slate_tpu_torch.perf import autotune
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    eps = float(torch.finfo(torch.float32).eps)
+    r = torch.randn((N, N), generator=gen, device=dev)
+    a = (r + r.T) / 2 + N * torch.eye(N, device=dev)     # the tester's herm(n)
+    del r
+    b = torch.randn((N, NRHS), generator=gen, device=dev)
+    A = st.HermitianMatrix(a, uplo=st.Uplo.Lower, mb=NB, nb=NB)
+    g = torch.randn((N, N), generator=gen, device=dev)   # the tester's gesv A
+    G = st.Matrix.from_array(g, nb=NB)
+    res, walls, launches = {}, {}, {}
+
+    def pinned(pin, fn):
+        os.environ[FORCE] = pin
+        try:
+            return fn()
+        finally:
+            del os.environ[FORCE]
+
+    walls["posv composed"] = _wall_ms(torch, lambda: st.posv(A, b), 3)
+    for depth in ("fused", "full"):
+        path = "chol_" + depth
+        (fac, x), ms, lc = pinned("potrf_step=" + depth, lambda: run_path(
+            torch, kernels, path, lambda: st.posv(A, b)))
+        if autotune.decisions()["potrf_step|%d,%d,float32,%s"
+                                % (N, PANEL_NB, dev.type)] != depth:
+            fail("posv did not take the %s depth" % depth)
+        xd, ld = x.double(), fac.data.double()
+        ad = a.double()
+        res["posv_%s_residual" % depth] = float(
+            (ad @ xd - b.double()).norm() / (ad.norm() * xd.norm() * eps * N))
+        res["potrf_%s_residual" % depth] = float(
+            (ld @ ld.T - ad).norm() / (ad.norm() * eps * N))
+        walls["posv " + depth] = pinned("potrf_step=" + depth, lambda: _wall_ms(
+            torch, lambda: st.posv(A, b), 3))
+        launches[path] = lc
+        del fac, x, xd, ld, ad
+    (lu_c, perm_c, _), _, _ = run_path(torch, kernels, "lu_scattered",
+                                       lambda: st.gesv(G, b))
+    walls["gesv composed"] = _wall_ms(torch, lambda: st.gesv(G, b), 3)
+    for depth in ("fused_trsm", "fused", "full"):
+        path = "lu_" + depth
+        (lu, perm, x), ms, lc = pinned("lu_step=" + depth, lambda: run_path(
+            torch, kernels, path, lambda: st.gesv(G, b)))
+        if autotune.decisions()["lu_step|%d,%d,%d,float32,%s"
+                                % (N, N, LU_NB, dev.type)] != depth:
+            fail("gesv did not take the %s depth" % depth)
+        xd, gd = x.double(), g.double()
+        res["gesv_%s_residual" % depth] = float(
+            (gd @ xd - b.double()).norm() / (gd.norm() * xd.norm() * eps * N))
+        lmax = float(torch.tril(lu.data, -1).abs().max())
+        if not lmax <= 1 + 100 * eps:
+            fail("gesv %s: |L| = %.7f > 1 + 100 eps" % (depth, lmax))
+        d = first_pivot_difference(torch, lu_c.data, perm_c, lu.data, perm,
+                                   tags=("composed", depth))
+        if d is None:
+            print("gesv %s: pivots equal to the composed depth's" % depth,
+                  flush=True)
+        else:
+            print("gesv %s: pivots depart from the composed depth's at column "
+                  "%d, rows %d (composed) and %d (%s); in the composed factor "
+                  "|pivot| %.9g vs the other row %.9g; in the %s factor %.9g "
+                  "vs %.9g" % (depth, d["column"], *d["rows"], depth,
+                               *d["composed"], depth, *d[depth]), flush=True)
+        walls["gesv " + depth] = pinned("lu_step=" + depth, lambda: _wall_ms(
+            torch, lambda: st.gesv(G, b), 3))
+        launches[path] = lc
+        del lu, perm, x, xd, gd
+    for path, want in EXACT.items():
+        got = {k: launches[path][k] for k in want}
+        if got != want:
+            fail("%s launched %s, not %s" % (path, got, want))
+    print("depth paths n=%d: residuals %s; launches %s; median wall ms %s"
+          % (N, {k: round(v, 4) for k, v in res.items()},
+             {p: {k: v for k, v in l.items() if v} for p, l in launches.items()},
+             {k: round(v, 2) for k, v in walls.items()}), flush=True)
+    for name, v in res.items():
+        if not v <= 3:
+            fail("%s %.3f > 3" % (name, v))
+    res["posv_full_split"] = pinned("potrf_step=full", lambda: device_split(
+        torch, "posv (full)", lambda: st.posv(A, b),
+        {"potrf_full_fused kernel": "potrf_full_fused_kernel",
+         "matmul kernel": "matmul_f32_kernel"}))
+    res["gesv_full_split"] = pinned("lu_step=full", lambda: device_split(
+        torch, "gesv (full)", lambda: st.gesv(G, b),
+        {"getrf_full_fused kernel": "getrf_full_fused_kernel",
+         "matmul kernel": "matmul_f32_kernel"}))
+    res.update(walls=walls, launches=launches)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -945,10 +1362,12 @@ def main() -> int:
     measured = check_kernels(torch, kernels, dev)
     measured.update(check_lu_kernels(torch, kernels, dev))
     measured.update(check_batched_kernels(torch, kernels, dev))
+    measured.update(check_fused_kernels(torch, kernels, dev))
     paths = {"cholesky": main_path(torch, st, kernels, dev)["launches"]}
     paths.update(main_path_lu(torch, st, kernels, dev)["launches"])
     paths.update(main_path_batched(torch, st, kernels, dev)["launches"])
     paths.update(serve_path(torch, kernels)["launches"])
+    paths.update(main_path_depths(torch, st, kernels, dev)["launches"])
 
     rows = []
     for name, r in measured.items():

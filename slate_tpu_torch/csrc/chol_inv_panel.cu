@@ -31,46 +31,7 @@ __global__ void __launch_bounds__(NTH, 1)
 chol_inv_panel_kernel(const float* A, int64_t lda, float* L, float* Linv,
                       float* W, int nb) {
   __shared__ __align__(16) Smem s;
-  const int tid = threadIdx.x;
-  const int64_t nn = (int64_t)nb * nb;
-  for (int64_t e = tid; e < nn; e += NTH) {
-    const int i = (int)(e / nb), j = (int)(e % nb);
-    L[e] = (i >= j) ? A[(int64_t)i * lda + j] : 0.f;
-    Linv[e] = 0.f;
-  }
-  __syncthreads();
-
-  for (int k0 = 0; k0 < nb; k0 += IB) {
-    float* lkk = L + (int64_t)k0 * nb + k0;
-    if (tid < 32) {
-      load_lower_block_warp(s, lkk, nb);
-      chol_unblocked_warp(s);
-      trtri_unblocked_warp(s);
-    }
-    __syncthreads();
-    {
-      const int r = tid / IB, c = tid % IB;
-      if (r >= c) lkk[(int64_t)r * nb + c] = s.blk[r][c];
-      Linv[(int64_t)(k0 + r) * nb + k0 + c] = s.inv[r][c];
-    }
-    const int m = nb - k0 - IB;
-    if (m > 0) {
-      float* a21 = L + (int64_t)(k0 + IB) * nb + k0;
-      const float* binv = Linv + (int64_t)k0 * nb + k0;
-      __syncthreads();
-      // W (m, IB) = A21 · Binvᵀ
-      block_gemm(s, m, IB, IB, 1.f, a21, nb, 1, false, binv, 1, nb, false,
-                 0.f, W, IB, false);
-      for (int e = tid; e < m * IB; e += NTH)
-        a21[(int64_t)(e / IB) * nb + e % IB] = W[e];
-      // A22 -= W · Wᵀ on the lower triangle
-      block_gemm(s, m, m, IB, -1.f, W, IB, 1, false, W, 1, IB, false,
-                 1.f, L + (int64_t)(k0 + IB) * nb + k0 + IB, nb, true);
-    } else {
-      __syncthreads();
-    }
-  }
-  block_inv_doubling(s, L, nb, Linv, nb, W, nb);
+  chol_inv_block(s, A, lda, L, Linv, W, nb);
 }
 
 }  // namespace

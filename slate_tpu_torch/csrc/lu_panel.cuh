@@ -1,6 +1,7 @@
-// Device code shared by the two partial-pivot LU panel kernels,
-// getrf_panel_linv.cu and getrf_panel_fused.cu, as the Pallas kernels
-// share _factor_block_lane_major / _trtri_unblocked / _block_inv_doubling
+// Device code shared by the partial-pivot LU panel kernels,
+// getrf_panel_linv.cu and getrf_panel_fused.cu, and the panel phase of the
+// fused step and full kernels (lu_step.cuh), as the Pallas kernels share
+// _factor_block_lane_major / _trtri_unblocked / _block_inv_doubling
 // (slate_tpu/ops/pallas_kernels.py:315-363, :690-771).
 //
 // The function: TRUE partial-pivot LU of a TRANSPOSED, lane-major (w, m)
@@ -97,8 +98,22 @@ __device__ __forceinline__ void warp_best(float& v, int& l, int& g) {
   }
 }
 
-__global__ void __launch_bounds__(NT) lu_panel_kernel(Params p) {
-  extern __shared__ __align__(16) float smem[];
+// A global read of the panel's input; CG reads through L2 only
+// (ld.global.cg), for a panel that other blocks of the same cooperative
+// launch wrote (getrf_full_fused.cu's later steps).
+template <bool CG>
+__device__ __forceinline__ float load_in(const float* q) {
+  if (CG) return __ldcg(q);
+  return *q;
+}
+
+// The whole panel by every block of the cooperative grid, from `smem`
+// (the block's dynamic shared memory, smem_floats(m, w, ib, G) floats).
+// Ends after the write-back of the block's lanes, its act lanes and its
+// linv columns, with no grid barrier: a caller that reads them from
+// another block syncs the grid first.
+template <bool CG = false>
+__device__ void panel_phase(const Params& p, float* smem) {
   __shared__ float red_v[NWARP];
   __shared__ int red_l[NWARP];
   __shared__ int s_lc, s_p, s_g;
@@ -120,10 +135,10 @@ __global__ void __launch_bounds__(NT) lu_panel_kernel(Params p) {
 
   for (int64_t e = tid; e < (int64_t)w * cs; e += NT) {
     const int i = (int)(e / cs), l = (int)(e % cs);
-    S[e] = l < nl ? p.in[(int64_t)i * p.ld_in + lane0 + l] : 0.f;
+    S[e] = l < nl ? load_in<CG>(p.in + (int64_t)i * p.ld_in + lane0 + l) : 0.f;
   }
   for (int l = tid; l < cs; l += NT) {
-    act[l] = l < nl ? p.act_in[lane0 + l] : 0.f;
+    act[l] = l < nl ? load_in<CG>(p.act_in + lane0 + l) : 0.f;
     blk[l] = -1;
   }
   for (int64_t e = tid; e < (int64_t)nown * w; e += NT) Xo[e] = 0.f;
@@ -314,10 +329,24 @@ __global__ void __launch_bounds__(NT) lu_panel_kernel(Params p) {
   }
 }
 
-// The grid the launch uses: one block per SM first; if its share of
-// shared memory lets more blocks share an SM, as many as are co-resident,
-// never fewer than MIN_LANES lanes a block.  Returns a CUDA error code.
-inline int plan_grid(int m, int w, int ib, int* G_out) {
+__global__ void __launch_bounds__(NT) lu_panel_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  panel_phase(p, smem);
+}
+
+// The dynamic shared memory of one block on a grid of G: the panel's
+// smem_floats, or `min_floats` for a kernel that goes on to phases of its
+// own from the same memory (lu_step.cuh), whichever is larger.
+inline int64_t dyn_floats(int m, int w, int ib, int G, int64_t min_floats) {
+  return std::max(smem_floats(m, w, ib, G), min_floats);
+}
+
+// The grid `kernel` (blocks of NT threads running the panel phase) is
+// launched on: one block per SM first; if its share of shared memory lets
+// more blocks share an SM, as many as are co-resident, never fewer than
+// MIN_LANES lanes a block.  Returns a CUDA error code.
+inline int plan_grid_for(const void* kernel, int m, int w, int ib,
+                         int64_t min_floats, int* G_out) {
   if (m < 1 || w < 1 || ib < 1 || ib > MAX_IB || w % ib != 0)
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, optin = 0, coop = 0;
@@ -330,38 +359,51 @@ inline int plan_grid(int m, int w, int ib, int* G_out) {
   // the dynamic share is what the opt-in limit leaves after the kernel's
   // static shared memory (its reduction scratch)
   cudaFuncAttributes fa;
-  if ((err = cudaFuncGetAttributes(&fa, lu_panel_kernel)) != cudaSuccess)
-    return (int)err;
+  if ((err = cudaFuncGetAttributes(&fa, kernel)) != cudaSuccess) return (int)err;
   const int dyn_max = optin - (int)fa.sharedSizeBytes;
   const int g1 = std::max(1, std::min(sms, ceildiv(m, MIN_LANES)));
-  const int64_t b1 = 4 * smem_floats(m, w, ib, g1);
+  const int64_t b1 = 4 * dyn_floats(m, w, ib, g1, min_floats);
   if (b1 > dyn_max) return (int)cudaErrorInvalidValue;
-  if ((err = cudaFuncSetAttribute(lu_panel_kernel,
+  if ((err = cudaFuncSetAttribute(kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)b1)) != cudaSuccess)
     return (int)err;
   int occ = 0;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &occ, lu_panel_kernel, NT, (size_t)b1)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, NT,
+                                                           (size_t)b1)) !=
+      cudaSuccess)
     return (int)err;
   if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   *G_out = std::max(1, std::min(occ * sms, ceildiv(m, MIN_LANES)));
   return 0;
 }
 
-inline int launch(Params p, cudaStream_t stream) {
-  if (p.m < 1 || p.w < 1 || p.ib < 1 || p.ib > MAX_IB || p.w % p.ib != 0 ||
-      p.G < 1)
+// Launch `kernel` cooperatively on G blocks with `args`, its dynamic share
+// dyn_floats(m, w, ib, G, min_floats).  A grid larger than co-residency
+// allows is refused by the launch (an error code, never a hang).
+inline int launch_for(const void* kernel, void** args, int m, int w, int ib,
+                      int G, int64_t min_floats, cudaStream_t stream) {
+  if (m < 1 || w < 1 || ib < 1 || ib > MAX_IB || w % ib != 0 || G < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = 4 * (size_t)smem_floats(p.m, p.w, p.ib, p.G);
+  const size_t bytes = 4 * (size_t)dyn_floats(m, w, ib, G, min_floats);
   cudaError_t err = cudaFuncSetAttribute(
-      lu_panel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel(
-      (const void*)lu_panel_kernel, dim3(p.G), dim3(NT), args, bytes, stream);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(G), dim3(NT), args, bytes,
+                                    stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The panel kernel alone (getrf_panel_linv.cu, getrf_panel_fused.cu).
+inline int plan_grid(int m, int w, int ib, int* G_out) {
+  return plan_grid_for((const void*)lu_panel_kernel, m, w, ib, 0, G_out);
+}
+
+inline int launch(Params p, cudaStream_t stream) {
+  void* args[] = {&p};
+  return launch_for((const void*)lu_panel_kernel, args, p.m, p.w, p.ib, p.G, 0,
+                    stream);
 }
 
 }  // namespace lu_panel

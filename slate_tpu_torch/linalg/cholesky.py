@@ -3,10 +3,13 @@ counterpart of ``slate_tpu/linalg/cholesky.py:31-247`` (reference
 ``src/potrf.cc``, ``potrs.cc``, ``posv.cc``, ``potri.cc``, ``trtri.cc``,
 ``trtrm.cc``).
 
+The fp32 factorization runs at one of three depths, as the
+``potrf_step`` site decides: the strip driver over the ``chol_inv_panel``
+kernel (``panels``, the default), one ``potrf_step_fused`` launch per
+step (``fused``) or one ``potrf_full_fused`` launch (``full``).
 Branches of the JAX package not ported yet — out-of-core (``ooc``), the
-fp64 Ozaki/Newton panels (``ozaki``), the fused step and
-full-factorization kernels (``fused``/``full``) and the ABFT checksum
-envelope (off by default there) — are queued in ROADMAP.md.
+fp64 Ozaki/Newton panels (``ozaki``) and the ABFT checksum envelope (off
+by default there) — are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from ..exceptions import SlateError
 from ..matrix import BaseMatrix, BaseTrapezoidMatrix, HermitianMatrix, \
     TriangularMatrix
 from ..method import select_backend
-from ..ops import blocks
+from ..ops import blocks, smem
 from ..ops.tile_ops import hermitize
 from ..options import Options, get_option
 from ..perf.metrics import instrument_driver
@@ -56,18 +59,24 @@ def potrf(a, opts: Optional[Options] = None, *, device=None):
 
 
 def _potrf_branch(full, nb: int, nbsel: int, method) -> str:
-    """Which potrf branch runs: ``"panels"`` (the strip driver over the
-    ``chol_inv_panel`` kernel, fp32), ``"recursive"`` (an explicit
-    ``method_factor``: the nb recursion) or ``"stock"``
-    (``torch.linalg.cholesky``: fp64, complex, or kernels switched off).
-    The ``potrf_step`` site is consulted first, as in the JAX package; it
-    answers ``"composed"`` until the fused kernels are ported."""
+    """Which potrf branch runs: ``"full"`` / ``"fused"`` (the whole
+    factorization, or each whole step, one kernel launch), ``"panels"``
+    (the strip driver over the ``chol_inv_panel`` kernel, fp32),
+    ``"recursive"`` (an explicit ``method_factor``: the nb recursion) or
+    ``"stock"`` (``torch.linalg.cholesky``: fp64, complex, or kernels
+    switched off).  The ``potrf_step`` site is consulted first, with the
+    shape gates of the fused kernels, as in the JAX package."""
     if method != "auto":
         return "recursive"
     n = int(full.shape[-1])
     if full.ndim == 2 and full.dtype.is_floating_point:
-        select_backend("potrf_step", n=n, nb=nbsel, dtype=full.dtype,
-                       device=full.device)
+        depth = select_backend(
+            "potrf_step", n=n, nb=nbsel, dtype=full.dtype,
+            device=full.device,
+            eligible=smem.use_fused_potrf_step(n, nbsel, full.dtype),
+            eligible_full=smem.use_full_potrf(n, nbsel, full.dtype))
+        if depth in ("full", "fused"):
+            return depth
     if full.ndim == 2 and select_backend(
             "potrf_panel", n=n, nb=nbsel, dtype=full.dtype,
             device=full.device) in ("kernel", "plain"):
@@ -77,6 +86,10 @@ def _potrf_branch(full, nb: int, nbsel: int, method) -> str:
 
 def _potrf_dispatch(branch: str, full, nb: int, nbsel: int):
     """Run one resolved potrf branch (see :func:`_potrf_branch`)."""
+    if branch == "full":
+        return blocks.potrf_full(full, nbsel)
+    if branch == "fused":
+        return blocks.potrf_steps(full, nbsel)
     if branch == "panels":
         return blocks.potrf_panels(full, nbsel)
     if branch == "recursive":

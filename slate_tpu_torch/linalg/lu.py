@@ -9,15 +9,18 @@ site:
 
 * ``"scattered"`` — :func:`getrf_scattered`: the matrix lives
   transposed, rows never move, and each 512-wide panel is one launch of
-  the ``getrf_panel_fused`` kernel (``csrc/getrf_panel_fused.cu``);
+  the ``getrf_panel_fused`` kernel (``csrc/getrf_panel_fused.cu``) — or,
+  at the deeper depths of the ``lu_step`` site, each whole step one
+  launch of ``getrf_step_fused`` or the whole factorization one launch of
+  ``getrf_full_fused``;
 * ``"rec"`` — :func:`getrf_rec`: the blocked recursion, whose panel leaf
   is the ``getrf_panel_linv`` kernel (``csrc/getrf_panel_linv.cu``)
   where the ``lu_panel`` site admits it, else ``torch.linalg.lu_factor``.
 
 Not ported yet, each queued in ROADMAP.md: CALU (``_panel_lu_tntpiv``,
 ``getrf_tntpiv``), the tall-panel loop (``getrf_panels``,
-``_tall_panel_lu*``), ``gesv_mixed*``, the ABFT and out-of-core branches
-and the ``fused``/``fused_trsm``/``full`` step depths.
+``_tall_panel_lu*``), ``gesv_mixed*`` and the ABFT and out-of-core
+branches.
 """
 
 from __future__ import annotations
@@ -241,21 +244,26 @@ def _scattered_tail(at, piv_all, act, m: int, k: int):
 def getrf_scattered(a, nb: int = 512, bb: int = 128, step=None):
     """Right-looking partial-pivot LU in SCATTERED-ROW form: pivoting is
     logical (each pivot is the masked argmax over the still-active rows
-    and retires that row; no row moves), the whole matrix lives
-    transposed, and each panel is one ``getrf_panel_fused`` launch.
+    and retires that row; no row moves), and the whole matrix lives
+    transposed in ``a.T.contiguous()``, one private copy that the kernels
+    update IN PLACE, standing in for the JAX package's aliased HBM carry.
+    The ``lu_step`` site (or ``step``) picks the depth:
 
-    The carry is ``a.T.contiguous()``, one private copy.  The panel kernel
-    factors rows [k0, k0+nb) of it IN PLACE, which stands in for the JAX
-    package's aliased HBM carry; the trsm glue and the trailing update
-    write into the same carry.  Per step (the ``"composed"`` depth): the
-    pivot-lane gather of the trailing rows, U₁₂ from the panel's L₁₁⁻¹
-    with one residual correction (full-precision products), the rank-nb
-    update over all lanes with retired lanes' multipliers zeroed (through
-    the ``matmul`` site), and U₁₂ written into the pivot lanes.
+    * ``"composed"`` — each panel one ``getrf_panel_fused`` launch, then
+      in PyTorch glue: the pivot-lane gather of the trailing rows, U₁₂
+      from the panel's L₁₁⁻¹ with one residual correction (full-precision
+      products), the rank-nb update over all lanes with retired lanes'
+      multipliers zeroed (through the ``matmul`` site), and U₁₂ written
+      into the pivot lanes (3 round trips a step);
+    * ``"fused"`` — the whole step one ``getrf_step_fused`` launch (panel,
+      Newton-refined inverse, U₁₂, update, scatter; no round trip);
+    * ``"fused_trsm"`` — the same kernel with ``update=False``, then the
+      rank-nb update through the ``matmul`` site (1 round trip a step);
+    * ``"full"`` — the whole factorization one ``getrf_full_fused``
+      launch, its pivots in factorization order.
 
-    ``step`` overrides the ``lu_step`` site; ``"fused"``,
-    ``"fused_trsm"`` and ``"full"`` need kernels not ported yet.  Returns
-    ``(lu, perm)`` with ``a[perm] = L·U``.  Requires min(m, n) % nb == 0.
+    Returns ``(lu, perm)`` with ``a[perm] = L·U``.  Requires
+    min(m, n) % nb == 0.
     """
     m, n = a.shape
     k = min(m, n)
@@ -264,21 +272,38 @@ def getrf_scattered(a, nb: int = 512, bb: int = 128, step=None):
         raise ValueError("getrf_scattered needs bb | nb | min(m, n), got "
                          "(%d, %d), nb = %d, bb = %d" % (m, n, nb, bb))
     if step is None:
-        step = select_backend("lu_step", m=m, n=n, nb=nb, dtype=a.dtype,
-                              device=a.device)
-    if step in ("fused", "fused_trsm", "full"):
-        raise NotImplementedError(
-            "getrf_scattered step=%r needs the getrf_step_fused / "
-            "getrf_full_fused kernels, which are not ported yet (ROADMAP.md, "
-            "queue 2)" % (step,))
-    if step != "composed":
+        step = select_backend(
+            "lu_step", m=m, n=n, nb=nb, dtype=a.dtype, device=a.device,
+            eligible=smem.use_fused_step(m, n, nb, a.dtype, a.device),
+            eligible_full=smem.use_full_fused(m, n, nb, a.dtype, a.device))
+    if step not in ("composed", "fused", "fused_trsm", "full"):
         raise ValueError("unknown getrf_scattered step %r" % (step,))
     at = a.T.contiguous()
     act = torch.ones((1, m), dtype=a.dtype, device=a.device)
+    if step == "full":
+        metrics.inc("step.getrf.steps", float(k // nb))
+        with metrics.step_timer("getrf", "full"):
+            at, piv_all, act = kernels.getrf_full_fused(
+                at, act, nb=nb, bb=bb, tc=smem.full_fused_tc(m, nb))
+        return _scattered_tail(at, piv_all, act, m, k)
+    tc = smem.fused_step_tc(m, n, nb)
     eye = torch.eye(nb, dtype=a.dtype, device=a.device)
     pivs = []
     for k0 in range(0, k, nb):
         metrics.inc("step.getrf.steps")
+        if step in ("fused", "fused_trsm"):
+            with metrics.step_timer("getrf", "fused"):
+                at, piv, act, _ = kernels.getrf_step_fused(
+                    at, act, k0, nb=nb, bb=bb, tc=tc, update=step == "fused")
+            pivs.append(piv)
+            if step == "fused_trsm" and k0 + nb < n:
+                # the kernel scattered U12 into the pivot lanes; the rank-nb
+                # update gathers them back for its operand
+                metrics.count_hbm_roundtrips(1.0)
+                with metrics.step_timer("getrf", "update"):
+                    lmt = at[k0:k0 + nb, :] * act
+                    at[k0 + nb:, :] -= matmul(at[k0 + nb:, :][:, piv], lmt)
+            continue
         with metrics.step_timer("getrf", "panel"):
             at, piv, act, linv = kernels.getrf_panel_fused(at, act, k0,
                                                            nb=nb, bb=bb)

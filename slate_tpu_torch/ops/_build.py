@@ -37,6 +37,14 @@ SOURCES = {
     "getrf_panel_fused": ("getrf_panel_fused.cu", ("lu_panel.cuh",)),
     "potrf_batched": ("potrf_batched.cu", ("tri_panel.cuh",)),
     "getrf_batched": ("getrf_batched.cu", ("lu_panel.cuh",)),
+    "potrf_step_fused": ("potrf_step_fused.cu",
+                         ("potrf_step.cuh", "tri_panel.cuh")),
+    "potrf_full_fused": ("potrf_full_fused.cu",
+                         ("potrf_step.cuh", "tri_panel.cuh")),
+    "getrf_step_fused": ("getrf_step_fused.cu",
+                         ("lu_step.cuh", "lu_panel.cuh")),
+    "getrf_full_fused": ("getrf_full_fused.cu",
+                         ("lu_step.cuh", "lu_panel.cuh")),
 }
 
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

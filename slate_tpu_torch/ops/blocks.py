@@ -1,5 +1,5 @@
 """Recursive blocked Level-3 building blocks — the counterpart of
-``slate_tpu/ops/blocks.py:49-420`` and ``:541-640``.
+``slate_tpu/ops/blocks.py:49-420`` and ``:457-640``.
 
 Each op is a recursive blocked algorithm over one dense tensor whose
 base case is an (nb, nb) tile op, and whose every split level exposes
@@ -257,6 +257,47 @@ def lauum_rec(uplo: Uplo, a, nb: int, conj: bool = True, hi: bool = False):
         top = torch.cat([r11, r12], dim=-1)
         bot = torch.cat([_t(r12, conj), r22], dim=-1)
     return torch.cat([top, bot], dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# Right-looking Cholesky whose whole step, or whole factorization, is one
+# kernel launch (the ``fused`` and ``full`` depths of the potrf_step site)
+# ---------------------------------------------------------------------------
+
+def potrf_steps(a, nb: int = 512, tc=None):
+    """Right-looking blocked Cholesky whose WHOLE step — diagonal
+    chol + inverse, L21 = A21·L11⁻ᵀ, the symmetric rank-nb trailing
+    update — is one ``potrf_step_fused`` launch per block column, on one
+    private copy of ``a`` updated in place.  nb a power of two ≥ 128
+    dividing n (:func:`slate_tpu_torch.ops.smem.use_fused_potrf_step`).
+    Returns L (zeros above the diagonal)."""
+    from ..perf import metrics
+    from . import smem
+
+    n = a.shape[-1]
+    tc = tc if tc is not None else smem.potrf_step_tc(n, nb)
+    a = a.clone(memory_format=torch.contiguous_format)
+    metrics.inc("step.potrf.steps", float(n // nb))
+    with metrics.step_timer("potrf", "fused"):
+        for k0 in range(0, n, nb):
+            kernels.potrf_step_fused(a, k0, nb=nb, tc=tc)
+    return a.tril_()
+
+
+def potrf_full(a, nb: int = 512, tc=None):
+    """Right-looking blocked Cholesky whose WHOLE factorization is one
+    ``potrf_full_fused`` launch, on one private copy of ``a``; same
+    shapes and result contract as :func:`potrf_steps`."""
+    from ..perf import metrics
+    from . import smem
+
+    n = a.shape[-1]
+    tc = tc if tc is not None else smem.potrf_full_tc(n, nb)
+    a = a.clone(memory_format=torch.contiguous_format)
+    metrics.inc("step.potrf.steps", float(n // nb))
+    with metrics.step_timer("potrf", "full"):
+        kernels.potrf_full_fused(a, nb=nb, tc=tc)
+    return a.tril_()
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,9 @@ Each kernel has three things here:
 
 * a wrapper (:func:`matmul`, :func:`chol_inv_panel`, :func:`trtri_panel`,
   :func:`getrf_panel_linv`, :func:`getrf_panel_fused`,
-  :func:`potrf_batched`, :func:`getrf_batched`) that checks device,
+  :func:`potrf_batched`, :func:`getrf_batched`, :func:`potrf_step_fused`,
+  :func:`potrf_full_fused`, :func:`getrf_step_fused`,
+  :func:`getrf_full_fused`) that checks device,
   dtype, shape and strides, allocates its outputs and scratch with
   ``torch.empty``, launches the kernel on the current CUDA stream and
   raises if the launch fails.  Given CPU tensors it runs the plain
@@ -34,7 +36,9 @@ import torch
 #: kernel name -> launches since the last :func:`reset_launches`
 launches = {"matmul": 0, "chol_inv_panel": 0, "trtri_panel": 0,
             "getrf_panel_linv": 0, "getrf_panel_fused": 0,
-            "potrf_batched": 0, "getrf_batched": 0}
+            "potrf_batched": 0, "getrf_batched": 0,
+            "potrf_step_fused": 0, "potrf_full_fused": 0,
+            "getrf_step_fused": 0, "getrf_full_fused": 0}
 
 IB = 32
 
@@ -52,6 +56,14 @@ _SIGNATURES = {
                           [_P, _I64, _I64] + _LU_ARGS + [_P]),
     "potrf_batched": ("slate_potrf_batched_f32", [_P, _P, _P, _I, _I, _P]),
     "getrf_batched": ("slate_getrf_batched_f32", [_P, _P, _P, _I, _I, _P]),
+    "potrf_step_fused": ("slate_potrf_step_fused_f32",
+                         [_P, _I64] + [_P] * 4 + [_I] * 5 + [_P]),
+    "potrf_full_fused": ("slate_potrf_full_fused_f32",
+                         [_P, _I64] + [_P] * 4 + [_I] * 4 + [_P]),
+    "getrf_step_fused": ("slate_getrf_step_fused_f32",
+                         [_P, _I64, _I64, _I] + [_P] * 10 + [_I] * 5 + [_P]),
+    "getrf_full_fused": ("slate_getrf_full_fused_f32",
+                         [_P, _I64, _I] + [_P] * 9 + [_I] * 4 + [_P]),
 }
 _fns: dict = {}
 _fns_lock = threading.Lock()     # the entry-point cache; held across a build
@@ -71,8 +83,9 @@ def _fn(name: str):
             from . import _build
 
             lib = _build.library(name)
-            if name == "getrf_batched":
-                _check_getrf_batched_smem(lib)
+            check = _SMEM_CHECKS.get(name)
+            if check is not None:
+                check(lib, name)
             sym, argtypes = _SIGNATURES[name]
             fn = getattr(lib, sym)
             fn.argtypes = argtypes
@@ -81,7 +94,7 @@ def _fn(name: str):
         return fn
 
 
-def _check_getrf_batched_smem(lib) -> None:
+def _check_getrf_batched_smem(lib, name: str) -> None:
     """Raise unless the kernel's shared-memory formula (its C entry
     ``slate_getrf_batched_smem_bytes``) is :func:`smem.getrf_batched_bytes`
     at every n the gate could pass, so the gate and the kernel cannot
@@ -96,6 +109,46 @@ def _check_getrf_batched_smem(lib) -> None:
                 "getrf_batched: the kernel takes %d B of shared memory at "
                 "n = %d, ops/smem.py counts %d B" % (c_bytes(n), n,
                                                      smem.getrf_batched_bytes(n)))
+
+
+def _check_potrf_step_smem(lib, name: str) -> None:
+    """The same check for the cooperative Cholesky kernels: one block's
+    static shared memory is :data:`smem.TRI_PANEL_SMEM`."""
+    from . import smem
+
+    c_bytes = getattr(lib, "slate_%s_smem_bytes" % name)
+    c_bytes.argtypes, c_bytes.restype = [], _I64
+    if c_bytes() != smem.TRI_PANEL_SMEM:
+        raise RuntimeError("%s: the kernel takes %d B of shared memory, "
+                           "ops/smem.py counts %d B"
+                           % (name, c_bytes(), smem.TRI_PANEL_SMEM))
+
+
+def _check_lu_step_smem(lib, name: str) -> None:
+    """The same check for the fused LU kernels: one block's dynamic
+    shared memory is :func:`smem.lu_step_bytes` over panels and grids on
+    both sides of the point where the panel's share passes the product
+    tiles'."""
+    from . import smem
+
+    c_bytes = getattr(lib, "slate_%s_smem_bytes" % name)
+    c_bytes.argtypes, c_bytes.restype = [_I] * 4, _I64
+    for m in (128, 256, 2048, 8192, 12144):
+        for nb in (128, 512):
+            for grid in (1, 8, 64, 132):
+                want = smem.lu_step_bytes(m, nb, 16, grid)
+                if c_bytes(m, nb, 16, grid) != want:
+                    raise RuntimeError(
+                        "%s: the kernel takes %d B of shared memory at (m, "
+                        "nb, grid) = (%d, %d, %d), ops/smem.py counts %d B"
+                        % (name, c_bytes(m, nb, 16, grid), m, nb, grid, want))
+
+
+_SMEM_CHECKS = {"getrf_batched": _check_getrf_batched_smem,
+                "potrf_step_fused": _check_potrf_step_smem,
+                "potrf_full_fused": _check_potrf_step_smem,
+                "getrf_step_fused": _check_lu_step_smem,
+                "getrf_full_fused": _check_lu_step_smem}
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -377,33 +430,46 @@ def _check_lu_panel(name: str, x, act, w: int, m: int, ib: int) -> None:
 _plans: dict = {}
 
 
-def _lu_launch(name: str, dev, act, m: int, w: int, ib: int, *head):
-    """Plan the cooperative grid (``lu_panel.cuh``'s ``plan_grid``),
-    allocate the outputs and the candidate scratch, launch.  ``head`` are
-    the kernel's leading arguments (panel pointers and strides).  Returns
-    ``(piv, act_out, linv)``."""
-    key = (name, dev.index, m, w, ib)
+def _plan(name: str, dev, *args) -> int:
+    """The cooperative grid of kernel ``name`` (its C entry
+    ``slate_<name>_plan(*args, &G)``, an occupancy query), cached per
+    device and arguments."""
+    key = (name, dev.index) + args
     grid = _plans.get(key)
     if grid is None:
         from . import _build
 
         plan = getattr(_build.library(name), "slate_%s_plan" % name)
-        plan.argtypes = [_I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+        plan.argtypes = [_I] * len(args) + [ctypes.POINTER(ctypes.c_int)]
         plan.restype = ctypes.c_int
         g = ctypes.c_int(0)
         with torch.cuda.device(dev):
-            rc = plan(m, w, ib, ctypes.byref(g))
+            rc = plan(*args, ctypes.byref(g))
         if rc != 0:
-            raise RuntimeError("%s: no cooperative grid for a (%d, %d) panel "
-                               "(ib %d): CUDA error %d" % (name, w, m, ib, rc))
+            raise RuntimeError("%s: no cooperative grid for %s: CUDA error %d"
+                               % (name, args, rc))
         grid = _plans[key] = g.value
+    return grid
+
+
+def _panel_scratch(dev, grid: int, w: int):
+    """The panel phase's outputs and candidate scratch: ``(piv, linv,
+    cand, cval, clane)``."""
     f32 = dict(dtype=torch.float32, device=dev)
-    act_out = torch.empty((1, m), **f32)
-    piv = torch.empty(w, dtype=torch.int64, device=dev)
-    linv = torch.empty((w, w), **f32)
-    cand = torch.empty((2, grid, w), **f32)
-    cval = torch.empty((2, grid), **f32)
-    clane = torch.empty((2, grid), dtype=torch.int32, device=dev)
+    return (torch.empty(w, dtype=torch.int64, device=dev),
+            torch.empty((w, w), **f32), torch.empty((2, grid, w), **f32),
+            torch.empty((2, grid), **f32),
+            torch.empty((2, grid), dtype=torch.int32, device=dev))
+
+
+def _lu_launch(name: str, dev, act, m: int, w: int, ib: int, *head):
+    """Plan the cooperative grid (``lu_panel.cuh``'s ``plan_grid``),
+    allocate the outputs and the candidate scratch, launch.  ``head`` are
+    the kernel's leading arguments (panel pointers and strides).  Returns
+    ``(piv, act_out, linv)``."""
+    grid = _plan(name, dev, m, w, ib)
+    act_out = torch.empty((1, m), dtype=torch.float32, device=dev)
+    piv, linv, cand, cval, clane = _panel_scratch(dev, grid, w)
     act = act.reshape(-1).contiguous()
     _launch(name, dev, *head, act.data_ptr(), act_out.data_ptr(),
             piv.data_ptr(), linv.data_ptr(), cand.data_ptr(),
@@ -438,11 +504,12 @@ def getrf_panel_linv(slab, act, ib: int = 32):
     return out, piv, act_out, linv
 
 
-def _check_fused(carry, k0: int, nb: int, bb: int, ib: int) -> None:
+def _check_fused(carry, k0: int, nb: int, bb: int, ib: int,
+                 name: str = "getrf_panel_fused") -> None:
     if nb % bb or bb % ib or k0 % bb or k0 < 0 or k0 + nb > carry.shape[0]:
-        raise ValueError("getrf_panel_fused needs bb | nb, ib | bb, bb | k0 "
-                         "and k0 + nb <= rows, got k0 = %d, nb = %d, bb = %d, "
-                         "ib = %d, rows = %d" % (k0, nb, bb, ib, carry.shape[0]))
+        raise ValueError("%s needs bb | nb, ib | bb, bb | k0 and k0 + nb <= "
+                         "rows, got k0 = %d, nb = %d, bb = %d, ib = %d, rows = "
+                         "%d" % (name, k0, nb, bb, ib, carry.shape[0]))
 
 
 def getrf_panel_fused_plain(carry, act, k0: int, nb: int = 512,
@@ -585,3 +652,233 @@ def getrf_batched(at):
     _launch("getrf_batched", at.device, at.data_ptr(), out.data_ptr(),
             piv.data_ptr(), bsz, n)
     return out, piv
+
+
+# ---------------------------------------------------------------------------
+# Fused and full Cholesky (replace pallas_kernels.potrf_step_fused :1631 and
+# potrf_full_fused :1738): one cooperative grid per launch, in place on the
+# (n, n) carry
+# ---------------------------------------------------------------------------
+
+def _check_potrf_fused(name: str, a, nb: int, tc: int, k0: int = 0) -> int:
+    from . import smem
+
+    _check_f32_2d(name, a)
+    n = a.shape[-1]
+    t = smem.STEP_TILE
+    if (a.shape[0] != n or nb < t or nb & (nb - 1) or n % nb or tc < t
+            or tc % t or nb % tc or k0 % nb or not 0 <= k0 < n):
+        raise ValueError("%s needs an (n, n) carry, nb a power of two >= %d "
+                         "dividing n, %d | tc | nb and nb | k0 < n, got %s, "
+                         "nb = %d, tc = %d, k0 = %d"
+                         % (name, t, t, tuple(a.shape), nb, tc, k0))
+    return n
+
+
+def _potrf_step_plain(a, k0: int, nb: int, tc: int) -> None:
+    """One step of ``csrc/potrf_step.cuh`` in place: (L11, L11⁻¹) of the
+    diagonal block (:func:`chol_inv_panel_plain`), L21 = A21·L11⁻ᵀ, and
+    the trailing (tc, tc) tile pairs (i, j), i ≥ j, minus L21_i·L21_jᵀ.
+    Both plain versions run it, so on the same input the ``fused`` and
+    ``full`` depths agree bitwise."""
+    n = a.shape[-1]
+    akk = a[k0:k0 + nb, k0:k0 + nb]
+    l, linv = chol_inv_panel_plain(akk)
+    akk.copy_(l)
+    r0 = k0 + nb
+    if r0 == n:
+        return
+    col = a[r0:, k0:k0 + nb]
+    l21 = col @ linv.T
+    col.copy_(l21)
+    for j0 in range(0, n - r0, tc):
+        for i0 in range(j0, n - r0, tc):
+            a[r0 + i0:r0 + i0 + tc, r0 + j0:r0 + j0 + tc] -= (
+                l21[i0:i0 + tc] @ l21[j0:j0 + tc].T)
+
+
+def potrf_step_fused_plain(a, k0: int, nb: int = 512, tc: int = 512):
+    """Plain version of :func:`potrf_step_fused` (in place on ``a``)."""
+    _potrf_step_plain(a, k0, nb, min(tc, nb))
+    return a
+
+
+def potrf_full_fused_plain(a, nb: int = 512, tc: int = 512):
+    """Plain version of :func:`potrf_full_fused`: the step for every k0."""
+    for k0 in range(0, a.shape[-1], nb):
+        _potrf_step_plain(a, k0, nb, min(tc, nb))
+    return a
+
+
+def _potrf_launch(name: str, a, nb: int, tc: int, *tail):
+    n = a.shape[-1]
+    dev = a.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    lkk = torch.empty((nb, nb), **f32)
+    linv = torch.empty((nb, nb), **f32)
+    w = torch.empty(max((nb // 2) ** 2, nb * IB), **f32)
+    l21 = torch.empty((max(n - nb, 1), nb), **f32)
+    _launch(name, dev, a.data_ptr(), a.stride(0), lkk.data_ptr(),
+            linv.data_ptr(), w.data_ptr(), l21.data_ptr(), n, nb, tc, *tail,
+            _plan(name, dev))
+    return a
+
+
+def potrf_step_fused(a, k0: int, nb: int = 512, tc: int = 512):
+    """One right-looking Cholesky step on the (n, n) fp32 carry at block
+    column k0, IN PLACE (the TPU kernel's aliased carry): the diagonal
+    block becomes L11 (zeros above it), the rows below it in the block
+    column L21 = A21·L11⁻ᵀ, and the (tc, tc) trailing tile pairs on and
+    below the diagonal lose L21_i·L21_jᵀ; rows and columns before k0 and
+    the rest of the upper triangle pass through untouched (the driver
+    keeps the lower triangle at the end).  nb a power of two ≥ 128
+    dividing n; tc = min(tc, nb) a multiple of 128 dividing nb.  Returns
+    ``a``.  On the card ``a`` needs unit column stride."""
+    tc = min(tc, nb)
+    _check_potrf_fused("potrf_step_fused", a, nb, tc, k0)
+    if _on_cpu(a):
+        return potrf_step_fused_plain(a, k0, nb, tc)
+    _check_rows("potrf_step_fused", a)
+    return _potrf_launch("potrf_step_fused", a, nb, tc, k0)
+
+
+def potrf_full_fused(a, nb: int = 512, tc: int = 512):
+    """The whole lower Cholesky factorization of the (n, n) fp32 carry in
+    one launch, IN PLACE: :func:`potrf_step_fused` for k0 = 0, nb, …, with
+    the same carry contract.  Returns ``a``."""
+    tc = min(tc, nb)
+    _check_potrf_fused("potrf_full_fused", a, nb, tc)
+    if _on_cpu(a):
+        return potrf_full_fused_plain(a, nb, tc)
+    _check_rows("potrf_full_fused", a)
+    return _potrf_launch("potrf_full_fused", a, nb, tc)
+
+
+# ---------------------------------------------------------------------------
+# Fused and full partial-pivot LU (replace pallas_kernels.getrf_step_fused
+# :1317 and getrf_full_fused :1481): the panel phase of lu_panel.cuh, then
+# lu_step.cuh's trailing phase, in place on the transposed (n_rows, m) carry
+# ---------------------------------------------------------------------------
+
+def _check_lu_step(name: str, at, act, k0: int, nb: int, bb: int, ib: int,
+                   tc: int) -> None:
+    from . import smem
+
+    n_rows, m = at.shape
+    _check_lu_panel(name, at, act, nb, m, ib)
+    _check_fused(at, k0, nb, bb, ib, name)
+    if nb % smem.STEP_TILE or nb % tc or n_rows % tc or k0 + nb > m:
+        raise ValueError("%s needs 128 | nb, tc | nb, tc | rows and k0 + nb "
+                         "<= lanes, got (%d, %d), k0 = %d, nb = %d, tc = %d"
+                         % (name, n_rows, m, k0, nb, tc))
+
+
+def _lu_trailing_plain(at, k0: int, nb: int, piv, act_out, linv,
+                       update: bool) -> None:
+    """The trailing phase of ``csrc/lu_step.cuh`` in place: X₂ = 2X −
+    X·(L11·X), U = C[:, piv]·X₂ᵀ over the rows past the panel, then (with
+    ``update``) C[:, l] −= U·L[:, l] for the lanes active after the panel,
+    and C[:, piv] = U."""
+    r0 = k0 + nb
+    if r0 >= at.shape[0]:
+        return
+    panel = at[k0:r0]
+    eye = torch.eye(nb, dtype=at.dtype, device=at.device)
+    l11 = torch.tril(panel[:, piv].T, -1) + eye
+    x2 = 2.0 * linv - linv @ (l11 @ linv)
+    rows = at[r0:]
+    u = rows[:, piv] @ x2.T
+    if update:
+        rows -= u @ torch.where(act_out > 0, panel, 0.0)
+    rows[:, piv] = u
+
+
+def getrf_step_fused_plain(at, act, k0: int, nb: int = 512, bb: int = 128,
+                           ib: int = 16, tc=None, update: bool = True):
+    """Plain version of :func:`getrf_step_fused` (in place on ``at``):
+    :func:`getrf_panel_fused_plain`, then the trailing phase."""
+    at, piv, act_out, linv = getrf_panel_fused_plain(at, act, k0, nb, bb, ib)
+    _lu_trailing_plain(at, k0, nb, piv, act_out, linv, update)
+    return at, piv, act_out, linv
+
+
+def getrf_full_fused_plain(at, act, nb: int = 512, bb: int = 128,
+                           ib: int = 16, tc=None):
+    """Plain version of :func:`getrf_full_fused`: the step for every k0
+    (so on the same input it agrees bitwise with the ``fused`` depth)."""
+    pivs = []
+    act = act.reshape(1, -1)
+    for k0 in range(0, min(at.shape), nb):
+        at, piv, act, _ = getrf_step_fused_plain(at, act, k0, nb, bb, ib, tc)
+        pivs.append(piv)
+    return at, torch.cat(pivs), act
+
+
+def getrf_step_fused(at, act, k0: int, nb: int = 512, bb: int = 128,
+                     ib: int = 16, tc=None, update: bool = True):
+    """One right-looking partial-pivot LU step on the transposed (n_rows,
+    m) fp32 carry, IN PLACE: the panel of :func:`getrf_panel_fused` on
+    rows [k0, k0 + nb), then the Newton-refined pivot-block inverse X₂,
+    U = C[:, piv]·X₂ᵀ over the rows past the panel, and (``update``) the
+    rank-nb update of the lanes active after the panel; U goes into the
+    pivot lanes.  ``update=False`` is the ``fused_trsm`` depth: the
+    caller applies the rank-nb update.  Returns ``(at, piv, act_out,
+    linv)`` as :func:`getrf_panel_fused` (``linv`` the panel's inverse,
+    before the Newton step).  nb a multiple of 128, bb | nb, ib | bb,
+    tc = min(tc or nb, nb) dividing nb and the row count, k0 + nb ≤ m.
+    On the card ``at`` needs unit lane stride."""
+    n_rows, m = at.shape
+    bb = min(bb, nb)
+    ib = min(ib, bb)
+    tc = min(tc or nb, nb)
+    _check_lu_step("getrf_step_fused", at, act, k0, nb, bb, ib, tc)
+    if _on_cpu(at, act):
+        return getrf_step_fused_plain(at, act, k0, nb, bb, ib, tc, update)
+    _check_rows("getrf_step_fused", at)
+    dev = at.device
+    grid = _plan("getrf_step_fused", dev, m, nb, ib)
+    f32 = dict(dtype=torch.float32, device=dev)
+    act_out = torch.empty((1, m), **f32)
+    piv, linv, cand, cval, clane = _panel_scratch(dev, grid, nb)
+    t, x2 = torch.empty((nb, nb), **f32), torch.empty((nb, nb), **f32)
+    u = torch.empty((max(n_rows - k0 - nb, 1), nb), **f32)
+    act = act.reshape(-1).contiguous()
+    _launch("getrf_step_fused", dev, at.data_ptr(), at.stride(0), k0, n_rows,
+            act.data_ptr(), act_out.data_ptr(), piv.data_ptr(),
+            linv.data_ptr(), cand.data_ptr(), cval.data_ptr(),
+            clane.data_ptr(), t.data_ptr(), x2.data_ptr(), u.data_ptr(), m,
+            nb, ib, int(bool(update)), grid)
+    return at, piv, act_out, linv
+
+
+def getrf_full_fused(at, act, nb: int = 512, bb: int = 128, ib: int = 16,
+                     tc=None):
+    """The whole partial-pivot LU of the transposed (n_rows, m) fp32 carry
+    in one launch, IN PLACE: :func:`getrf_step_fused` for k0 = 0, nb, …
+    below min(n_rows, m).  Returns ``(at, piv, act_out)`` with ``piv`` the
+    min(n_rows, m) pivot lanes in factorization order."""
+    n_rows, m = at.shape
+    bb = min(bb, nb)
+    ib = min(ib, bb)
+    tc = min(tc or nb, nb)
+    ktot = min(n_rows, m)
+    _check_lu_step("getrf_full_fused", at, act, 0, nb, bb, ib, tc)
+    if ktot % nb:
+        raise ValueError("getrf_full_fused needs nb | min(rows, lanes), got "
+                         "(%d, %d), nb = %d" % (n_rows, m, nb))
+    if _on_cpu(at, act):
+        return getrf_full_fused_plain(at, act, nb, bb, ib, tc)
+    _check_rows("getrf_full_fused", at)
+    dev = at.device
+    grid = _plan("getrf_full_fused", dev, m, nb, ib)
+    f32 = dict(dtype=torch.float32, device=dev)
+    act_w = act.reshape(1, m).to(torch.float32).clone()
+    piv = torch.empty(ktot, dtype=torch.int64, device=dev)
+    _, linv, cand, cval, clane = _panel_scratch(dev, grid, nb)
+    t, x2 = torch.empty((nb, nb), **f32), torch.empty((nb, nb), **f32)
+    u = torch.empty((max(n_rows - nb, 1), nb), **f32)
+    _launch("getrf_full_fused", dev, at.data_ptr(), at.stride(0), n_rows,
+            act_w.data_ptr(), piv.data_ptr(), linv.data_ptr(),
+            cand.data_ptr(), cval.data_ptr(), clane.data_ptr(), t.data_ptr(),
+            x2.data_ptr(), u.data_ptr(), m, nb, ib, grid)
+    return at, piv, act_w

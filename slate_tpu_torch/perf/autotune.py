@@ -12,13 +12,28 @@ Each site returns one of:
   ``torch.linalg``), for shapes the kernel does not take or when
   ``SLATE_TPU_TORCH_USE_KERNELS=0``.
 
+The two step-depth sites, ``potrf_step`` and ``lu_step``, return a depth
+of their driver instead: ``"composed"`` (the panel kernel and the glue
+around it), ``"fused"`` (one kernel launch per step; for LU also
+``"fused_trsm"``, whose rank-nb update stays outside the kernel) or
+``"full"`` (one launch per factorization).  With no pin they answer
+``"composed"``: the JAX package times the ladder on its chip, and the
+port has no timing table yet.  ``SLATE_TPU_TORCH_AUTOTUNE_FORCE``
+(``"potrf_step=full,lu_step=fused"``, read at each call, the counterpart
+of the JAX package's ``SLATE_TPU_AUTOTUNE_FORCE``) pins a depth where the
+call site's gates admit it; a pinned depth outside the key's ladder is
+ignored with a warning, once per (site, depth).
+
 :func:`decisions` lists what each site resolved to, keyed
-``"<site>|<key>"``.
+``"<site>|<key>"``; ``decisions(with_reasons=True)`` gives ``(backend,
+reason)`` pairs for the sites that record a reason.
 """
 
 from __future__ import annotations
 
+import os
 import threading
+import warnings
 
 import torch
 
@@ -26,19 +41,90 @@ from .. import config
 from .sweep import pow2_bucket
 
 _decisions: dict = {}
+_reasons: dict = {}
 _lock = threading.Lock()
 
+#: the pin variable, ``"<site>=<backend>,..."``
+FORCE_ENV = "SLATE_TPU_TORCH_AUTOTUNE_FORCE"
+_warned_forces: set = set()
 
-def _record(site: str, key: tuple, backend: str) -> str:
+
+def _record(site: str, key: tuple, backend: str, reason=None) -> str:
+    k = "%s|%s" % (site, ",".join(map(str, key)))
     with _lock:
-        _decisions["%s|%s" % (site, ",".join(map(str, key)))] = backend
+        _decisions[k] = backend
+        if reason is not None:
+            _reasons[k] = reason
     return backend
 
 
-def decisions() -> dict:
-    """Every site decision made so far in this process."""
+def decisions(with_reasons: bool = False) -> dict:
+    """Every site decision made so far in this process; with
+    ``with_reasons``, ``(backend, reason)`` pairs (reason None where the
+    site records none)."""
     with _lock:
+        if with_reasons:
+            return {k: (v, _reasons.get(k)) for k, v in _decisions.items()}
         return dict(_decisions)
+
+
+def _forced(site: str):
+    """The depth or backend :data:`FORCE_ENV` pins for ``site``, or None."""
+    for part in os.environ.get(FORCE_ENV, "").split(","):
+        if "=" in part:
+            k, v = part.split("=", 1)
+            if k.strip() == site:
+                return v.strip()
+    return None
+
+
+def _warn_bad_force(site: str, forced: str, names) -> None:
+    """A pin naming a backend this key does not offer must not fail
+    silently — the user believes the pin is active.  Warn once per
+    (site, value)."""
+    with _lock:
+        if (site, forced) in _warned_forces:
+            return
+        _warned_forces.add((site, forced))
+    warnings.warn("%s pins %s=%r but this key's candidates are %s; the pin "
+                  "is ignored here" % (FORCE_ENV, site, forced, list(names)))
+
+
+def _potrf_step_depths(eligible: bool, eligible_full: bool) -> list:
+    """The ``potrf_step`` depth ladder the call site's gates admit."""
+    depths = ["composed"]
+    if eligible:
+        depths.append("fused")
+    if eligible_full:
+        depths.append("full")
+    return depths
+
+
+def _lu_step_depths(eligible: bool, eligible_full: bool) -> list:
+    """The ``lu_step`` depth ladder the call site's gates admit."""
+    depths = ["composed"]
+    if eligible:
+        depths += ["fused", "fused_trsm"]
+    if eligible_full:
+        depths.append("full")
+    return depths
+
+
+def _choose_depth(site: str, key: tuple, depths: list) -> str:
+    """A step-depth site: the pinned depth where the ladder has it, else
+    ``"composed"`` with the reason recorded."""
+    if config.use_kernels_mode() == "off":
+        depths, reason = ["composed"], "kernels off"
+    elif len(depths) == 1:
+        reason = "ineligible"
+    else:
+        reason = "default: no timed decision on this card yet"
+    forced = _forced(site)
+    if forced is not None:
+        if forced in depths:
+            return _record(site, key, forced, "forced")
+        _warn_bad_force(site, forced, depths)
+    return _record(site, key, "composed", reason)
 
 
 def _kernel_or_plain(device) -> str:
@@ -71,12 +157,20 @@ def choose_potrf_panel(n: int, nb: int, dtype, device) -> str:
     return _record("potrf_panel", key, _kernel_or_plain(device))
 
 
-def choose_potrf_step(n: int, nb: int, dtype, device) -> str:
-    """Step composition of the Cholesky driver: always ``"composed"``
-    (the strip driver) until the fused step and full-factorization
-    kernels are ported (see ROADMAP.md)."""
+def choose_potrf_step(n: int, nb: int, dtype, device, eligible: bool = False,
+                      eligible_full: bool = False) -> str:
+    """Step depth of the f32 Cholesky driver: ``"composed"`` (the strip
+    driver over ``chol_inv_panel``, :func:`~slate_tpu_torch.ops.blocks.
+    potrf_panels`), ``"fused"`` (one ``potrf_step_fused`` launch per step,
+    :func:`~slate_tpu_torch.ops.blocks.potrf_steps`) or ``"full"`` (one
+    ``potrf_full_fused`` launch, :func:`~slate_tpu_torch.ops.blocks.
+    potrf_full`).  ``eligible`` / ``eligible_full`` are the call site's
+    gates (``ops.smem.use_fused_potrf_step`` / ``use_full_potrf``).  The
+    depth is ``"composed"`` unless :data:`FORCE_ENV` pins another the
+    gates admit (module docstring)."""
     key = (n, nb, str(dtype).replace("torch.", ""), torch.device(device).type)
-    return _record("potrf_step", key, "composed")
+    return _choose_depth("potrf_step", key,
+                         _potrf_step_depths(eligible, eligible_full))
 
 
 def choose_trtri_panel(n: int, dtype, device) -> str:
@@ -116,13 +210,21 @@ def choose_lu_driver(m: int, n: int, nb: int, dtype, device,
     return _record("lu_driver", key, "scattered")
 
 
-def choose_lu_step(m: int, n: int, nb: int, dtype, device) -> str:
-    """Step composition of the scattered LU driver: always ``"composed"``
-    (panel kernel + PyTorch glue) until the fused step and
-    full-factorization kernels are ported (see ROADMAP.md)."""
+def choose_lu_step(m: int, n: int, nb: int, dtype, device,
+                   eligible: bool = False, eligible_full: bool = False) -> str:
+    """Step depth of the scattered LU driver: ``"composed"`` (the
+    ``getrf_panel_fused`` kernel and the PyTorch glue), ``"fused"`` (one
+    ``getrf_step_fused`` launch per step), ``"fused_trsm"`` (the same
+    kernel with the rank-nb update left to the ``matmul`` site) or
+    ``"full"`` (one ``getrf_full_fused`` launch).  ``eligible`` /
+    ``eligible_full`` are the call site's gates (``ops.smem.
+    use_fused_step`` / ``use_full_fused``).  The depth is ``"composed"``
+    unless :data:`FORCE_ENV` pins another the gates admit (module
+    docstring)."""
     key = (m, n, nb, str(dtype).replace("torch.", ""),
            torch.device(device).type)
-    return _record("lu_step", key, "composed")
+    return _choose_depth("lu_step", key,
+                         _lu_step_depths(eligible, eligible_full))
 
 
 def _batched_key(dims, dtype, device) -> tuple:

@@ -118,10 +118,17 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     kernels.getrf_panel_fused(a.clone(), torch.ones(1, 64), 0, nb=32, bb=32)
     kernels.potrf_batched(a[None].clone())
     kernels.getrf_batched(a[None].clone())
+    spd = torch.from_numpy(_spd(256, 7))
+    kernels.potrf_step_fused(spd.clone(), 0, nb=128)
+    kernels.potrf_full_fused(spd.clone(), nb=128)
+    kernels.getrf_step_fused(spd.clone(), torch.ones(1, 256), 0, nb=128)
+    kernels.getrf_full_fused(spd.clone(), torch.ones(1, 256), nb=128)
     assert set(kernels.launches) == {"matmul", "chol_inv_panel",
                                      "trtri_panel", "getrf_panel_linv",
                                      "getrf_panel_fused", "potrf_batched",
-                                     "getrf_batched"}
+                                     "getrf_batched", "potrf_step_fused",
+                                     "potrf_full_fused", "getrf_step_fused",
+                                     "getrf_full_fused"}
     assert all(v == 0 for v in kernels.launches.values())
 
 

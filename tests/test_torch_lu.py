@@ -252,10 +252,16 @@ def test_lu_interop_round_trip():
 
 
 def test_fused_steps_and_calu_are_not_ported():
+    """The fused step depths are ported now (tests/test_torch_fused.py
+    holds them against the JAX package): on one 512-wide panel each picks
+    the composed depth's pivots.  An unknown depth is refused, and CALU
+    is still not ported."""
     a = torch.from_numpy(_gauss(512, 53))
+    _, perm = tlu.getrf_scattered(a, 512, step="composed")
     for step in ("fused", "fused_trsm", "full"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlu.getrf_scattered(a, 512, step=step)
+        assert torch.equal(tlu.getrf_scattered(a, 512, step=step)[1], perm)
+    with pytest.raises(ValueError, match="unknown getrf_scattered step"):
+        tlu.getrf_scattered(a, 512, step="panel")
     with pytest.raises(NotImplementedError, match="CALU"):
         tst.getrf(tst.Matrix.from_array(a, nb=256, device="cpu"),
                   {"method_lu": tst.MethodLU.CALU})
