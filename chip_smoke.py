@@ -16,15 +16,17 @@
    kernels (phase 2c) at (B, n) = (16, 32), (16, 64), (16, 128) and
    (64, 256) to the same pivots, per-problem factor residuals ≤ 3 and
    1e-4 of their plain versions.  The fused and full kernels of potrf and
-   getrf (phase 2d) at n = 2048, nb = 512: the step kernels at k0 = 0 and
-   512 (Cholesky) and at every k0 (getrf, with ``update`` on and off),
+   getrf (phase 2d) at n = 2048 and at the main path's n = 8192, nb =
+   512: the Cholesky step at k0 = 0 (and 512 at n = 2048), every LU step
+   with ``update`` on (and off at n = 2048; the first step off at 8192),
    each from the same state as its plain version, to the same pivots and
    1e-4 of it; the full kernels bitwise equal to the chain of their step
    kernels and to factor residuals ≤ 3; whole factorizations against
    the plain ones within 1e-4 (Cholesky) or, for LU, whose factors drift
-   apart over four steps of different rounding, with pivots equal up to
-   a near-tie (within 1e-5 relative in one of the two factors) and the
-   drift printed; then each timed at n = 8192.
+   apart over steps of different rounding, with pivots equal up to a
+   near-tie (within 1e-5 relative in one of the two factors; at n = 8192
+   the drift passes that width, and the first departure is printed) and
+   the drift printed; then each timed at n = 8192.
 3. Drives the main paths through the public entry points, with the
    reference tester's scaled-residual gates (≤ 3):
    * Cholesky: ``posv`` of an n = 8192 fp32 HermitianMatrix (nb = 256,
@@ -950,25 +952,28 @@ def serve_path(torch, kernels) -> dict:
     return res
 
 
-def event_ms(torch, fn, setup=None, reps: int = 3, warm: bool = True) -> float:
-    """Mean device time of ``fn`` alone over ``reps`` calls, from CUDA
-    events around each call; ``setup`` (not timed) runs before each, and
-    one untimed call warms up first unless ``warm`` is False."""
-    if warm:
-        if setup:
-            setup()
-        fn()
+def once_ms(torch, fn):
+    """Device time of one call of ``fn`` from CUDA events, and its
+    result."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def event_ms(torch, fn, setup=None, reps: int = 3) -> float:
+    """Mean device time of ``fn`` alone over ``reps`` calls
+    (:func:`once_ms`), after one untimed call; ``setup`` (not timed) runs
+    before each."""
     total = 0.0
-    for _ in range(reps):
+    for i in range(reps + 1):
         if setup:
             setup()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
+        ms, _ = once_ms(torch, fn)
+        total += ms if i else 0.0
     return total / reps
 
 
@@ -999,100 +1004,119 @@ def _lu_factor_gates(torch, label, a, lu, perm):
     return res
 
 
-def check_fused_kernels(torch, kernels, dev) -> dict:
-    """Phase 2d: the fused and full kernels of potrf and getrf against
-    their plain versions at n = 2048 (nb = 512: the step kernels at
-    k0 = 0 and at k0 = 512 on the kernel's own output; the full kernels
-    also bitwise against the chain of their step kernels), then timed at
-    the main path's n = 8192 (the step kernels at k0 = 0)."""
-    gen = torch.Generator(device=dev).manual_seed(6)
+def _potrf_fused_gates(torch, kernels, spd, nb: int, k0s) -> dict:
+    """potrf_step_fused at each k0 of ``k0s`` (0, nb, … in turn) on the
+    kernel's own carry, against the plain step from the same carry (rel
+    ≤ 1e-4, no row above k0 written); potrf_full_fused against its plain
+    version (rel ≤ 1e-4), bitwise the chain of all its steps, factor
+    residual ≤ 3.  Returns the max abs differences from the plain
+    versions and the plain versions' ms (the step's at k0 = 0)."""
     eps = float(torch.finfo(torch.float32).eps)
-    n, nb = FUSED_N, LU_NB
-    out = {}
-
-    # potrf_step_fused / potrf_full_fused on the tester's herm(n)
-    r = torch.randn((n, n), generator=gen, device=dev)
-    spd = (r + r.T) / 2 + n * torch.eye(n, device=dev)
-    ak = spd.clone()
-    errs = []
-    for k0 in (0, nb):
-        before = ak.clone()
+    n = spd.shape[0]
+    ak, errs, plain_ms = spd.clone(), [], []
+    for k0 in k0s:
+        before, ap = ak.clone(), ak.clone()
         kernels.potrf_step_fused(ak, k0, nb=nb)
-        ap = kernels.potrf_step_fused_plain(before.clone(), k0, nb=nb)
-        torch.cuda.synchronize()
+        ms, _ = once_ms(torch, lambda: kernels.potrf_step_fused_plain(ap, k0, nb=nb))
+        plain_ms.append(ms)
         err = rel_err(ak, ap)
         if not (err <= 1e-4 and torch.equal(ak[:k0], before[:k0])):
-            fail("potrf_step_fused k0=%d: rel %.3e of its plain version, or "
-                 "it wrote rows above k0" % (k0, err))
+            fail("potrf_step_fused n=%d k0=%d: rel %.3e of its plain version, "
+                 "or it wrote rows above k0" % (n, k0, err))
         errs.append(float((ak - ap).abs().max()))
-    af = kernels.potrf_full_fused(spd.clone(), nb=nb)
-    afp = kernels.potrf_full_fused_plain(spd.clone(), nb=nb)
+    del ak, before, ap
     chain = spd.clone()
     for k0 in range(0, n, nb):
         kernels.potrf_step_fused(chain, k0, nb=nb)
-    torch.cuda.synchronize()
+    af = kernels.potrf_full_fused(spd.clone(), nb=nb)
+    afp = spd.clone()
+    full_plain_ms, _ = once_ms(torch, lambda: kernels.potrf_full_fused_plain(afp, nb=nb))
     low = torch.tril(af).double()
     res = float((low @ low.T - spd.double()).norm() / (spd.double().norm() * eps * n))
     err = rel_err(af, afp)
     if not (err <= 1e-4 and res <= 3 and torch.equal(af, chain)):
-        fail("potrf_full_fused: rel %.3e of its plain version, residual %.3g, "
-             "bitwise equal to the step chain: %s"
-             % (err, res, torch.equal(af, chain)))
-    print("potrf fused kernels at n=%d nb=%d: step rel %.3e / %.3e (k0 = 0, "
-          "%d), full rel %.3e, residual %.3g, full == step chain bitwise"
-          % (n, nb, errs[0], errs[1], nb, err, res), flush=True)
-    pot_err = (max(errs), float((af - afp).abs().max()))
-    del ak, af, afp, chain
+        fail("potrf_full_fused n=%d: rel %.3e of its plain version, residual "
+             "%.3g, bitwise equal to the step chain: %s"
+             % (n, err, res, torch.equal(af, chain)))
+    print("potrf fused kernels at n=%d nb=%d: step max abs diff %s (k0 = %s) "
+          "from the plain step, full rel %.3e of the plain version, residual "
+          "%.3g, full == step chain bitwise"
+          % (n, nb, " / ".join("%.3e" % e for e in errs),
+             ", ".join(map(str, k0s)), err, res), flush=True)
+    return {"step_err": max(errs), "full_err": float((af - afp).abs().max()),
+            "step_plain_ms": plain_ms[0], "full_plain_ms": full_plain_ms}
 
-    # getrf_step_fused (update True and False) on a plain Gaussian A,
-    # transposed: every step of the factorization against the plain step
-    # from the same state (the kernel chain's own); getrf_full_fused
-    # bitwise equal to the chain with update on
-    a = torch.randn((n, n), generator=gen, device=dev)
+
+def _getrf_step_chain(torch, kernels, at0, nb: int, update: bool, steps: int):
+    """getrf_step_fused for the first ``steps`` steps of the transposed
+    carry ``at0`` (left as it is), each step held against the plain step
+    from the same state: :func:`_panel_gates`, no row above k0 written,
+    and the trailing rows within 1e-4 where the pivots agree.  Returns
+    the kernel's carry, pivots and mask, the max abs difference from the
+    plain steps, and the plain step's ms at k0 = 0."""
+    n_rows, m = at0.shape
+    ck, act = at0.clone(), torch.ones((1, m), device=at0.device)
+    pivs, errs, plain_ms = [], [], []
+    for k0 in range(0, nb * steps, nb):
+        before, cp = ck.clone(), ck.clone()
+        name = "getrf_step_fused (%d,%d) k0=%d update=%s" % (n_rows, m, k0, update)
+        _, piv, act2, linv = kernels.getrf_step_fused(
+            ck, act, k0, nb=nb, bb=LU_BB, ib=LU_IB, update=update)
+        ms, (_, rpiv, ract, rlinv) = once_ms(
+            torch, lambda: kernels.getrf_step_fused_plain(
+                cp, act, k0, nb=nb, bb=LU_BB, ib=LU_IB, update=update))
+        plain_ms.append(ms)
+        if not torch.equal(ck[:k0], before[:k0]):
+            fail("%s wrote rows above k0" % name)
+        errs.append(_panel_gates(
+            torch, name, before[k0:k0 + nb].T, ck[k0:k0 + nb], piv, act2,
+            linv, (cp[k0:k0 + nb], rpiv, ract, rlinv)))
+        if torch.equal(piv, rpiv) and k0 + nb < n_rows:
+            err = rel_err(ck[k0 + nb:], cp[k0 + nb:])
+            if not err <= 1e-4:
+                fail("%s: trailing rows rel %.3e of the plain version's"
+                     % (name, err))
+            errs.append(float((ck - cp).abs().max()))
+        act = act2
+        pivs.append(piv)
+    return ck, torch.cat(pivs), act, max(errs), plain_ms[0]
+
+
+def _getrf_fused_gates(torch, kernels, a, nb: int, trsm_steps: int,
+                       hold_whole: bool) -> dict:
+    """getrf_step_fused over every step of A's transposed carry with its
+    update on, and over the first ``trsm_steps`` with it off, each step
+    against the plain step from the same state (:func:`_getrf_step_chain`);
+    getrf_full_fused bitwise equal to the chain with the update on, factor
+    residual ≤ 3 and |L| ≤ 1 + 100ε, and against its plain version: the
+    two round differently step after step, so the factors drift apart
+    (2.4e-4 relative at n = 2048 even on a κ₂ = 100 input, on an H100
+    80GB HBM3).  With ``hold_whole`` the pivots must agree up to a
+    near-tie (1e-5 relative in one of the factors); without it the first
+    departure is only printed: over 16 steps the drift passes the tie
+    width (at n = 8192 the factors' candidates at column 2825 were 1.6e-5
+    and 9.8e-5 apart, on the same card), and every step was held from the
+    same state.  Returns the max abs
+    differences of the steps from the plain steps (the full kernel's are
+    its chain's) and the plain versions' ms (the step's at k0 = 0)."""
+    n = a.shape[0]
     at0 = a.T.contiguous()
-    one = torch.ones((1, n), device=dev)
-    lu_errs = {True: [], False: []}
-    chains = {}
-    for update in (True, False):
-        ck, act, pivs = at0.clone(), one, []
-        for k0 in range(0, n, nb):
-            before = ck.clone()
-            name = "getrf_step_fused k0=%d update=%s" % (k0, update)
-            _, piv, act2, linv = kernels.getrf_step_fused(
-                ck, act, k0, nb=nb, bb=LU_BB, ib=LU_IB, update=update)
-            cp = before.clone()
-            _, rpiv, ract, rlinv = kernels.getrf_step_fused_plain(
-                cp, act, k0, nb=nb, bb=LU_BB, ib=LU_IB, update=update)
-            torch.cuda.synchronize()
-            if not torch.equal(ck[:k0], before[:k0]):
-                fail("%s wrote rows above k0" % name)
-            lu_errs[update].append(_panel_gates(
-                torch, name, before[k0:k0 + nb].T, ck[k0:k0 + nb], piv, act2,
-                linv, (cp[k0:k0 + nb], rpiv, ract, rlinv)))
-            if torch.equal(piv, rpiv) and k0 + nb < n:
-                err = rel_err(ck[k0 + nb:], cp[k0 + nb:])
-                if not err <= 1e-4:
-                    fail("%s: trailing rows rel %.3e of the plain version's"
-                         % (name, err))
-                lu_errs[update].append(float((ck - cp).abs().max()))
-            act = act2
-            pivs.append(piv)
-        chains[update] = (ck, torch.cat(pivs), act)
-    chain, cpiv, cact = chains[True]
+    chain, cpiv, cact, err_on, step_plain_ms = _getrf_step_chain(
+        torch, kernels, at0, nb, True, n // nb)
+    err_off = _getrf_step_chain(torch, kernels, at0, nb, False, trsm_steps)[3]
     ck = at0.clone()
-    _, piv, act_f = kernels.getrf_full_fused(ck, one, nb=nb, bb=LU_BB, ib=LU_IB)
-    cp = at0.clone()
-    _, rpiv, _ = kernels.getrf_full_fused_plain(cp, one, nb=nb, bb=LU_BB, ib=LU_IB)
-    torch.cuda.synchronize()
+    _, piv, act_f = kernels.getrf_full_fused(
+        ck, torch.ones((1, n), device=a.device), nb=nb, bb=LU_BB, ib=LU_IB)
     if not (torch.equal(ck, chain) and torch.equal(piv, cpiv)
             and torch.equal(act_f, cact)):
-        fail("getrf_full_fused is not bitwise the chain of getrf_step_fused")
+        fail("getrf_full_fused n=%d is not bitwise the chain of "
+             "getrf_step_fused" % n)
+    del chain
     res = _lu_factor_gates(torch, "getrf_full_fused", a, ck[:, piv].T, piv)
-    # the whole factorization against the plain one: the two round
-    # differently for four steps, so the factors drift apart (2.4e-4
-    # relative at n = 2048 even on a κ₂ = 100 input, on an H100 80GB HBM3);
-    # the pivots must agree up to a near-tie (1e-5 relative in one of the
-    # factors) and the drift is printed
+    cp = at0.clone()
+    full_plain_ms, (_, rpiv, _) = once_ms(
+        torch, lambda: kernels.getrf_full_fused_plain(
+            cp, torch.ones((1, n), device=a.device), nb=nb, bb=LU_BB, ib=LU_IB))
     d = first_pivot_difference(torch, ck[:, piv].T, piv, cp[:, rpiv].T, rpiv,
                                tags=("kernel", "plain"))
     if d is None:
@@ -1102,24 +1126,45 @@ def check_fused_kernels(torch, kernels, dev) -> dict:
         tie = ("near-tie at column %d: rows %d (kernel) and %d (plain); "
                "kernel factor %.9g vs %.9g, plain factor %.9g vs %.9g"
                % (d["column"], *d["rows"], *d["kernel"], *d["plain"]))
-        if not min(gaps) <= 1e-5:
-            fail("getrf_full_fused: pivots depart from the plain version's, "
-                 "not at a near-tie: " + tie)
-    full_err = max(lu_errs[True])
+        if hold_whole and not min(gaps) <= 1e-5:
+            fail("getrf_full_fused n=%d: pivots depart from the plain "
+                 "version's, not at a near-tie: %s" % (n, tie))
     print("getrf fused kernels at n=%d nb=%d: every step max abs diff %.3e "
-          "(update) / %.3e (no update) from the same state, pivots equal; "
-          "full == step chain bitwise, residual %.3g; whole factorization "
-          "vs plain: %s" % (n, nb, max(lu_errs[True]), max(lu_errs[False]),
-                            res, tie), flush=True)
-    del ck, cp, before, chains, chain
+          "(update, %d steps) / %.3e (no update, %d steps) from the same "
+          "state, pivots equal; full == step chain bitwise, residual %.3g; "
+          "whole factorization vs plain: %s"
+          % (n, nb, err_on, n // nb, err_off, trsm_steps, res, tie), flush=True)
+    return {"step_err": max(err_on, err_off), "full_err": err_on,
+            "step_plain_ms": step_plain_ms, "full_plain_ms": full_plain_ms}
 
-    # timing at the main path's n = 8192, nb = 512 (CUDA events around the
-    # kernel alone; each call starts from a fresh copy of the input)
-    N8, t = N, PANEL_NB
+
+def check_fused_kernels(torch, kernels, dev) -> dict:
+    """Phase 2d: the fused and full kernels of potrf and getrf against
+    their plain versions, at n = 2048 (nb = 512: the Cholesky step at
+    k0 = 0 and 512, every LU step with the update on and off) and at the
+    main path's n = 8192 (the Cholesky step at k0 = 0, every LU step with
+    the update on and the first without it), with the gates of
+    :func:`_potrf_fused_gates` and :func:`_getrf_fused_gates`; then each
+    timed at n = 8192 (the step kernels at k0 = 0), its max abs error and
+    plain time taken from the 8192 gates."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n, t = FUSED_N, LU_NB
+
+    def herm(k):        # the tester's herm(k)
+        r = torch.randn((k, k), generator=gen, device=dev)
+        return (r + r.T) / 2 + k * torch.eye(k, device=dev)
+
+    _potrf_fused_gates(torch, kernels, herm(n), t, (0, t))
+    _getrf_fused_gates(torch, kernels,
+                       torch.randn((n, n), generator=gen, device=dev), t, n // t,
+                       hold_whole=True)
+
+    # the main path's n = 8192: gates, then CUDA events around the kernel
+    # alone, each call starting from a fresh copy of the input
+    N8 = N
     nt = N8 - t
-    r = torch.randn((N8, N8), generator=gen, device=dev)
-    spd = (r + r.T) / 2 + N8 * torch.eye(N8, device=dev)
-    del r
+    spd = herm(N8)
+    pot = _potrf_fused_gates(torch, kernels, spd, t, (0,))
     w = torch.empty_like(spd)
 
     def reset_spd():
@@ -1138,28 +1183,28 @@ def check_fused_kernels(torch, kernels, dev) -> dict:
     rows = []
     rows.append(("potrf_step_fused", dict(
         shape="(%d,%d) carry, k0=0, nb=%d tc=%d" % (N8, N8, t, t),
-        max_abs_err=pot_err[0], tol="rel Frobenius <= 1e-4",
+        max_abs_err=pot["step_err"], tol="rel Frobenius <= 1e-4",
         ms=event_ms(torch, lambda: kernels.potrf_step_fused(w, 0, nb=t),
                     reset_spd, 3),
-        plain_ms=event_ms(torch, lambda: kernels.potrf_step_fused_plain(
-            w, 0, nb=t), reset_spd, 1, warm=False),
+        plain_ms=pot["step_plain_ms"],
         library_ms=event_ms(torch, _cusolver(torch, library_potrf_step),
                             reset_spd, 3),
         library="cholesky + solve_triangular + matmul (composition)",
         bound=bound(step_flops, step_bytes))))
     rows.append(("potrf_full_fused", dict(
         shape="(%d,%d), nb=%d tc=%d" % (N8, N8, t, t),
-        max_abs_err=pot_err[1], tol="rel Frobenius <= 1e-4, residual <= 3",
+        max_abs_err=pot["full_err"],
+        tol="rel Frobenius <= 1e-4, bitwise the step chain, residual <= 3",
         ms=event_ms(torch, lambda: kernels.potrf_full_fused(w, nb=t),
                     reset_spd, 2),
-        plain_ms=event_ms(torch, lambda: kernels.potrf_full_fused_plain(
-            w, nb=t), reset_spd, 1, warm=False),
+        plain_ms=pot["full_plain_ms"],
         library_ms=event_ms(torch, _cusolver(torch, lambda: torch.linalg.cholesky(
             spd)), None, 3),
         library="cholesky (cuSOLVER)",
         bound=bound(N8 ** 3 / 3.0, 8.0 * N8 * (N8 + 1) / 2))))
-    del spd
+    del spd, w
     a8 = torch.randn((N8, N8), generator=gen, device=dev)
+    lu = _getrf_fused_gates(torch, kernels, a8, t, 1, hold_whole=False)
     at8 = a8.T.contiguous()
     del a8
     w = torch.empty_like(at8)
@@ -1179,12 +1224,12 @@ def check_fused_kernels(torch, kernels, dev) -> dict:
     lu_step_flops = N8 * t * t - t ** 3 / 3.0 + nt * t * t + 2.0 * nt * t * nt
     rows.append(("getrf_step_fused", dict(
         shape="(%d,%d) carry, k0=0, nb=%d bb=%d ib=%d" % (N8, N8, t, LU_BB, LU_IB),
-        max_abs_err=max(lu_errs[True] + lu_errs[False]),
-        tol="pivots exact (near-ties reported), rel 1e-4",
+        max_abs_err=lu["step_err"],
+        tol="every step vs plain from its state: pivots exact (near-ties "
+            "reported), rel 1e-4",
         ms=event_ms(torch, lambda: kernels.getrf_step_fused(
             w, one8, 0, nb=t, bb=LU_BB, ib=LU_IB), reset_lu, 3),
-        plain_ms=event_ms(torch, lambda: kernels.getrf_step_fused_plain(
-            w, one8, 0, nb=t, bb=LU_BB, ib=LU_IB), reset_lu, 1, warm=False),
+        plain_ms=lu["step_plain_ms"],
         library_ms=event_ms(torch, _cusolver(torch, library_getrf_step),
                             reset_lu, 3),
         library="lu_factor + solve_triangular + matmul (composition, rows "
@@ -1192,13 +1237,12 @@ def check_fused_kernels(torch, kernels, dev) -> dict:
         bound=bound(lu_step_flops, 8.0 * N8 * N8))))
     rows.append(("getrf_full_fused", dict(
         shape="(%d,%d) carry, nb=%d bb=%d ib=%d" % (N8, N8, t, LU_BB, LU_IB),
-        max_abs_err=full_err,
+        max_abs_err=lu["full_err"],
         tol="bitwise the step chain, each step vs plain from its state: "
             "pivots exact (near-ties reported), rel 1e-4; residual <= 3",
         ms=event_ms(torch, lambda: kernels.getrf_full_fused(
             w, one8, nb=t, bb=LU_BB, ib=LU_IB), reset_lu, 2),
-        plain_ms=event_ms(torch, lambda: kernels.getrf_full_fused_plain(
-            w, one8, nb=t, bb=LU_BB, ib=LU_IB), reset_lu, 1, warm=False),
+        plain_ms=lu["full_plain_ms"],
         library_ms=event_ms(torch, _cusolver(torch, lambda: torch.linalg.lu_factor(
             at8.T)), None, 3),
         library="lu_factor (cuSOLVER)",
@@ -1209,6 +1253,7 @@ def check_fused_kernels(torch, kernels, dev) -> dict:
         w, one8, 0, nb=t, bb=LU_BB, ib=LU_IB, update=False), reset_lu, 3)
     print("kernel getrf_step_fused (%d,%d) carry, k0=0, update=False: "
           "%.4f ms" % (N8, N8, no_update_ms), flush=True)
+    out = {}
     for name, r in rows:
         r["bound_ms"], r["bound_by"] = r.pop("bound")
         out[name] = r

@@ -73,8 +73,7 @@ def _potrf_branch(full, nb: int, nbsel: int, method) -> str:
         depth = select_backend(
             "potrf_step", n=n, nb=nbsel, dtype=full.dtype,
             device=full.device,
-            eligible=smem.use_fused_potrf_step(n, nbsel, full.dtype),
-            eligible_full=smem.use_full_potrf(n, nbsel, full.dtype))
+            eligible=smem.potrf_fused_fits(n, nbsel, full.dtype))
         if depth in ("full", "fused"):
             return depth
     if full.ndim == 2 and select_backend(

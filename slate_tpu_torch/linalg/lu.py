@@ -274,8 +274,7 @@ def getrf_scattered(a, nb: int = 512, bb: int = 128, step=None):
     if step is None:
         step = select_backend(
             "lu_step", m=m, n=n, nb=nb, dtype=a.dtype, device=a.device,
-            eligible=smem.use_fused_step(m, n, nb, a.dtype, a.device),
-            eligible_full=smem.use_full_fused(m, n, nb, a.dtype, a.device))
+            eligible=smem.lu_fused_fits(m, n, nb, a.dtype, a.device))
     if step not in ("composed", "fused", "fused_trsm", "full"):
         raise ValueError("unknown getrf_scattered step %r" % (step,))
     at = a.T.contiguous()
@@ -283,10 +282,8 @@ def getrf_scattered(a, nb: int = 512, bb: int = 128, step=None):
     if step == "full":
         metrics.inc("step.getrf.steps", float(k // nb))
         with metrics.step_timer("getrf", "full"):
-            at, piv_all, act = kernels.getrf_full_fused(
-                at, act, nb=nb, bb=bb, tc=smem.full_fused_tc(m, nb))
+            at, piv_all, act = kernels.getrf_full_fused(at, act, nb=nb, bb=bb)
         return _scattered_tail(at, piv_all, act, m, k)
-    tc = smem.fused_step_tc(m, n, nb)
     eye = torch.eye(nb, dtype=a.dtype, device=a.device)
     pivs = []
     for k0 in range(0, k, nb):
@@ -294,7 +291,7 @@ def getrf_scattered(a, nb: int = 512, bb: int = 128, step=None):
         if step in ("fused", "fused_trsm"):
             with metrics.step_timer("getrf", "fused"):
                 at, piv, act, _ = kernels.getrf_step_fused(
-                    at, act, k0, nb=nb, bb=bb, tc=tc, update=step == "fused")
+                    at, act, k0, nb=nb, bb=bb, update=step == "fused")
             pivs.append(piv)
             if step == "fused_trsm" and k0 + nb < n:
                 # the kernel scattered U12 into the pivot lanes; the rank-nb

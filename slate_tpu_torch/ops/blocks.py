@@ -269,13 +269,13 @@ def potrf_steps(a, nb: int = 512, tc=None):
     chol + inverse, L21 = A21·L11⁻ᵀ, the symmetric rank-nb trailing
     update — is one ``potrf_step_fused`` launch per block column, on one
     private copy of ``a`` updated in place.  nb a power of two ≥ 128
-    dividing n (:func:`slate_tpu_torch.ops.smem.use_fused_potrf_step`).
-    Returns L (zeros above the diagonal)."""
+    dividing n (:func:`slate_tpu_torch.ops.smem.potrf_fused_fits`); the
+    trailing tile edge tc defaults to nb.  Returns L (zeros above the
+    diagonal)."""
     from ..perf import metrics
-    from . import smem
 
     n = a.shape[-1]
-    tc = tc if tc is not None else smem.potrf_step_tc(n, nb)
+    tc = tc or nb
     a = a.clone(memory_format=torch.contiguous_format)
     metrics.inc("step.potrf.steps", float(n // nb))
     with metrics.step_timer("potrf", "fused"):
@@ -289,10 +289,9 @@ def potrf_full(a, nb: int = 512, tc=None):
     ``potrf_full_fused`` launch, on one private copy of ``a``; same
     shapes and result contract as :func:`potrf_steps`."""
     from ..perf import metrics
-    from . import smem
 
     n = a.shape[-1]
-    tc = tc if tc is not None else smem.potrf_full_tc(n, nb)
+    tc = tc or nb
     a = a.clone(memory_format=torch.contiguous_format)
     metrics.inc("step.potrf.steps", float(n // nb))
     with metrics.step_timer("potrf", "full"):

@@ -760,17 +760,18 @@ def potrf_full_fused(a, nb: int = 512, tc: int = 512):
 # lu_step.cuh's trailing phase, in place on the transposed (n_rows, m) carry
 # ---------------------------------------------------------------------------
 
-def _check_lu_step(name: str, at, act, k0: int, nb: int, bb: int, ib: int,
-                   tc: int) -> None:
+def _check_lu_step(name: str, at, act, k0: int, nb: int, bb: int,
+                   ib: int) -> None:
+    """The shapes :func:`smem.lu_fused_fits` admits: 128 | nb | rows."""
     from . import smem
 
     n_rows, m = at.shape
     _check_lu_panel(name, at, act, nb, m, ib)
     _check_fused(at, k0, nb, bb, ib, name)
-    if nb % smem.STEP_TILE or nb % tc or n_rows % tc or k0 + nb > m:
-        raise ValueError("%s needs 128 | nb, tc | nb, tc | rows and k0 + nb "
-                         "<= lanes, got (%d, %d), k0 = %d, nb = %d, tc = %d"
-                         % (name, n_rows, m, k0, nb, tc))
+    if nb % smem.STEP_TILE or n_rows % nb or k0 + nb > m:
+        raise ValueError("%s needs 128 | nb | rows and k0 + nb <= lanes, got "
+                         "(%d, %d), k0 = %d, nb = %d"
+                         % (name, n_rows, m, k0, nb))
 
 
 def _lu_trailing_plain(at, k0: int, nb: int, piv, act_out, linv,
@@ -809,7 +810,7 @@ def getrf_full_fused_plain(at, act, nb: int = 512, bb: int = 128,
     pivs = []
     act = act.reshape(1, -1)
     for k0 in range(0, min(at.shape), nb):
-        at, piv, act, _ = getrf_step_fused_plain(at, act, k0, nb, bb, ib, tc)
+        at, piv, act, _ = getrf_step_fused_plain(at, act, k0, nb, bb, ib)
         pivs.append(piv)
     return at, torch.cat(pivs), act
 
@@ -824,16 +825,16 @@ def getrf_step_fused(at, act, k0: int, nb: int = 512, bb: int = 128,
     pivot lanes.  ``update=False`` is the ``fused_trsm`` depth: the
     caller applies the rank-nb update.  Returns ``(at, piv, act_out,
     linv)`` as :func:`getrf_panel_fused` (``linv`` the panel's inverse,
-    before the Newton step).  nb a multiple of 128, bb | nb, ib | bb,
-    tc = min(tc or nb, nb) dividing nb and the row count, k0 + nb ≤ m.
-    On the card ``at`` needs unit lane stride."""
+    before the Newton step).  nb a multiple of 128 dividing the row
+    count, bb | nb, ib | bb, k0 + nb ≤ m.  ``tc`` only mirrors the JAX
+    signature: each trailing row is updated alone, so no chunk height
+    enters.  On the card ``at`` needs unit lane stride."""
     n_rows, m = at.shape
     bb = min(bb, nb)
     ib = min(ib, bb)
-    tc = min(tc or nb, nb)
-    _check_lu_step("getrf_step_fused", at, act, k0, nb, bb, ib, tc)
+    _check_lu_step("getrf_step_fused", at, act, k0, nb, bb, ib)
     if _on_cpu(at, act):
-        return getrf_step_fused_plain(at, act, k0, nb, bb, ib, tc, update)
+        return getrf_step_fused_plain(at, act, k0, nb, bb, ib, update=update)
     _check_rows("getrf_step_fused", at)
     dev = at.device
     grid = _plan("getrf_step_fused", dev, m, nb, ib)
@@ -856,18 +857,18 @@ def getrf_full_fused(at, act, nb: int = 512, bb: int = 128, ib: int = 16,
     """The whole partial-pivot LU of the transposed (n_rows, m) fp32 carry
     in one launch, IN PLACE: :func:`getrf_step_fused` for k0 = 0, nb, …
     below min(n_rows, m).  Returns ``(at, piv, act_out)`` with ``piv`` the
-    min(n_rows, m) pivot lanes in factorization order."""
+    min(n_rows, m) pivot lanes in factorization order; ``tc`` as in
+    :func:`getrf_step_fused`."""
     n_rows, m = at.shape
     bb = min(bb, nb)
     ib = min(ib, bb)
-    tc = min(tc or nb, nb)
     ktot = min(n_rows, m)
-    _check_lu_step("getrf_full_fused", at, act, 0, nb, bb, ib, tc)
+    _check_lu_step("getrf_full_fused", at, act, 0, nb, bb, ib)
     if ktot % nb:
         raise ValueError("getrf_full_fused needs nb | min(rows, lanes), got "
                          "(%d, %d), nb = %d" % (n_rows, m, nb))
     if _on_cpu(at, act):
-        return getrf_full_fused_plain(at, act, nb, bb, ib, tc)
+        return getrf_full_fused_plain(at, act, nb, bb, ib)
     _check_rows("getrf_full_fused", at)
     dev = at.device
     grid = _plan("getrf_full_fused", dev, m, nb, ib)

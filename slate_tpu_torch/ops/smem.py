@@ -51,15 +51,14 @@ co-resident, and what one block holds is
   (:func:`lu_step_bytes`); the full kernel holds no more than the step
   kernel, since its next panel stays in the carry.
 
-The chunk height tc changes no shared memory here, so the port takes
-tc = nb, the JAX package's choice whenever its VMEM budget allows
-(:func:`potrf_step_tc`, :func:`fused_step_tc`); the shape rules of the
-JAX gates stay (f32, nb | n, nb a power of two ≥ 128 for potrf and a
-multiple of 128 for LU, tc | nb and tc | n).  :func:`use_fused_potrf_step`,
-:func:`use_full_potrf`, :func:`use_fused_step` and :func:`use_full_fused`
-are the gates; the kernels' C entries refuse the same shapes, and
-``ops/kernels.py`` checks the kernels' own shared-memory formulas
-against these when it loads them.
+The chunk height tc changes no shared memory here, and the step and full
+kernels of a family hold the same, so one gate serves both depths:
+:func:`potrf_fused_fits` and :func:`lu_fused_fits`.  They keep the shape
+rules of the JAX gates with tc = nb, the JAX package's choice whenever
+its VMEM budget allows (f32, nb | n, nb a power of two ≥ 128 for potrf
+and a multiple of 128 for LU).  The kernels' wrappers refuse the same
+shapes, and ``ops/kernels.py`` checks the kernels' own shared-memory
+formulas against these when it loads them.
 
 On the card the SM count comes from the device; everywhere else (the CPU
 tests) the H100's constants answer, so the gates decide the same way.
@@ -112,13 +111,18 @@ def lu_panel_bytes(m: int, w: int, ib: int, grid: int) -> int:
                 + 2 * chunk + 64)
 
 
+def _first_grid(m: int, device=None) -> int:
+    """The panel kernels' first grid for m lanes: one block per SM, never
+    fewer than 32 lanes a block."""
+    return max(1, min(sm_count(device), _ceildiv(m, MIN_LANES)))
+
+
 def lu_panel_fits(m: int, w: int, ib: int, device=None) -> bool:
     """The shared-memory gate of the LU panel kernels: a (w, m) panel's
     share on ``min(SMs, ceil(m / 32))`` blocks fits one block."""
     if m < 1 or w < 1 or not 1 <= ib <= MAX_IB or w % ib:
         return False
-    grid = max(1, min(sm_count(device), _ceildiv(m, MIN_LANES)))
-    return fits(lu_panel_bytes(m, w, ib, grid))
+    return fits(lu_panel_bytes(m, w, ib, _first_grid(m, device)))
 
 
 #: the batched kernels' inner block (potrf_batched.cu, getrf_batched.cu IB)
@@ -154,8 +158,6 @@ def batched_fits(kernel: str, n: int) -> bool:
 # Fused and full factorization steps
 # ---------------------------------------------------------------------------
 
-#: static shared memory a block may hold (bytes)
-STATIC_SMEM_MAX = 49152
 #: tri_panel.cuh's Smem, the one shared allocation of a potrf_step.cuh
 #: block: two 32 × 132 product slabs and two 32 × 33 blocks
 TRI_PANEL_SMEM = 4 * (2 * 32 * 132 + 2 * 32 * 33)
@@ -167,51 +169,14 @@ STEP_TILE = 128
 LU_STEP_GEMM_FLOATS = 2 * 16 * 132 + 128
 
 
-def potrf_step_bytes(n: int, nb: int, tc: int) -> int:
-    """Shared memory of one block of the fused potrf step kernel (static:
-    n, nb and tc do not enter; the block column stays in device
-    memory)."""
-    return TRI_PANEL_SMEM
-
-
-def potrf_step_tc(n: int, nb: int) -> int:
-    """Trailing-tile edge of the fused potrf step: nb (see the module
-    docstring)."""
-    return nb
-
-
-def _potrf_shape_ok(n: int, nb: int, dtype) -> bool:
+def potrf_fused_fits(n: int, nb: int, dtype) -> bool:
+    """The gate of ``potrf_step_fused`` and ``potrf_full_fused`` (the
+    ``fused`` and ``full`` depths of the Cholesky driver): f32, nb a power
+    of two ≥ 128 dividing n, and n > nb.  Their shared memory is fixed
+    (:data:`TRI_PANEL_SMEM`).  Whether an eligible shape takes a kernel
+    is the ``potrf_step`` site's decision."""
     return (dtype == torch.float32 and nb >= STEP_TILE and nb & (nb - 1) == 0
             and n > nb and n % nb == 0)
-
-
-def use_fused_potrf_step(n: int, nb: int, dtype) -> bool:
-    """Shape and shared-memory gate of ``potrf_step_fused`` (the
-    ``fused`` depth of the Cholesky driver): f32, nb a power of two ≥ 128
-    dividing n, n > nb, and the block's static shared memory within the
-    static limit.  Whether an eligible shape takes it is the
-    ``potrf_step`` site's decision."""
-    if config.use_kernels_mode() == "off" or not _potrf_shape_ok(n, nb, dtype):
-        return False
-    return potrf_step_bytes(n, nb, potrf_step_tc(n, nb)) <= STATIC_SMEM_MAX
-
-
-def potrf_full_bytes(n: int, nb: int, tc: int) -> int:
-    """Shared memory of one block of ``potrf_full_fused``: the step
-    kernel's (the next block column stays in the carry)."""
-    return potrf_step_bytes(n, nb, tc)
-
-
-def potrf_full_tc(n: int, nb: int) -> int:
-    return nb
-
-
-def use_full_potrf(n: int, nb: int, dtype) -> bool:
-    """Shape and shared-memory gate of ``potrf_full_fused`` (the ``full``
-    depth): the fused step's conditions."""
-    if config.use_kernels_mode() == "off" or not _potrf_shape_ok(n, nb, dtype):
-        return False
-    return potrf_full_bytes(n, nb, potrf_full_tc(n, nb)) <= STATIC_SMEM_MAX
 
 
 def lu_step_bytes(m: int, nb: int, ib: int, grid: int) -> int:
@@ -222,57 +187,14 @@ def lu_step_bytes(m: int, nb: int, ib: int, grid: int) -> int:
     return max(lu_panel_bytes(m, nb, ib, grid), 4 * LU_STEP_GEMM_FLOATS)
 
 
-def _lu_grid(m: int, device=None) -> int:
-    return max(1, min(sm_count(device), _ceildiv(m, MIN_LANES)))
-
-
-def fused_step_tc(m: int, n: int, nb: int) -> int:
-    """Trailing-chunk height of the fused LU step: nb (each trailing row
-    is updated alone, so the chunking changes no arithmetic)."""
-    return nb
-
-
-def fused_step_bytes(m: int, nb: int, tc: int, ib: int = 16,
-                     device=None) -> int:
-    """One block's shared memory for the fused LU step at the first
-    grid the launcher tries (one block per SM, ≥ 32 lanes a block)."""
-    return lu_step_bytes(m, nb, ib, _lu_grid(m, device))
-
-
-def _lu_step_ok(m: int, n: int, nb: int, dtype, tc: int, nbytes: int) -> bool:
-    if config.use_kernels_mode() == "off" or dtype != torch.float32:
+def lu_fused_fits(m: int, n: int, nb: int, dtype, device=None) -> bool:
+    """The gate of ``getrf_step_fused`` and ``getrf_full_fused`` (the
+    ``fused``, ``fused_trsm`` and ``full`` depths of the scattered LU
+    driver) for an (m, n) matrix whose transposed carry is (n, m): f32,
+    nb a multiple of 128 dividing n, m ≥ nb, and one block's share at the
+    first grid the launcher tries (one block per SM, ≥ 32 lanes a block)
+    fitting the opt-in limit.  The scattered driver's own gate
+    (``linalg.lu._use_scattered``) is the caller's."""
+    if dtype != torch.float32 or m < nb or nb % STEP_TILE or n % nb:
         return False
-    if m < nb or nb % STEP_TILE or nb % tc or n % tc:
-        return False
-    return fits(nbytes)
-
-
-def use_fused_step(m: int, n: int, nb: int, dtype, device=None) -> bool:
-    """Shape and shared-memory gate of ``getrf_step_fused`` (the
-    ``fused`` and ``fused_trsm`` depths of the scattered LU driver) for an
-    (m, n) matrix whose transposed carry is (n, m): f32, nb a multiple of
-    128, tc | nb and tc | n, and one block's share fitting the opt-in
-    limit.  The scattered driver's own gate (``linalg.lu._use_scattered``)
-    is the caller's."""
-    tc = fused_step_tc(m, n, nb)
-    return _lu_step_ok(m, n, nb, dtype, tc,
-                       fused_step_bytes(m, nb, tc, device=device))
-
-
-def full_fused_bytes(m: int, nb: int, tc: int, ib: int = 16,
-                     device=None) -> int:
-    """One block's shared memory for ``getrf_full_fused``: the step
-    kernel's."""
-    return fused_step_bytes(m, nb, tc, ib, device)
-
-
-def full_fused_tc(m: int, nb: int) -> int:
-    return nb
-
-
-def use_full_fused(m: int, n: int, nb: int, dtype, device=None) -> bool:
-    """Shape and shared-memory gate of ``getrf_full_fused`` (the ``full``
-    depth): the fused step's conditions."""
-    tc = full_fused_tc(m, nb)
-    return _lu_step_ok(m, n, nb, dtype, tc,
-                       full_fused_bytes(m, nb, tc, device=device))
+    return fits(lu_step_bytes(m, nb, 16, _first_grid(m, device)))

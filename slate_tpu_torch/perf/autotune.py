@@ -21,7 +21,7 @@ around it), ``"fused"`` (one kernel launch per step; for LU also
 port has no timing table yet.  ``SLATE_TPU_TORCH_AUTOTUNE_FORCE``
 (``"potrf_step=full,lu_step=fused"``, read at each call, the counterpart
 of the JAX package's ``SLATE_TPU_AUTOTUNE_FORCE``) pins a depth where the
-call site's gates admit it; a pinned depth outside the key's ladder is
+call site's gate admits it; a pinned depth outside the key's ladder is
 ignored with a warning, once per (site, depth).
 
 :func:`decisions` lists what each site resolved to, keyed
@@ -90,34 +90,21 @@ def _warn_bad_force(site: str, forced: str, names) -> None:
                   "is ignored here" % (FORCE_ENV, site, forced, list(names)))
 
 
-def _potrf_step_depths(eligible: bool, eligible_full: bool) -> list:
-    """The ``potrf_step`` depth ladder the call site's gates admit."""
-    depths = ["composed"]
-    if eligible:
-        depths.append("fused")
-    if eligible_full:
-        depths.append("full")
-    return depths
+#: the depth ladders of the two step sites where the call site's gate
+#: holds (the step and full kernels of a family share one gate)
+_STEP_DEPTHS = {"potrf_step": ["composed", "fused", "full"],
+                "lu_step": ["composed", "fused", "fused_trsm", "full"]}
 
 
-def _lu_step_depths(eligible: bool, eligible_full: bool) -> list:
-    """The ``lu_step`` depth ladder the call site's gates admit."""
-    depths = ["composed"]
-    if eligible:
-        depths += ["fused", "fused_trsm"]
-    if eligible_full:
-        depths.append("full")
-    return depths
-
-
-def _choose_depth(site: str, key: tuple, depths: list) -> str:
+def _choose_depth(site: str, key: tuple, eligible: bool) -> str:
     """A step-depth site: the pinned depth where the ladder has it, else
     ``"composed"`` with the reason recorded."""
     if config.use_kernels_mode() == "off":
         depths, reason = ["composed"], "kernels off"
-    elif len(depths) == 1:
-        reason = "ineligible"
+    elif not eligible:
+        depths, reason = ["composed"], "ineligible"
     else:
+        depths = _STEP_DEPTHS[site]
         reason = "default: no timed decision on this card yet"
     forced = _forced(site)
     if forced is not None:
@@ -157,20 +144,18 @@ def choose_potrf_panel(n: int, nb: int, dtype, device) -> str:
     return _record("potrf_panel", key, _kernel_or_plain(device))
 
 
-def choose_potrf_step(n: int, nb: int, dtype, device, eligible: bool = False,
-                      eligible_full: bool = False) -> str:
+def choose_potrf_step(n: int, nb: int, dtype, device,
+                      eligible: bool = False) -> str:
     """Step depth of the f32 Cholesky driver: ``"composed"`` (the strip
     driver over ``chol_inv_panel``, :func:`~slate_tpu_torch.ops.blocks.
     potrf_panels`), ``"fused"`` (one ``potrf_step_fused`` launch per step,
     :func:`~slate_tpu_torch.ops.blocks.potrf_steps`) or ``"full"`` (one
     ``potrf_full_fused`` launch, :func:`~slate_tpu_torch.ops.blocks.
-    potrf_full`).  ``eligible`` / ``eligible_full`` are the call site's
-    gates (``ops.smem.use_fused_potrf_step`` / ``use_full_potrf``).  The
-    depth is ``"composed"`` unless :data:`FORCE_ENV` pins another the
-    gates admit (module docstring)."""
+    potrf_full`).  ``eligible`` is the call site's gate of both kernels
+    (``ops.smem.potrf_fused_fits``).  The depth is ``"composed"`` unless
+    :data:`FORCE_ENV` pins another the gate admits (module docstring)."""
     key = (n, nb, str(dtype).replace("torch.", ""), torch.device(device).type)
-    return _choose_depth("potrf_step", key,
-                         _potrf_step_depths(eligible, eligible_full))
+    return _choose_depth("potrf_step", key, eligible)
 
 
 def choose_trtri_panel(n: int, dtype, device) -> str:
@@ -211,20 +196,18 @@ def choose_lu_driver(m: int, n: int, nb: int, dtype, device,
 
 
 def choose_lu_step(m: int, n: int, nb: int, dtype, device,
-                   eligible: bool = False, eligible_full: bool = False) -> str:
+                   eligible: bool = False) -> str:
     """Step depth of the scattered LU driver: ``"composed"`` (the
     ``getrf_panel_fused`` kernel and the PyTorch glue), ``"fused"`` (one
     ``getrf_step_fused`` launch per step), ``"fused_trsm"`` (the same
     kernel with the rank-nb update left to the ``matmul`` site) or
-    ``"full"`` (one ``getrf_full_fused`` launch).  ``eligible`` /
-    ``eligible_full`` are the call site's gates (``ops.smem.
-    use_fused_step`` / ``use_full_fused``).  The depth is ``"composed"``
-    unless :data:`FORCE_ENV` pins another the gates admit (module
-    docstring)."""
+    ``"full"`` (one ``getrf_full_fused`` launch).  ``eligible`` is the
+    call site's gate of both kernels (``ops.smem.lu_fused_fits``).  The
+    depth is ``"composed"`` unless :data:`FORCE_ENV` pins another the gate
+    admits (module docstring)."""
     key = (m, n, nb, str(dtype).replace("torch.", ""),
            torch.device(device).type)
-    return _choose_depth("lu_step", key,
-                         _lu_step_depths(eligible, eligible_full))
+    return _choose_depth("lu_step", key, eligible)
 
 
 def _batched_key(dims, dtype, device) -> tuple:

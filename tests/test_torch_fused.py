@@ -327,39 +327,40 @@ def test_potrf_depth_roundtrips_and_launches(depth, wrapper, calls,
 
 def test_gates_follow_smem():
     """The shape rules of the JAX gates on the H100's constants: the main
-    path's shapes pass, the LU step stops where one block's share of the
-    panel passes the opt-in limit, and kernels switched off close every
-    gate."""
-    assert smem.use_fused_potrf_step(8192, 512, F32)
-    assert smem.use_full_potrf(8192, 512, F32)
+    path's shapes pass, and the LU kernels stop where one block's share
+    of the panel passes the opt-in limit."""
+    assert smem.potrf_fused_fits(8192, 512, F32)
     for n, nb, dt in ((8192, 64, F32), (8192, 384, F32), (1000, 128, F32),
                       (512, 512, F32), (8192, 512, torch.float64)):
-        assert not smem.use_fused_potrf_step(n, nb, dt)
-        assert not smem.use_full_potrf(n, nb, dt)
-    assert smem.potrf_step_bytes(8192, 512, 512) <= smem.STATIC_SMEM_MAX
-    assert smem.use_fused_step(8192, 8192, 512, F32)
-    assert smem.use_full_fused(8192, 8192, 512, F32)
+        assert not smem.potrf_fused_fits(n, nb, dt)
+    assert smem.lu_fused_fits(8192, 8192, 512, F32)
     assert smem.lu_step_bytes(8192, 512, 16, 132) == smem.lu_panel_bytes(
         8192, 512, 16, 132)
     # one lane a block: the product tiles outgrow the panel's share
     assert smem.lu_step_bytes(132, 128, 16, 132) == \
         4 * smem.LU_STEP_GEMM_FLOATS
-    assert smem.use_fused_step(12144, 8192, 512, F32)
-    assert not smem.use_fused_step(12160, 8192, 512, F32)
+    assert smem.lu_fused_fits(12144, 8192, 512, F32)
+    assert not smem.lu_fused_fits(12160, 8192, 512, F32)
     for m, n, nb, dt in ((8192, 8192, 192, F32), (8192, 8192, 512,
                                                   torch.float64),
                          (8192, 8000, 512, F32), (64, 256, 128, F32)):
-        assert not smem.use_fused_step(m, n, nb, dt)
-        assert not smem.use_full_fused(m, n, nb, dt)
+        assert not smem.lu_fused_fits(m, n, nb, dt)
 
 
 def test_gates_off_with_kernels_off(monkeypatch):
+    """Kernels switched off close both step sites, even where the gate
+    holds and a depth is pinned."""
     monkeypatch.setattr(tcfg, "use_kernels", False)
-    assert not smem.use_fused_potrf_step(8192, 512, F32)
-    assert not smem.use_full_fused(8192, 8192, 512, F32)
+    monkeypatch.setattr(tauto, "_warned_forces", set())
     monkeypatch.setenv(FORCE, "potrf_step=full,lu_step=full")
-    assert tauto.choose_potrf_step(8192, 512, F32, "cpu", True, True) == \
-        "composed"
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        assert tauto.choose_potrf_step(8192, 512, F32, "cpu", True) == \
+            "composed"
+        assert tauto.choose_lu_step(8192, 8192, 512, F32, "cpu", True) == \
+            "composed"
+    assert tauto.decisions(with_reasons=True)[
+        "lu_step|8192,8192,512,float32,cpu"] == ("composed", "kernels off")
 
 
 @pytest.mark.parametrize("bad", ["nb64", "tc", "k0", "square"])
@@ -414,21 +415,20 @@ def test_ineligible_pin_resolves_to_composed_and_warns_once(monkeypatch):
 def test_bad_pin_warns_once_and_no_pin_answers_composed(monkeypatch):
     monkeypatch.setattr(tauto, "_warned_forces", set())
     cuda = torch.device("cuda")
-    assert tauto.choose_lu_step(8192, 8192, 512, F32, cuda, True, True) == \
+    assert tauto.choose_lu_step(8192, 8192, 512, F32, cuda, True) == \
         "composed"
     key = "lu_step|8192,8192,512,float32,cuda"
     backend, reason = tauto.decisions(with_reasons=True)[key]
     assert backend == "composed" and "no timed decision" in reason
     monkeypatch.setenv(FORCE, "lu_step=fused_trsm")
-    assert tauto.choose_lu_step(8192, 8192, 512, F32, cuda, True, True) == \
+    assert tauto.choose_lu_step(8192, 8192, 512, F32, cuda, True) == \
         "fused_trsm"
     monkeypatch.setenv(FORCE, "lu_step=bogus")
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
         for _ in range(3):
-            assert tauto.choose_lu_step(8192, 8192, 512, F32, cuda, True,
+            assert tauto.choose_lu_step(8192, 8192, 512, F32, cuda,
                                         True) == "composed"
     assert len([w for w in seen if "bogus" in str(w.message)]) == 1
     assert tauto.select("lu_step", m=512, n=512, nb=512, dtype=F32,
-                        device="cpu", eligible=True,
-                        eligible_full=False) == "composed"
+                        device="cpu", eligible=True) == "composed"
