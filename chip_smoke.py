@@ -26,7 +26,12 @@
    apart over steps of different rounding, with pivots equal up to a
    near-tie (within 1e-5 relative in one of the two factors; at n = 8192
    the drift passes that width, and the first departure is printed) and
-   the drift printed; then each timed at n = 8192.
+   the drift printed; then each timed at n = 8192.  ``lu_inv_panel``
+   (phase 2e) at nb = 32, 64, 128, 256 and 512 on diagonally dominant
+   blocks and at 512 on the B[:512] block of the first CholQR² panel of
+   the QR path's input: each output within 1e-4 of its plain version,
+   ‖L·U − A‖/(‖A‖·ε·nb) ≤ 3, ‖L·L⁻¹ − I‖ and ‖U·U⁻¹ − I‖ < 1e-3; timed
+   at 512 on the B block.
 3. Drives the main paths through the public entry points, with the
    reference tester's scaled-residual gates (≤ 3):
    * Cholesky: ``posv`` of an n = 8192 fp32 HermitianMatrix (nb = 256,
@@ -56,7 +61,21 @@
      launch counts (16 step launches or 1 full launch, and none of the
      composed depth's panel kernel), the first column where each LU
      depth's pivots depart from the composed depth's, the median wall of
-     every depth, and a ``torch.profiler`` split of posv and gesv at full.
+     every depth, and a ``torch.profiler`` split of posv and gesv at full;
+   * QR: ``geqrf`` of an m = 32768, n = 4096 Gaussian Matrix (nb = 256,
+     so 512-wide CholQR² panels; bench.py's config 4): exactly 8
+     ``lu_inv_panel``, 16 ``chol_inv_panel`` and 8 ``trtri_panel``
+     launches, the conditioning guard not tripped (``devmax`` printed),
+     bench.py's Gram identity, ``ungqr``'s orthogonality
+     max|QᵀQ − I|/(ε·m) (tester.py) and ‖A − Q·R‖/(‖A‖·ε·m), each ≤ 3;
+     the median wall of 3 calls beside ``torch.geqrf``'s, and a
+     ``torch.profiler`` split; then ``gels`` with one right-hand side
+     under Auto (CholQR, m ≥ 3n), with ``method_gels=QR`` and on the
+     transposed (minimum-norm) shape, each gated by bench.py's
+     normal-equations residual ≤ 3;
+   * guard: ``geqrf`` of an (8192, 1024) input of condition 1e6 built
+     on the host: the departure ``devmax`` ≥ 0.25, one Householder rerun,
+     orthogonality and reconstruction ≤ 3.
    Every kernel's launch count is set to 0 just before each path (each
    LU driver, ``getri``, each batched driver, the served requests and
    each depth a path of its own) and read just after it; a kernel of the
@@ -87,6 +106,8 @@ REPO = {"matmul": ("slate_tpu_torch/csrc/matmul.cu",
                            "slate_tpu/ops/pallas_kernels.py:395"),
         "trtri_panel": ("slate_tpu_torch/csrc/trtri_panel.cu",
                         "slate_tpu/ops/pallas_kernels.py:571"),
+        "lu_inv_panel": ("slate_tpu_torch/csrc/lu_inv_panel.cu",
+                         "slate_tpu/ops/pallas_kernels.py:537"),
         "getrf_panel_linv": ("slate_tpu_torch/csrc/getrf_panel_linv.cu",
                              "slate_tpu/ops/pallas_kernels.py:873"),
         "getrf_panel_fused": ("slate_tpu_torch/csrc/getrf_panel_fused.cu",
@@ -121,7 +142,14 @@ PATHS = {"cholesky": ("matmul", "chol_inv_panel", "trtri_panel"),
          "chol_full": ("matmul", "potrf_full_fused"),
          "lu_fused_trsm": ("matmul", "getrf_step_fused"),
          "lu_fused": ("matmul", "getrf_step_fused"),
-         "lu_full": ("matmul", "getrf_full_fused")}
+         "lu_full": ("matmul", "getrf_full_fused"),
+         "qr": ("matmul", "chol_inv_panel", "lu_inv_panel", "trtri_panel"),
+         "ungqr": ("matmul",),
+         "gels_cholqr": ("matmul",),
+         "gels_qr": ("matmul",),
+         "gels_min_norm": ("matmul",),
+         "qr_guard": ("matmul", "chol_inv_panel", "lu_inv_panel",
+                      "trtri_panel")}
 #: the depth paths' exact launch counts at n = 8192 (16 steps of 512), the
 #: composed depth's panel kernels among them (never launched there)
 EXACT = {"chol_fused": {"potrf_step_fused": 16, "potrf_full_fused": 0,
@@ -135,6 +163,12 @@ EXACT = {"chol_fused": {"potrf_step_fused": 16, "potrf_full_fused": 0,
          "lu_full": {"getrf_full_fused": 1, "getrf_step_fused": 0,
                      "getrf_panel_fused": 0}}
 FUSED_N = 2048                  # phase 2d's check size (four 512 steps)
+#: BASELINE.md's config 4 (bench.py:1429-1497), geqrf_panels' panel width
+#: for nb = 256, the exact launches of one geqrf there (8 panels), and the
+#: guard path's (m, n) and condition number
+QR_M, QR_N, QR_PANEL = 32768, 4096, 512
+QR_EXACT = {"lu_inv_panel": 8, "chol_inv_panel": 16, "trtri_panel": 8}
+GUARD_M, GUARD_N, GUARD_COND = 8192, 1024, 1e6
 FORCE = "SLATE_TPU_TORCH_AUTOTUNE_FORCE"
 
 
@@ -1367,6 +1401,250 @@ def main_path_depths(torch, st, kernels, dev) -> dict:
     return res
 
 
+def check_lu_inv_kernel(torch, kernels, dev, a_qr) -> dict:
+    """Phase 2e: lu_inv_panel against its plain version on diagonally
+    dominant blocks at nb = 32 … 512 and on the B block of the first
+    CholQR² panel of the QR path's input ``a_qr``: each output within
+    1e-4 (relative Frobenius), ‖L·U − A‖/(‖A‖·ε·nb) ≤ 3, ‖L·L⁻¹ − I‖ and
+    ‖U·U⁻¹ − I‖ < 1e-3.  Times kernel, plain version and a library
+    composition at 512 on the B block."""
+    from slate_tpu_torch.linalg import qr
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    eps = float(torch.finfo(torch.float32).eps)
+    cases = []
+    for nb in (32, 64, 128, 256, 512):
+        g = torch.randn((nb, nb), generator=gen, device=dev)
+        cases.append(("dominant", g + nb * torch.eye(nb, device=dev)))
+    # the block the Householder reconstruction hands lu_inv_panel
+    b = qr._householder_b(qr._cholqr2(a_qr[:, :QR_PANEL])[0])[1][:QR_PANEL]
+    cases.append(("cholqr2 B", b))
+    errs = []
+    for label, a in cases:
+        nb = a.shape[0]
+        got = kernels.lu_inv_panel(a)
+        ref = kernels.lu_inv_panel_plain(a)
+        torch.cuda.synchronize()
+        rel = max(rel_err(g, r) for g, r in zip(got, ref))
+        lu, linv, uinv = (t.double() for t in got)
+        eye = torch.eye(nb, dtype=torch.float64, device=dev)
+        low, up = torch.tril(lu, -1) + eye, torch.triu(lu)
+        ad = a.double()
+        res = float((low @ up - ad).norm() / (ad.norm() * eps * nb))
+        inv_l = float((low @ linv - eye).norm())
+        inv_u = float((up @ uinv - eye).norm())
+        print("lu_inv_panel %s nb=%d: rel %.3e of the plain version, factor "
+              "residual %.3g, ||L Linv - I|| %.3g, ||U Uinv - I|| %.3g"
+              % (label, nb, rel, res, inv_l, inv_u), flush=True)
+        if not (rel <= 1e-4 and res <= 3 and inv_l < 1e-3 and inv_u < 1e-3):
+            fail("lu_inv_panel %s nb=%d: rel %.3e (<= 1e-4), residual %.3g "
+                 "(<= 3), inverses %.3g, %.3g (< 1e-3)"
+                 % (label, nb, rel, res, inv_l, inv_u))
+        if nb == QR_PANEL:
+            errs.append(max(float((g - r).abs().max())
+                            for g, r in zip(got, ref)))
+    nb = QR_PANEL
+    eye32 = torch.eye(nb, device=dev)
+
+    def library_lu_inv():
+        lu, _ = torch.linalg.lu_factor(b, pivot=False)
+        return (torch.linalg.solve_triangular(lu, eye32, upper=False,
+                                              unitriangular=True),
+                torch.linalg.solve_triangular(lu, eye32, upper=True))
+
+    b_ms, b_by = bound(4.0 * nb ** 3 / 3, 4.0 * 4 * nb * nb)
+    r = dict(shape="(%d,%d) CholQR2 B block of the first (%d,%d) panel"
+                   % (nb, nb, QR_M, QR_PANEL),
+             max_abs_err=max(errs),
+             tol="rel Frobenius of LU, L^-1, U^-1 <= 1e-4; residual <= 3",
+             ms=cuda_ms(torch, lambda: kernels.lu_inv_panel(b), 20),
+             plain_ms=cuda_ms(torch, lambda: kernels.lu_inv_panel_plain(b), 2),
+             library_ms=cuda_ms(torch, library_lu_inv, 20),
+             bound_ms=b_ms, bound_by=b_by)
+    print("kernel lu_inv_panel %s: max_abs_err %.3e (%s); kernel %.4f ms, "
+          "plain %.4f ms, library %.4f ms (lu_factor(pivot=False) + two "
+          "solve_triangular vs I, a composition), bound %.5f ms (%s)"
+          % (r["shape"], r["max_abs_err"], r["tol"], r["ms"], r["plain_ms"],
+             r["library_ms"], r["bound_ms"], r["bound_by"]), flush=True)
+    return {"lu_inv_panel": r}
+
+
+def _qr_factor_gates(torch, label, a, f, q) -> dict:
+    """bench.py's Gram identity ‖Aᵀ(A·x) − Rᵀ(R·x)‖/(‖A‖²·‖x‖·ε·√m),
+    tester.py's orthogonality max|QᵀQ − I|/(ε·m) and the reconstruction
+    ‖A − Q·R‖/(‖A‖·ε·m), in float64, each ≤ 3."""
+    eps = float(torch.finfo(torch.float32).eps)
+    m, n = a.shape
+    ad, qd = a.double(), q.double()
+    r = torch.triu(f[:n].double())
+    x = torch.randn(n, dtype=torch.float64, device=a.device,
+                    generator=torch.Generator(device=a.device).manual_seed(8))
+    out = {"gram": float((ad.T @ (ad @ x) - r.T @ (r @ x)).norm()
+                         / (ad.norm() ** 2 * x.norm() * eps * m ** 0.5)),
+           "orthogonality": float(
+               (qd.T @ qd - torch.eye(n, dtype=torch.float64, device=a.device))
+               .abs().max() / (eps * m)),
+           "reconstruction": float((ad - qd @ r).norm()
+                                   / (ad.norm() * eps * m))}
+    print("%s gates: Gram identity %.3g, orthogonality %.3g, reconstruction "
+          "%.3g (each <= 3)" % (label, out["gram"], out["orthogonality"],
+                                out["reconstruction"]), flush=True)
+    for k, v in out.items():
+        if not v <= 3:
+            fail("%s: %s %.3f > 3" % (label, k, v))
+    return out
+
+
+def qr_product_flops(m: int, n: int, w: int) -> float:
+    """FLOP of geqrf_panels' products through the matmul site on an
+    (m, n) input with w-wide CholQR² panels, counted from its shapes."""
+    total = 0.0
+    for k0 in range(0, n, w):
+        mk, nt = m - k0, n - k0 - w
+        # pan·L1⁻ᵀ, Q·L2⁻ᵀ, YᵀY, B[w:]·U⁻¹ and L1·L2
+        total += 2.0 * w * w * (3 * mk + (mk - w) + w)
+        # the trailing update: Yᵀ·C, Tᵀ·(…), Y·(…)
+        total += 2.0 * w * nt * (2 * mk + w)
+    return total
+
+
+def _normal_eq_residual(torch, a, b, x) -> float:
+    """bench.py:1491-1495's ‖Aᵀ(A·x − b)‖/(‖A‖²·‖x‖·ε·√m), float64."""
+    eps = float(torch.finfo(torch.float32).eps)
+    ad, bd, xd = a.double(), b.double(), x.double()
+    return float((ad.T @ (ad @ xd - bd)).norm()
+                 / (ad.norm() ** 2 * xd.norm() * eps * a.shape[0] ** 0.5))
+
+
+def main_path_qr(torch, st, kernels, dev, a) -> dict:
+    """Phase 3f: geqrf of the (32768, 4096) fp32 Gaussian ``a`` through
+    the public entry (the CholQR² panels; exact launches, the guard not
+    tripped, the factor gates of :func:`_qr_factor_gates` on ungqr's Q),
+    its median wall beside torch.geqrf's and a profiler split; then gels
+    with one right-hand side under Auto (CholQR), with method_gels=QR and
+    on the transposed shape (minimum norm), each a path of its own gated
+    by the normal-equations residual."""
+    import numpy as np
+    from slate_tpu_torch.perf import metrics
+
+    m, n = a.shape
+    A = st.Matrix.from_array(a, nb=NB)
+    metrics.on()
+    before = metrics.snapshot()
+    (f, taus), ms_f, l_f = run_path(torch, kernels, "qr", lambda: st.geqrf(A))
+    snap = metrics.snapshot()
+    devmax = snap["gauges"]["qr.cholqr2.devmax"]
+    reruns = metrics.snapshot_delta(before, snap)["counters"].get(
+        "qr.cholqr2.reruns", 0.0)
+    got = {k: l_f[k] for k in QR_EXACT}
+    print("QR path (%d, %d) nb=%d: geqrf first call %.1f ms, devmax %.4g, "
+          "reruns %d; launches %s" % (m, n, NB, ms_f, devmax, reruns,
+                                      {k: v for k, v in l_f.items() if v}),
+          flush=True)
+    if got != QR_EXACT:
+        fail("geqrf launched %s, not %s" % (got, QR_EXACT))
+    if reruns or not devmax < 0.25:
+        fail("the CholQR2 guard tripped on the main-path input (devmax %.4g)"
+             % devmax)
+    q, ms_q, l_q = run_path(torch, kernels, "ungqr", lambda: st.ungqr(f, taus))
+    for name, t in (("factor", f.data), ("taus", taus), ("Q", q)):
+        if not bool(torch.isfinite(t).all()):
+            fail("geqrf %s has non-finite values" % name)
+    if tuple(f.data.shape) != (m, n) or tuple(q.shape) != (m, n) \
+            or tuple(taus.shape) != (n,):
+        fail("geqrf/ungqr output shapes %s, %s, %s"
+             % (tuple(f.data.shape), tuple(taus.shape), tuple(q.shape)))
+    res = _qr_factor_gates(torch, "geqrf (%d, %d)" % (m, n), a, f.data, q)
+    del q
+    walls = {"geqrf": _wall_ms(torch, lambda: st.geqrf(A), 3),
+             "torch.geqrf (library)": _wall_ms(torch, lambda: torch.geqrf(a), 3),
+             "ungqr": ms_q}
+    res["geqrf_split"] = device_split(
+        torch, "geqrf", lambda: st.geqrf(A),
+        {"chol_inv_panel kernel": "chol_inv_panel_kernel",
+         "lu_inv_panel kernel": "lu_inv_panel_kernel",
+         "trtri_panel kernel": "trtri_panel_kernel",
+         "matmul kernel": "matmul_f32_kernel"})
+    flops = qr_product_flops(m, n, QR_PANEL)
+    if res["geqrf_split"].get("matmul kernel"):
+        print("geqrf: %.4g FLOP of products through the matmul kernel, %.2f "
+              "TFLOP/s in the split; bound of the whole factorization "
+              "(2mn^2 - 2n^3/3 at the fp32 peak) %.3f ms"
+              % (flops, flops / res["geqrf_split"]["matmul kernel"] / 1e9,
+                 bound(2.0 * m * n * n - 2.0 * n ** 3 / 3, 0.0)[0]),
+              flush=True)
+    del f, taus
+
+    b = torch.from_numpy(np.random.default_rng(4).standard_normal(m)
+                         .astype(np.float32)).to(dev)
+    at = a.T.contiguous()
+    AT = st.Matrix.from_array(at, nb=NB)
+    bt = b[:n].contiguous()
+    if st.method.select_gels(st.MethodGels.Auto, m, n) is not st.MethodGels.CholQR:
+        fail("gels Auto does not pick CholQR at (%d, %d)" % (m, n))
+    launches = {"qr": l_f, "ungqr": l_q}
+    for path, label, fn, aa, bb in (
+            ("gels_cholqr", "gels Auto (CholQR)", lambda: st.gels(A, b), a, b),
+            ("gels_qr", "gels method_gels=QR", lambda: st.gels(
+                A, b, {"method_gels": st.MethodGels.QR}), a, b),
+            ("gels_min_norm", "gels minimum norm (%d, %d)" % (n, m),
+             lambda: st.gels(AT, bt), at, bt)):
+        x, ms, lc = run_path(torch, kernels, path, fn)
+        want = aa.shape[1]
+        if tuple(x.shape) != (want,) or not bool(torch.isfinite(x).all()):
+            fail("%s: x of shape %s, finite %s" % (label, tuple(x.shape),
+                                                   bool(torch.isfinite(x).all())))
+        r = _normal_eq_residual(torch, aa, bb, x)
+        res[path + "_residual"] = r
+        walls[path] = ms
+        launches[path] = lc
+        print("%s: %.1f ms (first call), normal-equations residual %.3g; "
+              "launches %s" % (label, ms, r, {k: v for k, v in lc.items() if v}),
+              flush=True)
+        if not r <= 3:
+            fail("%s: normal-equations residual %.3f > 3" % (label, r))
+    walls["gels Auto (CholQR)"] = _wall_ms(torch, lambda: st.gels(A, b), 3)
+    print("QR walls (ms; geqrf, torch.geqrf and gels Auto median of 3, the "
+          "others one first call): %s"
+          % {k: round(v, 2) for k, v in walls.items()}, flush=True)
+    res.update(devmax=devmax, walls=walls, launches=launches)
+    return res
+
+
+def guard_path(torch, st, kernels, dev) -> dict:
+    """Phase 3g: geqrf of an fp32 (8192, 1024) input U·diag(σ)·Vᵀ of
+    condition 1e6, built on the host from numpy: the CholQR² departure
+    passes 0.25, the Householder rerun runs once, and the factor passes
+    the orthogonality and reconstruction gates."""
+    import numpy as np
+    from slate_tpu_torch.perf import metrics
+
+    m, n = GUARD_M, GUARD_N
+    rng = np.random.default_rng(31)
+    u, _ = np.linalg.qr(rng.standard_normal((m, n)))
+    v, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    a = torch.from_numpy(((u * np.geomspace(1.0, 1.0 / GUARD_COND, n)) @ v.T)
+                         .astype(np.float32)).to(dev)
+    G = st.Matrix.from_array(a, nb=NB)
+    metrics.on()
+    before = metrics.snapshot()
+    (f, taus), ms, lc = run_path(torch, kernels, "qr_guard", lambda: st.geqrf(G))
+    snap = metrics.snapshot()
+    devmax = snap["gauges"]["qr.cholqr2.devmax"]
+    reruns = metrics.snapshot_delta(before, snap)["counters"].get(
+        "qr.cholqr2.reruns", 0.0)
+    print("guard path (%d, %d), condition %.0e: geqrf %.1f ms, devmax %.4g, "
+          "reruns %d; launches %s" % (m, n, GUARD_COND, ms, devmax, reruns,
+                                      {k: v for k, v in lc.items() if v}),
+          flush=True)
+    if not (devmax >= 0.25 and reruns == 1):
+        fail("the guard did not rerun: devmax %.4g, reruns %d" % (devmax, reruns))
+    q = st.ungqr(f, taus)
+    res = _qr_factor_gates(torch, "guard geqrf", a, f.data, q)
+    res.update(devmax=devmax, ms=ms, launches={"qr_guard": lc})
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1408,11 +1686,18 @@ def main() -> int:
     measured.update(check_lu_kernels(torch, kernels, dev))
     measured.update(check_batched_kernels(torch, kernels, dev))
     measured.update(check_fused_kernels(torch, kernels, dev))
+    import numpy as np
+    a_qr = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (QR_M, QR_N)).astype(np.float32)).to(dev)      # bench.py's geqrf input
+    measured.update(check_lu_inv_kernel(torch, kernels, dev, a_qr))
     paths = {"cholesky": main_path(torch, st, kernels, dev)["launches"]}
     paths.update(main_path_lu(torch, st, kernels, dev)["launches"])
     paths.update(main_path_batched(torch, st, kernels, dev)["launches"])
     paths.update(serve_path(torch, kernels)["launches"])
     paths.update(main_path_depths(torch, st, kernels, dev)["launches"])
+    paths.update(main_path_qr(torch, st, kernels, dev, a_qr)["launches"])
+    del a_qr
+    paths.update(guard_path(torch, st, kernels, dev)["launches"])
 
     rows = []
     for name, r in measured.items():

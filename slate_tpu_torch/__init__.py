@@ -12,14 +12,17 @@ Ported so far: the fp32 single-device Cholesky path — ``gemm``,
 ``potrf``, ``potrs``, ``posv``, ``trtri``, ``trtrm``, ``potri`` (plus
 ``herk``/``syrk``, ``trmm``, ``trsm``) — and the fp32 single-device LU
 path — ``getrf`` (partial pivot and no pivot), ``getrs``, ``gesv``,
-``getri``, ``getrf_nopiv``, ``getrs_nopiv``, ``gesv_nopiv`` — and the
+``getri``, ``getrf_nopiv``, ``getrs_nopiv``, ``gesv_nopiv`` — the
 batched drivers (``potrf_batched`` … ``heev_batched``) with the serving
-queue in front of them (:mod:`slate_tpu_torch.serve`, also ``st.serve``).
+queue in front of them (:mod:`slate_tpu_torch.serve`, also ``st.serve``),
+and the QR family — ``geqrf``, ``gelqf``, ``unmqr``, ``unmlq``,
+``ungqr``, ``cholqr``, ``gels``, ``gels_qr``, ``gels_cholqr``.
 """
 
 from . import config  # noqa: F401
 from .enums import (  # noqa: F401
-    Diag, GridOrder, MethodLU, Op, Option, Side, Target, Uplo,
+    Diag, GridOrder, MethodCholQR, MethodGels, MethodLU, Op, Option, Side,
+    Target, Uplo,
 )
 from .exceptions import SlateError  # noqa: F401
 from .grid import ProcessGrid  # noqa: F401
@@ -32,7 +35,7 @@ from . import method  # noqa: F401
 from .linalg import *  # noqa: F401,F403
 from .interop import (  # noqa: F401
     lu_batched_from_numpy, lu_batched_to_numpy, lu_from_numpy, lu_to_numpy,
-    matrix_from_numpy, matrix_to_numpy,
+    matrix_from_numpy, matrix_to_numpy, qr_from_numpy, qr_to_numpy,
 )
 from . import serve  # noqa: F401
 

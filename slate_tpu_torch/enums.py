@@ -76,6 +76,24 @@ class Option(enum.Enum):
     MethodSVD = "method_svd"
 
 
+class MethodCholQR(enum.Enum):
+    """How CholQR forms its Gram matrix (reference ``method.hh:203-224``)."""
+
+    Auto = "auto"
+    GemmA = "gemmA"
+    GemmC = "gemmC"
+    HerkA = "herkA"
+    HerkC = "herkC"
+
+
+class MethodGels(enum.Enum):
+    """Least-squares method (reference ``method.hh:236-268``)."""
+
+    Auto = "auto"
+    QR = "qr"
+    CholQR = "cholqr"
+
+
 class MethodLU(enum.Enum):
     """LU pivoting variant (reference ``method.hh:279-315``)."""
 

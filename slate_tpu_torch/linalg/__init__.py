@@ -9,11 +9,16 @@ from .cholesky import posv, potrf, potri, potrs, trtri, trtrm  # noqa: F401
 from .lu import (  # noqa: F401
     gesv, gesv_nopiv, getrf, getrf_nopiv, getri, getrs, getrs_nopiv,
 )
+from .qr import (  # noqa: F401
+    cholqr, gelqf, gels, gels_cholqr, gels_qr, geqrf, ungqr, unmlq, unmqr,
+)
 
 __all__ = ["gemm", "herk", "syrk", "trmm", "trsm",
            "posv", "potrf", "potri", "potrs", "trtri", "trtrm",
            "gesv", "gesv_nopiv", "getrf", "getrf_nopiv", "getri", "getrs",
            "getrs_nopiv",
+           "cholqr", "gelqf", "gels", "gels_cholqr", "gels_qr", "geqrf",
+           "ungqr", "unmlq", "unmqr",
            "gels_batched", "geqrf_batched", "gesv_batched", "getrf_batched",
            "getrs_batched", "heev_batched", "posv_batched", "potrf_batched",
            "potrs_batched"]

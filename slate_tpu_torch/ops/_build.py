@@ -33,6 +33,7 @@ SOURCES = {
     "matmul": ("matmul.cu", ()),
     "chol_inv_panel": ("chol_inv_panel.cu", ("tri_panel.cuh",)),
     "trtri_panel": ("trtri_panel.cu", ("tri_panel.cuh",)),
+    "lu_inv_panel": ("lu_inv_panel.cu", ("tri_panel.cuh",)),
     "getrf_panel_linv": ("getrf_panel_linv.cu", ("lu_panel.cuh",)),
     "getrf_panel_fused": ("getrf_panel_fused.cu", ("lu_panel.cuh",)),
     "potrf_batched": ("potrf_batched.cu", ("tri_panel.cuh",)),

@@ -4,7 +4,7 @@
 Each kernel has three things here:
 
 * a wrapper (:func:`matmul`, :func:`chol_inv_panel`, :func:`trtri_panel`,
-  :func:`getrf_panel_linv`, :func:`getrf_panel_fused`,
+  :func:`lu_inv_panel`, :func:`getrf_panel_linv`, :func:`getrf_panel_fused`,
   :func:`potrf_batched`, :func:`getrf_batched`, :func:`potrf_step_fused`,
   :func:`potrf_full_fused`, :func:`getrf_step_fused`,
   :func:`getrf_full_fused`) that checks device,
@@ -35,7 +35,7 @@ import torch
 
 #: kernel name -> launches since the last :func:`reset_launches`
 launches = {"matmul": 0, "chol_inv_panel": 0, "trtri_panel": 0,
-            "getrf_panel_linv": 0, "getrf_panel_fused": 0,
+            "lu_inv_panel": 0, "getrf_panel_linv": 0, "getrf_panel_fused": 0,
             "potrf_batched": 0, "getrf_batched": 0,
             "potrf_step_fused": 0, "potrf_full_fused": 0,
             "getrf_step_fused": 0, "getrf_full_fused": 0}
@@ -50,6 +50,8 @@ _SIGNATURES = {
     "chol_inv_panel": ("slate_chol_inv_panel_f32",
                        [_P, _I64, _P, _P, _P, _I, _P]),
     "trtri_panel": ("slate_trtri_panel_f32", [_P, _I64, _P, _P, _I, _P]),
+    "lu_inv_panel": ("slate_lu_inv_panel_f32",
+                     [_P, _I64, _P, _P, _P, _P, _I, _P]),
     "getrf_panel_linv": ("slate_getrf_panel_linv_f32",
                          [_P, _I64, _P] + _LU_ARGS + [_P]),
     "getrf_panel_fused": ("slate_getrf_panel_fused_f32",
@@ -356,6 +358,97 @@ def trtri_panel(l):
     _launch("trtri_panel", l.device, l.data_ptr(), l.stride(0),
             linv.data_ptr(), work.data_ptr(), nb)
     return linv
+
+
+# ---------------------------------------------------------------------------
+# No-pivot LU panel (replaces pallas_kernels.lu_inv_panel :537)
+# ---------------------------------------------------------------------------
+
+def _lu_unblocked(blk):
+    """Unblocked right-looking no-pivot LU of an (ib, ib) block, packed:
+    unit L strictly below the diagonal, U on and above (the reference's
+    _lu_unblocked)."""
+    a = blk.clone()
+    for j in range(a.shape[-1] - 1):
+        a[j + 1:, j] /= a[j, j]
+        a[j + 1:, j + 1:] -= a[j + 1:, j, None] * a[j, None, j + 1:]
+    return a
+
+
+def _triu_tri_unblocked(u):
+    """Inverse of an upper non-unit (ib, ib) block by row-wise back
+    substitution from the last row (the reference's _triu_tri_unblocked)."""
+    ib = u.shape[-1]
+    x = torch.zeros_like(u)
+    eye = torch.eye(ib, dtype=u.dtype, device=u.device)
+    for i in range(ib - 1, -1, -1):
+        x[i] = (eye[i] - u[i, i + 1:] @ x[i + 1:]) / u[i, i]
+    return x
+
+
+def _block_uinv_doubling(u, inv, nb: int, ib: int) -> None:
+    """In place: the upper inverse in ``inv`` (its diagonal ib-blocks hold
+    the block inverses, the rest zero) by recursive doubling,
+    [[U11, U12], [0, U22]]⁻¹ = [[X11, -X11·U12·X22], [0, X22]]."""
+    s = ib
+    while s < nb:
+        for o in range(0, nb - s, 2 * s):
+            x11 = inv[o:o + s, o:o + s]
+            x22 = inv[o + s:o + 2 * s, o + s:o + 2 * s]
+            u12 = u[o:o + s, o + s:o + 2 * s]
+            inv[o:o + s, o + s:o + 2 * s] = -(x11 @ (u12 @ x22))
+        s *= 2
+
+
+def lu_inv_panel_plain(a):
+    """Plain version of :func:`lu_inv_panel`: the same ib = 32 blocked
+    algorithm in PyTorch ops — per block the unblocked LU and the inverses
+    of its two triangles, L21 = A21·U11⁻¹, U12 = L11⁻¹·A12 and the
+    trailing update, then both inverses by recursive doubling."""
+    nb = a.shape[-1]
+    ib = min(IB, nb)
+    lu = a.clone()
+    linv = torch.zeros_like(lu)
+    uinv = torch.zeros_like(lu)
+    eye = torch.eye(ib, dtype=a.dtype, device=a.device)
+    for k0 in range(0, nb, ib):
+        k1 = k0 + ib
+        blk = _lu_unblocked(lu[k0:k1, k0:k1])
+        lu[k0:k1, k0:k1] = blk
+        lb = _trtri_unblocked(torch.tril(blk, -1) + eye)
+        ub = _triu_tri_unblocked(torch.triu(blk))
+        linv[k0:k1, k0:k1] = lb
+        uinv[k0:k1, k0:k1] = ub
+        if k1 < nb:
+            l21 = lu[k1:, k0:k1] @ ub
+            u12 = lb @ lu[k0:k1, k1:]
+            lu[k1:, k0:k1] = l21
+            lu[k0:k1, k1:] = u12
+            lu[k1:, k1:] -= l21 @ u12
+    _block_inv_doubling(torch.tril(lu, -1), linv, nb, ib)
+    _block_uinv_doubling(torch.triu(lu), uinv, nb, ib)
+    return lu, linv, uinv
+
+
+def lu_inv_panel(a):
+    """No-pivot LU of an (nb, nb) fp32 block with the inverses of both
+    factors: ``(LU, L⁻¹, U⁻¹)`` with LU packed (unit L strictly below the
+    diagonal, U on and above), L⁻¹ lower and U⁻¹ upper.  nb a power of two
+    ≥ 32; ``a`` may be a view with any row stride ≥ nb.  The caller
+    vouches that no pivoting is needed (the CholQR² reconstruction's
+    Q − diag(s) has |diagonal| ≥ 1)."""
+    nb = _check_panel("lu_inv_panel", a)
+    if _on_cpu(a):
+        return lu_inv_panel_plain(a)
+    _check_rows("lu_inv_panel", a)
+    lu = torch.empty((nb, nb), dtype=torch.float32, device=a.device)
+    linv, uinv = torch.empty_like(lu), torch.empty_like(lu)
+    work = torch.empty(nb * nb + max((nb // 2) ** 2, 2 * nb * IB),
+                       dtype=torch.float32, device=a.device)
+    _launch("lu_inv_panel", a.device, a.data_ptr(), a.stride(0),
+            lu.data_ptr(), linv.data_ptr(), uinv.data_ptr(), work.data_ptr(),
+            nb)
+    return lu, linv, uinv
 
 
 # ---------------------------------------------------------------------------

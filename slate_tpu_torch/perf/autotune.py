@@ -12,6 +12,10 @@ Each site returns one of:
   ``torch.linalg``), for shapes the kernel does not take or when
   ``SLATE_TPU_TORCH_USE_KERNELS=0``.
 
+The ``geqrf_panel`` site returns a driver instead: ``"cholqr2"`` (the
+CholQR² panel loop over the ``chol_inv_panel``, ``lu_inv_panel`` and
+``trtri_panel`` kernels) or ``"stock"`` (``torch.geqrf``).
+
 The two step-depth sites, ``potrf_step`` and ``lu_step``, return a depth
 of their driver instead: ``"composed"`` (the panel kernel and the glue
 around it), ``"fused"`` (one kernel launch per step; for LU also
@@ -19,10 +23,14 @@ around it), ``"fused"`` (one kernel launch per step; for LU also
 ``"full"`` (one launch per factorization).  With no pin they answer
 ``"composed"``: the JAX package times the ladder on its chip, and the
 port has no timing table yet.  ``SLATE_TPU_TORCH_AUTOTUNE_FORCE``
-(``"potrf_step=full,lu_step=fused"``, read at each call, the counterpart
-of the JAX package's ``SLATE_TPU_AUTOTUNE_FORCE``) pins a depth where the
-call site's gate admits it; a pinned depth outside the key's ladder is
-ignored with a warning, once per (site, depth).
+(``"potrf_step=full,lu_step=fused,geqrf_panel=stock"``, read at each
+call, the counterpart of the JAX package's ``SLATE_TPU_AUTOTUNE_FORCE``)
+pins a depth or driver where the call site's gate admits it; a pin
+outside the key's candidates is ignored with a warning, once per (site,
+value).
+
+:func:`kernel` is the registered accessor of the kernel wrappers for
+modules outside ``ops/`` (the CholQR² panel in ``linalg/qr.py``).
 
 :func:`decisions` lists what each site resolved to, keyed
 ``"<site>|<key>"``; ``decisions(with_reasons=True)`` gives ``(backend,
@@ -210,6 +218,45 @@ def choose_lu_step(m: int, n: int, nb: int, dtype, device,
     return _choose_depth("lu_step", key, eligible)
 
 
+def choose_geqrf_panel(m: int, n: int, nb: int, dtype, device) -> str:
+    """fp32 QR driver (the caller asks only for 2-D fp32 input):
+    ``"cholqr2"`` (:func:`slate_tpu_torch.linalg.qr.geqrf_panels`, the
+    shifted-CholQR² panels with the Householder reconstruction, whose
+    kernels run their plain versions on the CPU) or ``"stock"``
+    (``torch.geqrf``, the counterpart of XLA's
+    ``jnp.linalg.qr(mode="raw")``), which is also the answer for other
+    dtypes and under ``SLATE_TPU_TORCH_USE_KERNELS=0``.  The JAX package
+    answers ``"xla"`` off its chip only because it has no kernel there
+    (``slate_tpu/perf/autotune.py:1640-1641``); the port has its kernels
+    on the card.  :data:`FORCE_ENV` pins either candidate
+    (``geqrf_panel=stock``)."""
+    key = (m, n, nb, str(dtype).replace("torch.", ""),
+           torch.device(device).type)
+    if config.use_kernels_mode() == "off":
+        names, reason = ["stock"], "kernels off"
+    elif dtype != torch.float32:
+        names, reason = ["stock"], "ineligible"
+    else:
+        names, reason = ["cholqr2", "stock"], "default: the kernels' driver"
+    forced = _forced("geqrf_panel")
+    if forced is not None:
+        if forced in names:
+            return _record("geqrf_panel", key, forced, "forced")
+        _warn_bad_force("geqrf_panel", forced, names)
+    return _record("geqrf_panel", key, names[0], reason)
+
+
+def kernel(name: str):
+    """Registered accessor of a kernel wrapper of
+    :mod:`slate_tpu_torch.ops.kernels` for modules outside ``ops/`` (the
+    CholQR² panel in ``linalg/qr.py``), the counterpart of
+    ``slate_tpu/perf/autotune.py:712-721``: those call sites stay
+    enumerable, and no module outside ``ops/`` imports the kernels."""
+    from ..ops import kernels
+
+    return getattr(kernels, name)
+
+
 def _batched_key(dims, dtype, device) -> tuple:
     """A batched site's key: every dim pow2-bucketed (floor 8, the JAX
     package's ``_bucket_dim``), so one decision serves a bucket — the
@@ -270,6 +317,7 @@ _SITES = {
     "batched_lu": choose_batched_lu,
     "batched_potrf": choose_batched_potrf,
     "batched_qr": choose_batched_qr,
+    "geqrf_panel": choose_geqrf_panel,
     "lu_panel": choose_lu_panel,
     "lu_driver": choose_lu_driver,
     "lu_step": choose_lu_step,

@@ -113,6 +113,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     a = torch.from_numpy(_spd(64, 6))
     kernels.chol_inv_panel(a)
     kernels.trtri_panel(torch.tril(a))
+    kernels.lu_inv_panel(a)
     kernels.matmul(torch.zeros(128, 128), torch.zeros(128, 128))
     kernels.getrf_panel_linv(a, torch.ones(1, 64))
     kernels.getrf_panel_fused(a.clone(), torch.ones(1, 64), 0, nb=32, bb=32)
@@ -124,7 +125,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     kernels.getrf_step_fused(spd.clone(), torch.ones(1, 256), 0, nb=128)
     kernels.getrf_full_fused(spd.clone(), torch.ones(1, 256), nb=128)
     assert set(kernels.launches) == {"matmul", "chol_inv_panel",
-                                     "trtri_panel", "getrf_panel_linv",
+                                     "trtri_panel", "lu_inv_panel",
+                                     "getrf_panel_linv",
                                      "getrf_panel_fused", "potrf_batched",
                                      "getrf_batched", "potrf_step_fused",
                                      "potrf_full_fused", "getrf_step_fused",
