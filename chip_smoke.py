@@ -31,7 +31,13 @@
    blocks and at 512 on the B[:512] block of the first CholQR² panel of
    the QR path's input: each output within 1e-4 of its plain version,
    ‖L·U − A‖/(‖A‖·ε·nb) ≤ 3, ‖L·L⁻¹ − I‖ and ‖U·U⁻¹ − I‖ < 1e-3; timed
-   at 512 on the B block.
+   at 512 on the B block.  Phase 2f runs ``geqrf`` of the QR path's
+   input and ``ungqr`` of its factor once with every call of
+   ``matmul``, ``chol_inv_panel``, ``lu_inv_panel`` and ``trtri_panel``
+   held to its plain version on the same arguments (``matmul`` ≤ 1e-5,
+   the panel kernels ≤ 1e-4; ``trtri_panel`` also ‖L·L⁻¹ − I‖ < 1e-4):
+   the transposed-A products with K up to 32768 and the panel kernels
+   at 512 on each panel's own blocks.
 3. Drives the main paths through the public entry points, with the
    reference tester's scaled-residual gates (≤ 3):
    * Cholesky: ``posv`` of an n = 8192 fp32 HermitianMatrix (nb = 256,
@@ -169,6 +175,10 @@ FUSED_N = 2048                  # phase 2d's check size (four 512 steps)
 QR_M, QR_N, QR_PANEL = 32768, 4096, 512
 QR_EXACT = {"lu_inv_panel": 8, "chol_inv_panel": 16, "trtri_panel": 8}
 GUARD_M, GUARD_N, GUARD_COND = 8192, 1024, 1e6
+#: phase 2f's tolerance (relative Frobenius) for each kernel of the QR
+#: path against its plain version, as in phases 2 and 2e
+QR_CHECK_TOL = {"matmul": 1e-5, "chol_inv_panel": 1e-4,
+                "lu_inv_panel": 1e-4, "trtri_panel": 1e-4}
 FORCE = "SLATE_TPU_TORCH_AUTOTUNE_FORCE"
 
 
@@ -1469,6 +1479,84 @@ def check_lu_inv_kernel(torch, kernels, dev, a_qr) -> dict:
     return {"lu_inv_panel": r}
 
 
+def check_qr_path_calls(torch, st, kernels, a) -> dict:
+    """Phase 2f: ``geqrf`` of the QR path's input ``a`` and ``ungqr`` of
+    its factor, with every call of the path's four kernels held to its
+    plain version on the same arguments at the moment of the call (the
+    wrappers are swapped for checking ones for this run only): each
+    output within the tolerance of :data:`QR_CHECK_TOL` (relative
+    Frobenius), and for ``trtri_panel`` (T from flip(T⁻¹) at 512)
+    ‖L·L⁻¹ − I‖_F < 1e-4 (phase 2's gate).  So the shapes and layouts
+    this path gives the kernels — ``matmul`` with A a transposed view
+    and K up to m, the panel kernels at 512 on each panel's blocks — are
+    compared on the card, not only phase 2's.  Returns per kernel the
+    calls, distinct layouts and the largest errors."""
+    real = {n: getattr(kernels, n) for n in QR_CHECK_TOL}
+    plain = {n: getattr(kernels, n + "_plain") for n in QR_CHECK_TOL}
+    out = {n: {"calls": 0, "layouts": set(), "max_rel_err": 0.0,
+               "max_abs_err": 0.0, "worst": ""} for n in QR_CHECK_TOL}
+
+    def layout(args) -> str:
+        return " x ".join("%s stride %s" % (tuple(t.shape), t.stride())
+                          for t in args)
+
+    def checked(name):
+        def call(*args):
+            got = real[name](*args)
+            ref = plain[name](*args)
+            gots = got if isinstance(got, tuple) else (got,)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            # an all-zero output is held exactly
+            rel = max(rel_err(g, r) if bool(r.any()) else
+                      float((g - r).abs().max()) for g, r in zip(gots, refs))
+            err = max(float((g - r).abs().max()) for g, r in zip(gots, refs))
+            where = layout(args)
+            rec = out[name]
+            rec["calls"] += 1
+            rec["layouts"].add(where)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            if rel >= rec["max_rel_err"]:
+                rec["max_rel_err"], rec["worst"] = rel, where
+            if not rel <= QR_CHECK_TOL[name]:
+                fail("QR path: %s at %s is %.3e (relative) from its plain "
+                     "version (<= %.0e)" % (name, where, rel,
+                                            QR_CHECK_TOL[name]))
+            if name == "trtri_panel":
+                low = torch.tril(args[0]).double()
+                ident = float((low @ got.double() - torch.eye(
+                    low.shape[0], dtype=torch.float64, device=low.device))
+                    .norm())
+                rec["identity"] = max(rec.get("identity", 0.0), ident)
+                if not ident < 1e-4:
+                    fail("QR path: trtri_panel at %s: ||L Linv - I|| %.3g "
+                         "(< 1e-4)" % (where, ident))
+            return got
+        return call
+
+    A = st.Matrix.from_array(a, nb=NB, device=a.device)
+    try:
+        for n in QR_CHECK_TOL:
+            setattr(kernels, n, checked(n))
+        f, taus = st.geqrf(A)
+        st.ungqr(f, taus)
+        if a.is_cuda:
+            torch.cuda.synchronize()
+    finally:
+        for n, fn in real.items():
+            setattr(kernels, n, fn)
+    for n, rec in out.items():
+        if not rec["calls"]:
+            fail("QR path: %s was not called in the checked run" % n)
+        rec["layouts"] = len(rec["layouts"])
+        print("QR path check %s: %d calls at %d layouts, max rel %.3e "
+              "(<= %.0e), max abs %.3e%s; worst at %s"
+              % (n, rec["calls"], rec["layouts"], rec["max_rel_err"],
+                 QR_CHECK_TOL[n], rec["max_abs_err"],
+                 ", max ||L Linv - I|| %.3g (< 1e-4)" % rec["identity"]
+                 if "identity" in rec else "", rec["worst"]), flush=True)
+    return out
+
+
 def _qr_factor_gates(torch, label, a, f, q) -> dict:
     """bench.py's Gram identity ‖Aᵀ(A·x) − Rᵀ(R·x)‖/(‖A‖²·‖x‖·ε·√m),
     tester.py's orthogonality max|QᵀQ − I|/(ε·m) and the reconstruction
@@ -1690,6 +1778,7 @@ def main() -> int:
     a_qr = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (QR_M, QR_N)).astype(np.float32)).to(dev)      # bench.py's geqrf input
     measured.update(check_lu_inv_kernel(torch, kernels, dev, a_qr))
+    qr_calls = check_qr_path_calls(torch, st, kernels, a_qr)
     paths = {"cholesky": main_path(torch, st, kernels, dev)["launches"]}
     paths.update(main_path_lu(torch, st, kernels, dev)["launches"])
     paths.update(main_path_batched(torch, st, kernels, dev)["launches"])
@@ -1710,6 +1799,10 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
+        if name in qr_calls:        # phase 2f: every call of one geqrf+ungqr
+            rows[-1]["qr_path_check"] = {
+                k: qr_calls[name][k] for k in ("calls", "layouts",
+                                               "max_rel_err", "max_abs_err")}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

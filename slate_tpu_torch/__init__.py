@@ -21,8 +21,7 @@ and the QR family — ``geqrf``, ``gelqf``, ``unmqr``, ``unmlq``,
 
 from . import config  # noqa: F401
 from .enums import (  # noqa: F401
-    Diag, GridOrder, MethodCholQR, MethodGels, MethodLU, Op, Option, Side,
-    Target, Uplo,
+    Diag, GridOrder, MethodGels, MethodLU, Op, Option, Side, Target, Uplo,
 )
 from .exceptions import SlateError  # noqa: F401
 from .grid import ProcessGrid  # noqa: F401
@@ -35,7 +34,7 @@ from . import method  # noqa: F401
 from .linalg import *  # noqa: F401,F403
 from .interop import (  # noqa: F401
     lu_batched_from_numpy, lu_batched_to_numpy, lu_from_numpy, lu_to_numpy,
-    matrix_from_numpy, matrix_to_numpy, qr_from_numpy, qr_to_numpy,
+    matrix_from_numpy, matrix_to_numpy,
 )
 from . import serve  # noqa: F401
 

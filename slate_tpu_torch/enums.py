@@ -76,16 +76,6 @@ class Option(enum.Enum):
     MethodSVD = "method_svd"
 
 
-class MethodCholQR(enum.Enum):
-    """How CholQR forms its Gram matrix (reference ``method.hh:203-224``)."""
-
-    Auto = "auto"
-    GemmA = "gemmA"
-    GemmC = "gemmC"
-    HerkA = "herkA"
-    HerkC = "herkC"
-
-
 class MethodGels(enum.Enum):
     """Least-squares method (reference ``method.hh:236-268``)."""
 

@@ -1,8 +1,7 @@
 """State carried across from the JAX package: a JAX
 ``Matrix``/``HermitianMatrix`` holds one array plus uplo/diag/mb/nb, an
-LU factor is a packed matrix and a permutation, a QR factor a packed
-matrix and its τ vector, a batched LU factor a (B, n, n) and a (B, n)
-array; these functions turn that content, as
+LU factor is a packed matrix and a permutation, a batched LU factor a
+(B, n, n) and a (B, n) array; these functions turn that content, as
 numpy and plain values, into the port's objects and back.  The port imports nothing of the JAX
 package, so the caller does the JAX side (``np.asarray(m.data)``,
 ``m.uplo.value``, ...).
@@ -69,30 +68,6 @@ def lu_to_numpy(lu, perm) -> dict:
     ``Matrix(jnp.asarray(d["data"]), ...)`` and a ``jnp`` perm."""
     out = matrix_to_numpy(lu)
     return {"data": out["data"], "perm": perm.detach().cpu().numpy(),
-            "mb": out["mb"], "nb": out["nb"]}
-
-
-def qr_from_numpy(data, taus, *, mb: int = 256, nb: int = 256, device=None):
-    """A QR (or LQ) factor from the JAX package's ``geqrf``/``gelqf``
-    output: its packed factor (``np.asarray(f.data)``) and its τ vector
-    become the port's ``(Matrix, tensor)`` on ``device``, ready for
-    :func:`~slate_tpu_torch.linalg.qr.unmqr` / ``ungqr`` / ``unmlq``."""
-    f = matrix_from_numpy("Matrix", data, mb=mb, nb=nb, device=device)
-    taus = np.asarray(taus)
-    if taus.ndim != 1 or taus.shape[0] > min(f.data.shape):
-        raise ValueError("a QR factor's taus are a vector of at most min(m, "
-                         "n) = %d, got %s" % (min(f.data.shape), taus.shape))
-    return f, torch.tensor(taus, dtype=f.data.dtype, device=f.device)
-
-
-def qr_to_numpy(f, taus) -> dict:
-    """The port's ``(Matrix, taus)`` as ``{"data", "taus", "mb", "nb"}``
-    with numpy arrays, for the JAX package's ``unmqr``/``ungqr`` on
-    ``Matrix(jnp.asarray(d["data"]), nb=d["nb"])`` and
-    ``jnp.asarray(d["taus"])``."""
-    out = matrix_to_numpy(f)
-    return {"data": out["data"],
-            "taus": taus.detach().cpu().resolve_conj().numpy(),
             "mb": out["mb"], "nb": out["nb"]}
 
 

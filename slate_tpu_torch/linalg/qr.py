@@ -7,15 +7,14 @@ Compact-WY throughout, as in the JAX package: a panel's reflector chain
 is I − V·T·Vᴴ, with T from the closed form T⁻¹ = strict_upper(VᴴV) +
 diag(1/τ).  Factors are LAPACK-packed (V unit lower below the diagonal,
 R on and above, Q = H₀·H₁⋯), so a factor made by one package is applied
-by the other's ``unmqr``/``ungqr`` (:func:`slate_tpu_torch.interop.
-qr_from_numpy`).
+by the other's ``unmqr``/``ungqr`` (the packed factor through
+:func:`slate_tpu_torch.interop.matrix_from_numpy`, τ as a tensor).
 
 fp32 ``geqrf`` under ``Auto`` asks the ``geqrf_panel`` site, which
 answers ``"cholqr2"``: :func:`geqrf_panels`, whose 512-wide panels are
 shifted CholQR² with the Householder reconstruction, three kernels per
 panel (``chol_inv_panel`` twice, ``lu_inv_panel`` and ``trtri_panel``
-once, reached through :func:`slate_tpu_torch.perf.autotune.kernel`) and
-its products through the ``matmul`` site.  The explicit-nb recursion
+once) and its products through the ``matmul`` site.  The explicit-nb recursion
 (:func:`geqrf_rec`, also under ``gels_qr``, ``gelqf`` and the
 conditioning guard's rerun) has a Householder panel leaf that is not a
 Pallas kernel in the JAX package (an XLA column loop there): here it is
@@ -33,7 +32,7 @@ import torch
 
 from ..enums import Diag, MethodGels, Op, Side, Uplo
 from ..method import select_backend, select_gels
-from ..ops import blocks
+from ..ops import blocks, kernels
 from ..ops.blocks import _ct, matmul, matmul_hi
 from ..ops.tile_ops import hermitize
 from ..options import Options, get_option
@@ -77,27 +76,11 @@ def larft_rec(v, tau):
     return torch.where(zero[None, :], zero_dt, torch.triu(t))
 
 
-def _apply_block_reflector(v, t, c, *, forward: bool, hi: bool = False):
+def _apply_block_reflector(v, t, c, *, forward: bool):
     """C ← (I − V·T·Vᴴ)·C if forward else (I − V·Tᴴ·Vᴴ)·C — LAPACK
-    ``larfb`` (Left; callers handle the Right side by transposition).
-    ``hi`` routes the three products through ``matmul_hi``."""
-    mm = matmul_hi if hi else matmul
+    ``larfb`` (Left; callers handle the Right side by transposition)."""
     tt = t if forward else _ct(t)
-    return c - mm(v, mm(tt, mm(_ct(v), c)))
-
-
-def apply_reflector_chain(vts, cv, forward: bool):
-    """Apply a chain of tail-aligned block reflectors: each (V, T) panel
-    spans the last ``V.shape[0]`` rows of C.  ``forward`` applies Q
-    (panels last to first), else Qᴴ.  The back-transforms of the
-    two-stage eig and SVD share it; its products are full precision."""
-    n = cv.shape[0]
-    seq = vts[::-1] if forward else vts
-    for v, t in seq:
-        r0 = n - v.shape[0]
-        tail = _apply_block_reflector(v, t, cv[r0:], forward=forward, hi=True)
-        cv = torch.cat([cv[:r0], tail], dim=0)
-    return cv
+    return c - matmul(v, matmul(tt, matmul(_ct(v), c)))
 
 
 # ---------------------------------------------------------------------------
@@ -160,18 +143,15 @@ def _cholqr2(pan):
     pass restores orthogonality while dev < 1).  The two Gram products
     are full fp32 (``matmul_hi``); the other products go through the
     ``matmul`` site."""
-    from ..perf.autotune import kernel
-
-    chol_inv_panel = kernel("chol_inv_panel")
     w = pan.shape[1]
     eye = torch.eye(w, dtype=pan.dtype, device=pan.device)
     gram = matmul_hi(_ct(pan), pan)
     eps = torch.finfo(pan.dtype).eps
     shift = (100.0 * w) * eps * torch.diagonal(gram).max()
-    l1, l1inv = chol_inv_panel(gram + shift * eye)
+    l1, l1inv = kernels.chol_inv_panel(gram + shift * eye)
     q = matmul(pan, _ct(l1inv))
     g2 = matmul_hi(_ct(q), q)
-    l2, l2inv = chol_inv_panel(g2)
+    l2, l2inv = kernels.chol_inv_panel(g2)
     # the elementwise max|g₂ − I| misses a spread near-null direction;
     # one eigenvalue collapsing drags min(diag(L₂)) toward √λ_min
     dev = torch.maximum((g2 - eye).abs().max(),
@@ -199,20 +179,17 @@ def _cholqr2_panel(pan):
     no-pivot LU of Q − [diag(s); 0], s = −sign(diag Q), whose diagonal
     has magnitude ≥ 1, so it needs no pivoting).  fp32, panel width a
     power of two ≥ 32; ``dev`` as in :func:`_cholqr2`."""
-    from ..perf.autotune import kernel
-
-    lu_inv_panel, trtri_panel = kernel("lu_inv_panel"), kernel("trtri_panel")
     w = pan.shape[1]
     q, r, dev = _cholqr2(pan)
     s, b = _householder_b(q)
-    lu, _, uinv = lu_inv_panel(b[:w])
+    lu, _, uinv = kernels.lu_inv_panel(b[:w])
     ytop = torch.tril(lu, -1) + torch.eye(w, dtype=pan.dtype, device=pan.device)
     y = torch.cat([ytop, matmul(b[w:], uinv)], dim=0)
     tau = -s * torch.diagonal(lu)
     rprime = s[:, None] * r
     tinv = torch.triu(matmul(_ct(y), y), 1) + torch.diag(1.0 / tau)
     # T is upper: invert the lower triangle flip(T⁻¹) and flip back
-    tmat = torch.triu(torch.flip(trtri_panel(torch.flip(tinv, (0, 1))),
+    tmat = torch.triu(torch.flip(kernels.trtri_panel(torch.flip(tinv, (0, 1))),
                                  (0, 1)))
     return y, rprime, tau, tmat, dev
 

@@ -28,18 +28,6 @@ def select_lu(method, distributed: bool = False):
     return MethodLU.CALU if distributed else MethodLU.PartialPiv
 
 
-def select_cholqr(method, m: int, n: int, n_devices: int = 1):
-    """CholQR Gram variant (reference ``MethodCholQR::select_algo``,
-    ``method.hh:203-224``): an explicit choice stands; ``Auto`` is HerkC
-    when m ≥ 2n, else GemmC, as in the JAX package."""
-
-    from .enums import MethodCholQR
-
-    if method is not MethodCholQR.Auto:
-        return method
-    return MethodCholQR.HerkC if m >= 2 * n else MethodCholQR.GemmC
-
-
 def select_gels(method, m: int, n: int):
     """Least-squares method (reference ``MethodGels::select_algo``,
     ``method.hh:252-268``): an explicit choice stands; ``Auto`` is CholQR

@@ -23,14 +23,10 @@ around it), ``"fused"`` (one kernel launch per step; for LU also
 ``"full"`` (one launch per factorization).  With no pin they answer
 ``"composed"``: the JAX package times the ladder on its chip, and the
 port has no timing table yet.  ``SLATE_TPU_TORCH_AUTOTUNE_FORCE``
-(``"potrf_step=full,lu_step=fused,geqrf_panel=stock"``, read at each
-call, the counterpart of the JAX package's ``SLATE_TPU_AUTOTUNE_FORCE``)
-pins a depth or driver where the call site's gate admits it; a pin
-outside the key's candidates is ignored with a warning, once per (site,
-value).
-
-:func:`kernel` is the registered accessor of the kernel wrappers for
-modules outside ``ops/`` (the CholQR² panel in ``linalg/qr.py``).
+(``"potrf_step=full,lu_step=fused"``, read at each call, the counterpart
+of the JAX package's ``SLATE_TPU_AUTOTUNE_FORCE``) pins a depth where the
+call site's gate admits it; a pinned depth outside the key's ladder is
+ignored with a warning, once per (site, depth).
 
 :func:`decisions` lists what each site resolved to, keyed
 ``"<site>|<key>"``; ``decisions(with_reasons=True)`` gives ``(backend,
@@ -228,33 +224,14 @@ def choose_geqrf_panel(m: int, n: int, nb: int, dtype, device) -> str:
     dtypes and under ``SLATE_TPU_TORCH_USE_KERNELS=0``.  The JAX package
     answers ``"xla"`` off its chip only because it has no kernel there
     (``slate_tpu/perf/autotune.py:1640-1641``); the port has its kernels
-    on the card.  :data:`FORCE_ENV` pins either candidate
-    (``geqrf_panel=stock``)."""
+    on the card."""
     key = (m, n, nb, str(dtype).replace("torch.", ""),
            torch.device(device).type)
     if config.use_kernels_mode() == "off":
-        names, reason = ["stock"], "kernels off"
-    elif dtype != torch.float32:
-        names, reason = ["stock"], "ineligible"
-    else:
-        names, reason = ["cholqr2", "stock"], "default: the kernels' driver"
-    forced = _forced("geqrf_panel")
-    if forced is not None:
-        if forced in names:
-            return _record("geqrf_panel", key, forced, "forced")
-        _warn_bad_force("geqrf_panel", forced, names)
-    return _record("geqrf_panel", key, names[0], reason)
-
-
-def kernel(name: str):
-    """Registered accessor of a kernel wrapper of
-    :mod:`slate_tpu_torch.ops.kernels` for modules outside ``ops/`` (the
-    CholQR² panel in ``linalg/qr.py``), the counterpart of
-    ``slate_tpu/perf/autotune.py:712-721``: those call sites stay
-    enumerable, and no module outside ``ops/`` imports the kernels."""
-    from ..ops import kernels
-
-    return getattr(kernels, name)
+        return _record("geqrf_panel", key, "stock", "kernels off")
+    if dtype != torch.float32:
+        return _record("geqrf_panel", key, "stock", "ineligible")
+    return _record("geqrf_panel", key, "cholqr2", "the kernels' driver")
 
 
 def _batched_key(dims, dtype, device) -> tuple:

@@ -23,7 +23,6 @@ Tolerances, each with its reason:
 * the reference tester's orthogonality < 50 (tests/test_qr.py's gate).
 """
 
-import warnings
 
 import numpy as np
 import pytest
@@ -38,9 +37,9 @@ from slate_tpu.ops import pallas_kernels as pk
 from slate_tpu.perf import autotune as jauto
 import slate_tpu_torch as tst
 from slate_tpu_torch import config as tcfg
-from slate_tpu_torch.enums import MethodCholQR, MethodGels, Op, Side
+from slate_tpu_torch.enums import MethodGels, Op, Side
 from slate_tpu_torch.linalg import qr as tqr
-from slate_tpu_torch.method import select_cholqr, select_gels
+from slate_tpu_torch.method import select_gels
 from slate_tpu_torch.ops import kernels
 from slate_tpu_torch.perf import autotune as tauto
 from slate_tpu_torch.perf import metrics
@@ -188,11 +187,11 @@ def test_guard_reruns_as_the_jax_package_does():
 
 @pytest.mark.parametrize("site", ["cholqr2", "stock"])
 def test_geqrf_public_entry_at_each_site(site, monkeypatch):
-    """st.geqrf on both packages, the port's site pinned by the force
-    variable and the JAX package's by its Pallas switch.  (1024, 512) is
-    the least shape whose 512-wide panel takes CholQR² (rows ≥ 2·512)."""
+    """st.geqrf on both packages, each site set by its package's kernel
+    switch (the port's answers stock with its kernels off).  (1024, 512)
+    is the least shape whose 512-wide panel takes CholQR² (rows ≥ 2·512)."""
     a = _gauss(1024, 512, 63)
-    monkeypatch.setenv(FORCE, "geqrf_panel=" + site)
+    monkeypatch.setattr(tcfg, "use_kernels", site == "cholqr2")
     monkeypatch.setattr(jcfg, "use_pallas", site == "cholqr2")
     fj, tj = jst.geqrf(jst.Matrix.from_array(jnp.asarray(a), nb=256))
     ft, tt = tst.geqrf(tst.Matrix.from_array(a, nb=256, device="cpu"))
@@ -256,12 +255,11 @@ def test_larft_interior_zero_tau_matches_jax():
 
 def _factor_pair(m, k, seed, nb=8):
     """A fp64 (packed, taus) from the JAX package's geqrf_rec, and the same
-    as the port's Matrix and tensor through interop."""
+    as the port's Matrix (through interop) and τ tensor."""
     a = _gauss(m, k, seed, np.float64)
     fj, tj = jqr.geqrf_rec(jnp.asarray(a), nb)
-    ft, tt = tst.qr_from_numpy(np.asarray(fj), np.asarray(tj), nb=nb,
-                               device="cpu")
-    return fj, tj, ft, tt
+    ft = tst.matrix_from_numpy("Matrix", np.asarray(fj), nb=nb, device="cpu")
+    return fj, tj, ft, _t(tj)
 
 
 @pytest.mark.parametrize("side", [Side.Left, Side.Right])
@@ -287,13 +285,11 @@ def test_qr_factor_round_trips_between_the_packages():
     a = _gauss(36, 20, 6, np.float64)
     ft, tt = tst.geqrf(tst.Matrix.from_array(a, nb=8, device="cpu"),
                        {"method_factor": "recursive"})
-    d = tst.qr_to_numpy(ft, tt)
+    d = tst.matrix_to_numpy(ft)
     q_j = np.asarray(jqr.ungqr(jst.Matrix.from_array(jnp.asarray(d["data"]),
                                                      nb=d["nb"]),
-                               jnp.asarray(d["taus"]), 36))
+                               jnp.asarray(tt.numpy()), 36))
     np.testing.assert_allclose(q_j, tst.ungqr(ft, tt, 36).numpy(), atol=1e-12)
-    with pytest.raises(ValueError):
-        tst.qr_from_numpy(d["data"], np.zeros(21), device="cpu")
 
 
 def test_gelqf_unmlq_match_jax():
@@ -355,8 +351,6 @@ def test_gels_cholqr_and_auto_selection_match_jax():
     assert select_gels(MethodGels.Auto, 300, 100) is MethodGels.CholQR
     assert select_gels(MethodGels.Auto, 299, 100) is MethodGels.QR
     assert select_gels(MethodGels.QR, 900, 10) is MethodGels.QR
-    assert select_cholqr(MethodCholQR.Auto, 200, 100) is MethodCholQR.HerkC
-    assert select_cholqr(MethodCholQR.Auto, 199, 100) is MethodCholQR.GemmC
 
 
 def test_drivers_default_to_cuda():
@@ -382,19 +376,8 @@ def test_geqrf_panel_site_answers(monkeypatch):
     assert tauto.choose_geqrf_panel(4096, 1024, 512, f64, CPU) == "stock"
     assert tauto.select("geqrf_panel", m=64, n=64, nb=512, dtype=f32,
                         device=CPU) == "cholqr2"
-    monkeypatch.setenv(FORCE, "geqrf_panel=stock")
-    assert tauto.choose_geqrf_panel(4096, 1024, 512, f32, CPU) == "stock"
-    monkeypatch.setenv(FORCE, "geqrf_panel=xla")
-    tauto._warned_forces.discard(("geqrf_panel", "xla"))
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        assert tauto.choose_geqrf_panel(4096, 1024, 512, f32, CPU) == "cholqr2"
-        assert tauto.choose_geqrf_panel(2048, 1024, 512, f32, CPU) == "cholqr2"
-    assert len([w for w in caught if "geqrf_panel" in str(w.message)]) == 1
-    monkeypatch.delenv(FORCE)
     monkeypatch.setattr(tcfg, "use_kernels", False)
     assert tauto.choose_geqrf_panel(4096, 1024, 512, f32, CPU) == "stock"
     reasons = tauto.decisions(with_reasons=True)
     assert reasons["geqrf_panel|4096,1024,512,float32,cpu"] == (
         "stock", "kernels off")
-    assert tauto.kernel("lu_inv_panel") is kernels.lu_inv_panel
