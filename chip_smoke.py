@@ -37,7 +37,16 @@
    held to its plain version on the same arguments (``matmul`` ≤ 1e-5,
    the panel kernels ≤ 1e-4; ``trtri_panel`` also ‖L·L⁻¹ − I‖ < 1e-4):
    the transposed-A products with K up to 32768 and the panel kernels
-   at 512 on each panel's own blocks.
+   at 512 on each panel's own blocks.  ``hb2st_wavefront`` (phase 2g) at
+   (n, kd) = (1024, 64) and (1024, 256) in fp32 and fp64 on bench.py-style
+   random wide bands, and in three sweep-range chunks at (1024, 64) fp64:
+   fp64 band, log and a back-transformed probe within 1e-9·max|band| of
+   the plain version; fp32 within 5e-3·max|band| over the first 64
+   sweeps (the chase's forward error is not stable past them); every
+   whole chase, kernel and plain, to the backward gates
+   ‖A·Q₂ − Q₂·T‖/(‖A‖·n·ε) ≤ 3 and ‖Q₂ᵀQ₂ − I‖/(n·ε) ≤ 3, and its
+   eigenvalues within 1e-3 (fp32) / 1e-10 (fp64) of eigvalsh; then timed
+   at (8192, 256) fp32 and (4096, 256) fp64, with the barriers alone.
 3. Drives the main paths through the public entry points, with the
    reference tester's scaled-residual gates (≤ 3):
    * Cholesky: ``posv`` of an n = 8192 fp32 HermitianMatrix (nb = 256,
@@ -81,7 +90,16 @@
      normal-equations residual ≤ 3;
    * guard: ``geqrf`` of an (8192, 1024) input of condition 1e6 built
      on the host: the departure ``devmax`` ≥ 0.25, one Householder rerun,
-     orthogonality and reconstruction ≤ 3.
+     orthogonality and reconstruction ≤ 3;
+   * eigensolver: ``heev`` of bench.py's heev_fp32 input (n = 8192,
+     nb = 256, vectors): one ``hb2st_wavefront`` launch, no band or log
+     byte between host and card (``chase.host_bytes`` 0), bench.py's
+     residual ‖A·Z − Z·W‖/(‖A‖·n·10ε) and ‖ZᵀZ − I‖/(n·10ε) ≤ 3,
+     eigenvalues within 1e-3 of eigvalsh; the median wall of 3 with the
+     stage timers beside ``torch.linalg.eigh``'s, a profiler split; heev
+     fp64 at n = 4096 under the same gates; ``heev_vals`` at n = 2048
+     through the host Givens chase and ``hegv`` itype 1 at n = 2048
+     against ``scipy.linalg.eigh(a, b)``.
    Every kernel's launch count is set to 0 just before each path (each
    LU driver, ``getri``, each batched driver, the served requests and
    each depth a path of its own) and read just after it; a kernel of the
@@ -129,7 +147,9 @@ REPO = {"matmul": ("slate_tpu_torch/csrc/matmul.cu",
         "getrf_step_fused": ("slate_tpu_torch/csrc/getrf_step_fused.cu",
                              "slate_tpu/ops/pallas_kernels.py:1317"),
         "getrf_full_fused": ("slate_tpu_torch/csrc/getrf_full_fused.cu",
-                             "slate_tpu/ops/pallas_kernels.py:1481")}
+                             "slate_tpu/ops/pallas_kernels.py:1481"),
+        "hb2st_wavefront": ("slate_tpu_torch/csrc/hb2st_wavefront.cu",
+                            "slate_tpu/ops/pallas_kernels.py:2033")}
 LU_NB, LU_BB, LU_IB = 512, 128, 16   # the scattered driver's panel call
 LEAF_W, LEAF_IB = 256, 32            # getrf_rec's kernel leaf at nb = 256
 #: bench.py's batched configuration (B, n) and serve configuration
@@ -155,7 +175,11 @@ PATHS = {"cholesky": ("matmul", "chol_inv_panel", "trtri_panel"),
          "gels_qr": ("matmul",),
          "gels_min_norm": ("matmul",),
          "qr_guard": ("matmul", "chol_inv_panel", "lu_inv_panel",
-                      "trtri_panel")}
+                      "trtri_panel"),
+         "heev": ("matmul", "hb2st_wavefront"),
+         "heev_fp64": ("hb2st_wavefront",),
+         "heev_vals": ("matmul",),
+         "hegv": ("matmul", "chol_inv_panel", "hb2st_wavefront")}
 #: the depth paths' exact launch counts at n = 8192 (16 steps of 512), the
 #: composed depth's panel kernels among them (never launched there)
 EXACT = {"chol_fused": {"potrf_step_fused": 16, "potrf_full_fused": 0,
@@ -180,6 +204,15 @@ GUARD_M, GUARD_N, GUARD_COND = 8192, 1024, 1e6
 QR_CHECK_TOL = {"matmul": 1e-5, "chol_inv_panel": 1e-4,
                 "lu_inv_panel": 1e-4, "trtri_panel": 1e-4}
 FORCE = "SLATE_TPU_TORCH_AUTOTUNE_FORCE"
+PEAK_FP64_FLOPS = 34e12         # H100 SXM, fp64 FMA outside the tensor cores
+#: phase 2g's chase checks (n, kd), its range chunks at (1024, 64) and the
+#: sweeps of the fp32 forward check; the eigensolver paths' sizes
+#: (bench.py's heev_fp32 at n = 8192 and heev_fp64's generator at one
+#: card's 4096; the host routes at 2048)
+CHASE_CHECKS = ((1024, 64), (1024, 256))
+CHASE_CHUNKS = ((0, 300), (300, 700), (700, 1022))
+CHASE_F32_SWEEPS = 64
+EIG_N, EIG_N64, EIG_HOST_N = 8192, 4096, 2048
 
 
 def fail(msg: str):
@@ -1733,6 +1766,360 @@ def guard_path(torch, st, kernels, dev) -> dict:
     return res
 
 
+def _band_wide(n: int, kd: int, seed: int):
+    """bench.py-style random wide band (tests/test_chase_wavefront.py:32),
+    fp64 numpy: ``abw[c, d]`` = A[c+d, c] for d ≤ kd."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    abw = np.zeros((n, 2 * kd + 2))
+    for d in range(kd + 1):
+        abw[:n - d, d] = rng.standard_normal(n - d)
+    return abw
+
+
+def _dense_band(torch, abw, kd: int):
+    """The dense symmetric band of wide band storage, in float64."""
+    n = abw.shape[0]
+    a = torch.zeros((n, n), dtype=torch.float64, device=abw.device)
+    for d in range(kd + 1):
+        a.diagonal(-d).copy_(abw[:n - d, d])
+    return torch.tril(a) + torch.tril(a, -1).T
+
+
+def chase_flops(n: int, kd: int) -> float:
+    """FLOP of the chase's task bodies over all sweeps: window 0 of sweep
+    j the two-sided apply on its L = min(kd, n−1−j) rows (S·v and the
+    rank-2 update of the stored triangle, 4·L²); window w ≥ 1 the
+    right-apply and left-apply of the (Lt, kd) bulge block (a dot and a
+    rank-1 update each, 8·Lt·kd) and the two-sided apply (4·Lt²)."""
+    total = 0.0
+    for j in range(n - 2):
+        total += 4.0 * min(kd, n - 1 - j) ** 2
+        for w in range(1, (n - 3 - j) // kd + 1):
+            lt = min(kd, n - (j + 1 + w * kd))
+            total += 8.0 * lt * kd + 4.0 * lt * lt
+    return total
+
+
+def _chase_backward(torch, eig, label, a64, abw, vt, kd: int, eps: float):
+    """Backward gates of one chase: Q₂ from the log (the back-transform of
+    I), T from the band's (d, e); ‖A·Q₂ − Q₂·T‖_F/(‖A‖_F·n·ε) and
+    ‖Q₂ᵀQ₂ − I‖_F/(n·ε), each ≤ 3.  Returns both."""
+    n = abw.shape[0]
+    eye = torch.eye(n, dtype=abw.dtype, device=abw.device)
+    s0 = list(range(1, vt.shape[0] + 1))
+    q = eig.unmtr_hb2st_hh(vt[:, :, 1:], vt[:, :, 0], s0, eye, kd).double()
+    d, e = abw[:, 0].double(), abw[:n - 1, 1].double()
+    t = torch.diag(d) + torch.diag(e, -1) + torch.diag(e, 1)
+    res = float((a64 @ q - q @ t).norm() / (a64.norm() * n * eps))
+    orth = float((q.T @ q - eye.double()).norm() / (n * eps))
+    if not (res <= 3 and orth <= 3):
+        fail("%s: backward residual %.3g, orthogonality %.3g (> 3)"
+             % (label, res, orth))
+    return res, orth
+
+
+def check_chase_kernel(torch, kernels, dev) -> dict:
+    """Phase 2g: hb2st_wavefront against its plain version on the card at
+    (n, kd) = (1024, 64) and (1024, 256) in fp32 and fp64, on
+    bench.py-style random wide bands, and in the range chunks of
+    CHASE_CHUNKS at (1024, 64) in fp64.
+
+    fp64: band and log within 1e-9·max|band| of the plain version, and a
+    probe Z back-transformed through both logs within the same.  fp32:
+    the chase's forward error is not stable (two fp32 orderings of the
+    same chase part by O(1) band entries past the first few hundred
+    sweeps at n = 1024, their eigenvalues still close), so the
+    forward gate, 5e-3·max|band| (tests/test_chase_wavefront.py:199),
+    holds the first CHASE_F32_SWEEPS sweeps from the same band, and the
+    whole chase of kernel and plain version each passes the backward
+    gates of :func:`_chase_backward`, as the fp64 chases do too.  The
+    eigenvalues of the kernel's (d, e) (scipy on the host) are held to
+    torch.linalg.eigvalsh of the dense band, 1e-3 (fp32) and 1e-10
+    (fp64) relative to max|λ|.
+
+    Then times the kernel with CUDA events at the main path's call,
+    (8192, 256) fp32, and at (4096, 256) fp64, with the same launch with
+    every task skipped (the barriers' share), and the plain version at
+    (1024, 256) only: ~135k tasks of ~25 PyTorch ops each at n = 8192."""
+    import numpy as np
+    from scipy.linalg import eigvalsh_tridiagonal
+    from slate_tpu_torch.linalg import eig
+
+    f32, f64 = torch.float32, torch.float64
+    worst = {f32: 0.0, f64: 0.0}
+    for n, kd in CHASE_CHECKS:
+        ab64 = torch.from_numpy(_band_wide(n, kd, 7)).to(dev)
+        a64 = _dense_band(torch, ab64, kd)
+        lam = torch.linalg.eigvalsh(a64).cpu().numpy()
+        for dt in (f32, f64):
+            ab = ab64.to(dt)
+            eps = float(torch.finfo(dt).eps)
+            scale = float(ab.abs().max())
+            ak, vk = kernels.hb2st_wavefront(ab.clone(), kd)
+            ap, vp = kernels.hb2st_wavefront_plain(ab.clone(), kd)
+            torch.cuda.synchronize()
+            full_dev = float((ak - ap).abs().max())
+            label = "hb2st_wavefront (%d, %d) %s" % (n, kd, dt)
+            if dt == f64:
+                z = torch.from_numpy(np.random.default_rng(8).standard_normal(
+                    (n, 4))).to(dev)
+                s0 = list(range(1, vk.shape[0] + 1))
+                zk = eig.unmtr_hb2st_hh(vk[:, :, 1:], vk[:, :, 0], s0, z, kd)
+                zp = eig.unmtr_hb2st_hh(vp[:, :, 1:], vp[:, :, 0], s0, z, kd)
+                errs = (full_dev, float((vk - vp).abs().max()),
+                        float((zk - zp).abs().max()))
+                tol = 1e-9 * scale
+            else:
+                hk, hvk = kernels.hb2st_wavefront(ab.clone(), kd, 0,
+                                                  CHASE_F32_SWEEPS)
+                hp, hvp = kernels.hb2st_wavefront_plain(ab.clone(), kd, 0,
+                                                        CHASE_F32_SWEEPS)
+                errs = (float((hk - hp).abs().max()),
+                        float((hvk - hvp).abs().max()))
+                tol = 5e-3 * scale
+            worst[dt] = max(worst[dt], max(errs))
+            if not max(errs) <= tol:
+                fail("%s disagrees with its plain version: %s > %.3g"
+                     % (label, ["%.3g" % x for x in errs], tol))
+            bk = _chase_backward(torch, eig, label, a64, ak, vk, kd, eps)
+            bp = _chase_backward(torch, eig, label + " (plain)", a64, ap, vp,
+                                 kd, eps)
+            w = eigvalsh_tridiagonal(ak[:, 0].double().cpu().numpy(),
+                                     ak[:n - 1, 1].double().cpu().numpy())
+            lam_err = float(np.abs(w - lam).max() / np.abs(lam).max())
+            if not lam_err <= (1e-3 if dt == f32 else 1e-10):
+                fail("%s: eigenvalues of (d, e) off by %.3g relative"
+                     % (label, lam_err))
+            print("%s: forward %s (tol %.3g%s), whole-chase band departure "
+                  "%.3g; backward residual/orthogonality kernel %.3g/%.3g, "
+                  "plain %.3g/%.3g; eigenvalues %.3g relative"
+                  % (label, ["%.3g" % x for x in errs], tol,
+                     "" if dt == f64 else ", first %d sweeps" % CHASE_F32_SWEEPS,
+                     full_dev, bk[0], bk[1], bp[0], bp[1], lam_err), flush=True)
+    # the sweep-range chunks: the band is the whole state between chunks
+    n, kd = CHASE_CHECKS[0]
+    ak = torch.from_numpy(_band_wide(n, kd, 9)).to(dev)
+    ap = ak.clone()
+    scale = float(ak.abs().max())
+    for j0, j1 in CHASE_CHUNKS:
+        ak, vk = kernels.hb2st_wavefront(ak, kd, j0, j1)
+        ap, vp = kernels.hb2st_wavefront_plain(ap, kd, j0, j1)
+        err = max(float((ak - ap).abs().max()), float((vk - vp).abs().max()))
+        worst[f64] = max(worst[f64], err)
+        if tuple(vk.shape[:1]) != (j1 - j0,) or not err <= 1e-9 * scale:
+            fail("hb2st_wavefront chunk [%d, %d) disagrees: %.3g, log %s"
+                 % (j0, j1, err, tuple(vk.shape)))
+    print("hb2st_wavefront range chunks %s at (%d, %d) fp64: within %.3g"
+          % (list(CHASE_CHUNKS), n, kd, worst[f64]), flush=True)
+
+    # timing: the main path's call and the fp64 one, then the barriers
+    timed = {}
+    for n, kd, dt, peak in ((EIG_N, NB, f32, PEAK_FP32_FLOPS),
+                            (EIG_N64, NB, f64, PEAK_FP64_FLOPS)):
+        ab = torch.from_numpy(_band_wide(n, kd, 7)).to(dev, dt)
+        work = ab.clone()
+        ms = event_ms(torch, lambda: kernels.hb2st_wavefront(work, kd),
+                      setup=lambda: work.copy_(ab), reps=2)
+        sync_ms = event_ms(torch, lambda: kernels.hb2st_wavefront_barriers(
+            work, kd), reps=2)
+        nsw, nwin_max, tmax, nl = kernels.hb_wave_meta(n, kd)
+        size = ab.element_size()
+        flops = chase_flops(n, kd)
+        nbytes = 2.0 * ab.numel() * size + nsw * nwin_max * (kd + 1) * size
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+        timed[dt] = dict(
+            ms=ms, barriers_ms=sync_ms, staggers=tmax + 1, grid_max=nl,
+            flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            shape="(%d, %d) %s band, one launch" % (n, 2 * kd + 2,
+                                                   str(dt).split(".")[-1]))
+        print("hb2st_wavefront %s: %.3f ms (CUDA events, mean of 2), the "
+              "same grid with every task skipped %.3f ms over %d staggers "
+              "(%.3f us a barrier); %.4g FLOP, %.4g bytes, bound %.4f ms (%s)"
+              % (timed[dt]["shape"], ms, sync_ms, tmax + 1,
+                 1e3 * sync_ms / (tmax + 1), flops, nbytes,
+                 timed[dt]["bound_ms"], timed[dt]["bound_by"]), flush=True)
+        del ab, work
+    n, kd = CHASE_CHECKS[1]
+    ab = torch.from_numpy(_band_wide(n, kd, 7)).to(dev, f32)
+    plain_ms, _ = once_ms(torch, lambda: kernels.hb2st_wavefront_plain(
+        ab.clone(), kd))
+    small_ms = event_ms(torch, lambda: kernels.hb2st_wavefront(ab.clone(), kd),
+                        reps=2)
+    print("hb2st_wavefront (%d, %d) fp32: kernel %.3f ms, plain version %.1f "
+          "ms (one call; the plain version is timed only here: ~135k tasks "
+          "of ~25 PyTorch ops each at n = %d); library: none, no library "
+          "call reduces a band to tridiagonal" % (n, kd, small_ms, plain_ms,
+                                                   EIG_N), flush=True)
+    r = timed[f32]
+    return {"hb2st_wavefront": dict(
+        shape=r["shape"], max_abs_err=worst[f32], rel_err=None,
+        tol="fp32 5e-3*max|band| (first %d sweeps), fp64 1e-9*max|band|; "
+            "backward <= 3" % CHASE_F32_SWEEPS,
+        ms=r["ms"], plain_ms=plain_ms, library_ms=None,
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        plain_shape="(%d, %d) fp32" % (n, 2 * kd + 2), kernel_ms_at_plain_shape=small_ms,
+        barriers_ms=r["barriers_ms"], fp64=dict(
+            (k, timed[f64][k]) for k in ("shape", "ms", "barriers_ms",
+                                         "bound_ms", "bound_by")),
+        max_abs_err_fp64=worst[f64])}
+
+
+def _eig_gates(torch, label, a, w, z, lam, eps10):
+    """bench.py's heev gates (bench.py:1509-1531): ‖A·Z − Z·W‖_F/(‖A‖_F·n·
+    10ε) and ‖ZᵀZ − I‖_F/(n·10ε), each ≤ 3, and the eigenvalues within
+    1e-3 relative (to max|λ|) of the reference ``lam``."""
+    n = a.shape[0]
+    for name, t in (("w", w), ("Z", z)):
+        if not bool(torch.isfinite(t).all()):
+            fail("%s: %s has non-finite values" % (label, name))
+    if tuple(w.shape) != (n,) or tuple(z.shape) != (n, n):
+        fail("%s: shapes %s, %s" % (label, tuple(w.shape), tuple(z.shape)))
+    ad, wd, zd = a.double(), w.double(), z.double()
+    resid = float((ad @ zd - zd * wd[None, :]).norm() / (ad.norm() * n * eps10))
+    orth = float((zd.T @ zd - torch.eye(n, dtype=torch.float64,
+                                        device=a.device)).norm() / (n * eps10))
+    lam_err = float((torch.sort(wd).values - lam).abs().max() / lam.abs().max())
+    print("%s: residual %.3g, orthogonality %.3g (n*10eps units), "
+          "eigenvalues %.3g relative" % (label, resid, orth, lam_err),
+          flush=True)
+    if not (resid <= 3 and orth <= 3 and lam_err <= 1e-3):
+        fail("%s: residual %.3g, orthogonality %.3g, eigenvalues %.3g"
+             % (label, resid, orth, lam_err))
+    return dict(residual=resid, orthogonality=orth, eig_rel_err=lam_err)
+
+
+def main_path_heev(torch, st, kernels, dev) -> dict:
+    """Phase 3h: heev of bench.py's heev_fp32 input (bench.py:1509-1531:
+    rng 9, (G + Gᵀ)/2, n = 8192) as an fp32 HermitianMatrix, nb = 256,
+    jobz: exactly one hb2st_wavefront launch, chase.host_bytes 0 and
+    chase.dispatch.kernel ≥ 1, bench.py's residual and orthogonality
+    gates, eigenvalues against torch.linalg.eigvalsh; one warm call, the
+    median wall of 3 with the stage timers, a profiler split, and
+    torch.linalg.eigh's wall as a yardstick (timed only).  Then heev in
+    fp64 at n = 4096 (heev_fp64's generator, rng 7), one timed call; the
+    host routes once each: heev_vals at n = 2048 through the native
+    Givens chase, hegv itype 1 at n = 2048 (B = GᵀG + n·I) against
+    scipy.linalg.eigh(a, b)."""
+    import numpy as np
+    import scipy.linalg
+    from slate_tpu_torch import native
+    from slate_tpu_torch.perf import metrics
+
+    metrics.on()
+    rng = np.random.default_rng(9)
+    g = rng.standard_normal((EIG_N, EIG_N)).astype(np.float32)
+    a = torch.from_numpy(((g + g.T) / 2).astype(np.float32)).to(dev)
+    del g
+    A = st.HermitianMatrix(a, uplo=st.Uplo.Lower, nb=NB)
+    eps32 = float(torch.finfo(torch.float32).eps)
+    launches = {}
+    before = metrics.snapshot()
+    (w, z), ms0, launches["heev"] = run_path(torch, kernels, "heev",
+                                             lambda: st.heev(A))
+    after = metrics.snapshot()
+    delta = metrics.snapshot_delta(before, after)["counters"]
+    host = after["counters"].get("chase.host_bytes")
+    print("heev fp32 n=%d nb=%d: first call %.1f ms; launches %s; chase "
+          "counters host_bytes %s, dispatch %s"
+          % (EIG_N, NB, ms0, {k: v for k, v in launches["heev"].items() if v},
+             host, {k: v for k, v in delta.items() if "dispatch" in k}),
+          flush=True)
+    if launches["heev"]["hb2st_wavefront"] != 1:
+        fail("heev launched hb2st_wavefront %d times, not once"
+             % launches["heev"]["hb2st_wavefront"])
+    if host is None or host - before["counters"].get("chase.host_bytes", 0.0) \
+            or delta.get("chase.dispatch.kernel", 0) < 1:
+        fail("heev: chase.host_bytes %s, chase.dispatch.kernel %s"
+             % (host, delta.get("chase.dispatch.kernel")))
+    lam = torch.linalg.eigvalsh(a.double())
+    res = {"fp32": _eig_gates(torch, "heev fp32 n=%d" % EIG_N, a, w, z, lam,
+                              10 * eps32)}
+    del w, z
+    before = metrics.snapshot()
+    wall = _wall_ms(torch, lambda: st.heev(A), 3)
+    timers = metrics.snapshot_delta(before, metrics.snapshot())["timers"]
+    stages = {k: v["total_s"] * 1e3 / v["count"] for k, v in timers.items()
+              if k.startswith(("stage.heev", "chase.hb2st"))}
+    res["fp32"].update(wall_ms=wall, stages_ms=stages)
+    torch.linalg.eigh(a)
+    eigh_ms = _wall_ms(torch, lambda: torch.linalg.eigh(a), 1)
+    print("heev fp32 n=%d: median wall of 3 %.1f ms (host timers, mean ms a "
+          "call: %s); torch.linalg.eigh (library yardstick) %.1f ms"
+          % (EIG_N, wall, {k: round(v, 2) for k, v in stages.items()},
+             eigh_ms), flush=True)
+    res["fp32"]["eigh_ms"] = eigh_ms
+    res["fp32"]["split"] = device_split(
+        torch, "heev fp32", lambda: st.heev(A),
+        {"hb2st_wavefront kernel": "hb2st_wavefront_kernel",
+         "matmul kernel": "matmul_f32_kernel"})
+    del A, a, lam
+
+    rng = np.random.default_rng(7)
+    g = rng.standard_normal((EIG_N64, EIG_N64))
+    a = torch.from_numpy((g + g.T) / 2).to(dev)
+    A = st.HermitianMatrix(a, uplo=st.Uplo.Lower, nb=NB)
+    (w, z), ms, launches["heev_fp64"] = run_path(torch, kernels, "heev_fp64",
+                                                 lambda: st.heev(A))
+    if launches["heev_fp64"]["hb2st_wavefront"] != 1:
+        fail("heev fp64 launched hb2st_wavefront %d times"
+             % launches["heev_fp64"]["hb2st_wavefront"])
+    res["fp64"] = _eig_gates(torch, "heev fp64 n=%d" % EIG_N64, a, w, z,
+                             torch.linalg.eigvalsh(a),
+                             10 * float(torch.finfo(torch.float64).eps))
+    res["fp64"]["wall_ms"] = ms
+    print("heev fp64 n=%d: one call %.1f ms; launches %s"
+          % (EIG_N64, ms, {k: v for k, v in launches["heev_fp64"].items() if v}),
+          flush=True)
+    del A, a, w, z
+
+    if not native.available():
+        fail("the native chase did not build: %s" % native.build_error())
+    n = EIG_HOST_N
+    rng = np.random.default_rng(11)
+    g = rng.standard_normal((n, n))
+    a = torch.from_numpy(((g + g.T) / 2).astype(np.float32)).to(dev)
+    before = metrics.snapshot()
+    w, ms, launches["heev_vals"] = run_path(
+        torch, kernels, "heev_vals",
+        lambda: st.heev_vals(st.HermitianMatrix(a, uplo=st.Uplo.Lower, nb=NB)))
+    chased = metrics.snapshot_delta(before, metrics.snapshot())["timers"].get(
+        "chase.hb2st", {}).get("count", 0)
+    lam = torch.linalg.eigvalsh(a.double())
+    lam_err = float((w.double() - lam).abs().max() / lam.abs().max())
+    print("heev_vals fp32 n=%d: %.1f ms, host chase calls %d, launches %s, "
+          "eigenvalues %.3g relative" % (n, ms, chased, {
+              k: v for k, v in launches["heev_vals"].items() if v}, lam_err),
+          flush=True)
+    if launches["heev_vals"]["hb2st_wavefront"] or chased != 1 \
+            or not lam_err <= 1e-3:
+        fail("heev_vals: %d kernel chases, %d host chases, eigenvalues %.3g"
+             % (launches["heev_vals"]["hb2st_wavefront"], chased, lam_err))
+    b = torch.from_numpy((g.T @ g + n * np.eye(n)).astype(np.float32)).to(dev)
+    (w, z), ms, launches["hegv"] = run_path(
+        torch, kernels, "hegv", lambda: st.hegv(a, b, 1, True, {"block_size": NB}))
+    ref = scipy.linalg.eigh(a.double().cpu().numpy(), b.double().cpu().numpy(),
+                            eigvals_only=True)
+    w_err = float(np.abs(np.sort(w.double().cpu().numpy()) - ref).max()
+                  / np.abs(ref).max())
+    gen_res = float((a.double() @ z.double() - b.double() @ z.double()
+                     * w.double()[None, :]).norm()
+                    / (a.double().norm() * z.double().norm() * n * eps32))
+    print("hegv fp32 itype 1 n=%d: %.1f ms, eigenvalues %.3g relative of "
+          "scipy.linalg.eigh(a, b), ||A Z - B Z W||/(||A|| ||Z|| n eps) %.3g; "
+          "launches %s" % (n, ms, w_err, gen_res, {
+              k: v for k, v in launches["hegv"].items() if v}), flush=True)
+    if not (w_err <= 1e-3 and bool(torch.isfinite(z).all())
+            and tuple(z.shape) == (n, n)):
+        fail("hegv: eigenvalues %.3g relative, Z finite %s"
+             % (w_err, bool(torch.isfinite(z).all())))
+    res.update(heev_vals_rel_err=lam_err, hegv_rel_err=w_err,
+               launches=launches)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1787,6 +2174,8 @@ def main() -> int:
     paths.update(main_path_qr(torch, st, kernels, dev, a_qr)["launches"])
     del a_qr
     paths.update(guard_path(torch, st, kernels, dev)["launches"])
+    measured.update(check_chase_kernel(torch, kernels, dev))
+    paths.update(main_path_heev(torch, st, kernels, dev)["launches"])
 
     rows = []
     for name, r in measured.items():
@@ -1799,10 +2188,15 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
+        for extra in ("plain_shape", "kernel_ms_at_plain_shape",
+                      "barriers_ms", "fp64", "max_abs_err_fp64"):
+            if extra in r:
+                rows[-1][extra] = r[extra]
         if name in qr_calls:        # phase 2f: every call of one geqrf+ungqr
             rows[-1]["qr_path_check"] = {
                 k: qr_calls[name][k] for k in ("calls", "layouts",
                                                "max_rel_err", "max_abs_err")}
+    print(card, flush=True)        # again, beside the numbers below
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,12 +16,18 @@ path — ``getrf`` (partial pivot and no pivot), ``getrs``, ``gesv``,
 batched drivers (``potrf_batched`` … ``heev_batched``) with the serving
 queue in front of them (:mod:`slate_tpu_torch.serve`, also ``st.serve``),
 and the QR family — ``geqrf``, ``gelqf``, ``unmqr``, ``unmlq``,
-``ungqr``, ``cholqr``, ``gels``, ``gels_qr``, ``gels_cholqr``.
+``ungqr``, ``cholqr``, ``gels``, ``gels_qr``, ``gels_cholqr`` — and the
+two-stage Hermitian eigensolver — ``heev``, ``syev``, ``heev_vals``,
+``hegst``/``hegv``, ``sygst``/``sygv`` (with ``he2hb`` and
+``unmtr_he2hb``), whose band → tridiagonal chase is one launch of the
+``hb2st_wavefront`` kernel on the card and the host chase of
+:mod:`slate_tpu_torch.native` elsewhere.
 """
 
 from . import config  # noqa: F401
 from .enums import (  # noqa: F401
-    Diag, GridOrder, MethodGels, MethodLU, Op, Option, Side, Target, Uplo,
+    Diag, GridOrder, MethodEig, MethodGels, MethodLU, Op, Option, Side,
+    Target, Uplo,
 )
 from .exceptions import SlateError  # noqa: F401
 from .grid import ProcessGrid  # noqa: F401

@@ -74,6 +74,19 @@ class Option(enum.Enum):
     MethodLU = "method_lu"
     MethodTrsm = "method_trsm"
     MethodSVD = "method_svd"
+    #: heev's whole-driver choice (``"twostage"``), bypassing the
+    #: ``eig_driver`` site
+    EigDriver = "eig_driver"
+
+
+class MethodEig(enum.Enum):
+    """Tridiagonal eigensolver of heev (reference ``enums.hh:60-63``)."""
+
+    Auto = "auto"
+    QR = "qr"
+    DC = "dc"
+    MRRR = "mrrr"
+    Bisection = "bisection"
 
 
 class MethodGels(enum.Enum):

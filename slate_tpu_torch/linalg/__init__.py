@@ -6,6 +6,9 @@ from .batched import (  # noqa: F401
 )
 from .blas3 import gemm, herk, syrk, trmm, trsm  # noqa: F401
 from .cholesky import posv, potrf, potri, potrs, trtri, trtrm  # noqa: F401
+from .eig import (  # noqa: F401
+    he2hb, heev, heev_vals, hegst, hegv, syev, sygst, sygv, unmtr_he2hb,
+)
 from .lu import (  # noqa: F401
     gesv, gesv_nopiv, getrf, getrf_nopiv, getri, getrs, getrs_nopiv,
 )
@@ -19,6 +22,8 @@ __all__ = ["gemm", "herk", "syrk", "trmm", "trsm",
            "getrs_nopiv",
            "cholqr", "gelqf", "gels", "gels_cholqr", "gels_qr", "geqrf",
            "ungqr", "unmlq", "unmqr",
+           "he2hb", "heev", "heev_vals", "hegst", "hegv", "syev", "sygst",
+           "sygv", "unmtr_he2hb",
            "gels_batched", "geqrf_batched", "gesv_batched", "getrf_batched",
            "getrs_batched", "heev_batched", "posv_batched", "potrf_batched",
            "potrs_batched"]

@@ -76,11 +76,31 @@ def larft_rec(v, tau):
     return torch.where(zero[None, :], zero_dt, torch.triu(t))
 
 
-def _apply_block_reflector(v, t, c, *, forward: bool):
+def _apply_block_reflector(v, t, c, *, forward: bool, hi: bool = False):
     """C ← (I − V·T·Vᴴ)·C if forward else (I − V·Tᴴ·Vᴴ)·C — LAPACK
-    ``larfb`` (Left; callers handle the Right side by transposition)."""
+    ``larfb`` (Left; callers handle the Right side by transposition).
+    ``hi`` sends the three products to :func:`matmul_hi` (the eig
+    back-transforms)."""
+    mm = matmul_hi if hi else matmul
     tt = t if forward else _ct(t)
-    return c - matmul(v, matmul(tt, matmul(_ct(v), c)))
+    return c - mm(v, mm(tt, mm(_ct(v), c)))
+
+
+def apply_reflector_chain(vts, cv, forward: bool):
+    """Apply a chain of tail-aligned block reflectors: each (V, T) panel
+    spans the last ``V.shape[0]`` rows of C.  ``forward`` applies Q
+    (panels last-to-first), else Qᴴ.  The counterpart of
+    ``slate_tpu/linalg/qr.py:111-137``, whose products are pinned to an
+    XLA dot at ``Precision.HIGHEST`` rather than its kernel: here they go
+    to :func:`matmul_hi` (``torch.matmul``, full fp32 with TF32 off).
+    Returns a new tensor."""
+    n = cv.shape[0]
+    out = cv.clone()
+    for v, t in (vts[::-1] if forward else vts):
+        r0 = n - v.shape[0]
+        out[r0:] = _apply_block_reflector(v, t, out[r0:], forward=forward,
+                                          hi=True)
+    return out
 
 
 # ---------------------------------------------------------------------------

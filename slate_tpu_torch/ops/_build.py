@@ -46,6 +46,7 @@ SOURCES = {
                          ("lu_step.cuh", "lu_panel.cuh")),
     "getrf_full_fused": ("getrf_full_fused.cu",
                          ("lu_step.cuh", "lu_panel.cuh")),
+    "hb2st_wavefront": ("hb2st_wavefront.cu", ("chase.cuh",)),
 }
 
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -7,7 +7,7 @@ Each kernel has three things here:
   :func:`lu_inv_panel`, :func:`getrf_panel_linv`, :func:`getrf_panel_fused`,
   :func:`potrf_batched`, :func:`getrf_batched`, :func:`potrf_step_fused`,
   :func:`potrf_full_fused`, :func:`getrf_step_fused`,
-  :func:`getrf_full_fused`) that checks device,
+  :func:`getrf_full_fused`, :func:`hb2st_wavefront`) that checks device,
   dtype, shape and strides, allocates its outputs and scratch with
   ``torch.empty``, launches the kernel on the current CUDA stream and
   raises if the launch fails.  Given CPU tensors it runs the plain
@@ -38,7 +38,8 @@ launches = {"matmul": 0, "chol_inv_panel": 0, "trtri_panel": 0,
             "lu_inv_panel": 0, "getrf_panel_linv": 0, "getrf_panel_fused": 0,
             "potrf_batched": 0, "getrf_batched": 0,
             "potrf_step_fused": 0, "potrf_full_fused": 0,
-            "getrf_step_fused": 0, "getrf_full_fused": 0}
+            "getrf_step_fused": 0, "getrf_full_fused": 0,
+            "hb2st_wavefront": 0}
 
 IB = 32
 
@@ -66,6 +67,9 @@ _SIGNATURES = {
                          [_P, _I64, _I64, _I] + [_P] * 10 + [_I] * 5 + [_P]),
     "getrf_full_fused": ("slate_getrf_full_fused_f32",
                          [_P, _I64, _I] + [_P] * 9 + [_I] * 4 + [_P]),
+    # one symbol per dtype: "%s" is f32 or f64
+    "hb2st_wavefront": ("slate_hb2st_wavefront_%s",
+                        [_P, _I64] + [_I] * 4 + [_P] + [_I] * 2 + [_P]),
 }
 _fns: dict = {}
 _fns_lock = threading.Lock()     # the entry-point cache; held across a build
@@ -78,9 +82,11 @@ def reset_launches() -> None:
             launches[k] = 0
 
 
-def _fn(name: str):
+def _fn(name: str, dt=None):
+    """The C entry of kernel ``name`` (of dtype suffix ``dt`` for a
+    kernel with one entry per dtype)."""
     with _fns_lock:
-        fn = _fns.get(name)
+        fn = _fns.get((name, dt))
         if fn is None:
             from . import _build
 
@@ -89,10 +95,10 @@ def _fn(name: str):
             if check is not None:
                 check(lib, name)
             sym, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, sym)
+            fn = getattr(lib, sym % dt if dt else sym)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _fns[name] = fn
+            _fns[(name, dt)] = fn
         return fn
 
 
@@ -153,14 +159,16 @@ _SMEM_CHECKS = {"getrf_batched": _check_getrf_batched_smem,
                 "getrf_full_fused": _check_lu_step_smem}
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _launch(name: str, device: torch.device, *args, dt=None,
+            count: bool = True) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _fn(name)(*args, stream)
+        rc = _fn(name, dt)(*args, stream)
     if rc != 0:
         raise RuntimeError("%s kernel launch failed: CUDA error %d"
                            % (name, rc))
-    _count(name)
+    if count:
+        _count(name)
 
 
 def _count(name: str) -> None:
@@ -976,3 +984,166 @@ def getrf_full_fused(at, act, nb: int = 512, bb: int = 128, ib: int = 16,
             cand.data_ptr(), cval.data_ptr(), clane.data_ptr(), t.data_ptr(),
             x2.data_ptr(), u.data_ptr(), m, nb, ib, grid)
     return at, piv, act_w
+
+
+# ---------------------------------------------------------------------------
+# Householder band → tridiagonal bulge chase (replaces
+# pallas_kernels.hb2st_wavefront :2033): one cooperative launch over the
+# wavefront staggers t = 3·sweep + window, in place on the wide band
+# ---------------------------------------------------------------------------
+
+def hb_wave_meta(n: int, kd: int, j0: int = 0, j1=None):
+    """Wavefront geometry of sweeps ``[j0, j1)`` (a copy of the JAX
+    package's ``_hb_wave_meta``): ``(nsweeps, nwin_max, tmax, nl)`` — the
+    sweep count, the most windows of a sweep (the log's middle dim,
+    nwin_j = (n − 3 − j)//kd + 1), the last stagger and the most tasks
+    live at one stagger."""
+    j1 = min(j1 if j1 is not None else n - 2, n - 2)
+    nwin = [(n - 3 - j) // kd + 1 for j in range(j0, max(j1, j0))]
+    if not nwin:
+        return 0, 0, 0, 1
+    nwin_max = max(nwin)
+    tmax = max(3 * js + nw - 1 for js, nw in enumerate(nwin))
+    return len(nwin), nwin_max, tmax, min(len(nwin), nwin_max // 3 + 2)
+
+
+def _band_block(abw, r: int, c: int, rows: int, cols: int):
+    """The (rows, cols) view A[r:r+rows, c:c+cols] of the lower band
+    ``abw`` (``abw[c, d]`` = A[c+d, c]): A[r+i, c+k] lies at flat offset
+    c·(W−1) + r + i + k·(W−1).  Entries above the diagonal (r+i < c+k)
+    alias other band entries and must not be written."""
+    w = abw.shape[1]
+    return abw.as_strided((rows, cols), (1, w - 1),
+                          abw.storage_offset() + c * (w - 1) + r)
+
+
+def _larfg_plain(x):
+    """LAPACK-convention ``larfg`` of the live vector ``x`` as the JAX
+    kernel's ``_wf_larfg`` (real): β = −sign(α)·‖x‖, τ = 0 and β = α for
+    a zero tail, no safmin rescaling.  Returns ``(v, τ, β)`` with
+    v[0] = 1 stored, as 0-d tensors where scalar (no host read)."""
+    alpha = x[0]
+    xnorm2 = (x[1:] * x[1:]).sum()
+    anorm = torch.sqrt(alpha * alpha + xnorm2)
+    beta = torch.where(alpha >= 0, -anorm, anorm)
+    is_zero = xnorm2 == 0
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    tau = torch.where(is_zero, torch.zeros_like(alpha),
+                      (beta - alpha) / torch.where(beta == 0, one, beta))
+    denom = alpha - beta
+    denom = torch.where(is_zero | (denom == 0), one, denom)
+    v = torch.cat([one[None], x[1:] / denom])
+    return v, tau, torch.where(is_zero, alpha, beta)
+
+
+def _two_sided_plain(abw, r: int, length: int, v, tau) -> None:
+    """S ← H·S·H on the Hermitian block S = A[r:r+L, r:r+L] (its lower
+    triangle in the band), H = I − τ·v·vᵀ: w = τ·S·v, w −= ½·τ·(vᵀw)·v,
+    S −= v·wᵀ + w·vᵀ on the stored triangle (``hh_two_sided``)."""
+    s = _band_block(abw, r, r, length, length)
+    low = torch.tril(s)
+    wv = tau * ((low + torch.tril(s, -1).mT) @ v)
+    wv = wv - (0.5 * tau * (v @ wv)) * v
+    s.sub_(torch.tril(v[:, None] * wv[None, :] + wv[:, None] * v[None, :]))
+
+
+def _tail_plain(abw, row: int, r: int, length: int, v, tau) -> None:
+    """The length-1 trailing coupling (``hb_sweep_tail``): right-apply H
+    to the single row A[row, r:r+L] past the window."""
+    seg = _band_block(abw, row, r, 1, length)[0]
+    seg.sub_(((seg @ v) * tau) * v)
+
+
+def hb2st_wavefront_plain(abw, kd: int, j0: int = 0, j1=None):
+    """Plain version of :func:`hb2st_wavefront`: the same task bodies in
+    serial sweep-major order on band-storage views (equivalent to the
+    wavefront order: same-stagger tasks touch disjoint rows).  In place
+    on ``abw``; returns ``(abw, vt)``."""
+    n = abw.shape[0]
+    nsweeps, nwin_max, _, _ = hb_wave_meta(n, kd, j0, j1)
+    vt = torch.zeros((nsweeps, max(nwin_max, 1), kd + 1), dtype=abw.dtype,
+                     device=abw.device)
+    for js in range(nsweeps):
+        j = j0 + js
+        nwin = (n - 3 - j) // kd + 1
+        length = min(kd, n - 1 - j)
+        col = abw[j, 1:1 + length]
+        v, tau, beta = _larfg_plain(col.clone())
+        col[0] = beta
+        col[1:] = 0
+        _two_sided_plain(abw, j + 1, length, v, tau)
+        vt[js, 0, 0] = tau
+        vt[js, 0, 1:1 + length] = v
+        if nwin == 1 and n - (j + 1 + length) == 1:
+            _tail_plain(abw, j + 1 + length, j + 1, length, v, tau)
+        for w in range(1, nwin):
+            r0 = j + 1 + (w - 1) * kd
+            r1 = r0 + kd
+            lt = min(kd, n - r1)
+            u, tau_p = vt[js, w - 1, 1:], vt[js, w - 1, 0]
+            blk = _band_block(abw, r1, r0, lt, kd)
+            blk.sub_((tau_p * (blk @ u))[:, None] * u[None, :])
+            v, tau, beta = _larfg_plain(blk[:, 0].clone())
+            blk[0, 0] = beta
+            blk[1:, 0] = 0
+            blk[:, 1:].sub_(v[:, None] * (tau * (v @ blk[:, 1:]))[None, :])
+            _two_sided_plain(abw, r1, lt, v, tau)
+            vt[js, w, 0] = tau
+            vt[js, w, 1:1 + lt] = v
+            if w == nwin - 1 and n - (r1 + lt) == 1:
+                _tail_plain(abw, r1 + lt, r1, lt, v, tau)
+    return abw, vt
+
+
+_HB2ST_DT = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _check_hb2st(abw, kd: int) -> None:
+    if abw.dtype not in _HB2ST_DT or abw.ndim != 2:
+        raise ValueError("hb2st_wavefront takes a 2-D float32 or float64 band "
+                         "(complex input takes the host chase), got %s %s"
+                         % (abw.dtype, tuple(abw.shape)))
+    if kd < 4 or abw.shape[1] != 2 * kd + 2:
+        raise ValueError("hb2st_wavefront needs kd >= 4 and the wide band "
+                         "(n, 2·kd + 2), got kd = %d, %s"
+                         % (kd, tuple(abw.shape)))
+    if not abw.is_contiguous():
+        raise ValueError("hb2st_wavefront needs a contiguous band, got "
+                         "strides %s" % (abw.stride(),))
+
+
+def hb2st_wavefront(abw, kd: int, j0: int = 0, j1=None):
+    """Householder band → tridiagonal chase over sweeps ``[j0, j1)``
+    (default all n − 2) in ONE launch, IN PLACE on the wide lower band
+    ``abw`` (n, 2·kd + 2), ``abw[c, d]`` = A[c+d, c], fp32 or fp64,
+    kd ≥ 4, contiguous.  Returns ``(abw, vt)`` with the reflector log
+    ``vt`` (nsweeps, nwin_max, kd + 1): ``vt[s, w, 0]`` = τ and
+    ``vt[s, w, 1:]`` = v (v[0] = 1; zero past the window's length and in
+    the rows past a sweep's windows), the padded layout
+    :func:`slate_tpu_torch.linalg.eig.unmtr_hb2st_hh` consumes."""
+    _check_hb2st(abw, kd)
+    if _on_cpu(abw):
+        return hb2st_wavefront_plain(abw, kd, j0, j1)
+    n = abw.shape[0]
+    nsweeps, nwin_max, _, _ = hb_wave_meta(n, kd, j0, j1)
+    vt = torch.zeros((nsweeps, max(nwin_max, 1), kd + 1), dtype=abw.dtype,
+                     device=abw.device)
+    if nsweeps:
+        j1 = j0 + nsweeps
+        _launch("hb2st_wavefront", abw.device, abw.data_ptr(), abw.stride(0),
+                n, kd, j0, j1, vt.data_ptr(), nwin_max, 1,
+                dt=_HB2ST_DT[abw.dtype])
+    return abw, vt
+
+
+def hb2st_wavefront_barriers(abw, kd: int, j0: int = 0, j1=None) -> None:
+    """The launch of :func:`hb2st_wavefront` with every task skipped: the
+    same grid and the same grid barriers, nothing computed — a
+    measurement of the barriers' share, not counted as a launch."""
+    _check_hb2st(abw, kd)
+    n = abw.shape[0]
+    nsweeps, nwin_max, _, _ = hb_wave_meta(n, kd, j0, j1)
+    scratch = torch.zeros((1, 1, kd + 1), dtype=abw.dtype, device=abw.device)
+    _launch("hb2st_wavefront", abw.device, abw.data_ptr(), abw.stride(0), n,
+            kd, j0, j0 + nsweeps, scratch.data_ptr(), nwin_max, 0,
+            dt=_HB2ST_DT[abw.dtype], count=False)

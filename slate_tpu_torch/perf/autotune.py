@@ -16,6 +16,10 @@ The ``geqrf_panel`` site returns a driver instead: ``"cholqr2"`` (the
 CholQR² panel loop over the ``chol_inv_panel``, ``lu_inv_panel`` and
 ``trtri_panel`` kernels) or ``"stock"`` (``torch.geqrf``).
 
+The ``chase`` site returns ``"kernel"`` (the ``hb2st_wavefront`` kernel)
+or ``"host_native"`` (the host chase of :mod:`slate_tpu_torch.native`);
+``eig_driver`` answers ``"twostage"``, its one candidate ported.
+
 The two step-depth sites, ``potrf_step`` and ``lu_step``, return a depth
 of their driver instead: ``"composed"`` (the panel kernel and the glue
 around it), ``"fused"`` (one kernel launch per step; for LU also
@@ -289,11 +293,70 @@ def choose_batched_heev(b: int, n: int, dtype, device) -> str:
                    "stock")
 
 
+def choose_chase(kind: str, n: int, kd: int, dtype, device,
+                 eligible: bool) -> str:
+    """Stage-2 bulge-chase backend of the two-stage eigensolver
+    (``kind`` ``"hb2st"``): ``"kernel"`` (ONE launch of the
+    ``hb2st_wavefront`` kernel, the band and its log staying on the card)
+    or ``"host_native"`` (the band pulled to the host and chased by
+    :mod:`slate_tpu_torch.native`, the packed log shipped back).
+    ``eligible`` is the call site's gate (``linalg._chase.eligible``:
+    vectors wanted, kd ≥ 4, n > kd + 2); the kernel also takes only real
+    fp32/fp64.  ``"kernel"`` on a CUDA operand where both hold;
+    ``"host_native"`` otherwise, on the CPU and under
+    ``SLATE_TPU_TORCH_USE_KERNELS=0``.  A :data:`FORCE_ENV` pin
+    ``chase=kernel`` takes the kernel route on the CPU too, where the
+    kernel's wrapper runs its plain version (as the JAX tests pin
+    ``chase=pallas_wavefront`` off the TPU); ``chase=host_native`` pins
+    the host chase on the card."""
+    dt = str(dtype).replace("torch.", "")
+    key = (kind, n, kd, dt, torch.device(device).type)
+    names = ("kernel", "host_native")
+    if not eligible or dtype not in (torch.float32, torch.float64):
+        return _record("chase", key, "host_native", "ineligible")
+    if config.use_kernels_mode() == "off":
+        return _record("chase", key, "host_native", "kernels off")
+    forced = _forced("chase")
+    if forced is not None:
+        if forced in names:
+            return _record("chase", key, forced, "forced")
+        _warn_bad_force("chase", forced, names)
+    if torch.device(device).type == "cuda":
+        return _record("chase", key, "kernel", "the kernel on the card")
+    return _record("chase", key, "host_native", "default off the card")
+
+
+def choose_eig_driver(n: int, dtype, device, eligible: bool) -> str:
+    """Whole-driver site of heev: ``"twostage"`` (he2hb → bulge chase →
+    tridiagonal solve), the one candidate ported.  ``eligible`` is the
+    call site's gate (``MethodEig.Auto`` only), under which the JAX
+    package also weighs ``"qdwh"`` (``slate_tpu/perf/autotune.py:2033``);
+    a :data:`FORCE_ENV` pin ``eig_driver=qdwh`` raises
+    ``NotImplementedError`` until ``linalg/polar.py`` is ported
+    (ROADMAP.md, queue 1)."""
+    key = (pow2_bucket(n), str(dtype).replace("torch.", ""),
+           torch.device(device).type)
+    forced = _forced("eig_driver")
+    if forced == "qdwh":
+        raise NotImplementedError(
+            "%s pins eig_driver=qdwh, which is not ported (the QDWH driver "
+            "waits for linalg/polar.py, ROADMAP.md queue 1)"
+            % FORCE_ENV)
+    if forced not in (None, "twostage"):
+        _warn_bad_force("eig_driver", forced, ("twostage",))
+    if not eligible:
+        return _record("eig_driver", key, "twostage", "ineligible")
+    return _record("eig_driver", key, "twostage",
+                   "forced" if forced else "the one candidate ported")
+
+
 _SITES = {
     "batched_heev": choose_batched_heev,
     "batched_lu": choose_batched_lu,
     "batched_potrf": choose_batched_potrf,
     "batched_qr": choose_batched_qr,
+    "chase": choose_chase,
+    "eig_driver": choose_eig_driver,
     "geqrf_panel": choose_geqrf_panel,
     "lu_panel": choose_lu_panel,
     "lu_driver": choose_lu_driver,

@@ -225,6 +225,32 @@ def test_householder_panel_recursion_and_larft_match_jax(m, n):
                                atol=1e-10)
 
 
+def test_complex_geqrf_rec_and_unmqr_match_jax():
+    """complex128: the panels complex he2hb rides (geqrf_rec, larft_rec)
+    and unmqr with Qᴴ, against the JAX package on the same input."""
+    m, n = 48, 32
+    rng = np.random.default_rng(21)
+    a = rng.standard_normal((m, n)) + 1j * rng.standard_normal((m, n))
+    fj, tj = (np.asarray(x) for x in jqr.geqrf_rec(jnp.asarray(a), 8))
+    ft, tt = tqr.geqrf_rec(_t(a), 8)
+    np.testing.assert_allclose(ft.numpy(), fj, atol=1e-10)
+    np.testing.assert_allclose(tt.numpy(), tj, atol=1e-10)
+    c = rng.standard_normal((m, 5)) + 1j * rng.standard_normal((m, 5))
+    ref = np.asarray(jqr.unmqr(jst.Side.Left, jst.Op.ConjTrans,
+                               jst.Matrix.from_array(jnp.asarray(fj), nb=8),
+                               jnp.asarray(tj), jnp.asarray(c)))
+    got = tst.unmqr(Side.Left, Op.ConjTrans,
+                    tst.Matrix.from_array(ft, nb=8, device="cpu"), tt, c,
+                    device="cpu").numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-10)
+    # Qᴴ·A is [R; 0]
+    np.testing.assert_allclose(
+        tst.unmqr(Side.Left, Op.ConjTrans,
+                  tst.Matrix.from_array(ft, nb=8, device="cpu"), tt, a,
+                  device="cpu").numpy()[:n], np.triu(ft.numpy()[:n]),
+        atol=1e-10)
+
+
 def test_householder_panel_reflects_a_zero_tail_as_the_jax_loop():
     """An upper-triangular column: LAPACK takes H = I (τ = 0), the JAX loop
     reflects it (τ = 2, row negated); a zero column keeps τ = 0 in both."""
