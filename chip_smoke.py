@@ -42,11 +42,17 @@
    random wide bands, and in three sweep-range chunks at (1024, 64) fp64:
    fp64 band, log and a back-transformed probe within 1e-9·max|band| of
    the plain version; fp32 within 5e-3·max|band| over the first 64
-   sweeps (the chase's forward error is not stable past them); every
+   sweeps (the chase's forward error is not stable past them: at
+   kd = 256 the plain version in fp32 departs from itself in fp64 by
+   O(1) band entries, printed); every
    whole chase, kernel and plain, to the backward gates
    ‖A·Q₂ − Q₂·T‖/(‖A‖·n·ε) ≤ 3 and ‖Q₂ᵀQ₂ − I‖/(n·ε) ≤ 3, and its
-   eigenvalues within 1e-3 (fp32) / 1e-10 (fp64) of eigvalsh; then timed
-   at (8192, 256) fp32 and (4096, 256) fp64, with the barriers alone.
+   eigenvalues within 1e-3 (fp32) / 1e-10 (fp64) of eigvalsh.  At the
+   main paths' calls, (8192, 256) fp32 and (4096, 256) fp64, on their
+   grid: 64 sweeps at the start, the middle and the end of the chase,
+   kernel and plain version from the same band, within the same
+   tolerances, and the kernel's whole chase to the backward gates; then
+   timed there, with the barriers alone.
 3. Drives the main paths through the public entry points, with the
    reference tester's scaled-residual gates (≤ 3):
    * Cholesky: ``posv`` of an n = 8192 fp32 HermitianMatrix (nb = 256,
@@ -96,7 +102,10 @@
      byte between host and card (``chase.host_bytes`` 0), bench.py's
      residual ‖A·Z − Z·W‖/(‖A‖·n·10ε) and ‖ZᵀZ − I‖/(n·10ε) ≤ 3,
      eigenvalues within 1e-3 of eigvalsh; the median wall of 3 with the
-     stage timers beside ``torch.linalg.eigh``'s, a profiler split; heev
+     stage timers beside ``torch.linalg.eigh``'s, a profiler split; one
+     more heev with every ``matmul`` call held to its plain version, as
+     phase 2f does (and one more hegv with its ``matmul`` and
+     ``chol_inv_panel`` calls); heev
      fp64 at n = 4096 under the same gates; ``heev_vals`` at n = 2048
      through the host Givens chase and ``hegv`` itype 1 at n = 2048
      against ``scipy.linalg.eigh(a, b)``.
@@ -199,14 +208,15 @@ FUSED_N = 2048                  # phase 2d's check size (four 512 steps)
 QR_M, QR_N, QR_PANEL = 32768, 4096, 512
 QR_EXACT = {"lu_inv_panel": 8, "chol_inv_panel": 16, "trtri_panel": 8}
 GUARD_M, GUARD_N, GUARD_COND = 8192, 1024, 1e6
-#: phase 2f's tolerance (relative Frobenius) for each kernel of the QR
-#: path against its plain version, as in phases 2 and 2e
-QR_CHECK_TOL = {"matmul": 1e-5, "chol_inv_panel": 1e-4,
+#: the checked paths' tolerance (relative Frobenius) for each kernel
+#: against its plain version, as in phases 2 and 2e
+CHECK_TOL = {"matmul": 1e-5, "chol_inv_panel": 1e-4,
                 "lu_inv_panel": 1e-4, "trtri_panel": 1e-4}
 FORCE = "SLATE_TPU_TORCH_AUTOTUNE_FORCE"
 PEAK_FP64_FLOPS = 34e12         # H100 SXM, fp64 FMA outside the tensor cores
 #: phase 2g's chase checks (n, kd), its range chunks at (1024, 64) and the
-#: sweeps of the fp32 forward check; the eigensolver paths' sizes
+#: sweeps of the fp32 forward check (and of each chunk compared at the main
+#: paths' calls); the eigensolver paths' sizes
 #: (bench.py's heev_fp32 at n = 8192 and heev_fp64's generator at one
 #: card's 4096; the host routes at 2048)
 CHASE_CHECKS = ((1024, 64), (1024, 256))
@@ -1512,22 +1522,20 @@ def check_lu_inv_kernel(torch, kernels, dev, a_qr) -> dict:
     return {"lu_inv_panel": r}
 
 
-def check_qr_path_calls(torch, st, kernels, a) -> dict:
-    """Phase 2f: ``geqrf`` of the QR path's input ``a`` and ``ungqr`` of
-    its factor, with every call of the path's four kernels held to its
-    plain version on the same arguments at the moment of the call (the
-    wrappers are swapped for checking ones for this run only): each
-    output within the tolerance of :data:`QR_CHECK_TOL` (relative
-    Frobenius), and for ``trtri_panel`` (T from flip(T⁻¹) at 512)
-    ‖L·L⁻¹ − I‖_F < 1e-4 (phase 2's gate).  So the shapes and layouts
-    this path gives the kernels — ``matmul`` with A a transposed view
-    and K up to m, the panel kernels at 512 on each panel's blocks — are
-    compared on the card, not only phase 2's.  Returns per kernel the
-    calls, distinct layouts and the largest errors."""
-    real = {n: getattr(kernels, n) for n in QR_CHECK_TOL}
-    plain = {n: getattr(kernels, n + "_plain") for n in QR_CHECK_TOL}
+def check_path_calls(torch, kernels, label: str, run, tols: dict) -> dict:
+    """``run()`` once with every call of the kernels named in ``tols``
+    held to its plain version on the same arguments at the moment of the
+    call (the wrappers are swapped for checking ones for this run only):
+    each output within ``tols[name]`` (relative Frobenius; an all-zero
+    output exactly), and for ``trtri_panel`` ‖L·L⁻¹ − I‖_F < 1e-4
+    (phase 2's gate).  So the shapes and layouts a path gives the
+    kernels are compared on the card, not only phase 2's.  Every kernel
+    named must be called.  Returns per kernel the calls, distinct
+    layouts and the largest errors."""
+    real = {n: getattr(kernels, n) for n in tols}
+    plain = {n: getattr(kernels, n + "_plain") for n in tols}
     out = {n: {"calls": 0, "layouts": set(), "max_rel_err": 0.0,
-               "max_abs_err": 0.0, "worst": ""} for n in QR_CHECK_TOL}
+               "max_abs_err": 0.0, "worst": ""} for n in tols}
 
     def layout(args) -> str:
         return " x ".join("%s stride %s" % (tuple(t.shape), t.stride())
@@ -1550,10 +1558,10 @@ def check_qr_path_calls(torch, st, kernels, a) -> dict:
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             if rel >= rec["max_rel_err"]:
                 rec["max_rel_err"], rec["worst"] = rel, where
-            if not rel <= QR_CHECK_TOL[name]:
-                fail("QR path: %s at %s is %.3e (relative) from its plain "
-                     "version (<= %.0e)" % (name, where, rel,
-                                            QR_CHECK_TOL[name]))
+            if not rel <= tols[name]:
+                fail("%s: %s at %s is %.3e (relative) from its plain "
+                     "version (<= %.0e)" % (label, name, where, rel,
+                                            tols[name]))
             if name == "trtri_panel":
                 low = torch.tril(args[0]).double()
                 ident = float((low @ got.double() - torch.eye(
@@ -1561,30 +1569,27 @@ def check_qr_path_calls(torch, st, kernels, a) -> dict:
                     .norm())
                 rec["identity"] = max(rec.get("identity", 0.0), ident)
                 if not ident < 1e-4:
-                    fail("QR path: trtri_panel at %s: ||L Linv - I|| %.3g "
-                         "(< 1e-4)" % (where, ident))
+                    fail("%s: trtri_panel at %s: ||L Linv - I|| %.3g "
+                         "(< 1e-4)" % (label, where, ident))
             return got
         return call
 
-    A = st.Matrix.from_array(a, nb=NB, device=a.device)
     try:
-        for n in QR_CHECK_TOL:
+        for n in tols:
             setattr(kernels, n, checked(n))
-        f, taus = st.geqrf(A)
-        st.ungqr(f, taus)
-        if a.is_cuda:
-            torch.cuda.synchronize()
+        run()
+        torch.cuda.synchronize()
     finally:
         for n, fn in real.items():
             setattr(kernels, n, fn)
     for n, rec in out.items():
         if not rec["calls"]:
-            fail("QR path: %s was not called in the checked run" % n)
+            fail("%s: %s was not called in the checked run" % (label, n))
         rec["layouts"] = len(rec["layouts"])
-        print("QR path check %s: %d calls at %d layouts, max rel %.3e "
+        print("%s check %s: %d calls at %d layouts, max rel %.3e "
               "(<= %.0e), max abs %.3e%s; worst at %s"
-              % (n, rec["calls"], rec["layouts"], rec["max_rel_err"],
-                 QR_CHECK_TOL[n], rec["max_abs_err"],
+              % (label, n, rec["calls"], rec["layouts"], rec["max_rel_err"],
+                 tols[n], rec["max_abs_err"],
                  ", max ||L Linv - I|| %.3g (< 1e-4)" % rec["identity"]
                  if "identity" in rec else "", rec["worst"]), flush=True)
     return out
@@ -1820,6 +1825,41 @@ def _chase_backward(torch, eig, label, a64, abw, vt, kd: int, eps: float):
     return res, orth
 
 
+def _chase_main_checks(torch, kernels, eig, label, ab, kd: int, rel: float):
+    """Phase 2g at a main path's (n, kd): the kernel and its plain version
+    from the same band over CHASE_F32_SWEEPS sweeps at the start, the
+    middle and the end of the chase (the band at each start is the
+    kernel's own chase of the sweeps before it, one launch), band and
+    log within ``rel``·max|band at the start|; then the kernel's whole
+    chase in one launch, as the path calls it, to the backward gates.
+    Returns the largest forward departure and the backward pair."""
+    n = ab.shape[0]
+    nsw, width = n - 2, CHASE_F32_SWEEPS
+    state, done, worst = ab.clone(), 0, 0.0
+    for j0 in (0, nsw // 2, nsw - width):
+        if j0 > done:
+            kernels.hb2st_wavefront(state, kd, done, j0)
+        tol = rel * float(state.abs().max())
+        ak, vk = kernels.hb2st_wavefront(state.clone(), kd, j0, j0 + width)
+        ap, vp = kernels.hb2st_wavefront_plain(state, kd, j0, j0 + width)
+        err = max(float((ak - ap).abs().max()), float((vk - vp).abs().max()))
+        worst = max(worst, err)
+        if not err <= tol:
+            fail("%s: sweeps [%d, %d) disagree with the plain version: "
+                 "%.3g > %.3g" % (label, j0, j0 + width, err, tol))
+        state, done = ak, j0 + width
+    ak, vk = kernels.hb2st_wavefront(ab.clone(), kd)
+    back = _chase_backward(torch, eig, label + " whole chase",
+                           _dense_band(torch, ab.double(), kd), ak, vk, kd,
+                           float(torch.finfo(ab.dtype).eps))
+    print("%s: sweeps [0, %d), [%d, %d) and [%d, %d) from the same band "
+          "within %.3g of the plain version (<= %.0e*max|band|); the whole "
+          "chase's backward residual %.3g, orthogonality %.3g (<= 3)"
+          % (label, width, nsw // 2, nsw // 2 + width, nsw - width, nsw,
+             worst, rel, back[0], back[1]), flush=True)
+    return worst, back
+
+
 def check_chase_kernel(torch, kernels, dev) -> dict:
     """Phase 2g: hb2st_wavefront against its plain version on the card at
     (n, kd) = (1024, 64) and (1024, 256) in fp32 and fp64, on
@@ -1830,7 +1870,9 @@ def check_chase_kernel(torch, kernels, dev) -> dict:
     probe Z back-transformed through both logs within the same.  fp32:
     the chase's forward error is not stable (two fp32 orderings of the
     same chase part by O(1) band entries past the first few hundred
-    sweeps at n = 1024, their eigenvalues still close), so the
+    sweeps at n = 1024, their eigenvalues still close; at kd = 256 the
+    plain version in fp32 parts from itself in fp64 as far, which is
+    printed), so the
     forward gate, 5e-3·max|band| (tests/test_chase_wavefront.py:199),
     holds the first CHASE_F32_SWEEPS sweeps from the same band, and the
     whole chase of kernel and plain version each passes the backward
@@ -1839,9 +1881,10 @@ def check_chase_kernel(torch, kernels, dev) -> dict:
     torch.linalg.eigvalsh of the dense band, 1e-3 (fp32) and 1e-10
     (fp64) relative to max|λ|.
 
-    Then times the kernel with CUDA events at the main path's call,
-    (8192, 256) fp32, and at (4096, 256) fp64, with the same launch with
-    every task skipped (the barriers' share), and the plain version at
+    At the main paths' calls, (8192, 256) fp32 and (4096, 256) fp64, on
+    the grid those calls run: :func:`_chase_main_checks`.  Then times
+    the kernel with CUDA events there, with the same launch with every
+    task skipped (the barriers' share), and the plain version at
     (1024, 256) only: ~135k tasks of ~25 PyTorch ops each at n = 8192."""
     import numpy as np
     from scipy.linalg import eigvalsh_tridiagonal
@@ -1853,6 +1896,7 @@ def check_chase_kernel(torch, kernels, dev) -> dict:
         ab64 = torch.from_numpy(_band_wide(n, kd, 7)).to(dev)
         a64 = _dense_band(torch, ab64, kd)
         lam = torch.linalg.eigvalsh(a64).cpu().numpy()
+        whole = {}
         for dt in (f32, f64):
             ab = ab64.to(dt)
             eps = float(torch.finfo(dt).eps)
@@ -1860,6 +1904,7 @@ def check_chase_kernel(torch, kernels, dev) -> dict:
             ak, vk = kernels.hb2st_wavefront(ab.clone(), kd)
             ap, vp = kernels.hb2st_wavefront_plain(ab.clone(), kd)
             torch.cuda.synchronize()
+            whole[dt] = (ak.double(), ap.double())
             full_dev = float((ak - ap).abs().max())
             label = "hb2st_wavefront (%d, %d) %s" % (n, kd, dt)
             if dt == f64:
@@ -1898,6 +1943,16 @@ def check_chase_kernel(torch, kernels, dev) -> dict:
                   % (label, ["%.3g" % x for x in errs], tol,
                      "" if dt == f64 else ", first %d sweeps" % CHASE_F32_SWEEPS,
                      full_dev, bk[0], bk[1], bp[0], bp[1], lam_err), flush=True)
+        # the fp32 departure without the kernel: plain fp32 against plain fp64
+        (k32, p32), (k64, p64) = whole[f32], whole[f64]
+        print("hb2st_wavefront (%d, %d) whole-chase band departures, "
+              "max|band| %.3g: plain fp32 from plain fp64 %.3g, kernel fp32 "
+              "from kernel fp64 %.3g, kernel fp32 from plain fp32 %.3g, "
+              "kernel fp64 from plain fp64 %.3g"
+              % (n, kd, float(ab64.abs().max()), float((p32 - p64).abs().max()),
+                 float((k32 - k64).abs().max()), float((k32 - p32).abs().max()),
+                 float((k64 - p64).abs().max())), flush=True)
+        del whole, k32, p32, k64, p64
     # the sweep-range chunks: the band is the whole state between chunks
     n, kd = CHASE_CHECKS[0]
     ak = torch.from_numpy(_band_wide(n, kd, 9)).to(dev)
@@ -1914,17 +1969,22 @@ def check_chase_kernel(torch, kernels, dev) -> dict:
     print("hb2st_wavefront range chunks %s at (%d, %d) fp64: within %.3g"
           % (list(CHASE_CHUNKS), n, kd, worst[f64]), flush=True)
 
-    # timing: the main path's call and the fp64 one, then the barriers
+    # the main paths' calls: checks on their grid, then the timing, then
+    # the barriers
     timed = {}
-    for n, kd, dt, peak in ((EIG_N, NB, f32, PEAK_FP32_FLOPS),
-                            (EIG_N64, NB, f64, PEAK_FP64_FLOPS)):
+    for n, kd, dt, peak, rel in ((EIG_N, NB, f32, PEAK_FP32_FLOPS, 5e-3),
+                                 (EIG_N64, NB, f64, PEAK_FP64_FLOPS, 1e-9)):
         ab = torch.from_numpy(_band_wide(n, kd, 7)).to(dev, dt)
+        nsw, nwin_max, tmax, nl = kernels.hb_wave_meta(n, kd)
+        label = "hb2st_wavefront (%d, %d) %s, %d blocks" % (
+            n, kd, str(dt).split(".")[-1], nl)
+        err, back = _chase_main_checks(torch, kernels, eig, label, ab, kd, rel)
+        worst[dt] = max(worst[dt], err)
         work = ab.clone()
         ms = event_ms(torch, lambda: kernels.hb2st_wavefront(work, kd),
                       setup=lambda: work.copy_(ab), reps=2)
         sync_ms = event_ms(torch, lambda: kernels.hb2st_wavefront_barriers(
             work, kd), reps=2)
-        nsw, nwin_max, tmax, nl = kernels.hb_wave_meta(n, kd)
         size = ab.element_size()
         flops = chase_flops(n, kd)
         nbytes = 2.0 * ab.numel() * size + nsw * nwin_max * (kd + 1) * size
@@ -1933,6 +1993,7 @@ def check_chase_kernel(torch, kernels, dev) -> dict:
             ms=ms, barriers_ms=sync_ms, staggers=tmax + 1, grid_max=nl,
             flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
+            max_abs_err=err, backward=back,
             shape="(%d, %d) %s band, one launch" % (n, 2 * kd + 2,
                                                    str(dt).split(".")[-1]))
         print("hb2st_wavefront %s: %.3f ms (CUDA events, mean of 2), the "
@@ -1956,8 +2017,8 @@ def check_chase_kernel(torch, kernels, dev) -> dict:
     r = timed[f32]
     return {"hb2st_wavefront": dict(
         shape=r["shape"], max_abs_err=worst[f32], rel_err=None,
-        tol="fp32 5e-3*max|band| (first %d sweeps), fp64 1e-9*max|band|; "
-            "backward <= 3" % CHASE_F32_SWEEPS,
+        tol="fp32 5e-3*max|band| over %d sweeps from the same band, fp64 "
+            "1e-9*max|band|; whole chases backward <= 3" % CHASE_F32_SWEEPS,
         ms=r["ms"], plain_ms=plain_ms, library_ms=None,
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         plain_shape="(%d, %d) fp32" % (n, 2 * kd + 2), kernel_ms_at_plain_shape=small_ms,
@@ -1998,11 +2059,14 @@ def main_path_heev(torch, st, kernels, dev) -> dict:
     chase.dispatch.kernel ≥ 1, bench.py's residual and orthogonality
     gates, eigenvalues against torch.linalg.eigvalsh; one warm call, the
     median wall of 3 with the stage timers, a profiler split, and
-    torch.linalg.eigh's wall as a yardstick (timed only).  Then heev in
+    torch.linalg.eigh's wall as a yardstick (timed only); one more heev
+    with every matmul call held to its plain version
+    (:func:`check_path_calls`).  Then heev in
     fp64 at n = 4096 (heev_fp64's generator, rng 7), one timed call; the
     host routes once each: heev_vals at n = 2048 through the native
     Givens chase, hegv itype 1 at n = 2048 (B = GᵀG + n·I) against
-    scipy.linalg.eigh(a, b)."""
+    scipy.linalg.eigh(a, b), and one more hegv with its matmul and
+    chol_inv_panel calls held to their plain versions."""
     import numpy as np
     import scipy.linalg
     from slate_tpu_torch import native
@@ -2055,6 +2119,9 @@ def main_path_heev(torch, st, kernels, dev) -> dict:
         torch, "heev fp32", lambda: st.heev(A),
         {"hb2st_wavefront kernel": "hb2st_wavefront_kernel",
          "matmul kernel": "matmul_f32_kernel"})
+    checks = {"heev": check_path_calls(
+        torch, kernels, "heev path", lambda: st.heev(A),
+        {"matmul": CHECK_TOL["matmul"]})}
     del A, a, lam
 
     rng = np.random.default_rng(7)
@@ -2115,8 +2182,12 @@ def main_path_heev(torch, st, kernels, dev) -> dict:
             and tuple(z.shape) == (n, n)):
         fail("hegv: eigenvalues %.3g relative, Z finite %s"
              % (w_err, bool(torch.isfinite(z).all())))
+    checks["hegv"] = check_path_calls(
+        torch, kernels, "hegv path",
+        lambda: st.hegv(a, b, 1, True, {"block_size": NB}),
+        {k: CHECK_TOL[k] for k in ("matmul", "chol_inv_panel")})
     res.update(heev_vals_rel_err=lam_err, hegv_rel_err=w_err,
-               launches=launches)
+               launches=launches, path_checks=checks)
     return res
 
 
@@ -2165,7 +2236,11 @@ def main() -> int:
     a_qr = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (QR_M, QR_N)).astype(np.float32)).to(dev)      # bench.py's geqrf input
     measured.update(check_lu_inv_kernel(torch, kernels, dev, a_qr))
-    qr_calls = check_qr_path_calls(torch, st, kernels, a_qr)
+
+    def qr_once():                  # phase 2f: one geqrf + ungqr
+        st.ungqr(*st.geqrf(st.Matrix.from_array(a_qr, nb=NB, device=dev)))
+    path_checks = {"qr": check_path_calls(torch, kernels, "QR path", qr_once,
+                                          CHECK_TOL)}
     paths = {"cholesky": main_path(torch, st, kernels, dev)["launches"]}
     paths.update(main_path_lu(torch, st, kernels, dev)["launches"])
     paths.update(main_path_batched(torch, st, kernels, dev)["launches"])
@@ -2175,7 +2250,9 @@ def main() -> int:
     del a_qr
     paths.update(guard_path(torch, st, kernels, dev)["launches"])
     measured.update(check_chase_kernel(torch, kernels, dev))
-    paths.update(main_path_heev(torch, st, kernels, dev)["launches"])
+    heev = main_path_heev(torch, st, kernels, dev)
+    paths.update(heev["launches"])
+    path_checks.update(heev["path_checks"])
 
     rows = []
     for name, r in measured.items():
@@ -2192,10 +2269,11 @@ def main() -> int:
                       "barriers_ms", "fp64", "max_abs_err_fp64"):
             if extra in r:
                 rows[-1][extra] = r[extra]
-        if name in qr_calls:        # phase 2f: every call of one geqrf+ungqr
-            rows[-1]["qr_path_check"] = {
-                k: qr_calls[name][k] for k in ("calls", "layouts",
-                                               "max_rel_err", "max_abs_err")}
+        for p, calls in path_checks.items():    # every call of one run
+            if name in calls:
+                rows[-1][p + "_path_check"] = {
+                    k: calls[name][k] for k in ("calls", "layouts",
+                                                "max_rel_err", "max_abs_err")}
     print(card, flush=True)        # again, beside the numbers below
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -589,7 +589,7 @@ def heev(a, jobz: bool = True, opts: Optional[Options] = None, *,
         driver = autotune.select("eig_driver", n=full.shape[-1],
                                  dtype=full.dtype, device=dev,
                                  eligible=method is MethodEig.Auto)
-    if driver != "twostage":
+    if driver == "qdwh":
         raise NotImplementedError(
             "heev: eig_driver=%r is not ported (the QDWH driver waits for "
             "linalg/polar.py, ROADMAP.md queue 1)" % (driver,))

@@ -18,7 +18,8 @@ CholQR² panel loop over the ``chol_inv_panel``, ``lu_inv_panel`` and
 
 The ``chase`` site returns ``"kernel"`` (the ``hb2st_wavefront`` kernel)
 or ``"host_native"`` (the host chase of :mod:`slate_tpu_torch.native`);
-``eig_driver`` answers ``"twostage"``, its one candidate ported.
+``eig_driver`` answers ``"twostage"``, its one candidate ported, or the
+name a pin gives it.
 
 The two step-depth sites, ``potrf_step`` and ``lu_step``, return a depth
 of their driver instead: ``"composed"`` (the panel kernel and the glue
@@ -330,24 +331,19 @@ def choose_eig_driver(n: int, dtype, device, eligible: bool) -> str:
     """Whole-driver site of heev: ``"twostage"`` (he2hb → bulge chase →
     tridiagonal solve), the one candidate ported.  ``eligible`` is the
     call site's gate (``MethodEig.Auto`` only), under which the JAX
-    package also weighs ``"qdwh"`` (``slate_tpu/perf/autotune.py:2033``);
-    a :data:`FORCE_ENV` pin ``eig_driver=qdwh`` raises
-    ``NotImplementedError`` until ``linalg/polar.py`` is ported
-    (ROADMAP.md, queue 1)."""
+    package also weighs ``"qdwh"`` (``slate_tpu/perf/autotune.py:2033``)
+    and a :data:`FORCE_ENV` pin of either name is answered as it is;
+    heev refuses ``"qdwh"`` until ``linalg/polar.py`` is ported."""
     key = (pow2_bucket(n), str(dtype).replace("torch.", ""),
            torch.device(device).type)
-    forced = _forced("eig_driver")
-    if forced == "qdwh":
-        raise NotImplementedError(
-            "%s pins eig_driver=qdwh, which is not ported (the QDWH driver "
-            "waits for linalg/polar.py, ROADMAP.md queue 1)"
-            % FORCE_ENV)
-    if forced not in (None, "twostage"):
-        _warn_bad_force("eig_driver", forced, ("twostage",))
     if not eligible:
         return _record("eig_driver", key, "twostage", "ineligible")
-    return _record("eig_driver", key, "twostage",
-                   "forced" if forced else "the one candidate ported")
+    forced = _forced("eig_driver")
+    if forced in ("twostage", "qdwh"):
+        return _record("eig_driver", key, forced, "forced")
+    if forced is not None:
+        _warn_bad_force("eig_driver", forced, ("twostage", "qdwh"))
+    return _record("eig_driver", key, "twostage", "the one candidate ported")
 
 
 _SITES = {

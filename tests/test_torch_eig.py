@@ -455,6 +455,20 @@ def test_chase_site_answers(monkeypatch):
         "host_native"
 
 
+def test_eig_driver_site_answers(monkeypatch):
+    """As the JAX site off the TPU: twostage by default and when the call
+    site is ineligible, a pin of either name answered as it is, any
+    other pin warned about and ignored."""
+    f32 = torch.float32
+    assert tauto.choose_eig_driver(64, f32, "cpu", True) == "twostage"
+    monkeypatch.setenv(FORCE, "eig_driver=qdwh")
+    assert tauto.choose_eig_driver(64, f32, "cpu", True) == "qdwh"
+    assert tauto.choose_eig_driver(64, f32, "cpu", False) == "twostage"
+    monkeypatch.setenv(FORCE, "eig_driver=jacobi")
+    with pytest.warns(UserWarning, match="jacobi"):
+        assert tauto.choose_eig_driver(64, f32, "cpu", True) == "twostage"
+
+
 def test_eig_drivers_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
