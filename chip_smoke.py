@@ -52,7 +52,18 @@
    grid: 64 sweeps at the start, the middle and the end of the chase,
    kernel and plain version from the same band, within the same
    tolerances, and the kernel's whole chase to the backward gates; then
-   timed there, with the barriers alone.
+   timed there, with the barriers alone (every chunk's departure printed
+   beside max|band|).  ``tb2bd_wavefront`` (phase 2h) likewise, its plain
+   version on a host copy of the band, on ge2tb bands of Gaussians at
+   (1024, 64) and (1024, 256) in fp32 and fp64 and in three range chunks
+   at (1024, 64) fp64: fp64 band and both logs within 1e-9·max|band|,
+   fp32 within 5e-3·max|band| over the first 64 sweeps, every whole chase
+   to ‖B·V₂ − U₂·bidiag(d, e)‖/(‖B‖·n·ε), ‖U₂ᵀU₂ − I‖/(n·ε) and
+   ‖V₂ᵀV₂ − I‖/(n·ε) ≤ 3 and σ of (d, e) within 1e-3 (fp32) / 1e-10
+   (fp64) of torch.linalg.svdvals; a Gaussian triangular band printed,
+   not gated (numerically singular); then at the svd paths' (8192, 256)
+   fp32 and (4096, 256) fp64 calls the three 64-sweep windows and the
+   whole chase, timed with the barriers alone.
 3. Drives the main paths through the public entry points, with the
    reference tester's scaled-residual gates (≤ 3):
    * Cholesky: ``posv`` of an n = 8192 fp32 HermitianMatrix (nb = 256,
@@ -101,14 +112,23 @@
      nb = 256, vectors): one ``hb2st_wavefront`` launch, no band or log
      byte between host and card (``chase.host_bytes`` 0), bench.py's
      residual ‖A·Z − Z·W‖/(‖A‖·n·10ε) and ‖ZᵀZ − I‖/(n·10ε) ≤ 3,
-     eigenvalues within 1e-3 of eigvalsh; the median wall of 3 with the
+     eigenvalues within 1e-3 of eigvalsh; the wall of one more call with the
      stage timers beside ``torch.linalg.eigh``'s, a profiler split; one
      more heev with every ``matmul`` call held to its plain version, as
      phase 2f does (and one more hegv with its ``matmul`` and
      ``chol_inv_panel`` calls); heev
      fp64 at n = 4096 under the same gates; ``heev_vals`` at n = 2048
      through the host Givens chase and ``hegv`` itype 1 at n = 2048
-     against ``scipy.linalg.eigh(a, b)``.
+     against ``scipy.linalg.eigh(a, b)``;
+   * SVD: ``svd`` of bench.py's svd_fp32 input (a Gaussian n = 8192,
+     nb = 256, U and Vᴴ): one ``tb2bd_wavefront`` launch, no band or
+     log byte between host and card, bench.py's residual
+     ‖A − U·Σ·Vᴴ‖/(‖A‖·n·10ε) and both orthogonalities ≤ 3, σ within
+     1e-3·σ_max of svdvals; one warm call and the median wall of 2 with
+     the stage timers beside ``torch.linalg.svd``'s, a profiler split,
+     one more ``ge2tb`` with every ``matmul`` call held to its plain
+     version; svd fp64 at n = 4096, ``svd_vals`` at 2048 through the
+     host Givens chase, and a tall (8192, 2048) svd and its transpose.
    Every kernel's launch count is set to 0 just before each path (each
    LU driver, ``getri``, each batched driver, the served requests and
    each depth a path of its own) and read just after it; a kernel of the
@@ -158,7 +178,9 @@ REPO = {"matmul": ("slate_tpu_torch/csrc/matmul.cu",
         "getrf_full_fused": ("slate_tpu_torch/csrc/getrf_full_fused.cu",
                              "slate_tpu/ops/pallas_kernels.py:1481"),
         "hb2st_wavefront": ("slate_tpu_torch/csrc/hb2st_wavefront.cu",
-                            "slate_tpu/ops/pallas_kernels.py:2033")}
+                            "slate_tpu/ops/pallas_kernels.py:2033"),
+        "tb2bd_wavefront": ("slate_tpu_torch/csrc/tb2bd_wavefront.cu",
+                            "slate_tpu/ops/pallas_kernels.py:2226")}
 LU_NB, LU_BB, LU_IB = 512, 128, 16   # the scattered driver's panel call
 LEAF_W, LEAF_IB = 256, 32            # getrf_rec's kernel leaf at nb = 256
 #: bench.py's batched configuration (B, n) and serve configuration
@@ -188,7 +210,11 @@ PATHS = {"cholesky": ("matmul", "chol_inv_panel", "trtri_panel"),
          "heev": ("matmul", "hb2st_wavefront"),
          "heev_fp64": ("hb2st_wavefront",),
          "heev_vals": ("matmul",),
-         "hegv": ("matmul", "chol_inv_panel", "hb2st_wavefront")}
+         "hegv": ("matmul", "chol_inv_panel", "hb2st_wavefront"),
+         "svd": ("matmul", "tb2bd_wavefront"),
+         "svd_fp64": ("tb2bd_wavefront",),
+         "svd_vals": ("matmul",),
+         "svd_tall": ("matmul", "tb2bd_wavefront")}
 #: the depth paths' exact launch counts at n = 8192 (16 steps of 512), the
 #: composed depth's panel kernels among them (never launched there)
 EXACT = {"chol_fused": {"potrf_step_fused": 16, "potrf_full_fused": 0,
@@ -223,6 +249,14 @@ CHASE_CHECKS = ((1024, 64), (1024, 256))
 CHASE_CHUNKS = ((0, 300), (300, 700), (700, 1022))
 CHASE_F32_SWEEPS = 64
 EIG_N, EIG_N64, EIG_HOST_N = 8192, 4096, 2048
+#: the SVD paths' sizes (bench.py's svd_fp32 at n = 8192 and svd_fp64's
+#: generator at one card's 4096; values only through the host chase at
+#: 2048; one tall operand and its transpose); phase 2h checks the chase at
+#: CHASE_CHECKS, in CHASE_CHUNKS and over CHASE_F32_SWEEPS as phase 2g
+SVD_N, SVD_N64, SVD_HOST_N, SVD_TALL = 8192, 4096, 2048, (8192, 2048)
+#: heev fp32's timed calls after its warm one (one: the svd path's host
+#: time leaves no room for more in the command's time)
+HEEV_REPS = 1
 
 
 def fail(msg: str):
@@ -1835,14 +1869,16 @@ def _chase_main_checks(torch, kernels, eig, label, ab, kd: int, rel: float):
     Returns the largest forward departure and the backward pair."""
     n = ab.shape[0]
     nsw, width = n - 2, CHASE_F32_SWEEPS
-    state, done, worst = ab.clone(), 0, 0.0
+    state, done, worst, chunks = ab.clone(), 0, 0.0, []
     for j0 in (0, nsw // 2, nsw - width):
         if j0 > done:
             kernels.hb2st_wavefront(state, kd, done, j0)
-        tol = rel * float(state.abs().max())
+        scale = float(state.abs().max())
+        tol = rel * scale
         ak, vk = kernels.hb2st_wavefront(state.clone(), kd, j0, j0 + width)
         ap, vp = kernels.hb2st_wavefront_plain(state, kd, j0, j0 + width)
         err = max(float((ak - ap).abs().max()), float((vk - vp).abs().max()))
+        chunks.append((err, scale))
         worst = max(worst, err)
         if not err <= tol:
             fail("%s: sweeps [%d, %d) disagree with the plain version: "
@@ -1852,11 +1888,13 @@ def _chase_main_checks(torch, kernels, eig, label, ab, kd: int, rel: float):
     back = _chase_backward(torch, eig, label + " whole chase",
                            _dense_band(torch, ab.double(), kd), ak, vk, kd,
                            float(torch.finfo(ab.dtype).eps))
-    print("%s: sweeps [0, %d), [%d, %d) and [%d, %d) from the same band "
-          "within %.3g of the plain version (<= %.0e*max|band|); the whole "
-          "chase's backward residual %.3g, orthogonality %.3g (<= 3)"
+    print("%s: sweeps [0, %d), [%d, %d) and [%d, %d) from the same band, "
+          "departures from the plain version (max|band| at the start) %s "
+          "(<= %.0e*max|band|); the whole chase's backward residual %.3g, "
+          "orthogonality %.3g (<= 3)"
           % (label, width, nsw // 2, nsw // 2 + width, nsw - width, nsw,
-             worst, rel, back[0], back[1]), flush=True)
+             ", ".join("%.3g (%.4g)" % c for c in chunks), rel, back[0],
+             back[1]), flush=True)
     return worst, back
 
 
@@ -2058,7 +2096,7 @@ def main_path_heev(torch, st, kernels, dev) -> dict:
     jobz: exactly one hb2st_wavefront launch, chase.host_bytes 0 and
     chase.dispatch.kernel ≥ 1, bench.py's residual and orthogonality
     gates, eigenvalues against torch.linalg.eigvalsh; one warm call, the
-    median wall of 3 with the stage timers, a profiler split, and
+    median wall of HEEV_REPS with the stage timers, a profiler split, and
     torch.linalg.eigh's wall as a yardstick (timed only); one more heev
     with every matmul call held to its plain version
     (:func:`check_path_calls`).  Then heev in
@@ -2103,17 +2141,17 @@ def main_path_heev(torch, st, kernels, dev) -> dict:
                               10 * eps32)}
     del w, z
     before = metrics.snapshot()
-    wall = _wall_ms(torch, lambda: st.heev(A), 3)
+    wall = _wall_ms(torch, lambda: st.heev(A), HEEV_REPS)
     timers = metrics.snapshot_delta(before, metrics.snapshot())["timers"]
     stages = {k: v["total_s"] * 1e3 / v["count"] for k, v in timers.items()
               if k.startswith(("stage.heev", "chase.hb2st"))}
     res["fp32"].update(wall_ms=wall, stages_ms=stages)
     torch.linalg.eigh(a)
     eigh_ms = _wall_ms(torch, lambda: torch.linalg.eigh(a), 1)
-    print("heev fp32 n=%d: median wall of 3 %.1f ms (host timers, mean ms a "
+    print("heev fp32 n=%d: median wall of %d %.1f ms (host timers, mean ms a "
           "call: %s); torch.linalg.eigh (library yardstick) %.1f ms"
-          % (EIG_N, wall, {k: round(v, 2) for k, v in stages.items()},
-             eigh_ms), flush=True)
+          % (EIG_N, HEEV_REPS, wall, {k: round(v, 2) for k, v in
+                                     stages.items()}, eigh_ms), flush=True)
     res["fp32"]["eigh_ms"] = eigh_ms
     res["fp32"]["split"] = device_split(
         torch, "heev fp32", lambda: st.heev(A),
@@ -2191,6 +2229,483 @@ def main_path_heev(torch, st, kernels, dev) -> dict:
     return res
 
 
+def _tb_dense(torch, st, kd: int):
+    """The dense upper band of general band storage, in float64."""
+    n = st.shape[0]
+    b = torch.zeros((n, n), dtype=torch.float64, device=st.device)
+    for d in range(kd + 1):
+        b.diagonal(d).copy_(st[:n - d, kd + d])
+    return b
+
+
+def _ge2tb_band(torch, port, chase, n: int, kd: int, seed: int, dev, dt):
+    """General band storage (fp64) of the band ge2tb makes, at nb = kd,
+    of a Gaussian (n, n) from ``seed`` in ``dt``: the band the svd path
+    hands the chase."""
+    import numpy as np
+
+    g = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (n, n))).to(dev, dt)
+    band = port.ge2tb(g, {"block_size": kd}, device=dev).band[:n]
+    return chase.tb2bd_st_from_dense(band, kd).double()
+
+
+def tb2bd_flops(n: int, kd: int) -> float:
+    """FLOP of the chase's task bodies over all sweeps, counted from the
+    kernel: block 0 of sweep s the right apply on its lv = min(kd, n−1−s)
+    rows (a dot and a rank-1 update over lv², 4·lv²) and the left apply on
+    lv − 1 columns (4·lv·(lv−1)); block b ≥ 1 the left apply on the
+    (kd, lj) off-diagonal block, the right apply on its other kd − 1 rows,
+    the right apply on the (lj, lj) diagonal block and the left apply on
+    its other lj − 1 columns, lj = min(kd, n − (s+1+b·kd))."""
+    total = 0.0
+    for s in range(n - 2):
+        lv = min(kd, n - 1 - s)
+        total += 4.0 * lv * lv + 4.0 * lv * (lv - 1)
+        for b in range(1, (n - 2 - s) // kd + 1):
+            lj = min(kd, n - (s + 1 + b * kd))
+            total += 4.0 * kd * lj + 4.0 * lj * (kd - 1) + 4.0 * lj * lj \
+                + 4.0 * lj * (lj - 1)
+    return total
+
+
+def _tb2bd_backward(torch, eig, label, b64, st, ut, vt, kd: int, eps: float,
+                    sv=None):
+    """Backward gates of one bidiagonal chase: U₂ and V₂ from the logs (the
+    back-transforms of I), B₂ = bidiag(d, e) from the band;
+    ‖B·V₂ − U₂·B₂‖_F/(‖B‖_F·n·ε), ‖U₂ᵀU₂ − I‖_F/(n·ε) and
+    ‖V₂ᵀV₂ − I‖_F/(n·ε), each ≤ 3; with ``sv`` (torch.linalg.svdvals of
+    B in fp64) B₂'s singular values within 1e-3 (fp32) / 1e-10 (fp64)
+    of them, relative to σ_max.  Returns the gates."""
+    n = st.shape[0]
+    eye = torch.eye(n, dtype=st.dtype, device=st.device)
+    s0 = list(range(1, ut.shape[0] + 1))
+    u2, v2 = (eig.unmtr_hb2st_hh(lg[:, :, 1:], lg[:, :, 0], s0, eye,
+                                 kd).double() for lg in (ut, vt))
+    b2 = torch.diag(st[:, kd].double()) + torch.diag(st[:n - 1, kd + 1].double(), 1)
+    eye = eye.double()
+    out = dict(residual=float((b64 @ v2 - u2 @ b2).norm() / (b64.norm() * n * eps)),
+               orth_u=float((u2.T @ u2 - eye).norm() / (n * eps)),
+               orth_v=float((v2.T @ v2 - eye).norm() / (n * eps)))
+    del u2, v2
+    bad = max(out.values()) > 3
+    if sv is not None:
+        out["sv_rel_err"] = float((torch.linalg.svdvals(b2) - sv).abs().max()
+                                  / sv.max())
+        bad = bad or out["sv_rel_err"] > (1e-3 if st.dtype == torch.float32
+                                          else 1e-10)
+    if bad:
+        fail("%s: backward gates %s" % (label, out))
+    return out
+
+
+def _tb2bd_departure(a, b):
+    """Largest departure of band and both logs between two chases."""
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def _tb2bd_main_checks(torch, kernels, eig, label, st, b64, kd: int,
+                       rel: float):
+    """Phase 2h at a main path's (n, kd): the kernel (on the card) and its
+    plain version (on a host copy) from the same band over
+    CHASE_F32_SWEEPS sweeps at the start, the middle and the end of the
+    chase (the band at each start is the kernel's own chase of the sweeps
+    before it, one launch), band and logs within ``rel``·max|band at the
+    start|, printed beside it; then the kernel's whole chase in one
+    launch, as the path calls it, to the backward gates.  Returns the
+    largest departure, the backward gates and the per-chunk pairs."""
+    n = st.shape[0]
+    nsw, width = n - 2, CHASE_F32_SWEEPS
+    state, done, worst, chunks = st.clone(), 0, 0.0, []
+    for s0 in (0, nsw // 2, nsw - width):
+        if s0 > done:
+            kernels.tb2bd_wavefront(state, kd, done, s0)
+        scale = float(state.abs().max())
+        got = kernels.tb2bd_wavefront(state.clone(), kd, s0, s0 + width)
+        ref = kernels.tb2bd_wavefront_plain(state.to("cpu", copy=True), kd, s0,
+                                                   s0 + width)
+        err = _tb2bd_departure(got, [x.to(st.device) for x in ref])
+        chunks.append((err, scale))
+        worst = max(worst, err)
+        if not err <= rel * scale:
+            fail("%s: sweeps [%d, %d) disagree with the plain version: %.3g "
+                 "> %.0e*max|band| = %.3g" % (label, s0, s0 + width, err, rel,
+                                              rel * scale))
+        state, done = got[0], s0 + width
+    got = kernels.tb2bd_wavefront(st.clone(), kd)
+    back = _tb2bd_backward(torch, eig, label + " whole chase", b64, *got, kd,
+                           float(torch.finfo(st.dtype).eps))
+    print("%s: sweeps [0, %d), [%d, %d) and [%d, %d) from the same band, "
+          "departures from the plain version (max|band| at the start) %s "
+          "(<= %.0e*max|band|); the whole chase's backward %s (<= 3)"
+          % (label, width, nsw // 2, nsw // 2 + width, nsw - width, nsw,
+             ", ".join("%.3g (%.4g)" % c for c in chunks), rel,
+             {k: float("%.4g" % v) for k, v in back.items()}), flush=True)
+    return worst, back, chunks
+
+
+def check_tb2bd_kernel(torch, kernels, dev) -> dict:
+    """Phase 2h: tb2bd_wavefront against its plain version.
+
+    The bands are ge2tb's bands of Gaussians at nb = kd — the input the
+    svd path hands the chase, random upper bands whose singular values
+    are a Gaussian's.  The plain version runs on a host copy of the same
+    band (the wrapper's own CPU route: ~45 PyTorch ops a task, ~16k tasks
+    at (1024, 64)).
+
+    At (n, kd) = (1024, 64) and (1024, 256) in fp32 and fp64, and in the
+    range chunks of CHASE_CHUNKS at (1024, 64) in fp64: fp64 band and both
+    logs within 1e-9·max|band| of the plain version; fp32 within
+    5e-3·max|band| over the first CHASE_F32_SWEEPS sweeps (the chase's
+    forward error is not stable along the sweeps, as phase 2g's); every
+    whole chase, kernel and plain, to the backward gates of
+    :func:`_tb2bd_backward` with σ against torch.linalg.svdvals of the
+    band.  The fp32-vs-fp64 witness at (1024, 256): the plain version in
+    fp32 against itself in fp64, and the kernel likewise.  One more
+    witness: a Gaussian triangular band (the JAX test's generator) at
+    (1024, 256) fp64 is numerically singular (σ_min printed); kernel and
+    plain version are printed, not gated, on it, band and logs apart.
+
+    At the main paths' calls, (8192, 256) fp32 and (4096, 256) fp64, on
+    their grids: :func:`_tb2bd_main_checks`.  Then times the kernel with
+    CUDA events there, beside the same launch with every task skipped
+    (the barriers' share), and the plain version on the card at
+    (1024, 256) fp32."""
+    import numpy as np
+    import slate_tpu_torch as port
+    from slate_tpu_torch.linalg import _chase, eig
+
+    f32, f64 = torch.float32, torch.float64
+    worst = {f32: 0.0, f64: 0.0}
+    for n, kd in CHASE_CHECKS:
+        st64 = _ge2tb_band(torch, port, _chase, n, kd, 7, dev, f64)
+        b64 = _tb_dense(torch, st64, kd)
+        sv = torch.linalg.svdvals(b64)
+        scale = float(st64.abs().max())
+        whole = {}
+        for dt in (f32, f64):
+            st = st64.to(dt)
+            eps = float(torch.finfo(dt).eps)
+            label = "tb2bd_wavefront (%d, %d) %s" % (n, kd, dt)
+            got = kernels.tb2bd_wavefront(st.clone(), kd)
+            if dt == f64 and kd == CHASE_CHECKS[0][1]:
+                # the plain whole chase as the range chunks: the band is
+                # the whole state between chunks
+                ref, state, logs = None, st.to("cpu", copy=True), []
+                for s0, s1 in CHASE_CHUNKS:
+                    state, ut, vt = kernels.tb2bd_wavefront_plain(state, kd,
+                                                                  s0, s1)
+                    logs.append((ut, vt))
+                w = max(lg[0].shape[1] for lg in logs)
+                pad = torch.nn.functional.pad
+                ref = (state,) + tuple(torch.cat([pad(lg[k], (0, 0, 0, w - lg[k].shape[1]))
+                                                  for lg in logs]) for k in (0, 1))
+                kst = st.clone()
+                cerr = 0.0
+                for (s0, s1), (ut_p, vt_p) in zip(CHASE_CHUNKS, logs):
+                    kst, ut, vt = kernels.tb2bd_wavefront(kst, kd, s0, s1)
+                    cerr = max(cerr, float((ut.cpu() - ut_p).abs().max()),
+                               float((vt.cpu() - vt_p).abs().max()))
+                cerr = max(cerr, float((kst.cpu() - state).abs().max()))
+                worst[f64] = max(worst[f64], cerr)
+                print("tb2bd_wavefront range chunks %s at (%d, %d) fp64: within "
+                      "%.3g of the plain version's chunks, max|band| %.4g"
+                      % (list(CHASE_CHUNKS), n, kd, cerr, scale), flush=True)
+                if not cerr <= 1e-9 * scale:
+                    fail("tb2bd_wavefront chunks at (%d, %d): %.3g > 1e-9*%.4g"
+                         % (n, kd, cerr, scale))
+            else:
+                ref = kernels.tb2bd_wavefront_plain(st.to("cpu", copy=True), kd)
+            ref = tuple(x.to(dev) for x in ref)
+            torch.cuda.synchronize()
+            whole[dt] = (got[0].double(), ref[0].double())
+            full_dev = _tb2bd_departure(got, ref)
+            if dt == f64:
+                errs, tol = (full_dev,), 1e-9 * scale
+            else:
+                head = kernels.tb2bd_wavefront(st.clone(), kd, 0, CHASE_F32_SWEEPS)
+                hp = kernels.tb2bd_wavefront_plain(st.to("cpu", copy=True), kd,
+                                                   0, CHASE_F32_SWEEPS)
+                errs = (_tb2bd_departure(head, [x.to(dev) for x in hp]),)
+                tol = 5e-3 * scale
+            worst[dt] = max(worst[dt], max(errs))
+            if not max(errs) <= tol:
+                fail("%s disagrees with its plain version: %.3g > %.3g"
+                     % (label, max(errs), tol))
+            bk = _tb2bd_backward(torch, eig, label, b64, *got, kd, eps, sv)
+            bp = _tb2bd_backward(torch, eig, label + " (plain)", b64, *ref, kd,
+                                 eps, sv)
+            print("%s: forward %.3g (tol %.3g = %s*max|band| %.4g%s), whole-chase "
+                  "departure %.3g; backward kernel %s, plain %s"
+                  % (label, max(errs), tol, "1e-9" if dt == f64 else "5e-3",
+                     scale, "" if dt == f64 else ", first %d sweeps"
+                     % CHASE_F32_SWEEPS, full_dev,
+                     {k: float("%.4g" % v) for k, v in bk.items()},
+                     {k: float("%.4g" % v) for k, v in bp.items()}), flush=True)
+        (k32, p32), (k64, p64) = whole[f32], whole[f64]
+        print("tb2bd_wavefront (%d, %d) whole-chase band departures, max|band| "
+              "%.4g: plain fp32 from plain fp64 %.3g, kernel fp32 from kernel "
+              "fp64 %.3g, kernel fp32 from plain fp32 %.3g, kernel fp64 from "
+              "plain fp64 %.3g"
+              % (n, kd, scale, float((p32 - p64).abs().max()),
+                 float((k32 - k64).abs().max()), float((k32 - p32).abs().max()),
+                 float((k64 - p64).abs().max())), flush=True)
+        del whole, k32, p32, k64, p64, b64
+    # the witness on a Gaussian triangular band (printed, not gated)
+    n, kd = CHASE_CHECKS[1]
+    rng = np.random.default_rng(11)
+    st = torch.zeros((n, 3 * kd + 2), dtype=f64)
+    for d in range(kd + 1):
+        st[:n - d, kd + d] = torch.from_numpy(rng.standard_normal(n - d))
+    st = st.to(dev)
+    sv = torch.linalg.svdvals(_tb_dense(torch, st, kd))
+    got = kernels.tb2bd_wavefront(st.clone(), kd)
+    ref = [x.to(dev) for x in kernels.tb2bd_wavefront_plain(
+        st.to("cpu", copy=True), kd)]
+    print("tb2bd_wavefront (%d, %d) fp64 on a Gaussian triangular band "
+          "(sigma %.3g ... %.3g): band %.3g, U log %.3g, V log %.3g apart from "
+          "the plain version (not gated: reflectors of the last sweeps chase "
+          "entries at rounding level), max|band| %.4g"
+          % (n, kd, float(sv.max()), float(sv.min()),
+             float((got[0] - ref[0]).abs().max()),
+             float((got[1] - ref[1]).abs().max()),
+             float((got[2] - ref[2]).abs().max()), float(st.abs().max())),
+          flush=True)
+    del got, ref
+
+    # the main paths' calls: checks on their grids, then the timing, then
+    # the barriers
+    timed = {}
+    for n, kd, dt, seed, peak, rel in (
+            (SVD_N, NB, f32, 10, PEAK_FP32_FLOPS, 5e-3),
+            (SVD_N64, NB, f64, 8, PEAK_FP64_FLOPS, 1e-9)):
+        st = _ge2tb_band(torch, port, _chase, n, kd, seed, dev, dt).to(dt)
+        b64 = _tb_dense(torch, st, kd)
+        nsw, nblk_max, tmax, nl = kernels.tb_wave_meta(n, kd)
+        label = "tb2bd_wavefront (%d, %d) %s, %d blocks" % (
+            n, kd, str(dt).split(".")[-1], nl)
+        err, back, chunks = _tb2bd_main_checks(torch, kernels, eig, label, st,
+                                               b64, kd, rel)
+        del b64
+        worst[dt] = max(worst[dt], err)
+        work = st.clone()
+        ms = event_ms(torch, lambda: kernels.tb2bd_wavefront(work, kd),
+                      setup=lambda: work.copy_(st), reps=2)
+        sync_ms = event_ms(torch, lambda: kernels.tb2bd_wavefront_barriers(
+            work, kd), reps=2)
+        size = st.element_size()
+        flops = tb2bd_flops(n, kd)
+        nbytes = 2.0 * st.numel() * size + 2.0 * nsw * nblk_max * (kd + 1) * size
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+        timed[dt] = dict(
+            ms=ms, barriers_ms=sync_ms, staggers=tmax + 1, grid_max=nl,
+            flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            max_abs_err=err, backward=back, chunks=chunks,
+            shape="(%d, %d) %s band, one launch" % (n, 3 * kd + 2,
+                                                   str(dt).split(".")[-1]))
+        print("tb2bd_wavefront %s: %.3f ms (CUDA events, mean of 2), the "
+              "same grid with every task skipped %.3f ms over %d staggers "
+              "(%.3f us a barrier); %.4g FLOP, %.4g bytes, bound %.4f ms (%s)"
+              % (timed[dt]["shape"], ms, sync_ms, tmax + 1,
+                 1e3 * sync_ms / (tmax + 1), flops, nbytes,
+                 timed[dt]["bound_ms"], timed[dt]["bound_by"]), flush=True)
+        del st, work
+    n, kd = CHASE_CHECKS[1]
+    st = _ge2tb_band(torch, port, _chase, n, kd, 7, dev, f32).to(f32)
+    plain_ms, _ = once_ms(torch, lambda: kernels.tb2bd_wavefront_plain(
+        st.clone(), kd))
+    small_ms = event_ms(torch, lambda: kernels.tb2bd_wavefront(st.clone(), kd),
+                        reps=2)
+    print("tb2bd_wavefront (%d, %d) fp32: kernel %.3f ms, plain version on the "
+          "card %.1f ms (one call; timed only here); library: none, no library "
+          "call reduces a band to bidiagonal" % (n, kd, small_ms, plain_ms),
+          flush=True)
+    r = timed[f32]
+    return {"tb2bd_wavefront": dict(
+        shape=r["shape"], max_abs_err=worst[f32], rel_err=None,
+        tol="fp32 5e-3*max|band| over %d sweeps from the same band, fp64 "
+            "1e-9*max|band|; whole chases backward <= 3" % CHASE_F32_SWEEPS,
+        ms=r["ms"], plain_ms=plain_ms, library_ms=None,
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        plain_shape="(%d, %d) fp32" % (n, 3 * kd + 2),
+        kernel_ms_at_plain_shape=small_ms, barriers_ms=r["barriers_ms"],
+        fp64=dict((k, timed[f64][k]) for k in ("shape", "ms", "barriers_ms",
+                                               "bound_ms", "bound_by")),
+        max_abs_err_fp64=worst[f64])}
+
+
+def _svd_gates(torch, label, a, s, u, vh, eps10, sref=None):
+    """bench.py's svd residual ‖A − U·Σ·Vᴴ‖_F/(‖A‖_F·n·10ε)
+    (bench.py:1534-1549), ‖UᵀU − I‖_F/(n·10ε) and ‖Vᴴ·V − I‖_F/(n·10ε),
+    each ≤ 3, finite values of the economy shapes, σ descending; with
+    ``sref`` (torch.linalg.svdvals in fp64) σ within 1e-3·σ_max."""
+    m, n = a.shape
+    k = min(m, n)
+    for name, t in (("s", s), ("U", u), ("Vh", vh)):
+        if not bool(torch.isfinite(t).all()):
+            fail("%s: %s has non-finite values" % (label, name))
+    if tuple(s.shape) != (k,) or tuple(u.shape) != (m, k) \
+            or tuple(vh.shape) != (k, n):
+        fail("%s: shapes %s %s %s" % (label, tuple(s.shape), tuple(u.shape),
+                                      tuple(vh.shape)))
+    ad, sd, ud, vd = a.double(), s.double(), u.double(), vh.double()
+    eye = torch.eye(k, dtype=torch.float64, device=a.device)
+    out = dict(residual=float((ad - (ud * sd[None, :]) @ vd).norm()
+                              / (ad.norm() * max(m, n) * eps10)),
+               orth_u=float((ud.T @ ud - eye).norm() / (max(m, n) * eps10)),
+               orth_v=float((vd @ vd.T - eye).norm() / (max(m, n) * eps10)))
+    bad = max(out.values()) > 3 or bool((sd[1:] > sd[:-1]).any())
+    if sref is not None:
+        out["sigma_rel_err"] = float((sd - sref).abs().max() / sref.max())
+        bad = bad or out["sigma_rel_err"] > 1e-3
+    print("%s: %s (residual and orthogonality in n*10eps units, <= 3)"
+          % (label, {k2: float("%.4g" % v) for k2, v in out.items()}),
+          flush=True)
+    if bad:
+        fail("%s: gates %s" % (label, out))
+    return out
+
+
+def _svd_route_counters(metrics, label, before, launches):
+    """One tb2bd_wavefront launch, no band or log byte between host and
+    card (``chase.host_bytes`` present and unchanged) and one
+    kernel-route chase dispatch since the snapshot ``before``.  Returns
+    the counters' delta."""
+    after = metrics.snapshot()
+    delta = metrics.snapshot_delta(before, after)["counters"]
+    host = after["counters"].get("chase.host_bytes")
+    if launches["tb2bd_wavefront"] != 1 or host is None \
+            or host - before["counters"].get("chase.host_bytes", 0.0) \
+            or delta.get("chase.dispatch.kernel", 0) != 1:
+        fail("%s: tb2bd_wavefront launched %d times, chase.host_bytes %s, "
+             "chase.dispatch.kernel %s" % (label, launches["tb2bd_wavefront"],
+                                           host, delta.get("chase.dispatch.kernel")))
+    return delta
+
+
+def main_path_svd(torch, st, kernels, dev) -> dict:
+    """Phase 3i: svd of bench.py's svd_fp32 input (bench.py:1534-1549: rng
+    10, a Gaussian (8192, 8192), uncut) as an fp32 Matrix, nb = 256, U and
+    Vᴴ: exactly one tb2bd_wavefront launch, chase.host_bytes 0 and one
+    kernel-route dispatch, bench.py's residual and the orthogonality of U
+    and Vᴴ (each ≤ 3 in n·10ε units), σ within 1e-3·σ_max of
+    torch.linalg.svdvals in fp64; one warm call, the median wall of 2
+    with the stage timers and chase.tb2bd, torch.linalg.svd's wall as a
+    yardstick (timed only), a profiler split; one more stage 1 (ge2tb,
+    where every matmul launch of the path is) with every matmul call held
+    to its plain version (:func:`check_path_calls`), as many calls as the
+    path launched.
+    Then svd in fp64 at n = 4096 (svd_fp64's generator, rng 8) under the
+    same gates at 10ε of fp64; svd_vals at n = 2048 through the host
+    Givens chase; one tall (8192, 2048) svd and its transpose (the m < n
+    swap), gates only."""
+    import numpy as np
+    from slate_tpu_torch.perf import metrics
+
+    metrics.on()
+    a = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (SVD_N, SVD_N)).astype(np.float32)).to(dev)
+    A = st.Matrix.from_array(a, nb=NB, device=dev)
+    eps32 = float(torch.finfo(torch.float32).eps)
+    launches = {}
+    before = metrics.snapshot()
+    (s, u, vh), ms0, launches["svd"] = run_path(torch, kernels, "svd",
+                                                lambda: st.svd(A))
+    delta = _svd_route_counters(metrics, "svd fp32", before, launches["svd"])
+    print("svd fp32 n=%d nb=%d: first call %.1f ms; launches %s; chase "
+          "counters host_bytes %s, dispatch %s"
+          % (SVD_N, NB, ms0, {k: v for k, v in launches["svd"].items() if v},
+             metrics.snapshot()["counters"].get("chase.host_bytes"),
+             {k: v for k, v in delta.items() if "dispatch" in k}), flush=True)
+    sref = torch.linalg.svdvals(a.double())
+    res = {"fp32": _svd_gates(torch, "svd fp32 n=%d" % SVD_N, a, s, u, vh,
+                              10 * eps32, sref)}
+    del s, u, vh, sref
+    before = metrics.snapshot()
+    wall = _wall_ms(torch, lambda: st.svd(A), 2)
+    timers = metrics.snapshot_delta(before, metrics.snapshot())["timers"]
+    stages = {k: v["total_s"] * 1e3 / v["count"] for k, v in timers.items()
+              if k.startswith(("stage.svd", "chase.tb2bd"))}
+    lib_ms = _wall_ms(torch, lambda: torch.linalg.svd(a, full_matrices=False), 1)
+    print("svd fp32 n=%d: median wall of 2 %.1f ms (host timers, mean ms a "
+          "call: %s); torch.linalg.svd(full_matrices=False) (library "
+          "yardstick, one call) %.1f ms" % (SVD_N, wall, {
+              k: round(v, 2) for k, v in stages.items()}, lib_ms), flush=True)
+    res["fp32"].update(wall_ms=wall, first_ms=ms0, stages_ms=stages,
+                       library_ms=lib_ms)
+    res["fp32"]["split"] = device_split(
+        torch, "svd fp32", lambda: st.svd(A),
+        {"tb2bd_wavefront kernel": "tb2bd_wavefront_kernel",
+         "matmul kernel": "matmul_f32_kernel"})
+    # every matmul launch of the path is stage 1's (the back-transforms'
+    # products go to torch.matmul): the check runs ge2tb alone and must
+    # see as many calls as the path launched
+    checks = {"svd": check_path_calls(torch, kernels, "svd path (ge2tb)",
+                                      lambda: st.ge2tb(A),
+                                      {"matmul": CHECK_TOL["matmul"]})}
+    if checks["svd"]["matmul"]["calls"] != launches["svd"]["matmul"]:
+        fail("svd path: ge2tb made %d matmul calls, the path launched %d"
+             % (checks["svd"]["matmul"]["calls"], launches["svd"]["matmul"]))
+    del A, a
+
+    a = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (SVD_N64, SVD_N64))).to(dev)
+    A = st.Matrix.from_array(a, nb=NB, device=dev)
+    before = metrics.snapshot()
+    (s, u, vh), ms, launches["svd_fp64"] = run_path(
+        torch, kernels, "svd_fp64", lambda: st.svd(A))
+    _svd_route_counters(metrics, "svd fp64", before, launches["svd_fp64"])
+    res["fp64"] = _svd_gates(torch, "svd fp64 n=%d" % SVD_N64, a, s, u, vh,
+                             10 * float(torch.finfo(torch.float64).eps),
+                             torch.linalg.svdvals(a))
+    res["fp64"]["wall_ms"] = ms
+    print("svd fp64 n=%d: one call %.1f ms; launches %s"
+          % (SVD_N64, ms, {k: v for k, v in launches["svd_fp64"].items() if v}),
+          flush=True)
+    del A, a, s, u, vh
+
+    n = SVD_HOST_N
+    a = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (n, n)).astype(np.float32)).to(dev)
+    before = metrics.snapshot()
+    s, ms, launches["svd_vals"] = run_path(
+        torch, kernels, "svd_vals",
+        lambda: st.svd_vals(st.Matrix.from_array(a, nb=NB, device=dev)))
+    chased = metrics.snapshot_delta(before, metrics.snapshot())["timers"].get(
+        "chase.tb2bd", {}).get("count", 0)
+    sref = torch.linalg.svdvals(a.double())
+    s_err = float((s.double() - sref).abs().max() / sref.max())
+    print("svd_vals fp32 n=%d: %.1f ms, host chase calls %d, launches %s, "
+          "sigma %.3g relative" % (n, ms, chased, {
+              k: v for k, v in launches["svd_vals"].items() if v}, s_err),
+          flush=True)
+    if launches["svd_vals"]["tb2bd_wavefront"] or chased != 1 \
+            or not s_err <= 1e-3 or tuple(s.shape) != (n,):
+        fail("svd_vals: %d kernel chases, %d host chases, sigma %.3g"
+             % (launches["svd_vals"]["tb2bd_wavefront"], chased, s_err))
+    del a
+
+    m, n = SVD_TALL
+    a = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (m, n)).astype(np.float32)).to(dev)
+    sref = torch.linalg.svdvals(a.double())
+    res["tall"], launches["svd_tall"] = {}, dict.fromkeys(kernels.launches, 0)
+    for label, x in (("tall", a), ("wide", a.T.contiguous())):
+        before = metrics.snapshot()
+        (s, u, vh), ms, lc = run_path(
+            torch, kernels, "svd_tall",
+            lambda: st.svd(x, opts={"block_size": NB}, device=dev))
+        _svd_route_counters(metrics, "svd %s" % label, before, lc)
+        for k, v in lc.items():
+            launches["svd_tall"][k] += v
+        res["tall"][label] = _svd_gates(
+            torch, "svd fp32 %s %s, %.1f ms" % (label, tuple(x.shape), ms), x,
+            s, u, vh, 10 * eps32, sref)
+    res.update(launches=launches, path_checks=checks)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2228,31 +2743,52 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print("ptxas %s: %s" % (name, line.strip()), flush=True)
 
-    measured = check_kernels(torch, kernels, dev)
-    measured.update(check_lu_kernels(torch, kernels, dev))
-    measured.update(check_batched_kernels(torch, kernels, dev))
-    measured.update(check_fused_kernels(torch, kernels, dev))
+    spent = {}
+
+    def phase(label, fn, *args):
+        """``fn(*args)``, its host wall recorded under ``label``."""
+        t = time.perf_counter()
+        out = fn(*args)
+        spent[label] = time.perf_counter() - t
+        return out
+
+    measured = phase("2", check_kernels, torch, kernels, dev)
+    measured.update(phase("2b", check_lu_kernels, torch, kernels, dev))
+    measured.update(phase("2c", check_batched_kernels, torch, kernels, dev))
+    measured.update(phase("2d", check_fused_kernels, torch, kernels, dev))
     import numpy as np
     a_qr = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (QR_M, QR_N)).astype(np.float32)).to(dev)      # bench.py's geqrf input
-    measured.update(check_lu_inv_kernel(torch, kernels, dev, a_qr))
+    measured.update(phase("2e", check_lu_inv_kernel, torch, kernels, dev,
+                          a_qr))
 
     def qr_once():                  # phase 2f: one geqrf + ungqr
         st.ungqr(*st.geqrf(st.Matrix.from_array(a_qr, nb=NB, device=dev)))
-    path_checks = {"qr": check_path_calls(torch, kernels, "QR path", qr_once,
-                                          CHECK_TOL)}
-    paths = {"cholesky": main_path(torch, st, kernels, dev)["launches"]}
-    paths.update(main_path_lu(torch, st, kernels, dev)["launches"])
-    paths.update(main_path_batched(torch, st, kernels, dev)["launches"])
-    paths.update(serve_path(torch, kernels)["launches"])
-    paths.update(main_path_depths(torch, st, kernels, dev)["launches"])
-    paths.update(main_path_qr(torch, st, kernels, dev, a_qr)["launches"])
+    path_checks = {"qr": phase("2f", check_path_calls, torch, kernels,
+                               "QR path", qr_once, CHECK_TOL)}
+    paths = {"cholesky": phase("3", main_path, torch, st, kernels,
+                               dev)["launches"]}
+    paths.update(phase("3b", main_path_lu, torch, st, kernels, dev)["launches"])
+    paths.update(phase("3c", main_path_batched, torch, st, kernels,
+                       dev)["launches"])
+    paths.update(phase("3d", serve_path, torch, kernels)["launches"])
+    paths.update(phase("3e", main_path_depths, torch, st, kernels,
+                       dev)["launches"])
+    paths.update(phase("3f", main_path_qr, torch, st, kernels, dev,
+                       a_qr)["launches"])
     del a_qr
-    paths.update(guard_path(torch, st, kernels, dev)["launches"])
-    measured.update(check_chase_kernel(torch, kernels, dev))
-    heev = main_path_heev(torch, st, kernels, dev)
+    paths.update(phase("3g", guard_path, torch, st, kernels, dev)["launches"])
+    measured.update(phase("2g", check_chase_kernel, torch, kernels, dev))
+    heev = phase("3h", main_path_heev, torch, st, kernels, dev)
     paths.update(heev["launches"])
     path_checks.update(heev["path_checks"])
+    measured.update(phase("2h", check_tb2bd_kernel, torch, kernels, dev))
+    svd = phase("3i", main_path_svd, torch, st, kernels, dev)
+    paths.update(svd["launches"])
+    path_checks.update(svd["path_checks"])
+    print("phase walls (s): %s; total %.1f s since the build began"
+          % (", ".join("%s %.1f" % kv for kv in spent.items()),
+             time.perf_counter() - t0), flush=True)
 
     rows = []
     for name, r in measured.items():

@@ -21,13 +21,16 @@ two-stage Hermitian eigensolver — ``heev``, ``syev``, ``heev_vals``,
 ``hegst``/``hegv``, ``sygst``/``sygv`` (with ``he2hb`` and
 ``unmtr_he2hb``), whose band → tridiagonal chase is one launch of the
 ``hb2st_wavefront`` kernel on the card and the host chase of
-:mod:`slate_tpu_torch.native` elsewhere.
+:mod:`slate_tpu_torch.native` elsewhere — and the two-stage SVD —
+``svd``, ``svd_vals``, ``gesvd`` (with ``ge2tb``, ``unmbr_ge2tb``,
+``tb2bd``, ``unmbr_tb2bd`` and ``bdsqr``), whose band → bidiagonal chase
+is one launch of the ``tb2bd_wavefront`` kernel on the card.
 """
 
 from . import config  # noqa: F401
 from .enums import (  # noqa: F401
-    Diag, GridOrder, MethodEig, MethodGels, MethodLU, Op, Option, Side,
-    Target, Uplo,
+    Diag, GridOrder, MethodEig, MethodGels, MethodLU, MethodSVD, Op, Option,
+    Side, Target, Uplo,
 )
 from .exceptions import SlateError  # noqa: F401
 from .grid import ProcessGrid  # noqa: F401

@@ -1,8 +1,7 @@
-// Device code shared by the bulge-chase kernels (hb2st_wavefront.cu; the
-// band → bidiagonal chase of the SVD will take the same pieces): the
-// block-level task arithmetic of one chase window, worked directly on band
-// storage in global memory, and the cooperative grid that runs the
-// wavefront.
+// Device code shared by the bulge-chase kernels (hb2st_wavefront.cu and
+// tb2bd_wavefront.cu): the block-level task arithmetic of one chase
+// window, worked directly on band storage in global memory, and the
+// cooperative grid that runs the wavefront.
 //
 // Why global memory.  The TPU kernel (slate_tpu/ops/pallas_kernels.py
 // :1914-2011) copies each task's dense (2kd+2)² Hermitian patch into VMEM
@@ -75,6 +74,18 @@ struct Blk {
 template <typename T>
 __device__ Blk<T> block_at(T* ab, int64_t ld, int64_t ra, int64_t ca) {
   return Blk<T>{ab + ca * ld + (ra - ca), ld - 1};
+}
+
+// The same view of the TRANSPOSE of a block of the row-major general band
+// of tb2bd (st[r·ld + (c − r + kd)] = A[r, c]): M(i, c) = A[ra + c, ca + i]
+// = base[c·(ld − 1) + i], base = st + ra·(ld − 1) + ca + kd.  A row of A is
+// a column of M, contiguous, so the column-contiguous helpers below keep
+// a warp on consecutive addresses; a left reflection of A is a right
+// reflection of M and the other way round.  Every c − r of the block must
+// lie in [−kd, 2kd + 1].
+template <typename T>
+__device__ Blk<T> gen_block_t(T* st, int64_t ld, int kd, int64_t ra, int64_t ca) {
+  return Blk<T>{st + ra * (ld - 1) + ca + kd, ld - 1};
 }
 
 // Sum of x over the block, the same value (same order) in every thread.

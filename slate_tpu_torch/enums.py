@@ -77,6 +77,9 @@ class Option(enum.Enum):
     #: heev's whole-driver choice (``"twostage"``), bypassing the
     #: ``eig_driver`` site
     EigDriver = "eig_driver"
+    #: svd's whole-driver choice (``"twostage"``), bypassing the
+    #: ``svd_driver`` site
+    SvdDriver = "svd_driver"
 
 
 class MethodEig(enum.Enum):
@@ -86,6 +89,15 @@ class MethodEig(enum.Enum):
     QR = "qr"
     DC = "dc"
     MRRR = "mrrr"
+    Bisection = "bisection"
+
+
+class MethodSVD(enum.Enum):
+    """Bidiagonal solver of svd (JAX package ``enums.py:223-227``)."""
+
+    Auto = "auto"
+    QR = "qr"
+    DC = "dc"
     Bisection = "bisection"
 
 

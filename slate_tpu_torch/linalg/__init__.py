@@ -15,6 +15,9 @@ from .lu import (  # noqa: F401
 from .qr import (  # noqa: F401
     cholqr, gelqf, gels, gels_cholqr, gels_qr, geqrf, ungqr, unmlq, unmqr,
 )
+from .svd import (  # noqa: F401
+    bdsqr, ge2tb, gesvd, svd, svd_vals, tb2bd, unmbr_ge2tb, unmbr_tb2bd,
+)
 
 __all__ = ["gemm", "herk", "syrk", "trmm", "trsm",
            "posv", "potrf", "potri", "potrs", "trtri", "trtrm",
@@ -24,6 +27,8 @@ __all__ = ["gemm", "herk", "syrk", "trmm", "trsm",
            "ungqr", "unmlq", "unmqr",
            "he2hb", "heev", "heev_vals", "hegst", "hegv", "syev", "sygst",
            "sygv", "unmtr_he2hb",
+           "bdsqr", "ge2tb", "gesvd", "svd", "svd_vals", "tb2bd",
+           "unmbr_ge2tb", "unmbr_tb2bd",
            "gels_batched", "geqrf_batched", "gesv_batched", "getrf_batched",
            "getrs_batched", "heev_batched", "posv_batched", "potrf_batched",
            "potrs_batched"]

@@ -1,20 +1,22 @@
-"""Stage-2 bulge-chase dispatch of the two-stage eigensolver — the hb2st
-half of ``slate_tpu/linalg/_chase.py:77-218``.
+"""Stage-2 bulge-chase dispatch of the two-stage eigensolver and SVD —
+``slate_tpu/linalg/_chase.py:77-272`` without the distributed drivers'
+snapshot helpers.
 
 * :func:`backend` resolves the ``chase`` site
   (:func:`slate_tpu_torch.perf.autotune.choose_chase`): ``"kernel"`` (the
-  ``hb2st_wavefront`` kernel, ONE launch per chase chunk, the band and
-  the reflector log staying on the card; its plain version on a CPU
-  tensor) or ``"host_native"`` (the band pulled to the host and chased by
-  :mod:`slate_tpu_torch.native`, the packed log shipped back).
-* The ``*_device`` helpers run the kernel route and hand back the log
+  ``hb2st_wavefront`` or ``tb2bd_wavefront`` kernel, ONE launch per
+  chase chunk, the band and the reflector logs staying on the card; its
+  plain version on a CPU tensor) or ``"host_native"`` (the band pulled
+  to the host and chased by :mod:`slate_tpu_torch.native`, the packed
+  logs shipped back).
+* The ``*_device`` helpers run the kernel route and hand back the logs
   as tensors on the band's device — no host repacking.
 * Every transfer of band or log state between host and card made by
   either route is counted into ``chase.host_bytes`` (``perf.metrics``),
   so "nothing crosses on the kernel route" is observable; an O(n·kd)
   band upload the caller makes anyway is counted under
   ``chase.ingest_bytes``.  The O(n) (d, e) handoff to the host
-  tridiagonal solve is neither.
+  tridiagonal or bidiagonal solve is neither.
 """
 
 from __future__ import annotations
@@ -132,3 +134,58 @@ def hb2st_d_e(abw, n: int):
     d = abw[:, 0].real.cpu().numpy().copy()
     e_c = abw[:n - 1, 1].cpu().numpy().copy()
     return d, e_c
+
+
+# ---------------------------------------------------------------------------
+# tb2bd (upper triangular band → bidiagonal)
+# ---------------------------------------------------------------------------
+
+def tb2bd_st_from_dense(band_sq, kd_eff: int):
+    """Row-major general-band storage ``(n, 3·kd+2)`` (``st[r, c−r+kd]``
+    = A[r, c]) gathered from the dense upper-triangular band middle
+    factor on its own device — the dense band never visits the host."""
+    n = band_sq.shape[0]
+    dev = band_sq.device
+    r = torch.arange(n, device=dev)[:, None]
+    d = torch.arange(3 * kd_eff + 2, device=dev)[None, :]
+    c = r + d - kd_eff
+    vals = band_sq[r.expand_as(c), c.clamp(0, n - 1)]
+    return torch.where((c >= r) & (c <= r + kd_eff) & (c < n), vals,
+                       torch.zeros((), dtype=vals.dtype, device=dev))
+
+
+def tb2bd_st_from_ab(ab: np.ndarray, kd_eff: int, device):
+    """General-band storage on ``device`` from a host ``(n, kd+3)`` upper
+    storage (``ab[c, (c−r)+1]`` = A[r, c]) — ONE O(n·kd) upload, counted
+    as ingestion."""
+    n = ab.shape[0]
+    st = np.zeros((n, 3 * kd_eff + 2), dtype=np.float64)
+    for dd in range(kd_eff + 1):
+        st[:n - dd, dd + kd_eff] = ab[dd:, dd + 1]
+    metrics.inc("chase.ingest_bytes", float(st.nbytes))
+    return torch.from_numpy(st).to(device)
+
+
+def tb2bd_device(st, kd_eff: int, s0: int = 0, s1=None):
+    """One bidiagonal chase chunk over sweeps ``[s0, s1)`` on the band's
+    device, in place: returns ``(st, ulog, vlog)`` with each log a
+    ``(v3, t2, s0)`` triple — ONE ``tb2bd_wavefront`` launch."""
+    n = st.shape[0]
+    if s1 is None:
+        s1 = max(n - 1, 0)
+    with metrics.timer("chase.tb2bd"):
+        st, ut, vt = kernels.tb2bd_wavefront(st, kd_eff, s0, s1)
+        if metrics.enabled() and st.is_cuda:
+            torch.cuda.synchronize(st.device)
+    _mark_device_path()
+    rows = _log_s0(n, s0, s1)
+    return (st, split_hh_log(ut, kd_eff, rows),
+            split_hh_log(vt, kd_eff, rows))
+
+
+def tb2bd_d_e(st, kd_eff: int, n: int):
+    """(d, e) of the chased bidiagonal on the host — the O(n) handoff to
+    the bidiagonal solve."""
+    d = st[:, kd_eff].cpu().numpy().copy()
+    e = st[:n - 1, kd_eff + 1].cpu().numpy().copy()
+    return d, e

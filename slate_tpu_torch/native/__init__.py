@@ -1,6 +1,7 @@
-"""Host bulge chase — the part of ``slate_tpu/native`` that the two-stage
-eigensolver's host routes call (``slate_tpu/native/__init__.py:343-617``),
-bound with ``ctypes``.
+"""Host bulge chases and the bidiagonal solve — the part of
+``slate_tpu/native`` that the host routes of the two-stage eigensolver
+and SVD call (``slate_tpu/native/__init__.py:343-639``), bound with
+``ctypes``.
 
 The source is ``chase.cc`` beside this file (OpenMP, no BLAS or LAPACK).
 It is compiled at first use with ``g++ -O3 -mfma -fopenmp -shared -fPIC``
@@ -11,8 +12,14 @@ checkout, the digest covering the source and the flags, and never at
 import.  Where no compiler is found :func:`available` is False and the
 callers take their pure-Python fallbacks, as the JAX package's do.
 
-``SLATE_TPU_TORCH_CHASE_SERIAL=1`` runs the Householder chase in serial
+``SLATE_TPU_TORCH_CHASE_SERIAL=1`` runs the Householder chases in serial
 sweep order instead of the OpenMP wavefront (the two are bitwise equal).
+
+:func:`bdsdc` is LAPACK ``dbdsdc`` from the scipy already installed,
+called through its Cython C-API capsule
+(``scipy.linalg.cython_lapack.__pyx_capi__``): scipy's own OpenBLAS, the
+library the JAX package's runtime links (``runtime.cc:40-51``), with no
+build step.
 """
 
 from __future__ import annotations
@@ -83,6 +90,15 @@ def _load():
             fn = getattr(lib, name)
             fn.restype = i64
             fn.argtypes = [p, i64, i64, i64, p, p, p, p, i64, i64]
+        lib.slate_tb2bd_hh_f64.restype = i64
+        lib.slate_tb2bd_hh_f64.argtypes = [p, i64, i64, i64] + [p] * 8
+        lib.slate_tb2bd_hh_range_f64.restype = i64
+        lib.slate_tb2bd_hh_range_f64.argtypes = ([p, i64, i64, i64] + [p] * 8
+                                                 + [i64, i64])
+        for name in ("slate_tb2bd_f64", "slate_tb2bd_c128"):
+            fn = getattr(lib, name)
+            fn.restype = i64
+            fn.argtypes = [p, i64, i64, i64] + [p] * 6
         for name in ("slate_apply_rot_seq_f64", "slate_apply_rot_seq_c128",
                      "slate_apply_rot_skewed_f64",
                      "slate_apply_rot_skewed_c128"):
@@ -253,3 +269,132 @@ def apply_rot_seq(z: np.ndarray, planes, cs, ss, mode: int,
         fn(n, z.shape[1], _c_ptr(z), _c_ptr(planes), _c_ptr(cs),
            _c_ptr(ss), len(planes), mode)
     return z
+
+
+def bd_step_count(n: int, kd: int, s0: int = 0, s1=None) -> int:
+    """Reflector count of each log of the bidiagonal Householder chase
+    over sweeps ``[s0, s1)``."""
+    if s1 is None:
+        s1 = max(n - 1, 0)
+    total = 0
+    for s in range(s0, min(s1, max(n - 1, 0))):
+        hi = min(s + kd, n - 1)
+        if hi <= s + 1:
+            continue
+        total += 1
+        b = 1
+        while b * kd + 1 + s <= n - 1:
+            total += 1
+            b += 1
+    return total
+
+
+def _tb2bd_hh(st: np.ndarray, n: int, kd: int, rng=None):
+    lib = _need()
+    assert st.shape == (n, 3 * kd + 2) and st.flags.c_contiguous
+    assert st.dtype == np.float64
+    cap = bd_step_count(n, kd, *(rng or ()))
+    ulog, vlog = _hh_log(np.float64, cap, kd), _hh_log(np.float64, cap, kd)
+    ptrs = [_c_ptr(a) for a in ulog + vlog]
+    if rng is None:
+        nstep = lib.slate_tb2bd_hh_f64(_c_ptr(st), n, kd, 3 * kd + 2, *ptrs)
+    else:
+        nstep = lib.slate_tb2bd_hh_range_f64(_c_ptr(st), n, kd, 3 * kd + 2,
+                                             *ptrs, *rng)
+    assert nstep == cap, (nstep, cap)
+    return ulog, vlog
+
+
+def tb2bd_hh_banded(st: np.ndarray, n: int, kd: int):
+    """Householder band→bidiagonal chase (SLATE's gebr1/2/3 schedule) on
+    row-major general-band storage ``st[(n, 3·kd+2)]`` (``st[r, c−r+kd]``
+    = A[r, c]), in place, real f64.  Returns ``((uv, utau, urow0, ulen),
+    (vv, vtau, vrow0, vlen))``: the left (U) and right (V) reflector
+    logs, each with per-sweep disjoint kd-strided windows."""
+    return _tb2bd_hh(st, n, kd)
+
+
+def tb2bd_hh_banded_range(st: np.ndarray, n: int, kd: int, s0: int,
+                          s1: int):
+    """Sweeps ``[s0, s1)`` of :func:`tb2bd_hh_banded`: the band is the
+    whole state between calls."""
+    return _tb2bd_hh(st, n, kd, (s0, s1))
+
+
+def tb2bd_banded(ab: np.ndarray, n: int, kd: int, want_rots: bool = True):
+    """Givens upper-band→bidiagonal chase on storage ``ab[(n, kd+3)]``
+    (``ab[c, (c−r)+1]`` = A[r, c]; column 0 holds the subdiagonal bulge),
+    in place.  Returns the left and right rotation logs ``((planes, cs,
+    ss), (planes, cs, ss))``; empty ones when ``want_rots`` is False."""
+    lib = _need()
+    assert ab.shape == (n, kd + 3) and ab.flags.c_contiguous
+    fn = (lib.slate_tb2bd_c128 if ab.dtype == np.complex128
+          else lib.slate_tb2bd_f64)
+    if not want_rots:
+        fn(_c_ptr(ab), n, kd, kd + 3, None, None, None, None, None, None)
+        empty = (np.empty(0, dtype=np.int32), np.empty(0, dtype=np.float64),
+                 np.empty(0, dtype=ab.dtype))
+        return empty, empty
+    cap = rot_count(n, kd)
+    lrot = (np.empty(cap, dtype=np.int32), np.empty(cap, dtype=np.float64),
+            np.empty(cap, dtype=ab.dtype))
+    rrot = tuple(np.empty_like(x) for x in lrot)
+    nrot = fn(_c_ptr(ab), n, kd, kd + 3, *map(_c_ptr, lrot),
+              *map(_c_ptr, rrot))
+    assert nrot == cap, (nrot, cap)
+    return lrot, rrot
+
+
+_dbdsdc = None
+
+
+def _lapack_dbdsdc():
+    """LAPACK ``dbdsdc`` from scipy's Cython C-API capsule."""
+    global _dbdsdc
+    if _dbdsdc is None:
+        from scipy.linalg import cython_lapack
+
+        get = ctypes.pythonapi.PyCapsule_GetPointer
+        get.restype = ctypes.c_void_p
+        get.argtypes = [ctypes.py_object, ctypes.c_char_p]
+        cap = cython_lapack.__pyx_capi__["dbdsdc"]
+        name = ctypes.pythonapi.PyCapsule_GetName
+        name.restype = ctypes.c_char_p
+        name.argtypes = [ctypes.py_object]
+        ip, dp, cp = (ctypes.POINTER(ctypes.c_int),
+                      ctypes.POINTER(ctypes.c_double), ctypes.c_char_p)
+        proto = ctypes.CFUNCTYPE(None, cp, cp, ip, dp, dp, dp, ip, dp, ip,
+                                 dp, ip, dp, ip, ip)
+        _dbdsdc = proto(get(cap, name(cap)))
+    return _dbdsdc
+
+
+def bdsdc(d: np.ndarray, e: np.ndarray):
+    """Bidiagonal divide-and-conquer SVD of the upper bidiagonal (d, e)
+    (LAPACK ``dbdsdc``, COMPQ = 'I') — the stage-3 core (the reference
+    calls ``lapack::bdsqr`` on rank 0, ``src/svd.cc:300+``).  Returns
+    ``(u, s, vt)``, σ descending; raises ``LinAlgError`` when LAPACK
+    reports ``info ≠ 0``."""
+    d = np.ascontiguousarray(d, dtype=np.float64).copy()
+    n = d.shape[0]
+    ework = np.zeros(max(n - 1, 1), dtype=np.float64)
+    if n > 1:
+        ework[:n - 1] = np.asarray(e, dtype=np.float64)[:n - 1]
+    # LAPACK writes U and VT column-major
+    u = np.zeros((n, n), dtype=np.float64, order="F")
+    vt = np.zeros((n, n), dtype=np.float64, order="F")
+    work = np.zeros(3 * n * n + 4 * n + 16, dtype=np.float64)
+    iwork = np.zeros(8 * n + 8, dtype=np.intc)
+    qdum = np.zeros(1, dtype=np.float64)
+    iqdum = np.zeros(1, dtype=np.intc)
+    nn, info = ctypes.c_int(n), ctypes.c_int(0)
+    dptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+    iptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
+    _lapack_dbdsdc()(b"U", b"I", ctypes.byref(nn), dptr(d), dptr(ework),
+                     dptr(u), ctypes.byref(nn), dptr(vt), ctypes.byref(nn),
+                     dptr(qdum), iptr(iqdum), dptr(work), iptr(iwork),
+                     ctypes.byref(info))
+    if info.value != 0:
+        raise np.linalg.LinAlgError(
+            "bdsdc failed to converge (%d)" % info.value)
+    return u, d, vt

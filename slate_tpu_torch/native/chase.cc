@@ -1,11 +1,13 @@
-// Host bulge chase of the two-stage Hermitian eigensolver: the routes of
-// slate_tpu_torch/linalg/eig.py that do not take the hb2st_wavefront
-// kernel — values-only heev, complex input, kd < 4, and real fp64 with
-// vectors when the device chase is not chosen — copied from the JAX
-// package's host runtime (slate_tpu/native/runtime.cc: hb2st_impl
-// :547-625, the Householder task bodies and their serial and OpenMP
-// wavefront drivers :634-907, apply_rot_seq and apply_rot_skewed
-// :1247-1370, and their C entries).  Nothing here calls BLAS or LAPACK.
+// Host bulge chases of the two-stage Hermitian eigensolver and SVD: the
+// routes of slate_tpu_torch/linalg/eig.py and svd.py that do not take the
+// hb2st_wavefront / tb2bd_wavefront kernels — values-only calls, complex
+// input, kd < 4, and real fp64 with vectors when the device chase is not
+// chosen — copied from the JAX package's host runtime
+// (slate_tpu/native/runtime.cc: hb2st_impl :547-625, the Householder task
+// bodies and their serial and OpenMP wavefront drivers :634-907, the
+// bidiagonal Householder chase :921-1169, the Givens tb2bd_impl
+// :1172-1245, apply_rot_seq and apply_rot_skewed :1247-1370, and their C
+// entries).  Nothing here calls BLAS or LAPACK.
 //
 // Build: g++ -O3 -mfma -fopenmp -shared -fPIC chase.cc -o libchase.so (at first
 // use, by slate_tpu_torch/native/__init__.py, into build/slate_tpu_torch/).
@@ -14,6 +16,9 @@
 //   hb2st:     lower Hermitian band, ab[j*ldab + d] = A[j+d, j], d in
 //              [0, kd+1] (one extra diagonal holds the chase bulge).
 //   hb2st_hh:  the same, WIDE: ldab >= 2kd+1 (the bulge block).
+//   tb2bd:     upper band, ab[c*ldab + (c-r)+1] = A[r, c], ldab = kd+3.
+//   tb2bd_hh:  row-major general band, st[r*ldw + (c-r+kd)] = A[r, c],
+//              ldw = 3kd+2 (row r holds row r of the band).
 
 #include <algorithm>
 #include <cmath>
@@ -160,6 +165,79 @@ int64_t hb2st_impl(T* ab, int64_t n, int64_t kd, int64_t ldab,
         if (planes) {
             buf.flush(planes, cs, ss, nrot);
             nrot += (int64_t)buf.plane.size();
+        } else {
+            for (int64_t d = dmax; d >= 2; --d)
+                nrot += 1 + (n - 1 - j - d) / kd;
+        }
+    }
+    return nrot;
+}
+
+// Upper band storage of the Givens tb2bd chase: ab[c*ldab + (c-r)+1] =
+// A[r, c], c-r in [-1, kd+1] (row 0 holds the subdiagonal bulge).
+template <typename T>
+inline T& ub(T* ab, int64_t ldab, int64_t r, int64_t c) {
+    return ab[(c - r + 1) + c * ldab];
+}
+
+// Givens band→bidiagonal chase, the direct schedule of hb2st_impl: per
+// row j the entries at distance d = dmax..2 are killed by a right
+// rotation, whose (p+1, p) bulge a left rotation kills, chased at stride
+// kd; both logs depth-major per row.
+template <typename T>
+int64_t tb2bd_impl(T* ab, int64_t n, int64_t kd, int64_t ldab,
+                   int32_t* lplanes, double* lcs, T* lss,
+                   int32_t* rplanes, double* rcs, T* rss) {
+    int64_t nrot = 0;
+    RotBuf<T> lbuf, rbuf;
+    for (int64_t j = 0; j <= n - 3; ++j) {
+        const int64_t dmax = std::min(kd, n - 1 - j);
+        if (lplanes) { lbuf.clear(); rbuf.clear(); }
+        for (int64_t d = dmax; d >= 2; --d) {
+            int64_t row = j, p = j + d - 1, t = 0;
+            for (;;) {
+                // right rotation on columns (p, p+1): kill A[row, p+1]
+                double c; T s;
+                givens(ub(ab, ldab, row, p), ub(ab, ldab, row, p + 1), c, s);
+                {
+                    const T sc = conj_s(s);
+                    int64_t rlo = row; if (rlo < 0) rlo = 0;
+                    int64_t rhi = p + 1; if (rhi > n - 1) rhi = n - 1;
+                    for (int64_t r2 = rlo; r2 <= rhi; ++r2) {
+                        T& x = ub(ab, ldab, r2, p);
+                        T& y = ub(ab, ldab, r2, p + 1);
+                        // col-apply G^T: (x, y) -> (c x + s y, -s̄ x + c y)
+                        // (the right factor is G^T, not G^H: the kill
+                        // identity -s̄f + cg = 0 needs the unconjugated s
+                        // in the first slot)
+                        T nx = c * x + s * y;
+                        T ny = -sc * x + c * y;
+                        x = nx; y = ny;
+                    }
+                }
+                if (rplanes) rbuf.push(p + 1, t, c, s);
+                // left rotation on rows (p, p+1): kill the (p+1, p) bulge
+                givens(ub(ab, ldab, p, p), ub(ab, ldab, p + 1, p), c, s);
+                {
+                    const T sc = conj_s(s);
+                    int64_t chi = p + kd + 1; if (chi > n - 1) chi = n - 1;
+                    for (int64_t c2 = p; c2 <= chi; ++c2) {
+                        T& x = ub(ab, ldab, p, c2);
+                        T& y = ub(ab, ldab, p + 1, c2);
+                        T nx = c * x + s * y;
+                        T ny = -sc * x + c * y;
+                        x = nx; y = ny;
+                    }
+                }
+                if (lplanes) lbuf.push(p + 1, t, c, s);
+                if (p + 1 + kd >= n) break;
+                row = p; p += kd; ++t;
+            }
+        }
+        if (lplanes) {
+            lbuf.flush(lplanes, lcs, lss, nrot);
+            rbuf.flush(rplanes, rcs, rss, nrot);
+            nrot += (int64_t)lbuf.plane.size();
         } else {
             for (int64_t d = dmax; d >= 2; --d)
                 nrot += 1 + (n - 1 - j - d) / kd;
@@ -461,6 +539,211 @@ static int64_t hb2st_hh_impl(double* ab, int64_t n, int64_t kd,
     return hb2st_hh_wave(ab, n, kd, ldab, log, 0, n - 2);
 }
 
+// ---------------------------------------------------------------------
+// Householder band→bidiagonal chase (SLATE's gebr1/2/3 task partition,
+// src/internal/internal_gebr.cc + src/tb2bd.cc block slicing): per sweep
+// s, a right reflector kills row s beyond the superdiagonal, a left
+// reflector kills the resulting first-column bulge, then per chase block
+// b: left-apply the previous U to the off-diagonal block, generate the
+// next right reflector from its first row, right-apply it to the
+// diagonal block, generate the next left reflector from its first
+// column.  Both logs have the per-sweep disjoint kd-strided window
+// structure (U rows and V columns from s+1) that the batched WY
+// back-transform needs.
+//
+// Storage: row-major general band st[r*ldw + (c-r+kd)], c-r in
+// [-kd, 2kd+1], ldw = 3kd+2.  Real double only.
+//
+// The wavefront has the structure of hb2st_hh_wave: task (s, b) touches
+// rows and columns [s+1+(b-1)kd, s+1+(b+1)kd) at stagger t = 3s + b,
+// with two positional logs.  The serial range runs the same task bodies
+// in sweep order, so the two are bitwise equal.
+// ---------------------------------------------------------------------
+
+static int64_t tb_sweep_nblk(int64_t n, int64_t kd, int64_t s) {
+    int64_t c_lo = s + 1, c_hi = std::min(s + kd, n - 1);
+    int64_t r_hi = std::min(s + kd, n - 1);
+    if (c_hi <= c_lo && r_hi <= s + 1) return 0;
+    int64_t cnt = 1;
+    for (int64_t b = 1; b * kd + 1 + s <= n - 1; ++b) ++cnt;
+    return cnt;
+}
+
+struct TbSweep {
+    std::vector<double> u;
+    double tauu = 0.0;
+    int64_t base = 0, nblk = 0;
+};
+
+static void tb_sweep_start(double* stm, int64_t n, int64_t kd, int64_t ldw,
+                           HhLog& ulog, HhLog& vlog, int64_t s,
+                           TbSweep& sw, double* xbuf) {
+    auto A = [&](int64_t r, int64_t c) -> double& {
+        return stm[r * ldw + (c - r + kd)];
+    };
+    int64_t c_lo = s + 1, c_hi = std::min(s + kd, n - 1);
+    int64_t r_hi = std::min(s + kd, n - 1);
+    int64_t Lv = c_hi - c_lo + 1;
+    double tauv = 0.0;
+    // right reflector v0 from row s (keep A[s, s+1])
+    for (int64_t c = 0; c < Lv; ++c) xbuf[c] = A(s, c_lo + c);
+    larfg_t(Lv, xbuf, tauv);
+    A(s, c_lo) = xbuf[0];
+    for (int64_t c = 1; c < Lv; ++c) A(s, c_lo + c) = 0.0;
+    xbuf[0] = 1.0;
+    for (int64_t r = s + 1; r <= r_hi; ++r) {
+        double acc = 0.0;
+        for (int64_t c = 0; c < Lv; ++c) acc += A(r, c_lo + c) * xbuf[c];
+        acc *= tauv;
+        for (int64_t c = 0; c < Lv; ++c) A(r, c_lo + c) -= acc * xbuf[c];
+    }
+    vlog.put(sw.base, c_lo, Lv, xbuf, tauv);
+    // left reflector u0 from column s+1 below the diagonal
+    int64_t Lu = r_hi - s;
+    for (int64_t r = 0; r < Lu; ++r) sw.u[(size_t)r] = A(s + 1 + r, c_lo);
+    larfg_t(Lu, sw.u.data(), sw.tauu);
+    A(s + 1, c_lo) = sw.u[0];
+    for (int64_t r = 1; r < Lu; ++r) A(s + 1 + r, c_lo) = 0.0;
+    sw.u[0] = 1.0;
+    for (int64_t c = c_lo + 1; c <= c_hi; ++c) {
+        double acc = 0.0;
+        for (int64_t r = 0; r < Lu; ++r) acc += sw.u[(size_t)r] * A(s + 1 + r, c);
+        acc *= sw.tauu;
+        for (int64_t r = 0; r < Lu; ++r) A(s + 1 + r, c) -= acc * sw.u[(size_t)r];
+    }
+    ulog.put(sw.base, s + 1, Lu, sw.u.data(), sw.tauu);
+}
+
+static void tb_sweep_block(double* stm, int64_t n, int64_t kd, int64_t ldw,
+                           HhLog& ulog, HhLog& vlog, int64_t s, int64_t b,
+                           TbSweep& sw, double* xbuf) {
+    auto A = [&](int64_t r, int64_t c) -> double& {
+        return stm[r * ldw + (c - r + kd)];
+    };
+    int64_t i_lo = (b - 1) * kd + 1 + s;
+    int64_t i_hi = std::min(i_lo + kd - 1, n - 1);
+    int64_t j_lo = b * kd + 1 + s;
+    int64_t j_hi = std::min(j_lo + kd - 1, n - 1);
+    int64_t Li = i_hi - i_lo + 1, Lj = j_hi - j_lo + 1;
+    double tauv = 0.0;
+    // gebr2: left-apply u_{b-1} to the off-diagonal block
+    for (int64_t c = j_lo; c <= j_hi; ++c) {
+        double acc = 0.0;
+        for (int64_t r = 0; r < Li; ++r) acc += sw.u[(size_t)r] * A(i_lo + r, c);
+        acc *= sw.tauu;
+        for (int64_t r = 0; r < Li; ++r) A(i_lo + r, c) -= acc * sw.u[(size_t)r];
+    }
+    // next right reflector from the block's first row
+    for (int64_t c = 0; c < Lj; ++c) xbuf[c] = A(i_lo, j_lo + c);
+    larfg_t(Lj, xbuf, tauv);
+    A(i_lo, j_lo) = xbuf[0];
+    for (int64_t c = 1; c < Lj; ++c) A(i_lo, j_lo + c) = 0.0;
+    xbuf[0] = 1.0;
+    for (int64_t r = i_lo + 1; r <= i_hi; ++r) {
+        double acc = 0.0;
+        for (int64_t c = 0; c < Lj; ++c) acc += A(r, j_lo + c) * xbuf[c];
+        acc *= tauv;
+        for (int64_t c = 0; c < Lj; ++c) A(r, j_lo + c) -= acc * xbuf[c];
+    }
+    vlog.put(sw.base + b, j_lo, Lj, xbuf, tauv);
+    // gebr3: right-apply it to the diagonal block
+    for (int64_t r = j_lo; r <= j_hi; ++r) {
+        double acc = 0.0;
+        for (int64_t c = 0; c < Lj; ++c) acc += A(r, j_lo + c) * xbuf[c];
+        acc *= tauv;
+        for (int64_t c = 0; c < Lj; ++c) A(r, j_lo + c) -= acc * xbuf[c];
+    }
+    // next left reflector from the block's first column
+    for (int64_t r = 0; r < Lj; ++r) sw.u[(size_t)r] = A(j_lo + r, j_lo);
+    larfg_t(Lj, sw.u.data(), sw.tauu);
+    A(j_lo, j_lo) = sw.u[0];
+    for (int64_t r = 1; r < Lj; ++r) A(j_lo + r, j_lo) = 0.0;
+    sw.u[0] = 1.0;
+    for (int64_t c = j_lo + 1; c <= j_hi; ++c) {
+        double acc = 0.0;
+        for (int64_t r = 0; r < Lj; ++r) acc += sw.u[(size_t)r] * A(j_lo + r, c);
+        acc *= sw.tauu;
+        for (int64_t r = 0; r < Lj; ++r) A(j_lo + r, c) -= acc * sw.u[(size_t)r];
+    }
+    ulog.put(sw.base + b, j_lo, Lj, sw.u.data(), sw.tauu);
+}
+
+// Sweeps s in [s0, s1) in serial sweep order (the band is the whole
+// state between calls: a caller can checkpoint it and regenerate any
+// chunk's two logs later).
+static int64_t tb2bd_hh_impl_range(double* stm, int64_t n, int64_t kd,
+                                   int64_t ldw, HhLog& ulog, HhLog& vlog,
+                                   int64_t s0, int64_t s1) {
+    if (s1 > n - 1) s1 = n - 1;
+    std::vector<double> xbuf((size_t)kd);
+    TbSweep sw;
+    int64_t total = 0;
+    for (int64_t s = s0; s < s1; ++s) {
+        int64_t nblk = tb_sweep_nblk(n, kd, s);
+        if (nblk == 0) continue;
+        sw.base = total;
+        sw.nblk = nblk;
+        sw.u.assign((size_t)kd, 0.0);
+        tb_sweep_start(stm, n, kd, ldw, ulog, vlog, s, sw, xbuf.data());
+        for (int64_t b = 1; b < nblk; ++b)
+            tb_sweep_block(stm, n, kd, ldw, ulog, vlog, s, b, sw, xbuf.data());
+        total += nblk;
+    }
+    ulog.count = total;
+    vlog.count = total;
+    return total;
+}
+
+static int64_t tb2bd_hh_wave(double* stm, int64_t n, int64_t kd,
+                             int64_t ldw, HhLog& ulog, HhLog& vlog,
+                             int64_t s0, int64_t s1) {
+    if (s1 > n - 1) s1 = n - 1;   // sweeps s in [s0, s1) ⊆ [0, n-2]
+    if (s0 >= s1) return 0;
+    const int64_t nsweep = s1 - s0;
+    std::vector<TbSweep> sw((size_t)nsweep);
+    int64_t total = 0, nblk_max = 0, tmax = -1;
+    for (int64_t ss = 0; ss < nsweep; ++ss) {
+        auto& w = sw[(size_t)ss];
+        w.base = total;
+        w.nblk = tb_sweep_nblk(n, kd, s0 + ss);
+        w.u.assign((size_t)kd, 0.0);
+        total += w.nblk;
+        nblk_max = std::max(nblk_max, w.nblk);
+        if (w.nblk) tmax = std::max(tmax, 3 * ss + w.nblk - 1);
+    }
+    const int nthr = omp_get_max_threads();
+    std::vector<double> scratch((size_t)nthr * (size_t)kd);
+    for (int64_t t = 0; t <= tmax; ++t) {
+        const int64_t ss_hi = std::min(nsweep - 1, t / 3);
+        const int64_t ss_lo = std::max<int64_t>(
+            0, (t - nblk_max + 1 + 2) / 3);
+        #pragma omp parallel for schedule(static)
+        for (int64_t ss = ss_lo; ss <= ss_hi; ++ss) {
+            const int64_t b = t - 3 * ss;
+            auto& w = sw[(size_t)ss];
+            if (b < 0 || b >= w.nblk) continue;
+            double* xbuf = scratch.data()
+                + (size_t)omp_get_thread_num() * (size_t)kd;
+            if (b == 0)
+                tb_sweep_start(stm, n, kd, ldw, ulog, vlog, s0 + ss, w,
+                               xbuf);
+            else
+                tb_sweep_block(stm, n, kd, ldw, ulog, vlog, s0 + ss, b, w,
+                               xbuf);
+        }
+    }
+    ulog.count = total;
+    vlog.count = total;
+    return total;
+}
+
+static int64_t tb2bd_hh(double* st, int64_t n, int64_t kd, int64_t ldw,
+                        HhLog& ulog, HhLog& vlog, int64_t s0, int64_t s1) {
+    if (chase_serial())
+        return tb2bd_hh_impl_range(st, n, kd, ldw, ulog, vlog, s0, s1);
+    return tb2bd_hh_wave(st, n, kd, ldw, ulog, vlog, s0, s1);
+}
+
 // Apply a logged rotation sequence in reverse to Z (n x k, row-major):
 // mode 0: G^H = [[c, -s], [s̄, c]]   (unmtr_hb2st / unmbr_tb2bd Left)
 // mode 1:       [[c, -s̄], [s, c]]   (unmbr_tb2bd Right)
@@ -634,6 +917,42 @@ int64_t slate_hb2st_hh_range_c128(void* ab, int64_t n, int64_t kd,
         return hb2st_hh_impl_range<cplx>((cplx*)ab, n, kd, ldab, log,
                                          j0, j1);
     return hb2st_hh_wave<cplx>((cplx*)ab, n, kd, ldab, log, j0, j1);
+}
+
+int64_t slate_tb2bd_hh_f64(double* st, int64_t n, int64_t kd, int64_t ldw,
+                           double* uv, double* utau, int32_t* urow0,
+                           int32_t* ulen, double* vv, double* vtau,
+                           int32_t* vrow0, int32_t* vlen) {
+    HhLog ulog{uv, utau, urow0, ulen, kd};
+    HhLog vlog{vv, vtau, vrow0, vlen, kd};
+    return tb2bd_hh(st, n, kd, ldw, ulog, vlog, 0, n - 1);
+}
+
+// Sweeps [s0, s1) of the bidiagonal chase: the band is the whole state
+// between calls.
+int64_t slate_tb2bd_hh_range_f64(double* st, int64_t n, int64_t kd,
+                                 int64_t ldw, double* uv, double* utau,
+                                 int32_t* urow0, int32_t* ulen,
+                                 double* vv, double* vtau,
+                                 int32_t* vrow0, int32_t* vlen,
+                                 int64_t s0, int64_t s1) {
+    HhLog ulog{uv, utau, urow0, ulen, kd};
+    HhLog vlog{vv, vtau, vrow0, vlen, kd};
+    return tb2bd_hh(st, n, kd, ldw, ulog, vlog, s0, s1);
+}
+
+int64_t slate_tb2bd_f64(double* ab, int64_t n, int64_t kd, int64_t ldab,
+                        int32_t* lplanes, double* lcs, double* lss,
+                        int32_t* rplanes, double* rcs, double* rss) {
+    return tb2bd_impl<double>(ab, n, kd, ldab, lplanes, lcs, lss,
+                              rplanes, rcs, rss);
+}
+
+int64_t slate_tb2bd_c128(void* ab, int64_t n, int64_t kd, int64_t ldab,
+                         int32_t* lplanes, double* lcs, void* lss,
+                         int32_t* rplanes, double* rcs, void* rss) {
+    return tb2bd_impl<cplx>((cplx*)ab, n, kd, ldab, lplanes, lcs,
+                            (cplx*)lss, rplanes, rcs, (cplx*)rss);
 }
 
 void slate_apply_rot_seq_f64(int64_t n, int64_t k, double* z,

@@ -47,6 +47,7 @@ SOURCES = {
     "getrf_full_fused": ("getrf_full_fused.cu",
                          ("lu_step.cuh", "lu_panel.cuh")),
     "hb2st_wavefront": ("hb2st_wavefront.cu", ("chase.cuh",)),
+    "tb2bd_wavefront": ("tb2bd_wavefront.cu", ("chase.cuh",)),
 }
 
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

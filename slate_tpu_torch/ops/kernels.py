@@ -7,7 +7,8 @@ Each kernel has three things here:
   :func:`lu_inv_panel`, :func:`getrf_panel_linv`, :func:`getrf_panel_fused`,
   :func:`potrf_batched`, :func:`getrf_batched`, :func:`potrf_step_fused`,
   :func:`potrf_full_fused`, :func:`getrf_step_fused`,
-  :func:`getrf_full_fused`, :func:`hb2st_wavefront`) that checks device,
+  :func:`getrf_full_fused`, :func:`hb2st_wavefront`,
+  :func:`tb2bd_wavefront`) that checks device,
   dtype, shape and strides, allocates its outputs and scratch with
   ``torch.empty``, launches the kernel on the current CUDA stream and
   raises if the launch fails.  Given CPU tensors it runs the plain
@@ -39,7 +40,7 @@ launches = {"matmul": 0, "chol_inv_panel": 0, "trtri_panel": 0,
             "potrf_batched": 0, "getrf_batched": 0,
             "potrf_step_fused": 0, "potrf_full_fused": 0,
             "getrf_step_fused": 0, "getrf_full_fused": 0,
-            "hb2st_wavefront": 0}
+            "hb2st_wavefront": 0, "tb2bd_wavefront": 0}
 
 IB = 32
 
@@ -70,6 +71,8 @@ _SIGNATURES = {
     # one symbol per dtype: "%s" is f32 or f64
     "hb2st_wavefront": ("slate_hb2st_wavefront_%s",
                         [_P, _I64] + [_I] * 4 + [_P] + [_I] * 2 + [_P]),
+    "tb2bd_wavefront": ("slate_tb2bd_wavefront_%s",
+                        [_P, _I64] + [_I] * 4 + [_P] * 2 + [_I] * 2 + [_P]),
 }
 _fns: dict = {}
 _fns_lock = threading.Lock()     # the entry-point cache; held across a build
@@ -1147,3 +1150,152 @@ def hb2st_wavefront_barriers(abw, kd: int, j0: int = 0, j1=None) -> None:
     _launch("hb2st_wavefront", abw.device, abw.data_ptr(), abw.stride(0), n,
             kd, j0, j0 + nsweeps, scratch.data_ptr(), nwin_max, 0,
             dt=_HB2ST_DT[abw.dtype], count=False)
+
+
+# ---------------------------------------------------------------------------
+# Householder upper band → bidiagonal bulge chase (replaces
+# pallas_kernels.tb2bd_wavefront :2226): one cooperative launch over the
+# wavefront staggers t = 3·sweep + block, in place on the general band,
+# two reflector logs
+# ---------------------------------------------------------------------------
+
+def tb_wave_meta(n: int, kd: int, s0: int = 0, s1=None):
+    """Wavefront geometry of sweeps ``[s0, s1)`` (a copy of the JAX
+    package's ``_tb_wave_meta``; s1 is clipped to n − 2, the last sweep
+    with a block): ``(nsweeps, nblk_max, tmax, nl)`` — the sweep count,
+    the most blocks of a sweep (the logs' middle dim, nblk(s) =
+    (n − 2 − s)//kd + 1), the last stagger and the most tasks live at
+    one stagger."""
+    s1 = min(s1 if s1 is not None else n - 1, n - 2)
+    nblk = [(n - 2 - s) // kd + 1 for s in range(s0, max(s1, s0))]
+    if not nblk:
+        return 0, 0, 0, 1
+    nblk_max = max(nblk)
+    tmax = max(3 * js + nb - 1 for js, nb in enumerate(nblk))
+    return len(nblk), nblk_max, tmax, min(len(nblk), nblk_max // 3 + 2)
+
+
+def _gen_block(st, kd: int, r: int, c: int, rows: int, cols: int):
+    """The (rows, cols) view A[r:r+rows, c:c+cols] of the row-major
+    general band ``st`` (``st[r, c−r+kd]`` = A[r, c]): A[r+i, c+k] lies
+    at flat offset (r+i)·(W−1) + c + k + kd.  Valid while every c−r of
+    the block lies in [−kd, 2kd+1]."""
+    w = st.shape[1]
+    return st.as_strided((rows, cols), (w - 1, 1),
+                         st.storage_offset() + r * (w - 1) + c + kd)
+
+
+def _tb_right(blk, v, tau) -> None:
+    """blk ← blk·(I − τ·v·vᵀ) (each row: −= τ·(row·v)·v)."""
+    blk.sub_((tau * (blk @ v))[:, None] * v[None, :])
+
+
+def _tb_left(blk, u, tau) -> None:
+    """blk ← (I − τ·u·uᵀ)·blk (each column: −= τ·(uᵀ·col)·u)."""
+    blk.sub_(u[:, None] * (tau * (u @ blk))[None, :])
+
+
+def tb2bd_wavefront_plain(st, kd: int, s0: int = 0, s1=None):
+    """Plain version of :func:`tb2bd_wavefront`: the same task bodies in
+    serial sweep-major order on band-storage views (equivalent to the
+    wavefront order: same-stagger tasks touch disjoint rows and
+    columns).  In place on ``st``; returns ``(st, ut, vt)``."""
+    n = st.shape[0]
+    nsweeps, nblk_max, _, _ = tb_wave_meta(n, kd, s0, s1)
+    shape = (nsweeps, max(nblk_max, 1), kd + 1)
+    ut = torch.zeros(shape, dtype=st.dtype, device=st.device)
+    vt = torch.zeros(shape, dtype=st.dtype, device=st.device)
+    for js in range(nsweeps):
+        s = s0 + js
+        nblk = (n - 2 - s) // kd + 1
+        # window 0: the right reflector from row s beyond the
+        # superdiagonal, then the left one from the first column below
+        # the diagonal
+        lv = min(kd, n - 1 - s)
+        row = _gen_block(st, kd, s, s + 1, 1, lv)[0]
+        v, tauv, beta = _larfg_plain(row.clone())
+        row[0] = beta
+        row[1:] = 0
+        blk = _gen_block(st, kd, s + 1, s + 1, lv, lv)
+        _tb_right(blk, v, tauv)
+        u, tauu, beta = _larfg_plain(blk[:, 0].clone())
+        blk[0, 0] = beta
+        blk[1:, 0] = 0
+        _tb_left(blk[:, 1:], u, tauu)
+        vt[js, 0, 0], vt[js, 0, 1:1 + lv] = tauv, v
+        ut[js, 0, 0], ut[js, 0, 1:1 + lv] = tauu, u
+        for b in range(1, nblk):
+            i_lo = (b - 1) * kd + 1 + s
+            j_lo = i_lo + kd
+            li, lj = min(kd, n - i_lo), min(kd, n - j_lo)
+            u, tau_p = ut[js, b - 1, 1:1 + li], ut[js, b - 1, 0]
+            # the previous left reflector on the off-diagonal block, the
+            # next right reflector from its first row
+            off = _gen_block(st, kd, i_lo, j_lo, li, lj)
+            _tb_left(off, u, tau_p)
+            v, tauv, beta = _larfg_plain(off[0].clone())
+            off[0, 0] = beta
+            off[0, 1:] = 0
+            _tb_right(off[1:], v, tauv)
+            # that reflector on the diagonal block, the next left
+            # reflector from its first column
+            dg = _gen_block(st, kd, j_lo, j_lo, lj, lj)
+            _tb_right(dg, v, tauv)
+            u, tauu, beta = _larfg_plain(dg[:, 0].clone())
+            dg[0, 0] = beta
+            dg[1:, 0] = 0
+            _tb_left(dg[:, 1:], u, tauu)
+            vt[js, b, 0], vt[js, b, 1:1 + lj] = tauv, v
+            ut[js, b, 0], ut[js, b, 1:1 + lj] = tauu, u
+    return st, ut, vt
+
+
+def _check_tb2bd(st, kd: int) -> None:
+    if st.dtype not in _HB2ST_DT or st.ndim != 2:
+        raise ValueError("tb2bd_wavefront takes a 2-D float32 or float64 band "
+                         "(complex input takes the host chase), got %s %s"
+                         % (st.dtype, tuple(st.shape)))
+    if kd < 4 or st.shape[1] != 3 * kd + 2:
+        raise ValueError("tb2bd_wavefront needs kd >= 4 and the general band "
+                         "(n, 3·kd + 2), got kd = %d, %s"
+                         % (kd, tuple(st.shape)))
+    if not st.is_contiguous():
+        raise ValueError("tb2bd_wavefront needs a contiguous band, got "
+                         "strides %s" % (st.stride(),))
+
+
+def tb2bd_wavefront(st, kd: int, s0: int = 0, s1=None):
+    """Householder upper band → bidiagonal chase over sweeps ``[s0, s1)``
+    (default all, clipped to n − 2) in ONE launch, IN PLACE on the
+    row-major general band ``st`` (n, 3·kd + 2), ``st[r, c−r+kd]`` =
+    A[r, c], fp32 or fp64, kd ≥ 4, contiguous.  Returns ``(st, ut, vt)``:
+    the left (U) and right (V) reflector logs, each (nsweeps, nblk_max,
+    kd + 1) with τ at ``[..., 0]`` and v (v[0] = 1) after it, zero past a
+    reflector's length and in the rows past a sweep's blocks — the
+    layout :func:`slate_tpu_torch.linalg.eig.unmtr_hb2st_hh` consumes."""
+    _check_tb2bd(st, kd)
+    if _on_cpu(st):
+        return tb2bd_wavefront_plain(st, kd, s0, s1)
+    n = st.shape[0]
+    nsweeps, nblk_max, _, _ = tb_wave_meta(n, kd, s0, s1)
+    shape = (nsweeps, max(nblk_max, 1), kd + 1)
+    ut = torch.zeros(shape, dtype=st.dtype, device=st.device)
+    vt = torch.zeros(shape, dtype=st.dtype, device=st.device)
+    if nsweeps:
+        _launch("tb2bd_wavefront", st.device, st.data_ptr(), st.stride(0), n,
+                kd, s0, s0 + nsweeps, ut.data_ptr(), vt.data_ptr(), nblk_max,
+                1, dt=_HB2ST_DT[st.dtype])
+    return st, ut, vt
+
+
+def tb2bd_wavefront_barriers(st, kd: int, s0: int = 0, s1=None) -> None:
+    """The launch of :func:`tb2bd_wavefront` with every task skipped: the
+    same grid and the same grid barriers, nothing computed — a
+    measurement of the barriers' share, not counted as a launch."""
+    _check_tb2bd(st, kd)
+    n = st.shape[0]
+    nsweeps, nblk_max, _, _ = tb_wave_meta(n, kd, s0, s1)
+    scratch = torch.zeros((2, 1, kd + 1), dtype=st.dtype, device=st.device)
+    _launch("tb2bd_wavefront", st.device, st.data_ptr(), st.stride(0), n, kd,
+            s0, s0 + nsweeps, scratch[0].data_ptr(), scratch[1].data_ptr(),
+            nblk_max, 0, dt=_HB2ST_DT[st.dtype], count=False)

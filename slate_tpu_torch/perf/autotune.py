@@ -16,10 +16,11 @@ The ``geqrf_panel`` site returns a driver instead: ``"cholqr2"`` (the
 CholQR² panel loop over the ``chol_inv_panel``, ``lu_inv_panel`` and
 ``trtri_panel`` kernels) or ``"stock"`` (``torch.geqrf``).
 
-The ``chase`` site returns ``"kernel"`` (the ``hb2st_wavefront`` kernel)
-or ``"host_native"`` (the host chase of :mod:`slate_tpu_torch.native`);
-``eig_driver`` answers ``"twostage"``, its one candidate ported, or the
-name a pin gives it.
+The ``chase`` site returns ``"kernel"`` (the ``hb2st_wavefront`` or
+``tb2bd_wavefront`` kernel) or ``"host_native"`` (the host chase of
+:mod:`slate_tpu_torch.native`); ``eig_driver`` and ``svd_driver`` answer
+``"twostage"``, their one candidate ported, or the name a pin gives
+them.
 
 The two step-depth sites, ``potrf_step`` and ``lu_step``, return a depth
 of their driver instead: ``"composed"`` (the panel kernel and the glue
@@ -296,11 +297,12 @@ def choose_batched_heev(b: int, n: int, dtype, device) -> str:
 
 def choose_chase(kind: str, n: int, kd: int, dtype, device,
                  eligible: bool) -> str:
-    """Stage-2 bulge-chase backend of the two-stage eigensolver
-    (``kind`` ``"hb2st"``): ``"kernel"`` (ONE launch of the
-    ``hb2st_wavefront`` kernel, the band and its log staying on the card)
-    or ``"host_native"`` (the band pulled to the host and chased by
-    :mod:`slate_tpu_torch.native`, the packed log shipped back).
+    """Stage-2 bulge-chase backend of the two-stage eigensolver (``kind``
+    ``"hb2st"``) and SVD (``"tb2bd"``): ``"kernel"`` (ONE launch of the
+    ``hb2st_wavefront`` / ``tb2bd_wavefront`` kernel, the band and its
+    logs staying on the card) or ``"host_native"`` (the band pulled to
+    the host and chased by :mod:`slate_tpu_torch.native`, the packed logs
+    shipped back).
     ``eligible`` is the call site's gate (``linalg._chase.eligible``:
     vectors wanted, kd ≥ 4, n > kd + 2); the kernel also takes only real
     fp32/fp64.  ``"kernel"`` on a CUDA operand where both hold;
@@ -327,6 +329,22 @@ def choose_chase(kind: str, n: int, kd: int, dtype, device,
     return _record("chase", key, "host_native", "default off the card")
 
 
+def _driver_site(site: str, key: tuple, eligible: bool) -> str:
+    """The whole-driver ladder of heev and svd: ``"twostage"``, the one
+    candidate ported, and a :data:`FORCE_ENV` pin of ``"twostage"`` or
+    ``"qdwh"`` answered as it is where the call site is eligible; any
+    other pin is warned about and ignored."""
+    names = ("twostage", "qdwh")
+    if not eligible:
+        return _record(site, key, "twostage", "ineligible")
+    forced = _forced(site)
+    if forced in names:
+        return _record(site, key, forced, "forced")
+    if forced is not None:
+        _warn_bad_force(site, forced, names)
+    return _record(site, key, "twostage", "the one candidate ported")
+
+
 def choose_eig_driver(n: int, dtype, device, eligible: bool) -> str:
     """Whole-driver site of heev: ``"twostage"`` (he2hb → bulge chase →
     tridiagonal solve), the one candidate ported.  ``eligible`` is the
@@ -334,16 +352,18 @@ def choose_eig_driver(n: int, dtype, device, eligible: bool) -> str:
     package also weighs ``"qdwh"`` (``slate_tpu/perf/autotune.py:2033``)
     and a :data:`FORCE_ENV` pin of either name is answered as it is;
     heev refuses ``"qdwh"`` until ``linalg/polar.py`` is ported."""
-    key = (pow2_bucket(n), str(dtype).replace("torch.", ""),
+    return _driver_site("eig_driver", (pow2_bucket(n), str(dtype).replace(
+        "torch.", ""), torch.device(device).type), eligible)
+
+
+def choose_svd_driver(m: int, n: int, dtype, device, eligible: bool) -> str:
+    """Whole-driver site of svd (callers guarantee m ≥ n), the ladder of
+    :func:`choose_eig_driver` (``slate_tpu/perf/autotune.py:2107``);
+    n < 4 is ineligible, as there.  svd refuses ``"qdwh"`` until
+    ``linalg/polar.py`` is ported."""
+    key = (pow2_bucket(m), pow2_bucket(n), str(dtype).replace("torch.", ""),
            torch.device(device).type)
-    if not eligible:
-        return _record("eig_driver", key, "twostage", "ineligible")
-    forced = _forced("eig_driver")
-    if forced in ("twostage", "qdwh"):
-        return _record("eig_driver", key, forced, "forced")
-    if forced is not None:
-        _warn_bad_force("eig_driver", forced, ("twostage", "qdwh"))
-    return _record("eig_driver", key, "twostage", "the one candidate ported")
+    return _driver_site("svd_driver", key, eligible and n >= 4)
 
 
 _SITES = {
@@ -360,6 +380,7 @@ _SITES = {
     "matmul": choose_matmul,
     "potrf_panel": choose_potrf_panel,
     "potrf_step": choose_potrf_step,
+    "svd_driver": choose_svd_driver,
     "trtri_panel": choose_trtri_panel,
 }
 
