@@ -124,15 +124,34 @@
      nb = 256, U and Vᴴ): one ``tb2bd_wavefront`` launch, no band or
      log byte between host and card, bench.py's residual
      ‖A − U·Σ·Vᴴ‖/(‖A‖·n·10ε) and both orthogonalities ≤ 3, σ within
-     1e-3·σ_max of svdvals; one warm call and the median wall of 2 with
-     the stage timers beside ``torch.linalg.svd``'s, a profiler split,
+     1e-3·σ_max of svdvals; the first call's wall with the stage timers
+     beside ``torch.linalg.svd``'s, a profiler split,
      one more ``ge2tb`` with every ``matmul`` call held to its plain
      version; svd fp64 at n = 4096, ``svd_vals`` at 2048 through the
-     host Givens chase, and a tall (8192, 2048) svd and its transpose.
+     host Givens chase, and a tall (8192, 2048) svd and its transpose;
+   * distributed (BASELINE.md's config 3, fp32, n = 16384, nb = 256, 128
+     right-hand sides): phase 2i holds ``chol_l21_panel`` at the (16384,
+     256) panel and ``lu_u12_panel`` at (256, 16384) and (256, 256) to
+     their plain versions (1e-4 relative; the departure to its plain
+     value's magnitude and guard verdict; ‖X·Lᵀ − panel‖ and ‖L11·U − B‖
+     relative ≤ 1e-5) and times them beside their bounds; phase 3j runs
+     ``pgemm``, ``pposv`` and ``pgesv`` of ``slate_tpu_torch.parallel``
+     on a 1×1 grid of a ``torch.distributed`` world of one (NCCL), the
+     sites at their card defaults: residuals ≤ 3, |L| ≤ 1 + 100ε, exactly
+     64 ``chol_l21_panel`` launches per pposv and 127 ``lu_u12_panel``
+     per pgesv; the wall and a profiler split of one more pposv, then
+     one pposv and
+     one pgesv at 4096 with every ``chol_l21_panel``, ``lu_u12_panel``
+     and ``matmul`` call held to its plain version, and again with
+     ``dist_panel=pallas_panel`` pinned (``chol_inv_panel``,
+     ``trtri_panel``); phase 3k runs pposv and pgesv at 16384 on a 2×2
+     grid of four processes sharing the card (gloo), every rank gated as
+     in 3j (|L| under the tournament's pivots reported only) and
+     launching both kernels.
    Every kernel's launch count is set to 0 just before each path (each
-   LU driver, ``getri``, each batched driver, the served requests and
-   each depth a path of its own) and read just after it; a kernel of the
-   path that was not launched fails the run.
+   LU driver, ``getri``, each batched driver, the served requests, each
+   depth and each distributed driver a path of its own) and read just
+   after it; a kernel of the path that was not launched fails the run.
 4. Prints one JSON line of per-kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -180,7 +199,11 @@ REPO = {"matmul": ("slate_tpu_torch/csrc/matmul.cu",
         "hb2st_wavefront": ("slate_tpu_torch/csrc/hb2st_wavefront.cu",
                             "slate_tpu/ops/pallas_kernels.py:2033"),
         "tb2bd_wavefront": ("slate_tpu_torch/csrc/tb2bd_wavefront.cu",
-                            "slate_tpu/ops/pallas_kernels.py:2226")}
+                            "slate_tpu/ops/pallas_kernels.py:2226"),
+        "chol_l21_panel": ("slate_tpu_torch/csrc/chol_l21_panel.cu",
+                           "slate_tpu/ops/pallas_kernels.py:602"),
+        "lu_u12_panel": ("slate_tpu_torch/csrc/lu_u12_panel.cu",
+                         "slate_tpu/ops/pallas_kernels.py:646")}
 LU_NB, LU_BB, LU_IB = 512, 128, 16   # the scattered driver's panel call
 LEAF_W, LEAF_IB = 256, 32            # getrf_rec's kernel leaf at nb = 256
 #: bench.py's batched configuration (B, n) and serve configuration
@@ -214,7 +237,10 @@ PATHS = {"cholesky": ("matmul", "chol_inv_panel", "trtri_panel"),
          "svd": ("matmul", "tb2bd_wavefront"),
          "svd_fp64": ("tb2bd_wavefront",),
          "svd_vals": ("matmul",),
-         "svd_tall": ("matmul", "tb2bd_wavefront")}
+         "svd_tall": ("matmul", "tb2bd_wavefront"),
+         "dist_pgemm": ("matmul",),
+         "dist_pposv": ("matmul", "chol_l21_panel"),
+         "dist_pgesv": ("matmul", "lu_u12_panel")}
 #: the depth paths' exact launch counts at n = 8192 (16 steps of 512), the
 #: composed depth's panel kernels among them (never launched there)
 EXACT = {"chol_fused": {"potrf_step_fused": 16, "potrf_full_fused": 0,
@@ -237,7 +263,8 @@ GUARD_M, GUARD_N, GUARD_COND = 8192, 1024, 1e6
 #: the checked paths' tolerance (relative Frobenius) for each kernel
 #: against its plain version, as in phases 2 and 2e
 CHECK_TOL = {"matmul": 1e-5, "chol_inv_panel": 1e-4,
-                "lu_inv_panel": 1e-4, "trtri_panel": 1e-4}
+                "lu_inv_panel": 1e-4, "trtri_panel": 1e-4,
+                "chol_l21_panel": 1e-4, "lu_u12_panel": 1e-4}
 FORCE = "SLATE_TPU_TORCH_AUTOTUNE_FORCE"
 PEAK_FP64_FLOPS = 34e12         # H100 SXM, fp64 FMA outside the tensor cores
 #: phase 2g's chase checks (n, kd), its range chunks at (1024, 64) and the
@@ -257,6 +284,16 @@ SVD_N, SVD_N64, SVD_HOST_N, SVD_TALL = 8192, 4096, 2048, (8192, 2048)
 #: heev fp32's timed calls after its warm one (one: the svd path's host
 #: time leaves no room for more in the command's time)
 HEEV_REPS = 1
+#: the distributed drivers' path (BASELINE.md config 3: gemm/posv/gesv,
+#: fp32, n = 16384, nb = 256, 128 right-hand sides) on a 1×1 NCCL grid
+#: (phase 3j) and on a 2×2 gloo grid of four processes sharing the card
+#: (phase 3k, uncut); the size of phase 3j's checked and pallas_panel
+#: runs; the exact launches of one pposv and one pgesv at DIST_N on the
+#: 1×1 grid (64 steps; pgetrf at depth 2 solves the window and the ring
+#: at every step but the last)
+DIST_N, DIST_NRHS, DIST_CHECK_N = 16384, 128, 4096
+DIST_EXACT = {"dist_pposv": {"chol_l21_panel": 64},
+              "dist_pgesv": {"lu_u12_panel": 127}}
 
 
 def fail(msg: str):
@@ -1556,13 +1593,29 @@ def check_lu_inv_kernel(torch, kernels, dev, a_qr) -> dict:
     return {"lu_inv_panel": r}
 
 
-def check_path_calls(torch, kernels, label: str, run, tols: dict) -> dict:
+def same_departure(label: str, dev: float, ref: float, nb: int) -> None:
+    """``lu_u12_panel``'s departure dev = max|B − L11·L⁻¹B| / max|B| is the
+    uncorrected solve's rounding amplified by cond(L11), so two summation
+    orders give values some 10 % apart (the JAX kernel and the plain
+    version on the CPU: 0.6040e-6 against 0.6595e-6 at nb = 128): it is
+    held within half its plain value above the rounding floor nb·ε, and
+    to the same side of the caller's 1e-2 guard."""
+    eps = 2.0 ** -23
+    if not (abs(dev - ref) <= 0.5 * abs(ref) + nb * eps
+            and (dev < 1e-2) == (ref < 1e-2)):
+        fail("%s: lu_u12_panel's departure %.4g, its plain version's %.4g"
+             % (label, dev, ref))
+
+
+def check_path_calls(torch, kernels, label: str, run, tols: dict,
+                     ident_tol: float = 1e-4) -> dict:
     """``run()`` once with every call of the kernels named in ``tols``
     held to its plain version on the same arguments at the moment of the
     call (the wrappers are swapped for checking ones for this run only):
     each output within ``tols[name]`` (relative Frobenius; an all-zero
-    output exactly), and for ``trtri_panel`` ‖L·L⁻¹ − I‖_F < 1e-4
-    (phase 2's gate).  So the shapes and layouts a path gives the
+    output exactly; ``lu_u12_panel``'s departure by :func:`same_departure`),
+    and for ``trtri_panel`` ‖L·L⁻¹ − I‖_F < ``ident_tol`` (phase 2's gate,
+    1e-4).  So the shapes and layouts a path gives the
     kernels are compared on the card, not only phase 2's.  Every kernel
     named must be called.  Returns per kernel the calls, distinct
     layouts and the largest errors."""
@@ -1581,6 +1634,12 @@ def check_path_calls(torch, kernels, label: str, run, tols: dict) -> dict:
             ref = plain[name](*args)
             gots = got if isinstance(got, tuple) else (got,)
             refs = ref if isinstance(ref, tuple) else (ref,)
+            if name == "lu_u12_panel":
+                # the departure is rounding amplified by cond(L11): held
+                # to its plain value's magnitude and guard verdict
+                same_departure(label, float(gots[1]), float(refs[1]),
+                               args[0].shape[0])
+                gots, refs = gots[:1], refs[:1]
             # an all-zero output is held exactly
             rel = max(rel_err(g, r) if bool(r.any()) else
                       float((g - r).abs().max()) for g, r in zip(gots, refs))
@@ -1602,9 +1661,9 @@ def check_path_calls(torch, kernels, label: str, run, tols: dict) -> dict:
                     low.shape[0], dtype=torch.float64, device=low.device))
                     .norm())
                 rec["identity"] = max(rec.get("identity", 0.0), ident)
-                if not ident < 1e-4:
+                if not ident < ident_tol:
                     fail("%s: trtri_panel at %s: ||L Linv - I|| %.3g "
-                         "(< 1e-4)" % (label, where, ident))
+                         "(< %.0e)" % (label, where, ident, ident_tol))
             return got
         return call
 
@@ -1624,7 +1683,8 @@ def check_path_calls(torch, kernels, label: str, run, tols: dict) -> dict:
               "(<= %.0e), max abs %.3e%s; worst at %s"
               % (label, n, rec["calls"], rec["layouts"], rec["max_rel_err"],
                  tols[n], rec["max_abs_err"],
-                 ", max ||L Linv - I|| %.3g (< 1e-4)" % rec["identity"]
+                 ", max ||L Linv - I|| %.3g (< %.0e)" % (rec["identity"],
+                                                         ident_tol)
                  if "identity" in rec else "", rec["worst"]), flush=True)
     return out
 
@@ -2590,8 +2650,9 @@ def main_path_svd(torch, st, kernels, dev) -> dict:
     Vᴴ: exactly one tb2bd_wavefront launch, chase.host_bytes 0 and one
     kernel-route dispatch, bench.py's residual and the orthogonality of U
     and Vᴴ (each ≤ 3 in n·10ε units), σ within 1e-3·σ_max of
-    torch.linalg.svdvals in fp64; one warm call, the median wall of 2
-    with the stage timers and chase.tb2bd, torch.linalg.svd's wall as a
+    torch.linalg.svdvals in fp64; the first call's wall with the stage
+    timers and chase.tb2bd (no timed repeats: each call is ~32 s, mostly
+    host), torch.linalg.svd's wall as a
     yardstick (timed only), a profiler split; one more stage 1 (ge2tb,
     where every matmul launch of the path is) with every matmul call held
     to its plain version (:func:`check_path_calls`), as many calls as the
@@ -2612,6 +2673,7 @@ def main_path_svd(torch, st, kernels, dev) -> dict:
     before = metrics.snapshot()
     (s, u, vh), ms0, launches["svd"] = run_path(torch, kernels, "svd",
                                                 lambda: st.svd(A))
+    timers = metrics.snapshot_delta(before, metrics.snapshot())["timers"]
     delta = _svd_route_counters(metrics, "svd fp32", before, launches["svd"])
     print("svd fp32 n=%d nb=%d: first call %.1f ms; launches %s; chase "
           "counters host_bytes %s, dispatch %s"
@@ -2622,17 +2684,15 @@ def main_path_svd(torch, st, kernels, dev) -> dict:
     res = {"fp32": _svd_gates(torch, "svd fp32 n=%d" % SVD_N, a, s, u, vh,
                               10 * eps32, sref)}
     del s, u, vh, sref
-    before = metrics.snapshot()
-    wall = _wall_ms(torch, lambda: st.svd(A), 2)
-    timers = metrics.snapshot_delta(before, metrics.snapshot())["timers"]
+    # the first call is the one timed (each call is ~32 s, mostly host)
     stages = {k: v["total_s"] * 1e3 / v["count"] for k, v in timers.items()
               if k.startswith(("stage.svd", "chase.tb2bd"))}
     lib_ms = _wall_ms(torch, lambda: torch.linalg.svd(a, full_matrices=False), 1)
-    print("svd fp32 n=%d: median wall of 2 %.1f ms (host timers, mean ms a "
-          "call: %s); torch.linalg.svd(full_matrices=False) (library "
-          "yardstick, one call) %.1f ms" % (SVD_N, wall, {
+    print("svd fp32 n=%d: first call %.1f ms (host timers, ms: %s); "
+          "torch.linalg.svd(full_matrices=False) (library yardstick, one "
+          "call) %.1f ms" % (SVD_N, ms0, {
               k: round(v, 2) for k, v in stages.items()}, lib_ms), flush=True)
-    res["fp32"].update(wall_ms=wall, first_ms=ms0, stages_ms=stages,
+    res["fp32"].update(wall_ms=ms0, first_ms=ms0, stages_ms=stages,
                        library_ms=lib_ms)
     res["fp32"]["split"] = device_split(
         torch, "svd fp32", lambda: st.svd(A),
@@ -2706,6 +2766,273 @@ def main_path_svd(torch, st, kernels, dev) -> dict:
     return res
 
 
+def _lu_l11(torch, nb: int, dev):
+    """A unit-lower L11 as the distributed LU path makes them: the top
+    block of a partial-pivot LU of a Gaussian (4·nb, nb) panel (|L| ≤ 1),
+    unit diagonal and zeros above it stored."""
+    gen = torch.Generator(device=dev).manual_seed(40)
+    lu, _ = torch.linalg.lu_factor(torch.randn((4 * nb, nb), generator=gen,
+                                               device=dev))
+    return torch.tril(lu[:nb], -1) + torch.eye(nb, device=dev)
+
+
+def check_dist_kernels(torch, kernels, dev) -> dict:
+    """Phase 2i: the distributed path's two kernels against their plain
+    versions at its shapes (n = 16384, nb = 256): ``chol_l21_panel`` on
+    the (16384, 256) panel with its SPD diagonal block at rows
+    [2048, 2304) read in place (a view of the panel); ``lu_u12_panel`` at
+    the widest window solve (256, 16384) and at the depth-2 ring solve
+    (256, 256), L11 from a pivoted LU.  Gates: each output within 1e-4
+    relative of the plain version (CHECK_TOL), the departure within half
+    its plain value above nb·ε and on the same side of the 1e-2 guard,
+    ‖X·Lᵀ − panel‖/‖panel‖ and ‖L11·U − B‖/‖B‖ ≤ 1e-5.  Timed with CUDA
+    events beside the plain versions and one library call each."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    out = {}
+    m, nb = DIST_N, NB
+    panel = torch.randn((m, nb), generator=gen, device=dev)
+    g = torch.randn((nb, nb), generator=gen, device=dev)
+    k0 = 8 * nb
+    panel[k0:k0 + nb] = g @ g.T / nb + torch.eye(nb, device=dev)
+    d = panel[k0:k0 + nb]
+    (l, x), (lp, xp) = kernels.chol_l21_panel(d, panel), \
+        kernels.chol_l21_panel_plain(d, panel)
+    torch.cuda.synchronize()
+    err = max(rel_err(l, lp), rel_err(x, xp))
+    res = float((x.double() @ l.double().T - panel.double()).norm()
+                / panel.double().norm())
+    print("kernel chol_l21_panel (%d,%d): rel %.3e to the plain version, "
+          "||X L^T - panel||/||panel|| %.3e" % (m, nb, err, res), flush=True)
+    if not (err <= CHECK_TOL["chol_l21_panel"] and res <= 1e-5):
+        fail("chol_l21_panel: rel %.3e, residual %.3e" % (err, res))
+
+    def library_l21():
+        lk = torch.linalg.cholesky(d)
+        return torch.linalg.solve_triangular(lk.mT, panel, upper=True,
+                                             left=False)
+
+    b_ms, b_by = bound(2.0 * m * nb * nb + 2.0 * nb ** 3 / 3,
+                       4.0 * (nb * (nb + 1) / 2 + 2 * m * nb + nb * nb))
+    out["chol_l21_panel"] = dict(
+        shape="d (%d,%d) view of the (%d,%d) panel" % (nb, nb, m, nb),
+        max_abs_err=float(max((l - lp).abs().max(), (x - xp).abs().max())),
+        rel_err=err, residual=res,
+        tol="rel Frobenius of L and X <= 1e-4; ||X L^T - panel|| <= 1e-5",
+        ms=cuda_ms(torch, lambda: kernels.chol_l21_panel(d, panel), 20),
+        plain_ms=cuda_ms(torch, lambda: kernels.chol_l21_panel_plain(
+            d, panel), 3),
+        library_ms=cuda_ms(torch, library_l21, 20),
+        bound_ms=b_ms, bound_by=b_by)
+    del panel, x, xp
+
+    l11 = _lu_l11(torch, nb, dev)
+    rows = {}
+    for w in (m, nb):
+        b = torch.randn((nb, w), generator=gen, device=dev)
+        (u, dv), (up, dvp) = kernels.lu_u12_panel(l11, b), \
+            kernels.lu_u12_panel_plain(l11, b)
+        torch.cuda.synchronize()
+        err = rel_err(u, up)
+        res = float((l11.double() @ u.double() - b.double()).norm()
+                    / b.double().norm())
+        print("kernel lu_u12_panel (%d,%d): rel %.3e to the plain version, "
+              "departure %.4g (plain %.4g), ||L11 U - B||/||B|| %.3e"
+              % (nb, w, err, float(dv), float(dvp), res), flush=True)
+        if not (err <= CHECK_TOL["lu_u12_panel"] and res <= 1e-5):
+            fail("lu_u12_panel (%d,%d): rel %.3e, residual %.3e"
+                 % (nb, w, err, res))
+        same_departure("phase 2i", float(dv), float(dvp), nb)
+        b_ms, b_by = bound(6.0 * nb * nb * w + nb ** 3 / 3.0,
+                           4.0 * (nb * nb + 2 * nb * w + 1))
+        rows[w] = dict(
+            shape="(%d,%d) L11 and (%d,%d) block row" % (nb, nb, nb, w),
+            max_abs_err=float((u - up).abs().max()), rel_err=err,
+            residual=res, departure=float(dv), plain_departure=float(dvp),
+            ms=cuda_ms(torch, lambda: kernels.lu_u12_panel(l11, b), 20),
+            plain_ms=cuda_ms(torch, lambda: kernels.lu_u12_panel_plain(
+                l11, b), 3),
+            library_ms=cuda_ms(torch, lambda: torch.linalg.solve_triangular(
+                l11, b, upper=False, unitriangular=True), 20),
+            bound_ms=b_ms, bound_by=b_by)
+    r = rows[m]
+    r.update(tol="rel Frobenius of U <= 1e-4; ||L11 U - B|| <= 1e-5; "
+                 "departure within 0.5x + nb*eps, same guard verdict",
+             ring_shape=rows[nb]["shape"], ring_ms=rows[nb]["ms"],
+             ring_plain_ms=rows[nb]["plain_ms"],
+             ring_library_ms=rows[nb]["library_ms"],
+             ring_bound_ms=rows[nb]["bound_ms"],
+             ring_max_abs_err=rows[nb]["max_abs_err"])
+    out["lu_u12_panel"] = r
+    for name, r in out.items():
+        print("kernel %s %s: max_abs_err %.3e (%s); kernel %.4f ms, plain "
+              "%.4f ms, library %.4f ms, bound %.5f ms (%s)%s"
+              % (name, r["shape"], r["max_abs_err"], r["tol"], r["ms"],
+                 r["plain_ms"], r["library_ms"], r["bound_ms"], r["bound_by"],
+                 "; ring call %s: kernel %.4f ms, plain %.4f ms, library "
+                 "%.4f ms, bound %.5f ms" % (
+                     r["ring_shape"], r["ring_ms"], r["ring_plain_ms"],
+                     r["ring_library_ms"], r["ring_bound_ms"])
+                 if "ring_ms" in r else ""), flush=True)
+    return out
+
+
+def _dist_report(label: str, res: dict, drivers) -> None:
+    for name in drivers:
+        r = res[name]
+        print("%s %s: wall %.1f ms; %s; launches %s; collectives %s"
+              % (label, name, r["wall_ms"], ", ".join(
+                  "%s %.4g" % (k, r[k]) for k in ("residual", "max_abs_L")
+                  if k in r), r["launches"], {
+                  k: round(v) for k, v in r["collectives"].items()}),
+              flush=True)
+
+
+def _dist_inputs(torch, n: int, dev):
+    """Phase 3j's extra inputs at n: an SPD (R + Rᵀ)/2 + n·I, a Gaussian
+    and DIST_NRHS Gaussian right-hand sides, from seed 51."""
+    gen = torch.Generator(device=dev).manual_seed(51)
+    r = torch.randn((n, n), generator=gen, device=dev)
+    a_spd = (r + r.T) / 2 + n * torch.eye(n, device=dev)
+    del r
+    return (a_spd, torch.randn((n, n), generator=gen, device=dev),
+            torch.randn((n, DIST_NRHS), generator=gen, device=dev))
+
+
+def main_path_dist(torch, st, kernels, dev) -> dict:
+    """Phase 3j: the distributed drivers on a 1×1 grid, a
+    ``torch.distributed`` world of one with the NCCL backend (a FileStore
+    in a temporary directory), so every collective is a real NCCL call:
+    pgemm, pposv and pgesv at n = 16384, nb = 256, fp32, 128 right-hand
+    sides, the sites at their card defaults (printed), through
+    ``launch.rank_baseline`` (the tester's residuals ≤ 3, |L| ≤ 1 + 100ε),
+    each driver a path of its own with exact kernel launches
+    (DIST_EXACT); the wall and a profiler split of one more pposv; then
+    at DIST_CHECK_N one pposv and one pgesv with every
+    chol_l21_panel, lu_u12_panel and matmul call held to its plain
+    version (:func:`check_path_calls`), and once more with
+    ``dist_panel=pallas_panel`` pinned, its chol_inv_panel and
+    trtri_panel calls held too."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from slate_tpu_torch.parallel import launch
+    from slate_tpu_torch.perf import autotune
+
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = st.parallel.make_grid_mesh(1, 1)
+            print("phase 3j: %r" % (mesh,), flush=True)
+            drivers = ("pgemm", "pposv", "pgesv")
+            res = launch.rank_baseline(mesh, DIST_N, NB, DIST_NRHS, 50,
+                                       drivers)
+            _dist_report("dist 1x1 n=%d nb=%d" % (DIST_N, NB), res, drivers)
+            print("dist 1x1 site decisions: %s" % res["decisions"], flush=True)
+            launches = {}
+            for name in drivers:
+                path = "dist_" + name
+                got = dict.fromkeys(kernels.launches, 0)
+                got.update(res[name]["launches"])
+                launches[path] = got
+                missing = [k for k in PATHS[path] if got[k] <= 0]
+                if missing:
+                    fail("the %s path launched no %s kernel"
+                         % (path, ", ".join(missing)))
+                for k, want in DIST_EXACT.get(path, {}).items():
+                    if got[k] != want:
+                        fail("%s: %d %s launches, want %d"
+                             % (path, got[k], k, want))
+            t_sub = {"baseline": time.perf_counter() - t_start}
+            t0 = time.perf_counter()
+            # where pposv's time goes: one more call's wall, then a
+            # profiled call.  pgesv's maxloc panel is ~15 launches a
+            # column: profiling it at 4096 took ~55 s of profiler time (my
+            # chip run 1, PR 8), so it is not repeated here
+            a_spd, _, b = _dist_inputs(torch, DIST_N, dev)
+
+            def pposv_once():
+                return st.parallel.pposv(a_spd, b, mesh, nb=NB)
+
+            wall = _wall_ms(torch, pposv_once, 1)
+            splits = {"pposv": dict(device_split(
+                torch, "dist 1x1 pposv n=%d (wall %.1f ms)" % (DIST_N, wall),
+                pposv_once, {"chol_l21_panel kernel": "chol_l21_panel_kernel",
+                             "matmul kernel": "matmul_f32_kernel",
+                             "nccl": "nccl"}), wall_ms=wall)}
+            n = DIST_CHECK_N
+            a_spd, a_gen, b = _dist_inputs(torch, n, dev)
+            t_sub["splits"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+
+            def both():
+                st.parallel.pposv(a_spd, b, mesh, nb=NB)
+                st.parallel.pgesv(a_gen, b, mesh, nb=NB)
+
+            tols = {k: CHECK_TOL[k] for k in ("matmul", "chol_l21_panel",
+                                              "lu_u12_panel")}
+            checks = {"dist": check_path_calls(
+                torch, kernels, "dist 1x1 n=%d" % n, both, tols)}
+            t_sub["checks"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            os.environ[FORCE] = "dist_panel=pallas_panel"
+            try:
+                tols = {k: CHECK_TOL[k] for k in ("matmul", "chol_inv_panel",
+                                                  "trtri_panel")}
+                # the unit-lower L11 of a pivoted LU of a Gaussian has a
+                # condition of 230-350 at nb = 256 (potri's triangles, for
+                # which phase 2 set 1e-4, far less): ‖L·L⁻¹ − I‖ of the
+                # plain version is 3.4e-5-5.2e-5 there on the host
+                checks["dist_pallas_panel"] = check_path_calls(
+                    torch, kernels, "dist 1x1 n=%d dist_panel=pallas_panel"
+                    % n, both, tols, ident_tol=1e-3)
+            finally:
+                del os.environ[FORCE]
+            t_sub["pallas_panel"] = time.perf_counter() - t0
+            print("dist pallas_panel decisions: %s; phase 3j's parts (s): %s"
+                  % ({k: v for k, v in autotune.decisions().items()
+                      if k.startswith("dist_panel")},
+                     {k: round(v, 1) for k, v in t_sub.items()}), flush=True)
+        finally:
+            dist.destroy_process_group()
+    res.update(launches=launches, path_checks=checks, splits=splits)
+    return res
+
+
+def main_path_dist_shared(torch) -> dict:
+    """Phase 3k: pposv and pgesv at n = 16384, nb = 256 (BASELINE.md
+    config 3's size and 2×2 grid, uncut) on four processes that SHARE the
+    one card, through ``launch.run_spmd`` with the gloo backend on CUDA
+    tensors (NCCL refuses two ranks on one card), the sites at their
+    card defaults (tournament pivots, depth 2): every rank's residuals
+    ≤ 3 and |L| ≤ 1 + 100ε (``launch.rank_baseline``), every rank
+    launching both kernels; a failing rank fails the phase.  The walls
+    are those of four processes on one card, not a multi-GPU number."""
+    from slate_tpu_torch.parallel import launch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.run_spmd(
+        "slate_tpu_torch.parallel.launch:rank_baseline", 2, 2,
+        (DIST_N, NB, DIST_NRHS, 50, ("pposv", "pgesv")), backend="gloo",
+        device="cuda:0", timeout=600)
+    wall = time.perf_counter() - t0
+    for res in ranks:
+        _dist_report("dist 2x2 (4 processes sharing one card) rank %s n=%d"
+                     % (res["rank"], DIST_N), res, ("pposv", "pgesv"))
+        for name in ("pposv", "pgesv"):
+            missing = [k for k in PATHS["dist_" + name]
+                       if res[name]["launches"].get(k, 0) <= 0]
+            if missing:
+                fail("dist 2x2 rank %s: %s launched no %s kernel"
+                     % (res["rank"], name, ", ".join(missing)))
+    print("dist 2x2 site decisions (rank 0): %s; the spawn with its four "
+          "processes took %.1f s" % (ranks[0]["decisions"], wall), flush=True)
+    return {"ranks": ranks, "wall_s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -2765,7 +3092,10 @@ def main() -> int:
     def qr_once():                  # phase 2f: one geqrf + ungqr
         st.ungqr(*st.geqrf(st.Matrix.from_array(a_qr, nb=NB, device=dev)))
     path_checks = {"qr": phase("2f", check_path_calls, torch, kernels,
-                               "QR path", qr_once, CHECK_TOL)}
+                               "QR path", qr_once, {
+                                   k: CHECK_TOL[k] for k in (
+                                       "matmul", "chol_inv_panel",
+                                       "lu_inv_panel", "trtri_panel")})}
     paths = {"cholesky": phase("3", main_path, torch, st, kernels,
                                dev)["launches"]}
     paths.update(phase("3b", main_path_lu, torch, st, kernels, dev)["launches"])
@@ -2786,6 +3116,11 @@ def main() -> int:
     svd = phase("3i", main_path_svd, torch, st, kernels, dev)
     paths.update(svd["launches"])
     path_checks.update(svd["path_checks"])
+    measured.update(phase("2i", check_dist_kernels, torch, kernels, dev))
+    dist1 = phase("3j", main_path_dist, torch, st, kernels, dev)
+    paths.update(dist1["launches"])
+    path_checks.update(dist1["path_checks"])
+    phase("3k", main_path_dist_shared, torch)
     print("phase walls (s): %s; total %.1f s since the build began"
           % (", ".join("%s %.1f" % kv for kv in spent.items()),
              time.perf_counter() - t0), flush=True)
@@ -2802,7 +3137,9 @@ def main() -> int:
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
         for extra in ("plain_shape", "kernel_ms_at_plain_shape",
-                      "barriers_ms", "fp64", "max_abs_err_fp64"):
+                      "barriers_ms", "fp64", "max_abs_err_fp64",
+                      "ring_shape", "ring_ms", "ring_plain_ms",
+                      "ring_library_ms", "ring_bound_ms"):
             if extra in r:
                 rows[-1][extra] = r[extra]
         for p, calls in path_checks.items():    # every call of one run

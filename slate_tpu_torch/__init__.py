@@ -24,7 +24,12 @@ two-stage Hermitian eigensolver — ``heev``, ``syev``, ``heev_vals``,
 :mod:`slate_tpu_torch.native` elsewhere — and the two-stage SVD —
 ``svd``, ``svd_vals``, ``gesvd`` (with ``ge2tb``, ``unmbr_ge2tb``,
 ``tb2bd``, ``unmbr_tb2bd`` and ``bdsqr``), whose band → bidiagonal chase
-is one launch of the ``tb2bd_wavefront`` kernel on the card.
+is one launch of the ``tb2bd_wavefront`` kernel on the card — and the
+distributed drivers over ``torch.distributed`` (:mod:`.parallel`:
+``pgemm``, ``ppotrf``/``ppotrs``/``pposv``, ``pgetrf``/``pgetrs``/
+``pgesv`` on a block-cyclic ``DistMatrix``, one process per grid
+position), whose per-step panels are the ``chol_l21_panel`` and
+``lu_u12_panel`` kernels on the card.
 """
 
 from . import config  # noqa: F401
@@ -42,9 +47,10 @@ from .options import Options, get_option  # noqa: F401
 from . import method  # noqa: F401
 from .linalg import *  # noqa: F401,F403
 from .interop import (  # noqa: F401
-    lu_batched_from_numpy, lu_batched_to_numpy, lu_from_numpy, lu_to_numpy,
-    matrix_from_numpy, matrix_to_numpy,
+    dist_from_numpy, dist_to_numpy, lu_batched_from_numpy,
+    lu_batched_to_numpy, lu_from_numpy, lu_to_numpy, matrix_from_numpy,
+    matrix_to_numpy,
 )
-from . import serve  # noqa: F401
+from . import parallel, serve  # noqa: F401
 
 __version__ = "0.1.0"

@@ -95,3 +95,31 @@ def lu_batched_to_numpy(lu, perm) -> dict:
     ``getrs_batched(jnp.asarray(d["lu"]), jnp.asarray(d["perm"]), b)``."""
     return {"lu": lu.detach().cpu().numpy(),
             "perm": perm.detach().cpu().numpy().astype(np.int64)}
+
+
+def dist_from_numpy(data, m: int, n: int, nb: int, mesh, mb=None,
+                    row_map=None, col_map=None):
+    """This rank's :class:`~slate_tpu_torch.parallel.DistMatrix` of a JAX
+    ``DistMatrix``'s content: ``data`` is its padded, shuffled storage
+    (``np.asarray(dm.data)``), the rest its fields.  The rank keeps the
+    storage block of its grid position (r, c), on the mesh's device."""
+    from .parallel.dist import DistMatrix
+
+    data = np.asarray(data)
+    h, w = data.shape[0] // mesh.p, data.shape[1] // mesh.q
+    if h * mesh.p != data.shape[0] or w * mesh.q != data.shape[1]:
+        raise ValueError("storage %s does not split over a %dx%d grid"
+                         % (data.shape, mesh.p, mesh.q))
+    shard = data[mesh.r * h:(mesh.r + 1) * h, mesh.c * w:(mesh.c + 1) * w]
+    return DistMatrix(torch.tensor(shard, device=mesh.device), m, n, nb,
+                      mesh, mb=mb, row_map=row_map, col_map=col_map)
+
+
+def dist_to_numpy(dm):
+    """The padded, shuffled storage of a DistMatrix as numpy, on every
+    rank (its shards gathered by one ``psum``): the ``data`` of the JAX
+    package's ``DistMatrix`` with the same fields, and the input of
+    :func:`dist_from_numpy`."""
+    from .parallel.dist import _storage
+
+    return _storage(dm).detach().cpu().numpy()

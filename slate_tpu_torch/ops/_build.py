@@ -48,6 +48,9 @@ SOURCES = {
                          ("lu_step.cuh", "lu_panel.cuh")),
     "hb2st_wavefront": ("hb2st_wavefront.cu", ("chase.cuh",)),
     "tb2bd_wavefront": ("tb2bd_wavefront.cu", ("chase.cuh",)),
+    "chol_l21_panel": ("chol_l21_panel.cu",
+                       ("potrf_step.cuh", "tri_panel.cuh")),
+    "lu_u12_panel": ("lu_u12_panel.cu", ("potrf_step.cuh", "tri_panel.cuh")),
 }
 
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

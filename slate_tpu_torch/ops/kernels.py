@@ -8,7 +8,8 @@ Each kernel has three things here:
   :func:`potrf_batched`, :func:`getrf_batched`, :func:`potrf_step_fused`,
   :func:`potrf_full_fused`, :func:`getrf_step_fused`,
   :func:`getrf_full_fused`, :func:`hb2st_wavefront`,
-  :func:`tb2bd_wavefront`) that checks device,
+  :func:`tb2bd_wavefront`, :func:`chol_l21_panel`,
+  :func:`lu_u12_panel`) that checks device,
   dtype, shape and strides, allocates its outputs and scratch with
   ``torch.empty``, launches the kernel on the current CUDA stream and
   raises if the launch fails.  Given CPU tensors it runs the plain
@@ -40,7 +41,8 @@ launches = {"matmul": 0, "chol_inv_panel": 0, "trtri_panel": 0,
             "potrf_batched": 0, "getrf_batched": 0,
             "potrf_step_fused": 0, "potrf_full_fused": 0,
             "getrf_step_fused": 0, "getrf_full_fused": 0,
-            "hb2st_wavefront": 0, "tb2bd_wavefront": 0}
+            "hb2st_wavefront": 0, "tb2bd_wavefront": 0,
+            "chol_l21_panel": 0, "lu_u12_panel": 0}
 
 IB = 32
 
@@ -73,6 +75,10 @@ _SIGNATURES = {
                         [_P, _I64] + [_I] * 4 + [_P] + [_I] * 2 + [_P]),
     "tb2bd_wavefront": ("slate_tb2bd_wavefront_%s",
                         [_P, _I64] + [_I] * 4 + [_P] * 2 + [_I] * 2 + [_P]),
+    "chol_l21_panel": ("slate_chol_l21_panel_f32",
+                       [_P, _I64, _P, _I64] + [_P] * 4 + [_I] * 3 + [_P]),
+    "lu_u12_panel": ("slate_lu_u12_panel_f32",
+                     [_P, _I64, _P, _I64] + [_P] * 6 + [_I] * 3 + [_P]),
 }
 _fns: dict = {}
 _fns_lock = threading.Lock()     # the entry-point cache; held across a build
@@ -987,6 +993,132 @@ def getrf_full_fused(at, act, nb: int = 512, bb: int = 128, ib: int = 16,
             cand.data_ptr(), cval.data_ptr(), clane.data_ptr(), t.data_ptr(),
             x2.data_ptr(), u.data_ptr(), m, nb, ib, grid)
     return at, piv, act_w
+
+
+# ---------------------------------------------------------------------------
+# The distributed drivers' fused panels (replace pallas_kernels.chol_l21_panel
+# :602 and lu_u12_panel :646): one cooperative grid each, block 0 forms the
+# (nb, nb) triangle's inverse, then every block takes 128-wide tiles of the
+# products
+# ---------------------------------------------------------------------------
+
+FUSED_TILE = 128
+
+
+def fused_panel_fits(nb: int, dims=(), device="cuda") -> bool:
+    """The two fused panel kernels' shape rule: on the card nb a power of
+    two in [128, 1024] and every dim of ``dims`` (the panel height of
+    :func:`chol_l21_panel`, the block-row width of :func:`lu_u12_panel`)
+    a multiple of 128; on the CPU, where the plain versions run, nb a
+    power of two in [32, 1024].  The ``dist_panel`` site calls the
+    ``pallas_fused`` rung ineligible where this fails."""
+    lo = FUSED_TILE if torch.device(device).type == "cuda" else IB
+    if not (lo <= nb <= 1024 and nb & (nb - 1) == 0):
+        return False
+    return torch.device(device).type != "cuda" or all(
+        d % FUSED_TILE == 0 for d in dims)
+
+
+def _check_fused_panel(name: str, tri, other, dims) -> int:
+    nb = tri.shape[-1]
+    if (tri.ndim != 2 or other.ndim != 2 or tri.shape[0] != nb
+            or tri.dtype != other.dtype
+            or tri.dtype not in (torch.float32, torch.float64)):
+        raise ValueError("%s takes a square (nb, nb) block and a 2-D operand "
+                         "of one real float dtype, got %s %s and %s %s"
+                         % (name, tri.dtype, tuple(tri.shape), other.dtype,
+                            tuple(other.shape)))
+    if not fused_panel_fits(nb, dims, tri.device):
+        raise ValueError("%s needs nb a power of two in [%d, 1024]%s, got nb "
+                         "= %d and %s" % (
+                             name, FUSED_TILE if tri.is_cuda else IB,
+                             " and 128 | %s on the card" % (dims,)
+                             if tri.is_cuda else "", nb, tuple(other.shape)))
+    return nb
+
+
+def chol_l21_panel_plain(d, panel):
+    """Plain version of :func:`chol_l21_panel`: :func:`chol_inv_panel_plain`
+    of ``d``, then X = panel·L⁻ᵀ as one product."""
+    l, linv = chol_inv_panel_plain(d)
+    return l, panel @ linv.mT
+
+
+def chol_l21_panel(d, panel):
+    """``(L, X)`` of ppotrf's per-step panel: L the lower Cholesky factor
+    of the (nb, nb) SPD block ``d`` (only its lower triangle is read;
+    zeros above the diagonal) and X = panel·L⁻ᵀ for the full-height
+    (M, nb) ``panel``.  On the card fp32, nb a power of two in [128,
+    1024], M a multiple of 128; either operand may be a view with unit
+    column stride and any row stride ≥ nb."""
+    m = panel.shape[0]
+    nb = _check_fused_panel("chol_l21_panel", d, panel, (m,))
+    if panel.shape[1] != nb:
+        raise ValueError("chol_l21_panel: the panel is %s, not (M, %d)"
+                         % (tuple(panel.shape), nb))
+    if _on_cpu(d, panel):
+        return chol_l21_panel_plain(d, panel)
+    _check_f32_2d("chol_l21_panel", d, panel)
+    _check_rows("chol_l21_panel", d)
+    _check_rows("chol_l21_panel", panel)
+    dev = d.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    l = torch.empty((nb, nb), **f32)
+    linv = torch.empty((nb, nb), **f32)
+    w = torch.empty(max((nb // 2) ** 2, nb * IB), **f32)
+    x = torch.empty((m, nb), **f32)
+    _launch("chol_l21_panel", dev, d.data_ptr(), d.stride(0),
+            panel.data_ptr(), panel.stride(0), l.data_ptr(), linv.data_ptr(),
+            w.data_ptr(), x.data_ptr(), m, nb, _plan("chol_l21_panel", dev))
+    return l, x
+
+
+def lu_u12_panel_plain(l11, rowblk):
+    """Plain version of :func:`lu_u12_panel`: :func:`trtri_panel_plain` of
+    L11, then u1 = L⁻¹·B, r1 = B − L11·u1, U = u1 + L⁻¹·r1 and
+    dev = max|r1| / max(max|B|, tiny)."""
+    linv = trtri_panel_plain(l11)
+    u1 = linv @ rowblk
+    r1 = rowblk - l11 @ u1
+    tiny = torch.finfo(rowblk.dtype).tiny
+    dev = r1.abs().max() / torch.clamp(rowblk.abs().max(), min=tiny)
+    return u1 + linv @ r1, dev.reshape(1, 1)
+
+
+def lu_u12_panel(l11, rowblk):
+    """``(U, dev)`` of pgetrf's block-row solve: U = L11⁻¹·B with one
+    residual correction, for the unit-lower (nb, nb) ``l11`` (its lower
+    triangle and diagonal are read for the inverse, the whole block for
+    the correction, as the TPU kernel does: the caller stores the unit
+    diagonal and zeros above it) and the (nb, w) block row ``rowblk``;
+    ``dev`` (1, 1) is the departure max|B − L11·L⁻¹B| / max|B| of the
+    uncorrected solve, the caller's guard.  On the card fp32, nb a power
+    of two in [128, 1024], w a multiple of 128; both operands may be
+    views with unit column stride."""
+    nb = _check_fused_panel("lu_u12_panel", l11, rowblk,
+                            (rowblk.shape[1],))
+    if rowblk.shape[0] != nb:
+        raise ValueError("lu_u12_panel: the block row is %s, not (%d, w)"
+                         % (tuple(rowblk.shape), nb))
+    if _on_cpu(l11, rowblk):
+        return lu_u12_panel_plain(l11, rowblk)
+    _check_f32_2d("lu_u12_panel", l11, rowblk)
+    _check_rows("lu_u12_panel", l11)
+    _check_rows("lu_u12_panel", rowblk)
+    dev = l11.device
+    w = rowblk.shape[1]
+    f32 = dict(dtype=torch.float32, device=dev)
+    u = torch.empty((nb, w), **f32)
+    linv = torch.empty((nb, nb), **f32)
+    work = torch.empty((nb // 2) ** 2, **f32)
+    r = torch.empty((nb, w), **f32)
+    mx = torch.empty(2, dtype=torch.int32, device=dev)
+    departure = torch.empty((1, 1), **f32)
+    _launch("lu_u12_panel", dev, l11.data_ptr(), l11.stride(0),
+            rowblk.data_ptr(), rowblk.stride(0), u.data_ptr(),
+            linv.data_ptr(), work.data_ptr(), r.data_ptr(), mx.data_ptr(),
+            departure.data_ptr(), nb, w, _plan("lu_u12_panel", dev))
+    return u, departure
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,48 @@
+"""Distributed execution over ``torch.distributed`` — the counterpart of
+``slate_tpu/parallel``.
+
+The JAX package runs its SPMD drivers under ``shard_map``, one program
+per device of a ``('p', 'q')`` mesh; here one process runs per grid
+position (:func:`.launch.run_spmd`, or a ``torch.distributed`` world the
+caller initialized) and every rank calls the same driver on its own
+shard.  The block-cyclic layout, the drivers' step loops and their site
+decisions are the JAX package's.  With no process group a 1×1 grid is
+the serial stub (:func:`make_grid_mesh`).
+
+Ported: ``make_grid_mesh``, ``DistMatrix``, ``distribute``,
+``undistribute``, ``pgemm`` (SUMMA and the A-stationary ``pgemm_a``),
+``ppotrf``/``ppotrs``/``pposv`` and ``pgetrf``/``pgetrs``/``pgesv``.
+"""
+
+from .mesh import (default_mesh, grid_of, make_grid_mesh,  # noqa: F401
+                   mesh_grid_shape)
+from .dist import DistMatrix, distribute, undistribute  # noqa: F401
+from .dist_blas3 import pgemm, pgemm_a, pgemm_auto  # noqa: F401
+from .dist_factor import ppotrf, ppotrs, pposv  # noqa: F401
+from .dist_lu import pgesv, pgetrf, pgetrs  # noqa: F401
+
+# ---------------------------------------------------------------------------
+# User-tile-map ingestion: every public driver re-grids a DistMatrix
+# distributed with a custom row_map/col_map to the canonical block-cyclic
+# layout on entry (dist.canonical_args), rebound in the defining modules
+# too so direct submodule imports are covered (as the JAX package does,
+# slate_tpu/parallel/__init__.py:40-76).
+# ---------------------------------------------------------------------------
+from . import (dist_blas3 as _m_blas3, dist_factor as _m_factor,  # noqa: E402
+               dist_lu as _m_lu)
+from .dist import canonical_args as _canonical_args  # noqa: E402
+
+_DRIVER_NAMES = {
+    _m_blas3: ["pgemm", "pgemm_a"],
+    _m_factor: ["ppotrf", "ppotrs", "pposv"],
+    _m_lu: ["pgetrf", "pgetrs", "pgesv"],
+}
+for _mod, _names in _DRIVER_NAMES.items():
+    for _nm in _names:
+        _f = getattr(_mod, _nm)
+        if not hasattr(_f, "__wrapped_driver__"):
+            _wrapped = _canonical_args(_f)
+            setattr(_mod, _nm, _wrapped)
+            if _nm in globals():
+                globals()[_nm] = _wrapped
+del _mod, _names, _nm, _f

@@ -22,6 +22,17 @@ The ``chase`` site returns ``"kernel"`` (the ``hb2st_wavefront`` or
 ``"twostage"``, their one candidate ported, or the name a pin gives
 them.
 
+The four sites of the distributed drivers (:mod:`slate_tpu_torch.parallel`)
+keep the JAX package's rung names, so one pin string means the same
+thing to both packages: ``dist_panel`` (``"xla"``, ``"pallas_panel"``,
+``"pallas_fused"``: the stock solves, the ``chol_inv_panel`` /
+``trtri_panel`` kernels with products around them, or the fused
+``chol_l21_panel`` / ``lu_u12_panel`` kernels), ``dist_pivot``
+(``"maxloc"``, ``"tournament"``), ``dist_chunk`` (``"whole"``, ``"2"``,
+``"4"``) and ``dist_lookahead`` (``"1"`` … ``"4"``).  On ``cuda`` their
+defaults are the JAX package's defaults on its chip; elsewhere its
+off-chip answers.  :data:`FORCE_ENV` pins any rung the key offers.
+
 The two step-depth sites, ``potrf_step`` and ``lu_step``, return a depth
 of their driver instead: ``"composed"`` (the panel kernel and the glue
 around it), ``"fused"`` (one kernel launch per step; for LU also
@@ -366,12 +377,112 @@ def choose_svd_driver(m: int, n: int, dtype, device, eligible: bool) -> str:
     return _driver_site("svd_driver", key, eligible and n >= 4)
 
 
+def _dist_site(site: str, key: tuple, names, default: str,
+               reason: str) -> str:
+    """A distributed site: a :data:`FORCE_ENV` pin among ``names`` as it
+    is, any other pin warned about and ignored, else ``default``."""
+    forced = _forced(site)
+    if forced is not None:
+        if forced in names:
+            return _record(site, key, forced, "forced")
+        _warn_bad_force(site, forced, names)
+    return _record(site, key, default, reason)
+
+
+def choose_dist_panel(op: str, nb: int, dtype, device, eligible: bool,
+                      eligible_panel: bool, eligible_fused: bool,
+                      m=None, w=None) -> str:
+    """Per-step panel solve of ppotrf (``op`` ``"potrf"``) and pgetrf
+    (``"getrf"``): ``"xla"`` (``torch.linalg`` cholesky and triangular
+    solves), ``"pallas_panel"`` (the ``chol_inv_panel`` / ``trtri_panel``
+    kernel and products around it) or ``"pallas_fused"`` (one
+    ``chol_l21_panel`` / ``lu_u12_panel`` launch a solve).  The call site
+    (:func:`slate_tpu_torch.parallel.dist_util.dist_panel_backend`) gives
+    the three gates: ``eligible`` (a real float dtype and a power-of-two
+    nb in [32, 1024], fp32 on the card), ``eligible_panel`` (fp32: the
+    panel kernels' wrappers take fp32 only) and ``eligible_fused`` (the
+    fused kernels' shape rule, :func:`slate_tpu_torch.ops.kernels.
+    fused_panel_fits`, at the panel height ``m`` / block-row width
+    ``w``).  On ``cuda`` for fp32, and anywhere under
+    ``SLATE_TPU_TORCH_USE_KERNELS=1``, the default is the last rung
+    eligible (``"pallas_fused"`` where it is: the JAX package's default
+    on its chip, ``slate_tpu/perf/autotune.py:1481-1482``), else
+    ``"xla"``, which is also the answer with kernels off unless a pin
+    names another rung."""
+    dt = str(dtype).replace("torch.", "")
+    key = (op, nb, dt, torch.device(device).type) \
+        + (() if m is None else ("m%d" % pow2_bucket(m),)) \
+        + (() if w is None else ("w%d" % pow2_bucket(w),))
+    if not eligible:
+        return _record("dist_panel", key, "xla", "ineligible")
+    names = ["xla"] + (["pallas_panel"] if eligible_panel else []) \
+        + (["pallas_fused"] if eligible_fused else [])
+    mode = config.use_kernels_mode()
+    if mode == "off":
+        default, reason = "xla", "kernels off"
+    elif mode == "on" or (torch.device(device).type == "cuda"
+                          and dtype == torch.float32):
+        default, reason = names[-1], "kernels on"
+    else:
+        default, reason = "xla", "default off the card"
+    return _dist_site("dist_panel", key, names, default, reason)
+
+
+def choose_dist_pivot(nb: int, p: int, dtype, device, eligible: bool) -> str:
+    """Pivot search of pgetrf's replicated panel: ``"maxloc"`` (the
+    per-column argmax chain over the whole panel) or ``"tournament"``
+    (CALU: per-grid-row candidates and a pairwise tournament).  On
+    ``cuda`` with p > 1 the default is ``"tournament"``, else
+    ``"maxloc"`` (``slate_tpu/perf/autotune.py:1485-1511``)."""
+    key = (nb, p, str(dtype).replace("torch.", ""),
+           torch.device(device).type)
+    names = ("maxloc", "tournament")
+    if not eligible:
+        return _record("dist_pivot", key, "maxloc", "ineligible")
+    if torch.device(device).type == "cuda" and p > 1:
+        return _dist_site("dist_pivot", key, names, "tournament",
+                          "default on the card, p > 1")
+    return _dist_site("dist_pivot", key, names, "maxloc", "default")
+
+
+def choose_dist_chunk(op: str, nb: int, dtype, p: int, q: int,
+                      device) -> str:
+    """Slices of each fused panel broadcast: ``"whole"`` (one all-reduce)
+    or ``"2"`` / ``"4"`` (that many narrower ones; the same bytes and
+    values).  On ``cuda`` the default is ``"2"`` for nb ≥ 1024 and
+    ``"whole"`` below (``slate_tpu/perf/autotune.py:1514-1539``)."""
+    key = (op, p, q, nb, str(dtype).replace("torch.", ""),
+           torch.device(device).type)
+    names = ("whole", "2", "4")
+    if torch.device(device).type == "cuda" and nb >= 1024:
+        return _dist_site("dist_chunk", key, names, "2",
+                          "default on the card, nb >= 1024")
+    return _dist_site("dist_chunk", key, names, "whole", "default")
+
+
+def choose_dist_lookahead(op: str, nt: int, nb: int, dtype, device) -> str:
+    """Depth D of the distributed factorizations' lookahead panel ring
+    (``"1"`` … ``"4"``).  On ``cuda`` the default is ``"2"`` for nt ≥ 8
+    and ``"1"`` below (``slate_tpu/perf/autotune.py:1542-1566``)."""
+    key = (op, nt, nb, str(dtype).replace("torch.", ""),
+           torch.device(device).type)
+    names = ("1", "2", "3", "4")
+    if torch.device(device).type == "cuda" and nt >= 8:
+        return _dist_site("dist_lookahead", key, names, "2",
+                          "default on the card, nt >= 8")
+    return _dist_site("dist_lookahead", key, names, "1", "default")
+
+
 _SITES = {
     "batched_heev": choose_batched_heev,
     "batched_lu": choose_batched_lu,
     "batched_potrf": choose_batched_potrf,
     "batched_qr": choose_batched_qr,
     "chase": choose_chase,
+    "dist_chunk": choose_dist_chunk,
+    "dist_lookahead": choose_dist_lookahead,
+    "dist_panel": choose_dist_panel,
+    "dist_pivot": choose_dist_pivot,
     "eig_driver": choose_eig_driver,
     "geqrf_panel": choose_geqrf_panel,
     "lu_panel": choose_lu_panel,

@@ -126,6 +126,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     kernels.getrf_full_fused(spd.clone(), torch.ones(1, 256), nb=128)
     kernels.hb2st_wavefront(torch.zeros((40, 18), dtype=torch.float64), 8)
     kernels.tb2bd_wavefront(torch.zeros((40, 26), dtype=torch.float64), 8)
+    kernels.chol_l21_panel(a, torch.zeros(128, 64))
+    kernels.lu_u12_panel(torch.eye(64), torch.ones(64, 128))
     assert set(kernels.launches) == {"matmul", "chol_inv_panel",
                                      "trtri_panel", "lu_inv_panel",
                                      "getrf_panel_linv",
@@ -133,7 +135,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                                      "getrf_batched", "potrf_step_fused",
                                      "potrf_full_fused", "getrf_step_fused",
                                      "getrf_full_fused", "hb2st_wavefront",
-                                     "tb2bd_wavefront"}
+                                     "tb2bd_wavefront", "chol_l21_panel",
+                                     "lu_u12_panel"}
     assert all(v == 0 for v in kernels.launches.values())
 
 
