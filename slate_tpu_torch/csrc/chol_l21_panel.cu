@@ -7,9 +7,9 @@
 // keeps in VMEM beside the factor.
 //
 // What bounds it on an H100: at the distributed path's shape (M = 16384,
-// nb = 256) the work is 2·M·nb² + ⅔nb³ ≈ 2.16e9 FLOP over 33 MB of inputs
-// and outputs, so it is bound by operations (≈ 0.032 ms at 67 TFLOP/s
-// fp32).  The TPU kernel holds the whole panel in VMEM (16 MB); an SM holds
+// nb = 256) the useful work is M·nb² (a product by a triangle) + ⅔nb³ ≈
+// 1.08e9 FLOP over 34 MB of inputs and outputs, so it is bound by
+// operations (≈ 0.016 ms at 67 TFLOP/s fp32).  The TPU kernel holds the whole panel in VMEM (16 MB); an SM holds
 // 227 KB.  So one cooperative grid of 1024-thread blocks, one per SM, runs
 // two phases, as potrf_step.cuh's phases A and B:
 //   A. block 0 factors D and inverts L (tri_panel.cuh's chol_inv_block,

@@ -9,9 +9,10 @@
 // L11 as given, as the TPU kernel does.
 //
 // What bounds it on an H100: at the widest call of the distributed path
-// (nb = 256, w = 16384) the three products and the inverse are
-// 6·nb²·w + nb³/3 ≈ 6.45e9 FLOP over 33 MB: bound by operations (≈ 0.096
-// ms at 67 TFLOP/s fp32).  The TPU kernel keeps B, U and r1 in VMEM; here
+// (nb = 256, w = 16384) the three products by triangles (L⁻¹ twice and the
+// unit-lower L11 the caller stores) and the inverse need 3·nb²·w + nb³/3 ≈
+// 3.23e9 FLOP over 34 MB: bound by operations (≈ 0.048 ms at 67 TFLOP/s
+// fp32).  The TPU kernel keeps B, U and r1 in VMEM; here
 // one cooperative grid of 1024-thread blocks, one per SM:
 //   A. block 0 inverts L11 (tri_panel.cuh's per-32 block inverses and
 //      recursive doubling, as trtri_panel.cu) and zeroes the two maxima
