@@ -63,7 +63,17 @@
    (fp64) of torch.linalg.svdvals; a Gaussian triangular band printed,
    not gated (numerically singular); then at the svd paths' (8192, 256)
    fp32 and (4096, 256) fp64 calls the three 64-sweep windows and the
-   whole chase, timed with the barriers alone.
+   whole chase, timed with the barriers alone.  The tile kernels
+   (phase 2j): ``tile_norms`` on the (4096, 256, 256) tile batch of a
+   16384² fp32 Gaussian and the (1024, 256, 256) batch of an 8192² fp64
+   one (max bitwise, fro within 1e-5 / 1e-12 relative, a NaN tile NaN
+   for both), ``tzset``/``tzscale`` (lower and upper; the strict
+   triangle, the diagonal and the other triangle each bitwise and each
+   what the op leaves there), ``geadd`` (bitwise; β = 0 keeps a NaN of
+   B) and ``gescale_row_col`` (bitwise) on the 16384² fp32 and 8192²
+   fp64 matrices and at (384, 640) and (640, 384) with 128-tiles; each
+   timed at 16384² fp32 beside its bytes bound, its plain version and
+   ``vector_norm(inf)`` (max) or a torch composition.
 3. Drives the main paths through the public entry points, with the
    reference tester's scaled-residual gates (≤ 3):
    * Cholesky: ``posv`` of an n = 8192 fp32 HermitianMatrix (nb = 256,
@@ -154,6 +164,25 @@
      one pgesv at 4096 with ``dist_chunk=2`` pinned and every
      ``chol_l21_panel``, ``lu_u12_panel`` and ``matmul`` call held to
      its plain version.
+   * the ninth slice (phase 3l): tester.py's ``norm`` routine at
+     16384² fp32 (Max exact, One/Inf/Fro within 1e-5 of fp64),
+     ``col_norms``, a Symmetric, a unit Triangular and a HermitianBand
+     (kd = 256) matrix at 8192 against masked fp64 references; the tile
+     kernels through their public entries tied to the driver functions
+     (``norm`` Max and Fro to the tile partials, ``util.add``,
+     ``util.scale_row_col``, ``util.set``/``scale`` on a Lower
+     TriangularMatrix bitwise), and no tile kernel launched on any
+     driver path; ``gecondest`` (fp32 and fp64), ``pocondest`` and
+     ``trcondest`` at n = 8192 under tester.py's gates; ``posv_mixed``
+     and ``gesv_mixed`` at n = 8192 fp64 with 128 right-hand sides
+     (residual ≤ 3 in ε₆₄ units, no fallback; the fp32 low leg's
+     launches equal one direct fp32 ``potrf_rec``/``getrf_rec``'s)
+     beside cuSOLVER's fp64 solves, both ``_gmres`` forms at 4
+     right-hand sides, ``gels_mixed`` on bench.py's (32768, 4096)
+     Gaussian in fp64 (normal-equations residual ≤ 3 in ε₆₄ units), the
+     fallback (``random_spd(2048, cond=1e10)``: iters < 0, residual
+     ≤ 3), and ``pbsv``/``gbsv`` at n = 8192 (kd = 256; kl = ku = 256),
+     residuals ≤ 3.
    Every kernel's launch count is set to 0 just before each path (each
    LU driver, ``getri``, each batched driver, the served requests, each
    depth and each distributed driver a path of its own) and read just
@@ -209,7 +238,17 @@ REPO = {"matmul": ("slate_tpu_torch/csrc/matmul.cu",
         "chol_l21_panel": ("slate_tpu_torch/csrc/chol_l21_panel.cu",
                            "slate_tpu/ops/pallas_kernels.py:602"),
         "lu_u12_panel": ("slate_tpu_torch/csrc/lu_u12_panel.cu",
-                         "slate_tpu/ops/pallas_kernels.py:646")}
+                         "slate_tpu/ops/pallas_kernels.py:646"),
+        "tile_norms": ("slate_tpu_torch/csrc/tile_norms.cu",
+                       "slate_tpu/ops/pallas_kernels.py:148"),
+        "tzset": ("slate_tpu_torch/csrc/tz.cu",
+                  "slate_tpu/ops/pallas_kernels.py:193"),
+        "tzscale": ("slate_tpu_torch/csrc/tz.cu",
+                    "slate_tpu/ops/pallas_kernels.py:201"),
+        "geadd": ("slate_tpu_torch/csrc/geadd.cu",
+                  "slate_tpu/ops/pallas_kernels.py:232"),
+        "gescale_row_col": ("slate_tpu_torch/csrc/gescale_row_col.cu",
+                            "slate_tpu/ops/pallas_kernels.py:253")}
 LU_NB, LU_BB, LU_IB = 512, 128, 16   # the scattered driver's panel call
 LEAF_W, LEAF_IB = 256, 32            # getrf_rec's kernel leaf at nb = 256
 #: bench.py's batched configuration (B, n) and serve configuration
@@ -246,7 +285,19 @@ PATHS = {"cholesky": ("matmul", "chol_inv_panel", "trtri_panel"),
          "svd_tall": ("matmul", "tb2bd_wavefront"),
          "dist_pgemm": ("matmul",),
          "dist_pposv": ("matmul", "chol_l21_panel"),
-         "dist_pgesv": ("matmul", "lu_u12_panel")}
+         "dist_pgesv": ("matmul", "lu_u12_panel"),
+         "tile_ties": ("tile_norms", "tzset", "tzscale", "geadd",
+                       "gescale_row_col"),
+         "posv_mixed": ("matmul",),
+         "gesv_mixed": ("matmul", "getrf_panel_linv"),
+         "posv_mixed_gmres": ("matmul",),
+         "gesv_mixed_gmres": ("matmul", "getrf_panel_linv"),
+         "gels_mixed": ("matmul",),
+         "pbsv": ("matmul",),
+         "gbsv": ("matmul", "getrf_panel_fused")}
+#: the tile kernels, which no driver calls: their path is their own
+#: public entry, tied to the driver function computing the same thing
+TILE_KERNELS = PATHS["tile_ties"]
 #: the depth paths' exact launch counts at n = 8192 (16 steps of 512), the
 #: composed depth's panel kernels among them (never launched there)
 EXACT = {"chol_fused": {"potrf_step_fused": 16, "potrf_full_fused": 0,
@@ -300,6 +351,12 @@ HEEV_REPS = 1
 DIST_N, DIST_NRHS, DIST_CHECK_N = 16384, 128, 4096
 DIST_EXACT = {"dist_pposv": {"chol_l21_panel": 64},
               "dist_pgesv": {"lu_u12_panel": 127}}
+#: phase 2j's and 3l's sizes: the 16384² fp32 matrix and its 256² tiles,
+#: fp64 at 8192²; the mixed drivers' and condition estimates' n (128
+#: right-hand sides, 4 through GMRES), the forced fallback's n and the
+#: band solvers' bandwidth
+TILE_N, TILE_T, TILE_N64 = 16384, 256, 8192
+MIXED_N, GMRES_NRHS, FALLBACK_N, BAND_KD = 8192, 4, 2048, 256
 
 
 def fail(msg: str):
@@ -3152,6 +3209,580 @@ def main_path_dist_shared(torch) -> dict:
             "wall_s": wall}
 
 
+def _tiles(x, t: int):
+    """The (nt, t, t) tile batch of a square matrix, tile-row-major (a
+    contiguous copy)."""
+    n = x.shape[0]
+    return x.reshape(n // t, t, n // t, t).permute(0, 2, 1, 3).reshape(
+        -1, t, t)
+
+
+def _tz_regions(torch, m: int, n: int, lower: bool, dev):
+    """Masks of the strict stored triangle, the diagonal and the other
+    triangle of an (m, n) matrix."""
+    i = torch.arange(m, device=dev)[:, None]
+    j = torch.arange(n, device=dev)[None, :]
+    strict = (i > j) if lower else (i < j)
+    return {"strict triangle": strict, "diagonal": i == j,
+            "other triangle": ~strict & (i != j)}
+
+
+def _tz_checks(torch, kernels, label, a, lower, bm=256, bn=256):
+    """tzset and tzscale of ``a`` against their plain versions, bitwise,
+    region by region, and the regions against what each op must leave
+    there.  Returns the max |kernel − plain| over both."""
+    off, dg = -0.75, 2.5
+    regions = _tz_regions(torch, a.shape[0], a.shape[1], lower, a.device)
+    offv = torch.tensor(off, dtype=a.dtype, device=a.device)
+    dgv = torch.tensor(dg, dtype=a.dtype, device=a.device)
+    want = {"tzset": {"strict triangle": lambda: offv.expand_as(a),
+                      "diagonal": lambda: dgv.expand_as(a),
+                      "other triangle": lambda: a},
+            "tzscale": {"strict triangle": lambda: a * offv,
+                        "diagonal": lambda: a * dgv,
+                        "other triangle": lambda: a}}
+    err = 0.0
+    for op in ("tzset", "tzscale"):
+        got = getattr(kernels, op)(a, lower, off, dg, bm=bm, bn=bn)
+        ref = getattr(kernels, op + "_plain")(a, lower, off, dg)
+        torch.cuda.synchronize()
+        for name, mask in regions.items():
+            if not torch.equal(got[mask], ref[mask]):
+                fail("%s %s %s: the %s differs from the plain version"
+                     % (op, label, "lower" if lower else "upper", name))
+            if not torch.equal(got[mask], want[op][name]()[mask]):
+                fail("%s %s: the %s is not what %s leaves there"
+                     % (op, label, name, op))
+        err = max(err, float((got - ref).abs().max()))
+        del got, ref
+    return err
+
+
+def _elementwise_checks(torch, kernels, label, a, b, r, c, bm=256,
+                        bn=256) -> None:
+    """geadd and gescale_row_col against their plain versions, bitwise."""
+    got = kernels.geadd(1.5, a, -0.3, b, bm=bm, bn=bn)
+    ref = kernels.geadd_plain(1.5, a, -0.3, b)
+    got2 = kernels.gescale_row_col(r, c, a, bm=bm, bn=bn)
+    ref2 = kernels.gescale_row_col_plain(r, c, a)
+    torch.cuda.synchronize()
+    for name, g, p in (("geadd", got, ref), ("gescale_row_col", got2, ref2)):
+        if not torch.equal(g, p):
+            fail("%s %s differs from its plain version: max %.3e"
+                 % (name, label, float((g - p).abs().max())))
+
+
+def check_tile_kernels(torch, kernels, dev) -> dict:
+    """Phase 2j: tile_norms, tzset/tzscale, geadd and gescale_row_col
+    against their plain versions: the (4096, 256, 256) tile batch of a
+    16384² fp32 Gaussian and the matrix itself, fp64 at 8192², and the
+    small shapes (384, 640) and (640, 384) at bm = bn = 128, lower and
+    upper.  Bitwise but for the fro partials (1e-5 relative in fp32,
+    1e-12 in fp64); a tile holding a NaN gives NaN for max and fro, and
+    geadd with β = 0 keeps a NaN of B.  Then each timed (CUDA events)
+    beside its bytes bound, its plain version and a library call or a
+    torch composition."""
+    gen = torch.Generator(device=dev).manual_seed(90)
+    n, t = TILE_N, TILE_T
+    out = {}
+
+    def norm_checks(x, label, tol):
+        tiles = _tiles(x, t)
+        mx, mxp = kernels.tile_norms(tiles, "max"), \
+            kernels.tile_norms_plain(tiles, "max")
+        fr, frp = kernels.tile_norms(tiles, "fro"), \
+            kernels.tile_norms_plain(tiles, "fro")
+        torch.cuda.synchronize()
+        if not torch.equal(mx, mxp):
+            fail("tile_norms max %s differs from its plain version" % label)
+        rel = float(((fr.double() - frp.double()).abs()
+                     / frp.double()).max())
+        if not rel <= tol:
+            fail("tile_norms fro %s: rel %.3e > %g" % (label, rel, tol))
+        return tiles, rel, float((fr - frp).abs().max())
+
+    x = torch.randn((n, n), generator=gen, device=dev)
+    tiles, fro_rel, fro_abs = norm_checks(x, "fp32 (4096, 256, 256)", 1e-5)
+    x64 = torch.randn((TILE_N64, TILE_N64), generator=gen, device=dev,
+                      dtype=torch.float64)
+    tiles64, fro_rel64, _ = norm_checks(x64, "fp64 (1024, 256, 256)", 1e-12)
+    del tiles64
+    # one tile holding a NaN: NaN for both norms there, finite elsewhere
+    nanb = tiles[:16].clone()
+    nanb[5, 17, 200] = float("nan")
+    for norm in ("max", "fro"):
+        got = kernels.tile_norms(nanb, norm)
+        nan = torch.isnan(got)
+        if not (bool(nan[5]) and int(nan.sum()) == 1 and torch.equal(
+                nan, torch.isnan(kernels.tile_norms_plain(nanb, norm)))):
+            fail("tile_norms %s: the NaN tile gives %s" % (norm, got[:8]))
+    del nanb
+
+    tz_err = 0.0
+    for lower in (True, False):
+        tz_err = max(tz_err, _tz_checks(torch, kernels, "fp32 16384^2", x,
+                                        lower),
+                     _tz_checks(torch, kernels, "fp64 8192^2", x64, lower))
+        for shape in ((384, 640), (640, 384)):
+            for dt in (torch.float32, torch.float64):
+                small = torch.randn(shape, generator=gen, device=dev,
+                                    dtype=dt)
+                tz_err = max(tz_err, _tz_checks(
+                    torch, kernels, "%s %s" % (dt, shape), small, lower,
+                    128, 128))
+    y = torch.randn((n, n), generator=gen, device=dev)
+    r = torch.randn(n, generator=gen, device=dev)
+    c = torch.randn(n, generator=gen, device=dev)
+    _elementwise_checks(torch, kernels, "fp32 16384^2", x, y, r, c)
+    y64 = torch.randn((TILE_N64, TILE_N64), generator=gen, device=dev,
+                      dtype=torch.float64)
+    _elementwise_checks(torch, kernels, "fp64 8192^2", x64, y64, r[:TILE_N64]
+                        .double(), c[:TILE_N64].double())
+    for shape in ((384, 640), (640, 384)):
+        for dt in (torch.float32, torch.float64):
+            a_s, b_s = (torch.randn(shape, generator=gen, device=dev,
+                                    dtype=dt) for _ in range(2))
+            _elementwise_checks(torch, kernels, "%s %s" % (dt, shape), a_s,
+                                b_s, a_s[:, 0].contiguous(),
+                                b_s[0].contiguous(), 128, 128)
+    # geadd with β = 0 reads B: a NaN there stays
+    bn = y.clone()
+    bn[7, 11] = float("nan")
+    g0 = kernels.geadd(2.0, x, 0.0, bn)
+    if not (bool(torch.isnan(g0[7, 11])) and int(torch.isnan(g0).sum()) == 1):
+        fail("geadd with beta = 0 dropped the NaN of B")
+    del bn, g0
+    print("phase 2j: tile_norms fro rel %.3e (fp32), %.3e (fp64); tz, geadd, "
+          "gescale_row_col and tile_norms max bitwise at 16384^2 fp32, "
+          "8192^2 fp64, (384, 640) and (640, 384) at 128-tiles; the NaN "
+          "tile and beta = 0 NaN kept" % (fro_rel, fro_rel64), flush=True)
+
+    # ---- timing at 16384² fp32 (fp64 at 8192² as an extra) -------------
+    s = 4
+    inf = float("inf")
+    mn = float(n) * n
+    low = n * (n + 1) / 2.0               # a lower triangle with its diagonal
+
+    def tzset_comp():
+        o = torch.full_like(x, -0.75).tril_(-1)
+        o += x.triu(1)
+        o.diagonal().fill_(2.5)
+        return o
+
+    def tzscale_comp():
+        o = x.tril(-1).mul_(-0.75)
+        o += x.triu(1)
+        o.diagonal().copy_(x.diagonal() * 2.5)
+        return o
+
+    rows = {
+        "tile_norms": dict(
+            shape="(4096,256,256) fp32 tiles of a 16384^2 Gaussian, max",
+            kern=lambda: kernels.tile_norms(tiles, "max"),
+            plain=lambda: kernels.tile_norms_plain(tiles, "max"),
+            lib=lambda: torch.linalg.vector_norm(tiles, inf, dim=(1, 2)),
+            library="torch.linalg.vector_norm(x, inf, dim=(1, 2))",
+            flops=mn, nbytes=s * (mn + tiles.shape[0]),
+            max_abs_err=0.0, rel_err=0.0,
+            tol="max bitwise; fro rel <= 1e-5 (fp32), 1e-12 (fp64)"),
+        "tzset": dict(
+            shape="(16384,16384) fp32, lower",
+            kern=lambda: kernels.tzset(x, True, -0.75, 2.5),
+            plain=lambda: kernels.tzset_plain(x, True, -0.75, 2.5),
+            lib=tzset_comp, library="composition (full, tril_, triu, +=, "
+            "diagonal fill)",
+            flops=0.0, nbytes=s * ((mn - low) + mn),
+            max_abs_err=tz_err, rel_err=0.0, tol="bitwise, by region"),
+        "tzscale": dict(
+            shape="(16384,16384) fp32, lower",
+            kern=lambda: kernels.tzscale(x, True, -0.75, 2.5),
+            plain=lambda: kernels.tzscale_plain(x, True, -0.75, 2.5),
+            lib=tzscale_comp, library="composition (tril, mul_, triu, +=, "
+            "diagonal copy)",
+            flops=mn, nbytes=s * 2 * mn,
+            max_abs_err=tz_err, rel_err=0.0, tol="bitwise, by region"),
+        "geadd": dict(
+            shape="(16384,16384) fp32, alpha 1.5, beta -0.3",
+            kern=lambda: kernels.geadd(1.5, x, -0.3, y),
+            plain=lambda: kernels.geadd_plain(1.5, x, -0.3, y),
+            lib=lambda: x.mul(1.5).add_(y, alpha=-0.3),
+            library="composition (mul, add_ with alpha)",
+            flops=3 * mn, nbytes=s * 3 * mn,
+            max_abs_err=0.0, rel_err=0.0, tol="bitwise"),
+        "gescale_row_col": dict(
+            shape="(16384,16384) fp32, r and c of 16384",
+            kern=lambda: kernels.gescale_row_col(r, c, x),
+            plain=lambda: kernels.gescale_row_col_plain(r, c, x),
+            lib=lambda: (x * r[:, None]).mul_(c),
+            library="composition (mul, mul_)",
+            flops=2 * mn, nbytes=s * (2 * mn + 2 * n),
+            max_abs_err=0.0, rel_err=0.0, tol="bitwise"),
+    }
+    fp64 = {"tile_norms": lambda: kernels.tile_norms(_tiles(x64, t), "max"),
+            "tzset": lambda: kernels.tzset(x64, True, -0.75, 2.5),
+            "tzscale": lambda: kernels.tzscale(x64, True, -0.75, 2.5),
+            "geadd": lambda: kernels.geadd(1.5, x64, -0.3, y64),
+            "gescale_row_col": lambda: kernels.gescale_row_col(
+                r[:TILE_N64].double(), c[:TILE_N64].double(), x64)}
+    for name, row in rows.items():
+        b_ms, b_by = bound(row.pop("flops"), row.pop("nbytes"))
+        kern, plain, lib = row.pop("kern"), row.pop("plain"), row.pop("lib")
+        row.update(ms=cuda_ms(torch, kern, 20), plain_ms=cuda_ms(torch, plain,
+                                                                  5),
+                   library_ms=cuda_ms(torch, lib, 20), bound_ms=b_ms,
+                   bound_by=b_by, fp64_8192_ms=cuda_ms(torch, fp64[name], 10))
+        out[name] = row
+    fro_ms = cuda_ms(torch, lambda: kernels.tile_norms(tiles, "fro"), 20)
+    out["tile_norms"]["fro_ms"] = fro_ms
+    out["tile_norms"]["max_abs_err_fro"] = fro_abs
+    for name, row in out.items():
+        print("kernel %s %s: max_abs_err %.3e (%s); kernel %.4f ms, plain "
+              "%.4f ms, %s %.4f ms, bound %.5f ms (%s); fp64 at 8192^2 %.4f ms"
+              % (name, row["shape"], row["max_abs_err"], row["tol"],
+                 row["ms"], row["plain_ms"], row["library"],
+                 row["library_ms"], row["bound_ms"], row["bound_by"],
+                 row["fp64_8192_ms"]), flush=True)
+    print("kernel tile_norms fro at (4096,256,256): %.4f ms" % fro_ms,
+          flush=True)
+    del x, y, x64, y64, tiles
+    torch.cuda.empty_cache()
+    return out
+
+
+def _masked_ref(torch, a64, kind: str, kd: int = 0):
+    """The fp64 matrix a norm of ``kind`` reads: Symmetric (Lower) mirrors
+    the lower triangle, Triangular (Lower, Unit) keeps it with ones on
+    the diagonal, HermitianBand (Lower, kd) mirrors it inside |i − j| ≤ kd."""
+    lo = torch.tril(a64)
+    if kind == "Triangular":
+        lo.diagonal().fill_(1.0)
+        return lo
+    full = lo + torch.tril(a64, -1).T
+    if kind == "HermitianBand":
+        full = torch.triu(torch.tril(full, kd), -kd)
+    return full
+
+
+def _norm_refs(torch, a64):
+    return [float(a64.abs().max()), float(torch.linalg.matrix_norm(a64, 1)),
+            float(torch.linalg.matrix_norm(a64, float("inf"))),
+            float(torch.linalg.matrix_norm(a64, "fro"))]
+
+
+def _norm_gates(torch, st, label, got, refs):
+    """tester.py's norm routine: Max exact, One, Inf and Fro within 1e-5
+    of the fp64 reference."""
+    errs = [abs(float(g) - r) / r for g, r in zip(got, refs)]
+    print("norm %s: Max %.9g One %.9g Inf %.9g Fro %.9g; rel to fp64 %s"
+          % ((label,) + tuple(float(g) for g in got)
+             + (", ".join("%.2e" % e for e in errs),)), flush=True)
+    if float(got[0]) != refs[0] or not max(errs[1:]) <= 1e-5:
+        fail("norm %s: %s against %s" % (label, [float(g) for g in got],
+                                         refs))
+
+
+def _scaled_resid(torch, a, x, b) -> float:
+    """The tester's ‖A·x − b‖/(‖A‖·‖x‖·ε·n) in fp64, ε of x's dtype."""
+    eps = float(torch.finfo(x.dtype).eps)
+    ad, xd = a.double(), x.double()
+    xd = xd[:, None] if xd.ndim == 1 else xd
+    bd = b.double()
+    bd = bd[:, None] if bd.ndim == 1 else bd
+    return float((ad @ xd - bd).norm()
+                 / (ad.norm() * xd.norm() * eps * a.shape[0]))
+
+
+def _band(torch, gen, n: int, kl: int, ku: int, dev, spd: bool):
+    """A random fp32 band (kl, ku), diagonally dominant; symmetric
+    positive definite (kl = ku) when ``spd``."""
+    g = torch.randn((n, n), generator=gen, device=dev)
+    g = torch.triu(torch.tril(g, kl), -ku)
+    if spd:
+        g = (g + g.T) / 2
+    return g + (2.0 * (kl + ku) + 2.0) * torch.eye(n, device=dev)
+
+
+def _leg_launches(torch, kernels, name, leg, direct) -> dict:
+    """Launch counts of a mixed driver's fp32 low leg alone; they must be
+    those of one direct fp32 factorization of the same input and hold
+    every kernel of the driver's path.  Returns them."""
+    counts = []
+    for fn in (leg, direct):
+        kernels.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        counts.append(dict(kernels.launches))
+    got, want = counts
+    print("%s low leg launches %s; one direct fp32 factor %s"
+          % (name, {k: v for k, v in got.items() if v},
+             {k: v for k, v in want.items() if v}), flush=True)
+    if got != want or any(got[k] <= 0 for k in PATHS[name]):
+        fail("%s: the fp32 low leg's launches %s are not the direct "
+             "factor's %s" % (name, got, want))
+    return got
+
+
+def main_path_aux(torch, st, kernels, dev) -> dict:
+    """Phase 3l: the slice's path — norms, the tile kernels tied to the
+    driver functions, condition estimates, the mixed-precision solvers
+    and the band solvers — each a path with the launch counts set to 0
+    before it and read after it."""
+    from slate_tpu_torch.linalg import cholesky as tchol, lu as tlu, \
+        qr as tqr
+    from slate_tpu_torch.ops import blocks
+    from slate_tpu_torch.testing import random_spd
+
+    gen = torch.Generator(device=dev).manual_seed(91)
+    launches, walls, res = {}, {}, {}
+    n = TILE_N
+    one, inf_, fro, mx = st.Norm.One, st.Norm.Inf, st.Norm.Fro, st.Norm.Max
+
+    def path(name, fn):
+        """``fn`` as one path: counts zeroed before, read after; a kernel
+        of PATHS[name] that did not launch fails the run."""
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        launches[name] = dict(kernels.launches)
+        missing = [k for k in PATHS.get(name, ()) if launches[name][k] <= 0]
+        if missing:
+            fail("the %s path launched no %s kernel" % (name,
+                                                        ", ".join(missing)))
+        return out
+
+    # ---- norms (tester.py's norm routine at 16384² fp32) -----------------
+    a = torch.randn((n, n), generator=gen, device=dev)
+    got = path("norm", lambda: [st.norm(w, a) for w in (mx, one, inf_, fro)])
+    refs = _norm_refs(torch, a.double())
+    _norm_gates(torch, st, "Matrix 16384^2 fp32", got, refs)
+    cn = path("col_norms", lambda: st.col_norms(mx, a))
+    if not torch.equal(cn, a.abs().amax(dim=0)):
+        fail("col_norms differs from max|a| by column")
+    m8 = TILE_N64
+    s8 = a[:m8, :m8].contiguous()
+    for label, obj, kind in (
+            ("SymmetricMatrix Lower", st.SymmetricMatrix(
+                s8, uplo=st.Uplo.Lower), "Symmetric"),
+            ("TriangularMatrix Lower Unit", st.TriangularMatrix(
+                s8, uplo=st.Uplo.Lower, diag=st.Diag.Unit), "Triangular"),
+            ("HermitianBandMatrix Lower kd=256", st.HermitianBandMatrix(
+                s8, kd=256, uplo=st.Uplo.Lower), "HermitianBand")):
+        got = [st.norm(w, obj) for w in (mx, one, inf_, fro)]
+        _norm_gates(torch, st, label + " 8192^2",
+                    got, _norm_refs(torch, _masked_ref(torch, s8.double(),
+                                                       kind, 256)))
+
+    # ---- the tile kernels tied to the driver functions -----------------
+    b = torch.randn((n, n), generator=gen, device=dev)
+    r = torch.randn(n, generator=gen, device=dev)
+    c = torch.randn(n, generator=gen, device=dev)
+    A, B = st.Matrix.from_array(a), st.Matrix.from_array(b)
+    L = st.TriangularMatrix(a, uplo=st.Uplo.Lower)
+    lower = torch.ones((n, n), dtype=torch.bool, device=dev).tril_()
+    drv = {"max": st.norm(mx, A), "fro": st.norm(fro, A),
+           "add": st.add(1.5, A, -0.3, B).array,
+           "scale_row_col": st.scale_row_col(r, c, A).array,
+           "set": st.set(-0.75, 2.5, L).array,
+           "scale": st.scale(-0.75, 1.0, L).array}
+    torch.cuda.synchronize()
+    if any(launches[p][k] for p in ("norm", "col_norms")
+           for k in TILE_KERNELS):
+        fail("a driver path launched a tile kernel: %s"
+             % {p: launches[p] for p in ("norm", "col_norms")})
+
+    def ties():
+        tiles = _tiles(a, TILE_T)
+        return {"max": kernels.tile_norms(tiles, "max").max(),
+                "fro": kernels.tile_norms(tiles, "fro").double().sum().sqrt(),
+                "add": kernels.geadd(1.5, a, -0.3, b),
+                "scale_row_col": kernels.gescale_row_col(r, c, a),
+                "set": kernels.tzset(a, True, -0.75, 2.5),
+                "scale": kernels.tzscale(a, True, -0.75, -0.75)}
+    ker = path("tile_ties", ties)
+    fro_rel = abs(float(ker["fro"]) - float(drv["fro"])) / float(drv["fro"])
+    checks = {"norm(Max) = max of tile_norms(max)":
+              float(ker["max"]) == float(drv["max"]),
+              "norm(Fro) = sqrt(sum tile_norms(fro)) within 1e-5":
+              fro_rel <= 1e-5,
+              "util.add = kernels.geadd": torch.equal(ker["add"], drv["add"]),
+              "util.scale_row_col = kernels.gescale_row_col":
+              torch.equal(ker["scale_row_col"], drv["scale_row_col"]),
+              "util.set(Lower) = kernels.tzset on the lower triangle":
+              torch.equal(ker["set"][lower], drv["set"][lower]),
+              "util.scale(Lower) = kernels.tzscale on the lower triangle":
+              torch.equal(ker["scale"][lower], drv["scale"][lower])}
+    print("kernel ties (16384^2 fp32): %s; fro rel %.3e; launches %s"
+          % (checks, fro_rel, {k: v for k, v in launches["tile_ties"].items()
+                               if v}), flush=True)
+    if not all(checks.values()):
+        fail("a tile kernel departs from its driver function: %s" % checks)
+    res["kernel_ties"] = checks
+    del b, B, L, lower, drv, ker, s8
+    torch.cuda.empty_cache()
+
+    # ---- condition estimates (tester.py's inputs and gates) -------------
+    m = MIXED_N
+    for dt in (torch.float32, torch.float64):
+        tag = str(dt).split(".")[-1]
+        g = torch.randn((m, m), generator=gen, device=dev, dtype=dt) \
+            + m * torch.eye(m, device=dev, dtype=dt)
+        lu, perm = st.getrf(g)
+        anorm = float(st.norm(one, g))
+        rc = path("gecondest_" + tag, lambda: st.gecondest(one, lu, perm,
+                                                         anorm))
+        true_rc = 1.0 / (anorm * float(torch.linalg.matrix_norm(
+            torch.linalg.inv(g.double()), 1)))
+        print("gecondest %s n=%d: rcond %.6g, true %.6g (gate 0 < rcond <= "
+              "30 true); %.1f ms" % (dt, m, rc, true_rc,
+                                     walls["gecondest_" + tag]),
+              flush=True)
+        if not 0 < rc <= 30 * true_rc:
+            fail("gecondest %s: rcond %.3g against true %.3g" % (dt, rc,
+                                                                 true_rc))
+        res["gecondest_" + tag] = (rc, true_rc)
+        del g, lu, perm
+    h = torch.randn((m, m), generator=gen, device=dev)
+    h = (h + h.T) / 2 + m * torch.eye(m, device=dev)          # herm(n)
+    fac = st.potrf(st.HermitianMatrix(h, uplo=st.Uplo.Lower, nb=NB))
+    anorm = float(st.norm(one, h))
+    rc = path("pocondest", lambda: st.pocondest(one, fac, anorm))
+    true_rc = 1.0 / (anorm * float(torch.linalg.matrix_norm(
+        torch.linalg.inv(h.double()), 1)))
+    tr = torch.tril(torch.randn((m, m), generator=gen, device=dev)) \
+        + 2 * m * torch.eye(m, device=dev)
+    trc = path("trcondest", lambda: st.trcondest(one, tr, st.Uplo.Lower,
+                                                 st.Diag.NonUnit))
+    print("pocondest n=%d: rcond %.6g, true %.6g (gate 0 < rcond <= 30 "
+          "true); trcondest: rcond %.6g (gate > 0)" % (m, rc, true_rc, trc),
+          flush=True)
+    if not (0 < rc <= 30 * true_rc and trc > 0):
+        fail("pocondest %.3g (true %.3g) or trcondest %.3g" % (rc, true_rc,
+                                                                trc))
+    del h, fac, tr
+
+    # ---- the mixed-precision solvers at n = 8192, fp64 ------------------
+    f64 = torch.float64
+    h = torch.randn((m, m), generator=gen, device=dev, dtype=f64)
+    h = (h + h.T) / 2 + m * torch.eye(m, device=dev, dtype=f64)
+    g = torch.randn((m, m), generator=gen, device=dev, dtype=f64) \
+        + m * torch.eye(m, device=dev, dtype=f64)
+    rhs = torch.randn((m, NRHS), generator=gen, device=dev, dtype=f64)
+    H = st.HermitianMatrix(h, uplo=st.Uplo.Lower, nb=NB)
+    G = st.Matrix.from_array(g, nb=NB)
+    legs = {
+        "posv_mixed": (lambda: tchol._posv_mixed_setup(H, rhs, None, None),
+                       lambda: blocks.potrf_rec(h.float(), NB)),
+        "gesv_mixed": (lambda: tlu._getrf_lo(g, torch.float32, NB, None),
+                       lambda: tlu.getrf_rec(g.float(), NB))}
+    for name, (leg, direct) in legs.items():
+        _leg_launches(torch, kernels, name, leg, direct)
+    for name, a_, ref_fn in (
+            ("posv_mixed", H, lambda: torch.cholesky_solve(
+                rhs, torch.linalg.cholesky(h))),
+            ("gesv_mixed", G, lambda: torch.linalg.solve(g, rhs))):
+        x, iters = path(name, lambda: getattr(st, name)(a_, rhs))
+        dense = h if name == "posv_mixed" else g
+        rres = _scaled_resid(torch, dense, x, rhs)
+        lib_ms = _wall_ms(torch, ref_fn, 3)
+        print("%s n=%d fp64, %d rhs: %d iterations, residual %.3g (gate 3, "
+              "eps64), %.1f ms; launches %s; %s fp64 %.1f ms"
+              % (name, m, NRHS, iters, rres, walls[name],
+                 {k: v for k, v in launches[name].items() if v},
+                 "cholesky + cholesky_solve" if name == "posv_mixed"
+                 else "torch.linalg.solve", lib_ms), flush=True)
+        if not (iters >= 0 and rres <= 3):
+            fail("%s: iters %d, residual %.3f" % (name, iters, rres))
+        res[name] = dict(iters=iters, residual=rres, ms=walls[name],
+                         library_ms=lib_ms)
+    for name, a_, dense in (("posv_mixed_gmres", H, h),
+                            ("gesv_mixed_gmres", G, g)):
+        b4 = rhs[:, :GMRES_NRHS].contiguous()
+        x, iters = path(name, lambda: getattr(st, name)(a_, b4))
+        rres = _scaled_resid(torch, dense, x, b4)
+        print("%s n=%d fp64, %d rhs: %d iterations, residual %.3g, %.1f ms"
+              % (name, m, GMRES_NRHS, iters, rres, walls[name]), flush=True)
+        if not (iters >= 0 and rres <= 3):
+            fail("%s: iters %d, residual %.3f" % (name, iters, rres))
+        res[name] = dict(iters=iters, residual=rres, ms=walls[name])
+    del h, g, rhs, H, G
+    torch.cuda.empty_cache()
+
+    # gels_mixed on bench.py's (32768, 4096) Gaussian, cast to fp64
+    import numpy as np
+    rng = np.random.default_rng(4)
+    aq = torch.from_numpy(rng.standard_normal((QR_M, QR_N)).astype(
+        np.float32)).to(dev).double()
+    bq = torch.from_numpy(rng.standard_normal(QR_M).astype(np.float32)).to(
+        dev).double()
+    got = _leg_launches(torch, kernels, "gels_mixed",
+                        lambda: tqr._gels_lo_factor(aq, torch.float32, NB),
+                        lambda: tqr.geqrf_rec(aq.float(), NB))
+    x, iters = path("gels_mixed", lambda: st.gels_mixed(
+        st.Matrix.from_array(aq, nb=NB), bq))
+    eps64 = float(torch.finfo(f64).eps)
+    ne = float((aq.T @ (aq @ x - bq)).norm()
+               / (aq.norm() ** 2 * x.norm() * eps64 * QR_M ** 0.5))
+    print("gels_mixed (%d, %d) fp64: %d iterations, normal-equations "
+          "residual %.3g (gate 3, eps64), %.1f ms; low leg launches %s"
+          % (QR_M, QR_N, iters, ne, walls["gels_mixed"],
+             {k: v for k, v in got.items() if v}), flush=True)
+    if not (iters >= 0 and ne <= 3 and tuple(x.shape) == (QR_N,)):
+        fail("gels_mixed: iters %d, residual %.3f" % (iters, ne))
+    res["gels_mixed"] = dict(iters=iters, residual=ne, ms=walls["gels_mixed"])
+    del aq, bq
+    torch.cuda.empty_cache()
+
+    # the fallback: condition 1e10, not positive definite in fp32
+    spd = random_spd(FALLBACK_N, cond=1e10, dtype=f64, seed=92, device=dev)
+    bf = torch.randn((FALLBACK_N, 4), generator=gen, device=dev, dtype=f64)
+    for name, a_ in (("posv_mixed", st.HermitianMatrix(spd,
+                                                       uplo=st.Uplo.Lower,
+                                                       nb=NB)),
+                     ("gesv_mixed", st.Matrix.from_array(spd, nb=NB))):
+        x, iters = getattr(st, name)(a_, bf)
+        rres = _scaled_resid(torch, spd, x, bf)
+        print("%s fallback (random_spd n=%d cond 1e10): iters %d, residual "
+              "%.3g" % (name, FALLBACK_N, iters, rres), flush=True)
+        if not (iters < 0 and rres <= 3):
+            fail("%s fallback: iters %d, residual %.3f" % (name, iters, rres))
+        res[name + "_fallback"] = dict(iters=iters, residual=rres)
+    del spd, bf
+
+    # ---- band solvers at n = 8192, fp32 ---------------------------------
+    kd = BAND_KD
+    pb = _band(torch, gen, m, kd, kd, dev, spd=True)
+    gb = _band(torch, gen, m, kd, kd, dev, spd=False)
+    rb = torch.randn((m, NRHS), generator=gen, device=dev)
+    f, x = path("pbsv", lambda: st.pbsv(st.HermitianBandMatrix(
+        pb, kd=kd, uplo=st.Uplo.Lower, nb=NB), rb))
+    pres = _scaled_resid(torch, pb, x, rb)
+    f, piv, x = path("gbsv", lambda: st.gbsv(st.BandMatrix(
+        gb, kl=kd, ku=kd, nb=NB), rb))
+    gres = _scaled_resid(torch, gb, x, rb)
+    print("band n=%d fp32, %d rhs: pbsv (kd %d) %.1f ms residual %.3g, "
+          "launches %s; gbsv (kl = ku = %d) %.1f ms residual %.3g, launches %s"
+          % (m, NRHS, kd, walls["pbsv"], pres,
+             {k: v for k, v in launches["pbsv"].items() if v}, kd,
+             walls["gbsv"], gres,
+             {k: v for k, v in launches["gbsv"].items() if v}), flush=True)
+    if not (pres <= 3 and gres <= 3):
+        fail("band residuals %.3f (pbsv), %.3f (gbsv)" % (pres, gres))
+    res.update(pbsv_residual=pres, gbsv_residual=gres)
+    driver_tile = {p: {k: launches[p][k] for k in TILE_KERNELS
+                       if launches[p][k]}
+                   for p in launches if p != "tile_ties"}
+    if any(driver_tile.values()):
+        fail("a driver path launched a tile kernel: %s" % driver_tile)
+    print("phase 3l walls (ms): %s" % {k: round(v, 1) for k, v in
+                                       walls.items()}, flush=True)
+    del pb, gb, rb, f, x, a
+    torch.cuda.empty_cache()
+    res.update(launches=launches, walls=walls)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3247,6 +3878,9 @@ def main() -> int:
         "max_rel_err": max(c[k]["max_rel_err"] for c in shared["checks"]),
         "max_abs_err": max(c[k]["max_abs_err"] for c in shared["checks"])}
         for k in shared["checks"][0]}
+    measured.update(phase("2j", check_tile_kernels, torch, kernels, dev))
+    paths.update(phase("3l", main_path_aux, torch, st, kernels,
+                       dev)["launches"])
     print("phase walls (s): %s; total %.1f s since the build began"
           % (", ".join("%s %.1f" % kv for kv in spent.items()),
              time.perf_counter() - t0), flush=True)
@@ -3256,6 +3890,8 @@ def main() -> int:
         src, replaces = REPO[name]
         # launches on the main paths that run this kernel (matmul: all)
         n_launch = sum(paths[p][name] for p, ks in PATHS.items() if name in ks)
+        if name in TILE_KERNELS:      # gated 0 on every driver path (3l)
+            r["driver_path_launches"] = 0
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": n_launch,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -3265,7 +3901,9 @@ def main() -> int:
         for extra in ("plain_shape", "kernel_ms_at_plain_shape",
                       "barriers_ms", "fp64", "max_abs_err_fp64",
                       "ring_shape", "ring_ms", "ring_plain_ms",
-                      "ring_library_ms", "ring_bound_ms"):
+                      "ring_library_ms", "ring_bound_ms",
+                      "library", "fp64_8192_ms", "fro_ms",
+                      "max_abs_err_fro", "driver_path_launches"):
             if extra in r:
                 rows[-1][extra] = r[extra]
         for p, calls in path_checks.items():    # every call of one run

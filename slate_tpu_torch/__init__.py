@@ -29,19 +29,30 @@ distributed drivers over ``torch.distributed`` (:mod:`.parallel`:
 ``pgemm``, ``ppotrf``/``ppotrs``/``pposv``, ``pgetrf``/``pgetrs``/
 ``pgesv`` on a block-cyclic ``DistMatrix``, one process per grid
 position), whose per-step panels are the ``chol_l21_panel`` and
-``lu_u12_panel`` kernels on the card.
+``lu_u12_panel`` kernels on the card — and the norms, condition
+estimates, elementwise utilities and band solvers — ``norm``,
+``col_norms``, ``gecondest``/``pocondest``/``trcondest``, ``add``,
+``copy``, ``scale``, ``scale_row_col``, ``set``, ``gbmm``, ``hbmm``,
+``pbtrf``/``pbtrs``/``pbsv``, ``gbtrf``/``gbtrs``/``gbsv``, ``tbsm`` —
+with the mixed-precision solvers on them, ``posv_mixed``,
+``gesv_mixed``, their ``_gmres`` forms and ``gels_mixed`` (fp32
+factor, refined in the working precision).  The tile kernels
+``tile_norms``, ``tzset``/``tzscale``, ``geadd`` and
+``gescale_row_col`` are :mod:`slate_tpu_torch.ops.kernels`' public
+entries, as in the JAX package no driver calls them.
 """
 
 from . import config  # noqa: F401
 from .enums import (  # noqa: F401
-    Diag, GridOrder, MethodEig, MethodGels, MethodLU, MethodSVD, Op, Option,
-    Side, Target, Uplo,
+    Diag, GridOrder, MethodEig, MethodGels, MethodLU, MethodSVD, Norm, Op,
+    Option, Side, Target, Uplo,
 )
 from .exceptions import SlateError  # noqa: F401
 from .grid import ProcessGrid  # noqa: F401
 from .matrix import (  # noqa: F401
-    BaseMatrix, BaseTrapezoidMatrix, HermitianMatrix, Matrix, SymmetricMatrix,
-    TriangularMatrix, as_array,
+    BandMatrix, BaseBandMatrix, BaseMatrix, BaseTrapezoidMatrix,
+    HermitianBandMatrix, HermitianMatrix, Matrix, SymmetricMatrix,
+    TriangularBandMatrix, TriangularMatrix, as_array,
 )
 from .options import Options, get_option  # noqa: F401
 from . import method  # noqa: F401

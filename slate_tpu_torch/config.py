@@ -17,6 +17,13 @@ packages can run in one process):
   route every eligible site to the hand-written kernel (its plain PyTorch
   version for a tensor on the CPU); ``0`` routes every site to the stock
   PyTorch op.
+* ``SLATE_TPU_TORCH_SPLIT_GEMM`` ∈ {auto, 1, 0} — the split-precision
+  factor leg of the mixed-precision drivers (the JAX package's
+  ``SLATE_TPU_SPLIT_GEMM``).  ``auto`` and ``0`` take the stock fp32 leg
+  (the JAX package's ``auto`` takes the split leg only on a TPU); ``1``
+  asks for the split leg, which raises ``NotImplementedError`` until
+  ``ops/split_gemm.py`` is ported
+  (:func:`slate_tpu_torch.linalg._refine.use_split_leg`).
 * ``SLATE_TPU_TORCH_SCATTERED_LU`` ∈ {1, 0}, default 1 — the LU driver
   (``lu_driver`` site): ``1`` takes the scattered-row driver wherever it
   is shape-eligible, ``0`` forces the blocked recursion
@@ -55,6 +62,17 @@ def use_kernels_mode() -> str:
     """Resolve :data:`use_kernels` to ``"auto" | "on" | "off"`` (reads the
     module global, so tests may monkeypatch it)."""
     v = use_kernels
+    return "auto" if v == "auto" else ("on" if v else "off")
+
+
+#: Split-precision factor leg of the mixed drivers; see the module
+#: docstring.
+split_gemm = _tri_state("SLATE_TPU_TORCH_SPLIT_GEMM")
+
+
+def split_gemm_mode() -> str:
+    """Resolve :data:`split_gemm` to ``"auto" | "on" | "off"``."""
+    v = split_gemm
     return "auto" if v == "auto" else ("on" if v else "off")
 
 

@@ -41,6 +41,16 @@ class Side(enum.Enum):
     Right = "right"
 
 
+class Norm(enum.Enum):
+    """Matrix norm selector (LAPACK vocabulary; reference norm drivers)."""
+
+    One = "one"
+    Two = "two"
+    Inf = "inf"
+    Fro = "fro"
+    Max = "max"
+
+
 class GridOrder(enum.Enum):
     Col = "col"
     Row = "row"

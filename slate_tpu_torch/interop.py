@@ -15,7 +15,8 @@ import torch
 from . import matrix as _matrix
 from .enums import Diag, Uplo
 
-_KINDS = ("Matrix", "TriangularMatrix", "HermitianMatrix", "SymmetricMatrix")
+_KINDS = ("Matrix", "TriangularMatrix", "HermitianMatrix", "SymmetricMatrix",
+          "BandMatrix", "TriangularBandMatrix", "HermitianBandMatrix")
 
 
 def _enum(cls, v):
@@ -23,17 +24,28 @@ def _enum(cls, v):
 
 
 def matrix_from_numpy(kind: str, data, *, uplo=None, diag=None,
-                      mb: int = 256, nb: int = 256, device=None):
+                      mb: int = 256, nb: int = 256, device=None,
+                      kl=None, ku=None, kd=None):
     """The port's ``kind`` matrix over ``data`` (placed on ``device``,
     ``cuda`` by default).  ``uplo``/``diag`` take the port's enums, the
     JAX package's enums or their value strings (``"lower"``,
-    ``"nonunit"``)."""
+    ``"nonunit"``); the band kinds take their bandwidths (``kl``/``ku``
+    for a BandMatrix, ``kd`` for the triangular and Hermitian bands)."""
     if kind not in _KINDS:
         raise ValueError(f"unknown matrix kind {kind!r}; one of {_KINDS}")
     cls = getattr(_matrix, kind)
     data = np.asarray(data)
     if kind == "Matrix":
         return cls(data, mb=mb, nb=nb, device=device)
+    if kind == "BandMatrix":
+        return cls(data, kl=kl, ku=ku, mb=mb, nb=nb, device=device)
+    if kind == "HermitianBandMatrix":
+        return cls(data, kd=kd, uplo=_enum(Uplo, uplo or Uplo.Lower), mb=mb,
+                   nb=nb, device=device)
+    if kind == "TriangularBandMatrix":
+        return cls(data, kd=kd, uplo=_enum(Uplo, uplo or Uplo.Lower),
+                   diag=_enum(Diag, diag or Diag.NonUnit), mb=mb, nb=nb,
+                   device=device)
     return cls(data, uplo=_enum(Uplo, uplo or Uplo.Lower),
                diag=_enum(Diag, diag or Diag.NonUnit), mb=mb, nb=nb,
                device=device)
@@ -42,16 +54,25 @@ def matrix_from_numpy(kind: str, data, *, uplo=None, diag=None,
 def matrix_to_numpy(m) -> dict:
     """What ``m`` holds, as ``{"kind", "data", "uplo", "diag", "mb",
     "nb"}`` with ``data`` a numpy array in storage orientation and the
-    enums as their value strings (``uplo``/``diag`` are None for a
-    general Matrix)."""
+    enums as their value strings (``uplo``/``diag`` are None where the
+    class has none); a band matrix adds ``kl``, ``ku`` and, for the
+    triangular and Hermitian bands, ``kd``."""
     if m.op.value != "notrans":
         raise ValueError("matrix_to_numpy takes a NoTrans view")
-    tri = isinstance(m, _matrix.BaseTrapezoidMatrix)
-    return {"kind": type(m).__name__,
-            "data": m.data.detach().cpu().resolve_conj().numpy(),
-            "uplo": m.uplo.value if tri else None,
-            "diag": m.diag.value if tri else None,
-            "mb": m.mb, "nb": m.nb}
+    tri = isinstance(m, (_matrix.BaseTrapezoidMatrix,
+                         _matrix.TriangularBandMatrix,
+                         _matrix.HermitianBandMatrix))
+    diag = getattr(m, "diag", None)
+    out = {"kind": type(m).__name__,
+           "data": m.data.detach().cpu().resolve_conj().numpy(),
+           "uplo": m.uplo.value if tri else None,
+           "diag": diag.value if tri and diag is not None else None,
+           "mb": m.mb, "nb": m.nb}
+    if isinstance(m, _matrix.BaseBandMatrix):
+        out.update(kl=m.kl, ku=m.ku)
+        if hasattr(m, "kd"):
+            out["kd"] = m.kd
+    return out
 
 
 def lu_from_numpy(data, perm, *, mb: int = 256, nb: int = 256, device=None):

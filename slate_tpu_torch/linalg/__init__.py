@@ -1,34 +1,59 @@
 """Drivers of the port (the slice ported so far)."""
 
+from .band import (  # noqa: F401
+    gbmm, gbsv, gbtrf, gbtrs, hbmm, pbsv, pbtrf, pbtrs, tbsm,
+)
 from .batched import (  # noqa: F401
     gels_batched, geqrf_batched, gesv_batched, getrf_batched, getrs_batched,
     heev_batched, posv_batched, potrf_batched, potrs_batched,
 )
 from .blas3 import gemm, herk, syrk, trmm, trsm  # noqa: F401
-from .cholesky import posv, potrf, potri, potrs, trtri, trtrm  # noqa: F401
+from .cholesky import (  # noqa: F401
+    posv, posvMixed, posv_mixed, posv_mixed_gmres, potrf, potri, potrs,
+    trtri, trtrm,
+)
+from .condest import (  # noqa: F401
+    gecondest, norm1est, pocondest, refine_kappa_eps, spectral_interval,
+    trcondest,
+)
 from .eig import (  # noqa: F401
     he2hb, heev, heev_vals, hegst, hegv, syev, sygst, sygv, unmtr_he2hb,
 )
 from .lu import (  # noqa: F401
-    gesv, gesv_nopiv, getrf, getrf_nopiv, getri, getrs, getrs_nopiv,
+    gesv, gesvMixed, gesv_mixed, gesv_mixed_gmres, gesv_nopiv, getrf,
+    getrf_nopiv, getri, getrs, getrs_nopiv,
+)
+from .norms import (  # noqa: F401
+    col_norms, gbnorm, genorm, hbnorm, henorm, norm, synorm, trnorm,
 )
 from .qr import (  # noqa: F401
-    cholqr, gelqf, gels, gels_cholqr, gels_qr, geqrf, ungqr, unmlq, unmqr,
+    cholqr, gelqf, gels, gels_cholqr, gels_mixed, gels_qr, geqrf, ungqr,
+    unmlq, unmqr,
 )
 from .svd import (  # noqa: F401
     bdsqr, ge2tb, gesvd, svd, svd_vals, tb2bd, unmbr_ge2tb, unmbr_tb2bd,
 )
+from .util import add, copy, scale, scale_row_col, set  # noqa: F401
 
 __all__ = ["gemm", "herk", "syrk", "trmm", "trsm",
-           "posv", "potrf", "potri", "potrs", "trtri", "trtrm",
-           "gesv", "gesv_nopiv", "getrf", "getrf_nopiv", "getri", "getrs",
+           "posv", "posvMixed", "posv_mixed", "posv_mixed_gmres", "potrf",
+           "potri", "potrs", "trtri", "trtrm",
+           "gesv", "gesvMixed", "gesv_mixed", "gesv_mixed_gmres",
+           "gesv_nopiv", "getrf", "getrf_nopiv", "getri", "getrs",
            "getrs_nopiv",
-           "cholqr", "gelqf", "gels", "gels_cholqr", "gels_qr", "geqrf",
-           "ungqr", "unmlq", "unmqr",
+           "cholqr", "gelqf", "gels", "gels_cholqr", "gels_mixed", "gels_qr",
+           "geqrf", "ungqr", "unmlq", "unmqr",
            "he2hb", "heev", "heev_vals", "hegst", "hegv", "syev", "sygst",
            "sygv", "unmtr_he2hb",
            "bdsqr", "ge2tb", "gesvd", "svd", "svd_vals", "tb2bd",
            "unmbr_ge2tb", "unmbr_tb2bd",
            "gels_batched", "geqrf_batched", "gesv_batched", "getrf_batched",
            "getrs_batched", "heev_batched", "posv_batched", "potrf_batched",
-           "potrs_batched"]
+           "potrs_batched",
+           "col_norms", "gbnorm", "genorm", "hbnorm", "henorm", "norm",
+           "synorm", "trnorm",
+           "add", "copy", "scale", "scale_row_col", "set",
+           "gecondest", "norm1est", "pocondest", "refine_kappa_eps",
+           "spectral_interval", "trcondest",
+           "gbmm", "gbsv", "gbtrf", "gbtrs", "hbmm", "pbsv", "pbtrf", "pbtrs",
+           "tbsm"]

@@ -7,6 +7,9 @@ The fp32 factorization runs at one of three depths, as the
 ``potrf_step`` site decides: the strip driver over the ``chol_inv_panel``
 kernel (``panels``, the default), one ``potrf_step_fused`` launch per
 step (``fused``) or one ``potrf_full_fused`` launch (``full``).
+``posv_mixed``/``posv_mixed_gmres`` factor in fp32 through
+``blocks.potrf_rec`` and refine in the working precision
+(:mod:`slate_tpu_torch.linalg._refine`).
 Branches of the JAX package not ported yet — out-of-core (``ooc``), the
 fp64 Ozaki/Newton panels (``ozaki``) and the ABFT checksum envelope (off
 by default there) — are queued in ROADMAP.md.
@@ -18,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from ..enums import Diag, Side, Uplo
+from ..enums import Diag, Norm, Side, Uplo
 from ..exceptions import SlateError
 from ..matrix import BaseMatrix, BaseTrapezoidMatrix, HermitianMatrix, \
     TriangularMatrix
@@ -160,3 +163,83 @@ def potri(a_factor, opts: Optional[Options] = None, *, device=None):
                            nb=getattr(a_factor, "nb", 256),
                            grid=getattr(a_factor, "grid", None),
                            device=data.device)
+
+
+# ---------------------------------------------------------------------------
+# Mixed precision + iterative refinement (posv_mixed / posv_mixed_gmres)
+# ---------------------------------------------------------------------------
+
+def _chol_solve(lv, bv, nb):
+    """Two triangular sweeps from the lower factor (src/potrs.cc shape)."""
+    y = blocks.trsm_rec(Side.Left, Uplo.Lower, Diag.NonUnit, lv, bv, nb)
+    return blocks.trsm_rec(Side.Left, Uplo.Upper, Diag.NonUnit, lv.mH, y, nb)
+
+
+def _posv_mixed_setup(a, b, opts, tol, device=None):
+    """The low-precision Cholesky leg and the refinement closures.  The
+    leg is ``blocks.potrf_rec`` in fp32 (its products through the
+    ``matmul`` site); a leaf that is not positive definite in fp32 comes
+    back NaN, as the JAX package's does, so the loop never converges and
+    the fallback factors in full precision."""
+    import math
+
+    from .norms import norm as _norm
+    from ._refine import lo_dtype, use_split_leg
+
+    dev = _device_of(a, b, device=device)
+    full = _hermitian_full(a, dev)
+    bv = _arr(b, dev)
+    n = full.shape[-1]
+    nb = _nb(a, opts)
+    itermax = int(get_option(opts, "max_iterations", 30))
+    use_fallback = bool(get_option(opts, "use_fallback_solver", True))
+    eps = torch.finfo(full.dtype).eps
+    anorm = _norm(Norm.Inf, full, device=dev)
+    thresh = float(tol) if tol is not None else float(eps) * math.sqrt(n)
+
+    lo = lo_dtype(full.dtype)
+    use_split_leg(lo)              # False; raises where the knob forces it
+    l_lo = blocks.potrf_rec(full.to(lo), nb, nan_on_fail=True)
+
+    def solve_lo(r):
+        return _chol_solve(l_lo, r.to(lo), nb).to(full.dtype)
+
+    def solve_full(bv2):
+        # full-precision fallback (reference posv_mixed.cc); the refine
+        # cores always pass a 2-D block
+        return _chol_solve(blocks.potrf_rec(full, nb), bv2, nb)
+
+    return full, bv, nb, dict(anorm=anorm, thresh=thresh, itermax=itermax,
+                              use_fallback=use_fallback), solve_lo, solve_full
+
+
+def posv_mixed(a, b, opts: Optional[Options] = None, *, tol=None,
+               device=None):
+    """Mixed-precision Cholesky solve with iterative refinement —
+    reference ``slate::posv_mixed``: factor the HPD matrix in low
+    precision, refine the residual in working precision, full-precision
+    fallback on stagnation.  Returns ``(x, iters)``; ``iters < 0`` flags
+    the fallback."""
+    from ._refine import ir_refine
+
+    full, bv, nb, kw, solve_lo, solve_full = _posv_mixed_setup(
+        a, b, opts, tol, device)
+    x, iters = ir_refine(full, bv, solve_lo, solve_full, **kw)
+    return _wrap_like(b, x), iters
+
+
+def posv_mixed_gmres(a, b, opts: Optional[Options] = None, *, tol=None,
+                     restart: int = 30, device=None):
+    """FGMRES-IR over a low-precision Cholesky preconditioner — reference
+    ``slate::posv_mixed_gmres``.  Returns ``(x, iters)``."""
+    from ._refine import fgmres_refine
+
+    full, bv, nb, kw, solve_lo, solve_full = _posv_mixed_setup(
+        a, b, opts, tol, device)
+    x, iters = fgmres_refine(full, bv, solve_lo, solve_full, restart=restart,
+                             **kw)
+    return _wrap_like(b, x), iters
+
+
+#: Deprecated camel-case alias kept by the reference (slate.hh).
+posvMixed = posv_mixed

@@ -17,10 +17,14 @@ site:
   is the ``getrf_panel_linv`` kernel (``csrc/getrf_panel_linv.cu``)
   where the ``lu_panel`` site admits it, else ``torch.linalg.lu_factor``.
 
+``gesv_mixed``/``gesv_mixed_gmres`` factor in fp32 through
+``getrf_rec`` and refine in the working precision
+(:mod:`slate_tpu_torch.linalg._refine`).
+
 Not ported yet, each queued in ROADMAP.md: CALU (``_panel_lu_tntpiv``,
 ``getrf_tntpiv``), the tall-panel loop (``getrf_panels``,
-``_tall_panel_lu*``), ``gesv_mixed*`` and the ABFT and out-of-core
-branches.
+``_tall_panel_lu*``), the split-precision leg of the mixed drivers and
+the ABFT and out-of-core branches.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from ..enums import Diag, MethodLU, Op, Side, Uplo
+from ..enums import Diag, MethodLU, Norm, Op, Side, Uplo
 from ..method import select_backend, select_lu
 from ..ops import blocks, kernels, smem
 from ..ops.blocks import matmul, matmul_hi
@@ -490,3 +494,89 @@ def gesv_nopiv(a, b, opts: Optional[Options] = None, *, device=None):
     dev = _device_of(a, device=device)
     lu = getrf_nopiv(a, opts, device=dev)
     return lu, getrs_nopiv(lu, b, opts=opts, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Mixed precision + iterative refinement (gesv_mixed / gesv_mixed_gmres)
+# ---------------------------------------------------------------------------
+
+def _getrf_lo(av, lo, nb, anorm):
+    """Low-precision LU leg of the mixed drivers: ``getrf_rec`` of ``av``
+    in ``lo`` (fp32: its panels through the ``lu_panel`` site, the
+    ``getrf_panel_linv`` kernel on the card, its products through the
+    ``matmul`` site).  The JAX package's split leg (bf16x3 products and
+    a κ·ε probe) waits for ``ops/split_gemm.py``; ``use_split_leg``
+    raises where the knob forces it."""
+    from ._refine import use_split_leg
+
+    use_split_leg(lo)
+    return getrf_rec(av.to(lo), nb)
+
+
+def _gesv_mixed_setup(a, b, opts, tol, device):
+    import math
+
+    from .norms import norm as _norm
+    from ._refine import lo_dtype
+
+    dev = _device_of(a, b, device=device)
+    av, bv = _arr(a, dev), _arr(b, dev)
+    n = av.shape[-1]
+    nb = _nb(a, opts)
+    itermax = int(get_option(opts, "max_iterations", 30))
+    use_fallback = bool(get_option(opts, "use_fallback_solver", True))
+    eps = torch.finfo(av.dtype).eps
+    # reference stopping criterion: ||r||∞ ≤ ||x||∞ · ||A||∞ · ε · √n
+    anorm = _norm(Norm.Inf, av, device=dev)
+    thresh = float(tol) if tol is not None else float(eps) * math.sqrt(n)
+    lo = lo_dtype(av.dtype)
+    lu_lo, perm = _getrf_lo(av, lo, nb, anorm)
+
+    def solve_lo(r):
+        return _lu_solve(lu_lo, perm, r.to(lo), nb).to(av.dtype)
+
+    full = []                      # lazily factored, shared by columns
+
+    def solve_full(bv2):
+        # full-precision fallback (reference gesv_mixed.cc); the refine
+        # cores always pass a 2-D block
+        if not full:
+            full.append(getrf_rec(av, nb))
+        return _lu_solve(full[0][0], full[0][1], bv2, nb)
+
+    return av, bv, dict(anorm=anorm, thresh=thresh, itermax=itermax,
+                        use_fallback=use_fallback), solve_lo, solve_full
+
+
+def gesv_mixed(a, b, opts: Optional[Options] = None, *, tol=None,
+               return_info: bool = False, device=None):
+    """Mixed-precision LU solve with iterative refinement — reference
+    ``slate::gesv_mixed``: factor in low precision (fp32), refine the
+    residual in working precision, fall back to a full-precision factor
+    if refinement stalls (``Option.UseFallbackSolver``).  Returns
+    ``(x, iters)``; ``iters < 0`` flags the fallback."""
+    from ._refine import ir_refine
+
+    av, bv, kw, solve_lo, solve_full = _gesv_mixed_setup(a, b, opts, tol,
+                                                         device)
+    x, iters = ir_refine(av, bv, solve_lo, solve_full, **kw)
+    return _wrap_like(b, x), iters
+
+
+def gesv_mixed_gmres(a, b, opts: Optional[Options] = None, *, tol=None,
+                     restart: int = 30, device=None):
+    """GMRES-IR: FGMRES in working precision, left-preconditioned by the
+    low-precision LU solve — reference ``slate::gesv_mixed_gmres``
+    (itermax 30, fallback on stagnation; one right-hand side per GMRES
+    sequence).  Returns ``(x, iters)``."""
+    from ._refine import fgmres_refine
+
+    av, bv, kw, precond, solve_full = _gesv_mixed_setup(a, b, opts, tol,
+                                                        device)
+    x, iters = fgmres_refine(av, bv, precond, solve_full, restart=restart,
+                             **kw)
+    return _wrap_like(b, x), iters
+
+
+#: Deprecated camel-case alias kept by the reference (slate.hh).
+gesvMixed = gesv_mixed

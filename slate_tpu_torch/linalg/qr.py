@@ -20,8 +20,10 @@ conditioning guard's rerun) has a Householder panel leaf that is not a
 Pallas kernel in the JAX package (an XLA column loop there): here it is
 ``torch.geqrf``.
 
-Not ported yet: ``gels_mixed``, which waits for ``_refine.py``
-(ROADMAP.md, queue 1 item 5).
+``gels_mixed`` factors in fp32 through :func:`geqrf_rec` and refines
+the semi-normal equations in the working precision
+(:mod:`slate_tpu_torch.linalg._refine`); its split-precision leg waits
+for ``ops/split_gemm.py``.
 """
 
 from __future__ import annotations
@@ -473,3 +475,76 @@ def gels(a, b, opts: Optional[Options] = None, *, device=None):
     if method is MethodGels.CholQR and m >= n:
         return gels_cholqr(a, b, opts, device=dev)
     return gels_qr(a, b, opts, device=dev)
+
+
+def _gels_lo_factor(av, lo, nb: int):
+    """The low leg of :func:`gels_mixed`: R of ``geqrf_rec`` of ``av`` in
+    ``lo`` (fp32: its products through the ``matmul`` site).  The JAX
+    package's split leg waits for ``ops/split_gemm.py``; ``use_split_leg``
+    raises where the knob forces it."""
+    from ._refine import use_split_leg
+
+    use_split_leg(lo)
+    f, _taus = geqrf_rec(av.to(lo), nb)
+    return torch.triu(f[:av.shape[1]])
+
+
+def gels_mixed(a, b, opts: Optional[Options] = None, *, tol=None,
+               device=None):
+    """Mixed-precision least squares with iterative refinement (the JAX
+    package's corrected semi-normal equations over the shared refine
+    core; the reference has no gels_mixed): factor A = Q·R once in low
+    precision, then iterate the normal-equation residual s = Aᴴ(b − A·x),
+    each correction solving Rᴴ·R·d = s against the low factor.
+    Overdetermined shapes only (m ≥ n).  Returns ``(x, iters)``;
+    negative ``iters`` flags the working-precision :func:`gels_qr`
+    fallback."""
+    import math
+
+    from ..enums import Norm
+    from .norms import norm as _norm
+    from ._refine import ir_refine_core, lo_dtype
+
+    dev = _device_of(a, b, device=device)
+    av, bv = _arr(a, dev), _arr(b, dev)
+    m, n = av.shape
+    if m < n:
+        raise ValueError("gels_mixed refines overdetermined systems "
+                         "(m >= n); use gels for minimum-norm shapes")
+    nb = _nb(a, opts)
+    itermax = int(get_option(opts, "max_iterations", 30))
+    use_fallback = bool(get_option(opts, "use_fallback_solver", True))
+    squeeze = bv.ndim == 1
+    if squeeze:
+        bv = bv[:, None]
+    eps = float(torch.finfo(av.dtype).eps)
+    # the refined operator is AᴴA: ‖AᴴA‖∞ ≤ ‖A‖₁·‖A‖∞
+    anorm2 = float(_norm(Norm.One, av, device=dev)) \
+        * float(_norm(Norm.Inf, av, device=dev))
+    thresh = float(tol) if tol is not None else eps * math.sqrt(n)
+
+    lo = lo_dtype(av.dtype)
+    r_lo = _gels_lo_factor(av, lo, nb)
+    ah = _ct(av)
+
+    def solve_lo(s):
+        w = blocks.trsm_rec(Side.Left, Uplo.Lower, Diag.NonUnit,
+                            _ct(r_lo), s.to(lo), nb)
+        d = blocks.trsm_rec(Side.Left, Uplo.Upper, Diag.NonUnit, r_lo, w, nb)
+        return d.to(av.dtype)
+
+    def solve_full(_s0):
+        # working-precision fallback: gels_qr on the ORIGINAL right-hand
+        # side (the core hands over the normal-equation one)
+        return _arr(gels_qr(av, bv, opts, device=dev), dev)
+
+    def residual(x):
+        return matmul_hi(ah, bv - matmul_hi(av, x))
+
+    s0 = residual(torch.zeros((n, bv.shape[1]), dtype=av.dtype, device=dev))
+    x, iters = ir_refine_core(s0, solve_lo, solve_full, residual,
+                              anorm=anorm2, thresh=thresh, itermax=itermax,
+                              use_fallback=use_fallback)
+    if squeeze:
+        x = x[:, 0]
+    return _wrap_like(b, x), iters

@@ -114,7 +114,7 @@ class BaseMatrix:
         obj.nb = kw.get("nb", self.nb)
         obj.op = kw.get("op", self.op)
         obj.grid = kw.get("grid", self.grid)
-        for f in ("uplo", "diag"):
+        for f in ("uplo", "diag", "kl", "ku", "kd"):
             if hasattr(self, f):
                 setattr(obj, f, kw.get(f, getattr(self, f)))
         return obj
@@ -169,6 +169,13 @@ class BaseTrapezoidMatrix(BaseMatrix):
         return Uplo.Upper if self.uplo is Uplo.Lower else Uplo.Lower
 
 
+    def tril_or_triu(self):
+        """The stored triangle of the logical matrix, zeros elsewhere."""
+        a = self.array
+        return torch.tril(a) if self.logical_uplo is Uplo.Lower \
+            else torch.triu(a)
+
+
 class TriangularMatrix(BaseTrapezoidMatrix):
     """Square triangular."""
 
@@ -187,6 +194,65 @@ class HermitianMatrix(BaseTrapezoidMatrix):
     def full(self):
         from .ops.tile_ops import hermitize
         return hermitize(self.logical_uplo, self.array)
+
+
+class BaseBandMatrix(BaseMatrix):
+    """Band matrix with bandwidths (kl, ku), stored dense with implicit
+    zeros outside the band, as in the JAX package
+    (``slate_tpu/matrix.py:293-347``, less its pytree plumbing)."""
+
+    def __init__(self, data, kl: int, ku: int, **kw):
+        super().__init__(data, **kw)
+        self.kl = int(kl)
+        self.ku = int(ku)
+
+    def transpose(self):
+        """Band transpose also swaps the bandwidths (ku ↔ kl)."""
+        out = super().transpose()
+        out.kl, out.ku = self.ku, self.kl
+        return out
+
+    def conj_transpose(self):
+        out = super().conj_transpose()
+        out.kl, out.ku = self.ku, self.kl
+        return out
+
+    def band_mask(self):
+        i = torch.arange(self.m, device=self.device)[:, None]
+        j = torch.arange(self.n, device=self.device)[None, :]
+        return (j - i <= self.ku) & (i - j <= self.kl)
+
+    def banded(self):
+        """The logical (op-applied) matrix with outside-band entries zeroed."""
+        return torch.where(self.band_mask(), self.array,
+                           torch.zeros((), dtype=self.dtype,
+                                       device=self.device))
+
+
+class BandMatrix(BaseBandMatrix):
+    """General band matrix."""
+
+
+class TriangularBandMatrix(BaseBandMatrix):
+    """Triangular band of bandwidth kd in its ``uplo`` triangle."""
+
+    def __init__(self, data, kd: int, uplo: Uplo, diag: Diag = Diag.NonUnit,
+                 **kw):
+        kl, ku = (kd, 0) if uplo is Uplo.Lower else (0, kd)
+        super().__init__(data, kl, ku, **kw)
+        self.uplo = uplo
+        self.diag = diag
+        self.kd = kd
+
+
+class HermitianBandMatrix(BaseBandMatrix):
+    """Hermitian band of bandwidth kd, one triangle stored."""
+
+    def __init__(self, data, kd: int, uplo: Uplo, **kw):
+        kl, ku = (kd, 0) if uplo is Uplo.Lower else (0, kd)
+        super().__init__(data, kl, ku, **kw)
+        self.uplo = uplo
+        self.kd = kd
 
 
 def as_array(a, device=None):

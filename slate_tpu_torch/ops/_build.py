@@ -51,6 +51,10 @@ SOURCES = {
     "chol_l21_panel": ("chol_l21_panel.cu",
                        ("potrf_step.cuh", "tri_panel.cuh")),
     "lu_u12_panel": ("lu_u12_panel.cu", ("potrf_step.cuh", "tri_panel.cuh")),
+    "tile_norms": ("tile_norms.cu", ()),
+    "tz": ("tz.cu", ("tile2d.cuh",)),
+    "geadd": ("geadd.cu", ("tile2d.cuh",)),
+    "gescale_row_col": ("gescale_row_col.cu", ("tile2d.cuh",)),
 }
 
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -61,19 +61,27 @@ def _t(a, conj: bool):
 # Cholesky
 # ---------------------------------------------------------------------------
 
-def potrf_rec(a, nb: int):
-    """Blocked lower Cholesky; returns L (zeros above the diagonal)."""
+def potrf_rec(a, nb: int, nan_on_fail: bool = False):
+    """Blocked lower Cholesky; returns L (zeros above the diagonal).  A
+    leaf that is not positive definite raises, as
+    ``torch.linalg.cholesky`` does; with ``nan_on_fail`` its lower
+    triangle comes back NaN instead, as the JAX package's leaf
+    (``lax.linalg.cholesky``) returns it, with no host sync."""
     n = a.shape[-1]
     if n <= nb:
-        return torch.linalg.cholesky(a)
+        if not nan_on_fail:
+            return torch.linalg.cholesky(a)
+        l, info = torch.linalg.cholesky_ex(a)
+        return torch.where((info == 0)[..., None, None], l,
+                           torch.tril(torch.full_like(l, float("nan"))))
     n1 = _split(n, nb)
     a11 = a[..., :n1, :n1]
     a21 = a[..., n1:, :n1]
     a22 = a[..., n1:, n1:]
-    l11 = potrf_rec(a11, nb)
+    l11 = potrf_rec(a11, nb, nan_on_fail)
     # L21 = A21 · L11^{-H}
     l21 = torch.linalg.solve_triangular(_ct(l11), a21, upper=True, left=False)
-    l22 = potrf_rec(a22 - matmul(l21, _ct(l21)), nb)
+    l22 = potrf_rec(a22 - matmul(l21, _ct(l21)), nb, nan_on_fail)
     top = torch.cat([l11, torch.zeros_like(_t(a21, False))], dim=-1)
     bot = torch.cat([l21, l22], dim=-1)
     return torch.cat([top, bot], dim=-2)

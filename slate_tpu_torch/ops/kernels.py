@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels — the counterpart of
-``slate_tpu/ops/pallas_kernels.py`` for the kernels ported so far.
+``slate_tpu/ops/pallas_kernels.py``: one CUDA kernel for each of its
+21 Pallas entry points (``tzset`` and ``tzscale`` share one kernel).
 
 Each kernel has three things here:
 
@@ -9,7 +10,8 @@ Each kernel has three things here:
   :func:`potrf_full_fused`, :func:`getrf_step_fused`,
   :func:`getrf_full_fused`, :func:`hb2st_wavefront`,
   :func:`tb2bd_wavefront`, :func:`chol_l21_panel`,
-  :func:`lu_u12_panel`) that checks device,
+  :func:`lu_u12_panel`, :func:`tile_norms`, :func:`tzset`,
+  :func:`tzscale`, :func:`geadd`, :func:`gescale_row_col`) that checks device,
   dtype, shape and strides, allocates its outputs and scratch with
   ``torch.empty``, launches the kernel on the current CUDA stream and
   raises if the launch fails.  Given CPU tensors it runs the plain
@@ -42,11 +44,13 @@ launches = {"matmul": 0, "chol_inv_panel": 0, "trtri_panel": 0,
             "potrf_step_fused": 0, "potrf_full_fused": 0,
             "getrf_step_fused": 0, "getrf_full_fused": 0,
             "hb2st_wavefront": 0, "tb2bd_wavefront": 0,
-            "chol_l21_panel": 0, "lu_u12_panel": 0}
+            "chol_l21_panel": 0, "lu_u12_panel": 0,
+            "tile_norms": 0, "tzset": 0, "tzscale": 0, "geadd": 0,
+            "gescale_row_col": 0}
 
 IB = 32
 
-_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_P, _I64, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
 _LU_ARGS = [_P] * 7 + [_I] * 4
 _SIGNATURES = {
     "matmul": ("slate_matmul_f32",
@@ -79,6 +83,10 @@ _SIGNATURES = {
                        [_P, _I64, _P, _I64] + [_P] * 4 + [_I] * 3 + [_P]),
     "lu_u12_panel": ("slate_lu_u12_panel_f32",
                      [_P, _I64, _P, _I64] + [_P] * 6 + [_I] * 3 + [_P]),
+    "tile_norms": ("slate_tile_norms_%s", [_P, _P, _I, _I64, _I, _P]),
+    "tz": ("slate_tz_%s", [_P, _P] + [_I] * 4 + [_D, _D, _P]),
+    "geadd": ("slate_geadd_%s", [_D, _P, _D, _P, _P, _I, _I, _P]),
+    "gescale_row_col": ("slate_gescale_row_col_%s", [_P] * 4 + [_I, _I, _P]),
 }
 _fns: dict = {}
 _fns_lock = threading.Lock()     # the entry-point cache; held across a build
@@ -169,15 +177,17 @@ _SMEM_CHECKS = {"getrf_batched": _check_getrf_batched_smem,
 
 
 def _launch(name: str, device: torch.device, *args, dt=None,
-            count: bool = True) -> None:
+            count: bool = True, counter=None) -> None:
+    """Launch library ``name``'s kernel; one launch is counted under
+    ``counter`` (default ``name``: ``tz`` serves two counters)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _fn(name, dt)(*args, stream)
     if rc != 0:
         raise RuntimeError("%s kernel launch failed: CUDA error %d"
-                           % (name, rc))
+                           % (counter or name, rc))
     if count:
-        _count(name)
+        _count(counter or name)
 
 
 def _count(name: str) -> None:
@@ -1431,3 +1441,174 @@ def tb2bd_wavefront_barriers(st, kd: int, s0: int = 0, s1=None) -> None:
     _launch("tb2bd_wavefront", st.device, st.data_ptr(), st.stride(0), n, kd,
             s0, s0 + nsweeps, scratch[0].data_ptr(), scratch[1].data_ptr(),
             nblk_max, 0, dt=_HB2ST_DT[st.dtype], count=False)
+
+
+# ---------------------------------------------------------------------------
+# Tile kernels (replace pallas_kernels.tile_norms :148, tzset :193 and
+# tzscale :201 through _tz_call :207, geadd :232, gescale_row_col :253):
+# no driver calls them, in either package; the drivers take the torch
+# forms of ops/tile_ops.py, as the JAX drivers take the jnp forms
+# ---------------------------------------------------------------------------
+
+_TILE_DT = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _tile_dt(name: str, *ts) -> str:
+    """The dtype suffix of a CUDA call on ``ts``: one real dtype (fp32 or
+    fp64), contiguous.  A complex tensor is a TypeError (the TPU kernels
+    are real; complex input runs the plain version on the CPU)."""
+    if any(t.dtype.is_complex for t in ts):
+        raise TypeError("%s: the CUDA kernel takes float32 or float64, got "
+                        "%s (complex input runs on the CPU)"
+                        % (name, [str(t.dtype) for t in ts]))
+    dt = ts[0].dtype
+    if dt not in _TILE_DT or any(t.dtype != dt for t in ts):
+        raise ValueError("%s: the CUDA kernel takes one dtype, float32 or "
+                         "float64, got %s" % (name, [str(t.dtype) for t in ts]))
+    for t in ts:
+        if not t.is_contiguous():
+            raise ValueError("%s needs contiguous tensors on the card, got "
+                             "strides %s for shape %s"
+                             % (name, t.stride(), tuple(t.shape)))
+    return _TILE_DT[dt]
+
+
+def _check_tiles(name: str, a, bm: int, bn: int):
+    """``(m, n)`` of the 2-D ``a``; raises where the Pallas kernel's grid
+    would (after bm = min(bm, m), m % bm != 0; likewise n).  bm and bn
+    change no answer."""
+    if a.ndim != 2:
+        raise ValueError("%s takes a 2-D matrix, got %s"
+                         % (name, tuple(a.shape)))
+    m, n = a.shape
+    bm, bn = min(bm, m), min(bn, n)
+    if bm <= 0 or bn <= 0 or m % bm or n % bn:
+        raise ValueError("%s: pad shapes to the tile grid: (%d, %d) in "
+                         "(%d, %d) tiles" % (name, m, n, bm, bn))
+    return m, n
+
+
+def tile_norms_plain(x, norm: str = "max"):
+    """Plain version of :func:`tile_norms` (any dtype the JAX kernel
+    takes, complex included)."""
+    if norm == "max":
+        return x.abs().amax(dim=(1, 2))
+    sq = x.real * x.real + x.imag * x.imag if x.is_complex() else x * x
+    return sq.sum(dim=(1, 2))
+
+
+def tile_norms(x, norm: str = "max"):
+    """Per-tile partial norms of an (nt, mb, nb) tile batch: ``"max"`` →
+    each tile's max|x| (NaN if the tile holds one), anything else → each
+    tile's Σ|x|² (unsquared; the caller reduces and takes the root).
+    Returns (nt,) in the real dtype of ``x``.  On the card ``x`` is
+    contiguous fp32 or fp64."""
+    if x.ndim != 3:
+        raise ValueError("tile_norms takes an (nt, mb, nb) batch, got %s"
+                         % (tuple(x.shape),))
+    if _on_cpu(x):
+        return tile_norms_plain(x, norm)
+    dt = _tile_dt("tile_norms", x)
+    nt, mb, nb = x.shape
+    out = torch.empty(nt, dtype=x.dtype, device=x.device)
+    _launch("tile_norms", x.device, x.data_ptr(), out.data_ptr(), nt,
+            mb * nb, int(norm != "max"), dt=dt)
+    return out
+
+
+def _tz_plain(a, lower: bool, offdiag, diag, op: str):
+    m, n = a.shape
+    i = torch.arange(m, device=a.device)[:, None]
+    j = torch.arange(n, device=a.device)[None, :]
+    in_tri = (i >= j) if lower else (i <= j)
+    on_diag = i == j
+    off = torch.tensor(offdiag, dtype=a.dtype, device=a.device)
+    dg = torch.tensor(diag, dtype=a.dtype, device=a.device)
+    if op == "set":
+        return torch.where(on_diag, dg, torch.where(in_tri, off, a))
+    return torch.where(in_tri & ~on_diag, a * off,
+                       torch.where(on_diag, a * dg, a))
+
+
+def tzset_plain(a, lower: bool, offdiag_value, diag_value):
+    """Plain version of :func:`tzset`."""
+    return _tz_plain(a, lower, offdiag_value, diag_value, "set")
+
+
+def tzscale_plain(a, lower: bool, offdiag_factor, diag_factor):
+    """Plain version of :func:`tzscale`."""
+    return _tz_plain(a, lower, offdiag_factor, diag_factor, "scale")
+
+
+def _tz(name: str, a, lower, offdiag, diag, op: str, bm: int, bn: int):
+    m, n = _check_tiles(name, a, bm, bn)
+    if _on_cpu(a):
+        return _tz_plain(a, lower, offdiag, diag, op)
+    dt = _tile_dt(name, a)
+    out = torch.empty_like(a)
+    _launch("tz", a.device, a.data_ptr(), out.data_ptr(), m, n, int(lower),
+            int(op == "scale"), float(offdiag), float(diag), dt=dt,
+            counter=name)
+    return out
+
+
+def tzset(a, lower: bool, offdiag_value, diag_value, bm: int = 256,
+          bn: int = 256):
+    """A copy of ``a`` with its stored triangle (``lower``: i ≥ j, else
+    i ≤ j) set to ``offdiag_value`` and its diagonal to ``diag_value``;
+    the other triangle is kept (unlike ``tile_ops.tzset``, which zeroes
+    it)."""
+    return _tz("tzset", a, lower, offdiag_value, diag_value, "set", bm, bn)
+
+
+def tzscale(a, lower: bool, offdiag_factor, diag_factor, bm: int = 256,
+            bn: int = 256):
+    """A copy of ``a`` with its strict stored triangle scaled by
+    ``offdiag_factor`` and its diagonal by ``diag_factor``; the other
+    triangle is kept."""
+    return _tz("tzscale", a, lower, offdiag_factor, diag_factor, "scale",
+               bm, bn)
+
+
+def geadd_plain(alpha, a, beta, b):
+    """Plain version of :func:`geadd`: each product rounded, then the
+    sum, in B's dtype."""
+    al = torch.tensor(alpha, dtype=a.dtype, device=a.device)
+    be = torch.tensor(beta, dtype=b.dtype, device=b.device)
+    return (al * a + be * b).to(b.dtype)
+
+
+def geadd(alpha, a, beta, b, bm: int = 256, bn: int = 256):
+    """α·A + β·B in B's dtype (out of place).  B is read even where β = 0,
+    so a NaN or Inf in B stays in the result."""
+    m, n = _check_tiles("geadd", a, bm, bn)
+    if tuple(b.shape) != (m, n):
+        raise ValueError("geadd: shapes differ: %s, %s"
+                         % (tuple(a.shape), tuple(b.shape)))
+    if _on_cpu(a, b):
+        return geadd_plain(alpha, a, beta, b)
+    dt = _tile_dt("geadd", a, b)
+    out = torch.empty_like(b)
+    _launch("geadd", a.device, float(alpha), a.data_ptr(), float(beta),
+            b.data_ptr(), out.data_ptr(), m, n, dt=dt)
+    return out
+
+
+def gescale_row_col_plain(r, c, a):
+    """Plain version of :func:`gescale_row_col`: (r[i]·A[i, j])·c[j]."""
+    return (r[:, None] * a * c[None, :]).to(a.dtype)
+
+
+def gescale_row_col(r, c, a, bm: int = 256, bn: int = 256):
+    """diag(r)·A·diag(c) (out of place), r of length m, c of length n."""
+    m, n = _check_tiles("gescale_row_col", a, bm, bn)
+    if tuple(r.shape) != (m,) or tuple(c.shape) != (n,):
+        raise ValueError("gescale_row_col: r %s and c %s do not fit A %s"
+                         % (tuple(r.shape), tuple(c.shape), (m, n)))
+    if _on_cpu(r, c, a):
+        return gescale_row_col_plain(r, c, a)
+    dt = _tile_dt("gescale_row_col", r, c, a)
+    out = torch.empty_like(a)
+    _launch("gescale_row_col", a.device, r.data_ptr(), c.data_ptr(),
+            a.data_ptr(), out.data_ptr(), m, n, dt=dt)
+    return out

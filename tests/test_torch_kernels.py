@@ -128,6 +128,11 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     kernels.tb2bd_wavefront(torch.zeros((40, 26), dtype=torch.float64), 8)
     kernels.chol_l21_panel(a, torch.zeros(128, 64))
     kernels.lu_u12_panel(torch.eye(64), torch.ones(64, 128))
+    kernels.tile_norms(a[None], "fro")
+    kernels.tzset(a, True, 0.0, 1.0)
+    kernels.tzscale(a, False, 2.0, 1.0)
+    kernels.geadd(1.0, a, 2.0, a)
+    kernels.gescale_row_col(a[0], a[1], a)
     assert set(kernels.launches) == {"matmul", "chol_inv_panel",
                                      "trtri_panel", "lu_inv_panel",
                                      "getrf_panel_linv",
@@ -136,7 +141,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                                      "potrf_full_fused", "getrf_step_fused",
                                      "getrf_full_fused", "hb2st_wavefront",
                                      "tb2bd_wavefront", "chol_l21_panel",
-                                     "lu_u12_panel"}
+                                     "lu_u12_panel", "tile_norms", "tzset",
+                                     "tzscale", "geadd", "gescale_row_col"}
     assert all(v == 0 for v in kernels.launches.values())
 
 
