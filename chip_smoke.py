@@ -31,7 +31,7 @@
    blocks and at 512 on the B[:512] block of the first CholQR² panel of
    the QR path's input: each output within 1e-4 of its plain version,
    ‖L·U − A‖/(‖A‖·ε·nb) ≤ 3, ‖L·L⁻¹ − I‖ and ‖U·U⁻¹ − I‖ < 1e-3; timed
-   at 512 on the B block.  Phase 2f runs ``geqrf`` of the QR path's
+   at 512 on the B block and at 256 on the dominant block.  Phase 2f runs ``geqrf`` of the QR path's
    input and ``ungqr`` of its factor once with every call of
    ``matmul``, ``chol_inv_panel``, ``lu_inv_panel`` and ``trtri_panel``
    held to its plain version on the same arguments (``matmul`` ≤ 1e-5,
@@ -147,7 +147,8 @@
      ‖L11·U − B‖ relative ≤ 1e-5), the departure where the data set it
      (past the 1e-2 guard on an N(0, 1) unit-lower L11; 1e-4 relative
      with a strict upper part in L11), and times them beside their
-     bounds; phase 3j runs
+     bounds (``lu_u12_panel`` also at (256, 4096), the widest solve of
+     the checked 4096 runs); phase 3j runs
      ``pgemm``, ``pposv`` and ``pgesv`` of ``slate_tpu_torch.parallel``
      on a 1×1 grid of a ``torch.distributed`` world of one (NCCL), the
      sites at their card defaults: residuals ≤ 3, |L| ≤ 1 + 100ε, exactly
@@ -1631,13 +1632,16 @@ def check_lu_inv_kernel(torch, kernels, dev, a_qr) -> dict:
             errs.append(max(float((g - r).abs().max())
                             for g, r in zip(got, ref)))
     nb = QR_PANEL
-    eye32 = torch.eye(nb, device=dev)
 
-    def library_lu_inv():
-        lu, _ = torch.linalg.lu_factor(b, pivot=False)
-        return (torch.linalg.solve_triangular(lu, eye32, upper=False,
-                                              unitriangular=True),
-                torch.linalg.solve_triangular(lu, eye32, upper=True))
+    def library_lu_inv(x):
+        eye = torch.eye(x.shape[0], device=dev)
+
+        def call():
+            lu, _ = torch.linalg.lu_factor(x, pivot=False)
+            return (torch.linalg.solve_triangular(lu, eye, upper=False,
+                                                  unitriangular=True),
+                    torch.linalg.solve_triangular(lu, eye, upper=True))
+        return call
 
     b_ms, b_by = bound(4.0 * nb ** 3 / 3, 4.0 * 4 * nb * nb)
     r = dict(shape="(%d,%d) CholQR2 B block of the first (%d,%d) panel"
@@ -1646,13 +1650,27 @@ def check_lu_inv_kernel(torch, kernels, dev, a_qr) -> dict:
              tol="rel Frobenius of LU, L^-1, U^-1 <= 1e-4; residual <= 3",
              ms=cuda_ms(torch, lambda: kernels.lu_inv_panel(b), 20),
              plain_ms=cuda_ms(torch, lambda: kernels.lu_inv_panel_plain(b), 2),
-             library_ms=cuda_ms(torch, library_lu_inv, 20),
+             library_ms=cuda_ms(torch, library_lu_inv(b), 20),
              bound_ms=b_ms, bound_by=b_by)
     print("kernel lu_inv_panel %s: max_abs_err %.3e (%s); kernel %.4f ms, "
           "plain %.4f ms, library %.4f ms (lu_factor(pivot=False) + two "
           "solve_triangular vs I, a composition), bound %.5f ms (%s)"
           % (r["shape"], r["max_abs_err"], r["tol"], r["ms"], r["plain_ms"],
              r["library_ms"], r["bound_ms"], r["bound_by"]), flush=True)
+    # timed also at nb = 256 on the dominant block checked above
+    a256 = cases[3][1]
+    r.update(nb256_ms=cuda_ms(torch, lambda: kernels.lu_inv_panel(a256), 20),
+             nb256_plain_ms=cuda_ms(
+                 torch, lambda: kernels.lu_inv_panel_plain(a256), 2),
+             nb256_library_ms=cuda_ms(torch, library_lu_inv(a256), 20),
+             nb256_bound_ms=bound(4.0 * 256 ** 3 / 3, 4.0 * 4 * 256 * 256)[0])
+    print("redesign lu_inv_panel (one cooperative grid): (512,512) B block "
+          "kernel %.4f ms against the library's %.4f ms (bound %.5f ms); "
+          "dominant (256,256) kernel %.4f ms, plain %.4f ms, library "
+          "%.4f ms, bound %.5f ms"
+          % (r["ms"], r["library_ms"], r["bound_ms"], r["nb256_ms"],
+             r["nb256_plain_ms"], r["nb256_library_ms"], r["nb256_bound_ms"]),
+          flush=True)
     return {"lu_inv_panel": r}
 
 
@@ -2985,7 +3003,28 @@ def check_dist_kernels(torch, kernels, dev) -> dict:
             library_ms=cuda_ms(torch, lambda: torch.linalg.solve_triangular(
                 l11, b, upper=False, unitriangular=True), 20),
             bound_ms=b_ms, bound_by=b_by)
+    # timed also at (256, 4096), the widest solve of the checked 4096
+    # runs (phases 3j and 3k), on an input of its own generator
+    g4 = torch.Generator(device=dev).manual_seed(43)
+    b4 = torch.randn((nb, DIST_CHECK_N), generator=g4, device=dev)
+    rows[m].update(
+        w4096_ms=cuda_ms(torch, lambda: kernels.lu_u12_panel(l11, b4), 20),
+        w4096_plain_ms=cuda_ms(torch, lambda: kernels.lu_u12_panel_plain(
+            l11, b4), 3),
+        w4096_library_ms=cuda_ms(torch, lambda: torch.linalg.solve_triangular(
+            l11, b4, upper=False, unitriangular=True), 20),
+        w4096_bound_ms=bound(3.0 * nb * nb * DIST_CHECK_N + nb ** 3 / 3.0,
+                             4.0 * (nb * nb + 2 * nb * DIST_CHECK_N + 1))[0])
     r = rows[m]
+    print("redesign lu_u12_panel (phases over the whole grid): block row "
+          "(%d,%d) kernel %.4f ms against the library's %.4f ms (bound "
+          "%.5f ms); ring (%d,%d) kernel %.4f ms against %.4f ms (bound "
+          "%.6f ms); (%d,%d) kernel %.4f ms, plain %.4f ms, library %.4f ms, "
+          "bound %.5f ms"
+          % (nb, m, r["ms"], r["library_ms"], r["bound_ms"], nb, nb,
+             rows[nb]["ms"], rows[nb]["library_ms"], rows[nb]["bound_ms"],
+             nb, DIST_CHECK_N, r["w4096_ms"], r["w4096_plain_ms"],
+             r["w4096_library_ms"], r["w4096_bound_ms"]), flush=True)
     r.update(tol="rel Frobenius of U <= 1e-4; ||L11 U - B|| <= 1e-5; "
                  "departure within 4x of the plain one, same guard verdict; "
                  "set by the data: past 1e-2, or within 1e-4 relative",
@@ -3902,6 +3941,9 @@ def main() -> int:
                       "barriers_ms", "fp64", "max_abs_err_fp64",
                       "ring_shape", "ring_ms", "ring_plain_ms",
                       "ring_library_ms", "ring_bound_ms",
+                      "nb256_ms", "nb256_plain_ms", "nb256_library_ms",
+                      "nb256_bound_ms", "w4096_ms", "w4096_plain_ms",
+                      "w4096_library_ms", "w4096_bound_ms",
                       "library", "fp64_8192_ms", "fro_ms",
                       "max_abs_err_fro", "driver_path_launches"):
             if extra in r:

@@ -1,0 +1,391 @@
+// Grid-level building blocks of the triangular kernels that spread over the
+// whole card (lu_u12_panel.cu, lu_inv_panel.cu): the cooperative kernels of
+// tri_panel.cuh's single-block algorithms, with the same arithmetic.
+//
+// Execution model: one cooperative grid of NTH-thread blocks, as many as are
+// co-resident (plan_grid) and no more than the widest phase has tiles of
+// work.  A phase hands its output tiles to the blocks in turn (tile u to
+// block u mod G) and ends with grid.sync().  Each block stages its operands
+// through shared memory.  Data that other blocks wrote in the same launch is
+// read through L2 (__ldcg: ld.global.cg), never through an SM's L1, which is
+// not coherent across SMs; so every global read here is __ldcg, and no
+// pointer is __restrict__.
+//
+// The pieces:
+//   * tile_gemm<BM, BN>: one (BM, BN) output tile of A·B, K in slabs of BK
+//     staged through two shared buffers and two register sets (slab t + 2
+//     is loaded while slab t multiplies; cp.async.cg would need 16-byte
+//     aligned rows, and the kernels take views of any row stride),
+//     K slabs that a triangular operand zeroes skipped, and an epilogue
+//     functor that writes each element;
+//   * the recursive doubling of a lower or an upper triangular inverse, one
+//     level's two products at a time, over 32 × 32 tiles, so that the narrow
+//     levels are not mostly padding;
+//   * the 32 × 32 diagonal work: the no-pivot LU on one warp holding the
+//     block in registers (pivot rows by shuffle, no block barrier), and the
+//     inverses of a triangle on one warp each with the substitution carried
+//     in registers (the right-looking order of the same sums, so each entry
+//     is rounded as the row-wise substitution of tri_panel.cuh rounds it);
+//     32³ products on a block in 2 × 2 register fragments.
+//
+// Arithmetic: FFMA in full fp32.  TF32 tensor-core products fail the drivers'
+// residual gates; a 3xTF32 product is the matmul kernel's redesign to make
+// first, and these kernels can adopt it then.  The triangular chains are
+// bound by latency (a grid barrier and a 32 × 32 factorization a step), the
+// wide products by the FFMA tile's issue rate.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tri_grid {
+
+namespace cg = cooperative_groups;
+
+constexpr int IB = 32;     // the diagonal block, as the reference's ib
+constexpr int NTH = 256;   // threads of a block: a 16 × 16 grid of fragments
+constexpr int PAD = 4;     // row padding of a staged slab (keeps float4 rows)
+constexpr int LDB = IB + 1;  // row stride of a 32 × 32 block for one warp's work
+constexpr int LDT = IB + PAD;  // row stride of a 32 × 32 product operand
+
+// Shared floats a kernel reserves: eight 32 × 36 blocks, which also hold the
+// 32-tile's two 64-deep slabs of A and B.
+constexpr int SMEM_FLOATS = 8 * IB * LDT;
+
+enum Tri { FULL = 0, LOWER = 1, UPPER = 2 };
+
+// Zero-based element t·TM + i of a thread's TM-fragment of a BM-wide tile;
+// an 8-fragment is two float4 halves BM/2 apart (no bank conflicts).
+template <int TM, int BM>
+__device__ __forceinline__ int frag_idx(int t, int i) {
+  if constexpr (TM == 8) return (i / 4) * (BM / 2) + t * 4 + (i % 4);
+  else return t * TM + i;
+}
+
+template <int TM, int BM>
+__device__ __forceinline__ void frag_load(const float* row, int t, float (&v)[TM]) {
+  if constexpr (TM == 8) {
+    const float4 a = *reinterpret_cast<const float4*>(row + t * 4);
+    const float4 b = *reinterpret_cast<const float4*>(row + BM / 2 + t * 4);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else if constexpr (TM == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(row + t * 4);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else {
+    const float2 a = *reinterpret_cast<const float2*>(row + t * 2);
+    v[0] = a.x; v[1] = a.y;
+  }
+}
+
+// One (BM, BN) output tile at (i0, j0) of the (M, N) product A·B with inner
+// dimension K, by the whole block: A(i, k) = A[i·lda + k], B(k, j) =
+// B[k·ldb + j].  TA / TB say which triangle of A / B may be nonzero
+// (LOWER: A(i, k) = 0 for k > i, B(k, j) = 0 for k < j; UPPER the other
+// way); K slabs the triangle zeroes for the whole tile are skipped.  With
+// CHECK the zeros inside a slab are masked (the other triangle is never
+// read) and so are the rows, columns and K past the operands' edges;
+// without it the caller vouches that the tile is whole, K is a multiple of
+// the slab depth and the skipped triangle holds stored zeros.
+// epi(i, j, acc) is called once for each element of the tile with i < M and
+// j < N.  Each element's sum runs over k in ascending order by fmaf from
+// init(i, j) (default 0), which is read before the first slab, so that its
+// loads overlap the slab's instead of waiting in the epilogue.
+// Shared memory: sm, SMEM_FLOATS.  Ends with every thread past the last
+// read of sm.
+struct Zero {
+  __device__ float operator()(int, int) const { return 0.f; }
+};
+
+template <int BM, int BN, int TA, int TB, bool CHECK = true, class Epi, class Init = Zero>
+__device__ void tile_gemm(float* sm, int i0, int j0, int M, int N, int K,
+                          const float* A, int64_t lda, const float* B, int64_t ldb,
+                          Epi epi, Init init = Init()) {
+  // slab depth: 64 for the latency-bound 32-tiles, 8 for the 128-tile's
+  // registers
+  constexpr int BK = BM >= 128 ? 8 : BM >= 64 ? 16 : 64;
+  constexpr int TM = BM / 16, TN = BN / 16;
+  constexpr int RA = NTH / BK, RB = NTH / BN;   // rows of a slab one pass loads
+  constexpr int LA = BM / RA, LB = BK / RB;     // passes
+  constexpr int SA = BK * (BM + PAD), SB = BK * (BN + PAD);
+  static_assert(2 * (SA + SB) <= SMEM_FLOATS, "tile slabs fit");
+  static_assert(LA >= 1 && LB >= 1 && BM % RA == 0 && BK % RB == 0, "slab split");
+  float* As = sm;               // As[buf][k][i] at sm[buf·SA + k·(BM+PAD) + i]
+  float* Bs = sm + 2 * SA;      // Bs[buf][k][j]
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  // this thread loads A's column ak of rows ai + r·RA, B's column bj of
+  // rows bk + r·RB
+  const int ak = tid % BK, ai = tid / BK, bj = tid % BN, bk = tid / BN;
+  const float* pa = A + (int64_t)(i0 + ai) * lda + ak;
+  const float* pb = B + (int64_t)bk * ldb + j0 + bj;
+
+  int kb = 0, ke = K;
+  if (TA == LOWER) ke = min(ke, i0 + BM);
+  if (TA == UPPER) kb = max(kb, i0);
+  if (TB == LOWER) kb = max(kb, j0);
+  if (TB == UPPER) ke = min(ke, j0 + BN);
+  kb = kb / BK * BK;
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gi = i0 + frag_idx<TM, BM>(ty, i);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int gj = j0 + frag_idx<TN, BN>(tx, j);
+      acc[i][j] = (!CHECK || (gi < M && gj < N)) ? init(gi, gj) : 0.f;
+    }
+  }
+
+  // two register sets of a slab: slab t + 2 loads into one while slab t
+  // multiplies from shared memory and slab t + 1 goes from the other set to
+  // shared memory.  So a load has a whole slab's products to arrive, wherever
+  // the compiler schedules it (it sinks loads toward their first use).
+  float ra[2][LA], rb[2][LB];
+  auto load = [&](int k0, float (&xa)[LA], float (&xb)[LB]) {
+    const int gk = k0 + ak;
+#pragma unroll
+    for (int r = 0; r < LA; ++r) {
+      const int gi = i0 + ai + r * RA;
+      const bool z = (TA == LOWER && gk > gi) || (TA == UPPER && gk < gi);
+      xa[r] = (!CHECK || (gi < M && gk < ke && !z))
+                  ? __ldcg(pa + (int64_t)r * RA * lda + k0) : 0.f;
+    }
+    const int gj = j0 + bj;
+#pragma unroll
+    for (int r = 0; r < LB; ++r) {
+      const int g = k0 + bk + r * RB;
+      const bool z = (TB == LOWER && g < gj) || (TB == UPPER && g > gj);
+      xb[r] = (!CHECK || (gj < N && g < ke && !z))
+                  ? __ldcg(pb + (int64_t)(k0 + r * RB) * ldb) : 0.f;
+    }
+  };
+  auto store = [&](int buf, const float (&xa)[LA], const float (&xb)[LB]) {
+#pragma unroll
+    for (int r = 0; r < LA; ++r) As[buf * SA + ak * (BM + PAD) + ai + r * RA] = xa[r];
+#pragma unroll
+    for (int r = 0; r < LB; ++r) Bs[buf * SB + (bk + r * RB) * (BN + PAD) + bj] = xb[r];
+  };
+  auto multiply = [&](int buf) {
+    const float* as = As + buf * SA;
+    const float* bs = Bs + buf * SB;
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      float a[TM], b[TN];
+      frag_load<TM, BM>(as + k * (BM + PAD), ty, a);
+      frag_load<TN, BN>(bs + k * (BN + PAD), tx, b);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  };
+  // slab t in buffer t % 2 from set t % 2; one barrier a slab
+  auto slab = [&](int k0, int cur, float (&na)[LA], float (&nb_)[LB],
+                  const float (&sa)[LA], const float (&sb)[LB]) {
+    if (k0 + 2 * BK < ke) load(k0 + 2 * BK, na, nb_);
+    multiply(cur);
+    if (k0 + BK < ke) store(cur ^ 1, sa, sb);
+    __syncthreads();
+  };
+
+  if (kb < ke) {
+    load(kb, ra[0], rb[0]);
+    store(0, ra[0], rb[0]);
+    if (kb + BK < ke) load(kb + BK, ra[1], rb[1]);
+    __syncthreads();
+    for (int k0 = kb; k0 < ke; k0 += 2 * BK) {
+      slab(k0, 0, ra[0], rb[0], ra[1], rb[1]);
+      if (k0 + BK < ke) slab(k0 + BK, 1, ra[1], rb[1], ra[0], rb[0]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gi = i0 + frag_idx<TM, BM>(ty, i);
+    if (CHECK && gi >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int gj = j0 + frag_idx<TN, BN>(tx, j);
+      if (!CHECK || gj < N) epi(gi, gj, acc[i][j]);
+    }
+  }
+}
+
+// Tiles of one product of level w of the recursive doubling of an (nb, nb)
+// triangular inverse: nb/(2w) pairs of (w/32)² tiles of 32 × 32.
+__host__ __device__ inline int doubling_tiles(int nb, int w) {
+  return nb / (2 * w) * (w / IB) * (w / IB);
+}
+
+// Tile u of product ph (0 or 1) of level w of the recursive doubling of the
+// inverse X (row stride ldx) of the triangle T (row stride ldt), whose
+// diagonal 32-blocks X holds on entry, with the other triangle of X zero:
+//   lower: [[L11, 0], [L21, L22]]⁻¹ = [[X11, 0], [−X22·(L21·X11), X22]]
+//          ph 0: W_p = L21·X11;  ph 1: X21 = −X22·W_p
+//   upper: [[U11, U12], [0, U22]]⁻¹ = [[X11, −X11·(U12·X22)], [0, X22]]
+//          ph 0: W_p = U12·X22;  ph 1: X12 = −X11·W_p
+// (the reference's _block_inv_doubling and _block_uinv_doubling, each the
+// same association).  W: scratch of nb·w/2 floats, pair p's (w, w) block
+// at W + p·w².  Only T's blocks off the diagonal blocks are read.
+template <bool LOW>
+__device__ void doubling_tile_t(float* sm, int ph, int w, int u, const float* T,
+                                int64_t ldt, float* X, int64_t ldx, float* W) {
+  constexpr int TRI = LOW ? LOWER : UPPER;
+  const int q = w / IB, p = u / (q * q), r = u % (q * q);
+  const int i0 = (r / q) * IB, j0 = (r % q) * IB, o = p * 2 * w;
+  float* wp = W + (int64_t)p * w * w;
+  if (ph == 0) {
+    const float* t = LOW ? T + (int64_t)(o + w) * ldt + o : T + (int64_t)o * ldt + o + w;
+    const float* x = X + (int64_t)(LOW ? o : o + w) * (ldx + 1);
+    tile_gemm<IB, IB, FULL, TRI>(sm, i0, j0, w, w, w, t, ldt, x, ldx,
+                                 [&](int i, int j, float v) { wp[(int64_t)i * w + j] = v; });
+  } else {
+    const float* x = X + (int64_t)(LOW ? o + w : o) * (ldx + 1);
+    float* out = LOW ? X + (int64_t)(o + w) * ldx + o : X + (int64_t)o * ldx + o + w;
+    tile_gemm<IB, IB, TRI, FULL>(sm, i0, j0, w, w, w, x, ldx, wp, w,
+                                 [&](int i, int j, float v) { out[(int64_t)i * ldx + j] = -v; });
+  }
+}
+
+__device__ inline void doubling_tile(float* sm, bool lower, int ph, int w, int u,
+                                     const float* T, int64_t ldt, float* X,
+                                     int64_t ldx, float* W) {
+  if (lower) doubling_tile_t<true>(sm, ph, w, u, T, ldt, X, ldx, W);
+  else doubling_tile_t<false>(sm, ph, w, u, T, ldt, X, ldx, W);
+}
+
+// Inverse of the lower triangle of the 32 × 32 block a (shared, row stride
+// LDB; unit: the diagonal taken as 1, not read) into x, by ONE warp: lane c
+// owns column c and carries the 32 partial sums of its substitution in
+// registers, adding each x(k, c) to the rows below as soon as it is known.
+// Entry (i, c) = (δ_ic − Σ_{k<i} a(i, k)·x(k, c)) / a(i, i), the sum by fmaf in
+// ascending k: the rounding of tri_panel.cuh's trtri_unblocked_warp, with a
+// dependent chain of 32 steps instead of 528.  The entries above the
+// diagonal are stored as 0 without the division of their zero sums (a zero
+// dividend takes the division's slow path).
+__device__ inline void lower_inv_warp(const float* a, float* x, bool unit) {
+  const int c = threadIdx.x % 32;
+  float acc[IB];
+#pragma unroll
+  for (int i = 0; i < IB; ++i) acc[i] = (i == c) ? 1.f : 0.f;
+#pragma unroll
+  for (int k = 0; k < IB; ++k) {
+    float xk = 0.f;
+    if (k >= c) xk = unit ? acc[k] : acc[k] / a[k * LDB + k];
+    x[k * LDB + c] = xk;
+#pragma unroll
+    for (int i = k + 1; i < IB; ++i) acc[i] = fmaf(-a[i * LDB + k], xk, acc[i]);
+  }
+  __syncwarp();
+}
+
+// Inverse of the upper triangle of a (diagonal included) into x by one warp,
+// back substitution from the last row: (δ_ic − Σ_{k>i} a(i, k)·x(k, c)) / a(i, i),
+// the sum by fmaf in descending k; the entries below the diagonal stored as 0.
+__device__ inline void upper_inv_warp(const float* a, float* x) {
+  const int c = threadIdx.x % 32;
+  float acc[IB];
+#pragma unroll
+  for (int i = 0; i < IB; ++i) acc[i] = (i == c) ? 1.f : 0.f;
+#pragma unroll
+  for (int k = IB - 1; k >= 0; --k) {
+    float xk = 0.f;
+    if (k <= c) xk = acc[k] / a[k * LDB + k];
+    x[k * LDB + c] = xk;
+#pragma unroll
+    for (int i = 0; i < k; ++i) acc[i] = fmaf(-a[i * LDB + k], xk, acc[i]);
+  }
+  __syncwarp();
+}
+
+// No-pivot LU of the 32 × 32 block a (shared, row stride LDB) in place,
+// packed (unit L strictly below the diagonal, U on and above), by ONE warp
+// holding it in registers: lane r owns row r, and pivot row j reaches the
+// other lanes by shuffles.  Lane r applies a(r, c) = fmaf(−l, a(j, c),
+// a(r, c)), l = a(r, j) / a(j, j), for j = 0, 1, … in order: the arithmetic
+// of the reference's _lu_unblocked, with no block barrier on the chain.
+__device__ inline void lu32_warp(float* a) {
+  const int r = threadIdx.x % 32;
+  float row[IB];
+#pragma unroll
+  for (int c = 0; c < IB; ++c) row[c] = a[r * LDB + c];
+#pragma unroll
+  for (int j = 0; j < IB - 1; ++j) {
+    const float l = row[j] / __shfl_sync(0xffffffffu, row[j], j);
+#pragma unroll
+    for (int c = j + 1; c < IB; ++c) {
+      const float ajc = __shfl_sync(0xffffffffu, row[c], j);
+      if (r > j) row[c] = fmaf(-l, ajc, row[c]);
+    }
+    if (r > j) row[j] = l;
+  }
+#pragma unroll
+  for (int c = 0; c < IB; ++c) a[r * LDB + c] = row[c];
+  __syncwarp();
+}
+
+// A 32 × 32 block of global memory (row stride ld) into registers: v[q] is
+// element (tid/32 + 8q, tid%32); every load is issued before any is used.
+__device__ __forceinline__ void load_block_regs(const float* g, int64_t ld, float (&v)[4]) {
+  const int r0 = threadIdx.x / 32, c = threadIdx.x % 32;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[q] = __ldcg(g + (int64_t)(r0 + 8 * q) * ld + c);
+}
+
+// The registers of load_block_regs into shared memory at row stride lds,
+// transposed (element (r, c) at s[c·lds + r]) or not; lower: zeros above
+// the diagonal.
+__device__ __forceinline__ void put_block(float* s, int lds, const float (&v)[4],
+                                          bool trans = false, bool lower = false) {
+  const int r0 = threadIdx.x / 32, c = threadIdx.x % 32;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int r = r0 + 8 * q;
+    s[trans ? c * lds + r : r * lds + c] = (lower && c > r) ? 0.f : v[q];
+  }
+}
+
+// A 32 × 32 block of shared memory (row stride lds) to global memory.
+__device__ __forceinline__ void store_block(const float* s, int lds, float* g, int64_t ld) {
+  const int r0 = threadIdx.x / 32, c = threadIdx.x % 32;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) g[(int64_t)(r0 + 8 * q) * ld + c] = s[(r0 + 8 * q) * lds + c];
+}
+
+// acc += (32 × 32) product AT-transposed × B for this thread's 2 × 2
+// fragment (rows 2·(tid/16) + i, columns 2·(tid%16) + j): AT[t][i] = A(i, t)
+// and B[t][j], both shared at row stride LDT; the sum over t ascending.
+__device__ __forceinline__ void mm32(const float* AT, const float* B, float (&acc)[2][2]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int t = 0; t < IB; ++t) {
+    const float2 a = *reinterpret_cast<const float2*>(AT + t * LDT + 2 * ty);
+    const float2 b = *reinterpret_cast<const float2*>(B + t * LDT + 2 * tx);
+    acc[0][0] = fmaf(a.x, b.x, acc[0][0]);
+    acc[0][1] = fmaf(a.x, b.y, acc[0][1]);
+    acc[1][0] = fmaf(a.y, b.x, acc[1][0]);
+    acc[1][1] = fmaf(a.y, b.y, acc[1][1]);
+  }
+}
+
+// The cooperative grid: as many NTH-thread blocks as are co-resident, and
+// no more than `want` (the widest phase's tiles).  Returns a CUDA error code.
+inline int plan_grid(const void* kernel, int want, int* G_out) {
+  int dev = 0, sms = 0, coop = 0, occ = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return (int)cudaErrorNotSupported;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, NTH, 0)) !=
+      cudaSuccess)
+    return (int)err;
+  if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int g = occ * sms;
+  *G_out = want < 1 ? 1 : (want < g ? want : g);
+  return 0;
+}
+
+}  // namespace tri_grid

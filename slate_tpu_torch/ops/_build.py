@@ -33,7 +33,7 @@ SOURCES = {
     "matmul": ("matmul.cu", ()),
     "chol_inv_panel": ("chol_inv_panel.cu", ("tri_panel.cuh",)),
     "trtri_panel": ("trtri_panel.cu", ("tri_panel.cuh",)),
-    "lu_inv_panel": ("lu_inv_panel.cu", ("tri_panel.cuh",)),
+    "lu_inv_panel": ("lu_inv_panel.cu", ("tri_grid.cuh",)),
     "getrf_panel_linv": ("getrf_panel_linv.cu", ("lu_panel.cuh",)),
     "getrf_panel_fused": ("getrf_panel_fused.cu", ("lu_panel.cuh",)),
     "potrf_batched": ("potrf_batched.cu", ("tri_panel.cuh",)),
@@ -50,7 +50,7 @@ SOURCES = {
     "tb2bd_wavefront": ("tb2bd_wavefront.cu", ("chase.cuh",)),
     "chol_l21_panel": ("chol_l21_panel.cu",
                        ("potrf_step.cuh", "tri_panel.cuh")),
-    "lu_u12_panel": ("lu_u12_panel.cu", ("potrf_step.cuh", "tri_panel.cuh")),
+    "lu_u12_panel": ("lu_u12_panel.cu", ("tri_grid.cuh",)),
     "tile_norms": ("tile_norms.cu", ()),
     "tz": ("tz.cu", ("tile2d.cuh",)),
     "geadd": ("geadd.cu", ("tile2d.cuh",)),

@@ -59,7 +59,7 @@ _SIGNATURES = {
                        [_P, _I64, _P, _P, _P, _I, _P]),
     "trtri_panel": ("slate_trtri_panel_f32", [_P, _I64, _P, _P, _I, _P]),
     "lu_inv_panel": ("slate_lu_inv_panel_f32",
-                     [_P, _I64, _P, _P, _P, _P, _I, _P]),
+                     [_P, _I64, _P, _P, _P, _P, _I, _I, _P]),
     "getrf_panel_linv": ("slate_getrf_panel_linv_f32",
                          [_P, _I64, _P] + _LU_ARGS + [_P]),
     "getrf_panel_fused": ("slate_getrf_panel_fused_f32",
@@ -470,11 +470,11 @@ def lu_inv_panel(a):
     _check_rows("lu_inv_panel", a)
     lu = torch.empty((nb, nb), dtype=torch.float32, device=a.device)
     linv, uinv = torch.empty_like(lu), torch.empty_like(lu)
-    work = torch.empty(nb * nb + max((nb // 2) ** 2, 2 * nb * IB),
-                       dtype=torch.float32, device=a.device)
+    # the Schur complement, then both doublings' products (nb²/4 each)
+    work = torch.empty(nb * nb, dtype=torch.float32, device=a.device)
     _launch("lu_inv_panel", a.device, a.data_ptr(), a.stride(0),
             lu.data_ptr(), linv.data_ptr(), uinv.data_ptr(), work.data_ptr(),
-            nb)
+            nb, _plan("lu_inv_panel", a.device, nb))
     return lu, linv, uinv
 
 
@@ -1127,7 +1127,7 @@ def lu_u12_panel(l11, rowblk):
     _launch("lu_u12_panel", dev, l11.data_ptr(), l11.stride(0),
             rowblk.data_ptr(), rowblk.stride(0), u.data_ptr(),
             linv.data_ptr(), work.data_ptr(), r.data_ptr(), mx.data_ptr(),
-            departure.data_ptr(), nb, w, _plan("lu_u12_panel", dev))
+            departure.data_ptr(), nb, w, _plan("lu_u12_panel", dev, nb, w))
     return u, departure
 
 

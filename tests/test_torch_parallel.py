@@ -114,9 +114,12 @@ def test_chol_l21_panel_plain_matches_pallas(dtype):
     assert np.array_equal(np.triu(lt.numpy(), 1), np.zeros((nb, nb)))
 
 
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_lu_u12_panel_plain_matches_pallas(dtype):
-    nb, w = 128, 256
+@pytest.mark.parametrize("dtype,nb,w", [
+    pytest.param(np.float32, 128, 256, id="float32"),
+    pytest.param(np.float64, 128, 256, id="float64"),
+    # the distributed LU's depth-2 ring call
+    pytest.param(np.float32, 256, 256, id="float32-ring256")])
+def test_lu_u12_panel_plain_matches_pallas(dtype, nb, w):
     rng = np.random.default_rng(12)
     # a tame unit-lower triangle, as the reference test makes it
     l11 = (np.tril(rng.standard_normal((nb, nb)), -1) / np.sqrt(nb)

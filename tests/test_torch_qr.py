@@ -93,7 +93,7 @@ def _orth(q):
 # The kernel: lu_inv_panel's plain version against the interpreted Pallas one
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("nb", [32, 64])
+@pytest.mark.parametrize("nb", [32, 64, 128])
 @pytest.mark.parametrize("kind", ["dominant", "cholqr2_b"])
 def test_lu_inv_panel_plain_matches_pallas(nb, kind):
     if kind == "dominant":
