@@ -9,7 +9,11 @@
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it, and times kernel, plain version and a
    library yardstick with CUDA events (the yardstick is timed here only;
-   the port never calls it in place of a kernel).
+   the port never calls it in place of a kernel).  ``chol_inv_panel`` on
+   the 512² diagonal block of the (8192, 8192) carry and on the 256²
+   diagonal block of pposv's (16384, 256) panel, both views with stale
+   values above the diagonal: 1e-4 of its plain version, factor residual
+   < 1e-5 and ‖L·L⁻¹ − I‖ < 1e-4; timed at both.
    The LU panel kernels are held to the same pivots as their plain
    versions (a near-tie, within 1e-5 relative, is printed and excepted),
    to a panel residual < 60 and to ‖L11·linv − I‖ < 1e-3; the batched
@@ -457,6 +461,46 @@ def check_kernels(torch, kernels, dev) -> dict:
         plain_ms=cuda_ms(torch, lambda: kernels.chol_inv_panel_plain(akk), 3),
         library_ms=cuda_ms(torch, library_chol, 20),
         bound_ms=b_ms, bound_by=b_by)
+    # the same at nb = 256: the diagonal block of pposv's (16384, 256)
+    # panel on the 1×1 grid, a view of row stride 256 with stale values
+    # above its diagonal, under the same gates
+    n2 = 256
+    g2 = torch.randn((n2, n2), generator=gen, device=dev)
+    spd2 = g2 @ g2.T + n2 * torch.eye(n2, device=dev)
+    panel = torch.randn((64 * n2, n2), generator=gen, device=dev)
+    panel[:n2] = torch.tril(spd2) + torch.triu(torch.full_like(spd2, 1e3), 1)
+    d2 = panel[:n2]
+    (l2, li2), (lp2, lip2) = kernels.chol_inv_panel(d2), \
+        kernels.chol_inv_panel_plain(d2)
+    torch.cuda.synchronize()
+    err2 = max(rel_err(l2, lp2), rel_err(li2, lip2))
+    eye256 = torch.eye(n2, device=dev)
+    fac2 = float((l2.double() @ l2.double().T - spd2.double()).norm()
+                 / spd2.double().norm())
+    if not (err2 <= 1e-4 and fac2 < 1e-5
+            and float((l2 @ li2 - eye256).norm()) < 1e-4):
+        fail("chol_inv_panel nb=256 disagrees: rel %.3e, factor %.3e"
+             % (err2, fac2))
+
+    def library_chol256():
+        lk = torch.linalg.cholesky(d2)
+        return torch.linalg.solve_triangular(lk, eye256, upper=False)
+
+    r = out["chol_inv_panel"]
+    r.update(nb256_ms=cuda_ms(torch, lambda: kernels.chol_inv_panel(d2), 20),
+             nb256_plain_ms=cuda_ms(
+                 torch, lambda: kernels.chol_inv_panel_plain(d2), 3),
+             nb256_library_ms=cuda_ms(torch, library_chol256, 20),
+             nb256_bound_ms=bound(2.0 * n2 ** 3 / 3, 4.0 * (
+                 n2 * (n2 + 1) / 2 + 2 * n2 * n2))[0])
+    print("redesign chol_inv_panel (one cooperative grid): (512,512) view "
+          "kernel %.4f ms against the library's %.4f ms (bound %.5f ms); "
+          "(256,256) view of pposv's panel, rel %.3e, factor %.3e: kernel "
+          "%.4f ms, plain %.4f ms, library %.4f ms, bound %.5f ms"
+          % (r["ms"], r["library_ms"], r["bound_ms"], err2, fac2,
+             r["nb256_ms"], r["nb256_plain_ms"], r["nb256_library_ms"],
+             r["nb256_bound_ms"]), flush=True)
+    del panel
 
     # trtri_panel: a 256² diagonal tile of a factor, in place (stride 512)
     tl = l[:TRTRI_NB, :TRTRI_NB]

@@ -14,8 +14,8 @@
 // keeps the (n, nb) column in VMEM and streams the trailing tiles through a
 // double buffer; here one cooperative grid of 1024-thread blocks, one per
 // SM, runs every phase: the diagonal block on one block (the rest wait at
-// the grid barrier: the serial part, ~1.9 ms at nb = 512 as in
-// chol_inv_panel.cu), then L21 and the trailing tiles as 128 × 128
+// the grid barrier: the serial part, ~1.9 ms at nb = 512 for
+// tri_panel.cuh's chol_inv_block on one SM), then L21 and the trailing tiles as 128 × 128
 // block_gemm work units (4 × 4 FFMA register blocks, K = nb) spread over
 // the grid.  No library call; FFMA only (TF32 fails the residual gates).
 

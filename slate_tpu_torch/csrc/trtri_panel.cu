@@ -2,7 +2,7 @@
 // the Pallas kernel `trtri_panel` (slate_tpu/ops/pallas_kernels.py:560-588):
 // per-ib forward-substitution inverses of the diagonal blocks, then the
 // recursive-doubling assembly.  It shares its device code with
-// chol_inv_panel.cu (tri_panel.cuh).
+// potrf_batched.cu and potrf_step.cuh (tri_panel.cuh).
 //
 // What bounds it on an H100: ~nb³/3 FLOP (5.6 MFLOP at nb = 256, the
 // potri diagonal tiles) over 0.4 MB of inputs and outputs: at the card's

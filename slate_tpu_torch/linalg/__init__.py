@@ -17,7 +17,8 @@ from .condest import (  # noqa: F401
     trcondest,
 )
 from .eig import (  # noqa: F401
-    he2hb, heev, heev_vals, hegst, hegv, syev, sygst, sygv, unmtr_he2hb,
+    hb2st, he2hb, heev, heev_vals, hegst, hegv, stedc, stemr, steqr, sterf,
+    syev, sygst, sygv, unmtr_hb2st, unmtr_he2hb,
 )
 from .lu import (  # noqa: F401
     gesv, gesvMixed, gesv_mixed, gesv_mixed_gmres, gesv_nopiv, getrf,
@@ -34,6 +35,10 @@ from .svd import (  # noqa: F401
     bdsqr, ge2tb, gesvd, svd, svd_vals, tb2bd, unmbr_ge2tb, unmbr_tb2bd,
 )
 from .util import add, copy, scale, scale_row_col, set  # noqa: F401
+from ._stedc import (  # noqa: F401
+    stedc_deflate, stedc_merge, stedc_secular, stedc_solve, stedc_sort,
+    stedc_z_vector,
+)
 
 __all__ = ["gemm", "herk", "syrk", "trmm", "trsm",
            "posv", "posvMixed", "posv_mixed", "posv_mixed_gmres", "potrf",
@@ -43,8 +48,11 @@ __all__ = ["gemm", "herk", "syrk", "trmm", "trsm",
            "getrs_nopiv",
            "cholqr", "gelqf", "gels", "gels_cholqr", "gels_mixed", "gels_qr",
            "geqrf", "ungqr", "unmlq", "unmqr",
-           "he2hb", "heev", "heev_vals", "hegst", "hegv", "syev", "sygst",
-           "sygv", "unmtr_he2hb",
+           "hb2st", "he2hb", "heev", "heev_vals", "hegst", "hegv", "stedc",
+           "stemr", "steqr", "sterf", "syev", "sygst", "sygv", "unmtr_hb2st",
+           "unmtr_he2hb",
+           "stedc_deflate", "stedc_merge", "stedc_secular", "stedc_solve",
+           "stedc_sort", "stedc_z_vector",
            "bdsqr", "ge2tb", "gesvd", "svd", "svd_vals", "tb2bd",
            "unmbr_ge2tb", "unmbr_tb2bd",
            "gels_batched", "geqrf_batched", "gesv_batched", "getrf_batched",

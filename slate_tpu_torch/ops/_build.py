@@ -31,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "slate_tpu_torch"
 #: kernel name -> (its .cu source, headers it includes)
 SOURCES = {
     "matmul": ("matmul.cu", ()),
-    "chol_inv_panel": ("chol_inv_panel.cu", ("tri_panel.cuh",)),
+    "chol_inv_panel": ("chol_inv_panel.cu", ("tri_grid.cuh",)),
     "trtri_panel": ("trtri_panel.cu", ("tri_panel.cuh",)),
     "lu_inv_panel": ("lu_inv_panel.cu", ("tri_grid.cuh",)),
     "getrf_panel_linv": ("getrf_panel_linv.cu", ("lu_panel.cuh",)),
@@ -40,8 +40,7 @@ SOURCES = {
     "getrf_batched": ("getrf_batched.cu", ("lu_panel.cuh",)),
     "potrf_step_fused": ("potrf_step_fused.cu",
                          ("potrf_step.cuh", "tri_panel.cuh")),
-    "potrf_full_fused": ("potrf_full_fused.cu",
-                         ("potrf_step.cuh", "tri_panel.cuh")),
+    "potrf_full_fused": ("potrf_full_fused.cu", ("tri_grid.cuh",)),
     "getrf_step_fused": ("getrf_step_fused.cu",
                          ("lu_step.cuh", "lu_panel.cuh")),
     "getrf_full_fused": ("getrf_full_fused.cu",

@@ -56,7 +56,7 @@ _SIGNATURES = {
     "matmul": ("slate_matmul_f32",
                [_P, _I64, _I64, _P, _I64, _I64, _P, _I, _I, _I, _P]),
     "chol_inv_panel": ("slate_chol_inv_panel_f32",
-                       [_P, _I64, _P, _P, _P, _I, _P]),
+                       [_P, _I64, _P, _P, _P, _I, _I, _P]),
     "trtri_panel": ("slate_trtri_panel_f32", [_P, _I64, _P, _P, _I, _P]),
     "lu_inv_panel": ("slate_lu_inv_panel_f32",
                      [_P, _I64, _P, _P, _P, _P, _I, _I, _P]),
@@ -136,17 +136,28 @@ def _check_getrf_batched_smem(lib, name: str) -> None:
                                                      smem.getrf_batched_bytes(n)))
 
 
-def _check_potrf_step_smem(lib, name: str) -> None:
-    """The same check for the cooperative Cholesky kernels: one block's
-    static shared memory is :data:`smem.TRI_PANEL_SMEM`."""
-    from . import smem
-
+def _check_static_smem(lib, name: str, want: int) -> None:
     c_bytes = getattr(lib, "slate_%s_smem_bytes" % name)
     c_bytes.argtypes, c_bytes.restype = [], _I64
-    if c_bytes() != smem.TRI_PANEL_SMEM:
+    if c_bytes() != want:
         raise RuntimeError("%s: the kernel takes %d B of shared memory, "
-                           "ops/smem.py counts %d B"
-                           % (name, c_bytes(), smem.TRI_PANEL_SMEM))
+                           "ops/smem.py counts %d B" % (name, c_bytes(), want))
+
+
+def _check_potrf_step_smem(lib, name: str) -> None:
+    """The same check for the cooperative Cholesky step kernel: one
+    block's static shared memory is :data:`smem.TRI_PANEL_SMEM`."""
+    from . import smem
+
+    _check_static_smem(lib, name, smem.TRI_PANEL_SMEM)
+
+
+def _check_potrf_full_smem(lib, name: str) -> None:
+    """The same check for the full Cholesky kernel, a ``tri_grid.cuh``
+    grid: :data:`smem.TRI_GRID_SMEM`."""
+    from . import smem
+
+    _check_static_smem(lib, name, smem.TRI_GRID_SMEM)
 
 
 def _check_lu_step_smem(lib, name: str) -> None:
@@ -171,7 +182,7 @@ def _check_lu_step_smem(lib, name: str) -> None:
 
 _SMEM_CHECKS = {"getrf_batched": _check_getrf_batched_smem,
                 "potrf_step_fused": _check_potrf_step_smem,
-                "potrf_full_fused": _check_potrf_step_smem,
+                "potrf_full_fused": _check_potrf_full_smem,
                 "getrf_step_fused": _check_lu_step_smem,
                 "getrf_full_fused": _check_lu_step_smem}
 
@@ -351,10 +362,11 @@ def chol_inv_panel(a):
     _check_rows("chol_inv_panel", a)
     l = torch.empty((nb, nb), dtype=torch.float32, device=a.device)
     linv = torch.empty_like(l)
-    work = torch.empty(max((nb // 2) ** 2, nb * IB), dtype=torch.float32,
-                       device=a.device)
+    # the Schur complement, then the doubling's products (nb²/4)
+    work = torch.empty(nb * nb, dtype=torch.float32, device=a.device)
     _launch("chol_inv_panel", a.device, a.data_ptr(), a.stride(0),
-            l.data_ptr(), linv.data_ptr(), work.data_ptr(), nb)
+            l.data_ptr(), linv.data_ptr(), work.data_ptr(), nb,
+            _plan("chol_inv_panel", a.device, nb))
     return l, linv
 
 
@@ -830,17 +842,21 @@ def potrf_full_fused_plain(a, nb: int = 512, tc: int = 512):
     return a
 
 
-def _potrf_launch(name: str, a, nb: int, tc: int, *tail):
+def _potrf_launch(name: str, a, nb: int, tc: int, *tail, work: int,
+                  plan=()):
+    """Allocate the scratch (L11, L11⁻¹, ``work`` floats for the diagonal
+    block's factor, L21) and launch on a grid from ``slate_<name>_plan(
+    *plan, &G)``."""
     n = a.shape[-1]
     dev = a.device
     f32 = dict(dtype=torch.float32, device=dev)
     lkk = torch.empty((nb, nb), **f32)
     linv = torch.empty((nb, nb), **f32)
-    w = torch.empty(max((nb // 2) ** 2, nb * IB), **f32)
+    w = torch.empty(work, **f32)
     l21 = torch.empty((max(n - nb, 1), nb), **f32)
     _launch(name, dev, a.data_ptr(), a.stride(0), lkk.data_ptr(),
             linv.data_ptr(), w.data_ptr(), l21.data_ptr(), n, nb, tc, *tail,
-            _plan(name, dev))
+            _plan(name, dev, *plan))
     return a
 
 
@@ -859,7 +875,8 @@ def potrf_step_fused(a, k0: int, nb: int = 512, tc: int = 512):
     if _on_cpu(a):
         return potrf_step_fused_plain(a, k0, nb, tc)
     _check_rows("potrf_step_fused", a)
-    return _potrf_launch("potrf_step_fused", a, nb, tc, k0)
+    return _potrf_launch("potrf_step_fused", a, nb, tc, k0,
+                         work=max((nb // 2) ** 2, nb * IB))
 
 
 def potrf_full_fused(a, nb: int = 512, tc: int = 512):
@@ -871,7 +888,9 @@ def potrf_full_fused(a, nb: int = 512, tc: int = 512):
     if _on_cpu(a):
         return potrf_full_fused_plain(a, nb, tc)
     _check_rows("potrf_full_fused", a)
-    return _potrf_launch("potrf_full_fused", a, nb, tc)
+    # the diagonal block's Schur complement, then its doubling's products
+    return _potrf_launch("potrf_full_fused", a, nb, tc, work=nb * nb,
+                         plan=(a.shape[-1], nb, tc))
 
 
 # ---------------------------------------------------------------------------

@@ -41,18 +41,23 @@ kernels' lookahead buffer (``slate_tpu/ops/blocks.py:423-510``,
 in shared memory: each is one cooperative grid whose blocks must all be
 co-resident, and what one block holds is
 
-* ``potrf_step_fused`` / ``potrf_full_fused`` (``csrc/potrf_step.cuh``):
-  1024-thread blocks with ``tri_panel.cuh``'s static staging tiles
-  (:data:`TRI_PANEL_SMEM`), whatever n and nb; the block column stays in
-  device memory (L2);
+* ``potrf_step_fused`` (``csrc/potrf_step.cuh``): 1024-thread blocks
+  with ``tri_panel.cuh``'s static staging tiles (:data:`TRI_PANEL_SMEM`),
+  whatever n and nb; the block column stays in device memory (L2);
+* ``potrf_full_fused`` (``csrc/potrf_full_fused.cu``): 256-thread blocks,
+  one an SM, with ``tri_grid.cuh``'s static staging blocks
+  (:data:`TRI_GRID_SMEM`), whatever n and nb; the diagonal block's
+  Schur complement, L11, L11⁻¹ and the block column stay in device
+  memory;
 * ``getrf_step_fused`` / ``getrf_full_fused`` (``csrc/lu_step.cuh``):
   the panel kernel's share of the (nb, m) panel (:func:`lu_panel_bytes`),
   which the trailing phase then reuses for its product tiles
   (:func:`lu_step_bytes`); the full kernel holds no more than the step
   kernel, since its next panel stays in the carry.
 
-The chunk height tc changes no shared memory here, and the step and full
-kernels of a family hold the same, so one gate serves both depths:
+The chunk height tc changes no shared memory here, and neither n nor nb
+does for the Cholesky kernels, whose staging is fixed; the LU step and
+full kernels hold the same.  So one gate serves both depths:
 :func:`potrf_fused_fits` and :func:`lu_fused_fits`.  They keep the shape
 rules of the JAX gates with tc = nb, the JAX package's choice whenever
 its VMEM budget allows (f32, nb | n, nb a power of two ≥ 128 for potrf
@@ -161,6 +166,9 @@ def batched_fits(kernel: str, n: int) -> bool:
 #: tri_panel.cuh's Smem, the one shared allocation of a potrf_step.cuh
 #: block: two 32 × 132 product slabs and two 32 × 33 blocks
 TRI_PANEL_SMEM = 4 * (2 * 32 * 132 + 2 * 32 * 33)
+#: tri_grid.cuh's SMEM_FLOATS, the one shared allocation of a block of its
+#: grids (potrf_full_fused): eight 32 × 36 blocks
+TRI_GRID_SMEM = 4 * 8 * 32 * 36
 #: the work-unit edge of the fused kernels' products (potrf_step.cuh T,
 #: lu_step.cuh TM / TN)
 STEP_TILE = 128
@@ -173,8 +181,10 @@ def potrf_fused_fits(n: int, nb: int, dtype) -> bool:
     """The gate of ``potrf_step_fused`` and ``potrf_full_fused`` (the
     ``fused`` and ``full`` depths of the Cholesky driver): f32, nb a power
     of two ≥ 128 dividing n, and n > nb.  Their shared memory is fixed
-    (:data:`TRI_PANEL_SMEM`).  Whether an eligible shape takes a kernel
-    is the ``potrf_step`` site's decision."""
+    (:data:`TRI_PANEL_SMEM` for the step kernel, :data:`TRI_GRID_SMEM`
+    for the full one), so the shape rule is the whole gate.  Whether an
+    eligible shape takes a kernel is the ``potrf_step`` site's
+    decision."""
     return (dtype == torch.float32 and nb >= STEP_TILE and nb & (nb - 1) == 0
             and n > nb and n % nb == 0)
 

@@ -1,0 +1,111 @@
+"""The port's public surface and its kernel build's inputs.
+
+* Every public name of ``slate_tpu.linalg`` (its ``dir()`` without leading
+  underscores: it has no ``__all__``) that a module of
+  ``slate_tpu_torch.linalg`` defines is an attribute of
+  ``slate_tpu_torch.linalg`` and of ``slate_tpu_torch``, the same object
+  in both, and one of the port's own definitions of that name.
+* Every kernel of ``slate_tpu_torch.ops._build.SOURCES`` lists each local
+  header its ``.cu`` reaches through ``#include "..."``, followed
+  transitively: a library's digest covers only the files listed there, so
+  an unlisted header would leave a stale library on the card after an
+  edit.
+"""
+
+import importlib
+import inspect
+import pkgutil
+import re
+
+import pytest
+
+import slate_tpu.linalg as jax_linalg
+import slate_tpu_torch
+import slate_tpu_torch.linalg as port_linalg
+from slate_tpu_torch.ops import _build
+
+PUBLIC = sorted(n for n in dir(jax_linalg) if not n.startswith("_"))
+MODULES = sorted(m.name for m in pkgutil.iter_modules(port_linalg.__path__))
+
+
+def _defined(module, name):
+    """``module``'s own function or class ``name`` (not an import), or None."""
+    obj = getattr(module, name, None)
+    if (inspect.isfunction(obj) or inspect.isclass(obj)) and \
+            obj.__module__ == module.__name__:
+        return obj
+    return None
+
+
+@pytest.mark.parametrize("sub", MODULES)
+def test_linalg_definitions_are_exported(sub):
+    module = importlib.import_module("slate_tpu_torch.linalg." + sub)
+    missing, astray = [], []
+    for name in PUBLIC:
+        if _defined(module, name) is None:
+            continue
+        if not hasattr(port_linalg, name) or not hasattr(slate_tpu_torch, name):
+            missing.append(name)
+            continue
+        got = getattr(port_linalg, name)
+        owners = [_defined(importlib.import_module("slate_tpu_torch.linalg." + m), name)
+                  for m in MODULES]
+        if getattr(slate_tpu_torch, name) is not got or got not in owners:
+            astray.append(name)
+    assert not missing, "%s defines %s, which slate_tpu.linalg exports and " \
+        "the port does not" % (sub, missing)
+    assert not astray, "%s: %s are other objects at the top level or not the " \
+        "port's own definitions" % (sub, astray)
+
+
+def test_linalg_surface_covers_the_stedc_family():
+    for name in ("hb2st", "unmtr_hb2st", "sterf", "steqr", "stedc", "stemr",
+                 "stedc_deflate", "stedc_merge", "stedc_secular", "stedc_solve",
+                 "stedc_sort", "stedc_z_vector"):
+        assert getattr(slate_tpu_torch, name) is getattr(port_linalg, name)
+    from slate_tpu_torch.linalg import eig
+    assert port_linalg.stedc is eig.stedc     # as slate_tpu.linalg.stedc is eig's
+
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _local_includes(source: str) -> set:
+    """The headers in ``csrc`` that ``source`` reaches, transitively."""
+    seen, todo = set(), [source]
+    while todo:
+        for inc in _INCLUDE.findall((_build.CSRC / todo.pop()).read_text()):
+            if (_build.CSRC / inc).is_file() and inc not in seen:
+                seen.add(inc)
+                todo.append(inc)
+    return seen
+
+
+@pytest.mark.parametrize("kernel", sorted(_build.SOURCES))
+def test_build_sources_list_every_header(kernel):
+    src, headers = _build.SOURCES[kernel]
+    assert (_build.CSRC / src).is_file()
+    for h in headers:
+        assert (_build.CSRC / h).is_file(), "%s lists a missing %s" % (kernel, h)
+    reached = _local_includes(src)
+    assert reached <= set(headers), "%s includes %s, which SOURCES does not " \
+        "list: its library would not be rebuilt after an edit there" % (
+            kernel, sorted(reached - set(headers)))
+
+
+@pytest.mark.parametrize("kernel", ["lu_inv_panel", "lu_u12_panel",
+                                    "chol_inv_panel", "potrf_full_fused"])
+def test_kernel_phases_marks_are_in_the_sources(kernel):
+    """``perf/kernel_phases.py`` stamps text anchors of the kernel sources:
+    each of its marks must still be there, and the stamped copy must keep
+    the kernel's start, barrier and end stamps."""
+    from slate_tpu_torch.perf import kernel_phases
+
+    src = kernel_phases.stamped_source(kernel)
+    assert "#include \"tri_grid.cuh\"" not in src
+    assert "cg::this_grid(); STAMP();" in src
+    assert "grid.sync(); STAMP();" in src
+    assert "atomicMax(&g_end, g_time());" in src
+    assert src.index("#define STAMP()") < src.index("STAMP();")
+    for _, new in kernel_phases.MARKS[kernel]:
+        assert new in src
