@@ -13,7 +13,12 @@
    the 512² diagonal block of the (8192, 8192) carry and on the 256²
    diagonal block of pposv's (16384, 256) panel, both views with stale
    values above the diagonal: 1e-4 of its plain version, factor residual
-   < 1e-5 and ‖L·L⁻¹ − I‖ < 1e-4; timed at both.
+   < 1e-5 and ‖L·L⁻¹ − I‖ < 1e-4; timed at both.  ``trtri_panel`` on a
+   256² tile of that factor (row stride 512, potri's shape) and on the
+   whole 512² factor (geqrf's T block): 1e-4 of its plain version and
+   ‖L·L⁻¹ − I‖ < 1e-4 at both, timed at both beside
+   ``solve_triangular``, with its launch route (one cluster or a
+   cooperative grid) and blocks.
    The LU panel kernels are held to the same pivots as their plain
    versions (a near-tie, within 1e-5 relative, is printed and excepted),
    to a panel residual < 60 and to ‖L11·linv − I‖ < 1e-3; the batched
@@ -30,7 +35,9 @@
    apart over steps of different rounding, with pivots equal up to a
    near-tie (within 1e-5 relative in one of the two factors; at n = 8192
    the drift passes that width, and the first departure is printed) and
-   the drift printed; then each timed at n = 8192.  ``lu_inv_panel``
+   the drift printed; then each timed at n = 8192, and
+   ``getrf_full_fused``'s grid, registers and shared memory printed (its
+   launches on the ``lu_full`` path after phase 3e).  ``lu_inv_panel``
    (phase 2e) at nb = 32, 64, 128, 256 and 512 on diagonally dominant
    blocks and at 512 on the B[:512] block of the first CholQR² panel of
    the QR path's input: each output within 1e-4 of its plain version,
@@ -502,25 +509,48 @@ def check_kernels(torch, kernels, dev) -> dict:
              r["nb256_bound_ms"]), flush=True)
     del panel
 
-    # trtri_panel: a 256² diagonal tile of a factor, in place (stride 512)
-    tl = l[:TRTRI_NB, :TRTRI_NB]
-    got, ref = kernels.trtri_panel(tl), kernels.trtri_panel_plain(tl)
-    torch.cuda.synchronize()
-    err = rel_err(got, ref)
-    eye2 = torch.eye(TRTRI_NB, device=dev)
-    if not (err <= 1e-4 and float((tl @ got - eye2).norm()) < 1e-4):
-        fail("trtri_panel disagrees with its plain version: rel %.3e" % err)
+    # trtri_panel: a 256² diagonal tile of a factor, in place (stride
+    # 512), and the whole 512² factor, geqrf's T block shape
+    def check_trtri(tl):
+        got, ref = kernels.trtri_panel(tl), kernels.trtri_panel_plain(tl)
+        torch.cuda.synchronize()
+        err = rel_err(got, ref)
+        eye2 = torch.eye(tl.shape[0], device=dev)
+        ident = float((tl @ got - eye2).norm())
+        if not (err <= 1e-4 and ident < 1e-4):
+            fail("trtri_panel (%d,%d) disagrees with its plain version: rel "
+                 "%.3e, ||L Linv - I|| %.3g" % (*tl.shape, err, ident))
+        nb = tl.shape[0]
+        return dict(
+            max_abs_err=float((got - ref).abs().max()), rel_err=err,
+            ms=cuda_ms(torch, lambda: kernels.trtri_panel(tl), 20),
+            plain_ms=cuda_ms(torch, lambda: kernels.trtri_panel_plain(tl), 5),
+            library_ms=cuda_ms(torch, lambda: torch.linalg.solve_triangular(
+                tl, eye2, upper=False), 20),
+            bound=bound(nb ** 3 / 3.0, 4.0 * (nb * (nb + 1) / 2 + nb * nb)))
+
     nb = TRTRI_NB
-    b_ms, b_by = bound(nb ** 3 / 3.0, 4.0 * (nb * (nb + 1) / 2 + nb * nb))
-    out["trtri_panel"] = dict(
+    r256, r512 = check_trtri(l[:nb, :nb]), check_trtri(l)
+    out["trtri_panel"] = r = dict(
         shape="(%d,%d) view, row stride %d" % (nb, nb, PANEL_NB),
-        max_abs_err=float((got - ref).abs().max()), rel_err=err,
-        tol="rel Frobenius <= 1e-4",
-        ms=cuda_ms(torch, lambda: kernels.trtri_panel(tl), 20),
-        plain_ms=cuda_ms(torch, lambda: kernels.trtri_panel_plain(tl), 5),
-        library_ms=cuda_ms(torch, lambda: torch.linalg.solve_triangular(
-            tl, eye2, upper=False), 20),
-        bound_ms=b_ms, bound_by=b_by)
+        tol="rel Frobenius <= 1e-4, ||L Linv - I|| < 1e-4",
+        bound_ms=r256["bound"][0], bound_by=r256["bound"][1],
+        **{k: r256[k] for k in ("max_abs_err", "rel_err", "ms", "plain_ms",
+                                "library_ms")},
+        **{"nb512_" + k: r512[k] for k in ("ms", "plain_ms", "library_ms",
+                                           "max_abs_err")},
+        nb512_bound_ms=r512["bound"][0])
+    routes = ["%d: %s of %d blocks" % (
+        n, "one cluster" if n <= kernels.TRTRI_CLUSTER_NB else "cooperative grid",
+        kernels._plan("trtri_panel", dev, n, int(n <= kernels.TRTRI_CLUSTER_NB)))
+        for n in (nb, PANEL_NB)]
+    print("redesign trtri_panel (%s): (256,256) view kernel %.4f ms, plain %.4f "
+          "ms, solve_triangular %.4f ms, bound %.5f ms; (512,512) rel %.3e: "
+          "kernel %.4f ms, plain %.4f ms, solve_triangular %.4f ms, bound %.5f "
+          "ms" % ("; ".join(routes), r["ms"], r["plain_ms"], r["library_ms"],
+                  r["bound_ms"], r512["rel_err"], r["nb512_ms"],
+                  r["nb512_plain_ms"], r["nb512_library_ms"],
+                  r["nb512_bound_ms"]), flush=True)
     for name, r in out.items():
         print("kernel %s %s: max_abs_err %.3e rel %.3e (%s); kernel %.4f ms, "
               "plain %.4f ms, library %.4f ms, bound %.5f ms (%s)"
@@ -1513,6 +1543,24 @@ def check_fused_kernels(torch, kernels, dev) -> dict:
             at8.T)), None, 3),
         library="lu_factor (cuSOLVER)",
         bound=bound(2.0 * N8 ** 3 / 3.0, 8.0 * N8 * N8))))
+    # the full kernel's launch: its cooperative grid, its registers and
+    # spills (-Xptxas -v) and one block's dynamic shared memory
+    import ctypes
+    from slate_tpu_torch.ops import _build
+
+    grid = kernels._plan("getrf_full_fused", dev, N8, t, LU_IB)
+    c_bytes = _build.library("getrf_full_fused").slate_getrf_full_fused_smem_bytes
+    c_bytes.argtypes, c_bytes.restype = [ctypes.c_int] * 4, ctypes.c_int64
+    log = _build.lib_path("getrf_full_fused")
+    ptxas = [ln.split("info    :")[-1].strip() for ln in log.with_name(
+        log.name + ".log").read_text().splitlines()
+        if "registers" in ln or "spill" in ln]
+    full_plan = dict(grid=grid, smem_bytes=int(c_bytes(N8, t, LU_IB, grid)),
+                     ptxas=ptxas)
+    print("getrf_full_fused at (%d,%d) nb=%d ib=%d: cooperative grid of %d x 256 "
+          "threads, %d B dynamic shared memory a block; ptxas %s" % (
+              N8, N8, t, LU_IB, grid, full_plan["smem_bytes"], " | ".join(ptxas)),
+          flush=True)
     # the same launch without its rank-nb update: the fused_trsm depth's
     # kernel, and the panel + X₂ + U + scatter share of the step
     no_update_ms = event_ms(torch, lambda: kernels.getrf_step_fused(
@@ -1520,6 +1568,8 @@ def check_fused_kernels(torch, kernels, dev) -> dict:
     print("kernel getrf_step_fused (%d,%d) carry, k0=0, update=False: "
           "%.4f ms" % (N8, N8, no_update_ms), flush=True)
     out = {}
+    dict(rows)["getrf_full_fused"].update(grid=full_plan["grid"],
+                                          smem_bytes=full_plan["smem_bytes"])
     for name, r in rows:
         r["bound_ms"], r["bound_by"] = r.pop("bound")
         out[name] = r
@@ -3937,6 +3987,11 @@ def main() -> int:
     paths.update(phase("3d", serve_path, torch, kernels)["launches"])
     paths.update(phase("3e", main_path_depths, torch, st, kernels,
                        dev)["launches"])
+    print("getrf_full_fused on the lu_full path: %d launch (grid %d, %d B "
+          "dynamic shared memory a block)" % (
+              paths["lu_full"]["getrf_full_fused"],
+              measured["getrf_full_fused"]["grid"],
+              measured["getrf_full_fused"]["smem_bytes"]), flush=True)
     paths.update(phase("3f", main_path_qr, torch, st, kernels, dev,
                        a_qr)["launches"])
     del a_qr
@@ -3986,7 +4041,10 @@ def main() -> int:
                       "ring_shape", "ring_ms", "ring_plain_ms",
                       "ring_library_ms", "ring_bound_ms",
                       "nb256_ms", "nb256_plain_ms", "nb256_library_ms",
-                      "nb256_bound_ms", "w4096_ms", "w4096_plain_ms",
+                      "nb256_bound_ms", "nb512_ms", "nb512_plain_ms",
+                      "nb512_library_ms", "nb512_bound_ms",
+                      "nb512_max_abs_err", "grid", "smem_bytes",
+                      "w4096_ms", "w4096_plain_ms",
                       "w4096_library_ms", "w4096_bound_ms",
                       "library", "fp64_8192_ms", "fro_ms",
                       "max_abs_err_fro", "driver_path_launches"):

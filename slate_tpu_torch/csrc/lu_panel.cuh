@@ -1,6 +1,7 @@
 // Device code shared by the partial-pivot LU panel kernels,
 // getrf_panel_linv.cu and getrf_panel_fused.cu, and the panel phase of the
-// fused step and full kernels (lu_step.cuh), as the Pallas kernels share
+// fused step kernel (lu_step.cuh; the full kernel's panel, lu_full.cuh,
+// is this one over a list of lanes), as the Pallas kernels share
 // _factor_block_lane_major / _trtri_unblocked / _block_inv_doubling
 // (slate_tpu/ops/pallas_kernels.py:315-363, :690-771).
 //
@@ -100,7 +101,7 @@ __device__ __forceinline__ void warp_best(float& v, int& l, int& g) {
 
 // A global read of the panel's input; CG reads through L2 only
 // (ld.global.cg), for a panel that other blocks of the same cooperative
-// launch wrote (getrf_full_fused.cu's later steps).
+// launch wrote.
 template <bool CG>
 __device__ __forceinline__ float load_in(const float* q) {
   if (CG) return __ldcg(q);

@@ -1,5 +1,6 @@
-// Device code shared by the two cooperative partial-pivot LU kernels,
-// getrf_step_fused.cu and getrf_full_fused.cu, as the Pallas kernels share
+// Device code of the cooperative partial-pivot LU step kernel,
+// getrf_step_fused.cu (getrf_full_fused.cu runs the same step over the
+// active lanes only, lu_full.cuh), as the Pallas kernels share
 // _fused_panel_phase, _newton_x2 and _lu_chunk_update
 // (slate_tpu/ops/pallas_kernels.py:922, :1219, :1233): the trailing phase
 // of ONE right-looking step on the transposed (n_rows, m) scattered carry,

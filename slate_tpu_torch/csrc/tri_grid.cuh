@@ -1,7 +1,8 @@
 // Grid-level building blocks of the triangular kernels that spread over the
 // whole card (lu_u12_panel.cu, lu_inv_panel.cu, chol_inv_panel.cu,
-// potrf_full_fused.cu): the cooperative kernels of tri_panel.cuh's
-// single-block algorithms, with the same arithmetic.
+// potrf_full_fused.cu, trtri_panel.cu; lu_full.cuh's products): the
+// cooperative kernels of tri_panel.cuh's single-block algorithms, with the
+// same arithmetic.
 //
 // Execution model: one cooperative grid of NTH-thread blocks, as many as are
 // co-resident (plan_grid) and no more than the widest phase has tiles of

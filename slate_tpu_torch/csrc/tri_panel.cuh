@@ -1,7 +1,10 @@
 // Device code shared by the single-block triangular kernels,
-// chol_inv_panel.cu, trtri_panel.cu and potrf_batched.cu, as the Pallas
-// kernels share _chol_unblocked, _trtri_unblocked and _block_inv_doubling
-// (slate_tpu/ops/pallas_kernels.py:282-363).
+// potrf_batched.cu and, through potrf_step.cuh, potrf_step_fused.cu and
+// chol_l21_panel.cu, as the Pallas kernels share _chol_unblocked,
+// _trtri_unblocked and _block_inv_doubling
+// (slate_tpu/ops/pallas_kernels.py:282-363).  The grid kernels of
+// tri_grid.cuh (chol_inv_panel.cu, trtri_panel.cu among them) keep its
+// rounding.
 //
 // Execution model: ONE block of 1024 threads owns the whole (nb, nb)
 // panel (potrf_batched: one block per problem).  On the TPU the panel sits in VMEM; on an H100 a 512² fp32 panel

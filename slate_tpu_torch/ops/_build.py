@@ -32,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "slate_tpu_torch"
 SOURCES = {
     "matmul": ("matmul.cu", ()),
     "chol_inv_panel": ("chol_inv_panel.cu", ("tri_grid.cuh",)),
-    "trtri_panel": ("trtri_panel.cu", ("tri_panel.cuh",)),
+    "trtri_panel": ("trtri_panel.cu", ("tri_grid.cuh",)),
     "lu_inv_panel": ("lu_inv_panel.cu", ("tri_grid.cuh",)),
     "getrf_panel_linv": ("getrf_panel_linv.cu", ("lu_panel.cuh",)),
     "getrf_panel_fused": ("getrf_panel_fused.cu", ("lu_panel.cuh",)),
@@ -44,7 +44,7 @@ SOURCES = {
     "getrf_step_fused": ("getrf_step_fused.cu",
                          ("lu_step.cuh", "lu_panel.cuh")),
     "getrf_full_fused": ("getrf_full_fused.cu",
-                         ("lu_step.cuh", "lu_panel.cuh")),
+                         ("lu_full.cuh", "lu_panel.cuh", "tri_grid.cuh")),
     "hb2st_wavefront": ("hb2st_wavefront.cu", ("chase.cuh",)),
     "tb2bd_wavefront": ("tb2bd_wavefront.cu", ("chase.cuh",)),
     "chol_l21_panel": ("chol_l21_panel.cu",

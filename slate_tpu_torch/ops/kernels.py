@@ -57,7 +57,7 @@ _SIGNATURES = {
                [_P, _I64, _I64, _P, _I64, _I64, _P, _I, _I, _I, _P]),
     "chol_inv_panel": ("slate_chol_inv_panel_f32",
                        [_P, _I64, _P, _P, _P, _I, _I, _P]),
-    "trtri_panel": ("slate_trtri_panel_f32", [_P, _I64, _P, _P, _I, _P]),
+    "trtri_panel": ("slate_trtri_panel_f32", [_P, _I64, _P, _P, _I, _I, _I, _P]),
     "lu_inv_panel": ("slate_lu_inv_panel_f32",
                      [_P, _I64, _P, _P, _P, _P, _I, _I, _P]),
     "getrf_panel_linv": ("slate_getrf_panel_linv_f32",
@@ -73,7 +73,7 @@ _SIGNATURES = {
     "getrf_step_fused": ("slate_getrf_step_fused_f32",
                          [_P, _I64, _I64, _I] + [_P] * 10 + [_I] * 5 + [_P]),
     "getrf_full_fused": ("slate_getrf_full_fused_f32",
-                         [_P, _I64, _I] + [_P] * 9 + [_I] * 4 + [_P]),
+                         [_P, _I64, _I] + [_P] * 14 + [_I] * 4 + [_P]),
     # one symbol per dtype: "%s" is f32 or f64
     "hb2st_wavefront": ("slate_hb2st_wavefront_%s",
                         [_P, _I64] + [_I] * 4 + [_P] + [_I] * 2 + [_P]),
@@ -162,17 +162,19 @@ def _check_potrf_full_smem(lib, name: str) -> None:
 
 def _check_lu_step_smem(lib, name: str) -> None:
     """The same check for the fused LU kernels: one block's dynamic
-    shared memory is :func:`smem.lu_step_bytes` over panels and grids on
+    shared memory is :func:`smem.lu_step_bytes` (the step kernel) or
+    :func:`smem.lu_full_bytes` (the full one) over panels and grids on
     both sides of the point where the panel's share passes the product
     tiles'."""
     from . import smem
 
+    formula = smem.lu_full_bytes if name == "getrf_full_fused" else smem.lu_step_bytes
     c_bytes = getattr(lib, "slate_%s_smem_bytes" % name)
     c_bytes.argtypes, c_bytes.restype = [_I] * 4, _I64
     for m in (128, 256, 2048, 8192, 12144):
         for nb in (128, 512):
             for grid in (1, 8, 64, 132):
-                want = smem.lu_step_bytes(m, nb, 16, grid)
+                want = formula(m, nb, 16, grid)
                 if c_bytes(m, nb, 16, grid) != want:
                     raise RuntimeError(
                         "%s: the kernel takes %d B of shared memory at (m, "
@@ -384,6 +386,12 @@ def trtri_panel_plain(l):
     return inv
 
 
+#: the widest nb whose trtri_panel launch is one thread-block cluster (a
+#: hardware barrier between the doubling's products) rather than a
+#: cooperative grid (csrc/trtri_panel.cu)
+TRTRI_CLUSTER_NB = 256
+
+
 def trtri_panel(l):
     """Inverse of a lower non-unit (nb, nb) triangle, nb a power of two
     ≥ 32, fp32.  Reads only the lower triangle of ``l``, which may be a
@@ -394,8 +402,10 @@ def trtri_panel(l):
     _check_rows("trtri_panel", l)
     linv = torch.empty((nb, nb), dtype=torch.float32, device=l.device)
     work = torch.empty((nb // 2) ** 2, dtype=torch.float32, device=l.device)
+    cluster = int(nb <= TRTRI_CLUSTER_NB)
     _launch("trtri_panel", l.device, l.data_ptr(), l.stride(0),
-            linv.data_ptr(), work.data_ptr(), nb)
+            linv.data_ptr(), work.data_ptr(), nb,
+            _plan("trtri_panel", l.device, nb, cluster), cluster)
     return linv
 
 
@@ -1015,12 +1025,18 @@ def getrf_full_fused(at, act, nb: int = 512, bb: int = 128, ib: int = 16,
     act_w = act.reshape(1, m).to(torch.float32).clone()
     piv = torch.empty(ktot, dtype=torch.int64, device=dev)
     _, linv, cand, cval, clane = _panel_scratch(dev, grid, nb)
-    t, x2 = torch.empty((nb, nb), **f32), torch.empty((nb, nb), **f32)
-    u = torch.empty((max(n_rows - nb, 1), nb), **f32)
+    l11, t, x2 = (torch.empty((nb, nb), **f32) for _ in range(3))
+    # U and the gathered C[:, piv] of a step's trailing rows
+    u, cpiv = (torch.empty((max(n_rows - nb, 1), nb), **f32) for _ in range(2))
+    # the lanes still active at each step (two lists) and their counts
+    lanes = torch.empty(2 * m, dtype=torch.int32, device=dev)
+    na = torch.empty(2, dtype=torch.int32, device=dev)
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)   # the column barrier
     _launch("getrf_full_fused", dev, at.data_ptr(), at.stride(0), n_rows,
             act_w.data_ptr(), piv.data_ptr(), linv.data_ptr(),
-            cand.data_ptr(), cval.data_ptr(), clane.data_ptr(), t.data_ptr(),
-            x2.data_ptr(), u.data_ptr(), m, nb, ib, grid)
+            cand.data_ptr(), cval.data_ptr(), clane.data_ptr(), l11.data_ptr(),
+            t.data_ptr(), x2.data_ptr(), u.data_ptr(), cpiv.data_ptr(),
+            lanes.data_ptr(), na.data_ptr(), bar.data_ptr(), m, nb, ib, grid)
     return at, piv, act_w
 
 

@@ -49,11 +49,16 @@ co-resident, and what one block holds is
   (:data:`TRI_GRID_SMEM`), whatever n and nb; the diagonal block's
   Schur complement, L11, L11⁻¹ and the block column stay in device
   memory;
-* ``getrf_step_fused`` / ``getrf_full_fused`` (``csrc/lu_step.cuh``):
-  the panel kernel's share of the (nb, m) panel (:func:`lu_panel_bytes`),
-  which the trailing phase then reuses for its product tiles
-  (:func:`lu_step_bytes`); the full kernel holds no more than the step
-  kernel, since its next panel stays in the carry.
+* ``getrf_step_fused`` (``csrc/lu_step.cuh``) and ``getrf_full_fused``
+  (``csrc/lu_full.cuh``): the panel kernel's share of the (nb, m) panel
+  (:func:`lu_panel_bytes`; the full kernel holds its lanes' indices and
+  the columns they were pivoted at where the step kernel holds its mask
+  and block-pivot marks, the same words, and pads its pivot columns'
+  rows out of the formula's 64 spare words), which the trailing phase
+  then reuses for its
+  product tiles (:func:`lu_step_bytes`, :func:`lu_full_bytes`: the full
+  kernel's 32-tiles' slabs, then the step's pivot lanes and a tile's
+  lanes); its next panel stays in the carry.
 
 The chunk height tc changes no shared memory here, and neither n nor nb
 does for the Cholesky kernels, whose staging is fixed; the LU step and
@@ -63,7 +68,8 @@ rules of the JAX gates with tc = nb, the JAX package's choice whenever
 its VMEM budget allows (f32, nb | n, nb a power of two ≥ 128 for potrf
 and a multiple of 128 for LU).  The kernels' wrappers refuse the same
 shapes, and ``ops/kernels.py`` checks the kernels' own shared-memory
-formulas against these when it loads them.
+formulas against these when it loads them.  At the drivers' shapes the
+panel's share is the larger, so the two LU kernels take the same bytes.
 
 On the card the SM count comes from the device; everywhere else (the CPU
 tests) the H100's constants answer, so the gates decide the same way.
@@ -175,6 +181,11 @@ STEP_TILE = 128
 #: floats of dynamic shared memory lu_step.cuh's trailing phase needs: the
 #: two 16 × 132 product slabs and a tile's 128-lane mask (GEMM_FLOATS)
 LU_STEP_GEMM_FLOATS = 2 * 16 * 132 + 128
+#: floats of dynamic shared memory lu_full.cuh's trailing phase needs
+#: besides the step's nb pivot lanes: tri_grid.cuh's staging blocks (its
+#: 32-tiles' two 64 × 36 slabs of each operand; TILE_FLOATS), then a
+#: tile's 128 lanes
+LU_FULL_TRAIL_FLOATS = 8 * 32 * 36 + 128
 
 
 def potrf_fused_fits(n: int, nb: int, dtype) -> bool:
@@ -197,14 +208,23 @@ def lu_step_bytes(m: int, nb: int, ib: int, grid: int) -> int:
     return max(lu_panel_bytes(m, nb, ib, grid), 4 * LU_STEP_GEMM_FLOATS)
 
 
+def lu_full_bytes(m: int, nb: int, ib: int, grid: int) -> int:
+    """Dynamic shared memory of one ``getrf_full_fused`` block on a grid of
+    ``grid`` blocks: the panel phase's share (:func:`lu_panel_bytes`) or
+    the trailing phase's, whichever is larger (``lu_panel.cuh``
+    ``dyn_floats`` with ``lu_full.cuh``'s ``trail_floats``)."""
+    return max(lu_panel_bytes(m, nb, ib, grid), 4 * (LU_FULL_TRAIL_FLOATS + nb))
+
+
 def lu_fused_fits(m: int, n: int, nb: int, dtype, device=None) -> bool:
     """The gate of ``getrf_step_fused`` and ``getrf_full_fused`` (the
     ``fused``, ``fused_trsm`` and ``full`` depths of the scattered LU
     driver) for an (m, n) matrix whose transposed carry is (n, m): f32,
-    nb a multiple of 128 dividing n, m ≥ nb, and one block's share at the
-    first grid the launcher tries (one block per SM, ≥ 32 lanes a block)
-    fitting the opt-in limit.  The scattered driver's own gate
-    (``linalg.lu._use_scattered``) is the caller's."""
+    nb a multiple of 128 dividing n, m ≥ nb, and both kernels' share of
+    one block at the first grid the launcher tries (one block per SM,
+    ≥ 32 lanes a block) fitting the opt-in limit.  The scattered driver's
+    own gate (``linalg.lu._use_scattered``) is the caller's."""
     if dtype != torch.float32 or m < nb or nb % STEP_TILE or n % nb:
         return False
-    return fits(lu_step_bytes(m, nb, 16, _first_grid(m, device)))
+    grid = _first_grid(m, device)
+    return fits(max(lu_step_bytes(m, nb, 16, grid), lu_full_bytes(m, nb, 16, grid)))

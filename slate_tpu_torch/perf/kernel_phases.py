@@ -1,36 +1,47 @@
-"""Where the time goes inside one launch of the grid triangular kernels
+"""Where the time goes inside one launch of the grid kernels
 (``csrc/lu_inv_panel.cu``, ``csrc/lu_u12_panel.cu``,
-``csrc/chol_inv_panel.cu``, ``csrc/potrf_full_fused.cu``): device time
-stamps between their phases.  Needs a CUDA card and ``nvcc``::
+``csrc/chol_inv_panel.cu``, ``csrc/potrf_full_fused.cu``,
+``csrc/trtri_panel.cu``, ``csrc/getrf_full_fused.cu``): device time stamps
+between their phases.  Needs a CUDA card and ``nvcc``::
 
-    python3 -m slate_tpu_torch.perf.kernel_phases
+    python3 -m slate_tpu_torch.perf.kernel_phases [kernel ...]
 
-For each kernel it builds a stamped copy of the source (``tri_grid.cuh``
-inlined) into ``build/slate_tpu_torch/phases/``: block 0's thread 0 reads
-the global timer and its SM's cycle counter at the kernel's start, after
-every grid barrier and at the marks below, and every block stamps its end.
-It launches the copy at the main paths' shapes (``lu_inv_panel`` and
-``chol_inv_panel`` at nb = 512 and 256, ``lu_u12_panel`` at the ring call
-(256, 256), the checked runs' (256, 4096) and the block row (256, 16384),
-``potrf_full_fused`` at (8192, 8192), nb = 512) and prints the best of
-five launches: each interval in microseconds, block 0's SM clock over the
-launch, for ``lu_inv_panel`` and ``chol_inv_panel`` the median of each part
-of a step and the doubling, and for ``potrf_full_fused`` the diagonal
-phase A against the L21 and trailing phases B + C, summed over the steps.
-The stamps cost a few instructions on block 0; the kernels the port
-launches carry none.  Nothing here runs at import.
+(default: every kernel of :data:`SECTIONS`).  For each kernel it builds a
+stamped copy of the source (every header of ``csrc`` it includes inlined)
+into ``build/slate_tpu_torch/phases/``, one ``nvcc`` each, all at once:
+block 0's thread 0 reads the global timer and its SM's cycle counter at
+the kernel's start, after every grid barrier and at the marks below, and
+every block stamps its end.  It launches the copy at the main paths'
+shapes (``lu_inv_panel`` and ``chol_inv_panel`` at nb = 512 and 256,
+``lu_u12_panel`` at the ring call (256, 256), the checked runs' (256, 4096)
+and the block row (256, 16384), ``potrf_full_fused`` at (8192, 8192),
+nb = 512, ``trtri_panel`` at potri's (256, 256) tile and geqrf's (512, 512)
+T block, by both of its launch routes, ``getrf_full_fused`` at (8192,
+8192), nb = 512, ib = 16) and prints the best of five launches (three for
+the full kernels): each interval in microseconds, block 0's SM clock over
+the launch, for ``lu_inv_panel`` and ``chol_inv_panel`` the median of each
+part of a step and the doubling, for ``potrf_full_fused`` the diagonal
+phase A against the L21 and trailing phases B + C summed over the steps,
+for ``trtri_panel`` the diagonal inverses and each doubling product
+beside CUDA-event times of both routes and of ``solve_triangular``, and
+for ``getrf_full_fused`` per step the panel, its median µs a column (and a
+column that ends an inner block) and the trailing phases 1–4.  The stamps
+cost a few instructions on block 0; the kernels the port launches carry
+none.  Nothing here runs at import.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 import statistics
 import subprocess
 import sys
 
 _HEAD = r'''
-__device__ unsigned long long g_st[1024];
-__device__ unsigned long long g_ck[1024];
+#define CAP 16384
+__device__ unsigned long long g_st[CAP];
+__device__ unsigned long long g_ck[CAP];
 __device__ int g_n;
 __device__ unsigned long long g_end;
 __device__ __forceinline__ unsigned long long g_time() {
@@ -38,7 +49,7 @@ __device__ __forceinline__ unsigned long long g_time() {
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
-#define STAMP() do { if (blockIdx.x == 0 && threadIdx.x == 0) { \
+#define STAMP() do { if (blockIdx.x == 0 && threadIdx.x == 0 && g_n < CAP) { \
   int n_ = g_n++; g_st[n_] = g_time(); g_ck[n_] = clock64(); } } while (0)
 '''
 _TAIL = r'''
@@ -52,8 +63,8 @@ extern "C" int phases_read(unsigned long long* st, unsigned long long* ck, int* 
   cudaDeviceSynchronize();
   cudaMemcpyFromSymbol(n, g_n, sizeof(int));
   cudaMemcpyFromSymbol(end, g_end, 8);
-  cudaMemcpyFromSymbol(st, g_st, 8 * 1024);
-  return (int)cudaMemcpyFromSymbol(ck, g_ck, 8 * 1024);
+  cudaMemcpyFromSymbol(st, g_st, 8 * CAP);
+  return (int)cudaMemcpyFromSymbol(ck, g_ck, 8 * CAP);
 }
 '''
 #: marks inside a step, beside the grid barriers: (text, text with stamps)
@@ -79,21 +90,49 @@ MARKS = {
          "  STAMP(); if (threadIdx.x < 32) chol32_warp(s.blk);\n"
          "  else if (threadIdx.x < 64) lower_inv_warp<true>(s.blk, s.inv, false);\n"
          "  __syncthreads(); STAMP();")],
-    "potrf_full_fused": []}
+    "potrf_full_fused": [],
+    "trtri_panel": [
+        ("  cg::cluster_group grid = cg::this_cluster();\n"
+         "  trtri_grid(grid, sm, L, ldl, Linv, W, nb);\n}",
+         "  cg::cluster_group grid = cg::this_cluster(); STAMP();\n"
+         "  trtri_grid(grid, sm, L, ldl, Linv, W, nb);\n  __syncthreads();\n"
+         "  if (threadIdx.x == 0) atomicMax(&g_end, g_time());\n}")],
+    "getrf_full_fused": []}
+
+
+_LOCAL_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"[^\n]*$', re.M)
+
+
+def _inline(text: str, seen: set) -> str:
+    """``text`` with every header of ``csrc`` it includes inlined in its
+    place, each once (``seen``: those inlined already)."""
+    from ..ops import _build
+
+    def repl(m):
+        inc = m.group(1)
+        if not (_build.CSRC / inc).is_file():
+            return m.group(0)
+        if inc in seen:
+            return ""
+        seen.add(inc)
+        return _inline((_build.CSRC / inc).read_text().replace("#pragma once", ""),
+                       seen)
+
+    return _LOCAL_INCLUDE.sub(repl, text)
 
 
 def stamped_source(name: str) -> str:
-    """The source of kernel ``name`` with the header inlined and stamps
-    at its start, after each grid barrier, at :data:`MARKS` and at every
-    block's end."""
+    """The source of kernel ``name`` with its local headers inlined and
+    stamps at its start, after each grid barrier, at :data:`MARKS` and at
+    every block's end."""
     from ..ops import _build
 
     src = (_build.CSRC / (name + ".cu")).read_text()
-    hdr = (_build.CSRC / "tri_grid.cuh").read_text().replace("#pragma once", "")
     end = src.index("\n}\n\n}  // namespace")   # the kernel's closing brace
     src = (src[:end] + "\n  __syncthreads();\n"
            "  if (threadIdx.x == 0) atomicMax(&g_end, g_time());" + src[end:])
-    src = src.replace('#include "tri_grid.cuh"', _HEAD + hdr)
+    first = _LOCAL_INCLUDE.search(src).start()
+    src = src[:first] + _HEAD + _inline(src[first:], set())
     src = src.replace("grid.sync();", "grid.sync(); STAMP();")
     src = src.replace("cg::grid_group grid = cg::this_grid();",
                       "cg::grid_group grid = cg::this_grid(); STAMP();")
@@ -104,19 +143,31 @@ def stamped_source(name: str) -> str:
     return src + _TAIL
 
 
-def build(name: str) -> ctypes.CDLL:
+def build(names) -> dict:
+    """Stamped copies of kernels ``names``, one ``nvcc`` each, all started
+    together: ``{name: ctypes.CDLL}``."""
     from ..ops import _build
 
     out = _build.BUILD_DIR / "phases"
     out.mkdir(parents=True, exist_ok=True)
-    cu = out / (name + "_phases.cu")
-    cu.write_text(stamped_source(name))
-    so = out / ("lib%s_phases.so" % name)
-    r = subprocess.run([_build.nvcc_path(), *_build.FLAGS, "-I", str(_build.CSRC),
-                        "-o", str(so), str(cu)], capture_output=True, text=True)
-    if r.returncode:
-        raise RuntimeError("nvcc failed on %s:\n%s%s" % (cu, r.stdout, r.stderr))
-    return ctypes.CDLL(str(so))
+    procs = {}
+    for name in names:
+        cu = out / (name + "_phases.cu")
+        cu.write_text(stamped_source(name))
+        so = out / ("lib%s_phases.so" % name)
+        procs[name] = (so, cu, subprocess.Popen(
+            [_build.nvcc_path(), *_build.FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, cu, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError("nvcc failed on %s:\n%s" % (cu, log))
+        libs[name] = ctypes.CDLL(str(so))
+    return libs
+
+
+_CAP = 16384      # stamps a launch keeps (CAP in _HEAD)
 
 
 def run(lib, entry: str, argtypes, args, reps: int = 5, setup=None):
@@ -127,7 +178,7 @@ def run(lib, entry: str, argtypes, args, reps: int = 5, setup=None):
     fn = getattr(lib, entry)
     fn.argtypes = list(argtypes) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    st, ck = (ctypes.c_ulonglong * 1024)(), (ctypes.c_ulonglong * 1024)()
+    st, ck = (ctypes.c_ulonglong * _CAP)(), (ctypes.c_ulonglong * _CAP)()
     n, end = ctypes.c_int(), ctypes.c_ulonglong()
     best = None
     for _ in range(reps):
@@ -138,6 +189,8 @@ def run(lib, entry: str, argtypes, args, reps: int = 5, setup=None):
         if rc:
             raise RuntimeError("%s: CUDA error %d" % (entry, rc))
         lib.phases_read(st, ck, ctypes.byref(n), ctypes.byref(end))
+        if n.value >= _CAP:
+            raise RuntimeError("%s: more than %d stamps" % (entry, _CAP))
         t = [st[i] - st[0] for i in range(n.value)] + [end.value - st[0]]
         if best is None or t[-1] < best[0][-1]:
             ghz = (ck[n.value - 1] - ck[0]) / max(1, t[n.value - 1])
@@ -146,27 +199,25 @@ def run(lib, entry: str, argtypes, args, reps: int = 5, setup=None):
     return [(t[i + 1] - t[i]) / 1e3 for i in range(len(t) - 1)], ghz
 
 
-def main() -> int:
-    import torch
+def _plan(lib, name: str, *args) -> int:
+    g = ctypes.c_int()
+    rc = getattr(lib, "slate_%s_plan" % name)(*args, ctypes.byref(g))
+    if rc:
+        raise RuntimeError("%s: no grid: CUDA error %d" % (name, rc))
+    return g.value
 
-    if not torch.cuda.is_available():
-        print("kernel_phases: no CUDA device", file=sys.stderr)
-        return 2
-    P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(60)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
-    inv = build("lu_inv_panel")
+
+P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+
+
+def _lu_inv_panel(torch, lib, gen, dev) -> None:
     for nb in (512, 256):
         a = torch.randn((nb, nb), generator=gen, device=dev) + nb * torch.eye(nb, device=dev)
         lu, li, ui, w = (torch.empty((nb, nb), device=dev) for _ in range(4))
-        g = ctypes.c_int()
-        inv.slate_lu_inv_panel_plan(nb, ctypes.byref(g))
-        d, ghz = run(inv, "slate_lu_inv_panel_f32", [P, I64, P, P, P, P, I, I],
+        g = _plan(lib, "lu_inv_panel", nb)
+        d, ghz = run(lib, "slate_lu_inv_panel_f32", [P, I64, P, P, P, P, I, I],
                      [a.data_ptr(), nb, lu.data_ptr(), li.data_ptr(), ui.data_ptr(),
-                      w.data_ptr(), nb, g.value])
+                      w.data_ptr(), nb, g])
         # start, prologue: zero + load, LU, inverses, stores + barrier; then
         # per step: loads, products, LU, inverses, stores + barrier
         steps = nb // 32 - 1
@@ -175,10 +226,12 @@ def main() -> int:
         med = {p: statistics.median(body[i::5]) for i, p in enumerate(parts)}
         print("lu_inv_panel nb=%d grid %d: %.1f us at %.2f GHz; prologue %s; "
               "a step (median us) %s; the doublings %s" % (
-                  nb, g.value, sum(d), ghz, [round(x, 1) for x in d[:4]],
+                  nb, g, sum(d), ghz, [round(x, 1) for x in d[:4]],
                   {k: round(v, 2) for k, v in med.items()},
                   [round(x, 1) for x in d[4 + 5 * steps:]]), flush=True)
-    u12 = build("lu_u12_panel")
+
+
+def _lu_u12_panel(torch, lib, gen, dev) -> None:
     l11 = torch.eye(256, device=dev) + torch.tril(
         torch.randn((256, 256), generator=gen, device=dev), -1) / 16
     for w in (256, 4096, 16384):
@@ -189,30 +242,30 @@ def main() -> int:
         wk = torch.empty((nb // 2) ** 2, device=dev)
         mx = torch.empty(2, dtype=torch.int32, device=dev)
         dv = torch.empty(1, device=dev)
-        g = ctypes.c_int()
-        u12.slate_lu_u12_panel_plan(nb, w, ctypes.byref(g))
-        d, ghz = run(u12, "slate_lu_u12_panel_f32", [P, I64, P, I64] + [P] * 6 + [I] * 3,
+        g = _plan(lib, "lu_u12_panel", nb, w)
+        d, ghz = run(lib, "slate_lu_u12_panel_f32", [P, I64, P, I64] + [P] * 6 + [I] * 3,
                      [l11.data_ptr(), nb, b.data_ptr(), w, u.data_ptr(), li.data_ptr(),
                       wk.data_ptr(), r.data_ptr(), mx.data_ptr(), dv.data_ptr(), nb, w,
-                      g.value])
+                      g])
         # zero + load, diagonal inverses, stores + barrier, the doubling's
         # phases, then u1, r1, U
         print("lu_u12_panel (%d,%d) grid %d: %.1f us at %.2f GHz; diagonal "
               "inverses %.1f, stores + barrier %.1f; the doubling %.1f %s; "
               "u1 %.1f, r1 %.1f, U %.1f" % (
-                  nb, w, g.value, sum(d), ghz, d[1], d[2], sum(d[3:-3]),
+                  nb, w, g, sum(d), ghz, d[1], d[2], sum(d[3:-3]),
                   [round(x, 1) for x in d[3:-3]], d[-3], d[-2], d[-1]), flush=True)
-    chol = build("chol_inv_panel")
+
+
+def _chol_inv_panel(torch, lib, gen, dev) -> None:
     for nb in (512, 256):
         g0 = torch.randn((nb, nb), generator=gen, device=dev)
         a = g0 @ g0.T + nb * torch.eye(nb, device=dev)
         l, li = torch.empty((nb, nb), device=dev), torch.empty((nb, nb), device=dev)
         w = torch.empty(nb * nb, device=dev)
-        g = ctypes.c_int()
-        chol.slate_chol_inv_panel_plan(nb, ctypes.byref(g))
-        d, ghz = run(chol, "slate_chol_inv_panel_f32", [P, I64, P, P, P, I, I],
+        g = _plan(lib, "chol_inv_panel", nb)
+        d, ghz = run(lib, "slate_chol_inv_panel_f32", [P, I64, P, P, P, I, I],
                      [a.data_ptr(), nb, l.data_ptr(), li.data_ptr(), w.data_ptr(),
-                      nb, g.value])
+                      nb, g])
         # prologue: zero + load, the 32² Cholesky and inverse, stores +
         # barrier; then per step: loads, products, Cholesky and inverse,
         # stores + barrier; then the doubling's phases
@@ -222,11 +275,13 @@ def main() -> int:
         med = {p: statistics.median(body[i::4]) for i, p in enumerate(parts)}
         print("chol_inv_panel nb=%d grid %d: %.1f us at %.2f GHz; prologue %s; "
               "a step (median us) %s; steps %.1f; the doubling %.1f %s" % (
-                  nb, g.value, sum(d), ghz, [round(x, 1) for x in d[:3]],
+                  nb, g, sum(d), ghz, [round(x, 1) for x in d[:3]],
                   {k: round(v, 2) for k, v in med.items()}, sum(body),
                   sum(d[3 + 4 * steps:]),
                   [round(x, 1) for x in d[3 + 4 * steps:]]), flush=True)
-    full = build("potrf_full_fused")
+
+
+def _potrf_full_fused(torch, lib, gen, dev) -> None:
     n, nb, tc = 8192, 512, 512
     r = torch.randn((n, n), generator=gen, device=dev)
     spd = (r + r.T) / 2 + n * torch.eye(n, device=dev)      # the tester's herm(n)
@@ -234,11 +289,10 @@ def main() -> int:
     a = torch.empty_like(spd)
     lkk, li, s = (torch.empty((nb, nb), device=dev) for _ in range(3))
     l21 = torch.empty((n - nb, nb), device=dev)
-    g = ctypes.c_int()
-    full.slate_potrf_full_fused_plan(n, nb, tc, ctypes.byref(g))
-    d, ghz = run(full, "slate_potrf_full_fused_f32", [P, I64] + [P] * 4 + [I] * 4,
+    g = _plan(lib, "potrf_full_fused", n, nb, tc)
+    d, ghz = run(lib, "slate_potrf_full_fused_f32", [P, I64] + [P] * 4 + [I] * 4,
                  [a.data_ptr(), n, lkk.data_ptr(), li.data_ptr(), s.data_ptr(),
-                  l21.data_ptr(), n, nb, tc, g.value], setup=lambda: a.copy_(spd))
+                  l21.data_ptr(), n, nb, tc, g], setup=lambda: a.copy_(spd))
     # a step: phase A's stamps (chol_inv_grid's barriers and doubling
     # phases, then the step's own barrier), then B's and C's barriers; the
     # last step ends after A with the copy of L11
@@ -254,9 +308,149 @@ def main() -> int:
     print("potrf_full_fused (%d,%d) nb=%d grid %d: %.1f us at %.2f GHz; phase A "
           "(the diagonal block) %.1f us, a step's median %.1f; phases B + C "
           "%.1f us (B %.1f, C %.1f); per step A %s, B %s, C %s" % (
-              n, n, nb, g.value, sum(d), ghz, sum(pa), statistics.median(pa),
+              n, n, nb, g, sum(d), ghz, sum(pa), statistics.median(pa),
               sum(pb) + sum(pc), sum(pb), sum(pc), [round(x, 1) for x in pa],
               [round(x, 1) for x in pb], [round(x, 1) for x in pc]), flush=True)
+
+
+def _lower(torch, gen, dev, nb: int, ld: int):
+    """An (nb, nb) view of row stride ``ld`` whose lower triangle is
+    well conditioned (unit-order diagonal, N(0, 1/nb) below it) and whose
+    upper part holds stale values."""
+    full = torch.randn((nb, ld), generator=gen, device=dev)
+    v = full[:, :nb]
+    v.copy_(torch.tril(v, -1) / nb ** 0.5 + torch.triu(v, 1) * 1e3
+            + torch.diag(1.0 + torch.rand(nb, generator=gen, device=dev)))
+    return v
+
+
+def _event_us(torch, fn, reps: int = 20) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls after
+    one warm-up, from CUDA events, in µs."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / reps
+
+
+def _trtri_panel(torch, lib, gen, dev) -> None:
+    # potri's 256² diagonal tile (a view of row stride 512) and geqrf's
+    # 512² T block; each launch route: one cluster, a cooperative grid
+    entry = getattr(lib, "slate_trtri_panel_f32")
+    entry.argtypes = [P, I64, P, P, I, I, I, P]
+    for nb, ld in ((256, 512), (512, 512)):
+        l = _lower(torch, gen, dev, nb, ld)
+        li = torch.empty((nb, nb), device=dev)
+        w = torch.empty((nb // 2) ** 2, device=dev)
+        eye = torch.eye(nb, device=dev)
+        lib_us = _event_us(torch, lambda: torch.linalg.solve_triangular(
+            l, eye, upper=False))
+        for cluster in (1, 0):
+            g = _plan(lib, "trtri_panel", nb, cluster)
+            args = [l.data_ptr(), ld, li.data_ptr(), w.data_ptr(), nb, g, cluster]
+            d, ghz = run(lib, "slate_trtri_panel_f32", [P, I64, P, P, I, I, I], args)
+            us = _event_us(torch, lambda: entry(
+                *args, torch.cuda.current_stream().cuda_stream))
+            # the diagonal inverses, then each doubling product; the grid
+            # launch's stamps also time its start
+            print("trtri_panel (%d,%d) row stride %d %s of %d blocks: %.1f us by "
+                  "events (solve_triangular %.1f us); stamps %.1f us at %.2f GHz: "
+                  "zero + diagonal inverses %.1f, the doubling's products %s"
+                  % (nb, nb, ld, "one cluster" if cluster else "cooperative grid",
+                     g, us, lib_us, sum(d), ghz, d[0], [round(x, 1) for x in d[1:]]),
+                  flush=True)
+
+
+def _getrf_full_fused(torch, lib, gen, dev) -> None:
+    n, nb, ib = 8192, 512, 16
+    at0 = torch.randn((n, n), generator=gen, device=dev)   # A's transpose
+    at = torch.empty_like(at0)
+    act = torch.empty(n, device=dev)
+    f32 = dict(device=dev)
+    g = _plan(lib, "getrf_full_fused", n, nb, ib)
+    piv = torch.empty(n, dtype=torch.int64, device=dev)
+    linv, l11, t, x2 = (torch.empty((nb, nb), **f32) for _ in range(4))
+    cand, cval = torch.empty((2, g, nb), **f32), torch.empty((2, g), **f32)
+    clane = torch.empty((2, g), dtype=torch.int32, device=dev)
+    u, cpiv = torch.empty((n - nb, nb), **f32), torch.empty((n - nb, nb), **f32)
+    lanes = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    na = torch.empty(2, dtype=torch.int32, device=dev)
+    bar = torch.empty(1, dtype=torch.int32, device=dev)
+
+    def setup():
+        at.copy_(at0)
+        act.fill_(1.0)
+        bar.zero_()
+
+    d, ghz = run(lib, "slate_getrf_full_fused_f32", [P, I64, I] + [P] * 14 + [I] * 4,
+                 [at.data_ptr(), n, n, act.data_ptr(), piv.data_ptr(),
+                  linv.data_ptr(), cand.data_ptr(), cval.data_ptr(),
+                  clane.data_ptr(), l11.data_ptr(), t.data_ptr(), x2.data_ptr(),
+                  u.data_ptr(), cpiv.data_ptr(), lanes.data_ptr(), na.data_ptr(),
+                  bar.data_ptr(), n, nb, ib, g], reps=3, setup=setup)
+    # the list of active lanes, then a step: one barrier a column, the
+    # barrier after the panel's write-back, one after each of the three
+    # products and one after the update (the last step ends after its
+    # panel)
+    steps = n // nb
+    per = nb + 1 + 4
+    if len(d) != 2 + steps * per - 4:
+        raise RuntimeError("getrf_full_fused: %d intervals, expected %d"
+                           % (len(d), 2 + steps * per - 4))
+    pan, col, end, tr = [], [], [], [[], [], [], []]
+    for k in range(steps):
+        s0 = 1 + k * per
+        cols = d[s0:s0 + nb]
+        pan.append(sum(d[s0:s0 + nb + 1]))
+        # a column that ends an inner block also runs the block's end
+        col.append(statistics.median(c for j, c in enumerate(cols) if j % ib))
+        end.append(statistics.median(cols[ib::ib]))
+        if k + 1 < steps:
+            for i in range(4):
+                tr[i].append(d[s0 + nb + 1 + i])
+    print("getrf_full_fused (%d,%d) nb=%d ib=%d grid %d: %.1f us at %.2f GHz; "
+          "lane list %.1f us, panels %.1f us, trailing %.1f us (phases 1-4: %s)" % (
+              n, n, nb, ib, g, sum(d), ghz, d[0], sum(pan), sum(map(sum, tr)),
+              [round(sum(x), 1) for x in tr]), flush=True)
+    print("getrf_full_fused per step: panel us %s; median us a column %s; median "
+          "us a column with an inner block's end %s; phase 1 %s; phase 2 %s; "
+          "phase 3 %s; phase 4 %s" % (
+              [round(x, 1) for x in pan], [round(x, 2) for x in col],
+              [round(x, 2) for x in end],
+              *[[round(x, 1) for x in p] for p in tr]), flush=True)
+
+
+SECTIONS = {"lu_inv_panel": _lu_inv_panel, "lu_u12_panel": _lu_u12_panel,
+            "chol_inv_panel": _chol_inv_panel, "potrf_full_fused": _potrf_full_fused,
+            "trtri_panel": _trtri_panel, "getrf_full_fused": _getrf_full_fused}
+
+
+def main(argv=None) -> int:
+    import torch
+
+    names = list(sys.argv[1:] if argv is None else argv) or list(SECTIONS)
+    bad = [x for x in names if x not in SECTIONS]
+    if bad:
+        print("kernel_phases: no kernel %s (choose from %s)" % (bad, list(SECTIONS)),
+              file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("kernel_phases: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(60)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    libs = build(names)
+    for name in names:
+        SECTIONS[name](torch, libs[name], gen, dev)
     return 0
 
 

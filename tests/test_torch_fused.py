@@ -347,6 +347,35 @@ def test_gates_follow_smem():
         assert not smem.lu_fused_fits(m, n, nb, dt)
 
 
+@pytest.mark.parametrize("n", [2048, 8192])
+def test_full_depth_follows_the_full_kernels_smem(n, monkeypatch):
+    """``getrf_full_fused``'s shared memory (``csrc/lu_full.cuh``: the
+    panel's share, in which it keeps its lanes' indices and pivot columns
+    where the step kernel keeps its mask and marks, or its trailing tiles
+    with the step's pivot lanes) is what ``smem.lu_full_bytes`` counts;
+    at the drivers' shapes it equals the step kernel's, the gate holds
+    both, and a pinned ``full`` depth is taken there."""
+    grid = smem._first_grid(n)
+    assert grid == min(smem.SMS, n // smem.MIN_LANES)
+    full = smem.lu_full_bytes(n, 512, 16, grid)
+    assert full == smem.lu_panel_bytes(n, 512, 16, grid) == \
+        smem.lu_step_bytes(n, 512, 16, grid)
+    assert smem.fits(full) and smem.lu_fused_fits(n, n, 512, F32)
+    # one lane a block: the trailing phase's share is the larger, the full
+    # kernel's (32-tile slabs, nb pivot lanes, a tile's lanes) more than
+    # the step kernel's
+    assert smem.lu_full_bytes(132, 128, 16, 132) == \
+        4 * (smem.LU_FULL_TRAIL_FLOATS + 128) > smem.lu_step_bytes(132, 128, 16, 132)
+    for m in (128, 1024, n, 12144, 12160):
+        g = smem._first_grid(m)
+        assert smem.lu_fused_fits(m, n, 512, F32) == (m >= 512 and smem.fits(max(
+            smem.lu_step_bytes(m, 512, 16, g), smem.lu_full_bytes(m, 512, 16, g))))
+    monkeypatch.setattr(tauto, "_warned_forces", set())
+    monkeypatch.setenv(FORCE, "lu_step=full")
+    assert tauto.choose_lu_step(n, n, 512, F32, "cpu",
+                                smem.lu_fused_fits(n, n, 512, F32)) == "full"
+
+
 def test_gates_off_with_kernels_off(monkeypatch):
     """Kernels switched off close both step sites, even where the gate
     holds and a depth is pinned."""

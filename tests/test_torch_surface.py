@@ -94,15 +94,18 @@ def test_build_sources_list_every_header(kernel):
 
 
 @pytest.mark.parametrize("kernel", ["lu_inv_panel", "lu_u12_panel",
-                                    "chol_inv_panel", "potrf_full_fused"])
+                                    "chol_inv_panel", "potrf_full_fused",
+                                    "trtri_panel", "getrf_full_fused"])
 def test_kernel_phases_marks_are_in_the_sources(kernel):
     """``perf/kernel_phases.py`` stamps text anchors of the kernel sources:
-    each of its marks must still be there, and the stamped copy must keep
-    the kernel's start, barrier and end stamps."""
+    each of its marks must still be there, the stamped copy must inline
+    every header of ``csrc`` it reaches, and it must keep the kernel's
+    start, barrier and end stamps."""
     from slate_tpu_torch.perf import kernel_phases
 
     src = kernel_phases.stamped_source(kernel)
-    assert "#include \"tri_grid.cuh\"" not in src
+    assert not [inc for inc in _INCLUDE.findall(src) if (_build.CSRC / inc).is_file()]
+    assert set(kernel_phases.SECTIONS) >= {kernel}
     assert "cg::this_grid(); STAMP();" in src
     assert "grid.sync(); STAMP();" in src
     assert "atomicMax(&g_end, g_time());" in src
