@@ -29,15 +29,22 @@
    512: the Cholesky step at k0 = 0 (and 512 at n = 2048), every LU step
    with ``update`` on (and off at n = 2048; the first step off at 8192),
    each from the same state as its plain version, to the same pivots and
-   1e-4 of it; the full kernels bitwise equal to the chain of their step
-   kernels and to factor residuals ≤ 3; whole factorizations against
+   1e-4 of it; the Cholesky step's L11 bitwise ``chol_inv_panel``'s L of
+   the same block and every LU step's panel rows, pivots, mask and L11⁻¹
+   bitwise ``getrf_panel_fused``'s from the same state (witnesses apart
+   from the step kernels, which run the full kernels' own code); the full
+   kernels bitwise equal to the chain of their step kernels and to factor
+   residuals ≤ 3; whole factorizations against
    the plain ones within 1e-4 (Cholesky) or, for LU, whose factors drift
    apart over steps of different rounding, with pivots equal up to a
    near-tie (within 1e-5 relative in one of the two factors; at n = 8192
    the drift passes that width, and the first departure is printed) and
-   the drift printed; then each timed at n = 8192, and
-   ``getrf_full_fused``'s grid, registers and shared memory printed (its
-   launches on the ``lu_full`` path after phase 3e).  ``lu_inv_panel``
+   the drift printed; then each timed at n = 8192, the LU step also
+   without its update, the grid, registers and shared memory of
+   ``getrf_full_fused`` and the two step kernels printed, and a
+   "redesign" line for each step kernel beside its time before its
+   redesign (``getrf_full_fused``'s launches on the ``lu_full`` path are
+   printed after phase 3e).  ``lu_inv_panel``
    (phase 2e) at nb = 32, 64, 128, 256 and 512 on diagonally dominant
    blocks and at 512 on the B[:512] block of the first CholQR² panel of
    the QR path's input: each output within 1e-4 of its plain version,
@@ -1303,7 +1310,9 @@ def _lu_factor_gates(torch, label, a, lu, perm):
 def _potrf_fused_gates(torch, kernels, spd, nb: int, k0s) -> dict:
     """potrf_step_fused at each k0 of ``k0s`` (0, nb, … in turn) on the
     kernel's own carry, against the plain step from the same carry (rel
-    ≤ 1e-4, no row above k0 written); potrf_full_fused against its plain
+    ≤ 1e-4, no row above k0 written), its L11 bitwise chol_inv_panel's L
+    of the same diagonal block (both are tri_grid.cuh's chol_inv_grid: a
+    witness independent of the chain); potrf_full_fused against its plain
     version (rel ≤ 1e-4), bitwise the chain of all its steps, factor
     residual ≤ 3.  Returns the max abs differences from the plain
     versions and the plain versions' ms (the step's at k0 = 0)."""
@@ -1319,6 +1328,11 @@ def _potrf_fused_gates(torch, kernels, spd, nb: int, k0s) -> dict:
         if not (err <= 1e-4 and torch.equal(ak[:k0], before[:k0])):
             fail("potrf_step_fused n=%d k0=%d: rel %.3e of its plain version, "
                  "or it wrote rows above k0" % (n, k0, err))
+        blk = slice(k0, k0 + nb)
+        l11, _ = kernels.chol_inv_panel(before[blk, blk])
+        if not torch.equal(ak[blk, blk], l11):
+            fail("potrf_step_fused n=%d k0=%d: L11 is not bitwise chol_inv_panel's"
+                 % (n, k0))
         errs.append(float((ak - ap).abs().max()))
     del ak, before, ap
     chain = spd.clone()
@@ -1335,8 +1349,8 @@ def _potrf_fused_gates(torch, kernels, spd, nb: int, k0s) -> dict:
              "%.3g, bitwise equal to the step chain: %s"
              % (n, err, res, torch.equal(af, chain)))
     print("potrf fused kernels at n=%d nb=%d: step max abs diff %s (k0 = %s) "
-          "from the plain step, full rel %.3e of the plain version, residual "
-          "%.3g, full == step chain bitwise"
+          "from the plain step, L11 == chol_inv_panel's bitwise, full rel %.3e "
+          "of the plain version, residual %.3g, full == step chain bitwise"
           % (n, nb, " / ".join("%.3e" % e for e in errs),
              ", ".join(map(str, k0s)), err, res), flush=True)
     return {"step_err": max(errs), "full_err": float((af - afp).abs().max()),
@@ -1347,9 +1361,11 @@ def _getrf_step_chain(torch, kernels, at0, nb: int, update: bool, steps: int):
     """getrf_step_fused for the first ``steps`` steps of the transposed
     carry ``at0`` (left as it is), each step held against the plain step
     from the same state: :func:`_panel_gates`, no row above k0 written,
-    and the trailing rows within 1e-4 where the pivots agree.  Returns
-    the kernel's carry, pivots and mask, the max abs difference from the
-    plain steps, and the plain step's ms at k0 = 0."""
+    and the trailing rows within 1e-4 where the pivots agree; and its
+    panel rows, pivots, mask and L11⁻¹ bitwise getrf_panel_fused's from
+    the same state (lu_panel.cuh's panel phase, a witness independent of
+    the chain).  Returns the kernel's carry, pivots and mask, the max abs
+    difference from the plain steps, and the plain step's ms at k0 = 0."""
     n_rows, m = at0.shape
     ck, act = at0.clone(), torch.ones((1, m), device=at0.device)
     pivs, errs, plain_ms = [], [], []
@@ -1358,6 +1374,14 @@ def _getrf_step_chain(torch, kernels, at0, nb: int, update: bool, steps: int):
         name = "getrf_step_fused (%d,%d) k0=%d update=%s" % (n_rows, m, k0, update)
         _, piv, act2, linv = kernels.getrf_step_fused(
             ck, act, k0, nb=nb, bb=LU_BB, ib=LU_IB, update=update)
+        wp = before.clone()
+        _, ppiv, pact, plinv = kernels.getrf_panel_fused(
+            wp, act, k0, nb=nb, bb=LU_BB, ib=LU_IB)
+        if not (torch.equal(ck[k0:k0 + nb], wp[k0:k0 + nb]) and torch.equal(piv, ppiv)
+                and torch.equal(act2, pact) and torch.equal(linv, plinv)):
+            fail("%s: panel rows, pivots, mask or linv not bitwise "
+                 "getrf_panel_fused's from the same state" % name)
+        del wp
         ms, (_, rpiv, ract, rlinv) = once_ms(
             torch, lambda: kernels.getrf_step_fused_plain(
                 cp, act, k0, nb=nb, bb=LU_BB, ib=LU_IB, update=update))
@@ -1427,11 +1451,35 @@ def _getrf_fused_gates(torch, kernels, a, nb: int, trsm_steps: int,
                  "version's, not at a near-tie: %s" % (n, tie))
     print("getrf fused kernels at n=%d nb=%d: every step max abs diff %.3e "
           "(update, %d steps) / %.3e (no update, %d steps) from the same "
-          "state, pivots equal; full == step chain bitwise, residual %.3g; "
-          "whole factorization vs plain: %s"
+          "state, pivots equal, panel == getrf_panel_fused's bitwise; full == "
+          "step chain bitwise, residual %.3g; whole factorization vs plain: %s"
           % (n, nb, err_on, n // nb, err_off, trsm_steps, res, tie), flush=True)
     return {"step_err": max(err_on, err_off), "full_err": err_on,
             "step_plain_ms": step_plain_ms, "full_plain_ms": full_plain_ms}
+
+
+def _launch_plan(kernels, dev, name: str, plan_args, smem_args) -> dict:
+    """Kernel ``name``'s cooperative grid (``slate_<name>_plan(*plan_args)``),
+    one block's shared memory (``slate_<name>_smem_bytes(*smem_args)``) and
+    its ptxas lines (registers, spills), printed and returned."""
+    import ctypes
+    from slate_tpu_torch.ops import _build
+
+    grid = kernels._plan(name, dev, *plan_args)
+    c_bytes = getattr(_build.library(name), "slate_%s_smem_bytes" % name)
+    # a dynamic share is a function of the grid too; a static one of nothing
+    args = (*smem_args, grid) if smem_args else ()
+    c_bytes.argtypes, c_bytes.restype = [ctypes.c_int] * len(args), ctypes.c_int64
+    smem_bytes = int(c_bytes(*args))
+    log = _build.lib_path(name)
+    ptxas = [ln.split("info    :")[-1].strip() for ln in log.with_name(
+        log.name + ".log").read_text().splitlines()
+        if "registers" in ln or "spill" in ln]
+    print("%s at %s: cooperative grid of %d x 256 threads, %d B %s shared memory "
+          "a block; ptxas %s" % (name, plan_args, grid, smem_bytes,
+                                 "dynamic" if smem_args else "static",
+                                 " | ".join(ptxas)), flush=True)
+    return dict(grid=grid, smem_bytes=smem_bytes, ptxas=ptxas)
 
 
 def check_fused_kernels(torch, kernels, dev) -> dict:
@@ -1543,33 +1591,37 @@ def check_fused_kernels(torch, kernels, dev) -> dict:
             at8.T)), None, 3),
         library="lu_factor (cuSOLVER)",
         bound=bound(2.0 * N8 ** 3 / 3.0, 8.0 * N8 * N8))))
-    # the full kernel's launch: its cooperative grid, its registers and
-    # spills (-Xptxas -v) and one block's dynamic shared memory
-    import ctypes
-    from slate_tpu_torch.ops import _build
-
-    grid = kernels._plan("getrf_full_fused", dev, N8, t, LU_IB)
-    c_bytes = _build.library("getrf_full_fused").slate_getrf_full_fused_smem_bytes
-    c_bytes.argtypes, c_bytes.restype = [ctypes.c_int] * 4, ctypes.c_int64
-    log = _build.lib_path("getrf_full_fused")
-    ptxas = [ln.split("info    :")[-1].strip() for ln in log.with_name(
-        log.name + ".log").read_text().splitlines()
-        if "registers" in ln or "spill" in ln]
-    full_plan = dict(grid=grid, smem_bytes=int(c_bytes(N8, t, LU_IB, grid)),
-                     ptxas=ptxas)
-    print("getrf_full_fused at (%d,%d) nb=%d ib=%d: cooperative grid of %d x 256 "
-          "threads, %d B dynamic shared memory a block; ptxas %s" % (
-              N8, N8, t, LU_IB, grid, full_plan["smem_bytes"], " | ".join(ptxas)),
-          flush=True)
-    # the same launch without its rank-nb update: the fused_trsm depth's
+    # the redesigned kernels' launches: each cooperative grid, its
+    # registers and spills (-Xptxas -v) and one block's shared memory
+    # (dynamic for LU, static for the Cholesky step)
+    plans = {name: _launch_plan(kernels, dev, name, args, smem_args)
+             for name, args, smem_args in (
+                 ("getrf_full_fused", (N8, t, LU_IB), (N8, t, LU_IB)),
+                 ("getrf_step_fused", (N8, t, LU_IB), (N8, t, LU_IB)),
+                 ("potrf_step_fused", (N8, t, t), ()))}
+    # the LU step without its rank-nb update: the fused_trsm depth's
     # kernel, and the panel + X₂ + U + scatter share of the step
     no_update_ms = event_ms(torch, lambda: kernels.getrf_step_fused(
         w, one8, 0, nb=t, bb=LU_BB, ib=LU_IB, update=False), reset_lu, 3)
     print("kernel getrf_step_fused (%d,%d) carry, k0=0, update=False: "
           "%.4f ms" % (N8, N8, no_update_ms), flush=True)
+    rd = dict(rows)
+    rd["getrf_step_fused"]["no_update_ms"] = no_update_ms
+    # each step kernel beside its time before its redesign (PERF.md §6,
+    # rows 14 and 16: H100 80GB HBM3, 700 W)
+    for name, before, tail in (
+            ("getrf_step_fused", 8.2996, "; update=False %.4f ms" % no_update_ms),
+            ("potrf_step_fused", 3.8383, "")):
+        r = rd[name]
+        print("redesign %s (one step of the full kernel's grid: %d x 256 threads, "
+              "%d B shared memory a block): (%d,%d) carry, k0=0: kernel %.4f ms "
+              "(%.4f ms before the redesign), %s %.4f ms, bound %.5f ms (%s)%s" % (
+                  name, plans[name]["grid"], plans[name]["smem_bytes"], N8, N8,
+                  r["ms"], before, r["library"], r["library_ms"], r["bound"][0],
+                  r["bound"][1], tail), flush=True)
     out = {}
-    dict(rows)["getrf_full_fused"].update(grid=full_plan["grid"],
-                                          smem_bytes=full_plan["smem_bytes"])
+    for name, plan in plans.items():
+        rd[name].update(grid=plan["grid"], smem_bytes=plan["smem_bytes"])
     for name, r in rows:
         r["bound_ms"], r["bound_by"] = r.pop("bound")
         out[name] = r

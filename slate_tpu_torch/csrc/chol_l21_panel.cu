@@ -11,7 +11,7 @@
 // 1.08e9 FLOP over 34 MB of inputs and outputs, so it is bound by
 // operations (≈ 0.016 ms at 67 TFLOP/s fp32).  The TPU kernel holds the whole panel in VMEM (16 MB); an SM holds
 // 227 KB.  So one cooperative grid of 1024-thread blocks, one per SM, runs
-// two phases, as potrf_step.cuh's phases A and B:
+// two phases (potrf_step.cuh's grid):
 //   A. block 0 factors D and inverts L (tri_panel.cuh's chol_inv_block,
 //      ib = 32, recursive-doubling inverse) while the others wait at the
 //      grid barrier: the serial part, on one SM;

@@ -1,12 +1,12 @@
 // The whole right-looking partial-pivot LU of the transposed (n_rows, m)
 // scattered carry in ONE launch, IN PLACE: the port of the Pallas kernel
 // `getrf_full_fused` (slate_tpu/ops/pallas_kernels.py:1481, body
-// _getrf_full_fused_kernel :1405).  The step of getrf_step_fused.cu for
-// k0 = 0, nb, … below min(n_rows, m) inside one cooperative grid, the pivots
-// of every step written in factorization order, each step over the lanes
-// still active (lu_full.cuh).  It is the `full` depth of the scattered LU
-// driver (slate_tpu_torch/linalg/lu.py: getrf_scattered): one launch per
-// gesv.
+// _getrf_full_fused_kernel :1405).  The step of getrf_step_fused.cu (the
+// same device code, lu_full.cuh) for k0 = 0, nb, … below min(n_rows, m)
+// inside one cooperative grid, the pivots of every step written in
+// factorization order, each step over the lanes still active.  It is the
+// `full` depth of the scattered LU driver (slate_tpu_torch/linalg/lu.py:
+// getrf_scattered): one launch per gesv.
 //
 // What bounds it on an H100: 2n³/3 fp32 FLOP (3.7e11 at n = 8192) over a
 // 0.54 GB carry: bound by operations at ~5.5 ms.  In practice the panels
@@ -19,8 +19,8 @@
 // the whole trailing update of step k: a look-ahead that ran the next
 // panel on part of the grid beside the rest of the update was tried and
 // lost (the update's traffic slowed the panel's round trips more than the
-// overlap saved).  The per-element arithmetic is the step kernel's, so the
-// two depths agree bitwise.  The active mask is one array updated in
+// overlap saved).  Each step runs the step kernel's code, so the two
+// depths agree bitwise.  The active mask is one array updated in
 // place; the list of the lanes still active (two buffers of m ints) is
 // rebuilt after each panel.
 
@@ -80,7 +80,7 @@ extern "C" int slate_getrf_full_fused_f32(
     cudaStream_t stream) {
   if (nb % lu_full::TT != 0 || std::min(n_rows, m) % nb != 0 || ld < m)
     return (int)cudaErrorInvalidValue;
-  Params p{carry, ld, n_rows, m, nb, ib, G, act, piv, linv, cand, cval, clane,
+  Params p{carry, ld, n_rows, m, nb, ib, G, act, piv, 0, linv, cand, cval, clane,
            l11, t, x2, u, cpiv, lanes, na, bar};
   void* args[] = {&p};
   return lu_panel::launch_for((const void*)getrf_full_fused_kernel, args, m, nb, ib, G,

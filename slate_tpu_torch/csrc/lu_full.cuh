@@ -1,21 +1,32 @@
-// Device code of the whole partial-pivot LU in one launch
-// (getrf_full_fused.cu): the step of getrf_step_fused.cu (lu_panel.cuh's
-// panel phase, then lu_step.cuh's trailing phase) redone so that each step
-// touches only the lanes still active, with the products on
-// double-buffered tiles.  The function and its rounding are the step
-// kernel's, element for element, so the full launch stays bitwise equal to
-// the chain of step launches.
+// Device code of the partial-pivot LU kernels that run a step over the
+// lanes still active: ONE step of getrf_step_fused.cu at a given k0, and the
+// whole factorization of getrf_full_fused.cu, a loop of the same step.  The
+// panel is lu_panel.cuh's panel phase over a list of lanes, then the
+// trailing phase on double-buffered product tiles.  The panel rounds every
+// element as lu_panel.cuh's does, so a step's panel is bitwise
+// getrf_panel_fused's from the same state; and the full launch runs this
+// same step code at every k0, so it is bitwise the chain of step launches.
 //
-// What changes against the step kernel, and why the sums do not:
+// The trailing phase of a step at k0 (X the panel's unit-lower pivot-block
+// inverse, L11[i, k] = carry[k0 + k, piv[i]] for i > k):
+//   X₂ = X·(2I − L11·X)                  (one Newton step)
+//   U  = C[:, piv]·X₂ᵀ                   (the solved U12, transposed)
+//   C[:, l] -= U·L[:, l]   for every lane l still active after the panel
+//   C[:, piv] = U                          (the u12 scatter)
+// over the trailing rows C = carry[k0 + nb:], L[j, l] = carry[k0 + j, l];
+// lanes retired before the panel pass through untouched.  The TPU kernel
+// folds the pivot gather into MXU products with one-hot matrices
+// (slate_tpu/ops/pallas_kernels.py:1264-1270); here it is a gather.
+//
+// How the step runs, and why its sums do not depend on it:
 //   * The active lanes.  Before each panel the grid holds the ascending
 //     list of the lanes still active (a compaction of the previous list by
 //     the mask, by one block while the others run the first products), and
 //     both the panel and the rank-nb update run over that list.  A retired
-//     lane is left untouched by the step kernel's panel and written back
-//     unchanged by its update (a zero multiplier row), so dropping it
-//     changes no element.  The panel's argmax keeps the lowest lane among
+//     lane is left untouched by the panel and by the update, so dropping
+//     it changes no element.  The panel's argmax keeps the lowest lane among
 //     equal maxima (the list is ascending, and the candidates carry their
-//     lane), and every per-lane operation is the step kernel's.
+//     lane), and every per-lane operation is lu_panel.cuh's.
 //   * The products.  T = L11·X and X₂ = 2X − X·T on tri_grid.cuh's
 //     tile_gemm in 32 × 32 tiles (the nb² products are latency-bound, so
 //     small tiles spread them over the blocks), with L11 written out as a
@@ -31,7 +42,7 @@
 //   * The panel's inner-block end.  The U12 rows, the block inverse and
 //     the products of the new rows of L11⁻¹ run at once on separate warps
 //     (registers for ib = 16), and the pivot columns' rows are padded in
-//     shared memory; the sums are the step kernel's, in its order.
+//     shared memory; the sums are lu_panel.cuh's, in its order.
 //
 // Execution model: the cooperative grid of lu_panel.cuh (one 256-thread
 // block per SM, the panel's lanes in dynamic shared memory), grid.sync()
@@ -69,7 +80,8 @@ struct Params {
   int64_t ld;
   int n_rows, m, nb, ib, G;
   float* act;          // (m) the active mask (> 0: active), in place
-  int64_t* piv;        // min(n_rows, m) pivot lanes, factorization order
+  int64_t* piv;        // pivot lanes in factorization order, from column piv_k0
+  int piv_k0;          // the column of piv[0]: 0 for the whole LU, k0 for a step
   float* linv;         // (nb, nb) L11⁻¹ of the current panel
   float* cand;         // [2][G][nb] published candidate columns
   float* cval;         // [2][G] candidate |value| (-1: none)
@@ -105,6 +117,11 @@ struct ColumnBarrier {
     __syncthreads();
   }
 };
+
+// The pivots of the step at k0.
+__device__ __forceinline__ int64_t* step_piv(const Params& p, int k0) {
+  return p.piv + (k0 - p.piv_k0);
+}
 
 // ---------------------------------------------------------------------------
 // The list of active lanes
@@ -147,7 +164,7 @@ __device__ inline void compact(const float* act, const int* in, int n, int* out,
 
 // The first part of an inner block's end in the panel (rows [b0, b1)
 // factored, their ib pivot columns in P), three jobs on separate warps at
-// once, each sum in the step kernel's order (lu_panel.cuh):
+// once, each sum in lu_panel.cuh's order:
 //   * warps 0 … 4: U12 of the rows past the block, by forward
 //     substitution with the unit-lower L11 of the block (redundant in
 //     every block);
@@ -155,7 +172,7 @@ __device__ inline void compact(const float* act, const int* in, int n, int* out,
 //   * warps 6 and 7: T = L[b, c:b0]·X[c:b0, c] for the owned linv columns
 //     c = g + q·G < b0.
 // IBC = ib known at compile time (U12's row and X[b, b]'s column in
-// registers), or 0 (the step kernel's loops in shared memory).  Ends with
+// registers), or 0 (lu_panel.cuh's loops in shared memory).  Ends with
 // a block barrier.
 template <int IBC>
 __device__ void block_end_part1(float* P, float* Xbb, const float* Xo, float* T, int w,
@@ -225,7 +242,7 @@ __device__ void block_end_part1(float* P, float* Xbb, const float* Xo, float* T,
 // the na lanes of `list`, by every block of the grid: block g holds list
 // slots [g·cs, (g+1)·cs), cs = ⌈na / G⌉, in shared memory (lane[l] their
 // lanes, ~lane once pivoted; blk[l] the column a lane was pivoted at, −1
-// if none), with the step kernel's arithmetic for each of them, and owns
+// if none), with lu_panel.cuh's arithmetic for each of them, and owns
 // the linv columns c ≡ g (mod G).  Ends after the write-back of the
 // block's lanes, the zero mask of its pivot lanes, the rows of L11 of its
 // pivot lanes and its linv columns, with no grid barrier.  Not inlined,
@@ -242,7 +259,7 @@ __device__ __noinline__ void panel(const Params p, int k0, const int* list, int 
   const int cs = max(1, ceildiv(na, G)), nown = ceildiv(w, G);
   const int nl = max(0, min(cs, na - g * cs));   // lanes this block holds
   float* in = p.carry + (int64_t)k0 * ld;
-  int64_t* piv = p.piv + k0;
+  int64_t* piv = step_piv(p, k0);
 
   float* S = smem;                             // S[i·cs + l]: own lanes
   // P[jj·pw + i]: pivot columns, rows padded by one float (the rows' same
@@ -576,7 +593,7 @@ __device__ __forceinline__ void copy_batched(int64_t e0, int64_t e1, int64_t ste
 __device__ inline int* load_piv(const Params& p, int k0, float* sm) {
   int* spiv = reinterpret_cast<int*>(sm + TILE_FLOATS);
   for (int k = threadIdx.x; k < p.nb; k += NT)
-    spiv[k] = (int)__ldcg(reinterpret_cast<const long long*>(p.piv + k0 + k));
+    spiv[k] = (int)__ldcg(reinterpret_cast<const long long*>(step_piv(p, k0) + k));
   __syncthreads();
   return spiv;
 }
@@ -638,15 +655,16 @@ __device__ inline void products(const Params& p, int k0, const int* list, int na
 }
 
 // 4. The rank-nb update of the lanes active after the panel (`next`,
-// *nnext of them) and the scatter of U into the step's pivot lanes
-// (disjoint lanes), over the whole grid after the products.  No barrier.
+// *nnext of them; skipped when `rank` is false, the fused_trsm depth) and
+// the scatter of U into the step's pivot lanes (disjoint lanes), over the
+// whole grid after the products.  No barrier.
 __device__ inline void update(const Params& p, int k0, const int* next, const int* nnext,
-                              float* sm) {
+                              float* sm, bool rank = true) {
   const int g = blockIdx.x, G = p.G;
   const int* spiv = load_piv(p, k0, sm);
   int* tl = const_cast<int*>(spiv) + p.nb;
   const int nt = p.n_rows - k0 - p.nb;
-  const int nact = __ldcg(nnext), nlt = ceildiv(nact, TT), nrt = nt / TT;
+  const int nact = rank ? __ldcg(nnext) : 0, nlt = ceildiv(nact, TT), nrt = nt / TT;
   const float* L = p.carry + (int64_t)k0 * p.ld;   // the factored panel rows
   for (int u = g; u < nrt * nlt; u += G) {
     const int R = u / nlt, Lt = u % nlt;

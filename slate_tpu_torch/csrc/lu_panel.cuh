@@ -1,7 +1,7 @@
 // Device code shared by the partial-pivot LU panel kernels,
-// getrf_panel_linv.cu and getrf_panel_fused.cu, and the panel phase of the
-// fused step kernel (lu_step.cuh; the full kernel's panel, lu_full.cuh,
-// is this one over a list of lanes), as the Pallas kernels share
+// getrf_panel_linv.cu and getrf_panel_fused.cu (the step and full kernels'
+// panel, lu_full.cuh, is this one over a list of lanes, and their launch
+// and grid plan are this file's), as the Pallas kernels share
 // _factor_block_lane_major / _trtri_unblocked / _block_inv_doubling
 // (slate_tpu/ops/pallas_kernels.py:315-363, :690-771).
 //
@@ -63,7 +63,7 @@ constexpr unsigned FULL = 0xffffffffu;
 struct Params {
   const float* in;     // panel row i, lane l at in[i·ld_in + l]
   int64_t ld_in;
-  float* out;          // may equal in (the fused kernel's in-place carry)
+  float* out;          // may equal in (getrf_panel_fused's in-place carry)
   int64_t ld_out;
   const float* act_in; // (m) active mask, > 0 means active
   float* act_out;      // (m)
@@ -99,21 +99,11 @@ __device__ __forceinline__ void warp_best(float& v, int& l, int& g) {
   }
 }
 
-// A global read of the panel's input; CG reads through L2 only
-// (ld.global.cg), for a panel that other blocks of the same cooperative
-// launch wrote.
-template <bool CG>
-__device__ __forceinline__ float load_in(const float* q) {
-  if (CG) return __ldcg(q);
-  return *q;
-}
-
 // The whole panel by every block of the cooperative grid, from `smem`
 // (the block's dynamic shared memory, smem_floats(m, w, ib, G) floats).
 // Ends after the write-back of the block's lanes, its act lanes and its
 // linv columns, with no grid barrier: a caller that reads them from
 // another block syncs the grid first.
-template <bool CG = false>
 __device__ void panel_phase(const Params& p, float* smem) {
   __shared__ float red_v[NWARP];
   __shared__ int red_l[NWARP];
@@ -136,10 +126,10 @@ __device__ void panel_phase(const Params& p, float* smem) {
 
   for (int64_t e = tid; e < (int64_t)w * cs; e += NT) {
     const int i = (int)(e / cs), l = (int)(e % cs);
-    S[e] = l < nl ? load_in<CG>(p.in + (int64_t)i * p.ld_in + lane0 + l) : 0.f;
+    S[e] = l < nl ? p.in[(int64_t)i * p.ld_in + lane0 + l] : 0.f;
   }
   for (int l = tid; l < cs; l += NT) {
-    act[l] = l < nl ? load_in<CG>(p.act_in + lane0 + l) : 0.f;
+    act[l] = l < nl ? p.act_in[lane0 + l] : 0.f;
     blk[l] = -1;
   }
   for (int64_t e = tid; e < (int64_t)nown * w; e += NT) Xo[e] = 0.f;
@@ -337,7 +327,7 @@ __global__ void __launch_bounds__(NT) lu_panel_kernel(Params p) {
 
 // The dynamic shared memory of one block on a grid of G: the panel's
 // smem_floats, or `min_floats` for a kernel that goes on to phases of its
-// own from the same memory (lu_step.cuh), whichever is larger.
+// own from the same memory (lu_full.cuh), whichever is larger.
 inline int64_t dyn_floats(int m, int w, int ib, int G, int64_t min_floats) {
   return std::max(smem_floats(m, w, ib, G), min_floats);
 }

@@ -1,6 +1,6 @@
 // Device code shared by the single-block triangular kernels,
-// potrf_batched.cu and, through potrf_step.cuh, potrf_step_fused.cu and
-// chol_l21_panel.cu, as the Pallas kernels share _chol_unblocked,
+// potrf_batched.cu and, through potrf_step.cuh, chol_l21_panel.cu, as the
+// Pallas kernels share _chol_unblocked,
 // _trtri_unblocked and _block_inv_doubling
 // (slate_tpu/ops/pallas_kernels.py:282-363).  The grid kernels of
 // tri_grid.cuh (chol_inv_panel.cu, trtri_panel.cu among them) keep its
@@ -16,8 +16,8 @@
 // __restrict__: the panel is read and written in one launch, and the
 // read-only (non-coherent) load path must not be used for it.
 //
-// The cooperative Cholesky kernels (potrf_step.cuh) run the same code in
-// one block of a grid whose other blocks wrote the data in the same
+// chol_l21_panel.cu (potrf_step.cuh) runs the same code in one block of a
+// cooperative grid whose other blocks read what it wrote in the same
 // launch; they instantiate the global reads with CG = true (ld.global.cg:
 // from L2, never from an SM's L1, which is not coherent across SMs).
 

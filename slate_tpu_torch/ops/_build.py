@@ -39,10 +39,11 @@ SOURCES = {
     "potrf_batched": ("potrf_batched.cu", ("tri_panel.cuh",)),
     "getrf_batched": ("getrf_batched.cu", ("lu_panel.cuh",)),
     "potrf_step_fused": ("potrf_step_fused.cu",
-                         ("potrf_step.cuh", "tri_panel.cuh")),
-    "potrf_full_fused": ("potrf_full_fused.cu", ("tri_grid.cuh",)),
+                         ("potrf_grid.cuh", "tri_grid.cuh")),
+    "potrf_full_fused": ("potrf_full_fused.cu",
+                         ("potrf_grid.cuh", "tri_grid.cuh")),
     "getrf_step_fused": ("getrf_step_fused.cu",
-                         ("lu_step.cuh", "lu_panel.cuh")),
+                         ("lu_full.cuh", "lu_panel.cuh", "tri_grid.cuh")),
     "getrf_full_fused": ("getrf_full_fused.cu",
                          ("lu_full.cuh", "lu_panel.cuh", "tri_grid.cuh")),
     "hb2st_wavefront": ("hb2st_wavefront.cu", ("chase.cuh",)),

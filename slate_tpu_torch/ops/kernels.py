@@ -71,7 +71,7 @@ _SIGNATURES = {
     "potrf_full_fused": ("slate_potrf_full_fused_f32",
                          [_P, _I64] + [_P] * 4 + [_I] * 4 + [_P]),
     "getrf_step_fused": ("slate_getrf_step_fused_f32",
-                         [_P, _I64, _I64, _I] + [_P] * 10 + [_I] * 5 + [_P]),
+                         [_P, _I64, _I64, _I] + [_P] * 15 + [_I] * 5 + [_P]),
     "getrf_full_fused": ("slate_getrf_full_fused_f32",
                          [_P, _I64, _I] + [_P] * 14 + [_I] * 4 + [_P]),
     # one symbol per dtype: "%s" is f32 or f64
@@ -144,17 +144,9 @@ def _check_static_smem(lib, name: str, want: int) -> None:
                            "ops/smem.py counts %d B" % (name, c_bytes(), want))
 
 
-def _check_potrf_step_smem(lib, name: str) -> None:
-    """The same check for the cooperative Cholesky step kernel: one
-    block's static shared memory is :data:`smem.TRI_PANEL_SMEM`."""
-    from . import smem
-
-    _check_static_smem(lib, name, smem.TRI_PANEL_SMEM)
-
-
-def _check_potrf_full_smem(lib, name: str) -> None:
-    """The same check for the full Cholesky kernel, a ``tri_grid.cuh``
-    grid: :data:`smem.TRI_GRID_SMEM`."""
+def _check_potrf_smem(lib, name: str) -> None:
+    """The same check for the cooperative Cholesky kernels, ``tri_grid.cuh``
+    grids: one block's static shared memory is :data:`smem.TRI_GRID_SMEM`."""
     from . import smem
 
     _check_static_smem(lib, name, smem.TRI_GRID_SMEM)
@@ -162,19 +154,17 @@ def _check_potrf_full_smem(lib, name: str) -> None:
 
 def _check_lu_step_smem(lib, name: str) -> None:
     """The same check for the fused LU kernels: one block's dynamic
-    shared memory is :func:`smem.lu_step_bytes` (the step kernel) or
-    :func:`smem.lu_full_bytes` (the full one) over panels and grids on
-    both sides of the point where the panel's share passes the product
-    tiles'."""
+    shared memory is :func:`smem.lu_full_bytes` (both kernels) over panels
+    and grids on both sides of the point where the panel's share passes
+    the product tiles'."""
     from . import smem
 
-    formula = smem.lu_full_bytes if name == "getrf_full_fused" else smem.lu_step_bytes
     c_bytes = getattr(lib, "slate_%s_smem_bytes" % name)
     c_bytes.argtypes, c_bytes.restype = [_I] * 4, _I64
     for m in (128, 256, 2048, 8192, 12144):
         for nb in (128, 512):
             for grid in (1, 8, 64, 132):
-                want = formula(m, nb, 16, grid)
+                want = smem.lu_full_bytes(m, nb, 16, grid)
                 if c_bytes(m, nb, 16, grid) != want:
                     raise RuntimeError(
                         "%s: the kernel takes %d B of shared memory at (m, "
@@ -183,8 +173,8 @@ def _check_lu_step_smem(lib, name: str) -> None:
 
 
 _SMEM_CHECKS = {"getrf_batched": _check_getrf_batched_smem,
-                "potrf_step_fused": _check_potrf_step_smem,
-                "potrf_full_fused": _check_potrf_full_smem,
+                "potrf_step_fused": _check_potrf_smem,
+                "potrf_full_fused": _check_potrf_smem,
                 "getrf_step_fused": _check_lu_step_smem,
                 "getrf_full_fused": _check_lu_step_smem}
 
@@ -818,7 +808,7 @@ def _check_potrf_fused(name: str, a, nb: int, tc: int, k0: int = 0) -> int:
 
 
 def _potrf_step_plain(a, k0: int, nb: int, tc: int) -> None:
-    """One step of ``csrc/potrf_step.cuh`` in place: (L11, L11⁻¹) of the
+    """One step of ``csrc/potrf_grid.cuh`` in place: (L11, L11⁻¹) of the
     diagonal block (:func:`chol_inv_panel_plain`), L21 = A21·L11⁻ᵀ, and
     the trailing (tc, tc) tile pairs (i, j), i ≥ j, minus L21_i·L21_jᵀ.
     Both plain versions run it, so on the same input the ``fused`` and
@@ -852,21 +842,18 @@ def potrf_full_fused_plain(a, nb: int = 512, tc: int = 512):
     return a
 
 
-def _potrf_launch(name: str, a, nb: int, tc: int, *tail, work: int,
-                  plan=()):
-    """Allocate the scratch (L11, L11⁻¹, ``work`` floats for the diagonal
-    block's factor, L21) and launch on a grid from ``slate_<name>_plan(
-    *plan, &G)``."""
+def _potrf_launch(name: str, a, nb: int, tc: int, *tail):
+    """Allocate the scratch (L11, L11⁻¹, nb² floats for the diagonal
+    block's Schur complement and then its doubling's products, L21) and
+    launch on a grid from ``slate_<name>_plan(n, nb, tc, &G)``."""
     n = a.shape[-1]
     dev = a.device
     f32 = dict(dtype=torch.float32, device=dev)
-    lkk = torch.empty((nb, nb), **f32)
-    linv = torch.empty((nb, nb), **f32)
-    w = torch.empty(work, **f32)
+    lkk, linv, w = (torch.empty((nb, nb), **f32) for _ in range(3))
     l21 = torch.empty((max(n - nb, 1), nb), **f32)
     _launch(name, dev, a.data_ptr(), a.stride(0), lkk.data_ptr(),
             linv.data_ptr(), w.data_ptr(), l21.data_ptr(), n, nb, tc, *tail,
-            _plan(name, dev, *plan))
+            _plan(name, dev, n, nb, tc))
     return a
 
 
@@ -885,8 +872,7 @@ def potrf_step_fused(a, k0: int, nb: int = 512, tc: int = 512):
     if _on_cpu(a):
         return potrf_step_fused_plain(a, k0, nb, tc)
     _check_rows("potrf_step_fused", a)
-    return _potrf_launch("potrf_step_fused", a, nb, tc, k0,
-                         work=max((nb // 2) ** 2, nb * IB))
+    return _potrf_launch("potrf_step_fused", a, nb, tc, k0)
 
 
 def potrf_full_fused(a, nb: int = 512, tc: int = 512):
@@ -898,15 +884,13 @@ def potrf_full_fused(a, nb: int = 512, tc: int = 512):
     if _on_cpu(a):
         return potrf_full_fused_plain(a, nb, tc)
     _check_rows("potrf_full_fused", a)
-    # the diagonal block's Schur complement, then its doubling's products
-    return _potrf_launch("potrf_full_fused", a, nb, tc, work=nb * nb,
-                         plan=(a.shape[-1], nb, tc))
+    return _potrf_launch("potrf_full_fused", a, nb, tc)
 
 
 # ---------------------------------------------------------------------------
 # Fused and full partial-pivot LU (replace pallas_kernels.getrf_step_fused
-# :1317 and getrf_full_fused :1481): the panel phase of lu_panel.cuh, then
-# lu_step.cuh's trailing phase, in place on the transposed (n_rows, m) carry
+# :1317 and getrf_full_fused :1481): one step of lu_full.cuh at k0, or the
+# loop of steps, in place on the transposed (n_rows, m) carry
 # ---------------------------------------------------------------------------
 
 def _check_lu_step(name: str, at, act, k0: int, nb: int, bb: int,
@@ -925,7 +909,7 @@ def _check_lu_step(name: str, at, act, k0: int, nb: int, bb: int,
 
 def _lu_trailing_plain(at, k0: int, nb: int, piv, act_out, linv,
                        update: bool) -> None:
-    """The trailing phase of ``csrc/lu_step.cuh`` in place: X₂ = 2X −
+    """The trailing phase of a step of ``csrc/lu_full.cuh`` in place: X₂ = 2X −
     X·(L11·X), U = C[:, piv]·X₂ᵀ over the rows past the panel, then (with
     ``update``) C[:, l] −= U·L[:, l] for the lanes active after the panel,
     and C[:, piv] = U."""
@@ -964,6 +948,20 @@ def getrf_full_fused_plain(at, act, nb: int = 512, bb: int = 128,
     return at, torch.cat(pivs), act
 
 
+def _lu_step_scratch(dev, rows: int, m: int, nb: int) -> list:
+    """The scratch ``lu_full.cuh``'s step takes besides the panel's, for
+    ``rows`` carry rows from the first panel on, in the kernels' argument
+    order: L11, T and X₂ (nb² each), U and the gathered C[:, piv] of the
+    trailing rows, the lanes still active at a step (two lists of m) and
+    their counts, and a zeroed column-barrier counter."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    ts = [torch.empty((nb, nb), **f32) for _ in range(3)]
+    ts += [torch.empty((max(rows - nb, 1), nb), **f32) for _ in range(2)]
+    return ts + [torch.empty(2 * m, **i32), torch.empty(2, **i32),
+                 torch.zeros(1, **i32)]
+
+
 def getrf_step_fused(at, act, k0: int, nb: int = 512, bb: int = 128,
                      ib: int = 16, tc=None, update: bool = True):
     """One right-looking partial-pivot LU step on the transposed (n_rows,
@@ -987,17 +985,15 @@ def getrf_step_fused(at, act, k0: int, nb: int = 512, bb: int = 128,
     _check_rows("getrf_step_fused", at)
     dev = at.device
     grid = _plan("getrf_step_fused", dev, m, nb, ib)
-    f32 = dict(dtype=torch.float32, device=dev)
-    act_out = torch.empty((1, m), **f32)
+    act_out = torch.empty((1, m), dtype=torch.float32, device=dev)
     piv, linv, cand, cval, clane = _panel_scratch(dev, grid, nb)
-    t, x2 = torch.empty((nb, nb), **f32), torch.empty((nb, nb), **f32)
-    u = torch.empty((max(n_rows - k0 - nb, 1), nb), **f32)
+    scratch = _lu_step_scratch(dev, n_rows - k0, m, nb)
     act = act.reshape(-1).contiguous()
     _launch("getrf_step_fused", dev, at.data_ptr(), at.stride(0), k0, n_rows,
             act.data_ptr(), act_out.data_ptr(), piv.data_ptr(),
             linv.data_ptr(), cand.data_ptr(), cval.data_ptr(),
-            clane.data_ptr(), t.data_ptr(), x2.data_ptr(), u.data_ptr(), m,
-            nb, ib, int(bool(update)), grid)
+            clane.data_ptr(), *(t.data_ptr() for t in scratch), m, nb, ib,
+            int(bool(update)), grid)
     return at, piv, act_out, linv
 
 
@@ -1021,22 +1017,14 @@ def getrf_full_fused(at, act, nb: int = 512, bb: int = 128, ib: int = 16,
     _check_rows("getrf_full_fused", at)
     dev = at.device
     grid = _plan("getrf_full_fused", dev, m, nb, ib)
-    f32 = dict(dtype=torch.float32, device=dev)
     act_w = act.reshape(1, m).to(torch.float32).clone()
     piv = torch.empty(ktot, dtype=torch.int64, device=dev)
     _, linv, cand, cval, clane = _panel_scratch(dev, grid, nb)
-    l11, t, x2 = (torch.empty((nb, nb), **f32) for _ in range(3))
-    # U and the gathered C[:, piv] of a step's trailing rows
-    u, cpiv = (torch.empty((max(n_rows - nb, 1), nb), **f32) for _ in range(2))
-    # the lanes still active at each step (two lists) and their counts
-    lanes = torch.empty(2 * m, dtype=torch.int32, device=dev)
-    na = torch.empty(2, dtype=torch.int32, device=dev)
-    bar = torch.zeros(1, dtype=torch.int32, device=dev)   # the column barrier
+    scratch = _lu_step_scratch(dev, n_rows, m, nb)
     _launch("getrf_full_fused", dev, at.data_ptr(), at.stride(0), n_rows,
             act_w.data_ptr(), piv.data_ptr(), linv.data_ptr(),
-            cand.data_ptr(), cval.data_ptr(), clane.data_ptr(), l11.data_ptr(),
-            t.data_ptr(), x2.data_ptr(), u.data_ptr(), cpiv.data_ptr(),
-            lanes.data_ptr(), na.data_ptr(), bar.data_ptr(), m, nb, ib, grid)
+            cand.data_ptr(), cval.data_ptr(), clane.data_ptr(),
+            *(t.data_ptr() for t in scratch), m, nb, ib, grid)
     return at, piv, act_w
 
 

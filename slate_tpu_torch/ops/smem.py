@@ -41,35 +41,30 @@ kernels' lookahead buffer (``slate_tpu/ops/blocks.py:423-510``,
 in shared memory: each is one cooperative grid whose blocks must all be
 co-resident, and what one block holds is
 
-* ``potrf_step_fused`` (``csrc/potrf_step.cuh``): 1024-thread blocks
-  with ``tri_panel.cuh``'s static staging tiles (:data:`TRI_PANEL_SMEM`),
-  whatever n and nb; the block column stays in device memory (L2);
-* ``potrf_full_fused`` (``csrc/potrf_full_fused.cu``): 256-thread blocks,
-  one an SM, with ``tri_grid.cuh``'s static staging blocks
-  (:data:`TRI_GRID_SMEM`), whatever n and nb; the diagonal block's
-  Schur complement, L11, L11⁻¹ and the block column stay in device
-  memory;
-* ``getrf_step_fused`` (``csrc/lu_step.cuh``) and ``getrf_full_fused``
-  (``csrc/lu_full.cuh``): the panel kernel's share of the (nb, m) panel
-  (:func:`lu_panel_bytes`; the full kernel holds its lanes' indices and
-  the columns they were pivoted at where the step kernel holds its mask
-  and block-pivot marks, the same words, and pads its pivot columns'
-  rows out of the formula's 64 spare words), which the trailing phase
-  then reuses for its
-  product tiles (:func:`lu_step_bytes`, :func:`lu_full_bytes`: the full
-  kernel's 32-tiles' slabs, then the step's pivot lanes and a tile's
-  lanes); its next panel stays in the carry.
+* ``potrf_step_fused`` and ``potrf_full_fused`` (``csrc/potrf_grid.cuh``,
+  one step at k0 and the loop of steps): 256-thread blocks, one an SM,
+  with ``tri_grid.cuh``'s static staging blocks (:data:`TRI_GRID_SMEM`),
+  whatever n and nb; the diagonal block's Schur complement, L11, L11⁻¹
+  and the block column stay in device memory;
+* ``getrf_step_fused`` and ``getrf_full_fused`` (``csrc/lu_full.cuh``, one
+  step at k0 and the loop of steps): the panel kernel's share of the
+  (nb, m) panel (:func:`lu_panel_bytes`; they hold their lanes' indices
+  and the columns they were pivoted at where the panel kernel holds its
+  mask and block-pivot marks, the same words, and pad their pivot
+  columns' rows out of the formula's 64 spare words), which the trailing
+  phase then reuses for its product tiles (:func:`lu_full_bytes`: the
+  32-tiles' slabs, then the step's pivot lanes and a tile's lanes); the
+  next panel stays in the carry.
 
 The chunk height tc changes no shared memory here, and neither n nor nb
 does for the Cholesky kernels, whose staging is fixed; the LU step and
-full kernels hold the same.  So one gate serves both depths:
-:func:`potrf_fused_fits` and :func:`lu_fused_fits`.  They keep the shape
-rules of the JAX gates with tc = nb, the JAX package's choice whenever
-its VMEM budget allows (f32, nb | n, nb a power of two ≥ 128 for potrf
-and a multiple of 128 for LU).  The kernels' wrappers refuse the same
-shapes, and ``ops/kernels.py`` checks the kernels' own shared-memory
-formulas against these when it loads them.  At the drivers' shapes the
-panel's share is the larger, so the two LU kernels take the same bytes.
+full kernels take the same bytes at every shape.  So one gate serves
+both depths: :func:`potrf_fused_fits` and :func:`lu_fused_fits`.  They
+keep the shape rules of the JAX gates with tc = nb, the JAX package's
+choice whenever its VMEM budget allows (f32, nb | n, nb a power of two
+≥ 128 for potrf and a multiple of 128 for LU).  The kernels' wrappers
+refuse the same shapes, and ``ops/kernels.py`` checks the kernels' own
+shared-memory formulas against these when it loads them.
 
 On the card the SM count comes from the device; everywhere else (the CPU
 tests) the H100's constants answer, so the gates decide the same way.
@@ -169,18 +164,12 @@ def batched_fits(kernel: str, n: int) -> bool:
 # Fused and full factorization steps
 # ---------------------------------------------------------------------------
 
-#: tri_panel.cuh's Smem, the one shared allocation of a potrf_step.cuh
-#: block: two 32 × 132 product slabs and two 32 × 33 blocks
-TRI_PANEL_SMEM = 4 * (2 * 32 * 132 + 2 * 32 * 33)
 #: tri_grid.cuh's SMEM_FLOATS, the one shared allocation of a block of its
-#: grids (potrf_full_fused): eight 32 × 36 blocks
+#: grids (potrf_step_fused, potrf_full_fused): eight 32 × 36 blocks
 TRI_GRID_SMEM = 4 * 8 * 32 * 36
-#: the work-unit edge of the fused kernels' products (potrf_step.cuh T,
-#: lu_step.cuh TM / TN)
+#: the work-unit edge of the fused kernels' products (potrf_grid.cuh T,
+#: lu_full.cuh TT)
 STEP_TILE = 128
-#: floats of dynamic shared memory lu_step.cuh's trailing phase needs: the
-#: two 16 × 132 product slabs and a tile's 128-lane mask (GEMM_FLOATS)
-LU_STEP_GEMM_FLOATS = 2 * 16 * 132 + 128
 #: floats of dynamic shared memory lu_full.cuh's trailing phase needs
 #: besides the step's nb pivot lanes: tri_grid.cuh's staging blocks (its
 #: 32-tiles' two 64 × 36 slabs of each operand; TILE_FLOATS), then a
@@ -192,27 +181,19 @@ def potrf_fused_fits(n: int, nb: int, dtype) -> bool:
     """The gate of ``potrf_step_fused`` and ``potrf_full_fused`` (the
     ``fused`` and ``full`` depths of the Cholesky driver): f32, nb a power
     of two ≥ 128 dividing n, and n > nb.  Their shared memory is fixed
-    (:data:`TRI_PANEL_SMEM` for the step kernel, :data:`TRI_GRID_SMEM`
-    for the full one), so the shape rule is the whole gate.  Whether an
-    eligible shape takes a kernel is the ``potrf_step`` site's
+    (:data:`TRI_GRID_SMEM`), so the shape rule is the whole gate.
+    Whether an eligible shape takes a kernel is the ``potrf_step`` site's
     decision."""
     return (dtype == torch.float32 and nb >= STEP_TILE and nb & (nb - 1) == 0
             and n > nb and n % nb == 0)
 
 
-def lu_step_bytes(m: int, nb: int, ib: int, grid: int) -> int:
-    """Dynamic shared memory of one block of the fused LU kernels on a
-    grid of ``grid`` blocks: the panel phase's share
-    (:func:`lu_panel_bytes`) or the trailing phase's product tiles,
-    whichever is larger (``lu_panel.cuh`` ``dyn_floats``)."""
-    return max(lu_panel_bytes(m, nb, ib, grid), 4 * LU_STEP_GEMM_FLOATS)
-
-
 def lu_full_bytes(m: int, nb: int, ib: int, grid: int) -> int:
-    """Dynamic shared memory of one ``getrf_full_fused`` block on a grid of
-    ``grid`` blocks: the panel phase's share (:func:`lu_panel_bytes`) or
-    the trailing phase's, whichever is larger (``lu_panel.cuh``
-    ``dyn_floats`` with ``lu_full.cuh``'s ``trail_floats``)."""
+    """Dynamic shared memory of one block of ``getrf_step_fused`` or
+    ``getrf_full_fused`` on a grid of ``grid`` blocks: the panel phase's
+    share (:func:`lu_panel_bytes`) or the trailing phase's, whichever is
+    larger (``lu_panel.cuh`` ``dyn_floats`` with ``lu_full.cuh``'s
+    ``trail_floats``)."""
     return max(lu_panel_bytes(m, nb, ib, grid), 4 * (LU_FULL_TRAIL_FLOATS + nb))
 
 
@@ -220,11 +201,11 @@ def lu_fused_fits(m: int, n: int, nb: int, dtype, device=None) -> bool:
     """The gate of ``getrf_step_fused`` and ``getrf_full_fused`` (the
     ``fused``, ``fused_trsm`` and ``full`` depths of the scattered LU
     driver) for an (m, n) matrix whose transposed carry is (n, m): f32,
-    nb a multiple of 128 dividing n, m ≥ nb, and both kernels' share of
-    one block at the first grid the launcher tries (one block per SM,
-    ≥ 32 lanes a block) fitting the opt-in limit.  The scattered driver's
-    own gate (``linalg.lu._use_scattered``) is the caller's."""
+    nb a multiple of 128 dividing n, m ≥ nb, and the kernels' share of
+    one block (:func:`lu_full_bytes`) at the first grid the launcher
+    tries (one block per SM, ≥ 32 lanes a block) fitting the opt-in
+    limit.  The scattered driver's own gate (``linalg.lu._use_scattered``)
+    is the caller's."""
     if dtype != torch.float32 or m < nb or nb % STEP_TILE or n % nb:
         return False
-    grid = _first_grid(m, device)
-    return fits(max(lu_step_bytes(m, nb, 16, grid), lu_full_bytes(m, nb, 16, grid)))
+    return fits(lu_full_bytes(m, nb, 16, _first_grid(m, device)))

@@ -1,8 +1,9 @@
 """Where the time goes inside one launch of the grid kernels
 (``csrc/lu_inv_panel.cu``, ``csrc/lu_u12_panel.cu``,
 ``csrc/chol_inv_panel.cu``, ``csrc/potrf_full_fused.cu``,
-``csrc/trtri_panel.cu``, ``csrc/getrf_full_fused.cu``): device time stamps
-between their phases.  Needs a CUDA card and ``nvcc``::
+``csrc/trtri_panel.cu``, ``csrc/getrf_full_fused.cu``,
+``csrc/potrf_step_fused.cu``, ``csrc/getrf_step_fused.cu``): device time
+stamps between their phases.  Needs a CUDA card and ``nvcc``::
 
     python3 -m slate_tpu_torch.perf.kernel_phases [kernel ...]
 
@@ -17,15 +18,20 @@ shapes (``lu_inv_panel`` and ``chol_inv_panel`` at nb = 512 and 256,
 and the block row (256, 16384), ``potrf_full_fused`` at (8192, 8192),
 nb = 512, ``trtri_panel`` at potri's (256, 256) tile and geqrf's (512, 512)
 T block, by both of its launch routes, ``getrf_full_fused`` at (8192,
-8192), nb = 512, ib = 16) and prints the best of five launches (three for
-the full kernels): each interval in microseconds, block 0's SM clock over
-the launch, for ``lu_inv_panel`` and ``chol_inv_panel`` the median of each
-part of a step and the doubling, for ``potrf_full_fused`` the diagonal
-phase A against the L21 and trailing phases B + C summed over the steps,
-for ``trtri_panel`` the diagonal inverses and each doubling product
-beside CUDA-event times of both routes and of ``solve_triangular``, and
-for ``getrf_full_fused`` per step the panel, its median µs a column (and a
-column that ends an inner block) and the trailing phases 1–4.  The stamps
+8192), nb = 512, ib = 16, and the two step kernels at k0 = 0 on the same
+(8192, 8192) carries) and prints the best of five launches (three for the
+full kernels and the LU step): each interval in microseconds, block 0's
+SM clock over the launch, for ``lu_inv_panel`` and ``chol_inv_panel`` the
+median of each part of a step and the doubling, for ``potrf_full_fused``
+the diagonal phase A against the L21 and trailing phases B + C summed over
+the steps, for ``trtri_panel`` the diagonal inverses and each doubling
+product beside CUDA-event times of both routes and of
+``solve_triangular``, for ``getrf_full_fused`` per step the panel, its
+median µs a column (and a column that ends an inner block) and the
+trailing phases 1–4, for ``potrf_step_fused`` phase A against B and C, and
+for ``getrf_step_fused`` (with its update and without, the ``fused_trsm``
+launch) the list of active lanes, the panel with its µs a column and the
+trailing phases 1–4.  The stamps
 cost a few instructions on block 0; the kernels the port launches carry
 none.  Nothing here runs at import.
 """
@@ -97,7 +103,9 @@ MARKS = {
          "  cg::cluster_group grid = cg::this_cluster(); STAMP();\n"
          "  trtri_grid(grid, sm, L, ldl, Linv, W, nb);\n  __syncthreads();\n"
          "  if (threadIdx.x == 0) atomicMax(&g_end, g_time());\n}")],
-    "getrf_full_fused": []}
+    "getrf_full_fused": [],
+    "potrf_step_fused": [],
+    "getrf_step_fused": []}
 
 
 _LOCAL_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"[^\n]*$', re.M)
@@ -426,9 +434,79 @@ def _getrf_full_fused(torch, lib, gen, dev) -> None:
               *[[round(x, 1) for x in p] for p in tr]), flush=True)
 
 
+def _potrf_step_fused(torch, lib, gen, dev) -> None:
+    n, nb, tc = 8192, 512, 512
+    r = torch.randn((n, n), generator=gen, device=dev)
+    spd = (r + r.T) / 2 + n * torch.eye(n, device=dev)      # the tester's herm(n)
+    del r
+    a = torch.empty_like(spd)
+    lkk, li, s = (torch.empty((nb, nb), device=dev) for _ in range(3))
+    l21 = torch.empty((n - nb, nb), device=dev)
+    g = _plan(lib, "potrf_step_fused", n, nb, tc)
+    d, ghz = run(lib, "slate_potrf_step_fused_f32", [P, I64] + [P] * 4 + [I] * 5,
+                 [a.data_ptr(), n, lkk.data_ptr(), li.data_ptr(), s.data_ptr(),
+                  l21.data_ptr(), n, nb, tc, 0, g], setup=lambda: a.copy_(spd))
+    # phase A (the diagonal block: its stamps up to the step's own
+    # barrier), then B's barrier and C to the end
+    print("potrf_step_fused (%d,%d) k0=0 nb=%d grid %d: %.1f us at %.2f GHz; "
+          "phase A (the diagonal block) %.1f us; phases B + C %.1f us (B %.1f, "
+          "C %.1f)" % (n, n, nb, g, sum(d), ghz, sum(d[:-2]), d[-2] + d[-1],
+                       d[-2], d[-1]), flush=True)
+
+
+def _getrf_step_fused(torch, lib, gen, dev) -> None:
+    n, nb, ib = 8192, 512, 16
+    at0 = torch.randn((n, n), generator=gen, device=dev)   # A's transpose
+    at = torch.empty_like(at0)
+    act = torch.ones(n, device=dev)
+    f32 = dict(device=dev)
+    g = _plan(lib, "getrf_step_fused", n, nb, ib)
+    piv = torch.empty(nb, dtype=torch.int64, device=dev)
+    act_out = torch.empty(n, **f32)
+    linv, l11, t, x2 = (torch.empty((nb, nb), **f32) for _ in range(4))
+    cand, cval = torch.empty((2, g, nb), **f32), torch.empty((2, g), **f32)
+    clane = torch.empty((2, g), dtype=torch.int32, device=dev)
+    u, cpiv = torch.empty((n - nb, nb), **f32), torch.empty((n - nb, nb), **f32)
+    lanes = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    na = torch.empty(2, dtype=torch.int32, device=dev)
+    bar = torch.empty(1, dtype=torch.int32, device=dev)
+
+    def setup():
+        at.copy_(at0)
+        bar.zero_()
+
+    for update in (1, 0):
+        d, ghz = run(lib, "slate_getrf_step_fused_f32",
+                     [P, I64, I64, I] + [P] * 15 + [I] * 5,
+                     [at.data_ptr(), n, 0, n, act.data_ptr(), act_out.data_ptr(),
+                      piv.data_ptr(), linv.data_ptr(), cand.data_ptr(),
+                      cval.data_ptr(), clane.data_ptr(), l11.data_ptr(), t.data_ptr(),
+                      x2.data_ptr(), u.data_ptr(), cpiv.data_ptr(), lanes.data_ptr(),
+                      na.data_ptr(), bar.data_ptr(), n, nb, ib, update, g], reps=3,
+                     setup=setup)
+        _step_report("getrf_step_fused (%d,%d) k0=0 nb=%d ib=%d update=%d grid %d"
+                     % (n, n, nb, ib, update, g), d, ghz, nb, ib)
+
+
+def _step_report(label: str, d, ghz: float, nb: int, ib: int) -> None:
+    """One LU step's stamps: the prologue (the list of active lanes), one
+    barrier a column, the panel's write-back, then trailing phases 1-4 (T,
+    X2, U, the update and the scatter of U)."""
+    if len(d) != nb + 6:
+        raise RuntimeError("%s: %d intervals, expected %d" % (label, len(d), nb + 6))
+    cols = d[1:1 + nb]
+    print("%s: %.1f us at %.2f GHz; prologue %.1f us, panel %.1f us (median us a "
+          "column %.2f, with an inner block's end %.2f), trailing phases 1-4 %s"
+          % (label, sum(d), ghz, d[0], sum(d[1:2 + nb]),
+             statistics.median(c for j, c in enumerate(cols) if j % ib),
+             statistics.median(cols[ib::ib]), [round(x, 1) for x in d[-4:]]),
+          flush=True)
+
+
 SECTIONS = {"lu_inv_panel": _lu_inv_panel, "lu_u12_panel": _lu_u12_panel,
             "chol_inv_panel": _chol_inv_panel, "potrf_full_fused": _potrf_full_fused,
-            "trtri_panel": _trtri_panel, "getrf_full_fused": _getrf_full_fused}
+            "trtri_panel": _trtri_panel, "getrf_full_fused": _getrf_full_fused,
+            "potrf_step_fused": _potrf_step_fused, "getrf_step_fused": _getrf_step_fused}
 
 
 def main(argv=None) -> int:

@@ -325,22 +325,56 @@ def test_potrf_depth_roundtrips_and_launches(depth, wrapper, calls,
     assert len(seen) == calls
 
 
+def _c_lu_bytes(m, nb, ib, grid):
+    """The LU step and full kernels' shared memory as their C entries
+    compute it: ``lu_panel.cuh`` ``dyn_floats`` over ``smem_floats`` and
+    ``lu_full.cuh`` ``trail_floats`` (tri_grid.cuh's eight 32 × 36 blocks,
+    the step's nb pivot lanes, a tile's 128 lanes)."""
+    chunk, nown = -(-m // grid), -(-nb // grid)
+    panel = (nb * chunk + ib * nb + nown * nb + ib * ib + ib * nown + 2 * chunk
+             + 64)
+    return 4 * max(panel, 8 * 32 * 36 + nb + 128)
+
+
+def _old_lu_fits(m, n, nb):
+    """The LU gate as it stood while the step kernel had a trailing phase
+    of its own: the larger of that kernel's share (two 16 × 132 slabs and
+    a 128-lane mask) and the full kernel's, at the first grid."""
+    if m < nb or nb % 128 or n % nb:
+        return False
+    grid = smem._first_grid(m)
+    step = max(smem.lu_panel_bytes(m, nb, 16, grid), 4 * (2 * 16 * 132 + 128))
+    return smem.fits(max(step, smem.lu_full_bytes(m, nb, 16, grid)))
+
+
 def test_gates_follow_smem():
     """The shape rules of the JAX gates on the H100's constants: the main
     path's shapes pass, and the LU kernels stop where one block's share
-    of the panel passes the opt-in limit."""
+    of the panel passes the opt-in limit.  The LU step and full kernels
+    take one formula (:func:`smem.lu_full_bytes`, what their C entries
+    compute at every (m, nb, grid)), and the gate admits and refuses
+    exactly the shapes it did while the step kernel had a smaller
+    trailing share of its own."""
     assert smem.potrf_fused_fits(8192, 512, F32)
     for n, nb, dt in ((8192, 64, F32), (8192, 384, F32), (1000, 128, F32),
                       (512, 512, F32), (8192, 512, torch.float64)):
         assert not smem.potrf_fused_fits(n, nb, dt)
     assert smem.lu_fused_fits(8192, 8192, 512, F32)
-    assert smem.lu_step_bytes(8192, 512, 16, 132) == smem.lu_panel_bytes(
+    for m in (128, 256, 2048, 8192, 12144):
+        for nb in (128, 512):
+            for grid in (1, 8, 64, 132):
+                assert smem.lu_full_bytes(m, nb, 16, grid) == _c_lu_bytes(
+                    m, nb, 16, grid)
+    assert smem.lu_full_bytes(8192, 512, 16, 132) == smem.lu_panel_bytes(
         8192, 512, 16, 132)
     # one lane a block: the product tiles outgrow the panel's share
-    assert smem.lu_step_bytes(132, 128, 16, 132) == \
-        4 * smem.LU_STEP_GEMM_FLOATS
+    assert smem.lu_full_bytes(132, 128, 16, 132) == \
+        4 * (smem.LU_FULL_TRAIL_FLOATS + 128) > smem.lu_panel_bytes(132, 128, 16, 132)
     assert smem.lu_fused_fits(12144, 8192, 512, F32)
     assert not smem.lu_fused_fits(12160, 8192, 512, F32)
+    for m in list(range(32, 16385, 464)) + [12144, 12160]:
+        for nb in (128, 256, 512):
+            assert smem.lu_fused_fits(m, 8192, nb, F32) == _old_lu_fits(m, 8192, nb)
     for m, n, nb, dt in ((8192, 8192, 192, F32), (8192, 8192, 512,
                                                   torch.float64),
                          (8192, 8000, 512, F32), (64, 256, 128, F32)):
@@ -349,31 +383,61 @@ def test_gates_follow_smem():
 
 @pytest.mark.parametrize("n", [2048, 8192])
 def test_full_depth_follows_the_full_kernels_smem(n, monkeypatch):
-    """``getrf_full_fused``'s shared memory (``csrc/lu_full.cuh``: the
-    panel's share, in which it keeps its lanes' indices and pivot columns
-    where the step kernel keeps its mask and marks, or its trailing tiles
-    with the step's pivot lanes) is what ``smem.lu_full_bytes`` counts;
-    at the drivers' shapes it equals the step kernel's, the gate holds
-    both, and a pinned ``full`` depth is taken there."""
+    """The LU step and full kernels' shared memory (``csrc/lu_full.cuh``:
+    the panel's share, in which they keep their lanes' indices and pivot
+    columns where the panel kernel keeps its mask and marks, or the
+    trailing tiles with the step's pivot lanes) is what
+    ``smem.lu_full_bytes`` counts; at the drivers' shapes it equals the
+    panel kernel's, the gate holds both depths, and a pinned ``full`` or
+    ``fused`` depth is taken there."""
     grid = smem._first_grid(n)
     assert grid == min(smem.SMS, n // smem.MIN_LANES)
     full = smem.lu_full_bytes(n, 512, 16, grid)
-    assert full == smem.lu_panel_bytes(n, 512, 16, grid) == \
-        smem.lu_step_bytes(n, 512, 16, grid)
+    assert full == smem.lu_panel_bytes(n, 512, 16, grid) == _c_lu_bytes(n, 512, 16, grid)
     assert smem.fits(full) and smem.lu_fused_fits(n, n, 512, F32)
-    # one lane a block: the trailing phase's share is the larger, the full
-    # kernel's (32-tile slabs, nb pivot lanes, a tile's lanes) more than
-    # the step kernel's
-    assert smem.lu_full_bytes(132, 128, 16, 132) == \
-        4 * (smem.LU_FULL_TRAIL_FLOATS + 128) > smem.lu_step_bytes(132, 128, 16, 132)
     for m in (128, 1024, n, 12144, 12160):
         g = smem._first_grid(m)
-        assert smem.lu_fused_fits(m, n, 512, F32) == (m >= 512 and smem.fits(max(
-            smem.lu_step_bytes(m, 512, 16, g), smem.lu_full_bytes(m, 512, 16, g))))
+        assert smem.lu_fused_fits(m, n, 512, F32) == (
+            m >= 512 and smem.fits(smem.lu_full_bytes(m, 512, 16, g)))
     monkeypatch.setattr(tauto, "_warned_forces", set())
-    monkeypatch.setenv(FORCE, "lu_step=full")
-    assert tauto.choose_lu_step(n, n, 512, F32, "cpu",
-                                smem.lu_fused_fits(n, n, 512, F32)) == "full"
+    for depth in ("full", "fused"):
+        monkeypatch.setenv(FORCE, "lu_step=" + depth)
+        assert tauto.choose_lu_step(n, n, 512, F32, "cpu",
+                                    smem.lu_fused_fits(n, n, 512, F32)) == depth
+
+
+class _Lib:
+    """A stand-in for a kernel library whose shared-memory entry answers
+    ``fn``."""
+
+    def __init__(self, name, fn):
+        setattr(self, "slate_%s_smem_bytes" % name, fn)
+
+
+@pytest.mark.parametrize("name", ["potrf_step_fused", "potrf_full_fused",
+                                  "getrf_step_fused", "getrf_full_fused"])
+def test_loader_holds_the_fused_kernels_to_one_formula(name):
+    """When ``ops/kernels.py`` loads a fused kernel it checks the
+    library's own shared-memory count: both Cholesky kernels against
+    ``tri_grid.cuh``'s static blocks, both LU kernels against
+    :func:`smem.lu_full_bytes`.  A library that reports what the step
+    kernels took before they ran the full kernels' code (``tri_panel.cuh``'s
+    staging for the Cholesky step, the LU step's smaller trailing share)
+    is refused."""
+    check = kernels._SMEM_CHECKS[name]
+    if name.startswith("potrf"):
+        check(_Lib(name, lambda: smem.TRI_GRID_SMEM), name)
+        old = 4 * (2 * 32 * 132 + 2 * 32 * 33)
+        with pytest.raises(RuntimeError):
+            check(_Lib(name, lambda: old), name)
+        return
+    check(_Lib(name, _c_lu_bytes), name)
+
+    def old_step(m, nb, ib, grid):
+        return max(smem.lu_panel_bytes(m, nb, ib, grid), 4 * (2 * 16 * 132 + 128))
+
+    with pytest.raises(RuntimeError):
+        check(_Lib(name, old_step), name)
 
 
 def test_gates_off_with_kernels_off(monkeypatch):
