@@ -9,7 +9,16 @@
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it, and times kernel, plain version and a
    library yardstick with CUDA events (the yardstick is timed here only;
-   the port never calls it in place of a kernel).  ``chol_inv_panel`` on
+   the port never calls it in place of a kernel).  ``matmul`` at the
+   strip update (1e-5 of its plain version), then its relative error to
+   the fp64 product of the same operands within 4× of ``torch.matmul``'s
+   (fp32, TF32 off) at the strip update, 8192³ and geqrf's YᵀY and Yᵀ·C
+   at K = 32768 (each printed with its parts of K), two pairs of views
+   at storage offset 1 through the register-staged instantiation (A
+   K-fast with B row-fast, A row-fast with B K-fast; 1e-5 of its plain
+   version, 4× to fp64), and NaNs made on the card in a row of A and a
+   column of B, through split-K, NaN in those of C and nowhere else; the
+   QR shapes timed with their parts of K and with one.  ``chol_inv_panel`` on
    the 512² diagonal block of the (8192, 8192) carry and on the 256²
    diagonal block of pposv's (16384, 256) panel, both views with stale
    values above the diagonal: 1e-4 of its plain version, factor residual
@@ -162,7 +171,9 @@
      256) panel and ``lu_u12_panel`` at (256, 16384) and (256, 256) to
      their plain versions (1e-4 relative; the departure within 4× of its
      plain value with the guard's verdict; ‖X·Lᵀ − panel‖ and
-     ‖L11·U − B‖ relative ≤ 1e-5), the departure where the data set it
+     ‖L11·U − B‖ relative ≤ 1e-5; ``chol_l21_panel``'s L bitwise
+     ``chol_inv_panel``'s L of the same block, also at nb = 128 and
+     1024), the departure where the data set it
      (past the 1e-2 guard on an N(0, 1) unit-lower L11; 1e-4 relative
      with a strict upper part in L11), and times them beside their
      bounds (``lu_u12_panel`` also at (256, 4096), the widest solve of
@@ -226,6 +237,7 @@ STRIP = 2048                    # the strip driver's trailing strip width
 TRTRI_NB = 256                  # potri's diagonal tiles at nb = 256
 PEAK_FP32_FLOPS = 67e12         # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3
+PEAK_TF32_FLOPS = 495e12        # H100 SXM, dense TF32 on the tensor cores
 REPO = {"matmul": ("slate_tpu_torch/csrc/matmul.cu",
                    "slate_tpu/ops/pallas_kernels.py:95"),
         "chol_inv_panel": ("slate_tpu_torch/csrc/chol_inv_panel.cu",
@@ -397,16 +409,136 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
     """Least time the card could take: the larger of operations over the
-    fp32 peak and bytes over the memory rate, in ms, and which bounds."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    peak of their type (fp32 FFMA unless ``peak`` says otherwise) and
+    bytes over the memory rate, in ms, and which bounds."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
 def rel_err(x, ref) -> float:
     return float((x.double() - ref.double()).norm() / ref.double().norm())
+
+
+def check_matmul(torch, kernels, dev, gen, carry) -> dict:
+    """Phase 2's matmul accuracy and timing beyond the strip update: at
+    the strip update, at 8192³ and at geqrf's two products under one
+    wave at K = 32768 (YᵀY, (512, 32768)·(32768, 512), and Yᵀ·C,
+    (512, 32768)·(32768, 3584), Yᵀ a transposed view), the kernel's
+    relative Frobenius error to the fp64 product of the same operands
+    beside ``torch.matmul``'s (fp32, TF32 off): the kernel's must be
+    within 4x.  Then two pairs of views at storage offset 1, which the
+    kernel stages through registers, against the plain version (1e-5) and
+    fp64 (4x), and a NaN in a row of A and a column of B, which must come
+    out NaN in that row and column of C and nowhere else.  The QR shapes
+    are timed with the wrapper's parts of K and with one part."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("torch.matmul runs TF32: the fp32 yardstick is gone")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    l21 = carry[PANEL_NB:, :PANEL_NB]
+    y = torch.randn((QR_M, QR_PANEL), generator=gen, device=dev)
+    c = torch.randn((QR_M, QR_N - QR_PANEL), generator=gen, device=dev)
+    cases = {"strip (7680,512)x(512,2048)": (l21, l21[:STRIP].mT),
+             "%d^3" % N: (carry, carry),
+             "Y^T Y (512,32768)x(32768,512)": (y.mT, y),
+             "Y^T C (512,32768)x(32768,3584)": (y.mT, c)}
+    errs, rows = {}, {}
+    for label, (a, b) in cases.items():
+        s, staging = kernels.matmul_plan(a, b, sms)
+        ref = a.double() @ b.double()
+        e_k = rel_err(kernels.matmul(a, b), ref)
+        e_t = rel_err(torch.matmul(a, b), ref)
+        del ref
+        errs[label] = dict(kernel=e_k, torch_matmul=e_t, splits=s,
+                           staging=staging)
+        print("matmul %s (%d parts of K, %s staging): error to fp64 %.3e, "
+              "torch.matmul's %.3e (%.2fx)" % (label, s, staging, e_k, e_t,
+                                              e_k / e_t), flush=True)
+        if not e_k <= 4.0 * e_t:
+            fail("matmul %s: error to fp64 %.3e, more than 4x torch.matmul's "
+                 "%.3e" % (label, e_k, e_t))
+        if label.startswith("Y^T"):
+            m, k = a.shape
+            n = b.shape[1]
+            rows[label] = dict(
+                splits=s, ms=cuda_ms(torch, lambda: kernels.matmul(a, b), 5),
+                one_part_ms=cuda_ms(torch, lambda: kernels._matmul_launch(
+                    a, b, 1), 5),
+                library_ms=cuda_ms(torch, lambda: torch.matmul(a, b), 5),
+                bound_ms=bound(6.0 * m * n * k, 4.0 * (m * k + k * n + m * n),
+                               PEAK_TF32_FLOPS)[0])
+            print("matmul %s: kernel %.4f ms in %d parts, %.4f ms in one; "
+                  "torch.matmul %.4f ms; bound %.4f ms" % (
+                      label, rows[label]["ms"], s, rows[label]["one_part_ms"],
+                      rows[label]["library_ms"], rows[label]["bound_ms"]),
+                  flush=True)
+    del y, c
+    cube = dict(ms=cuda_ms(torch, lambda: kernels.matmul(carry, carry), 3),
+                library_ms=cuda_ms(torch, lambda: torch.matmul(carry, carry), 3),
+                bound_ms=bound(6.0 * N ** 3, 12.0 * N * N, PEAK_TF32_FLOPS)[0],
+                bound_fp32_ffma_ms=bound(2.0 * N ** 3, 12.0 * N * N)[0])
+    print("matmul at %d^3: kernel %.3f ms (%.1f TFLOP/s), torch.matmul %.3f ms, "
+          "bound %.3f ms (fp32 FFMA %.3f ms)" % (
+              N, cube["ms"], 2.0 * N ** 3 / cube["ms"] / 1e9,
+              cube["library_ms"], cube["bound_ms"], cube["bound_fp32_ffma_ms"]),
+          flush=True)
+    # views whose base is 4 bytes off take the register route: A K-fast
+    # with B row-fast, then A row-fast with B K-fast
+    def offset1(rows, cols):
+        buf = torch.randn(rows * cols + 1, generator=gen, device=dev)
+        return buf[1:].view(rows, cols)
+    for label, a, b in (
+            ("A K-fast, B row-fast", offset1(QR_PANEL, 2048), l21[:2048]),
+            ("A row-fast, B K-fast", offset1(2048, QR_PANEL).mT,
+             offset1(QR_PANEL, 2048).mT)):
+        s, staging = kernels.matmul_plan(a, b, sms)
+        if staging != "registers":
+            fail("matmul: views at storage offset 1 (%s) planned as %s"
+                 % (label, staging))
+        got = kernels.matmul(a, b)
+        e_p = rel_err(got, kernels.matmul_plain(a, b))
+        ref = a.double() @ b.double()
+        e_k, e_t = rel_err(got, ref), rel_err(torch.matmul(a, b), ref)
+        print("matmul unaligned (512,2048)x(2048,512), storage offset 1, %s "
+              "(%s staging): rel %.3e to the plain version, error to fp64 "
+              "%.3e, torch.matmul's %.3e" % (label, staging, e_p, e_k, e_t),
+              flush=True)
+        if not (e_p <= 1e-5 and e_k <= 4.0 * e_t):
+            fail("matmul unaligned view (%s): rel %.3e to the plain version, "
+                 "error to fp64 %.3e against torch.matmul's %.3e"
+                 % (label, e_p, e_k, e_t))
+        errs["unaligned (512,2048)x(2048,512), " + label] = dict(
+            kernel=e_k, torch_matmul=e_t, plain=e_p, splits=s, staging=staging)
+    # a NaN made on the card (sqrt(-1), 0x7fffffff) in A's row 5 and one
+    # with the sign set (0xffffffff) in B's column 7, through split-K: that
+    # row and column of C are NaN, the rest finite and within 1e-5 of the
+    # plain version
+    a = torch.randn((QR_PANEL, 4096), generator=gen, device=dev)
+    b = torch.randn((4096, QR_PANEL), generator=gen, device=dev)
+    a[5, 100] = torch.sqrt(-torch.ones((), device=dev))
+    b[3000, 7] = torch.full((), -1, dtype=torch.int32, device=dev).view(
+        torch.float32)
+    s, staging = kernels.matmul_plan(a, b, sms)
+    got = kernels.matmul(a, b)
+    rest = torch.ones_like(got, dtype=torch.bool)
+    rest[5, :] = False
+    rest[:, 7] = False
+    e_p = rel_err(got[rest], kernels.matmul_plain(a, b)[rest])
+    bits = [int(x) & 0xffffffff for x in torch.stack(
+        (a[5, 100], b[3000, 7])).view(torch.int32).tolist()]
+    print("matmul with NaN (bits %s) in A's row 5 and B's column 7 (%d parts "
+          "of K, %s staging): row %s NaN, column %s NaN, the rest finite %s, "
+          "rel %.3e to the plain version" % (
+              ", ".join("0x%08x" % x for x in bits), s, staging,
+              bool(got[5].isnan().all()), bool(got[:, 7].isnan().all()),
+              bool(got[rest].isfinite().all()), e_p), flush=True)
+    if not (s > 1 and got[5].isnan().all() and got[:, 7].isnan().all()
+            and got[rest].isfinite().all() and e_p <= 1e-5):
+        fail("matmul lost a NaN of its operands or spread it")
+    return dict(fp64_errors=errs, qr_one_wave=rows,
+                **{"cube_" + key: v for key, v in cube.items()})
 
 
 def check_kernels(torch, kernels, dev) -> dict:
@@ -426,23 +558,22 @@ def check_kernels(torch, kernels, dev) -> dict:
     err = rel_err(got, ref)
     if not err <= 1e-5:
         fail("matmul disagrees with its plain version: rel %.3e" % err)
-    b_ms, b_by = bound(2.0 * m * n * k, 4.0 * (m * k + k * n + m * n))
+    max_abs = float((got - ref).abs().max())
+    del got, ref
+    # 3xTF32: three tensor-core passes of 2mnk each
+    b_ms, b_by = bound(6.0 * m * n * k, 4.0 * (m * k + k * n + m * n),
+                       PEAK_TF32_FLOPS)
     out["matmul"] = dict(
         shape="(%d,%d)x(%d,%d) B transposed view" % (m, k, k, n),
-        max_abs_err=float((got - ref).abs().max()), rel_err=err,
-        tol="rel Frobenius <= 1e-5",
+        max_abs_err=max_abs, rel_err=err, tol="rel Frobenius <= 1e-5 of the plain version; error "
+        "to fp64 <= 4x torch.matmul's at every shape of fp64_errors",
         ms=cuda_ms(torch, lambda: kernels.matmul(a, b), 20),
         plain_ms=cuda_ms(torch, lambda: kernels.matmul_plain(a, b), 20),
         library_ms=cuda_ms(torch, lambda: torch.matmul(a, b), 20),
-        bound_ms=b_ms, bound_by=b_by)
-    # the same kernel at the gemm shape of phase 3 (reported, not gated
-    # separately: phase 3 gates gemm's result)
-    g1 = carry[:, :N]
-    print("matmul at %d^3: kernel %.3f ms, torch.matmul %.3f ms, bound %.3f ms"
-          % (N, cuda_ms(torch, lambda: kernels.matmul(g1, g1), 3),
-             cuda_ms(torch, lambda: torch.matmul(g1, g1), 3),
-             bound(2.0 * N ** 3, 12.0 * N * N)[0]), flush=True)
-    del got, ref
+        bound_ms=b_ms, bound_by=b_by,
+        bound_fp32_ffma_ms=bound(2.0 * m * n * k,
+                                 4.0 * (m * k + k * n + m * n))[0])
+    out["matmul"].update(check_matmul(torch, kernels, dev, gen, carry))
 
     # chol_inv_panel: a 512² diagonal block read in place from the carry
     # (row stride 8192), stale values above its diagonal
@@ -3106,17 +3237,49 @@ def check_dist_kernels(torch, kernels, dev) -> dict:
     # useful FLOPs (M·nb², nb³/3 and nb³/3)
     b_ms, b_by = bound(1.0 * m * nb * nb + 2.0 * nb ** 3 / 3,
                        4.0 * (nb * (nb + 1) / 2 + 2 * m * nb + nb * nb))
+    # the witness: L is chol_inv_grid's, bitwise chol_inv_panel's L of D
+    same_l = bool(torch.equal(l, kernels.chol_inv_panel(d)[0]))
+    if not same_l:
+        fail("chol_l21_panel: L is not bitwise chol_inv_panel's L of the "
+             "same block")
     out["chol_l21_panel"] = dict(
         shape="d (%d,%d) view of the (%d,%d) panel" % (nb, nb, m, nb),
         max_abs_err=float(max((l - lp).abs().max(), (x - xp).abs().max())),
-        rel_err=err, residual=res,
-        tol="rel Frobenius of L and X <= 1e-4; ||X L^T - panel|| <= 1e-5",
+        rel_err=err, residual=res, l_bitwise_chol_inv_panel=same_l,
+        tol="rel Frobenius of L and X <= 1e-4; ||X L^T - panel|| <= 1e-5; "
+            "L bitwise chol_inv_panel's",
         ms=cuda_ms(torch, lambda: kernels.chol_l21_panel(d, panel), 20),
         plain_ms=cuda_ms(torch, lambda: kernels.chol_l21_panel_plain(
             d, panel), 3),
         library_ms=cuda_ms(torch, library_l21, 20),
-        bound_ms=b_ms, bound_by=b_by)
+        bound_ms=b_ms, bound_by=b_by, grid=kernels._plan(
+            "chol_l21_panel", dev, m, nb))
+    r = out["chol_l21_panel"]
+    print("redesign chol_l21_panel (chol_inv_grid + tile_gemm on a grid of %d "
+          "blocks): kernel %.4f ms (0.6628 before the redesign), cholesky + "
+          "solve_triangular %.4f ms, bound %.5f ms; L bitwise chol_inv_panel's"
+          % (r["grid"], r["ms"], r["library_ms"], r["bound_ms"]), flush=True)
     del panel, x, xp
+    # the other ends of the shape rule, once each: nb = 128 and 1024
+    for nbx, mx in ((128, 2048), (1024, 4096)):
+        px = torch.randn((mx, nbx), generator=gen, device=dev)
+        gx = torch.randn((nbx, nbx), generator=gen, device=dev)
+        px[:nbx] = gx @ gx.T / nbx + torch.eye(nbx, device=dev)
+        dx = px[:nbx]
+        (l, x), (lp, xp) = kernels.chol_l21_panel(dx, px), \
+            kernels.chol_l21_panel_plain(dx, px)
+        torch.cuda.synchronize()
+        errx = max(rel_err(l, lp), rel_err(x, xp))
+        resx = float((x.double() @ l.double().T - px.double()).norm()
+                     / px.double().norm())
+        samex = bool(torch.equal(l, kernels.chol_inv_panel(dx)[0]))
+        print("kernel chol_l21_panel (%d,%d): rel %.3e to the plain version, "
+              "||X L^T - panel||/||panel|| %.3e, L bitwise chol_inv_panel's %s"
+              % (mx, nbx, errx, resx, samex), flush=True)
+        if not (errx <= CHECK_TOL["chol_l21_panel"] and resx <= 1e-5
+                and samex):
+            fail("chol_l21_panel (%d,%d): rel %.3e, residual %.3e, L bitwise "
+                 "%s" % (mx, nbx, errx, resx, samex))
 
     l11 = _lu_l11(torch, nb, dev)
     rows = {}
@@ -4005,13 +4168,17 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print("ptxas %s: %s" % (name, line.strip()), flush=True)
 
-    spent = {}
+    spent, stagings = {}, {}
 
     def phase(label, fn, *args):
-        """``fn(*args)``, its host wall recorded under ``label``."""
+        """``fn(*args)``, its host wall recorded under ``label``, and its
+        matmul calls by the kernel's staging."""
         t = time.perf_counter()
+        before = dict(kernels.matmul_stagings)
         out = fn(*args)
         spent[label] = time.perf_counter() - t
+        stagings[label] = {k: v - before[k]
+                           for k, v in kernels.matmul_stagings.items()}
         return out
 
     measured = phase("2", check_kernels, torch, kernels, dev)
@@ -4074,6 +4241,10 @@ def main() -> int:
     print("phase walls (s): %s; total %.1f s since the build began"
           % (", ".join("%s %.1f" % kv for kv in spent.items()),
              time.perf_counter() - t0), flush=True)
+    print("matmul calls by staging (cp.async/registers; 3k's ranks are "
+          "other processes): %s" % ", ".join(
+              "%s %d/%d" % (label, c["async"], c["registers"])
+              for label, c in stagings.items()), flush=True)
 
     rows = []
     for name, r in measured.items():
@@ -4099,7 +4270,10 @@ def main() -> int:
                       "w4096_ms", "w4096_plain_ms",
                       "w4096_library_ms", "w4096_bound_ms",
                       "library", "fp64_8192_ms", "fro_ms",
-                      "max_abs_err_fro", "driver_path_launches"):
+                      "max_abs_err_fro", "driver_path_launches",
+                      "bound_fp32_ffma_ms", "fp64_errors", "qr_one_wave",
+                      "cube_ms", "cube_library_ms", "cube_bound_ms",
+                      "cube_bound_fp32_ffma_ms", "l_bitwise_chol_inv_panel"):
             if extra in r:
                 rows[-1][extra] = r[extra]
         for p, calls in path_checks.items():    # every call of one run

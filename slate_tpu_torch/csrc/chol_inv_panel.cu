@@ -18,7 +18,8 @@
 // its last update is done, the trailing 32 × 32 tiles of a step go over
 // the other blocks, and the doubling's tiles over all of them;
 // nb/32 + 2·log2(nb/32) − 1 grid barriers in all.  The rounding is that of
-// tri_panel.cuh's single-block chol_inv_block.  Every global read is
+// the reference's blocked algorithm (potrf_batched.cu's, one block a
+// problem).  Every global read is
 // __ldcg (other blocks wrote the data in the launch).  FFMA in full fp32;
 // no library call.
 //

@@ -9,53 +9,53 @@
 // What bounds it on an H100: at the distributed path's shape (M = 16384,
 // nb = 256) the useful work is M·nb² (a product by a triangle) + ⅔nb³ ≈
 // 1.08e9 FLOP over 34 MB of inputs and outputs, so it is bound by
-// operations (≈ 0.016 ms at 67 TFLOP/s fp32).  The TPU kernel holds the whole panel in VMEM (16 MB); an SM holds
-// 227 KB.  So one cooperative grid of 1024-thread blocks, one per SM, runs
-// two phases (potrf_step.cuh's grid):
-//   A. block 0 factors D and inverts L (tri_panel.cuh's chol_inv_block,
-//      ib = 32, recursive-doubling inverse) while the others wait at the
-//      grid barrier: the serial part, on one SM;
-//   B. every block takes 128 × 128 tiles of X with block_gemm, reading L⁻¹
-//      through L2 (ld.global.cg: block 0 wrote it in this launch, and L1 is
-//      not coherent across SMs).  L⁻ᵀ is UPPER triangular, the opposite of
-//      block_gemm's b_lower skip: a tile of X's columns [j0, j0 + 128)
-//      needs only K < j0 + 128, so each tile's K is cut there instead.
-// FFMA only (TF32 fails the drivers' residual gates); no library call.
+// operations (≈ 0.016 ms at 67 TFLOP/s fp32); but the factor of D is a chain
+// of nb/32 dependent 32-steps, bound by latency, and an SM holds 227 KB
+// where the TPU kernel held the whole panel (16 MB) in VMEM.  So the kernel
+// is potrf_grid.cuh's chol_panel, phases A and B of the Cholesky step
+// kernels, on one cooperative grid of 256-thread blocks, one an SM:
+//   A. (L, L⁻¹) of D by the whole grid (tri_grid.cuh's chol_inv_grid: the
+//      32² Cholesky on one warp and its inverse one column behind on
+//      another, each step's trailing 32 × 32 tiles over the blocks, then the
+//      recursive doubling's tiles), a grid barrier a 32-step;
+//   B. X = P·L⁻ᵀ in 128 × 128 tile_gemm tiles with L⁻¹ read as the
+//      transpose of a row-major operand, the slabs its triangle zeroes
+//      skipped: a tile of X's columns [j0, j0 + 128) runs K < j0 + 128.
+// Each X element's sum runs over k ascending by fmaf from zero, and L is
+// chol_inv_grid's, so L is bitwise chol_inv_panel.cu's L of the same D.
+// The grid is as wide as the wider phase has tiles, up to one block an SM.
+// Every global read is __ldcg (other blocks wrote the data in the launch).
+// FFMA in full fp32; no library call.
 
-#include "potrf_step.cuh"
+#include "potrf_grid.cuh"
 
 namespace {
 
-using namespace potrf_step;
+using namespace potrf_grid;
 
 __global__ void __launch_bounds__(NTH, 1)
 chol_l21_panel_kernel(const float* D, int64_t ldd, const float* P, int64_t ldp,
                       float* L, float* Linv, float* W, float* X, int m, int nb) {
-  __shared__ __align__(16) Smem s;
+  __shared__ __align__(16) float sm[SMEM_FLOATS];
   cg::grid_group grid = cg::this_grid();
-  if (blockIdx.x == 0) chol_inv_block(s, D, ldd, L, Linv, W, nb);
-  grid.sync();
-  // X(i, j) = Σ_k P(i, k)·L⁻¹(j, k): B(k, j) = Linv[j·nb + k]
-  const int nrt = m / T, nct = nb / T;
-  for (int u = blockIdx.x; u < nrt * nct; u += gridDim.x) {
-    const int rt = u / nct, ct = u % nct;
-    block_gemm<true>(s, T, T, (ct + 1) * T, 1.f, P + (int64_t)rt * T * ldp, ldp,
-                     1, false, Linv + (int64_t)ct * T * nb, 1, nb, false, 0.f,
-                     X + (int64_t)rt * T * nb + ct * T, nb, false);
-  }
+  chol_panel(sm, grid, D, ldd, L, Linv, W, nb, P, ldp, m,
+             [&](int i, int j, float v) { X[(int64_t)i * nb + j] = v; });
 }
 
 }  // namespace
 
-extern "C" int slate_chol_l21_panel_plan(int* G) {
-  return plan_grid((const void*)chol_l21_panel_kernel, G);
+// The grid for an (m, nb) panel: co-resident blocks, capped at the wider
+// phase's tiles (chol_inv_grid's 32 × 32 tiles or the product's 128²).
+extern "C" int slate_chol_l21_panel_plan(int m, int nb, int* G) {
+  const int tiles = (m / T) * (nb / T);
+  const int diag = chol_inv_grid_tiles(nb);
+  return plan_grid((const void*)chol_l21_panel_kernel, tiles > diag ? tiles : diag, G);
 }
 
 // D: (nb, nb), row stride ldd, only its lower triangle read.  P: (m, nb),
 // row stride ldp.  L, Linv: contiguous (nb, nb) (L an output, Linv
-// scratch); W: scratch of max((nb/2)², nb·32) floats; X: contiguous (m, nb)
-// output.  nb a power of two in [128, 1024], m a multiple of 128.  G from
-// the plan.
+// scratch); W: scratch of nb² floats; X: contiguous (m, nb) output.  nb a
+// power of two in [128, 1024], m a multiple of 128.  G from the plan.
 extern "C" int slate_chol_l21_panel_f32(const float* D, int64_t ldd,
                                         const float* P, int64_t ldp, float* L,
                                         float* Linv, float* W, float* X, int m,

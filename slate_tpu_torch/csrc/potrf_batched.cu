@@ -13,7 +13,7 @@
 // 256 KB, more than a block's 227 KB of shared memory.  So ONE BLOCK OF
 // 1024 THREADS OWNS ONE PROBLEM and works from its output buffer in device
 // memory, which L2 holds (64 problems × 256 KB = 16 MB of the 50 MB L2),
-// with the phases of tri_panel.cuh's chol_inv_block: the 32×32
+// with the phases of the reference's _chol_blocked_value: the 32×32
 // Cholesky and its inverse on one warp in shared memory, L21 and the
 // trailing update as 128×128-tiled block_gemm calls.  The problems run
 // side by side on the SMs, with no barrier between blocks; a batch of

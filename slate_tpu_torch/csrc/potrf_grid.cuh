@@ -1,8 +1,10 @@
-// Device code of the two cooperative Cholesky kernels, potrf_step_fused.cu
-// (one step at a given k0) and potrf_full_fused.cu (the loop of steps), as
-// the Pallas kernels share _potrf_panel_phase and _potrf_trailing_stream
-// (slate_tpu/ops/pallas_kernels.py:1542-1601): ONE right-looking step of
-// the lower Cholesky factorization of the (n, n) carry at column k0.
+// Device code of the cooperative Cholesky kernels: potrf_step_fused.cu (one
+// step at a given k0) and potrf_full_fused.cu (the loop of steps), as the
+// Pallas kernels share _potrf_panel_phase and _potrf_trailing_stream
+// (slate_tpu/ops/pallas_kernels.py:1542-1601), and chol_l21_panel.cu,
+// ppotrf's panel, which is the step's phases A and B (chol_panel) on a
+// panel of its own.  The step is ONE right-looking step of the lower
+// Cholesky factorization of the (n, n) carry at column k0.
 //
 // The function (the TPU kernel's contract):
 //   * the (nb, nb) diagonal block becomes L11 (zeros above its diagonal),
@@ -20,11 +22,11 @@
 //   A. (L11, L11⁻¹) of the diagonal block by the whole grid
 //      (chol_inv_grid: its 32 × 32 trailing tiles over the blocks, one grid
 //      barrier a 32-step, then the doubling's tiles), into scratch;
-//   B. L11 into the carry, and L21 = A21·L11⁻ᵀ in 128 × 128 tile_gemm tiles
-//      (8 × 8 fragments, two slab buffers; L11⁻ᵀ read as the transpose of
-//      L11⁻¹, its zero slabs skipped) into a scratch (n, nb) copy: in place
-//      would race, since a tile's rows are read by the other tiles of its
-//      row;
+//   B. L21 = A21·L11⁻ᵀ in 128 × 128 tile_gemm tiles (8 × 8 fragments, two
+//      slab buffers; L11⁻ᵀ read as the transpose of L11⁻¹, its zero slabs
+//      skipped) into a scratch (n, nb) copy: in place would race, since a
+//      tile's rows are read by the other tiles of its row; and L11 into the
+//      carry;
 //   C. L21 into the carry's block column, and the trailing update, 128 ×
 //      128 tiles of the lower (tc, tc) pairs, each C − L21_I·L21_Jᵀ with
 //      K = nb read from the copy, block column k + 1's tiles first (the TPU
@@ -92,6 +94,26 @@ inline int plan(const void* kernel, int n, int nb, int tc, int* G) {
   return plan_grid(kernel, want, G);
 }
 
+// Phases A and B of a Cholesky panel by every block of the grid: (L, L⁻¹)
+// of the (nb, nb) SPD block D (row stride ldd; only its lower triangle is
+// read) into the contiguous L and Linv by chol_inv_grid (S: its nb²
+// scratch), a grid barrier, then X = P·L⁻ᵀ for the (m, nb) panel P (row
+// stride ldp) in 128 × 128 tile_gemm tiles: B(k, j) = L⁻¹[j, k], zero for
+// k > j, so the tiles of column ct run ct + 1 slabs (the widest first).
+// store(i, j, v) writes X(i, j).  m a multiple of 128 (0: no product),
+// nb a power of two ≥ 128.  Ends with no grid barrier.
+template <class Store>
+__device__ void chol_panel(float* sm, cg::grid_group& grid, const float* D, int64_t ldd,
+                           float* L, float* Linv, float* S, int nb, const float* P,
+                           int64_t ldp, int m, Store store) {
+  chol_inv_grid(sm, grid, D, ldd, L, Linv, S, nb);
+  grid.sync();
+  const int nrt = m / T, nct = nb / T;
+  for (int u = blockIdx.x; u < nrt * nct; u += gridDim.x)
+    tile_gemm<T, T, FULL, UPPER, false, true>(sm, u % nrt * T, (nct - 1 - u / nrt) * T, m,
+                                              nb, nb, P, ldp, Linv, nb, store);
+}
+
 // The step at k0 by every block of the grid.  Every block passes the same
 // grid barriers; the step ends with none (the trailing phase's writes need
 // a grid barrier before the next step reads them).
@@ -100,23 +122,16 @@ __device__ inline void step(float* sm, cg::grid_group& grid, const Params& p, in
   const int n = p.n, nb = p.nb, per = p.tc / T;
   const int64_t ld = p.ld;
   float* akk = p.a + (int64_t)k0 * ld + k0;
-  // A. the diagonal block, by the whole grid
-  chol_inv_grid(sm, grid, akk, ld, p.lkk, p.linv, p.s, nb);
-  grid.sync();
-
-  // B. L11 into the carry; L21 = A21·L11⁻ᵀ: B(k, j) = L11⁻¹[j, k], zero
-  //    for k > j
+  const int r0 = k0 + nb, nt = n - r0;
+  float* l21 = p.l21;
+  // A and B. the diagonal block by the whole grid, then L21 = A21·L11⁻ᵀ
+  // into the scratch copy
+  chol_panel(sm, grid, akk, ld, p.lkk, p.linv, p.s, nb, p.a + (int64_t)r0 * ld + k0, ld,
+             nt, [&](int i, int j, float v) { l21[(int64_t)i * nb + j] = v; });
+  // L11 into the carry (phase B reads only the rows below it)
   for (int64_t e = (int64_t)g * NTH + tid; e < (int64_t)nb * nb; e += (int64_t)G * NTH)
     akk[(e / nb) * ld + e % nb] = __ldcg(p.lkk + e);
-  const int r0 = k0 + nb, nt = n - r0;
   if (nt == 0) return;
-  // (the tiles of column ct run ct + 1 slabs of 128: the widest first)
-  const int nrt = nt / T, nct = nb / T;
-  float* l21 = p.l21;
-  for (int u = g; u < nrt * nct; u += G)
-    tile_gemm<T, T, FULL, UPPER, false, true>(
-        sm, u % nrt * T, (nct - 1 - u / nrt) * T, nt, nb, nb, p.a + (int64_t)r0 * ld + k0,
-        ld, p.linv, nb, [&](int i, int j, float v) { l21[(int64_t)i * nb + j] = v; });
   grid.sync();
 
   // C. L21 into the carry's block column, and the trailing tiles whose
@@ -124,6 +139,7 @@ __device__ inline void step(float* sm, cg::grid_group& grid, const Params& p, in
   for (int64_t e = (int64_t)g * NTH + tid; e < (int64_t)nt * nb; e += (int64_t)G * NTH)
     p.a[(r0 + e / nb) * ld + k0 + e % nb] = __ldcg(l21 + e);
   float* c = p.a + (int64_t)r0 * ld + r0;
+  const int nrt = nt / T;
   const int tiles = trailing_tiles(nrt, per);
   for (int u = g; u < tiles; u += G) {
     int I, J;

@@ -1,6 +1,6 @@
 // Grid-level building blocks of the triangular kernels that spread over the
 // whole card (lu_u12_panel.cu, lu_inv_panel.cu, chol_inv_panel.cu,
-// potrf_full_fused.cu, trtri_panel.cu; lu_full.cuh's products): the
+// trtri_panel.cu; potrf_grid.cuh's kernels and lu_full.cuh's products): the
 // cooperative kernels of tri_panel.cuh's single-block algorithms, with the
 // same arithmetic.
 //
@@ -33,12 +33,12 @@
 //     column behind the factor on a second warp; 32³ products on a block in
 //     2 × 2 register fragments;
 //   * chol_inv_grid: (L, L⁻¹) of an SPD block by the whole grid, the blocked
-//     Cholesky of tri_panel.cuh's chol_inv_block with each step's trailing
-//     32 × 32 tiles spread over the blocks, rounded as it rounds.
+//     Cholesky of the reference's _chol_inv_kernel with each step's trailing
+//     32 × 32 tiles spread over the blocks, rounded as one block rounds it.
 //
-// Arithmetic: FFMA in full fp32.  TF32 tensor-core products fail the drivers'
-// residual gates; a 3xTF32 product is the matmul kernel's redesign to make
-// first, and these kernels can adopt it then.  The triangular chains are
+// Arithmetic: FFMA in full fp32.  Single-pass TF32 tensor-core products fail
+// the drivers' residual gates; matmul.cu's 3xTF32 tile is the product these
+// kernels' 128² tiles could adopt (not done here).  The triangular chains are
 // bound by latency (a grid barrier and a 32 × 32 factorization a step), the
 // wide products by the FFMA tile's issue rate.
 
@@ -477,8 +477,8 @@ __device__ inline void chol_factor_diag(const CholBufs& s, float* L, float* Linv
 // and written to the scratch S (row stride nb), but tile (k+1, k+1), which
 // goes to s.blk and is factored at once; the tiles of column k + 1 store
 // L21_I into L.  Each product is 32³ in 2 × 2 register fragments, its sum
-// in ascending order from zero, and the update c − Σ: the rounding of
-// chol_inv_block's W = A21·B⁻ᵀ and A22 −= W·Wᵀ (tri_panel.cuh).
+// in ascending order from zero, and the update c − Σ: the rounding of the
+// blocked algorithm's W = A21·B⁻ᵀ and A22 −= W·Wᵀ on one block.
 __device__ inline void chol_step_tile(const CholBufs& s, const float* src, int64_t lds,
                                       float* S, float* L, float* Linv, int nb, int k,
                                       int I, int J) {
@@ -545,8 +545,8 @@ __host__ __device__ inline int chol_inv_grid_tiles(int nb) {
 // (L, L⁻¹) of the (nb, nb) SPD block at A (row stride lda; only its lower
 // triangle is read) into the contiguous L and Linv, zeros above their
 // diagonals, by every block of the cooperative grid: the blocked
-// right-looking Cholesky of tri_panel.cuh's chol_inv_block (the reference's
-// _chol_inv_kernel), ib = 32, in its rounding.
+// right-looking Cholesky of the reference's _chol_inv_kernel, ib = 32, in
+// the rounding of one block running it.
 //   * Block 0 factors the first diagonal block (the Cholesky on one warp,
 //     its inverse on another one column behind) while the grid zeroes the
 //     blocks of L and L⁻¹ above their diagonal blocks.

@@ -1,10 +1,9 @@
-// Device code shared by the single-block triangular kernels,
-// potrf_batched.cu and, through potrf_step.cuh, chol_l21_panel.cu, as the
-// Pallas kernels share _chol_unblocked,
-// _trtri_unblocked and _block_inv_doubling
+// Device code of the single-block triangular kernel potrf_batched.cu, as
+// the Pallas kernels share _chol_unblocked and _trtri_unblocked
 // (slate_tpu/ops/pallas_kernels.py:282-363).  The grid kernels of
-// tri_grid.cuh (chol_inv_panel.cu, trtri_panel.cu among them) keep its
-// rounding.
+// tri_grid.cuh (chol_inv_panel.cu, trtri_panel.cu among them) keep the
+// rounding of the reference's _block_inv_doubling and _chol_inv_kernel
+// (pallas_kernels.py:340, :366).
 //
 // Execution model: ONE block of 1024 threads owns the whole (nb, nb)
 // panel (potrf_batched: one block per problem).  On the TPU the panel sits in VMEM; on an H100 a 512² fp32 panel
@@ -15,11 +14,6 @@
 // whole block after it, which is all the phases need.  No pointer here is
 // __restrict__: the panel is read and written in one launch, and the
 // read-only (non-coherent) load path must not be used for it.
-//
-// chol_l21_panel.cu (potrf_step.cuh) runs the same code in one block of a
-// cooperative grid whose other blocks read what it wrote in the same
-// launch; they instantiate the global reads with CG = true (ld.global.cg:
-// from L2, never from an SM's L1, which is not coherent across SMs).
 
 #pragma once
 
@@ -32,13 +26,6 @@ constexpr int IB = 32;      // unblocked inner block, as the reference's ib
 constexpr int NTH = 1024;   // threads of the one block
 constexpr int GT = 128;     // block_gemm output tile edge (32×32 threads × 4×4)
 constexpr int GK = 32;      // block_gemm K slab
-
-// A global read; CG reads through L2 only.
-template <bool CG>
-__device__ __forceinline__ float ldg(const float* p) {
-  if (CG) return __ldcg(p);
-  return *p;
-}
 
 struct Smem {
   float As[GK][GT + 4];     // A slab, k-major: As[k][i]
@@ -55,7 +42,6 @@ struct Smem {
 // is by slab, not by element).  c_lower: only i ≥ j is written, and
 // tiles wholly above the diagonal are skipped.  beta == 0 never reads C.
 // C must not overlap A or B.  Ends with __syncthreads.
-template <bool CG = false>
 static __device__ void block_gemm(Smem& s, int M, int N, int K, float alpha,
                                   const float* A, int64_t sar, int64_t sac,
                                   bool a_lower,
@@ -83,7 +69,7 @@ static __device__ void block_gemm(Smem& s, int M, int N, int K, float alpha,
           if (sac == 1) { k = e % GK; i = e / GK; } else { i = e % GT; k = e / GT; }
           float v = 0.f;
           if (m0 + i < M && k0 + k < K)
-            v = ldg<CG>(A + (int64_t)(m0 + i) * sar + (int64_t)(k0 + k) * sac);
+            v = A[(int64_t)(m0 + i) * sar + (int64_t)(k0 + k) * sac];
           s.As[k][i] = v;
         }
 #pragma unroll
@@ -93,7 +79,7 @@ static __device__ void block_gemm(Smem& s, int M, int N, int K, float alpha,
           if (sbc == 1) { j = e % GT; k = e / GT; } else { k = e % GK; j = e / GK; }
           float v = 0.f;
           if (n0 + j < N && k0 + k < K)
-            v = ldg<CG>(B + (int64_t)(k0 + k) * sbr + (int64_t)(n0 + j) * sbc);
+            v = B[(int64_t)(k0 + k) * sbr + (int64_t)(n0 + j) * sbc];
           s.Bs[k][j] = v;
         }
         __syncthreads();
@@ -119,7 +105,7 @@ static __device__ void block_gemm(Smem& s, int M, int N, int K, float alpha,
           const int gj = n0 + tx * 4 + j;
           if (gj >= N || (c_lower && gj > gi)) continue;
           float* c = C + (int64_t)gi * ldc + gj;
-          *c = beta == 0.f ? alpha * acc[i][j] : alpha * acc[i][j] + beta * ldg<CG>(c);
+          *c = beta == 0.f ? alpha * acc[i][j] : alpha * acc[i][j] + beta * *c;
         }
       }
     }
@@ -161,85 +147,11 @@ static __device__ void trtri_unblocked_warp(Smem& s) {
 
 // Load the lower triangle of the (IB, IB) block at L (row stride ld) into
 // s.blk, zeros above the diagonal.  One warp: lane r loads row r.
-template <bool CG = false>
 static __device__ void load_lower_block_warp(Smem& s, const float* L, int64_t ld) {
   const int r = threadIdx.x % 32;
   for (int c = 0; c < IB; ++c)
-    s.blk[r][c] = (r >= c) ? ldg<CG>(L + (int64_t)r * ld + c) : 0.f;
+    s.blk[r][c] = (r >= c) ? L[(int64_t)r * ld + c] : 0.f;
   __syncwarp();
-}
-
-// Recursive-doubling assembly of the full lower inverse X (row stride
-// ldx, ZERO outside its diagonal IB-blocks on entry, which hold the block
-// inverses) from the strictly-lower blocks of L (row stride ldl):
-//   [[L11, 0], [L21, L22]]⁻¹ = [[X11, 0], [-X22·L21·X11, X22]]
-// (the reference's _block_inv_doubling).  W is scratch of (nb/2)² floats.
-template <bool CG = false>
-static __device__ void block_inv_doubling(Smem& s, const float* L, int64_t ldl,
-                                          float* X, int64_t ldx, float* W, int nb) {
-  for (int w = IB; w < nb; w *= 2) {
-    for (int o = 0; o + w < nb; o += 2 * w) {
-      // W = L21 · X11 (X11 lower)
-      block_gemm<CG>(s, w, w, w, 1.f, L + (int64_t)(o + w) * ldl + o, ldl, 1, false,
-                     X + (int64_t)o * ldx + o, ldx, 1, true, 0.f, W, w, false);
-      // X21 = -X22 · W (X22 lower)
-      block_gemm<CG>(s, w, w, w, -1.f, X + (int64_t)(o + w) * ldx + (o + w), ldx, 1,
-                     true, W, w, 1, false, 0.f, X + (int64_t)(o + w) * ldx + o, ldx,
-                     false);
-    }
-  }
-}
-
-// (L, L⁻¹) of the (nb, nb) SPD block at A (row stride lda, only its lower
-// triangle read) into the contiguous L and Linv, by the whole block: per
-// IB block the unblocked Cholesky and its inverse on one warp, L21 =
-// A21·B⁻ᵀ and the trailing update on the lower triangle, then the
-// recursive-doubling inverse (the reference's _chol_inv_kernel,
-// pallas_kernels.py:366).  W: scratch of max((nb/2)², nb·IB) floats.  nb a
-// power of two ≥ IB.  Ends with __syncthreads.
-template <bool CG = false>
-static __device__ void chol_inv_block(Smem& s, const float* A, int64_t lda,
-                                      float* L, float* Linv, float* W, int nb) {
-  const int tid = threadIdx.x;
-  const int64_t nn = (int64_t)nb * nb;
-  for (int64_t e = tid; e < nn; e += NTH) {
-    const int i = (int)(e / nb), j = (int)(e % nb);
-    L[e] = (i >= j) ? ldg<CG>(A + (int64_t)i * lda + j) : 0.f;
-    Linv[e] = 0.f;
-  }
-  __syncthreads();
-
-  for (int k0 = 0; k0 < nb; k0 += IB) {
-    float* lkk = L + (int64_t)k0 * nb + k0;
-    if (tid < 32) {
-      load_lower_block_warp<CG>(s, lkk, nb);
-      chol_unblocked_warp(s);
-      trtri_unblocked_warp(s);
-    }
-    __syncthreads();
-    {
-      const int r = tid / IB, c = tid % IB;
-      if (r >= c) lkk[(int64_t)r * nb + c] = s.blk[r][c];
-      Linv[(int64_t)(k0 + r) * nb + k0 + c] = s.inv[r][c];
-    }
-    const int m = nb - k0 - IB;
-    if (m > 0) {
-      float* a21 = L + (int64_t)(k0 + IB) * nb + k0;
-      const float* binv = Linv + (int64_t)k0 * nb + k0;
-      __syncthreads();
-      // W (m, IB) = A21 · Binvᵀ
-      block_gemm<CG>(s, m, IB, IB, 1.f, a21, nb, 1, false, binv, 1, nb, false,
-                     0.f, W, IB, false);
-      for (int e = tid; e < m * IB; e += NTH)
-        a21[(int64_t)(e / IB) * nb + e % IB] = W[e];
-      // A22 -= W · Wᵀ on the lower triangle
-      block_gemm<CG>(s, m, m, IB, -1.f, W, IB, 1, false, W, 1, IB, false,
-                     1.f, L + (int64_t)(k0 + IB) * nb + k0 + IB, nb, true);
-    } else {
-      __syncthreads();
-    }
-  }
-  block_inv_doubling<CG>(s, L, nb, Linv, nb, W, nb);
 }
 
 }  // namespace tri_panel

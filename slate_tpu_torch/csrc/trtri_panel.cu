@@ -24,8 +24,9 @@
 // barriers' cost tells and 16 blocks hold every phase, the grid above,
 // where the last levels' products want more blocks than a cluster has.
 // The products' sums are tile_gemm's ascending fmaf sums from zero, which
-// skip only slabs of stored zeros: the rounding of the single-block
-// block_inv_doubling.  FFMA in full fp32.
+// skip only slabs of stored zeros: the rounding of the reference's
+// _block_inv_doubling (slate_tpu/ops/pallas_kernels.py:340).  FFMA in full
+// fp32.
 //
 // Reads only the lower triangle of the input; the output has exact zeros
 // above its diagonal.

@@ -49,7 +49,7 @@ SOURCES = {
     "hb2st_wavefront": ("hb2st_wavefront.cu", ("chase.cuh",)),
     "tb2bd_wavefront": ("tb2bd_wavefront.cu", ("chase.cuh",)),
     "chol_l21_panel": ("chol_l21_panel.cu",
-                       ("potrf_step.cuh", "tri_panel.cuh")),
+                       ("potrf_grid.cuh", "tri_grid.cuh")),
     "lu_u12_panel": ("lu_u12_panel.cu", ("tri_grid.cuh",)),
     "tile_norms": ("tile_norms.cu", ()),
     "tz": ("tz.cu", ("tile2d.cuh",)),

@@ -54,7 +54,8 @@ _P, _I64, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_doubl
 _LU_ARGS = [_P] * 7 + [_I] * 4
 _SIGNATURES = {
     "matmul": ("slate_matmul_f32",
-               [_P, _I64, _I64, _P, _I64, _I64, _P, _I, _I, _I, _P]),
+               [_P, _I64, _I64, _P, _I64, _I64, _P, _I, _I, _I, _P, _I, _I,
+                _P]),
     "chol_inv_panel": ("slate_chol_inv_panel_f32",
                        [_P, _I64, _P, _P, _P, _I, _I, _P]),
     "trtri_panel": ("slate_trtri_panel_f32", [_P, _I64, _P, _P, _I, _I, _I, _P]),
@@ -246,10 +247,88 @@ def matmul_plain(a, b, bk: int = 512):
     return acc
 
 
+#: the matmul kernel's output tile and K slab (csrc/matmul.cu BM, BN, BK);
+#: a part of K holds at least MATMUL_MIN_SLABS slabs, and K is cut into at
+#: most MATMUL_MOST_PARTS parts
+MATMUL_TILE, MATMUL_SLAB = 128, 32
+MATMUL_MIN_SLABS, MATMUL_MOST_PARTS = 8, 32
+
+#: matmul calls since import by the kernel's staging: "async" (cp.async
+#: copies) or "registers" (the instantiation that stages any view through
+#: registers); :func:`reset_launches` leaves them
+matmul_stagings = {"async": 0, "registers": 0}
+
+
+def matmul_part_slabs(k: int, s: int) -> int:
+    """The slabs of :data:`MATMUL_SLAB` in each of the ``s`` parts the
+    matmul kernel cuts K = ``k`` into: ⌈⌈k/slab⌉/s⌉, the last part ending
+    at ``k``."""
+    slabs = -(-k // MATMUL_SLAB)
+    return -(-slabs // s)
+
+
+def matmul_splits(m: int, n: int, k: int, sms: int) -> int:
+    """The parts the matmul kernel cuts K into for an (m, k)·(k, n)
+    product on a card of ``sms`` SMs: 1 where the output's tiles fill the
+    SMs.  Else each s whose parts (:func:`matmul_part_slabs`) are none
+    empty costs ⌈tiles·s / sms⌉ waves × its slabs a part, and the
+    smallest s within 5 % of the least cost wins (each part's partial
+    tile costs a write and a read of workspace)."""
+    tiles = (m // MATMUL_TILE) * (n // MATMUL_TILE)
+    slabs = -(-k // MATMUL_SLAB)
+    if tiles >= sms:
+        return 1
+    cost = {}
+    for s in range(1, min(MATMUL_MOST_PARTS, slabs // MATMUL_MIN_SLABS) + 1):
+        per = matmul_part_slabs(k, s)
+        if (s - 1) * per < slabs:
+            cost[s] = -(-tiles * s // sms) * per
+    if not cost:
+        return 1
+    least = min(cost.values())
+    return min(s for s, c in cost.items() if c <= 1.05 * least)
+
+
+def matmul_plan(a, b, sms: int):
+    """``(splits, staging)`` of the matmul kernel for CUDA tensors ``a``·
+    ``b``: the parts of K (:func:`matmul_splits`) and the staging the
+    kernel takes for their pointers and strides (see
+    :data:`matmul_stagings`)."""
+    staging = _fns.get("matmul_staging")
+    if staging is None:
+        from . import _build
+
+        staging = _build.library("matmul").slate_matmul_f32_staging
+        staging.argtypes, staging.restype = [_P, _I64, _I64, _P, _I64, _I64], _I
+        _fns["matmul_staging"] = staging
+    regs = staging(a.data_ptr(), a.stride(0), a.stride(1), b.data_ptr(),
+                   b.stride(0), b.stride(1))
+    return (matmul_splits(a.shape[0], b.shape[1], a.shape[1], sms),
+            "registers" if regs else "async")
+
+
+def _matmul_launch(a, b, splits: int):
+    """One counted launch of the matmul kernel with ``splits`` parts of K
+    (its fp32 workspace allocated here, on the current stream's
+    allocator)."""
+    m, k = a.shape
+    n = b.shape[1]
+    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    w = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+         if splits > 1 else None)
+    _launch("matmul", a.device, a.data_ptr(), a.stride(0), a.stride(1),
+            b.data_ptr(), b.stride(0), b.stride(1), c.data_ptr(), m, n, k,
+            None if w is None else w.data_ptr(), splits,
+            matmul_part_slabs(k, splits))
+    return c
+
+
 def matmul(a, b):
-    """C = A·B, fp32 in and out.  M and N must be multiples of 128, K of
-    16.  ``a`` and ``b`` may be strided views (a transposed view needs no
-    copy); the output is a new contiguous tensor."""
+    """C = A·B, fp32 in and out, at fp32-class accuracy (3xTF32 on the
+    tensor cores, ``csrc/matmul.cu``).  M and N must be multiples of 128,
+    K of 16.  ``a`` and ``b`` may be strided views (a transposed view
+    needs no copy); the output is a new contiguous tensor.  One launch
+    counted per call, whether K is split or not."""
     _check_f32_2d("matmul", a, b)
     m, k = a.shape
     k2, n = b.shape
@@ -261,9 +340,11 @@ def matmul(a, b):
     if m % 128 or n % 128 or k % 16:
         raise ValueError("matmul kernel needs M, N % 128 == 0 and K % 16 == 0, "
                          "got (%d, %d)·(%d, %d)" % (m, k, k2, n))
-    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    _launch("matmul", a.device, a.data_ptr(), a.stride(0), a.stride(1),
-            b.data_ptr(), b.stride(0), b.stride(1), c.data_ptr(), m, n, k)
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    splits, staging = matmul_plan(a, b, sms)
+    c = _matmul_launch(a, b, splits)
+    with _lock:
+        matmul_stagings[staging] += 1
     return c
 
 
@@ -1030,9 +1111,9 @@ def getrf_full_fused(at, act, nb: int = 512, bb: int = 128, ib: int = 16,
 
 # ---------------------------------------------------------------------------
 # The distributed drivers' fused panels (replace pallas_kernels.chol_l21_panel
-# :602 and lu_u12_panel :646): one cooperative grid each, block 0 forms the
-# (nb, nb) triangle's inverse, then every block takes 128-wide tiles of the
-# products
+# :602 and lu_u12_panel :646): one cooperative grid each, the whole grid
+# forms the (nb, nb) triangle's inverse (chol_l21_panel: with its Cholesky),
+# then every block takes 128-wide tiles of the products
 # ---------------------------------------------------------------------------
 
 FUSED_TILE = 128
@@ -1077,6 +1158,13 @@ def chol_l21_panel_plain(d, panel):
     return l, panel @ linv.mT
 
 
+def chol_l21_panel_scratch(nb: int) -> int:
+    """Floats of scratch :func:`chol_l21_panel` hands its kernel: the nb²
+    of ``chol_inv_grid`` (``csrc/tri_grid.cuh``), the Schur complement and
+    then the doubling's products."""
+    return nb * nb
+
+
 def chol_l21_panel(d, panel):
     """``(L, X)`` of ppotrf's per-step panel: L the lower Cholesky factor
     of the (nb, nb) SPD block ``d`` (only its lower triangle is read;
@@ -1098,11 +1186,12 @@ def chol_l21_panel(d, panel):
     f32 = dict(dtype=torch.float32, device=dev)
     l = torch.empty((nb, nb), **f32)
     linv = torch.empty((nb, nb), **f32)
-    w = torch.empty(max((nb // 2) ** 2, nb * IB), **f32)
+    w = torch.empty(chol_l21_panel_scratch(nb), **f32)
     x = torch.empty((m, nb), **f32)
     _launch("chol_l21_panel", dev, d.data_ptr(), d.stride(0),
             panel.data_ptr(), panel.stride(0), l.data_ptr(), linv.data_ptr(),
-            w.data_ptr(), x.data_ptr(), m, nb, _plan("chol_l21_panel", dev))
+            w.data_ptr(), x.data_ptr(), m, nb,
+            _plan("chol_l21_panel", dev, m, nb))
     return l, x
 
 

@@ -2,38 +2,43 @@
 (``csrc/lu_inv_panel.cu``, ``csrc/lu_u12_panel.cu``,
 ``csrc/chol_inv_panel.cu``, ``csrc/potrf_full_fused.cu``,
 ``csrc/trtri_panel.cu``, ``csrc/getrf_full_fused.cu``,
-``csrc/potrf_step_fused.cu``, ``csrc/getrf_step_fused.cu``): device time
-stamps between their phases.  Needs a CUDA card and ``nvcc``::
+``csrc/potrf_step_fused.cu``, ``csrc/getrf_step_fused.cu``,
+``csrc/chol_l21_panel.cu``): device time stamps between their phases;
+and the ``matmul`` kernel's time by shape.  Needs a CUDA card and
+``nvcc``::
 
     python3 -m slate_tpu_torch.perf.kernel_phases [kernel ...]
 
-(default: every kernel of :data:`SECTIONS`).  For each kernel it builds a
-stamped copy of the source (every header of ``csrc`` it includes inlined)
-into ``build/slate_tpu_torch/phases/``, one ``nvcc`` each, all at once:
-block 0's thread 0 reads the global timer and its SM's cycle counter at
-the kernel's start, after every grid barrier and at the marks below, and
-every block stamps its end.  It launches the copy at the main paths'
+(default: every kernel of :data:`SECTIONS`).  For each grid kernel it
+builds a stamped copy of the source (every header of ``csrc`` it includes
+inlined) into ``build/slate_tpu_torch/phases/``, one ``nvcc`` each, all at
+once: block 0's thread 0 reads the global timer and its SM's cycle counter
+at the kernel's start, after every grid barrier and at the marks below,
+and every block stamps its end.  It launches the copy at the main paths'
 shapes (``lu_inv_panel`` and ``chol_inv_panel`` at nb = 512 and 256,
 ``lu_u12_panel`` at the ring call (256, 256), the checked runs' (256, 4096)
 and the block row (256, 16384), ``potrf_full_fused`` at (8192, 8192),
 nb = 512, ``trtri_panel`` at potri's (256, 256) tile and geqrf's (512, 512)
 T block, by both of its launch routes, ``getrf_full_fused`` at (8192,
-8192), nb = 512, ib = 16, and the two step kernels at k0 = 0 on the same
-(8192, 8192) carries) and prints the best of five launches (three for the
-full kernels and the LU step): each interval in microseconds, block 0's
-SM clock over the launch, for ``lu_inv_panel`` and ``chol_inv_panel`` the
-median of each part of a step and the doubling, for ``potrf_full_fused``
-the diagonal phase A against the L21 and trailing phases B + C summed over
-the steps, for ``trtri_panel`` the diagonal inverses and each doubling
-product beside CUDA-event times of both routes and of
-``solve_triangular``, for ``getrf_full_fused`` per step the panel, its
-median µs a column (and a column that ends an inner block) and the
-trailing phases 1–4, for ``potrf_step_fused`` phase A against B and C, and
-for ``getrf_step_fused`` (with its update and without, the ``fused_trsm``
+8192), nb = 512, ib = 16, the two step kernels at k0 = 0 on the same
+(8192, 8192) carries, ``chol_l21_panel`` at pposv's (16384, 256) panel on
+the plan's grid and on 28 blocks) and prints the best of five launches
+(three for the full kernels and the LU step): each interval in
+microseconds, block 0's SM clock over the launch, for ``lu_inv_panel`` and
+``chol_inv_panel`` the median of each part of a step and the doubling, for
+``potrf_full_fused`` the diagonal phase A against the L21 and trailing
+phases B + C summed over the steps, for ``trtri_panel`` the diagonal
+inverses and each doubling product beside CUDA-event times of both routes
+and of ``solve_triangular``, for ``getrf_full_fused`` per step the panel,
+its median µs a column (and a column that ends an inner block) and the
+trailing phases 1–4, for ``potrf_step_fused`` phase A against B and C, for
+``getrf_step_fused`` (with its update and without, the ``fused_trsm``
 launch) the list of active lanes, the panel with its µs a column and the
-trailing phases 1–4.  The stamps
-cost a few instructions on block 0; the kernels the port launches carry
-none.  Nothing here runs at import.
+trailing phases 1–4, and for ``chol_l21_panel`` phase A (the diagonal
+block's L and L⁻¹) against B (X = P·L⁻ᵀ).  The stamps cost a few
+instructions on block 0; the kernels the port launches carry none.
+``matmul`` (:func:`_matmul`) is timed by CUDA events instead.  Nothing
+here runs at import.
 """
 
 from __future__ import annotations
@@ -105,7 +110,8 @@ MARKS = {
          "  if (threadIdx.x == 0) atomicMax(&g_end, g_time());\n}")],
     "getrf_full_fused": [],
     "potrf_step_fused": [],
-    "getrf_step_fused": []}
+    "getrf_step_fused": [],
+    "chol_l21_panel": []}
 
 
 _LOCAL_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"[^\n]*$', re.M)
@@ -503,10 +509,112 @@ def _step_report(label: str, d, ghz: float, nb: int, ib: int) -> None:
           flush=True)
 
 
+def _chol_l21_panel(torch, lib, gen, dev) -> None:
+    # pposv's panel on the 1×1 grid: (16384, 256), its SPD diagonal block
+    # at rows [2048, 2304) read in place, as phase 2i of chip_smoke.py
+    m, nb = 16384, 256
+    panel = torch.randn((m, nb), generator=gen, device=dev)
+    g0 = torch.randn((nb, nb), generator=gen, device=dev)
+    k0 = 8 * nb
+    panel[k0:k0 + nb] = g0 @ g0.T / nb + torch.eye(nb, device=dev)
+    d = panel[k0:k0 + nb]
+    l, li = torch.empty((nb, nb), device=dev), torch.empty((nb, nb), device=dev)
+    w, x = torch.empty(nb * nb, device=dev), torch.empty((m, nb), device=dev)
+    g = _plan(lib, "chol_l21_panel", m, nb)
+    lib_us = _event_us(torch, lambda: torch.linalg.solve_triangular(
+        torch.linalg.cholesky(d).mT, panel, upper=True, left=False))
+    # the grid of the plan, and the diagonal phase's own widest grid
+    for grid in (g, 28) if g != 28 else (g,):
+        dd, ghz = run(lib, "slate_chol_l21_panel_f32", [P, I64, P, I64] + [P] * 4 + [I] * 3,
+                      [d.data_ptr(), nb, panel.data_ptr(), nb, l.data_ptr(),
+                       li.data_ptr(), w.data_ptr(), x.data_ptr(), m, nb, grid])
+        # everything to the last grid barrier is the diagonal block (L and
+        # L⁻¹); after it the product X = P·L⁻ᵀ
+        print("chol_l21_panel (%d,%d) nb=%d grid %d: %.1f us at %.2f GHz; phase A "
+              "(L, L^-1 of the diagonal block) %.1f us, phase B (X = P L^-T) %.1f us; "
+              "cholesky + solve_triangular %.1f us by events"
+              % (m, nb, nb, grid, sum(dd), ghz, sum(dd[:-1]), dd[-1], lib_us),
+              flush=True)
+
+
+def _matmul(torch, lib, gen, dev) -> None:
+    """The matmul kernel by CUDA events (it has no grid barrier to stamp):
+    phase 2's timed shape, 8192³ and geqrf's two products under one wave
+    (YᵀY and Yᵀ·C at K = 32768), each beside ``torch.matmul`` and, where
+    the wrapper splits K, beside the same kernel with one part; then the
+    device time of every matmul call inside one ``geqrf`` of bench.py's
+    (32768, 4096) Gaussian, summed by the shape of the product."""
+    import numpy as np
+
+    import slate_tpu_torch as st
+    from ..ops import kernels
+
+    big = torch.randn((8192, 8192), generator=gen, device=dev)
+    l21 = big[512:, :512]
+    y = torch.randn((32768, 512), generator=gen, device=dev)
+    c = torch.randn((32768, 3584), generator=gen, device=dev)
+    cases = (("strip update (7680,512)x(512,2048), B a transposed view",
+              l21, l21[:2048].mT),
+             ("8192^3", big, big),
+             ("Y^T Y (512,32768)x(32768,512)", y.mT, y),
+             ("Y^T C (512,32768)x(32768,3584)", y.mT, c))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, a, b in cases:
+        m, k = a.shape
+        n = b.shape[1]
+        us = _event_us(torch, lambda: kernels.matmul(a, b), 5)
+        lib_us = _event_us(torch, lambda: torch.matmul(a, b), 5)
+        line = "matmul %s: kernel %.1f us (%.1f TFLOP/s), torch.matmul %.1f us" % (
+            label, us, 2.0 * m * n * k / us / 1e6, lib_us)
+        s, staging = kernels.matmul_plan(a, b, sms)
+        if s > 1:
+            one = _event_us(torch, lambda: kernels._matmul_launch(a, b, 1), 5)
+            line += "; %d parts of K (%s staging), one part %.1f us" % (s, staging, one)
+        print(line, flush=True)
+    del big, l21, y, c
+
+    a = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (32768, 4096)).astype(np.float32)).to(dev)      # bench.py's geqrf input
+    A = st.Matrix.from_array(a, nb=256, device=dev)
+    st.geqrf(A)
+    torch.cuda.synchronize()
+    calls = []
+    plain = kernels.matmul
+
+    def timed(x, z):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = plain(x, z)
+        e1.record()
+        calls.append((x.shape[0], x.shape[1], z.shape[1], e0, e1))
+        return out
+
+    kernels.matmul = timed
+    try:
+        st.geqrf(A)
+        torch.cuda.synchronize()
+    finally:
+        kernels.matmul = plain
+    by = {}
+    for m, k, n, e0, e1 in calls:
+        kind = ("Y^T Y (512, mk)x(mk, 512)" if m == n == 512 and k > 512 else
+                "Y^T C (512, mk)x(mk, nt)" if m == 512 and k > 512 else
+                "K = 512 (mk, 512)x(512, n)" if k == 512 and m > 512 else "other")
+        t = by.setdefault(kind, [0, 0.0])
+        t[0] += 1
+        t[1] += e0.elapsed_time(e1)
+    print("matmul inside one geqrf (32768,4096): %d calls, %.3f ms; %s" % (
+        len(calls), sum(v[1] for v in by.values()), "; ".join(
+            "%s %d calls %.3f ms" % (kind, v[0], v[1]) for kind, v in sorted(by.items()))),
+        flush=True)
+
+
 SECTIONS = {"lu_inv_panel": _lu_inv_panel, "lu_u12_panel": _lu_u12_panel,
             "chol_inv_panel": _chol_inv_panel, "potrf_full_fused": _potrf_full_fused,
             "trtri_panel": _trtri_panel, "getrf_full_fused": _getrf_full_fused,
-            "potrf_step_fused": _potrf_step_fused, "getrf_step_fused": _getrf_step_fused}
+            "potrf_step_fused": _potrf_step_fused, "getrf_step_fused": _getrf_step_fused,
+            "chol_l21_panel": _chol_l21_panel, "matmul": _matmul}
 
 
 def main(argv=None) -> int:
@@ -526,9 +634,9 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    libs = build(names)
+    libs = build([x for x in names if x in MARKS])
     for name in names:
-        SECTIONS[name](torch, libs[name], gen, dev)
+        SECTIONS[name](torch, libs.get(name), gen, dev)
     return 0
 
 

@@ -514,3 +514,132 @@ def test_smem_gates_the_batched_kernels():
         assert not smem.batched_fits(kernel, 16)
     with pytest.raises(KeyError):
         smem.batched_fits("geqrf_batched", 64)
+
+
+# ---------------------------------------------------------------------------
+# matmul's parts of K (split-K) and its 3xTF32 arithmetic
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+
+
+def test_matmul_splits_one_part_where_the_tiles_fill_the_card():
+    # phase 2's strip update (960 tiles), 8192³ and a 132-tile output
+    assert kernels.matmul_splits(7680, 2048, 512, H100_SMS) == 1
+    assert kernels.matmul_splits(8192, 8192, 8192, H100_SMS) == 1
+    assert kernels.matmul_splits(128 * 12, 128 * 11, 32768, H100_SMS) == 1
+    # a short K is not cut, however few the tiles
+    assert kernels.matmul_splits(512, 512, 256, H100_SMS) == 1
+
+
+@pytest.mark.parametrize("n", [512, 3584])
+def test_matmul_splits_cut_geqrf_products_under_one_wave(n):
+    # YᵀY (16 tiles) and Yᵀ·C (112 tiles) of geqrf's first panel at K = 32768
+    s = kernels.matmul_splits(512, n, 32768, H100_SMS)
+    tiles = 4 * (n // 128)
+    assert s > 1
+    assert tiles * s >= H100_SMS * 0.9 or tiles * s > H100_SMS
+
+
+@pytest.mark.parametrize("m,n,k", [(512, 512, 32768), (512, 3584, 32768),
+                                   (512, 512, 4096), (512, 1024, 16400),
+                                   (512, 3072, 28672), (128, 128, 1040),
+                                   (7680, 2048, 512), (256, 128, 48)])
+def test_matmul_parts_are_whole_slabs_covering_k(m, n, k):
+    # part z runs slabs [z·per, min((z+1)·per, slabs)) of 32 (csrc/matmul.cu
+    # refuses a per that leaves a part empty or K uncovered)
+    bk = kernels.MATMUL_SLAB
+    s = kernels.matmul_splits(m, n, k, H100_SMS)
+    slabs = -(-k // bk)
+    per = kernels.matmul_part_slabs(k, s)
+    parts = [(z * per * bk, min(k, (z + 1) * per * bk)) for z in range(s)]
+    assert parts[0][0] == 0 and parts[-1][1] == k
+    for (a0, a1), (b0, _) in zip(parts, parts[1:]):
+        assert a1 == b0 and a1 % bk == 0
+    assert all(k1 > k0 for k0, k1 in parts)
+    assert (s - 1) * per < slabs
+
+
+def _tf32_rna(x):
+    """Round fp32 to TF32 (10 mantissa bits) with ties away from zero, as
+    cvt.rna.tf32.f32 does for a finite x: on the bits, add half of the 13
+    dropped bits' weight to the magnitude and clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_truncate(x):
+    """fp32 read as TF32 by the tensor core: its 13 low bits dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _matmul_3xtf32(a, b):
+    """The kernel's arithmetic in torch: each operand into big = tf32(x)
+    and small = x − big (truncated to TF32 as the mma reads it), then
+    small·big + big·small first and big·big last, three fp32 products."""
+    ab, bb = _tf32_rna(a), _tf32_rna(b)
+    as_, bs = _tf32_truncate(a - ab), _tf32_truncate(b - bb)
+    return (as_ @ bb + ab @ bs) + ab @ bb
+
+
+def test_tf32_rounding_keeps_ten_bits_ties_away():
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12,
+                      1.0 + 3 * 2.0 ** -11], dtype=torch.float32)
+    got = _tf32_rna(x)
+    assert got.tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0,
+                            1.0 + 2.0 ** -9]
+
+
+def _f32(bits):
+    return torch.tensor([bits], dtype=torch.int64).to(torch.int32).view(
+        torch.float32)
+
+
+@pytest.mark.parametrize("bits", [0x7FFFFFFF, 0xFFFFFFFF, 0x7FC00000,
+                                  0x7FFFF000, 0x7F800001])
+def test_3xtf32_split_keeps_a_nan(bits):
+    # the rounding may turn a NaN into ±0 or ±inf (the card's NaN
+    # 0x7fffffff becomes −0), but small = x − big stays a NaN as the mma
+    # reads it, and so does the product's row and column
+    x = _f32(bits)
+    assert bool(torch.isnan(_tf32_truncate(x - _tf32_rna(x))).all())
+    a = torch.ones(2, 3)
+    a[1, 2] = x
+    got = _matmul_3xtf32(a, torch.ones(3, 2))
+    assert bool(got[1].isnan().all()) and bool(got[0].isfinite().all())
+    got = _matmul_3xtf32(torch.ones(2, 3), a.T)
+    assert bool(got[:, 1].isnan().all()) and bool(got[:, 0].isfinite().all())
+
+
+@pytest.mark.parametrize("bits", [0x7F800000, 0xFF800000])
+def test_3xtf32_split_of_inf(bits):
+    # big keeps ±inf; small is inf − inf, a NaN, so the product is not finite
+    x = _f32(bits)
+    assert _tf32_rna(x).view(torch.int32).item() & 0xFFFFFFFF == bits
+    assert not bool(torch.isfinite(_matmul_3xtf32(x.view(1, 1), torch.ones(1, 1))).any())
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 512, 256), (128, 32768, 128)])
+def test_3xtf32_within_4x_of_fp32_error(m, k, n):
+    """The 3xTF32 split is fp32-class: its error to the fp64 product is
+    within 4x of a full fp32 product's, at the strip update's K and at a
+    K = 32768 Gram shape (chip_smoke.py's gate for the kernel)."""
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    b = a.T.contiguous()[:, :n] if m == n and k > 4096 else torch.from_numpy(
+        rng.standard_normal((k, n)).astype(np.float32))
+    ref = a.double() @ b.double()
+    e3 = _rel(_matmul_3xtf32(a, b).numpy(), ref.numpy())
+    e32 = _rel((a @ b).numpy(), ref.numpy())
+    e1 = _rel((_tf32_rna(a) @ _tf32_rna(b)).numpy(), ref.numpy())
+    assert e3 <= 4.0 * e32
+    assert e1 > 100 * e3      # one TF32 pass is not fp32-class
+
+
+@pytest.mark.parametrize("nb", [32, 64, 128, 256, 512, 1024])
+def test_chol_l21_panel_scratch_covers_chol_inv_grid(nb):
+    # chol_inv_grid (csrc/tri_grid.cuh) keeps an nb² Schur complement and
+    # then the doubling's products in the scratch
+    for dev in ("cpu", "cuda"):
+        if kernels.fused_panel_fits(nb, (1024,), dev):
+            assert kernels.chol_l21_panel_scratch(nb) >= nb * nb

@@ -96,7 +96,8 @@ def test_build_sources_list_every_header(kernel):
 @pytest.mark.parametrize("kernel", ["lu_inv_panel", "lu_u12_panel",
                                     "chol_inv_panel", "potrf_full_fused",
                                     "trtri_panel", "getrf_full_fused",
-                                    "potrf_step_fused", "getrf_step_fused"])
+                                    "potrf_step_fused", "getrf_step_fused",
+                                    "chol_l21_panel"])
 def test_kernel_phases_marks_are_in_the_sources(kernel):
     """``perf/kernel_phases.py`` stamps text anchors of the kernel sources:
     each of its marks must still be there, the stamped copy must inline
