@@ -30,7 +30,14 @@
    cooperative grid) and blocks.
    The LU panel kernels are held to the same pivots as their plain
    versions (a near-tie, within 1e-5 relative, is printed and excepted),
-   to a panel residual < 60 and to ‖L11·linv − I‖ < 1e-3; the batched
+   to a panel residual < 60 and to ‖L11·linv − I‖ < 1e-3, at the main
+   paths' shapes (the leaf cluster's lanes in registers) and at the
+   (256, 16384) slab and a (1024, 12144) carry (in shared memory);
+   ``getrf_panel_linv``'s slab, pivots, mask and linv bitwise
+   ``getrf_step_fused(update=False)``'s panel at nb = 256, ib = 32, with
+   every lane active and with the lanes of two fused panels retired;
+   each prints its grid, cluster, registers and shared memory and a
+   "redesign" line beside its time before the redesign; the batched
    kernels (phase 2c) at (B, n) = (16, 32), (16, 64), (16, 128) and
    (64, 256) to the same pivots, per-problem factor residuals ≤ 3 and
    1e-4 of their plain versions.  The fused and full kernels of potrf and
@@ -827,7 +834,10 @@ def _panel_gates(torch, name, a_rows, out, piv, act_out, linv, ref):
 
 def check_lu_kernels(torch, kernels, dev) -> dict:
     """Phase 2b: the two LU panel kernels against their plain versions at
-    the main-path shapes."""
+    the main-path shapes (the leaf in registers) and past them (the leaf
+    in shared memory), ``getrf_panel_linv`` bitwise the step kernel's
+    panel, and each kernel's launch printed beside its time before its
+    redesign."""
     gen = torch.Generator(device=dev).manual_seed(3)
     out = {}
     eye_nb = torch.eye(LU_NB, device=dev)
@@ -924,7 +934,106 @@ def check_lu_kernels(torch, kernels, dev) -> dict:
               % (name, r["shape"], r["max_abs_err"], r["tol"], r["ms"],
                  r["plain_ms"], r["library_ms"], r["bound_ms"],
                  r["bound_by"]), flush=True)
+
+    # the witness of getrf_panel_linv: its slab, pivots, mask and linv
+    # bitwise getrf_step_fused's panel (lu_full.cuh, an implementation of
+    # its own) at nb = 256, ib = 32 from the same state, with every lane
+    # active and with the lanes the first fused panel retired
+    for act_w in (act, ak):
+        tag = "%d lanes retired on entry" % int((act_w <= 0).sum())
+        ck = carry0[:2 * LEAF_W].clone()
+        _, spiv, sact, slinv = kernels.getrf_step_fused(
+            ck, act_w, 0, nb=LEAF_W, bb=LEAF_W, ib=LEAF_IB, update=False)
+        lout, lpiv, lact, llinv = kernels.getrf_panel_linv(
+            carry0[:LEAF_W], act_w, ib=LEAF_IB)
+        if not (torch.equal(ck[:LEAF_W], lout) and torch.equal(spiv, lpiv)
+                and torch.equal(sact, lact) and torch.equal(slinv, llinv)):
+            fail("getrf_panel_linv (%d,%d) ib=%d, %s: slab, pivots, mask or "
+                 "linv not bitwise getrf_step_fused's panel from the same "
+                 "state" % (LEAF_W, N, LEAF_IB, tag))
+        print("getrf_panel_linv (%d,%d) ib=%d, %s: slab, pivots, mask and linv "
+              "bitwise getrf_step_fused's panel (nb=%d, update=False)"
+              % (LEAF_W, N, LEAF_IB, tag, LEAF_W), flush=True)
+        del ck
+
+    # the leaf's second route: more than 2 x 256 lanes a leaf block (of
+    # the cluster of 16) keep their rows in shared memory: m = 16384 for
+    # the recursion's leaf (1024 lanes a block), m = 12144, the largest
+    # the gate admits at (512, 16), for the fused panel (759)
+    big = torch.randn((LEAF_W, 2 * N), generator=gen, device=dev)
+    bact = torch.ones((1, 2 * N), device=dev)
+    got = kernels.getrf_panel_linv(big, bact, ib=LEAF_IB)
+    ref = kernels.getrf_panel_linv_plain(big, bact, ib=LEAF_IB)
+    torch.cuda.synchronize()
+    second = {"getrf_panel_linv": _panel_gates(
+        torch, "getrf_panel_linv (%d,%d) shared-memory leaf" % (LEAF_W, 2 * N),
+        big.T, *got, ref)}
+    del big, got, ref
+    m2 = 12144
+    c2 = torch.randn((2 * LU_NB, m2), generator=gen, device=dev)
+    a2 = torch.ones((1, m2), device=dev)
+    cp2 = c2.clone()
+    rows2 = c2[LU_NB:].T.clone()
+    _, piv2, act2, linv2 = kernels.getrf_panel_fused(c2, a2, LU_NB, nb=LU_NB,
+                                                     bb=LU_BB, ib=LU_IB)
+    _, rpiv2, ract2, rlinv2 = kernels.getrf_panel_fused_plain(
+        cp2, a2, LU_NB, nb=LU_NB, bb=LU_BB, ib=LU_IB)
+    torch.cuda.synchronize()
+    if not torch.equal(c2[:LU_NB], cp2[:LU_NB]):
+        fail("getrf_panel_fused wrote rows outside [%d, %d)" % (LU_NB, 2 * LU_NB))
+    second["getrf_panel_fused"] = _panel_gates(
+        torch, "getrf_panel_fused (%d,%d) carry, k0=%d, shared-memory leaf"
+        % (2 * LU_NB, m2, LU_NB), rows2, c2[LU_NB:], piv2, act2, linv2,
+        (cp2[LU_NB:], rpiv2, ract2, rlinv2))
+    del c2, cp2, rows2
+
+    # the redesigned launches: clusters, registers, shared memory, and the
+    # time before the redesign (PERF.md §6 rows 13 and 12: H100 80GB HBM3,
+    # 700 W)
+    for name, (m, w, ib), before, second_shape in (
+            ("getrf_panel_fused", (N, LU_NB, LU_IB), 2.4301,
+             "(%d,%d) carry" % (2 * LU_NB, m2)),
+            ("getrf_panel_linv", (N, LEAF_W, LEAF_IB), 1.2531,
+             "(%d,%d) slab" % (LEAF_W, 2 * N))):
+        plan = _panel_plan(kernels, dev, name, m, w, ib)
+        r = out[name]
+        r.update(grid=plan["grid"], cluster=plan["cluster"],
+                 smem_bytes=plan["smem_bytes"],
+                 second_route=dict(shape=second_shape, max_abs_err=second[name]))
+        print("redesign %s (the leaf on a cluster of %d blocks, %d lanes a "
+              "leaf block; %d blocks in all, one grid barrier an inner "
+              "block): %s: kernel %.4f ms (%.4f ms before the redesign), "
+              "lu_factor + solve_triangular %.4f ms, bound %.5f ms (%s); the "
+              "shared-memory leaf at %s: max_abs_err %.3e" % (
+                  name, plan["cluster"], -(-m // plan["cluster"]), plan["grid"],
+                  r["shape"], r["ms"], before, r["library_ms"], r["bound_ms"],
+                  r["bound_by"], second_shape, second[name]), flush=True)
     return out
+
+
+def _panel_plan(kernels, dev, name: str, m: int, w: int, ib: int) -> dict:
+    """An LU panel kernel's launch for a (w, m) panel: its grid and leaf
+    cluster (``slate_<name>_plan``), one block's shared memory
+    (``slate_<name>_smem_bytes``; the launch asks for at least half an
+    SM's) and the ptxas lines of its two instantiations, printed and
+    returned."""
+    import ctypes
+    from slate_tpu_torch.ops import _build
+
+    grid, cluster = kernels.lu_panel_plan(name, dev, m, w, ib)
+    c_bytes = getattr(_build.library(name), "slate_%s_smem_bytes" % name)
+    c_bytes.argtypes, c_bytes.restype = [ctypes.c_int] * 3, ctypes.c_int64
+    smem_bytes = int(c_bytes(m, w, ib))
+    log = _build.lib_path(name)
+    ptxas = [ln.split("info    :")[-1].strip() for ln in log.with_name(
+        log.name + ".log").read_text().splitlines()
+        if "registers" in ln or "spill" in ln]
+    print("%s at (m, w, ib) = (%d, %d, %d): %d blocks of 256 threads in clusters "
+          "of %d (cooperative), %d B dynamic shared memory a block by the "
+          "formula; ptxas %s" % (
+              name, m, w, ib, grid, cluster, smem_bytes, " | ".join(ptxas)),
+          flush=True)
+    return dict(grid=grid, cluster=cluster, smem_bytes=smem_bytes, ptxas=ptxas)
 
 
 def device_split(torch, label: str, fn, kernels_by_key: dict) -> dict:
@@ -967,7 +1076,7 @@ def device_split(torch, label: str, fn, kernels_by_key: dict) -> dict:
 def lu_split(torch, st, A, b, label: str) -> None:
     """Device split of one more gesv; the caller picks the driver."""
     device_split(torch, "LU (%s gesv)" % label, lambda: st.gesv(A, b),
-                 {"lu panel kernel": "lu_panel_kernel",
+                 {"lu panel kernel": "lu_panel_cluster_kernel",
                   "matmul kernel": "matmul_f32_kernel"})
 
 
@@ -4273,7 +4382,8 @@ def main() -> int:
                       "max_abs_err_fro", "driver_path_launches",
                       "bound_fp32_ffma_ms", "fp64_errors", "qr_one_wave",
                       "cube_ms", "cube_library_ms", "cube_bound_ms",
-                      "cube_bound_fp32_ffma_ms", "l_bitwise_chol_inv_panel"):
+                      "cube_bound_fp32_ffma_ms", "l_bitwise_chol_inv_panel",
+                      "cluster", "second_route"):
             if extra in r:
                 rows[-1][extra] = r[extra]
         for p, calls in path_checks.items():    # every call of one run

@@ -1,11 +1,13 @@
 // Device code of the partial-pivot LU kernels that run a step over the
 // lanes still active: ONE step of getrf_step_fused.cu at a given k0, and the
 // whole factorization of getrf_full_fused.cu, a loop of the same step.  The
-// panel is lu_panel.cuh's panel phase over a list of lanes, then the
-// trailing phase on double-buffered product tiles.  The panel rounds every
-// element as lu_panel.cuh's does, so a step's panel is bitwise
-// getrf_panel_fused's from the same state; and the full launch runs this
-// same step code at every k0, so it is bitwise the chain of step launches.
+// panel is the blocked elimination of lu_panel.cuh's panel kernels over a
+// list of lanes, on the whole grid with one grid barrier a column, then
+// the trailing phase on double-buffered product tiles.  The panel rounds
+// every element as the panel kernels do, so a step's panel is bitwise
+// getrf_panel_fused's from the same state (two independent
+// implementations); and the full launch runs this same step code at every
+// k0, so it is bitwise the chain of step launches.
 //
 // The trailing phase of a step at k0 (X the panel's unit-lower pivot-block
 // inverse, L11[i, k] = carry[k0 + k, piv[i]] for i > k):
@@ -44,9 +46,9 @@
 //     (registers for ib = 16), and the pivot columns' rows are padded in
 //     shared memory; the sums are lu_panel.cuh's, in its order.
 //
-// Execution model: the cooperative grid of lu_panel.cuh (one 256-thread
-// block per SM, the panel's lanes in dynamic shared memory), grid.sync()
-// between phases.  Every global read of data written in the launch goes
+// Execution model: a cooperative grid planned by lu_panel.cuh's
+// plan_grid_for (one 256-thread block per SM, the panel's lanes in dynamic
+// shared memory), grid.sync() between phases.  Every global read of data written in the launch goes
 // through L2 (__ldcg).
 
 #pragma once
@@ -58,6 +60,8 @@ namespace lu_full {
 
 namespace cg = cooperative_groups;
 using lu_panel::ceildiv;
+using lu_panel::ColumnBarrier;   // the panels' column barrier over the whole grid
+using lu_panel::copy_batched;
 using lu_panel::NT;
 using lu_panel::NWARP;
 
@@ -94,28 +98,6 @@ struct Params {
   int* lanes;          // [2][m] the active lanes of a step, ascending
   int* na;             // [2] how many
   unsigned* bar;       // a zeroed counter: the panels' column barrier
-};
-
-// The panels' column barrier over the whole grid, on a counter of its
-// own that only grows: the n-th sync() waits for it to reach n·G.  A
-// release reduction and acquire loads (no sequentially consistent fence,
-// which cooperative groups' grid.sync() issues): the writes of the block
-// before it are visible to every block after it.
-struct ColumnBarrier {
-  unsigned* ctr;
-  unsigned G, target;
-  __device__ void sync() {
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      target += G;
-      asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(ctr), "r"(1u) : "memory");
-      unsigned v;
-      do {
-        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(ctr) : "memory");
-      } while (v < target);
-    }
-    __syncthreads();
-  }
 };
 
 // The pivots of the step at k0.
@@ -172,7 +154,7 @@ __device__ inline void compact(const float* act, const int* in, int n, int* out,
 //   * warps 6 and 7: T = L[b, c:b0]·X[c:b0, c] for the owned linv columns
 //     c = g + q·G < b0.
 // IBC = ib known at compile time (U12's row and X[b, b]'s column in
-// registers), or 0 (lu_panel.cuh's loops in shared memory).  Ends with
+// registers), or 0 (the same loops in shared memory).  Ends with
 // a block barrier.
 template <int IBC>
 __device__ void block_end_part1(float* P, float* Xbb, const float* Xo, float* T, int w,
@@ -238,7 +220,7 @@ __device__ void block_end_part1(float* P, float* Xbb, const float* Xo, float* T,
   __syncthreads();
 }
 
-// The panel phase of lu_panel.cuh on rows [k0, k0 + nb) of the carry for
+// The panel (lu_panel.cuh's elimination) on rows [k0, k0 + nb) of the carry for
 // the na lanes of `list`, by every block of the grid: block g holds list
 // slots [g·cs, (g+1)·cs), cs = ⌈na / G⌉, in shared memory (lane[l] their
 // lanes, ~lane once pivoted; blk[l] the column a lane was pivoted at, −1
@@ -570,23 +552,6 @@ __device__ __noinline__ void u_tile(float* sm, int R, int J, int nt, int nb, con
   tri_grid::tile_gemm<TT, TT, tri_grid::FULL, tri_grid::UPPER, true, true>(
       sm, R * TT, J * TT, nt, nb, nb, cpiv, nb, x2, nb,
       [&](int i, int j, float v) { u[(int64_t)i * nb + j] = v; });
-}
-
-// dst(e, src(e)) for e = e0, e0 + step, … below e1, eight loads issued
-// before their eight stores (a store between two loads would keep the
-// second waiting: the compiler cannot tell that they do not overlap).
-template <class Src, class Dst>
-__device__ __forceinline__ void copy_batched(int64_t e0, int64_t e1, int64_t step, Src src,
-                                             Dst dst) {
-  constexpr int B = 8;
-  for (int64_t e = e0; e < e1; e += B * step) {
-    float v[B];
-#pragma unroll
-    for (int t = 0; t < B; ++t) v[t] = e + t * step < e1 ? src(e + t * step) : 0.f;
-#pragma unroll
-    for (int t = 0; t < B; ++t)
-      if (e + t * step < e1) dst(e + t * step, v[t]);
-  }
 }
 
 // The step's pivot lanes into shared memory, once a block.

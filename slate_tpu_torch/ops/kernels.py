@@ -51,7 +51,7 @@ launches = {"matmul": 0, "chol_inv_panel": 0, "trtri_panel": 0,
 IB = 32
 
 _P, _I64, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
-_LU_ARGS = [_P] * 7 + [_I] * 4
+_LU_ARGS = [_P] * 7 + [_I] * 5
 _SIGNATURES = {
     "matmul": ("slate_matmul_f32",
                [_P, _I64, _I64, _P, _I64, _I64, _P, _I, _I, _I, _P, _I, _I,
@@ -173,7 +173,28 @@ def _check_lu_step_smem(lib, name: str) -> None:
                         % (name, c_bytes(m, nb, 16, grid), m, nb, grid, want))
 
 
+def _check_lu_panel_smem(lib, name: str) -> None:
+    """The same check for the LU panel kernels: one block's dynamic shared
+    memory is :func:`smem.lu_panel_cluster_bytes` over panels and inner
+    blocks on both sides of the point where the leaf's share passes the
+    updaters'."""
+    from . import smem
+
+    c_bytes = getattr(lib, "slate_%s_smem_bytes" % name)
+    c_bytes.argtypes, c_bytes.restype = [_I] * 3, _I64
+    for m in (256, 2048, 8192, 12144, 24576, 49152):
+        for w, ib in ((256, 32), (512, 16), (64, 8)):
+            want = smem.lu_panel_cluster_bytes(m, w, ib)
+            if c_bytes(m, w, ib) != want:
+                raise RuntimeError(
+                    "%s: the kernel takes %d B of shared memory at (m, w, ib) "
+                    "= (%d, %d, %d), ops/smem.py counts %d B"
+                    % (name, c_bytes(m, w, ib), m, w, ib, want))
+
+
 _SMEM_CHECKS = {"getrf_batched": _check_getrf_batched_smem,
+                "getrf_panel_linv": _check_lu_panel_smem,
+                "getrf_panel_fused": _check_lu_panel_smem,
                 "potrf_step_fused": _check_potrf_smem,
                 "potrf_full_fused": _check_potrf_smem,
                 "getrf_step_fused": _check_lu_step_smem,
@@ -643,50 +664,55 @@ def _check_lu_panel(name: str, x, act, w: int, m: int, ib: int) -> None:
 _plans: dict = {}
 
 
-def _plan(name: str, dev, *args) -> int:
+def _plan(name: str, dev, *args, outs: int = 1):
     """The cooperative grid of kernel ``name`` (its C entry
-    ``slate_<name>_plan(*args, &G)``, an occupancy query), cached per
-    device and arguments."""
+    ``slate_<name>_plan(*args, &out…)`` with ``outs`` results, an
+    occupancy query), cached per device and arguments: an int, or a
+    tuple of ``outs`` ints."""
     key = (name, dev.index) + args
     grid = _plans.get(key)
     if grid is None:
         from . import _build
 
         plan = getattr(_build.library(name), "slate_%s_plan" % name)
-        plan.argtypes = [_I] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+        plan.argtypes = [_I] * len(args) + [ctypes.POINTER(ctypes.c_int)] * outs
         plan.restype = ctypes.c_int
-        g = ctypes.c_int(0)
+        got = [ctypes.c_int(0) for _ in range(outs)]
         with torch.cuda.device(dev):
-            rc = plan(*args, ctypes.byref(g))
+            rc = plan(*args, *map(ctypes.byref, got))
         if rc != 0:
             raise RuntimeError("%s: no cooperative grid for %s: CUDA error %d"
                                % (name, args, rc))
-        grid = _plans[key] = g.value
+        grid = _plans[key] = (got[0].value if outs == 1
+                              else tuple(g.value for g in got))
     return grid
 
 
-def _panel_scratch(dev, grid: int, w: int):
-    """The panel phase's outputs and candidate scratch: ``(piv, linv,
-    cand, cval, clane)``."""
-    f32 = dict(dtype=torch.float32, device=dev)
-    return (torch.empty(w, dtype=torch.int64, device=dev),
-            torch.empty((w, w), **f32), torch.empty((2, grid, w), **f32),
-            torch.empty((2, grid), **f32),
-            torch.empty((2, grid), dtype=torch.int32, device=dev))
+def lu_panel_plan(name: str, dev, m: int, w: int, ib: int):
+    """``(grid, cluster)`` of the LU panel kernel ``name`` for a (w, m)
+    panel: every block of the clusters the card holds at once, and the
+    leaf cluster's size (``lu_panel.cuh``'s ``plan``)."""
+    return _plan(name, dev, m, w, ib, outs=2)
 
 
 def _lu_launch(name: str, dev, act, m: int, w: int, ib: int, *head):
-    """Plan the cooperative grid (``lu_panel.cuh``'s ``plan_grid``),
-    allocate the outputs and the candidate scratch, launch.  ``head`` are
-    the kernel's leading arguments (panel pointers and strides).  Returns
-    ``(piv, act_out, linv)``."""
-    grid = _plan(name, dev, m, w, ib)
+    """Plan the launch (:func:`lu_panel_plan`), allocate the outputs and
+    the scratch (the list of active lanes, their pivot columns and count,
+    three inner blocks' pivot rows, the grid barrier's and the leaf's
+    counters), launch.
+    ``head`` are the kernel's leading arguments (panel pointers and
+    strides).  Returns ``(piv, act_out, linv)``."""
+    grid, cluster = lu_panel_plan(name, dev, m, w, ib)
     act_out = torch.empty((1, m), dtype=torch.float32, device=dev)
-    piv, linv, cand, cval, clane = _panel_scratch(dev, grid, w)
+    piv = torch.empty(w, dtype=torch.int64, device=dev)
+    linv = torch.empty((w, w), dtype=torch.float32, device=dev)
+    iwork = torch.empty(2 * m + 1, dtype=torch.int32, device=dev)
+    lblk = torch.empty(3 * ib * ib, dtype=torch.float32, device=dev)
+    bar = torch.zeros(2, dtype=torch.int32, device=dev)
     act = act.reshape(-1).contiguous()
     _launch(name, dev, *head, act.data_ptr(), act_out.data_ptr(),
-            piv.data_ptr(), linv.data_ptr(), cand.data_ptr(),
-            cval.data_ptr(), clane.data_ptr(), m, w, ib, grid)
+            piv.data_ptr(), linv.data_ptr(), iwork.data_ptr(),
+            lblk.data_ptr(), bar.data_ptr(), m, w, ib, grid, cluster)
     return piv, act_out, linv
 
 
@@ -973,6 +999,16 @@ def potrf_full_fused(a, nb: int = 512, tc: int = 512):
 # :1317 and getrf_full_fused :1481): one step of lu_full.cuh at k0, or the
 # loop of steps, in place on the transposed (n_rows, m) carry
 # ---------------------------------------------------------------------------
+
+def _panel_scratch(dev, grid: int, w: int):
+    """The panel outputs of ``lu_full.cuh`` and its candidate scratch:
+    ``(piv, linv, cand, cval, clane)``."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty(w, dtype=torch.int64, device=dev),
+            torch.empty((w, w), **f32), torch.empty((2, grid, w), **f32),
+            torch.empty((2, grid), **f32),
+            torch.empty((2, grid), dtype=torch.int32, device=dev))
+
 
 def _check_lu_step(name: str, at, act, k0: int, nb: int, bb: int,
                    ib: int) -> None:

@@ -5,15 +5,23 @@
 **LU panels.**
 A TPU kernel keeps a whole panel in one core's VMEM (tens of MB).  On an
 H100 a block has at most 227 KB of dynamic shared memory, so the panel
-kernels (``csrc/lu_panel.cuh``) spread the panel's lanes over a
-cooperative grid of co-resident blocks, each holding its own lanes in
-shared memory.  The kernel's launcher (``plan_grid``) starts from one
-block per SM, never fewer than 32 lanes a block, and refuses the panel
-when that first grid's share of shared memory does not fit one block;
-only then does it ask the occupancy query how many blocks may share an
-SM.  The gates in :mod:`slate_tpu_torch.linalg.lu` need only the first
-step, which this module repeats, so they decide what the kernel will
-accept.  The grid itself is sized by the launcher alone.
+kernels (``csrc/lu_panel.cuh``) keep the (w, m) panel in device memory
+(L2) and hold in shared memory only what runs from it: the LEAF cluster
+of C blocks the ib rows of the current inner block for every active lane
+(``⌈m / C⌉`` lanes a block), every other block an update tile's U12 rows
+and the pivot lanes' rows for the block row of L11⁻¹.  Both roles run in
+one launch, so a block's share is the larger
+(:func:`lu_panel_cluster_bytes`); the kernel has no static shared memory.
+The launcher takes C = 16 and sizes the grid by the occupancy query.
+:func:`lu_panel_fits`, the drivers' gate in
+:mod:`slate_tpu_torch.linalg.lu`, admits the panels the kernels took
+before their leaf clusters (:func:`lu_panel_bytes` on the first grid
+fits a block) whose share at C = 16 fits a block too; the cluster's share
+alone would admit larger panels, which no run has measured.
+
+:func:`lu_panel_bytes` is the share of the panel that the fused step and
+full kernels (``csrc/lu_full.cuh``) run over their lanes: each block of
+their cooperative grid keeps all w rows of its lanes in shared memory.
 
 **Batched kernels.**  The JAX package budgets ``bt`` whole problems of
 3·n²·4 bytes each against ~100 MB of VMEM per grid step
@@ -78,12 +86,12 @@ from .. import config
 
 #: H100 SXM: streaming multiprocessors
 SMS = 132
-#: shared memory one block may opt into (bytes), and the panel kernels'
-#: static share of it (their reduction scratch)
+#: shared memory one block may opt into (bytes), and the step and full LU
+#: kernels' static share of it (their reduction scratch)
 BLOCK_SMEM_MAX = 232448
 STATIC_SMEM = 80
-#: fewest lanes a panel-kernel block takes, and the widest inner block
-#: (kept equal to lu_panel.cuh's MIN_LANES and MAX_IB)
+#: fewest lanes a block of the step and full LU kernels takes, and the
+#: widest inner block (kept equal to lu_panel.cuh's MIN_LANES and MAX_IB)
 MIN_LANES = 32
 MAX_IB = 32
 
@@ -106,11 +114,12 @@ def fits(nbytes: float) -> bool:
 
 
 def lu_panel_bytes(m: int, w: int, ib: int, grid: int) -> int:
-    """Dynamic shared memory of one panel-kernel block on a grid of
-    ``grid`` blocks: its lanes of the (w, m) panel, the ib published pivot
-    columns of the current block, its owned columns of L11⁻¹, the ib×ib
-    block inverse and products, its act mask and block-pivot marks, and
-    64 words of reduction scratch (``lu_panel.cuh``, ``smem_floats``)."""
+    """Dynamic shared memory of the panel of ``lu_full.cuh``'s step and
+    full kernels on a grid of ``grid`` blocks: a block's lanes of the
+    (w, m) panel, the ib published pivot columns of the current block, its
+    owned columns of L11⁻¹, the ib×ib block inverse and products, its lanes
+    and block-pivot marks, and 64 spare words (``lu_panel.cuh``,
+    ``smem_floats``)."""
     chunk = _ceildiv(m, grid)
     nown = _ceildiv(w, grid)
     return 4 * (w * chunk + ib * w + nown * w + ib * ib + ib * nown
@@ -118,17 +127,68 @@ def lu_panel_bytes(m: int, w: int, ib: int, grid: int) -> int:
 
 
 def _first_grid(m: int, device=None) -> int:
-    """The panel kernels' first grid for m lanes: one block per SM, never
-    fewer than 32 lanes a block."""
+    """The step and full LU kernels' first grid for m lanes (and the
+    panel kernels' gate's): one block per SM, never fewer than 32 lanes a
+    block."""
     return max(1, min(sm_count(device), _ceildiv(m, MIN_LANES)))
 
 
+#: the panel kernels' words of per-block scalars, update tile rows, linv
+#: columns a block and rows of X it stages at once, and the leaf
+#: cluster's blocks (``lu_panel.cuh`` HEAD, RG, LC, KC, MAX_CLUSTER)
+PANEL_HEAD = 160
+PANEL_TILE_ROWS = 32
+PANEL_LINV_COLS = 64
+PANEL_LINV_ROWS = 64
+PANEL_CLUSTER = 16
+
+
+def lu_panel_leaf_floats(m: int, ib: int, cluster: int) -> int:
+    """Shared memory of one block of the panel kernels' leaf cluster of
+    ``cluster`` blocks, in floats: the per-block scalars, three buffers
+    of the candidates the cluster's blocks push each column (a slot's
+    rows, then |value| and lane in 16 more bytes), the inner block's L and
+    the next rows' U12, the rows of its ⌈m / cluster⌉ lanes, their lanes
+    and pivot columns; a slot's rows take the least power of two ≥
+    max(4, ib) words (``lu_panel.cuh``, ``leaf_floats``, ``slot_words``)."""
+    cs = _ceildiv(m, cluster)
+    rows = 4
+    while rows < ib:
+        rows *= 2
+    return (PANEL_HEAD + 3 * cluster * (rows + 4) + 2 * ib * rows + rows * cs
+            + 2 * cs)
+
+
+def lu_panel_update_floats(w: int, ib: int) -> int:
+    """Shared memory of one updater block of the panel kernels, in
+    floats: the per-block scalars, an update tile's U12 rows, the L of the
+    current and previous inner blocks and the block inverse, the pivot
+    lanes' rows before the block, the linv sums and a staged block of
+    L11⁻¹ (``lu_panel.cuh``, ``update_floats``)."""
+    return (PANEL_HEAD + ib * PANEL_TILE_ROWS + 3 * ib * ib + ib * w
+            + ib * PANEL_LINV_COLS + PANEL_LINV_ROWS * PANEL_LINV_COLS)
+
+
+def lu_panel_cluster_bytes(m: int, w: int, ib: int) -> int:
+    """Dynamic shared memory of one block of the LU panel kernels
+    (``getrf_panel_linv``, ``getrf_panel_fused``) for a (w, m) panel: the
+    larger of the two roles' at a leaf cluster of :data:`PANEL_CLUSTER`
+    blocks (``lu_panel.cuh``, ``panel_floats``; the launch asks for at
+    least half an SM's, so that no two blocks share an SM)."""
+    return 4 * max(lu_panel_leaf_floats(m, ib, PANEL_CLUSTER),
+                   lu_panel_update_floats(w, ib))
+
+
 def lu_panel_fits(m: int, w: int, ib: int, device=None) -> bool:
-    """The shared-memory gate of the LU panel kernels: a (w, m) panel's
-    share on ``min(SMs, ceil(m / 32))`` blocks fits one block."""
+    """The shared-memory gate of the LU panel kernels: the panels they
+    took before their leaf clusters (a (w, m) panel's share of
+    :func:`lu_panel_bytes` on ``min(SMs, ceil(m / 32))`` blocks fits one
+    block), where the kernels' own share (:func:`lu_panel_cluster_bytes`)
+    fits one block too."""
     if m < 1 or w < 1 or not 1 <= ib <= MAX_IB or w % ib:
         return False
-    return fits(lu_panel_bytes(m, w, ib, _first_grid(m, device)))
+    return (fits(lu_panel_bytes(m, w, ib, _first_grid(m, device)))
+            and lu_panel_cluster_bytes(m, w, ib) <= BLOCK_SMEM_MAX)
 
 
 #: the batched kernels' inner block (potrf_batched.cu, getrf_batched.cu IB)

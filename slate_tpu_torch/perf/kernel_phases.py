@@ -3,7 +3,8 @@
 ``csrc/chol_inv_panel.cu``, ``csrc/potrf_full_fused.cu``,
 ``csrc/trtri_panel.cu``, ``csrc/getrf_full_fused.cu``,
 ``csrc/potrf_step_fused.cu``, ``csrc/getrf_step_fused.cu``,
-``csrc/chol_l21_panel.cu``): device time stamps between their phases;
+``csrc/chol_l21_panel.cu``, ``csrc/getrf_panel_fused.cu``,
+``csrc/getrf_panel_linv.cu``): device time stamps between their phases;
 and the ``matmul`` kernel's time by shape.  Needs a CUDA card and
 ``nvcc``::
 
@@ -35,8 +36,15 @@ trailing phases 1–4, for ``potrf_step_fused`` phase A against B and C, for
 ``getrf_step_fused`` (with its update and without, the ``fused_trsm``
 launch) the list of active lanes, the panel with its µs a column and the
 trailing phases 1–4, and for ``chol_l21_panel`` phase A (the diagonal
-block's L and L⁻¹) against B (X = P·L⁻ᵀ).  The stamps cost a few
-instructions on block 0; the kernels the port launches carry none.
+block's L and L⁻¹) against B (X = P·L⁻ᵀ), and for the LU panel kernels
+(``getrf_panel_fused`` at k0 = 0 of the (8192, 8192) carry, nb = 512,
+ib = 16; ``getrf_panel_linv`` on a (256, 8192) slab, ib = 32; each on
+its plan's grid) the grid and cluster, µs a column and an inner block,
+the number of grid barriers, and the leaf (its columns, one cluster
+barrier each) against the inner block's end (the leaf's write-back, the
+wait at the grid barrier, the next leaf's rows), on the leaf's block 0.
+The stamps cost a few instructions on block 0; the kernels the port launches
+carry none.
 ``matmul`` (:func:`_matmul`) is timed by CUDA events instead.  Nothing
 here runs at import.
 """
@@ -44,6 +52,7 @@ here runs at import.
 from __future__ import annotations
 
 import ctypes
+import functools
 import re
 import statistics
 import subprocess
@@ -111,7 +120,17 @@ MARKS = {
     "getrf_full_fused": [],
     "potrf_step_fused": [],
     "getrf_step_fused": [],
-    "chol_l21_panel": []}
+    "chol_l21_panel": [],
+    "getrf_panel_fused": [
+        ("  ColumnBarrier grid{p.bar, (unsigned)p.G, 0u};",
+         "  ColumnBarrier grid{p.bar, (unsigned)p.G, 0u}; STAMP();"),
+        ("    __syncthreads();  // the leaf of inner block b0 / ib starts",
+         "    __syncthreads(); STAMP();  // the leaf of inner block b0 / ib starts"),
+        ("      cluster_wait();  // the column's one cluster barrier",
+         "      cluster_wait(); STAMP();  // the column's one cluster barrier"),
+        ("    grid.sync(); STAMP();  // the leaf is in out",
+         "    STAMP(); grid.sync(); STAMP();  // the leaf is in out")]}
+MARKS["getrf_panel_linv"] = MARKS["getrf_panel_fused"]
 
 
 _LOCAL_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"[^\n]*$', re.M)
@@ -135,6 +154,18 @@ def _inline(text: str, seen: set) -> str:
     return _LOCAL_INCLUDE.sub(repl, text)
 
 
+def _kernel_end(src: str) -> int:
+    """Where the last ``__global__`` function of ``src`` closes (the
+    offset of its closing brace's line break)."""
+    start = src.index("{", src.rindex("__global__"))
+    depth = 0
+    for i in range(start, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        if depth == 0:
+            return src.rindex("\n", 0, i)
+    raise RuntimeError("unbalanced braces after the last __global__")
+
+
 def stamped_source(name: str) -> str:
     """The source of kernel ``name`` with its local headers inlined and
     stamps at its start, after each grid barrier, at :data:`MARKS` and at
@@ -142,11 +173,11 @@ def stamped_source(name: str) -> str:
     from ..ops import _build
 
     src = (_build.CSRC / (name + ".cu")).read_text()
-    end = src.index("\n}\n\n}  // namespace")   # the kernel's closing brace
-    src = (src[:end] + "\n  __syncthreads();\n"
-           "  if (threadIdx.x == 0) atomicMax(&g_end, g_time());" + src[end:])
     first = _LOCAL_INCLUDE.search(src).start()
     src = src[:first] + _HEAD + _inline(src[first:], set())
+    end = _kernel_end(src)
+    src = (src[:end] + "\n  __syncthreads();\n"
+           "  if (threadIdx.x == 0) atomicMax(&g_end, g_time());" + src[end:])
     src = src.replace("grid.sync();", "grid.sync(); STAMP();")
     src = src.replace("cg::grid_group grid = cg::this_grid();",
                       "cg::grid_group grid = cg::this_grid(); STAMP();")
@@ -213,12 +244,14 @@ def run(lib, entry: str, argtypes, args, reps: int = 5, setup=None):
     return [(t[i + 1] - t[i]) / 1e3 for i in range(len(t) - 1)], ghz
 
 
-def _plan(lib, name: str, *args) -> int:
-    g = ctypes.c_int()
-    rc = getattr(lib, "slate_%s_plan" % name)(*args, ctypes.byref(g))
+def _plan(lib, name: str, *args, outs: int = 1):
+    """The C entry ``slate_<name>_plan(*args, &out…)``: an int, or a tuple
+    of ``outs`` ints."""
+    got = [ctypes.c_int() for _ in range(outs)]
+    rc = getattr(lib, "slate_%s_plan" % name)(*args, *map(ctypes.byref, got))
     if rc:
         raise RuntimeError("%s: no grid: CUDA error %d" % (name, rc))
-    return g.value
+    return got[0].value if outs == 1 else tuple(g.value for g in got)
 
 
 P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
@@ -537,6 +570,72 @@ def _chol_l21_panel(torch, lib, gen, dev) -> None:
               flush=True)
 
 
+def _lu_panel(name: str, torch, lib, gen, dev) -> None:
+    """``getrf_panel_fused`` at k0 = 0 of the (8192, 8192) carry, nb = 512,
+    ib = 16 (the scattered driver's first panel), or ``getrf_panel_linv``
+    on a (256, 8192) slab, ib = 32 (the recursion's first leaf), on the
+    plan's grid and cluster with the wrapper's scratch."""
+    n = 8192
+    act = torch.ones(n, device=dev)
+    w, ib = (512, 16) if name == "getrf_panel_fused" else (256, 32)
+    g, c = _plan(lib, name, n, w, ib, outs=2)
+    act_out = torch.empty(n, device=dev)
+    piv = torch.empty(w, dtype=torch.int64, device=dev)
+    linv = torch.empty((w, w), device=dev)
+    iwork = torch.empty(2 * n + 1, dtype=torch.int32, device=dev)
+    lblk = torch.empty(3 * ib * ib, device=dev)
+    bar = torch.empty(2, dtype=torch.int32, device=dev)
+    tail = [act.data_ptr(), act_out.data_ptr(), piv.data_ptr(), linv.data_ptr(),
+            iwork.data_ptr(), lblk.data_ptr(), bar.data_ptr(), n, w, ib, g, c]
+    if name == "getrf_panel_fused":
+        c0 = torch.randn((n, n), generator=gen, device=dev)     # A's transpose
+        carry = torch.empty_like(c0)
+        label = "getrf_panel_fused (%d,%d) carry k0=0 nb=%d ib=%d" % (n, n, w, ib)
+        head, args = [P, I64, I64], [carry.data_ptr(), n, 0]
+
+        def setup():
+            carry.copy_(c0)
+            bar.zero_()
+    else:
+        slab = torch.randn((w, n), generator=gen, device=dev)
+        out = torch.empty_like(slab)
+        label = "getrf_panel_linv (%d,%d) slab ib=%d" % (w, n, ib)
+        head, args = [P, I64, P], [slab.data_ptr(), n, out.data_ptr()]
+        setup = bar.zero_
+    d, ghz = run(lib, "slate_%s_f32" % name, head + [P] * 7 + [I] * 5, args + tail,
+                 reps=3, setup=setup)
+    _lu_panel_report("%s, grid %d in clusters of %d" % (label, g, c), d, ghz, w, ib)
+
+
+def _lu_panel_report(label: str, d, ghz: float, w: int, ib: int) -> None:
+    """One panel launch's stamps: the leaf cluster's timeline on its block
+    0 (one grid barrier an inner block)."""
+    nblk = w // ib
+    head = "%s: %.1f us at %.2f GHz; %.2f us a column, %.1f us an inner block" % (
+        label, sum(d), ghz, sum(d) / w, sum(d) * ib / w)
+    per = ib + 3
+    if len(d) != 1 + nblk * per:
+        raise RuntimeError("%s: %d intervals, expected %d"
+                           % (label, len(d), 1 + nblk * per))
+    # the prologue (the list of lanes and the first leaf's rows), then per
+    # inner block: its ib columns (one cluster barrier each), the leaf's
+    # write-back, the wait at the grid barrier (the updaters' share of the
+    # previous block's end still running), and the next leaf's rows (the
+    # last block: the kernel's end)
+    blocks = [d[1 + b * per:1 + (b + 1) * per] for b in range(nblk)]
+    leaf = [sum(x[:ib]) for x in blocks]
+    end = [sum(x[ib:]) for x in blocks]
+    print("%s; %d grid barriers (one an inner block): prologue %.1f us; leaf %.1f us "
+          "(median column %.2f us, median leaf %.1f us), block end %.1f us (median "
+          "write-back %.2f us, grid barrier wait %.2f us, next leaf's rows %.2f us)" % (
+              head, nblk, d[0], sum(leaf),
+              statistics.median(c for x in blocks for c in x[:ib]),
+              statistics.median(leaf), sum(end),
+              statistics.median(x[ib] for x in blocks),
+              statistics.median(x[ib + 1] for x in blocks),
+              statistics.median(x[ib + 2] for x in blocks[:-1])), flush=True)
+
+
 def _matmul(torch, lib, gen, dev) -> None:
     """The matmul kernel by CUDA events (it has no grid barrier to stamp):
     phase 2's timed shape, 8192³ and geqrf's two products under one wave
@@ -614,7 +713,9 @@ SECTIONS = {"lu_inv_panel": _lu_inv_panel, "lu_u12_panel": _lu_u12_panel,
             "chol_inv_panel": _chol_inv_panel, "potrf_full_fused": _potrf_full_fused,
             "trtri_panel": _trtri_panel, "getrf_full_fused": _getrf_full_fused,
             "potrf_step_fused": _potrf_step_fused, "getrf_step_fused": _getrf_step_fused,
-            "chol_l21_panel": _chol_l21_panel, "matmul": _matmul}
+            "chol_l21_panel": _chol_l21_panel, "matmul": _matmul,
+            "getrf_panel_fused": functools.partial(_lu_panel, "getrf_panel_fused"),
+            "getrf_panel_linv": functools.partial(_lu_panel, "getrf_panel_linv")}
 
 
 def main(argv=None) -> int:

@@ -383,22 +383,45 @@ def test_lu_sites_pick_plain_on_cpu_and_stock_off_path(monkeypatch):
 
 
 def test_smem_plans_the_main_path_panels():
-    """The shared-memory gate of lu_panel.cuh's grid at the main-path
-    shapes, on the H100's constants: the 512-wide fused panel at
-    m = 8192 (132 blocks of 63 lanes) and the 256-wide leaf fit, and the
-    fused panel stops at m = 12144 (92 lanes × 512 rows a block)."""
+    """The shared-memory gate of lu_panel.cuh's panel kernels at the
+    main-path shapes, on the H100's constants: the kernels' share at their
+    leaf cluster of 16 blocks (for the 512-wide fused panel at m = 8192
+    the updaters' 14,752 words pass the leaf's 512 lanes × 16 rows), the
+    512-wide fused panel at m = 8192 and the 256-wide leaf fit, and the
+    fused panel stops at m = 12144 (92 lanes × 512 rows a block of the
+    grid the gate has kept from before the leaf clusters)."""
     from slate_tpu_torch.ops import smem
 
-    nbytes = smem.lu_panel_bytes(8192, 512, 16, 132)
-    assert smem.fits(nbytes) and nbytes > smem.BLOCK_SMEM_MAX // 2
+    assert smem.lu_panel_cluster_bytes(8192, 512, 16) == 4 * 14752
+    assert smem.lu_panel_leaf_floats(8192, 16, 16) < smem.lu_panel_update_floats(512, 16)
     assert smem.lu_panel_fits(8192, 512, 16)
     assert smem.lu_panel_fits(8192, 256, 32)
-    assert smem.lu_panel_fits(256, 256, 32)          # 8 blocks of 32 lanes
+    assert smem.lu_panel_fits(256, 256, 32)
     assert not smem.lu_panel_fits(16384, 512, 16)
     assert smem.lu_panel_fits(12144, 512, 16)
     assert not smem.lu_panel_fits(12145, 512, 16)
+    assert smem.lu_panel_cluster_bytes(12145, 512, 16) <= smem.BLOCK_SMEM_MAX
     assert not smem.lu_panel_fits(256, 64, 40)       # ib past the kernel's
     assert not smem.lu_panel_fits(256, 48, 32)       # ib must divide w
+
+
+@pytest.mark.parametrize("w, ib, m_max", [(512, 16, 12144), (256, 32, 16384)])
+def test_panel_gate_admits_what_it_admitted(w, ib, m_max):
+    """The gate admits exactly the panels it admitted before the leaf
+    clusters (a block of one grid of min(SMs, m/32) blocks holding all w
+    rows of its lanes, ``smem.lu_panel_bytes``), so no driver changes
+    route: the scattered driver's (512, m) panels with ib = 16 up to
+    m = 12144 and the recursion's (256, m) leaves with ib = 32 for
+    m ≤ 16384 among them, at every m the drivers pass (m ≥ w,
+    m % 8 == 0); the kernels' own share fits wherever it admits."""
+    from slate_tpu_torch.ops import smem
+
+    for m in range(w, 4 * m_max, 8):
+        before = smem.fits(smem.lu_panel_bytes(m, w, ib, smem._first_grid(m)))
+        assert smem.lu_panel_fits(m, w, ib) == before, m
+        assert before or m > m_max, m
+        if before:
+            assert smem.lu_panel_cluster_bytes(m, w, ib) <= smem.BLOCK_SMEM_MAX, m
 
 
 # ---------------------------------------------------------------------------

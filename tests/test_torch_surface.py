@@ -114,3 +114,23 @@ def test_kernel_phases_marks_are_in_the_sources(kernel):
     assert src.index("#define STAMP()") < src.index("STAMP();")
     for _, new in kernel_phases.MARKS[kernel]:
         assert new in src
+
+
+@pytest.mark.parametrize("kernel", ["getrf_panel_fused", "getrf_panel_linv"])
+def test_kernel_phases_marks_the_lu_panel_leaf(kernel):
+    """The LU panel kernels' stamps (``perf/kernel_phases.py``): the start,
+    the leaf's start, each of its columns (the cluster barrier) and its
+    end beside each grid barrier, in both of the leaf's paths, and the
+    kernel's end; every header of ``csrc`` inlined."""
+    from slate_tpu_torch.perf import kernel_phases
+
+    src = kernel_phases.stamped_source(kernel)
+    assert not [inc for inc in _INCLUDE.findall(src) if (_build.CSRC / inc).is_file()]
+    assert set(kernel_phases.SECTIONS) >= {kernel}
+    assert "ColumnBarrier grid{p.bar, (unsigned)p.G, 0u}; STAMP();" in src
+    assert src.count("__syncthreads(); STAMP();  // the leaf of inner block") == 2
+    assert src.count("cluster_wait(); STAMP();") == 2
+    assert src.count("STAMP(); grid.sync(); STAMP();") == 2
+    assert "atomicMax(&g_end, g_time());" in src
+    for _, new in kernel_phases.MARKS[kernel]:
+        assert new in src
