@@ -87,7 +87,12 @@
    kernel and plain version from the same band, within the same
    tolerances, and the kernel's whole chase to the backward gates; then
    timed there, with the barriers alone (every chunk's departure printed
-   beside max|band|).  ``tb2bd_wavefront`` (phase 2h) likewise, its plain
+   beside max|band|); each main call's plan (clusters x blocks of a
+   cluster, the route, registers, shared memory) held to ops/smem.py's
+   plan on the card's cluster occupancy, and a ``redesign`` line beside
+   its time before the cluster redesign; the band (L2) route gated at the
+   narrowest kd that takes it, n = 2·kd + 16, fp32 and fp64, with the
+   same checks.  ``tb2bd_wavefront`` (phase 2h) likewise, its plain
    version on a host copy of the band, on ge2tb bands of Gaussians at
    (1024, 64) and (1024, 256) in fp32 and fp64 and in three range chunks
    at (1024, 64) fp64: fp64 band and both logs within 1e-9·max|band|,
@@ -370,6 +375,12 @@ PEAK_FP64_FLOPS = 34e12         # H100 SXM, fp64 FMA outside the tensor cores
 CHASE_CHECKS = ((1024, 64), (1024, 256))
 CHASE_CHUNKS = ((0, 300), (300, 700), (700, 1022))
 CHASE_F32_SWEEPS = 64
+#: each chase's time before its redesign onto thread-block clusters
+#: (PERF.md §6 rows 18-19: the last run of the one-block-a-task kernels,
+#: H100 80GB HBM3 at 700 W), fp32 at (EIG_N or SVD_N, NB), fp64 at
+#: (EIG_N64 or SVD_N64, NB)
+CHASE_BEFORE_MS = {"hb2st_wavefront": {"float32": 1409.945, "float64": 805.462},
+                   "tb2bd_wavefront": {"float32": 1751.606, "float64": 1059.067}}
 EIG_N, EIG_N64, EIG_HOST_N = 8192, 4096, 2048
 #: the SVD paths' sizes (bench.py's svd_fp32 at n = 8192 and svd_fp64's
 #: generator at one card's 4096; values only through the host chase at
@@ -2428,6 +2439,63 @@ def _chase_main_checks(torch, kernels, eig, label, ab, kd: int, rel: float):
     return worst, back
 
 
+def _chase_plan(torch, kernels, dev, name: str, n: int, kd: int, dt,
+                j0: int = 0, j1=None) -> dict:
+    """A chase launch's plan on the card: the kernel's own (``slate_<name>_
+    plan``: clusters, blocks a cluster, route) held to ops/smem.py's
+    chase_plan over the card's occupancy answers for each cluster size,
+    one block's dynamic shared memory by the formula, and the ptxas line
+    of the instantiation the route runs; printed and returned."""
+    from slate_tpu_torch.ops import _build, smem
+    from slate_tpu_torch.perf.kernel_phases import ptxas_lines
+
+    kind = name.split("_")[0]
+    meta = (kernels.hb_wave_meta if kind == "hb2st" else kernels.tb_wave_meta)(
+        n, kd, j0, j1)
+    clusters = kernels.chase_clusters(name, dev, kd, dt)
+    want = smem.chase_plan(kind, kd, dt, meta[3], clusters)
+    got = kernels.chase_plan(name, dev, n, kd, j0, n if j1 is None else j1, dt)
+    if got != want:
+        fail("%s at (%d, %d) %s: the kernel plans %s, ops/smem.py %s (clusters "
+             "by size %s)" % (name, n, kd, dt, got, want, clusters))
+    g, c, route = got
+    nbytes = smem.chase_block_bytes(kind, kd, dt, c, route)
+    key = "I%sLb%dELb1E" % ("f" if dt == torch.float32 else "d", route == "smem")
+    log = _build.lib_path(name)
+    ptxas = ptxas_lines(log.with_name(log.name + ".log"), key)
+    print("%s plan at (n, kd) = (%d, %d) %s: %d live tasks a stagger on %d "
+          "clusters x %d blocks of %d threads (cooperative), route %s (the "
+          "task's window %s), %d B dynamic shared memory a block by the "
+          "formula (ops/smem.py agrees with the kernel's plan); clusters the "
+          "card holds by size %s; ptxas %s"
+          % (name, n, kd, str(dt).split(".")[-1], meta[3], g, c,
+             smem.CHASE_THREADS, route, "in the cluster's shared memory"
+             if route == "smem" else "left in the band", nbytes, clusters,
+             " | ".join(ptxas)), flush=True)
+    return dict(clusters=g, cluster=c, route=route, smem_bytes=nbytes,
+                ptxas=ptxas, live=meta[3])
+
+
+def _second_route_kd(name: str, dt) -> int:
+    """The narrowest band that takes a chase's band (L2) route."""
+    from slate_tpu_torch.ops import smem
+
+    kind = name.split("_")[0]
+    return next(kd for kd in range(4, 8192) if smem.chase_route(kind, kd, dt) == "l2")
+
+
+def _redesign_line(name: str, dt, ms: float, plan: dict) -> None:
+    """Print the ``redesign`` line of a chase at its main shape: its time
+    beside its time before the redesign (CHASE_BEFORE_MS, which stays out of
+    the kernels line: it was not measured in this run)."""
+    key = str(dt).split(".")[-1]
+    before = CHASE_BEFORE_MS[name][key]
+    print("redesign %s %s: %.3f ms on %d clusters x %d blocks (route %s), "
+          "%.3f ms before the redesign (one block of 1024 threads a task), "
+          "%.2fx" % (name, key, ms, plan["clusters"], plan["cluster"],
+                     plan["route"], before, before / ms), flush=True)
+
+
 def check_chase_kernel(torch, kernels, dev) -> dict:
     """Phase 2g: hb2st_wavefront against its plain version on the card at
     (n, kd) = (1024, 64) and (1024, 256) in fp32 and fp64, on
@@ -2450,10 +2518,14 @@ def check_chase_kernel(torch, kernels, dev) -> dict:
     (fp64) relative to max|λ|.
 
     At the main paths' calls, (8192, 256) fp32 and (4096, 256) fp64, on
-    the grid those calls run: :func:`_chase_main_checks`.  Then times
-    the kernel with CUDA events there, with the same launch with every
-    task skipped (the barriers' share), and the plain version at
-    (1024, 256) only: ~135k tasks of ~25 PyTorch ops each at n = 8192."""
+    the plan those calls run (:func:`_chase_plan`: clusters x blocks, the
+    route, held to ops/smem.py's plan): :func:`_chase_main_checks`.  Then
+    times the kernel with CUDA events there, with the same launch with
+    every task skipped (the barriers' share: the schedule's floor), prints
+    the ``redesign`` line (its time before the cluster redesign,
+    CHASE_BEFORE_MS), gates the band route (:func:`_hb2st_second_route`),
+    and times the plain version at (1024, 256) only: ~135k tasks of ~25
+    PyTorch ops each at n = 8192."""
     import numpy as np
     from scipy.linalg import eigvalsh_tridiagonal
     from slate_tpu_torch.linalg import eig
@@ -2544,8 +2616,9 @@ def check_chase_kernel(torch, kernels, dev) -> dict:
                                  (EIG_N64, NB, f64, PEAK_FP64_FLOPS, 1e-9)):
         ab = torch.from_numpy(_band_wide(n, kd, 7)).to(dev, dt)
         nsw, nwin_max, tmax, nl = kernels.hb_wave_meta(n, kd)
-        label = "hb2st_wavefront (%d, %d) %s, %d blocks" % (
-            n, kd, str(dt).split(".")[-1], nl)
+        plan = _chase_plan(torch, kernels, dev, "hb2st_wavefront", n, kd, dt)
+        label = "hb2st_wavefront (%d, %d) %s, %d clusters x %d blocks" % (
+            n, kd, str(dt).split(".")[-1], plan["clusters"], plan["cluster"])
         err, back = _chase_main_checks(torch, kernels, eig, label, ab, kd, rel)
         worst[dt] = max(worst[dt], err)
         work = ab.clone()
@@ -2566,11 +2639,15 @@ def check_chase_kernel(torch, kernels, dev) -> dict:
                                                    str(dt).split(".")[-1]))
         print("hb2st_wavefront %s: %.3f ms (CUDA events, mean of 2), the "
               "same grid with every task skipped %.3f ms over %d staggers "
-              "(%.3f us a barrier); %.4g FLOP, %.4g bytes, bound %.4f ms (%s)"
+              "(%.3f us a barrier: the schedule's floor); %.4g FLOP, %.4g "
+              "bytes, bound %.4f ms (%s)"
               % (timed[dt]["shape"], ms, sync_ms, tmax + 1,
                  1e3 * sync_ms / (tmax + 1), flops, nbytes,
                  timed[dt]["bound_ms"], timed[dt]["bound_by"]), flush=True)
+        timed[dt].update(plan=plan)
+        _redesign_line("hb2st_wavefront", dt, ms, plan)
         del ab, work
+    second = _hb2st_second_route(torch, kernels, eig, dev)
     n, kd = CHASE_CHECKS[1]
     ab = torch.from_numpy(_band_wide(n, kd, 7)).to(dev, f32)
     plain_ms, _ = once_ms(torch, lambda: kernels.hb2st_wavefront_plain(
@@ -2592,8 +2669,67 @@ def check_chase_kernel(torch, kernels, dev) -> dict:
         plain_shape="(%d, %d) fp32" % (n, 2 * kd + 2), kernel_ms_at_plain_shape=small_ms,
         barriers_ms=r["barriers_ms"], fp64=dict(
             (k, timed[f64][k]) for k in ("shape", "ms", "barriers_ms",
-                                         "bound_ms", "bound_by")),
-        max_abs_err_fp64=worst[f64])}
+                                         "bound_ms", "bound_by", "plan")),
+        max_abs_err_fp64=worst[f64], grid="%d clusters x %d blocks" % (
+            r["plan"]["clusters"], r["plan"]["cluster"]),
+        cluster=r["plan"]["cluster"], chase_route=r["plan"]["route"],
+        smem_bytes=r["plan"]["smem_bytes"], second_route=second)}
+
+
+def _hb2st_second_route(torch, kernels, eig, dev) -> dict:
+    """Phase 2g's gate of the band (L2) route: in fp32 and fp64 at the
+    narrowest kd that takes it, n = 2·kd + 16 (sweeps of two windows and
+    of one), on a bench.py-style band: the plan (route l2), fp64 band and
+    log within 1e-9·max|band| of the plain version, fp32 within
+    5e-3·max|band| over the first CHASE_F32_SWEEPS sweeps, the kernel's
+    and the plain version's whole chases to the backward gates, the
+    eigenvalues of the kernel's (d, e) within 1e-3 (fp32) / 1e-10 (fp64)
+    of eigvalsh, relative to max|λ|."""
+    import numpy as np
+    from scipy.linalg import eigvalsh_tridiagonal
+
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        kd = _second_route_kd("hb2st_wavefront", dt)
+        n = 2 * kd + 16
+        plan = _chase_plan(torch, kernels, dev, "hb2st_wavefront", n, kd, dt)
+        if plan["route"] != "l2":
+            fail("hb2st_wavefront at (%d, %d) %s plans route %s, not l2"
+                 % (n, kd, dt, plan["route"]))
+        ab64 = torch.from_numpy(_band_wide(n, kd, 7)).to(dev)
+        a64 = _dense_band(torch, ab64, kd)
+        lam = torch.linalg.eigvalsh(a64).cpu().numpy()
+        ab = ab64.to(dt)
+        eps = float(torch.finfo(dt).eps)
+        scale = float(ab.abs().max())
+        label = "hb2st_wavefront (%d, %d) %s, route l2" % (n, kd, str(dt).split(".")[-1])
+        ak, vk = kernels.hb2st_wavefront(ab.clone(), kd)
+        ap, vp = kernels.hb2st_wavefront_plain(ab.clone(), kd)
+        if dt == torch.float64:
+            err, tol = max(float((ak - ap).abs().max()), float((vk - vp).abs().max())), 1e-9 * scale
+        else:
+            hk, hvk = kernels.hb2st_wavefront(ab.clone(), kd, 0, CHASE_F32_SWEEPS)
+            hp, hvp = kernels.hb2st_wavefront_plain(ab.clone(), kd, 0, CHASE_F32_SWEEPS)
+            err = max(float((hk - hp).abs().max()), float((hvk - hvp).abs().max()))
+            tol = 5e-3 * scale
+        if not err <= tol:
+            fail("%s disagrees with its plain version: %.3g > %.3g" % (label, err, tol))
+        bk = _chase_backward(torch, eig, label, a64, ak, vk, kd, eps)
+        bp = _chase_backward(torch, eig, label + " (plain)", a64, ap, vp, kd, eps)
+        w = eigvalsh_tridiagonal(ak[:, 0].double().cpu().numpy(),
+                                 ak[:n - 1, 1].double().cpu().numpy())
+        lam_err = float(np.abs(w - lam).max() / np.abs(lam).max())
+        if not lam_err <= (1e-3 if dt == torch.float32 else 1e-10):
+            fail("%s: eigenvalues of (d, e) off by %.3g relative" % (label, lam_err))
+        print("%s: forward %.3g (tol %.3g%s); backward residual/orthogonality "
+              "kernel %.3g/%.3g, plain %.3g/%.3g; eigenvalues %.3g relative"
+              % (label, err, tol, "" if dt == torch.float64 else ", first %d sweeps"
+                 % CHASE_F32_SWEEPS, bk[0], bk[1], bp[0], bp[1], lam_err), flush=True)
+        out[str(dt).split(".")[-1]] = dict(n=n, kd=kd, max_abs_err=err, tol=tol,
+                                           backward=bk, eig_rel_err=lam_err,
+                                           clusters=plan["clusters"],
+                                           cluster=plan["cluster"])
+    return out
 
 
 def _eig_gates(torch, label, a, w, z, lam, eps10):
@@ -2897,10 +3033,12 @@ def check_tb2bd_kernel(torch, kernels, dev) -> dict:
     plain version are printed, not gated, on it, band and logs apart.
 
     At the main paths' calls, (8192, 256) fp32 and (4096, 256) fp64, on
-    their grids: :func:`_tb2bd_main_checks`.  Then times the kernel with
-    CUDA events there, beside the same launch with every task skipped
-    (the barriers' share), and the plain version on the card at
-    (1024, 256) fp32."""
+    their plans (:func:`_chase_plan`): :func:`_tb2bd_main_checks`.  Then
+    times the kernel with CUDA events there, beside the same launch with
+    every task skipped (the barriers' share: the schedule's floor),
+    prints the ``redesign`` line, gates the band route
+    (:func:`_tb2bd_second_route`), and times the plain version on the
+    card at (1024, 256) fp32."""
     import numpy as np
     import slate_tpu_torch as port
     from slate_tpu_torch.linalg import _chase, eig
@@ -3012,8 +3150,9 @@ def check_tb2bd_kernel(torch, kernels, dev) -> dict:
         st = _ge2tb_band(torch, port, _chase, n, kd, seed, dev, dt).to(dt)
         b64 = _tb_dense(torch, st, kd)
         nsw, nblk_max, tmax, nl = kernels.tb_wave_meta(n, kd)
-        label = "tb2bd_wavefront (%d, %d) %s, %d blocks" % (
-            n, kd, str(dt).split(".")[-1], nl)
+        plan = _chase_plan(torch, kernels, dev, "tb2bd_wavefront", n, kd, dt)
+        label = "tb2bd_wavefront (%d, %d) %s, %d clusters x %d blocks" % (
+            n, kd, str(dt).split(".")[-1], plan["clusters"], plan["cluster"])
         err, back, chunks = _tb2bd_main_checks(torch, kernels, eig, label, st,
                                                b64, kd, rel)
         del b64
@@ -3036,11 +3175,15 @@ def check_tb2bd_kernel(torch, kernels, dev) -> dict:
                                                    str(dt).split(".")[-1]))
         print("tb2bd_wavefront %s: %.3f ms (CUDA events, mean of 2), the "
               "same grid with every task skipped %.3f ms over %d staggers "
-              "(%.3f us a barrier); %.4g FLOP, %.4g bytes, bound %.4f ms (%s)"
+              "(%.3f us a barrier: the schedule's floor); %.4g FLOP, %.4g "
+              "bytes, bound %.4f ms (%s)"
               % (timed[dt]["shape"], ms, sync_ms, tmax + 1,
                  1e3 * sync_ms / (tmax + 1), flops, nbytes,
                  timed[dt]["bound_ms"], timed[dt]["bound_by"]), flush=True)
+        timed[dt].update(plan=plan)
+        _redesign_line("tb2bd_wavefront", dt, ms, plan)
         del st, work
+    second = _tb2bd_second_route(torch, kernels, eig, dev)
     n, kd = CHASE_CHECKS[1]
     st = _ge2tb_band(torch, port, _chase, n, kd, 7, dev, f32).to(f32)
     plain_ms, _ = once_ms(torch, lambda: kernels.tb2bd_wavefront_plain(
@@ -3061,8 +3204,60 @@ def check_tb2bd_kernel(torch, kernels, dev) -> dict:
         plain_shape="(%d, %d) fp32" % (n, 3 * kd + 2),
         kernel_ms_at_plain_shape=small_ms, barriers_ms=r["barriers_ms"],
         fp64=dict((k, timed[f64][k]) for k in ("shape", "ms", "barriers_ms",
-                                               "bound_ms", "bound_by")),
-        max_abs_err_fp64=worst[f64])}
+                                               "bound_ms", "bound_by", "plan")),
+        max_abs_err_fp64=worst[f64], grid="%d clusters x %d blocks" % (
+            r["plan"]["clusters"], r["plan"]["cluster"]),
+        cluster=r["plan"]["cluster"], chase_route=r["plan"]["route"],
+        smem_bytes=r["plan"]["smem_bytes"], second_route=second)}
+
+
+def _tb2bd_second_route(torch, kernels, eig, dev) -> dict:
+    """Phase 2h's gate of the band (L2) route: in fp32 and fp64 at the
+    narrowest kd that takes it, n = 2·kd + 16, on ge2tb's band of a
+    Gaussian at nb = kd: the plan (route l2), fp64 band and logs within
+    1e-9·max|band| of the plain version (on a host copy), fp32 within
+    5e-3·max|band| over the first CHASE_F32_SWEEPS sweeps, the kernel's
+    and the plain version's whole chases to the backward gates of
+    :func:`_tb2bd_backward`, σ within 1e-3 / 1e-10 of svdvals."""
+    import slate_tpu_torch as port
+    from slate_tpu_torch.linalg import _chase
+
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        kd = _second_route_kd("tb2bd_wavefront", dt)
+        n = 2 * kd + 16
+        plan = _chase_plan(torch, kernels, dev, "tb2bd_wavefront", n, kd, dt)
+        if plan["route"] != "l2":
+            fail("tb2bd_wavefront at (%d, %d) %s plans route %s, not l2"
+                 % (n, kd, dt, plan["route"]))
+        st64 = _ge2tb_band(torch, port, _chase, n, kd, 7, dev, torch.float64)
+        b64 = _tb_dense(torch, st64, kd)
+        sv = torch.linalg.svdvals(b64)
+        st = st64.to(dt)
+        eps = float(torch.finfo(dt).eps)
+        scale = float(st.abs().max())
+        label = "tb2bd_wavefront (%d, %d) %s, route l2" % (n, kd, str(dt).split(".")[-1])
+        got = kernels.tb2bd_wavefront(st.clone(), kd)
+        ref = [x.to(dev) for x in kernels.tb2bd_wavefront_plain(st.to("cpu", copy=True), kd)]
+        if dt == torch.float64:
+            err, tol = _tb2bd_departure(got, ref), 1e-9 * scale
+        else:
+            head = kernels.tb2bd_wavefront(st.clone(), kd, 0, CHASE_F32_SWEEPS)
+            hp = kernels.tb2bd_wavefront_plain(st.to("cpu", copy=True), kd, 0,
+                                               CHASE_F32_SWEEPS)
+            err, tol = _tb2bd_departure(head, [x.to(dev) for x in hp]), 5e-3 * scale
+        if not err <= tol:
+            fail("%s disagrees with its plain version: %.3g > %.3g" % (label, err, tol))
+        bk = _tb2bd_backward(torch, eig, label, b64, *got, kd, eps, sv)
+        bp = _tb2bd_backward(torch, eig, label + " (plain)", b64, *ref, kd, eps, sv)
+        print("%s: forward %.3g (tol %.3g%s); backward kernel %s, plain %s"
+              % (label, err, tol, "" if dt == torch.float64 else ", first %d sweeps"
+                 % CHASE_F32_SWEEPS, {k: float("%.4g" % v) for k, v in bk.items()},
+                 {k: float("%.4g" % v) for k, v in bp.items()}), flush=True)
+        out[str(dt).split(".")[-1]] = dict(n=n, kd=kd, max_abs_err=err, tol=tol,
+                                           backward=bk, clusters=plan["clusters"],
+                                           cluster=plan["cluster"])
+    return out
 
 
 def _svd_gates(torch, label, a, s, u, vh, eps10, sref=None):
@@ -4383,7 +4578,7 @@ def main() -> int:
                       "bound_fp32_ffma_ms", "fp64_errors", "qr_one_wave",
                       "cube_ms", "cube_library_ms", "cube_bound_ms",
                       "cube_bound_fp32_ffma_ms", "l_bitwise_chol_inv_panel",
-                      "cluster", "second_route"):
+                      "cluster", "second_route", "chase_route"):
             if extra in r:
                 rows[-1][extra] = r[extra]
         for p, calls in path_checks.items():    # every call of one run

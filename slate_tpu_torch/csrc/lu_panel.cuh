@@ -68,9 +68,15 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "grid_sync.cuh"
+
 namespace lu_panel {
 
 namespace cg = cooperative_groups;
+using grid_sync::cluster_arrive;
+using grid_sync::cluster_wait;
+using grid_sync::ColumnBarrier;
+using grid_sync::wait_at_least;
 
 constexpr int NT = 256;          // threads of one block
 constexpr int NWARP = NT / 32;
@@ -104,37 +110,6 @@ __device__ __forceinline__ void warp_best(float& v, int& l, int& g) {
     if (better(ov, ol, v, l)) { v = ov; l = ol; g = og; }
   }
 }
-
-// Wait until *ctr ≥ target (acquire loads), trapping after 2^36 clocks.
-__device__ inline void wait_at_least(const unsigned* ctr, unsigned target) {
-  const long long t0 = clock64();
-  unsigned v;
-  do {
-    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(ctr) : "memory");
-    if (v < target && clock64() - t0 > (1ll << 36)) __trap();
-  } while (v < target);
-}
-
-// A barrier over the whole grid on a counter of its own that only grows:
-// the n-th sync() waits for it to reach n·G.  A release reduction and
-// acquire loads (no sequentially consistent fence, which cooperative
-// groups' grid.sync() issues): the writes of the block before it are
-// visible to every block after it.  A wait past 2^36 clocks (half a
-// minute) traps, so that a fault ends the launch with an error instead of
-// holding the card.
-struct ColumnBarrier {
-  unsigned* ctr;
-  unsigned G, target;
-  __device__ void sync() {
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      target += G;
-      asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(ctr), "r"(1u) : "memory");
-      wait_at_least(ctr, target);
-    }
-    __syncthreads();
-  }
-};
 
 // dst(e, src(e)) for e = e0, e0 + step, … below e1, eight loads issued
 // before their eight stores (a store between two loads would keep the
@@ -406,16 +381,6 @@ __device__ __noinline__ void next_rows(float* S, int l, int SR, const float* x_i
   for (int c = 0; c < IBT; c += 4)
     if (c < ib)
       *reinterpret_cast<float4*>(S + slot_at(l, c, SR)) = make_float4(x[c], x[c + 1], x[c + 2], x[c + 3]);
-}
-
-// barrier.cluster in two halves: the arrival (release: this thread's
-// earlier writes are seen by every block of the cluster after its wait)
-// and the wait (acquire).
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // The block's best live slot in leaf row `row`: (|value|, slot) in every

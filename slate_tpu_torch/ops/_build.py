@@ -34,20 +34,22 @@ SOURCES = {
     "chol_inv_panel": ("chol_inv_panel.cu", ("tri_grid.cuh",)),
     "trtri_panel": ("trtri_panel.cu", ("tri_grid.cuh",)),
     "lu_inv_panel": ("lu_inv_panel.cu", ("tri_grid.cuh",)),
-    "getrf_panel_linv": ("getrf_panel_linv.cu", ("lu_panel.cuh",)),
-    "getrf_panel_fused": ("getrf_panel_fused.cu", ("lu_panel.cuh",)),
+    "getrf_panel_linv": ("getrf_panel_linv.cu", ("lu_panel.cuh", "grid_sync.cuh")),
+    "getrf_panel_fused": ("getrf_panel_fused.cu", ("lu_panel.cuh", "grid_sync.cuh")),
     "potrf_batched": ("potrf_batched.cu", ("tri_panel.cuh",)),
-    "getrf_batched": ("getrf_batched.cu", ("lu_panel.cuh",)),
+    "getrf_batched": ("getrf_batched.cu", ("lu_panel.cuh", "grid_sync.cuh")),
     "potrf_step_fused": ("potrf_step_fused.cu",
                          ("potrf_grid.cuh", "tri_grid.cuh")),
     "potrf_full_fused": ("potrf_full_fused.cu",
                          ("potrf_grid.cuh", "tri_grid.cuh")),
     "getrf_step_fused": ("getrf_step_fused.cu",
-                         ("lu_full.cuh", "lu_panel.cuh", "tri_grid.cuh")),
+                         ("lu_full.cuh", "lu_panel.cuh", "grid_sync.cuh",
+                          "tri_grid.cuh")),
     "getrf_full_fused": ("getrf_full_fused.cu",
-                         ("lu_full.cuh", "lu_panel.cuh", "tri_grid.cuh")),
-    "hb2st_wavefront": ("hb2st_wavefront.cu", ("chase.cuh",)),
-    "tb2bd_wavefront": ("tb2bd_wavefront.cu", ("chase.cuh",)),
+                         ("lu_full.cuh", "lu_panel.cuh", "grid_sync.cuh",
+                          "tri_grid.cuh")),
+    "hb2st_wavefront": ("hb2st_wavefront.cu", ("chase.cuh", "grid_sync.cuh")),
+    "tb2bd_wavefront": ("tb2bd_wavefront.cu", ("chase.cuh", "grid_sync.cuh")),
     "chol_l21_panel": ("chol_l21_panel.cu",
                        ("potrf_grid.cuh", "tri_grid.cuh")),
     "lu_u12_panel": ("lu_u12_panel.cu", ("tri_grid.cuh",)),

@@ -192,7 +192,33 @@ def _check_lu_panel_smem(lib, name: str) -> None:
                     % (name, c_bytes(m, w, ib), m, w, ib, want))
 
 
+def _check_chase_smem(lib, name: str) -> None:
+    """The same check for the chase kernels: one block's dynamic shared
+    memory is :func:`smem.chase_block_bytes` on both routes, at every
+    cluster size, in fp32 and fp64, at band widths on both sides of the
+    point where the shared-memory route stops fitting."""
+    from . import smem
+
+    kind = name.split("_")[0]
+    c_bytes = getattr(lib, "slate_%s_smem_bytes" % name)
+    c_bytes.argtypes, c_bytes.restype = [_I] * 4, _I64
+    for kd in (4, 64, 255, 256, 512, 768, 1024):
+        for dtype in (torch.float32, torch.float64):
+            size = torch.empty((), dtype=dtype).element_size()
+            for cluster in (1, 2, 4, 8, 16):
+                for route, r in enumerate(smem.CHASE_ROUTES):
+                    want = smem.chase_block_bytes(kind, kd, dtype, cluster, r)
+                    got = c_bytes(kd, size, cluster, route)
+                    if got != want:
+                        raise RuntimeError(
+                            "%s: the kernel takes %d B of shared memory at (kd, "
+                            "%s, cluster %d, route %s), ops/smem.py counts %d B"
+                            % (name, got, kd, dtype, cluster, r, want))
+
+
 _SMEM_CHECKS = {"getrf_batched": _check_getrf_batched_smem,
+                "hb2st_wavefront": _check_chase_smem,
+                "tb2bd_wavefront": _check_chase_smem,
                 "getrf_panel_linv": _check_lu_panel_smem,
                 "getrf_panel_fused": _check_lu_panel_smem,
                 "potrf_step_fused": _check_potrf_smem,
@@ -1281,9 +1307,50 @@ def lu_u12_panel(l11, rowblk):
 
 # ---------------------------------------------------------------------------
 # Householder band → tridiagonal bulge chase (replaces
-# pallas_kernels.hb2st_wavefront :2033): one cooperative launch over the
-# wavefront staggers t = 3·sweep + window, in place on the wide band
+# pallas_kernels.hb2st_wavefront :2033): one cooperative launch of
+# thread-block clusters over the wavefront staggers t = 3·sweep + window,
+# one cluster a task, in place on the wide band
 # ---------------------------------------------------------------------------
+
+def chase_plan(name: str, dev, n: int, kd: int, j0: int, j1: int, dtype):
+    """``(clusters, cluster, route)`` of chase kernel ``name``'s launch over
+    sweeps ``[j0, j1)``: G clusters of C blocks, and the route (``smem``:
+    each task's window in its cluster's shared memory; ``l2``: left in
+    the band), from the kernel's own plan (``chase.cuh`` plan, which
+    :func:`smem.chase_plan` restates)."""
+    from . import smem
+
+    size = torch.empty((), dtype=dtype).element_size()
+    g, c, route = _plan(name, dev, n, kd, j0, j1, size, outs=3)
+    return g, c, smem.CHASE_ROUTES[route]
+
+
+def chase_clusters(name: str, dev, kd: int, dtype) -> dict:
+    """Clusters of each size C = 16, 8, 4, 2, 1 that the card holds at
+    once for chase kernel ``name`` at band width ``kd`` on the shape's
+    route (the occupancy query :func:`smem.chase_plan` takes); 0 where a
+    block's share does not fit."""
+    from . import _build, smem
+
+    fn = getattr(_build.library(name), "slate_%s_clusters" % name)
+    fn.argtypes, fn.restype = [_I] * 4 + [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    kind = name.split("_")[0]
+    route = smem.chase_route(kind, kd, dtype)
+    size = torch.empty((), dtype=dtype).element_size()
+    out = {}
+    c = smem.CHASE_CLUSTER
+    while c >= 1:
+        got = ctypes.c_int(0)
+        if smem.chase_block_bytes(kind, kd, dtype, c, route) <= smem.BLOCK_SMEM_MAX:
+            with torch.cuda.device(dev):
+                rc = fn(kd, size, c, smem.CHASE_ROUTES.index(route), ctypes.byref(got))
+            if rc != 0:
+                raise RuntimeError("%s: occupancy query at cluster %d: CUDA error %d"
+                                   % (name, c, rc))
+        out[c] = got.value
+        c //= 2
+    return out
+
 
 def hb_wave_meta(n: int, kd: int, j0: int = 0, j1=None):
     """Wavefront geometry of sweeps ``[j0, j1)`` (a copy of the JAX
@@ -1444,9 +1511,9 @@ def hb2st_wavefront_barriers(abw, kd: int, j0: int = 0, j1=None) -> None:
 
 # ---------------------------------------------------------------------------
 # Householder upper band → bidiagonal bulge chase (replaces
-# pallas_kernels.tb2bd_wavefront :2226): one cooperative launch over the
-# wavefront staggers t = 3·sweep + block, in place on the general band,
-# two reflector logs
+# pallas_kernels.tb2bd_wavefront :2226): one cooperative launch of
+# thread-block clusters over the wavefront staggers t = 3·sweep + block,
+# one cluster a task, in place on the general band, two reflector logs
 # ---------------------------------------------------------------------------
 
 def tb_wave_meta(n: int, kd: int, s0: int = 0, s1=None):

@@ -74,6 +74,15 @@ choice whenever its VMEM budget allows (f32, nb | n, nb a power of two
 refuse the same shapes, and ``ops/kernels.py`` checks the kernels' own
 shared-memory formulas against these when it loads them.
 
+**Bulge chases.**  The TPU kernels copy a chase task's dense patch into
+VMEM (1.06 MB fp32 at kd = 256).  ``hb2st_wavefront`` and
+``tb2bd_wavefront`` (``csrc/chase.cuh``) run each task on a cluster of C
+blocks instead and split its window between their shared memory
+(:func:`chase_window_values`); where a block's share at C = 16 does not
+fit, the window stays in the band (:func:`chase_route`).  C comes from
+the card's cluster occupancy (:func:`chase_plan`, which the kernels'
+plan restates); every band width the chase site admits gets a route.
+
 On the card the SM count comes from the device; everywhere else (the CPU
 tests) the H100's constants answer, so the gates decide the same way.
 """
@@ -269,3 +278,79 @@ def lu_fused_fits(m: int, n: int, nb: int, dtype, device=None) -> bool:
     if dtype != torch.float32 or m < nb or nb % STEP_TILE or n % nb:
         return False
     return fits(lu_full_bytes(m, nb, 16, _first_grid(m, device)))
+
+
+# ---------------------------------------------------------------------------
+# Bulge chases
+# ---------------------------------------------------------------------------
+
+#: the chase kernels' threads and warps a block and largest cluster
+#: (``csrc/chase.cuh`` NT, NW, MAX_CLUSTER)
+CHASE_THREADS = 512
+CHASE_WARPS = CHASE_THREADS // 32
+CHASE_CLUSTER = 16
+#: the chase kernels' two routes (``chase.cuh`` Route): the task's window
+#: in the cluster's shared memory, or left in the band (L2)
+CHASE_ROUTES = ("smem", "l2")
+
+
+def chase_share(kd: int, cluster: int) -> int:
+    """Columns (or rows) of a kd-wide block that one block of a cluster of
+    ``cluster`` owns."""
+    return _ceildiv(kd, cluster)
+
+
+def chase_window_values(kind: str, kd: int, cluster: int) -> int:
+    """Values of a chase task's window one block holds on the shared-memory
+    route (``chase.cuh`` window_values): ``hb2st`` its columns of the
+    (kd, kd) bulge block and its pairs (c, L−1−c) of the symmetric block's
+    stored columns (kd + 1 slots a pair); ``tb2bd`` its columns of the
+    off-diagonal block and its rows of the diagonal block (a row stride of
+    share + 1)."""
+    s = chase_share(kd, cluster)
+    if kind == "hb2st":
+        return s * kd + _ceildiv(_ceildiv(kd, 2), cluster) * (kd + 1)
+    if kind == "tb2bd":
+        return s * kd + kd * (s + 1)
+    raise KeyError(f"no chase {kind!r}")
+
+
+def chase_block_bytes(kind: str, kd: int, dtype, cluster: int, route: str) -> int:
+    """Dynamic shared memory of one block of a chase kernel (``chase.cuh``
+    smem_bytes; ``ops/kernels.py`` checks the two agree when it loads the
+    kernel): the vectors u, v, y and the exchange buffer (kd each), the
+    block's local dots (its share), the row partials and the block
+    reduction, and on the ``smem`` route the window's share."""
+    size = torch.empty((), dtype=dtype).element_size()
+    vec = 4 * kd + chase_share(kd, cluster) + CHASE_THREADS + CHASE_WARPS
+    win = chase_window_values(kind, kd, cluster) if route == "smem" else 0
+    return size * (vec + win)
+
+
+def chase_route(kind: str, kd: int, dtype) -> str:
+    """The route of a chase shape: ``smem`` when a block's share of the
+    window at the largest cluster fits the opt-in limit, else ``l2``."""
+    return ("smem" if chase_block_bytes(kind, kd, dtype, CHASE_CLUSTER, "smem")
+            <= BLOCK_SMEM_MAX else "l2")
+
+
+def chase_plan(kind: str, kd: int, dtype, nl: int, clusters) -> tuple:
+    """``(G, C, route)`` of a chase with ``nl`` live tasks a stagger
+    (``chase.cuh`` plan): the shape's route; then of the cluster sizes
+    C = 16, 8, 4, 2, 1 whose block share fits, the one that runs each
+    stagger in the fewest rounds, ⌈nl / clusters[C]⌉, the larger on a tie;
+    G = min(nl, clusters[C]) clusters.  ``clusters`` maps C to the clusters
+    the card holds at once (the occupancy query's answer on the card)."""
+    route = chase_route(kind, kd, dtype)
+    best = None
+    c = CHASE_CLUSTER
+    while c >= 1:
+        n = clusters.get(c, 0)
+        if chase_block_bytes(kind, kd, dtype, c, route) <= BLOCK_SMEM_MAX and n >= 1:
+            rounds = _ceildiv(max(nl, 1), n)
+            if best is None or rounds < best[0]:
+                best = (rounds, min(max(nl, 1), n), c)
+        c //= 2
+    if best is None:
+        raise ValueError(f"{kind} at kd = {kd} {dtype}: no cluster fits a block")
+    return best[1], best[2], route

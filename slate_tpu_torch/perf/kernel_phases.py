@@ -45,8 +45,19 @@ barrier each) against the inner block's end (the leaf's write-back, the
 wait at the grid barrier, the next leaf's rows), on the leaf's block 0.
 The stamps cost a few instructions on block 0; the kernels the port launches
 carry none.
-``matmul`` (:func:`_matmul`) is timed by CUDA events instead.  Nothing
-here runs at import.
+``matmul`` (:func:`_matmul`) is timed by CUDA events instead.
+
+The chase kernels (``hb2st_wavefront``, ``tb2bd_wavefront``: ~24,600
+staggers, too many for one stamp each) are stamped through their
+``CHASE_PHASE`` hooks instead (:func:`chase_source`): the first block of
+each cluster adds its SM cycles since the last hook to the phase each
+names (the task's load, its row dots, column dots, updates, larfg and
+other passes, each exchange's cluster-barrier wait, the partial sums,
+the store, the stagger's grid barrier, the deferred half of an
+exchange's second barrier), and :func:`_chase` prints each cluster's
+time outside the stagger barrier and the busiest one's µs a task in
+each phase at (8192, 256) fp32 and (4096, 256) fp64 beside the plan and
+registers.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -189,8 +200,10 @@ def stamped_source(name: str) -> str:
 
 
 def build(names) -> dict:
-    """Stamped copies of kernels ``names``, one ``nvcc`` each, all started
-    together: ``{name: ctypes.CDLL}``."""
+    """Stamped copies of kernels ``names`` (:func:`chase_source` for the
+    chases, else :func:`stamped_source`), one ``nvcc`` each, all started
+    together: ``{name: ctypes.CDLL}``; each compiler log (``-Xptxas -v``)
+    is kept beside its library as ``<lib>.log``."""
     from ..ops import _build
 
     out = _build.BUILD_DIR / "phases"
@@ -198,7 +211,7 @@ def build(names) -> dict:
     procs = {}
     for name in names:
         cu = out / (name + "_phases.cu")
-        cu.write_text(stamped_source(name))
+        cu.write_text(chase_source(name) if name in CHASES else stamped_source(name))
         so = out / ("lib%s_phases.so" % name)
         procs[name] = (so, cu, subprocess.Popen(
             [_build.nvcc_path(), *_build.FLAGS, "-o", str(so), str(cu)],
@@ -206,6 +219,7 @@ def build(names) -> dict:
     libs = {}
     for name, (so, cu, proc) in procs.items():
         log, _ = proc.communicate()
+        so.with_name(so.name + ".log").write_text(log)
         if proc.returncode:
             raise RuntimeError("nvcc failed on %s:\n%s" % (cu, log))
         libs[name] = ctypes.CDLL(str(so))
@@ -636,6 +650,160 @@ def _lu_panel_report(label: str, d, ghz: float, w: int, ib: int) -> None:
               statistics.median(x[ib + 2] for x in blocks[:-1])), flush=True)
 
 
+#: the chase kernels' stamps: CHASE_PHASE(k) (csrc/chase.cuh's hooks) adds
+#: the SM cycles since the last mark to phase k on the first block of each
+#: cluster, in shared memory (a few cycles a mark), written out at the
+#: kernel's end; the start and end marks of block 0 read the global timer
+#: too
+_CHASE_HEAD = r'''
+#define PH_N 12
+#define PH_G 132
+__device__ unsigned long long g_ph[PH_G][PH_N];
+__device__ unsigned long long g_phn[PH_G][PH_N];
+__device__ unsigned long long g_mark[4];
+__shared__ unsigned long long ph_acc[PH_N], ph_cnt[PH_N], ph_last;
+__device__ __forceinline__ unsigned long long g_time() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ unsigned ph_reg(int which) {
+  unsigned r;
+  if (which) asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  else asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+#define PH_ONE (threadIdx.x == 0 && ph_reg(0) == 0 && ph_reg(1) < PH_G)
+#define CHASE_PHASE(k) do { if (PH_ONE) { const unsigned long long c_ = clock64(); \
+  const int k_ = (k); ph_acc[k_] += c_ - ph_last; ++ph_cnt[k_]; ph_last = c_; } } while (0)
+#define PHASES_START() do { if (PH_ONE) { for (int k_ = 0; k_ < PH_N; ++k_) \
+  ph_acc[k_] = ph_cnt[k_] = 0; ph_last = clock64(); \
+  if (blockIdx.x == 0) { g_mark[0] = clock64(); g_mark[1] = g_time(); } } } while (0)
+#define PHASES_END() do { if (PH_ONE) { const unsigned g_ = ph_reg(1); \
+  for (int k_ = 0; k_ < PH_N; ++k_) { g_ph[g_][k_] = ph_acc[k_]; g_phn[g_][k_] = ph_cnt[k_]; } \
+  if (blockIdx.x == 0) { g_mark[2] = clock64(); g_mark[3] = g_time(); } } } while (0)
+'''
+_CHASE_TAIL = r'''
+extern "C" int chase_phases_reset() {
+  static unsigned long long z[PH_G * PH_N];
+  cudaMemcpyToSymbol(g_ph, z, sizeof z);
+  return (int)cudaMemcpyToSymbol(g_phn, z, sizeof z);
+}
+extern "C" int chase_phases_read(unsigned long long* ph, unsigned long long* n,
+                                 unsigned long long* mark) {
+  cudaDeviceSynchronize();
+  cudaMemcpyFromSymbol(ph, g_ph, sizeof g_ph);
+  cudaMemcpyFromSymbol(n, g_phn, sizeof g_phn);
+  return (int)cudaMemcpyFromSymbol(mark, g_mark, sizeof g_mark);
+}
+'''
+#: the chase kernels' phases (chase.cuh Phase), as printed
+CHASE_PHASES = ("load", "other passes", "exchange 1 wait", "exchange 2 wait",
+                "partial sums", "store", "stagger barrier", "trailing wait",
+                "row dots", "column dots", "updates", "larfg")
+#: the marks of a chase kernel's stamped copy: its start and its end
+CHASE_MARKS = [("  Exchange<T> ex{s.x, p.C, 0, false};",
+                "  Exchange<T> ex{s.x, p.C, 0, false};\n  PHASES_START();"),
+               ("  ex.finish();\n}", "  ex.finish();\n  PHASES_END();\n}")]
+
+
+def chase_source(name: str) -> str:
+    """Chase kernel ``name``'s source with its local headers inlined and
+    the phase stamps of :data:`_CHASE_HEAD` at :data:`CHASE_MARKS`."""
+    from ..ops import _build
+
+    src = (_build.CSRC / (name + ".cu")).read_text()
+    first = _LOCAL_INCLUDE.search(src).start()
+    src = src[:first] + _CHASE_HEAD + _inline(src[first:], set())
+    for old, new in CHASE_MARKS:
+        if src.count(old) != 1:
+            raise RuntimeError("%s: the mark %r is not in the source once" % (name, old))
+        src = src.replace(old, new)
+    return src + _CHASE_TAIL
+
+
+def ptxas_lines(log_path, key: str) -> list:
+    """The registers and spill lines ``-Xptxas -v`` printed for the entries
+    whose mangled names hold ``key``."""
+    entry, out = None, []
+    for ln in log_path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = m.group(1)
+        elif entry and key in entry and ("registers" in ln or "spill" in ln):
+            out.append(ln.split("info    :")[-1].strip())
+    return out
+
+
+def _chase(name: str, torch, lib, gen, dev) -> None:
+    """A chase kernel at heev's and svd's shapes, (8192, 256) fp32 and
+    (4096, 256) fp64, on a random band of width kd, in its stamped copy
+    (:func:`chase_source`): the plan, registers, the launch's time by the
+    global timer and the staggers; for the first block of each cluster its
+    µs a stagger outside the stagger barrier and its tasks; and for the
+    busiest one its µs a task in each phase, on its SM clock as block 0's
+    cycles over the launch's nanoseconds give it."""
+    from ..ops import _build, kernels, smem
+
+    kind = name.split("_")[0]
+    hb = kind == "hb2st"
+    entry_args = kernels._SIGNATURES[name][1][:-1]
+    for n, kd, dt in ((8192, 256, torch.float32), (4096, 256, torch.float64)):
+        band = torch.zeros((n, (2 if hb else 3) * kd + 2), dtype=dt, device=dev)
+        for d in range(kd + 1):
+            band[:n - d, d if hb else kd + d] = torch.randn(
+                n - d, generator=gen, device=dev, dtype=dt)
+        nsw, nmax, tmax, nl = (kernels.hb_wave_meta if hb else kernels.tb_wave_meta)(n, kd)
+        logs = torch.zeros((2, nsw, nmax, kd + 1), dtype=dt, device=dev)
+        work = torch.empty_like(band)
+        args = ([work.data_ptr(), work.stride(0), n, kd, 0, n - 2]
+                + ([logs[0].data_ptr()] if hb else [logs[0].data_ptr(), logs[1].data_ptr()])
+                + [nmax, 1])
+        dts = "f32" if dt == torch.float32 else "f64"
+        fn = getattr(lib, "slate_%s_%s" % (name, dts))
+        fn.argtypes = list(entry_args) + [P]
+        fn.restype = I
+        ph, cnt = (ctypes.c_ulonglong * (12 * 132))(), (ctypes.c_ulonglong * (12 * 132))()
+        mark = (ctypes.c_ulonglong * 4)()
+        best = None
+        for _ in range(2):
+            work.copy_(band)
+            logs.zero_()
+            lib.chase_phases_reset()
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError("%s: CUDA error %d" % (name, rc))
+            lib.chase_phases_read(ph, cnt, mark)
+            ns = mark[3] - mark[1]
+            if best is None or ns < best[0]:
+                best = (ns, mark[2] - mark[0], list(ph), list(cnt))
+        ns, cycles, ph_c, ph_n = best
+        ghz = cycles / max(ns, 1)
+        stag = tmax + 1
+        g, c, route = _plan(lib, name, n, kd, 0, n, dt.itemsize, outs=3)
+        rname = smem.CHASE_ROUTES[route]
+        key = "I%sLb%dELb1E" % ("f" if dts == "f32" else "d", 1 - route)
+        log = _build.BUILD_DIR / "phases" / ("lib%s_phases.so.log" % name)
+        # per cluster (its first block): tasks run (stores), µs in each phase
+        groups = [g for g in range(132) if any(ph_n[12 * g:12 * g + 12])]
+        us = {g: [ph_c[12 * g + k] / ghz / 1e3 for k in range(12)] for g in groups}
+        tasks = {g: ph_n[12 * g + 5] for g in groups}
+        busy = max(groups, key=lambda g: sum(us[g]) - us[g][6])
+        split = {CHASE_PHASES[k]: round(us[busy][k] / max(tasks[busy], 1), 3)
+                 for k in range(12) if ph_n[12 * busy + k] and k != 6}
+        print("%s (%d, %d) %s: %d clusters x %d blocks of %d threads (%d live tasks a "
+              "stagger), route %s, %d B dynamic shared memory a block by the formula; "
+              "ptxas of the stamped copy %s; %d staggers, %.3f ms by the global timer "
+              "at %.2f GHz (block 0's clock), %.3f us a stagger; outside the stagger "
+              "barrier, us a stagger by cluster %s; tasks by cluster %s; the busiest "
+              "cluster (%d), us a task by phase %s" % (
+                  name, n, kd, dts, g, c, smem.CHASE_THREADS, nl, rname,
+                  smem.chase_block_bytes(kind, kd, dt, c, rname),
+                  "; ".join(ptxas_lines(log, key)), stag, ns / 1e6, ghz, ns / 1e3 / stag,
+                  [round((sum(us[g]) - us[g][6]) / stag, 2) for g in groups],
+                  [tasks[g] for g in groups], busy, split), flush=True)
+
+
 def _matmul(torch, lib, gen, dev) -> None:
     """The matmul kernel by CUDA events (it has no grid barrier to stamp):
     phase 2's timed shape, 8192³ and geqrf's two products under one wave
@@ -709,13 +877,16 @@ def _matmul(torch, lib, gen, dev) -> None:
         flush=True)
 
 
+CHASES = ("hb2st_wavefront", "tb2bd_wavefront")
 SECTIONS = {"lu_inv_panel": _lu_inv_panel, "lu_u12_panel": _lu_u12_panel,
             "chol_inv_panel": _chol_inv_panel, "potrf_full_fused": _potrf_full_fused,
             "trtri_panel": _trtri_panel, "getrf_full_fused": _getrf_full_fused,
             "potrf_step_fused": _potrf_step_fused, "getrf_step_fused": _getrf_step_fused,
             "chol_l21_panel": _chol_l21_panel, "matmul": _matmul,
             "getrf_panel_fused": functools.partial(_lu_panel, "getrf_panel_fused"),
-            "getrf_panel_linv": functools.partial(_lu_panel, "getrf_panel_linv")}
+            "getrf_panel_linv": functools.partial(_lu_panel, "getrf_panel_linv"),
+            "hb2st_wavefront": functools.partial(_chase, "hb2st_wavefront"),
+            "tb2bd_wavefront": functools.partial(_chase, "tb2bd_wavefront")}
 
 
 def main(argv=None) -> int:
@@ -735,7 +906,7 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    libs = build([x for x in names if x in MARKS])
+    libs = build([x for x in names if x in MARKS or x in CHASES])
     for name in names:
         SECTIONS[name](torch, libs.get(name), gen, dev)
     return 0

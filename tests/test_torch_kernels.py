@@ -666,3 +666,129 @@ def test_chol_l21_panel_scratch_covers_chol_inv_grid(nb):
     for dev in ("cpu", "cuda"):
         if kernels.fused_panel_fits(nb, (1024,), dev):
             assert kernels.chol_l21_panel_scratch(nb) >= nb * nb
+
+
+# ---------------------------------------------------------------------------
+# The chase kernels' plan (ops/smem.py chase_*; csrc/chase.cuh computes the
+# same, and chip_smoke.py holds the two to each other on the card): one
+# task a cluster, its window in the cluster's shared memory or left in the
+# band.
+# ---------------------------------------------------------------------------
+
+#: clusters of each size an H100 holds at once, one block an SM (the
+#: occupancy query's answer is the card's; these stand in for it here)
+_H100_CLUSTERS = {16: 7, 8: 16, 4: 33, 2: 66, 1: 132}
+
+
+@pytest.mark.parametrize("kind", ["hb2st", "tb2bd"])
+@pytest.mark.parametrize("n, kd, dtype, cluster", [(8192, 256, torch.float32, 8),
+                                                   (4096, 256, torch.float64, 16)])
+def test_chase_main_shapes_take_the_shared_memory_route(kind, n, kd, dtype, cluster):
+    """heev's and svd's chases at their main shapes keep each task's window
+    in its cluster's shared memory, within a block's 227 KB, and run every
+    live task of a stagger at once: 12 tasks on clusters of 8 at n = 8192
+    (96 SMs), 7 on clusters of 16 at n = 4096 (112 SMs)."""
+    from slate_tpu_torch.ops import smem
+
+    meta = kernels.hb_wave_meta if kind == "hb2st" else kernels.tb_wave_meta
+    nl = meta(n, kd)[3]
+    g, c, route = smem.chase_plan(kind, kd, dtype, nl, _H100_CLUSTERS)
+    assert (g, c, route) == (nl, cluster, "smem")
+    assert smem.chase_route(kind, kd, dtype) == "smem"
+    assert smem.chase_block_bytes(kind, kd, dtype, c, route) <= smem.BLOCK_SMEM_MAX
+    assert nl == (12 if n == 8192 else 7)
+
+
+@pytest.mark.parametrize("kind", ["hb2st", "tb2bd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kd", [4, 64, 256, 512, 768, 1024])
+def test_every_admitted_band_width_gets_a_route(kind, dtype, kd):
+    """Every kd the chase site admits (``linalg._chase.eligible``: kd ≥ 4,
+    n > kd + 2) gets a plan whose block share fits: the window in shared
+    memory while a block's share at 16 blocks fits, else left in the band
+    with only the vectors in shared memory."""
+    from slate_tpu_torch.linalg import _chase
+    from slate_tpu_torch.ops import smem
+
+    for n in (kd + 3, 4 * kd + 5):
+        assert _chase.eligible(n, kd, True)
+        meta = kernels.hb_wave_meta if kind == "hb2st" else kernels.tb_wave_meta
+        nl = meta(n, kd)[3]
+        g, c, route = smem.chase_plan(kind, kd, dtype, nl, _H100_CLUSTERS)
+        assert route == smem.chase_route(kind, kd, dtype)
+        assert smem.chase_block_bytes(kind, kd, dtype, c, route) <= smem.BLOCK_SMEM_MAX
+        assert 1 <= g <= max(nl, 1) and c in _H100_CLUSTERS
+    smem_fits = (smem.chase_block_bytes(kind, kd, dtype, 16, "smem")
+                 <= smem.BLOCK_SMEM_MAX)
+    assert smem.chase_route(kind, kd, dtype) == ("smem" if smem_fits else "l2")
+    # fp64 takes the band route from kd = 453 (tb2bd) and 528 (hb2st), fp32
+    # from 657 and 757
+    first = {("hb2st", torch.float32): 757, ("hb2st", torch.float64): 528,
+             ("tb2bd", torch.float32): 657, ("tb2bd", torch.float64): 453}
+    assert (smem.chase_route(kind, kd, dtype) == "l2") == (kd >= first[kind, dtype])
+
+
+@pytest.mark.parametrize("nl, clusters, want", [
+    (12, {16: 7, 8: 16, 4: 33, 2: 66, 1: 132}, (12, 8)),     # one round at 8
+    (7, {16: 7, 8: 16, 4: 33, 2: 66, 1: 132}, (7, 16)),      # a tie: the larger
+    (44, {16: 7, 8: 16, 4: 33, 2: 66, 1: 132}, (44, 2)),
+    (12, {16: 0, 8: 0, 4: 33, 2: 66, 1: 132}, (12, 4)),      # no cluster of 8 fits
+    (20, {16: 7, 8: 8, 4: 0, 2: 0, 1: 0}, (7, 16)),          # three rounds either way
+])
+def test_chase_plan_takes_the_fewest_rounds_then_the_largest_cluster(nl, clusters, want):
+    from slate_tpu_torch.ops import smem
+
+    assert smem.chase_plan("hb2st", 64, torch.float32, nl, clusters)[:2] == want
+
+
+@pytest.mark.parametrize("kind", ["hb2st", "tb2bd"])
+@pytest.mark.parametrize("kd", [5, 256, 511])
+def test_chase_window_shares_cover_the_window(kind, kd):
+    """The blocks of a cluster of any size hold the whole window between
+    them: hb2st's (kd, kd) bulge block by columns and the kd(kd+1)/2 stored
+    entries of the symmetric block by pairs of columns (c, kd−1−c),
+    kd + 1 entries a pair; tb2bd's two (kd, kd) blocks by columns and by
+    rows."""
+    from slate_tpu_torch.ops import smem
+
+    for c in (1, 2, 4, 8, 16):
+        s = smem.chase_share(kd, c)
+        assert c * s >= kd > c * (s - 1)          # the least share that covers
+        have = smem.chase_window_values(kind, kd, c)
+        if kind == "hb2st":
+            pairs = -(-(-(-kd // 2)) // c)
+            assert have == s * kd + pairs * (kd + 1)
+            assert c * pairs * (kd + 1) >= kd * (kd + 1) // 2
+        else:
+            assert have == s * kd + kd * (s + 1)
+        assert c * have >= (kd * kd + kd * (kd + 1) // 2 if kind == "hb2st"
+                            else 2 * kd * kd)
+
+
+@pytest.mark.parametrize("which", ["hb2st", "tb2bd"])
+def test_chase_wrappers_take_the_plain_route_on_the_cpu(which, monkeypatch):
+    """On CPU tensors the chase wrappers run their plain versions (the
+    same bits) and neither plan, launch nor count a kernel."""
+    def refuse(*a, **k):
+        raise AssertionError("no plan or launch on the CPU")
+
+    monkeypatch.setattr(kernels, "_plan", refuse)
+    monkeypatch.setattr(kernels, "_launch", refuse)
+    kernels.reset_launches()
+    n, kd = 48, 8
+    rng = np.random.default_rng(3)
+    if which == "hb2st":
+        band = np.zeros((n, 2 * kd + 2))
+        for d in range(kd + 1):
+            band[:n - d, d] = rng.standard_normal(n - d)
+        got = kernels.hb2st_wavefront(torch.from_numpy(band.copy()), kd)
+        want = kernels.hb2st_wavefront_plain(torch.from_numpy(band.copy()), kd)
+    else:
+        band = np.zeros((n, 3 * kd + 2))
+        for d in range(kd + 1):
+            band[:n - d, kd + d] = rng.standard_normal(n - d)
+        got = kernels.tb2bd_wavefront(torch.from_numpy(band.copy()), kd)
+        want = kernels.tb2bd_wavefront_plain(torch.from_numpy(band.copy()), kd)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert kernels.launches[which + "_wavefront"] == 0

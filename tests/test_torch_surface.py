@@ -134,3 +134,20 @@ def test_kernel_phases_marks_the_lu_panel_leaf(kernel):
     assert "atomicMax(&g_end, g_time());" in src
     for _, new in kernel_phases.MARKS[kernel]:
         assert new in src
+
+
+@pytest.mark.parametrize("kernel", ["hb2st_wavefront", "tb2bd_wavefront"])
+def test_kernel_phases_marks_the_chase_phases(kernel):
+    """The chase kernels' stamped copies (``perf/kernel_phases.py``
+    chase_source): every header of ``csrc`` inlined, the phase macro
+    defined before chase.cuh's no-op default, the start mark after the
+    exchange's set-up and the end mark after its last wait, once each."""
+    from slate_tpu_torch.perf import kernel_phases
+
+    src = kernel_phases.chase_source(kernel)
+    assert not [inc for inc in _INCLUDE.findall(src) if (_build.CSRC / inc).is_file()]
+    assert set(kernel_phases.SECTIONS) >= {kernel}
+    assert src.index("#define CHASE_PHASE(k) do") < src.index("#ifndef CHASE_PHASE")
+    assert src.count("  PHASES_START();") == 1
+    assert src.count("  ex.finish();\n  PHASES_END();") == 1
+    assert "CHASE_PHASE(PH_STAGGER);" in src
