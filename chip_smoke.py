@@ -39,8 +39,13 @@
    each prints its grid, cluster, registers and shared memory and a
    "redesign" line beside its time before the redesign; the batched
    kernels (phase 2c) at (B, n) = (16, 32), (16, 64), (16, 128) and
-   (64, 256) to the same pivots, per-problem factor residuals ≤ 3 and
-   1e-4 of their plain versions.  The fused and full kernels of potrf and
+   (64, 256), and both routes of each at their boundary (B = 4: the
+   largest n of the on-chip route, the smallest of the L2 route), to the
+   same pivots, per-problem factor residuals ≤ 3 and 1e-4 of their plain
+   versions; each launch's plan (route, cluster, registers, spill,
+   shared memory) printed, both timed at (64, 256) and at the served
+   (16, 256) with a "redesign" line beside their times before the
+   on-chip redesign.  The fused and full kernels of potrf and
    getrf (phase 2d) at n = 2048 and at the main path's n = 8192, nb =
    512: the Cholesky step at k0 = 0 (and 512 at n = 2048), every LU step
    with ``update`` on (and off at n = 2048; the first step off at 8192),
@@ -381,6 +386,12 @@ CHASE_F32_SWEEPS = 64
 #: (EIG_N64 or SVD_N64, NB)
 CHASE_BEFORE_MS = {"hb2st_wavefront": {"float32": 1409.945, "float64": 805.462},
                    "tb2bd_wavefront": {"float32": 1751.606, "float64": 1059.067}}
+#: each batched kernel's time before its on-chip redesign, ms at (BATCH,
+#: BATCH_N) and (SERVE_BATCH, BATCH_N): the one-block kernels built from
+#: the parent tree and timed by CUDA events on an H100 80GB HBM3 at 700 W;
+#: printed in the ``redesign`` lines only
+BATCHED_BEFORE_MS = {"potrf_batched": (0.4149, 0.4039),
+                     "getrf_batched": (0.6590, 0.6503)}
 EIG_N, EIG_N64, EIG_HOST_N = 8192, 4096, 2048
 #: the SVD paths' sizes (bench.py's svd_fp32 at n = 8192 and svd_fp64's
 #: generator at one card's 4096; values only through the host chase at
@@ -1248,29 +1259,90 @@ def _batched_lu_gates(torch, label, a, out, piv, ref) -> float:
     return max(errs)
 
 
+def _potrf_batched_gates(torch, kernels, spd, label: str):
+    """The gates of one potrf_batched call on the SPD batch ``spd`` (stale
+    values above each diagonal): 1e-4 (relative Frobenius) of the plain
+    version, every problem's ‖L·Lᵀ − A‖/(‖A‖·ε·n) ≤ 3, zeros above the
+    diagonal.  Returns ``(L, rel, residual)``."""
+    eps = float(torch.finfo(torch.float32).eps)
+    n = spd.shape[-1]
+    l, lp = kernels.potrf_batched(spd), kernels.potrf_batched_plain(spd)
+    torch.cuda.synchronize()
+    err = rel_err(l, lp)
+    ld, ad = l.double(), torch.tril(spd.double())
+    ad = ad + torch.tril(ad, -1).mT
+    res = float(((ld @ ld.mT - ad).norm(dim=(1, 2))
+                 / (ad.norm(dim=(1, 2)) * eps * n)).max())
+    if not (err <= 1e-4 and res <= 3 and bool((torch.triu(l, 1) == 0).all())):
+        fail("%s: rel %.3e, residual %.3g" % (label, err, res))
+    return l, lp, err, res
+
+
+def _batched_spd(torch, gen, dev, bsz: int, n: int):
+    g = torch.randn((bsz, n, n), generator=gen, device=dev)
+    spd = g @ g.mT + n * torch.eye(n, device=dev)
+    return g, torch.tril(spd) + torch.triu(torch.full_like(spd, 1e3), 1)
+
+
+def batched_launch_plan(kernels, dev, name: str, n: int) -> dict:
+    """A batched kernel's launch at n from its plan (the kernel's C entry,
+    which ``ops/smem.py`` restates): the route, the cluster (getrf) and
+    one block's shared memory, with the ptxas line (registers, spill) of
+    the route's entry; printed and returned."""
+    from slate_tpu_torch.ops import _build
+    from slate_tpu_torch.perf.kernel_phases import ptxas_lines
+
+    plan = kernels.batched_plan(name, dev, n)
+    route, nbytes = plan[0], plan[-1]
+    cluster = plan[1] if len(plan) == 3 else 1
+    key = {("potrf_batched", "smem"): "potrf_batched_smem_kernel",
+           ("potrf_batched", "l2"): "potrf_batched_kernelE",
+           ("getrf_batched", "smem"): "cluster_kernelILi%dE" % -(-n // 256),
+           ("getrf_batched", "l2"): "getrf_batched_kernelE"}[name, route]
+    log = _build.lib_path(name)
+    ptxas = ptxas_lines(log.with_name(log.name + ".log"), key)
+    shape = {("potrf_batched", "smem"): "one block of 512 threads a problem",
+             ("potrf_batched", "l2"): "one block of 1024 threads a problem",
+             ("getrf_batched", "smem"): "a cluster of %d blocks of 256 threads "
+                                        "a problem" % cluster,
+             ("getrf_batched", "l2"): "one block of 256 threads a problem"}
+    print("%s at n = %d: route %s, %s, %d B shared memory a block (plan); "
+          "ptxas %s" % (name, n, route, shape[name, route], nbytes,
+                        " | ".join(ptxas)), flush=True)
+    return dict(route=route, cluster=cluster, smem_bytes=nbytes, ptxas=ptxas)
+
+
+def batched_route_edges(smem) -> dict:
+    """Each batched kernel's two routes at their boundary: the largest n
+    of the on-chip route and the smallest of the l2 route, among the n
+    the shape gate admits (to 1024)."""
+    edges = {}
+    for name in ("potrf_batched", "getrf_batched"):
+        ns = [n for n in range(32, 1025, 32) if smem.batched_fits(name, n)]
+        plan = getattr(smem, name + "_plan")
+        edges[name] = (max(n for n in ns if plan(n)[0] == "smem"),
+                       min(n for n in ns if plan(n)[0] == "l2"))
+    return edges
+
+
 def check_batched_kernels(torch, kernels, dev) -> dict:
     """Phase 2c: the batched kernels against their plain versions at the
-    drivers' (B, n) = (64, 256) and at n = 32, 64, 128 (B = 16, the
-    served batch), on plain Gaussian problems so that the argmax really
-    chooses; times at (64, 256)."""
+    drivers' (B, n) = (64, 256), at n = 32, 64, 128 (B = 16, the served
+    batch) and at each route's boundary (B = 4: the largest n of the
+    on-chip route and the smallest of the l2 route), on plain Gaussian
+    problems so that the argmax really chooses; each launch's plan
+    (route, cluster, registers, spill, shared memory) printed; times at
+    (64, 256) and at the served (16, 256), with a ``redesign`` line beside
+    the time before the on-chip redesign."""
+    from slate_tpu_torch.ops import smem
+
     gen = torch.Generator(device=dev).manual_seed(5)
-    eps = float(torch.finfo(torch.float32).eps)
     out = {}
     for bsz, n in ((SERVE_BATCH, 32), (SERVE_BATCH, 64), (SERVE_BATCH, 128),
                    (BATCH, BATCH_N)):
-        g = torch.randn((bsz, n, n), generator=gen, device=dev)
-        spd = g @ g.mT + n * torch.eye(n, device=dev)
-        spd = torch.tril(spd) + torch.triu(torch.full_like(spd, 1e3), 1)
-        l, lp = kernels.potrf_batched(spd), kernels.potrf_batched_plain(spd)
-        torch.cuda.synchronize()
-        err = rel_err(l, lp)
-        ld, ad = l.double(), torch.tril(spd.double())
-        ad = ad + torch.tril(ad, -1).mT
-        res = float(((ld @ ld.mT - ad).norm(dim=(1, 2))
-                     / (ad.norm(dim=(1, 2)) * eps * n)).max())
-        if not (err <= 1e-4 and res <= 3 and bool((torch.triu(l, 1) == 0).all())):
-            fail("potrf_batched (%d, %d): rel %.3e, residual %.3g"
-                 % (bsz, n, err, res))
+        g, spd = _batched_spd(torch, gen, dev, bsz, n)
+        l, lp, err, res = _potrf_batched_gates(
+            torch, kernels, spd, "potrf_batched (%d, %d)" % (bsz, n))
         at = g.mT.contiguous()                    # plain Gaussian, transposed
         o, p = kernels.getrf_batched(at)
         ref = kernels.getrf_batched_plain(at)
@@ -1280,14 +1352,37 @@ def check_batched_kernels(torch, kernels, dev) -> dict:
         print("batched kernels at (%d, %d): potrf rel %.3e residual %.3g; "
               "getrf max abs diff %.3e, pivots equal to the plain version's"
               % (bsz, n, err, res, lu_err), flush=True)
-    flops = {"potrf_batched": BATCH * BATCH_N ** 3 / 3.0,
-             "getrf_batched": BATCH * 2.0 * BATCH_N ** 3 / 3.0}
-    # potrf_batched reads each problem's lower triangle and writes the
-    # whole factor; getrf_batched reads and writes whole problems + pivots
-    nbytes = {"potrf_batched": 4.0 * BATCH * (BATCH_N * (BATCH_N + 1) / 2
-                                              + BATCH_N ** 2),
-              "getrf_batched": 2.0 * 4 * BATCH * BATCH_N ** 2
-              + 8.0 * BATCH * BATCH_N}
+    plans = {name: batched_launch_plan(kernels, dev, name, BATCH_N)
+             for name in ("potrf_batched", "getrf_batched")}
+    # each route at its boundary
+    edges = batched_route_edges(smem)
+    second = {name: {} for name in edges}
+    for name, (n_on, n_off) in edges.items():
+        for n in (n_on, n_off):
+            plan = batched_launch_plan(kernels, dev, name, n)
+            g4, spd4 = _batched_spd(torch, gen, dev, 4, n)
+            label = "%s (4, %d), route %s" % (name, n, plan["route"])
+            if name == "potrf_batched":
+                l4, lp4, e4, _ = _potrf_batched_gates(torch, kernels, spd4, label)
+                e4 = float((l4 - lp4).abs().max())
+            else:
+                at4 = g4.mT.contiguous()
+                o4, p4 = kernels.getrf_batched(at4)
+                e4 = _batched_lu_gates(torch, label, g4, o4, p4,
+                                       kernels.getrf_batched_plain(at4))
+            print("%s: max_abs_err %.3e, gates passed" % (label, e4), flush=True)
+            second[name]["n%d_%s" % (n, plan["route"])] = dict(
+                max_abs_err=e4, cluster=plan["cluster"], smem_bytes=plan["smem_bytes"])
+
+    def flops(name, bsz):
+        return bsz * BATCH_N ** 3 / 3.0 * (1 if name == "potrf_batched" else 2)
+
+    def nbytes(name, bsz):
+        # potrf_batched reads each problem's lower triangle and writes the
+        # whole factor; getrf_batched reads and writes whole problems + pivots
+        if name == "potrf_batched":
+            return 4.0 * bsz * (BATCH_N * (BATCH_N + 1) / 2 + BATCH_N ** 2)
+        return 2.0 * 4 * bsz * BATCH_N ** 2 + 8.0 * bsz * BATCH_N
 
     def cusolver(fn, arg):
         def call():
@@ -1299,12 +1394,16 @@ def check_batched_kernels(torch, kernels, dev) -> dict:
                 torch.backends.cuda.preferred_linalg_library(saved)
         return call
 
-    for name, arg, lib, lib_arg, err in (
+    g16, spd16 = _batched_spd(torch, gen, dev, SERVE_BATCH, BATCH_N)
+    at16 = g16.mT.contiguous()
+    for name, arg, lib, lib_arg, err, arg16, lib_arg16 in (
             ("potrf_batched", spd, torch.linalg.cholesky, spd,
-             float((l - lp).abs().max())),
-            ("getrf_batched", at, torch.linalg.lu_factor, g, lu_err)):
-        b_ms, b_by = bound(flops[name], nbytes[name])
+             float((l - lp).abs().max()), spd16, spd16),
+            ("getrf_batched", at, torch.linalg.lu_factor, g, lu_err, at16, g16)):
+        b_ms, b_by = bound(flops(name, BATCH), nbytes(name, BATCH))
+        b16_ms, _ = bound(flops(name, SERVE_BATCH), nbytes(name, SERVE_BATCH))
         kern, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+        plan = plans[name]
         out[name] = dict(
             shape="(%d,%d,%d)" % (BATCH, BATCH_N, BATCH_N), max_abs_err=err,
             tol="pivots exact (near-ties reported), rel 1e-4"
@@ -1312,13 +1411,32 @@ def check_batched_kernels(torch, kernels, dev) -> dict:
             ms=cuda_ms(torch, lambda: kern(arg), 20),
             plain_ms=cuda_ms(torch, lambda: plain(arg), 2),
             library_ms=cuda_ms(torch, cusolver(lib, lib_arg), 20),
-            bound_ms=b_ms, bound_by=b_by)
+            bound_ms=b_ms, bound_by=b_by,
+            b16_ms=cuda_ms(torch, lambda: kern(arg16), 20),
+            b16_library_ms=cuda_ms(torch, cusolver(lib, lib_arg16), 20),
+            b16_bound_ms=b16_ms, batched_route=plan["route"],
+            cluster=plan["cluster"], smem_bytes=plan["smem_bytes"],
+            second_route=second[name])
         r = out[name]
         print("kernel %s %s: max_abs_err %.3e (%s); kernel %.4f ms, plain "
-              "%.4f ms, library %.4f ms, bound %.5f ms (%s)"
+              "%.4f ms, library %.4f ms, bound %.5f ms (%s); at (%d,%d,%d) kernel "
+              "%.4f ms, library %.4f ms, bound %.5f ms"
               % (name, r["shape"], r["max_abs_err"], r["tol"], r["ms"],
-                 r["plain_ms"], r["library_ms"], r["bound_ms"],
-                 r["bound_by"]), flush=True)
+                 r["plain_ms"], r["library_ms"], r["bound_ms"], r["bound_by"],
+                 SERVE_BATCH, BATCH_N, BATCH_N, r["b16_ms"], r["b16_library_ms"],
+                 r["b16_bound_ms"]), flush=True)
+        before = BATCHED_BEFORE_MS[name]
+        print("redesign %s (%s on chip at n = %d, route %s, %s): (%d,%d) kernel "
+              "%.4f ms (%.4f ms before the redesign), (%d,%d) kernel %.4f ms (%.4f "
+              "ms before), %s %.4f / %.4f ms; the l2 route from n = %d"
+              % (name, "each problem's lower triangle" if name == "potrf_batched"
+                 else "each problem", edges[name][0], plan["route"],
+                 "one block a problem" if name == "potrf_batched" else
+                 "clusters of %d blocks" % plan["cluster"], BATCH, BATCH_N,
+                 r["ms"], before[0], SERVE_BATCH, BATCH_N, r["b16_ms"], before[1],
+                 "batched cholesky" if name == "potrf_batched" else
+                 "batched lu_factor", r["library_ms"], r["b16_library_ms"],
+                 edges[name][1]), flush=True)
     return out
 
 
@@ -1385,12 +1503,13 @@ def main_path_batched(torch, st, kernels, dev) -> dict:
         if launches[kernel] != 1:
             fail("%s launched %s %d times, not once"
                  % (path, kernel, launches[kernel]))
+    # each kernel's name matches both of its routes' __global__ functions
     res["posv_batched_split"] = device_split(
         torch, "posv_batched", lambda: st.posv_batched(tp, tbp),
-        {"potrf_batched kernel": "potrf_batched_kernel"})
+        {"potrf_batched kernel": "potrf_batched"})
     res["gesv_batched_split"] = device_split(
         torch, "gesv_batched", lambda: st.gesv_batched(ta, tbg),
-        {"getrf_batched kernel": "getrf_batched_kernel"})
+        {"getrf_batched kernel": "getrf_batched"})
     return res
 
 
@@ -4578,7 +4697,9 @@ def main() -> int:
                       "bound_fp32_ffma_ms", "fp64_errors", "qr_one_wave",
                       "cube_ms", "cube_library_ms", "cube_bound_ms",
                       "cube_bound_fp32_ffma_ms", "l_bitwise_chol_inv_panel",
-                      "cluster", "second_route", "chase_route"):
+                      "cluster", "second_route", "chase_route",
+                      "b16_ms", "b16_library_ms", "b16_bound_ms",
+                      "batched_route"):
             if extra in r:
                 rows[-1][extra] = r[extra]
         for p, calls in path_checks.items():    # every call of one run

@@ -36,7 +36,7 @@ SOURCES = {
     "lu_inv_panel": ("lu_inv_panel.cu", ("tri_grid.cuh",)),
     "getrf_panel_linv": ("getrf_panel_linv.cu", ("lu_panel.cuh", "grid_sync.cuh")),
     "getrf_panel_fused": ("getrf_panel_fused.cu", ("lu_panel.cuh", "grid_sync.cuh")),
-    "potrf_batched": ("potrf_batched.cu", ("tri_panel.cuh",)),
+    "potrf_batched": ("potrf_batched.cu", ("tri_grid.cuh", "tri_panel.cuh")),
     "getrf_batched": ("getrf_batched.cu", ("lu_panel.cuh", "grid_sync.cuh")),
     "potrf_step_fused": ("potrf_step_fused.cu",
                          ("potrf_grid.cuh", "tri_grid.cuh")),

@@ -120,21 +120,38 @@ def _fn(name: str, dt=None):
         return fn
 
 
-def _check_getrf_batched_smem(lib, name: str) -> None:
-    """Raise unless the kernel's shared-memory formula (its C entry
-    ``slate_getrf_batched_smem_bytes``) is :func:`smem.getrf_batched_bytes`
-    at every n the gate could pass, so the gate and the kernel cannot
-    drift apart."""
+def _c_batched_plan(lib, name: str, n: int) -> tuple:
+    """The batched kernel's own plan at n (``slate_<name>_plan``): ``(route,
+    bytes)`` for ``potrf_batched``, ``(route, cluster, bytes)`` for
+    ``getrf_batched``, the route by name."""
     from . import smem
 
-    c_bytes = lib.slate_getrf_batched_smem_bytes
-    c_bytes.argtypes, c_bytes.restype = [_I], _I64
+    outs = 2 if name == "potrf_batched" else 3
+    fn = getattr(lib, "slate_%s_plan" % name)
+    fn.argtypes = [_I] + [ctypes.POINTER(ctypes.c_int)] * outs
+    fn.restype = ctypes.c_int
+    got = [ctypes.c_int(0) for _ in range(outs)]
+    rc = fn(n, *map(ctypes.byref, got))
+    if rc != 0:
+        raise RuntimeError("%s: no plan at n = %d: CUDA error %d" % (name, n, rc))
+    vals = [g.value for g in got]
+    return (smem.BATCHED_ROUTES[vals[0]],) + tuple(vals[1:])
+
+
+def _check_batched_plan(lib, name: str) -> None:
+    """Raise unless the batched kernel's plan (its C entry
+    ``slate_<name>_plan``: route, cluster, shared bytes) is
+    :func:`smem.potrf_batched_plan` / :func:`smem.getrf_batched_plan` at
+    every n on the 32 grid to 1024, so the gate, the wrapper and the
+    kernel cannot drift apart."""
+    from . import smem
+
+    py_plan = getattr(smem, name + "_plan")
     for n in range(smem.BATCHED_IB, 1025, smem.BATCHED_IB):
-        if c_bytes(n) != smem.getrf_batched_bytes(n):
-            raise RuntimeError(
-                "getrf_batched: the kernel takes %d B of shared memory at "
-                "n = %d, ops/smem.py counts %d B" % (c_bytes(n), n,
-                                                     smem.getrf_batched_bytes(n)))
+        got, want = _c_batched_plan(lib, name, n), py_plan(n)
+        if got != want:
+            raise RuntimeError("%s: the kernel plans %s at n = %d, ops/smem.py "
+                               "plans %s" % (name, got, n, want))
 
 
 def _check_static_smem(lib, name: str, want: int) -> None:
@@ -216,7 +233,8 @@ def _check_chase_smem(lib, name: str) -> None:
                             % (name, got, kd, dtype, cluster, r, want))
 
 
-_SMEM_CHECKS = {"getrf_batched": _check_getrf_batched_smem,
+_SMEM_CHECKS = {"potrf_batched": _check_batched_plan,
+                "getrf_batched": _check_batched_plan,
                 "hb2st_wavefront": _check_chase_smem,
                 "tb2bd_wavefront": _check_chase_smem,
                 "getrf_panel_linv": _check_lu_panel_smem,
@@ -812,8 +830,22 @@ def getrf_panel_fused(carry, act, k0: int, nb: int = 512, bb: int = 128,
 
 # ---------------------------------------------------------------------------
 # Batched kernels (replace pallas_kernels.potrf_batched :2323 and
-# getrf_batched :2433): one block per problem
+# getrf_batched :2433): each problem on chip, one block (potrf) or one
+# cluster (getrf) a problem; past the on-chip route, one block a problem
+# in device memory
 # ---------------------------------------------------------------------------
+
+def batched_plan(name: str, dev, n: int) -> tuple:
+    """The plan of batched kernel ``name`` at n, from the kernel's own C
+    entry on ``dev``'s library (the one :func:`smem.potrf_batched_plan` /
+    :func:`smem.getrf_batched_plan` restate): ``(route, bytes)`` or
+    ``(route, cluster, bytes)``."""
+    from . import _build
+
+    _fn(name)      # loads the library and checks the two plans agree
+    with torch.cuda.device(dev):
+        return _c_batched_plan(_build.library(name), name, n)
+
 
 def _check_batched(name: str, a) -> tuple:
     from . import smem
@@ -848,15 +880,18 @@ def potrf_batched(a):
     n), upper triangles zero.  Reads only each problem's lower triangle.
     n ≥ 32 and n % 32 == 0 (:func:`slate_tpu_torch.ops.smem.batched_fits`);
     on the card ``a`` must be contiguous."""
+    from . import smem
+
     bsz, n = _check_batched("potrf_batched", a)
     if _on_cpu(a):
         return potrf_batched_plain(a)
     _check_contiguous("potrf_batched", a)
     l = torch.empty_like(a)
-    work = torch.empty((bsz, max(n - IB, 1), IB), dtype=torch.float32,
-                       device=a.device)
+    work = None        # the l2 route's scratch, (batch, n - 32, 32)
+    if smem.potrf_batched_plan(n)[0] == "l2":
+        work = torch.empty((bsz, n - IB, IB), dtype=torch.float32, device=a.device)
     _launch("potrf_batched", a.device, a.data_ptr(), l.data_ptr(),
-            work.data_ptr(), bsz, n)
+            None if work is None else work.data_ptr(), bsz, n)
     return l
 
 

@@ -25,20 +25,29 @@ their cooperative grid keeps all w rows of its lanes in shared memory.
 
 **Batched kernels.**  The JAX package budgets ``bt`` whole problems of
 3·n²·4 bytes each against ~100 MB of VMEM per grid step
-(``slate_tpu/linalg/batched.py:114-128``).  One fp32 problem at n = 256
-is 256 KB, more than a block's 227 KB, so the port's batched kernels give
-each problem one block and keep it in device memory (L2-resident), not in
-shared memory; there is no ``bt`` to plan.  What they accept:
+(``slate_tpu/linalg/batched.py:114-128``).  Here each problem is held on
+chip by one block or one thread-block cluster; there is no ``bt`` to
+plan.  Each kernel has two routes, planned from n
+(:func:`potrf_batched_plan`, :func:`getrf_batched_plan`; the kernels'
+``slate_<name>_plan`` entries are checked equal to them when
+``ops/kernels.py`` loads the library):
 
-* ``potrf_batched`` (``csrc/potrf_batched.cu``) — n ≥ 32 and n % 32 == 0;
-  its shared memory is a fixed 42 KB of staging tiles, so no n is too
-  large for it;
-* ``getrf_batched`` (``csrc/getrf_batched.cu``) — the same, and its
-  dynamic shared memory (the current 32-row block and the block's U12
-  rows, :func:`getrf_batched_bytes`) must fit one block: n ≤ 864.
+* ``potrf_batched`` (``csrc/potrf_batched.cu``) — ``smem``: the problem's
+  lower triangle in one block's shared memory as (n/32)(n/32 + 1)/2 tiles
+  of 32 × 33 floats plus one for the diagonal block's inverse
+  (:func:`potrf_batched_bytes`; n ≤ 288 on the H100); ``l2``: one block
+  works from the output buffer in device memory with a fixed 42 KB of
+  staging tiles, so no n is too large for it;
+* ``getrf_batched`` (``csrc/getrf_batched.cu``) — ``smem``: the problem
+  split by 32-row blocks over the shared memory of a cluster of C ≤ 16
+  blocks, C the smallest whose shares fit
+  (:func:`getrf_batched_cluster_bytes`; C = 1 to n = 224, 2 at 256, the
+  route to n = 800); ``l2``: one block per problem, the problem in device
+  memory, its current 32-row block and U12 rows in shared memory
+  (:func:`getrf_batched_bytes`), which must fit one block: n ≤ 864.
 
-:func:`batched_fits` is that gate; the kernels' launchers refuse the
-same shapes.
+:func:`batched_fits` is the shape gate (n ≥ 32 on the 32 grid, and for
+``getrf_batched`` n ≤ 864); the kernels' launchers refuse the same shapes.
 
 **Fused and full factorization steps.**  The JAX package gates its
 fused step kernels on VMEM: the (n, nb) Cholesky block column, or the
@@ -204,14 +213,71 @@ def lu_panel_fits(m: int, w: int, ib: int, device=None) -> bool:
 BATCHED_IB = 32
 #: warps of a getrf_batched block (lu_panel.cuh NWARP)
 GETRF_BATCHED_WARPS = 8
+#: the batched kernels' two routes (potrf_batched.cu, getrf_batched.cu
+#: Route): the problem on chip, or in device memory (L2)
+BATCHED_ROUTES = ("smem", "l2")
+#: floats of a potrf_batched smem-route tile: 32 rows padded to 33
+POTRF_TILE = 32 * 33
+#: potrf_batched's l2-route staging (tri_panel.cuh Smem: two 32 × 132
+#: slabs, two 32 × 33 blocks), static shared memory
+POTRF_L2_SMEM = 4 * (2 * 32 * 132 + 2 * 32 * 33)
+#: getrf_batched's smem route: the widest cluster, a U12 chunk's row
+#: stride, a warp candidate's words (getrf_batched.cu MAX_CLUSTER, UCS, SLOT)
+GETRF_CLUSTER = 16
+GETRF_U12_STRIDE = 68
+GETRF_SLOT = 36
+
+
+def potrf_batched_bytes(n: int) -> int:
+    """Dynamic shared memory of a ``potrf_batched`` smem-route block: the
+    lower triangle's (n/32)(n/32 + 1)/2 tiles and the inverse's tile
+    (``potrf_batched.cu`` smem_route_bytes)."""
+    nt = n // BATCHED_IB
+    return 4 * (nt * (nt + 1) // 2 + 1) * POTRF_TILE
+
+
+def potrf_batched_plan(n: int) -> tuple:
+    """``(route, bytes)`` of ``potrf_batched`` at n (``potrf_batched.cu``
+    slate_potrf_batched_plan): ``smem`` where :func:`potrf_batched_bytes`
+    fits one block, with those bytes; else ``l2`` with its static
+    staging."""
+    b = potrf_batched_bytes(n)
+    return ("smem", b) if b <= BLOCK_SMEM_MAX else ("l2", POTRF_L2_SMEM)
+
+
+def getrf_batched_cluster_bytes(n: int, row_blocks: int) -> int:
+    """Dynamic shared memory of a ``getrf_batched`` smem-route block that
+    owns ``row_blocks`` 32-row blocks of an (n, n) problem: its rows, a
+    64-row chunk's U12 (row stride 68), the row block's L11 (32 × 33), each
+    lane's pivot column and each column's pivot lane, two sets of the
+    warps' candidates, the row block's 32 pivots (``getrf_batched.cu``
+    cluster_floats)."""
+    ib = BATCHED_IB
+    return 4 * (row_blocks * ib * n + ib * GETRF_U12_STRIDE + ib * (ib + 1) + 2 * n
+                + 2 * GETRF_BATCHED_WARPS * GETRF_SLOT + ib)
+
+
+def getrf_batched_plan(n: int) -> tuple:
+    """``(route, cluster, bytes)`` of ``getrf_batched`` at n
+    (``getrf_batched.cu`` slate_getrf_batched_plan): with R the most row
+    blocks a block's share holds, C = ⌈(n/32) / R⌉; where C ≤ 16 the
+    ``smem`` route on clusters of C blocks of ⌈(n/32) / C⌉ row blocks each,
+    else ``l2`` (one block, :func:`getrf_batched_bytes`)."""
+    nt = n // BATCHED_IB
+    r = 0
+    while r < nt and getrf_batched_cluster_bytes(n, r + 1) <= BLOCK_SMEM_MAX:
+        r += 1
+    c = _ceildiv(nt, r) if r else GETRF_CLUSTER + 1
+    if c <= GETRF_CLUSTER:
+        return "smem", c, getrf_batched_cluster_bytes(n, _ceildiv(nt, c))
+    return "l2", 1, getrf_batched_bytes(n)
 
 
 def getrf_batched_bytes(n: int) -> int:
-    """Dynamic shared memory of one ``getrf_batched`` block: the current
-    32 rows of its (n, n) problem, the block's U12 rows, the active mask
-    and block-pivot marks, the block's 32 pivots and the argmax scratch
-    (``getrf_batched.cu``, ``smem_floats``; ``ops/kernels.py`` checks the
-    two formulas agree when it loads the kernel).  The kernel has no
+    """Dynamic shared memory of one ``getrf_batched`` l2-route block: the
+    current 32 rows of its (n, n) problem, the block's U12 rows, the
+    active mask and block-pivot marks, the block's 32 pivots and the argmax
+    scratch (``getrf_batched.cu``, ``smem_floats``).  The kernel has no
     static shared memory."""
     ib = BATCHED_IB
     return 4 * (2 * ib * n + 2 * n + ib + 2 * GETRF_BATCHED_WARPS + 4)

@@ -57,7 +57,18 @@ the store, the stagger's grid barrier, the deferred half of an
 exchange's second barrier), and :func:`_chase` prints each cluster's
 time outside the stagger barrier and the busiest one's µs a task in
 each phase at (8192, 256) fp32 and (4096, 256) fp64 beside the plan and
-registers.  Nothing here runs at import.
+registers.
+
+The batched kernels (``potrf_batched``, ``getrf_batched``) are stamped at
+their ``BATCHED_MARK`` hooks (:func:`batched_source`): thread 0 of each of
+the first 16 blocks records the time at each mark, and :func:`_batched`
+prints, at the drivers' (64, 256) and the served (16, 256), the plan, the
+stamped copy's registers and the launch's CUDA-event time beside
+``potrf_batched``'s load, diagonal chain, L21, trailing update and store
+(block 0) and ``getrf_batched``'s load, µs a column, stores, cluster
+barriers and their waits, U12 and the update, the look-ahead apart from
+the rest (the busiest block of the first cluster).  Nothing here runs at
+import.
 """
 
 from __future__ import annotations
@@ -201,7 +212,8 @@ def stamped_source(name: str) -> str:
 
 def build(names) -> dict:
     """Stamped copies of kernels ``names`` (:func:`chase_source` for the
-    chases, else :func:`stamped_source`), one ``nvcc`` each, all started
+    chases, :func:`batched_source` for the batched kernels, else
+    :func:`stamped_source`), one ``nvcc`` each, all started
     together: ``{name: ctypes.CDLL}``; each compiler log (``-Xptxas -v``)
     is kept beside its library as ``<lib>.log``."""
     from ..ops import _build
@@ -211,7 +223,8 @@ def build(names) -> dict:
     procs = {}
     for name in names:
         cu = out / (name + "_phases.cu")
-        cu.write_text(chase_source(name) if name in CHASES else stamped_source(name))
+        cu.write_text(chase_source(name) if name in CHASES else
+                      batched_source(name) if name in BATCHED else stamped_source(name))
         so = out / ("lib%s_phases.so" % name)
         procs[name] = (so, cu, subprocess.Popen(
             [_build.nvcc_path(), *_build.FLAGS, "-o", str(so), str(cu)],
@@ -722,6 +735,206 @@ def chase_source(name: str) -> str:
     return src + _CHASE_TAIL
 
 
+_BATCHED_HEAD = r"""
+#define BCAP 4096
+#define BBLK 16
+__device__ unsigned long long g_bt[BBLK][BCAP];
+__device__ unsigned long long g_bc[BBLK][BCAP];
+__device__ int g_bk[BBLK][BCAP];
+__device__ int g_bn[BBLK];
+__device__ __forceinline__ unsigned long long g_time() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__shared__ int b_i;
+#define BATCHED_MARK(k) do { if (blockIdx.x < BBLK && threadIdx.x == 0) { \
+  if ((k) == 0) b_i = 0; \
+  if (b_i < BCAP) { const int n_ = b_i++; g_bt[blockIdx.x][n_] = g_time(); \
+  g_bc[blockIdx.x][n_] = clock64(); g_bk[blockIdx.x][n_] = (k); \
+  g_bn[blockIdx.x] = b_i; } } } while (0)
+"""
+_BATCHED_TAIL = r"""
+extern "C" int batched_marks_reset() {
+  static int z[BBLK];
+  return (int)cudaMemcpyToSymbol(g_bn, z, sizeof z);
+}
+extern "C" int batched_marks_read(unsigned long long* t, unsigned long long* c, int* k,
+                                  int* n) {
+  cudaDeviceSynchronize();
+  cudaMemcpyFromSymbol(t, g_bt, sizeof g_bt);
+  cudaMemcpyFromSymbol(c, g_bc, sizeof g_bc);
+  cudaMemcpyFromSymbol(k, g_bk, sizeof g_bk);
+  return (int)cudaMemcpyFromSymbol(n, g_bn, sizeof g_bn);
+}
+"""
+#: the batched kernels, stamped at their BATCHED_MARK hooks
+BATCHED = ("potrf_batched", "getrf_batched")
+_BBLK, _BCAP = 16, 4096
+
+
+def batched_source(name: str) -> str:
+    """Batched kernel ``name``'s source with its local headers inlined and
+    :data:`_BATCHED_HEAD`'s ``BATCHED_MARK`` defined before the source's
+    no-op default: thread 0 of each of the first 16 blocks stamps the
+    global timer and its SM clock at each mark (its count in shared memory,
+    so that a stamp waits on no load; the first mark, 0, resets it)."""
+    from ..ops import _build
+
+    src = (_build.CSRC / (name + ".cu")).read_text()
+    first = _LOCAL_INCLUDE.search(src).start()
+    return src[:first] + _BATCHED_HEAD + _inline(src[first:], set()) + _BATCHED_TAIL
+
+
+def _batched_run(lib, fn, args, reps: int = 5):
+    """Best of ``reps`` launches of the stamped batched kernel ``fn``: per
+    block of the first 16, its marks as (mark, µs since its first mark on
+    its SM clock), and the SM clock in GHz (block 0's cycles over its
+    nanoseconds)."""
+    import torch
+
+    t = (ctypes.c_ulonglong * (_BBLK * _BCAP))()
+    c = (ctypes.c_ulonglong * (_BBLK * _BCAP))()
+    k = (ctypes.c_int * (_BBLK * _BCAP))()
+    n = (ctypes.c_int * _BBLK)()
+    best = None
+    for _ in range(reps):
+        lib.batched_marks_reset()
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError("CUDA error %d" % rc)
+        lib.batched_marks_read(t, c, k, n)
+        span = max(t[b * _BCAP + n[b] - 1] - t[b * _BCAP] for b in range(_BBLK) if n[b])
+        if best is None or span < best[0]:
+            ghz = (c[n[0] - 1] - c[0]) / max(1, t[n[0] - 1] - t[0])
+            marks = [[(k[b * _BCAP + i], (c[b * _BCAP + i] - c[b * _BCAP]) / ghz / 1e3)
+                      for i in range(n[b])] for b in range(_BBLK)]
+            best = (span, marks, ghz)
+    return best[1], best[2]
+
+
+def _batched_args(torch, name: str, bsz: int, n: int, gen, dev):
+    """Inputs and the C entry's arguments of one batched launch at (bsz, n)."""
+    g = torch.randn((bsz, n, n), generator=gen, device=dev)
+    if name == "potrf_batched":
+        a = g @ g.mT + n * torch.eye(n, device=dev)
+        out = torch.empty_like(a)
+        keep = (a, out)
+        return keep, [a.data_ptr(), out.data_ptr(), None, bsz, n]
+    at = g.mT.contiguous()
+    out = torch.empty_like(at)
+    piv = torch.empty((bsz, n), dtype=torch.int64, device=dev)
+    return (at, out, piv), [at.data_ptr(), out.data_ptr(), piv.data_ptr(), bsz, n]
+
+
+def _intervals(marks):
+    """(mark, µs since the previous mark) for each mark but the first."""
+    return [(marks[i][0], marks[i][1] - marks[i - 1][1]) for i in range(1, len(marks))]
+
+
+def _potrf_batched_report(label: str, marks, ghz: float) -> None:
+    """potrf_batched's smem route on block 0 (every block has the same
+    work): the load, the diagonal chain (the 32² Cholesky and inverse on
+    warps 0 and 1), L21, the trailing SYRK (the step's barrier to barrier
+    after L21: warps 0 and 1's SYRK of the next diagonal tile and its
+    Cholesky inside it) and the store (``potrf_batched.cu`` Mark)."""
+    M_START, M_LOADED, M_DIAG, M_STEP, M_L21, M_SYRK_DIAG, M_END = range(7)
+    iv = _intervals(marks)
+    tot = marks[-1][1] - marks[0][1]
+    load = sum(d for m, d in iv if m == M_LOADED)
+    chol = [d for m, d in iv if m == M_DIAG]
+    l21 = [d for m, d in iv if m == M_L21]
+    sdiag = [d for m, d in iv if m == M_SYRK_DIAG]
+    steps = [i for i, (m, _) in enumerate(iv) if m == M_STEP]
+    lpos = [i for i, (m, _) in enumerate(iv) if m == M_L21]
+    trail = [sum(d for _, d in iv[a + 1:b + 1]) for a, b in zip(lpos, steps[1:])]
+    store = sum(d for m, d in iv if m == M_END)
+    print("potrf_batched %s: %.1f us at %.2f GHz on block 0; load %.1f; diagonal "
+          "chain (Cholesky + inverse, warp 0) %.1f (%d blocks, %s); L21 %.1f %s; "
+          "trailing SYRK with the next diagonal block %.1f %s, of it warps 0-1's "
+          "SYRK of the diagonal tile %.1f %s; store %.1f; %d block barriers" % (
+              label, tot, ghz, load, sum(chol), len(chol), [round(x, 2) for x in chol],
+              sum(l21), [round(x, 2) for x in l21], sum(trail),
+              [round(x, 2) for x in trail], sum(sdiag), [round(x, 2) for x in sdiag],
+              store, 2 * len(l21) + 2), flush=True)
+
+
+def _getrf_batched_report(label: str, marks_by_block, ghz: float, cluster: int,
+                          nt: int) -> None:
+    """getrf_batched's smem route on the busiest block of the first
+    problem's cluster (the most time outside the cluster barrier): the
+    load, the column loops (µs a column), the row blocks' stores, the
+    cluster-barrier waits (one a row block), each row block's end (U12:
+    its pivots, L11 and the substitution; the update, the chunk that holds
+    the next row block's rows, the look-ahead, apart from the rest) and
+    the end (``getrf_batched.cu`` Mark)."""
+    M_START, M_LOADED, M_COLUMN, M_STORED, M_WAITED, M_U12, M_UPDATED, M_END = range(8)
+    rows = -(-nt // cluster)
+    blocks = []
+    for r in range(cluster):
+        marks = marks_by_block[r]
+        iv = _intervals(marks)
+        wait = [d for m, d in iv if m == M_WAITED]
+        blocks.append((marks[-1][1] - marks[0][1] - sum(wait), r, iv, wait))
+    busy, r, iv, wait = max(blocks)
+    col = [d for m, d in iv if m == M_COLUMN]
+    b, look, rest, first = -1, [], [], False
+    for m, d in iv:
+        if m == M_WAITED:
+            b += 1
+            first = (b + 1) // rows == r and b + 1 < nt
+        elif m == M_UPDATED:
+            (look if first else rest).append(d)
+            first = False
+    u12 = [d for m, d in iv if m == M_U12]
+    store = [d for m, d in iv if m == M_STORED]
+    load = sum(d for m, d in iv if m == M_LOADED)
+    print("getrf_batched %s (cluster of %d, %d row blocks a block): the busiest "
+          "block %d, %.1f us outside the barrier at %.2f GHz; load %.1f; %d columns, "
+          "%.3f us a column (median; %.1f in all); stores %.1f; %d cluster barriers "
+          "a block, waits %.1f %s; U12 %.1f (%d chunks); update: look-ahead %.1f (%d), "
+          "the rest %.1f (%d); end %.1f; by block, us outside the barrier %s" % (
+              label, cluster, rows, r, busy, ghz, load, len(col),
+              statistics.median(col) if col else 0.0, sum(col), sum(store), len(wait),
+              sum(wait), [round(x, 1) for x in wait], sum(u12), len(u12), sum(look),
+              len(look), sum(rest), len(rest), sum(d for m, d in iv if m == M_END),
+              [round(x[0], 1) for x in sorted(blocks, key=lambda x: x[1])]), flush=True)
+
+
+def _batched(name: str, torch, lib, gen, dev) -> None:
+    """A batched kernel's stamped copy (:func:`batched_source`) at the
+    drivers' (64, 256) and the served (16, 256): its plan and the ptxas
+    line of the stamped copy, the launch's CUDA-event time, and the phases
+    of :func:`_potrf_batched_report` / :func:`_getrf_batched_report`."""
+    from ..ops import _build, kernels, smem
+
+    fn = getattr(lib, "slate_%s_f32" % name)
+    fn.argtypes = list(kernels._SIGNATURES[name][1][:-1]) + [P]
+    fn.restype = I
+    log = _build.BUILD_DIR / "phases" / ("lib%s_phases.so.log" % name)
+    for bsz, n in ((64, 256), (16, 256)):
+        keep, args = _batched_args(torch, name, bsz, n, gen, dev)
+        us = _event_us(torch, lambda: fn(*args, torch.cuda.current_stream().cuda_stream))
+        marks, ghz = _batched_run(lib, fn, args)
+        label = "(%d, %d)" % (bsz, n)
+        if name == "potrf_batched":
+            route, nbytes = smem.potrf_batched_plan(n)
+            print("potrf_batched %s: route %s, one block of 512 threads a problem, %d B "
+                  "shared; ptxas of the stamped copy %s; %.1f us a launch (CUDA events)"
+                  % (label, route, nbytes, "; ".join(ptxas_lines(log, "smem_kernel")), us),
+                  flush=True)
+            _potrf_batched_report(label, marks[0], ghz)
+        else:
+            route, cluster, nbytes = smem.getrf_batched_plan(n)
+            print("getrf_batched %s: route %s, a cluster of %d blocks of 256 threads a "
+                  "problem, %d B shared a block; ptxas of the stamped copy %s; %.1f us a "
+                  "launch (CUDA events)" % (label, route, cluster, nbytes, "; ".join(
+                      ptxas_lines(log, "cluster_kernelILi%dE" % -(-n // 256))), us),
+                  flush=True)
+            _getrf_batched_report(label, marks, ghz, cluster, n // 32)
+        del keep
+
+
 def ptxas_lines(log_path, key: str) -> list:
     """The registers and spill lines ``-Xptxas -v`` printed for the entries
     whose mangled names hold ``key``."""
@@ -886,7 +1099,9 @@ SECTIONS = {"lu_inv_panel": _lu_inv_panel, "lu_u12_panel": _lu_u12_panel,
             "getrf_panel_fused": functools.partial(_lu_panel, "getrf_panel_fused"),
             "getrf_panel_linv": functools.partial(_lu_panel, "getrf_panel_linv"),
             "hb2st_wavefront": functools.partial(_chase, "hb2st_wavefront"),
-            "tb2bd_wavefront": functools.partial(_chase, "tb2bd_wavefront")}
+            "tb2bd_wavefront": functools.partial(_chase, "tb2bd_wavefront"),
+            "potrf_batched": functools.partial(_batched, "potrf_batched"),
+            "getrf_batched": functools.partial(_batched, "getrf_batched")}
 
 
 def main(argv=None) -> int:
@@ -906,7 +1121,7 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    libs = build([x for x in names if x in MARKS or x in CHASES])
+    libs = build([x for x in names if x in MARKS or x in CHASES or x in BATCHED])
     for name in names:
         SECTIONS[name](torch, libs.get(name), gen, dev)
     return 0

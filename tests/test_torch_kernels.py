@@ -172,7 +172,7 @@ def test_library_loading_and_launch_counts_are_thread_safe(monkeypatch):
 
     def worker():
         for _ in range(200):
-            fns.append(kernels._fn("potrf_batched"))
+            fns.append(kernels._fn("matmul"))
             kernels._count("getrf_batched")
 
     old = sys.getswitchinterval()
@@ -190,7 +190,7 @@ def test_library_loading_and_launch_counts_are_thread_safe(monkeypatch):
         kernels.reset_launches()
         kernels._fns.clear()
     assert counted == 16 * 200
-    assert loads == ["potrf_batched"]
+    assert loads == ["matmul"]
     assert len({id(f) for f in fns}) == 1 and len(fns) == 16 * 200
 
 
@@ -537,6 +537,164 @@ def test_smem_gates_the_batched_kernels():
         assert not smem.batched_fits(kernel, 16)
     with pytest.raises(KeyError):
         smem.batched_fits("geqrf_batched", 64)
+
+
+@pytest.mark.parametrize("n", [288, 320])
+def test_potrf_batched_plain_matches_pallas_at_the_route_edge(n):
+    """At the largest n of potrf_batched's shared-memory route (288) and
+    the smallest of its L2 route (320): the plain version within
+    1e-4·max|L| of the JAX kernel, both factors ≤ 3 by the tester's
+    residual, zeros above the diagonal."""
+    b = 2
+    g = np.random.default_rng(53 + n).standard_normal((b, n, n)).astype(np.float32)
+    spd = g @ g.transpose(0, 2, 1) + n * np.eye(n, dtype=np.float32)
+    ref = np.asarray(pk.potrf_batched(jnp.asarray(spd)))
+    got = kernels.potrf_batched(torch.from_numpy(spd)).numpy()
+    assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+    assert np.all(np.triu(got, 1) == 0)
+    for l in (got, ref):
+        for i in range(b):
+            li = l[i].astype(np.float64)
+            res = np.linalg.norm(li @ li.T - spd[i]) / (
+                np.linalg.norm(spd[i]) * np.finfo(np.float32).eps * n)
+            assert res <= 3, res
+
+
+def _first_split(out, piv, other, tol=1e-4):
+    """The first column where the pivot lanes ``piv`` of the factored
+    lane-major problem ``out`` differ from ``other`` (None: they agree),
+    after checking that the two candidates there are a near-tie: within
+    ``tol`` relative in ``out``'s factor (the pivot's |U[j, j]| against the
+    other lane's |L[i, j]|·|U[j, j]|).  The default is the value tolerance
+    of the comparison: factors that agree to 1e-4 may order two candidates
+    closer than that either way."""
+    diff = np.nonzero(piv != other)[0]
+    if not diff.size:
+        return None
+    j = int(diff[0])
+    mk = abs(float(out[j, piv[j]]))
+    mo = abs(float(out[j, other[j]])) * mk
+    assert abs(mk - mo) <= tol * mk, (j, mk, mo)
+    return j
+
+
+@pytest.mark.parametrize("n", [800, 832])
+def test_getrf_batched_plain_matches_pallas_at_the_route_edge(n):
+    """At the largest n of getrf_batched's cluster route (800) and the
+    smallest of its L2 route (832): pivots equal to the JAX kernel's and to
+    scipy's up to a near-tie (a first differing column whose candidates
+    are within 1e-4 relative: the three round in different orders over
+    800 dependent columns, and at 832 the plain version's factor drifts
+    3.9e-5 from the JAX kernel's before a column whose candidates lie
+    3.0e-5 apart), the factored columns before it within 1e-4 of the JAX
+    kernel's max, residuals ≤ 3 and |L| ≤ 1 + 100ε."""
+    b = 2
+    a = np.random.default_rng(54 + n).standard_normal((b, n, n)).astype(np.float32)
+    at = np.ascontiguousarray(a.transpose(0, 2, 1))
+    jout, jpiv = map(np.asarray, pk.getrf_batched(jnp.asarray(at)))
+    out, piv = (t.numpy() for t in kernels.getrf_batched(torch.from_numpy(at)))
+    for i in range(b):
+        j = _first_split(out[i], piv[i], jpiv[i])
+        assert _max_rel(out[i][:j], jout[i][:j]) <= 1e-4
+        _first_split(out[i], piv[i], _scipy_perm(a[i]))
+        lu = out[i][:, piv[i]].T.astype(np.float64)
+        low = np.tril(lu, -1) + np.eye(n)
+        res = np.linalg.norm(low @ np.triu(lu) - a[i][piv[i]]) / (
+            np.linalg.norm(a[i]) * np.finfo(np.float32).eps * n)
+        assert res <= 3, (i, res)
+        assert np.abs(np.tril(lu, -1)).max() <= 1 + 100 * np.finfo(np.float32).eps
+
+
+def test_batched_plans_cover_every_admitted_n():
+    """Every n on the 32 grid to 1024 gets a route: potrf_batched's lower
+    triangle (its tiles and the inverse's) in one block to n = 288, then
+    the L2 route; getrf_batched's problem on the smallest cluster (≤ 16
+    blocks) whose shares fit, every block owning a row block, to n = 800,
+    then the L2 route to 864.  No block takes more than 227 KB."""
+    from slate_tpu_torch.ops import smem
+
+    for n in range(32, 1025, 32):
+        route, nbytes = smem.potrf_batched_plan(n)
+        assert (route == "smem") == (n <= 288), n
+        assert nbytes <= smem.BLOCK_SMEM_MAX, n
+        assert nbytes == (smem.potrf_batched_bytes(n) if route == "smem"
+                          else smem.POTRF_L2_SMEM)
+        if not smem.batched_fits("getrf_batched", n):
+            continue
+        route, c, nbytes = smem.getrf_batched_plan(n)
+        assert (route == "smem") == (n <= 800), n
+        assert 1 <= c <= smem.GETRF_CLUSTER and nbytes <= smem.BLOCK_SMEM_MAX, n
+        if route == "l2":
+            assert c == 1 and nbytes == smem.getrf_batched_bytes(n)
+            continue
+        nt = n // 32
+        rows = -(-nt // c)
+        assert nbytes == smem.getrf_batched_cluster_bytes(n, rows)
+        assert (c - 1) * rows < nt <= c * rows, n          # every block owns one
+        assert c == 1 or smem.getrf_batched_cluster_bytes(
+            n, -(-nt // (c - 1))) > smem.BLOCK_SMEM_MAX, n  # the smallest cluster
+    assert smem.potrf_batched_plan(256) == ("smem", 156288)
+    assert smem.getrf_batched_plan(224)[:2] == ("smem", 1)
+    assert smem.getrf_batched_plan(256) == ("smem", 2, 148480)
+    assert smem.getrf_batched_plan(800)[:2] == ("smem", 13)
+
+
+def test_batched_fits_is_unchanged_by_the_routes():
+    """The shape gate admits what it admitted before the on-chip routes:
+    potrf_batched every n on the 32 grid, getrf_batched n ≤ 864."""
+    from slate_tpu_torch.ops import smem
+
+    grid = range(32, 1025, 32)
+    assert all(smem.batched_fits("potrf_batched", n) for n in grid)
+    assert [n for n in grid if smem.batched_fits("getrf_batched", n)] == list(
+        range(32, 865, 32))
+
+
+class _FakePlanLib:
+    """A kernel library whose ``slate_<name>_plan`` entries answer from
+    ``plans[name](n)`` (a tuple of ints: the route's index, then the
+    cluster for getrf_batched, then the bytes)."""
+
+    def __init__(self, plans):
+        self.plans = plans
+
+    def __getattr__(self, sym):
+        plan = self.plans[sym[len("slate_"):-len("_plan")]]
+
+        class Entry:
+            argtypes = restype = None
+
+            def __call__(self, n, *outs):
+                for out, v in zip(outs, plan(n)):
+                    out._obj.value = v
+                return 0
+
+        return Entry()
+
+
+def _c_side(name, change_at=None):
+    """The C plan as ops/smem.py states it, but one byte more at n =
+    ``change_at``."""
+    from slate_tpu_torch.ops import smem
+
+    def plan(n):
+        got = list(getattr(smem, name + "_plan")(n))
+        got[0] = smem.BATCHED_ROUTES.index(got[0])
+        if n == change_at:
+            got[-1] += 1
+        return tuple(got)
+    return plan
+
+
+@pytest.mark.parametrize("name", ["potrf_batched", "getrf_batched"])
+def test_batched_plan_check_at_load(name):
+    """The load-time check (ops/kernels.py ``_check_batched_plan``) passes
+    a library whose plan is ops/smem.py's and raises on one that differs
+    at a single n, naming it."""
+    kernels._check_batched_plan(_FakePlanLib({name: _c_side(name)}), name)
+    with pytest.raises(RuntimeError, match="n = 288"):
+        kernels._check_batched_plan(
+            _FakePlanLib({name: _c_side(name, change_at=288)}), name)
 
 
 # ---------------------------------------------------------------------------

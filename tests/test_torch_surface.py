@@ -151,3 +151,30 @@ def test_kernel_phases_marks_the_chase_phases(kernel):
     assert src.count("  PHASES_START();") == 1
     assert src.count("  ex.finish();\n  PHASES_END();") == 1
     assert "CHASE_PHASE(PH_STAGGER);" in src
+
+
+@pytest.mark.parametrize("kernel", ["potrf_batched", "getrf_batched"])
+def test_kernel_phases_marks_the_batched_kernels(kernel):
+    """The batched kernels' stamped copies (``perf/kernel_phases.py``
+    batched_source): every header of ``csrc`` inlined, the mark macro
+    defined before the source's no-op default, and the marks the reports
+    read in place: the start and the end once, getrf_batched's cluster
+    barrier once a row block and a mark a column, potrf_batched's step,
+    L21 and diagonal marks."""
+    from slate_tpu_torch.perf import kernel_phases
+
+    src = kernel_phases.batched_source(kernel)
+    assert not [inc for inc in _INCLUDE.findall(src) if (_build.CSRC / inc).is_file()]
+    assert set(kernel_phases.SECTIONS) >= {kernel}
+    assert src.index("#define BATCHED_MARK(k) do") < src.index("#ifndef BATCHED_MARK")
+    assert src.count("BATCHED_MARK(M_START);") == 1
+    assert src.count("BATCHED_MARK(M_END);") == 1
+    if kernel == "getrf_batched":
+        assert src.count("cluster_wait();  // the row block's one cluster barrier\n"
+                         "    BATCHED_MARK(M_WAITED);") == 1
+        for mark in ("M_COLUMN", "M_STORED", "M_U12", "M_UPDATED", "M_LOADED"):
+            assert src.count("BATCHED_MARK(%s);" % mark) == 1, mark
+    else:
+        for mark, times in (("M_STEP", 2), ("M_L21", 1), ("M_DIAG", 2),
+                            ("M_SYRK_DIAG", 1), ("M_LOADED", 1)):
+            assert src.count("BATCHED_MARK(%s);" % mark) == times, mark
