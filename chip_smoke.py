@@ -117,7 +117,21 @@
    B) and ``gescale_row_col`` (bitwise) on the 16384² fp32 and 8192²
    fp64 matrices and at (384, 640) and (640, 384) with 128-tiles; each
    timed at 16384² fp32 beside its bytes bound, its plain version and
-   ``vector_norm(inf)`` (max) or a torch composition.
+   ``vector_norm(inf)`` (max) or a torch composition.  The two kernels
+   of the split-precision products (phase 2k), which replace XLA dots of
+   the JAX package, not Pallas kernels: ``split_matmul`` at split3 and
+   split6 on (7680, 512)·(512, 2048) with B a transposed view (the fp32
+   leg's trailing strip) and on a ragged (1000, 300)·(300, 777), the
+   kernel and its plain version componentwise within the JAX tests'
+   envelope to the fp64 product (4·(2⁷ + 3k)·ε₃₂·|A||B| for split3,
+   4·3k·ε₃₂·|A||B| for split6), split6 also within 8·ε₃₂·|A||B|, which
+   split3 must exceed, and the kernel within 4·√k·ε₃₂·|A||B| of its
+   plain version, timed beside ``torch.matmul`` fp32 and the 3xTF32
+   ``matmul``; ``ozaki_matmul`` on (7680, 512)·(512, 2048), 512³, 2048³
+   and (64, 3·65536 + 17)·(3·65536 + 17, 64) (the whole chunked
+   ``matmul_f64``), bitwise its plain version and within 1e-12 of
+   |A||B| of the fp64 product, timed beside DGEMM, and at nine slices
+   on 512³ bitwise its plain version within 1e-14.
 3. Drives the main paths through the public entry points, with the
    reference tester's scaled-residual gates (≤ 3):
    * Cholesky: ``posv`` of an n = 8192 fp32 HermitianMatrix (nb = 256,
@@ -221,15 +235,33 @@
      TriangularMatrix bitwise), and no tile kernel launched on any
      driver path; ``gecondest`` (fp32 and fp64), ``pocondest`` and
      ``trcondest`` at n = 8192 under tester.py's gates; ``posv_mixed``
-     and ``gesv_mixed`` at n = 8192 fp64 with 128 right-hand sides
-     (residual ≤ 3 in ε₆₄ units, no fallback; the fp32 low leg's
-     launches equal one direct fp32 ``potrf_rec``/``getrf_rec``'s)
-     beside cuSOLVER's fp64 solves, both ``_gmres`` forms at 4
-     right-hand sides, ``gels_mixed`` on bench.py's (32768, 4096)
-     Gaussian in fp64 (normal-equations residual ≤ 3 in ε₆₄ units), the
+     and ``gesv_mixed`` at n = 8192 fp64 with 128 right-hand sides on
+     the split leg, the card's default (residual ≤ 3 in ε₆₄ units, no
+     fallback; the fp32 low leg's launches equal one direct fp32
+     ``potrf_rec``/``getrf_rec``'s under ``split_factor_leg``, with
+     ``split_matmul`` and no ``matmul``, and the κ·n·ε₃₂ probe not
+     demoting it) beside cuSOLVER's fp64 solves and beside the stock
+     fp32 leg (each leg's wall a median of 3, its low leg, its fp32
+     factor and the κ probe timed alone, and a profiler split of each
+     leg), both ``_gmres`` forms at 4 right-hand sides,
+     ``gels_mixed`` on bench.py's (32768, 4096) Gaussian in fp64
+     (normal-equations residual ≤ 3 in ε₆₄ units; its κ₁(R)²·n·ε₃₂
+     printed with the demotion it decides, a demoted leg's launches
+     those of the split factor and one stock factor), the
      fallback (``random_spd(2048, cond=1e10)``: iters < 0, residual
      ≤ 3), and ``pbsv``/``gbsv`` at n = 8192 (kd = 256; kl = ku = 256),
      residuals ≤ 3.
+   * the fp64 main path (phase 3m): ``gemm`` fp64 at n = 2048
+     (BASELINE.md config 1) under ``f64_mxu``: tester.py's residual ≤ 3,
+     ``ozaki_matmul`` launched and ``matmul`` not, its wall beside
+     ``torch.matmul`` fp64; ``posv`` fp64 at n = 8192, nb = 512, 128
+     right-hand sides (config 2) three ways — stock (cuSOLVER), the
+     Newton panels pinned (``potrf_panel_f64=ozaki_newton``, DGEMM
+     products) and the Newton panels over ``ozaki_matmul``
+     (``f64_mxu``): each residual ≤ 3 in ε₆₄ units, the pinned ways 16
+     ``chol_inv_panel`` launches and no stock rerun (``potrf.f64_rerun``
+     0), a median of 3 walls each and a profiler split of each pinned
+     way.
    Every kernel's launch count is set to 0 just before each path (each
    LU driver, ``getri``, each batched driver, the served requests, each
    depth and each distributed driver a path of its own) and read just
@@ -243,6 +275,7 @@ is present, or when run without the rest of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -296,7 +329,12 @@ REPO = {"matmul": ("slate_tpu_torch/csrc/matmul.cu",
         "geadd": ("slate_tpu_torch/csrc/geadd.cu",
                   "slate_tpu/ops/pallas_kernels.py:232"),
         "gescale_row_col": ("slate_tpu_torch/csrc/gescale_row_col.cu",
-                            "slate_tpu/ops/pallas_kernels.py:253")}
+                            "slate_tpu/ops/pallas_kernels.py:253"),
+        # not TPU kernels: the XLA dots they replace
+        "split_matmul": ("slate_tpu_torch/csrc/split_matmul.cu",
+                         "slate_tpu/ops/split_gemm.py:105"),
+        "ozaki_matmul": ("slate_tpu_torch/csrc/ozaki_matmul.cu",
+                         "slate_tpu/ops/ozaki.py:131")}
 LU_NB, LU_BB, LU_IB = 512, 128, 16   # the scattered driver's panel call
 LEAF_W, LEAF_IB = 256, 32            # getrf_rec's kernel leaf at nb = 256
 #: bench.py's batched configuration (B, n) and serve configuration
@@ -336,13 +374,17 @@ PATHS = {"cholesky": ("matmul", "chol_inv_panel", "trtri_panel"),
          "dist_pgesv": ("matmul", "lu_u12_panel"),
          "tile_ties": ("tile_norms", "tzset", "tzscale", "geadd",
                        "gescale_row_col"),
-         "posv_mixed": ("matmul",),
-         "gesv_mixed": ("matmul", "getrf_panel_linv"),
-         "posv_mixed_gmres": ("matmul",),
-         "gesv_mixed_gmres": ("matmul", "getrf_panel_linv"),
-         "gels_mixed": ("matmul",),
+         "posv_mixed": ("split_matmul",),
+         "gesv_mixed": ("split_matmul", "getrf_panel_linv"),
+         "posv_mixed_gmres": ("split_matmul",),
+         "gesv_mixed_gmres": ("split_matmul", "getrf_panel_linv"),
+         "gels_mixed": ("split_matmul",),
          "pbsv": ("matmul",),
-         "gbsv": ("matmul", "getrf_panel_fused")}
+         "gbsv": ("matmul", "getrf_panel_fused"),
+         "gemm_fp64": ("ozaki_matmul",),
+         "posv_fp64_stock": (),
+         "posv_fp64_newton_dgemm": ("chol_inv_panel",),
+         "posv_fp64_newton_ozaki": ("chol_inv_panel", "ozaki_matmul")}
 #: the tile kernels, which no driver calls: their path is their own
 #: public entry, tied to the driver function computing the same thing
 TILE_KERNELS = PATHS["tile_ties"]
@@ -417,6 +459,20 @@ DIST_EXACT = {"dist_pposv": {"chol_l21_panel": 64},
 #: band solvers' bandwidth
 TILE_N, TILE_T, TILE_N64 = 16384, 256, 8192
 MIXED_N, GMRES_NRHS, FALLBACK_N, BAND_KD = 8192, 4, 2048, 256
+#: phase 2k's shapes (m, k, n): split_matmul at the fp32 leg's trailing
+#: strip (B a transposed view) and a ragged one; ozaki_matmul at the fp64
+#: trailing strip at n = 8192, nb = 512, a Newton product, BASELINE.md
+#: config 1's 2048³ and a contraction past the int32 chunk; the peaks of
+#: the two kernels' operations (H100 SXM, dense tensor cores)
+SPLIT_SHAPES = ((7680, 512, 2048), (1000, 300, 777))
+OZAKI_SHAPES = ((7680, 512, 2048), (512, 512, 512), (2048, 2048, 2048),
+                (64, 3 * 65536 + 17, 64))
+PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
+#: phase 3m's sizes: gemm fp64 at BASELINE.md config 1's n = 2048 (nb 256),
+#: posv fp64 at config 2's n = 8192, nb = 512 (16 panels), 128 right-hand
+#: sides, the walls a median of this many calls
+GEMM64_N, POSV64_N, POSV64_NB, POSV64_REPS = 2048, 8192, 512, 3
 
 
 def fail(msg: str):
@@ -4273,24 +4329,118 @@ def _band(torch, gen, n: int, kl: int, ku: int, dev, spd: bool):
     return g + (2.0 * (kl + ku) + 2.0) * torch.eye(n, device=dev)
 
 
-def _leg_launches(torch, kernels, name, leg, direct) -> dict:
-    """Launch counts of a mixed driver's fp32 low leg alone; they must be
-    those of one direct fp32 factorization of the same input and hold
-    every kernel of the driver's path.  Returns them."""
-    counts = []
-    for fn in (leg, direct):
-        kernels.reset_launches()
-        fn()
-        torch.cuda.synchronize()
-        counts.append(dict(kernels.launches))
-    got, want = counts
-    print("%s low leg launches %s; one direct fp32 factor %s"
+def _leg_launches(torch, kernels, name, leg, direct, stock) -> dict:
+    """Launch counts of a mixed driver's fp32 low leg alone, with its
+    split-leg record (metrics on): they must be those of one direct fp32
+    factorization of the same input under ``split_factor_leg`` (plus one
+    stock ``stock()`` factorization where the κ·ε probe demoted the leg),
+    hold every kernel of the driver's path, and launch no ``matmul``
+    unless demoted.  Returns ``{"launches", "kappa_eps", "demoted"}``."""
+    from slate_tpu_torch.linalg._refine import split_factor_leg
+    from slate_tpu_torch.perf import metrics
+
+    was_on = metrics.enabled()
+    metrics.on()
+    before = metrics.snapshot()
+    kernels.reset_launches()
+    leg()
+    torch.cuda.synchronize()
+    got = dict(kernels.launches)
+    after = metrics.snapshot()
+    if not was_on:
+        metrics.off()
+    counts = metrics.snapshot_delta(before, after)["counters"]
+    ke = after["gauges"].get("mixed.%s.kappa_eps" % name)
+    demoted = bool(counts.get("mixed.%s.split_demoted" % name))
+    if not counts.get("mixed.%s.split_leg" % name):
+        fail("%s: the low leg did not take the split leg" % name)
+    kernels.reset_launches()
+    with split_factor_leg():
+        direct()
+    if demoted:
+        stock()
+    torch.cuda.synchronize()
+    want = dict(kernels.launches)
+    print("%s low leg launches %s; one direct fp32 factor under the split "
+          "leg%s %s; kappa*n*eps32 %.4g (demotion past 0.25), demoted %s"
           % (name, {k: v for k, v in got.items() if v},
-             {k: v for k, v in want.items() if v}), flush=True)
-    if got != want or any(got[k] <= 0 for k in PATHS[name]):
+             " and one stock" if demoted else "",
+             {k: v for k, v in want.items() if v}, ke, demoted), flush=True)
+    if got != want or any(got[k] <= 0 for k in PATHS[name]) \
+            or (got["matmul"] and not demoted):
         fail("%s: the fp32 low leg's launches %s are not the direct "
              "factor's %s" % (name, got, want))
-    return got
+    return {"launches": got, "kappa_eps": ke, "demoted": demoted}
+
+
+@contextlib.contextmanager
+def _stock_leg():
+    """The mixed drivers' stock fp32 leg for the body
+    (``SLATE_TPU_TORCH_SPLIT_GEMM=0``)."""
+    from slate_tpu_torch import config
+
+    saved = config.split_gemm
+    config.split_gemm = False
+    try:
+        yield
+    finally:
+        config.split_gemm = saved
+
+
+def _stock_leg_ms(torch, fn, reps: int = 3) -> float:
+    """Median host wall of ``fn`` (ending in a sync) on the stock fp32
+    leg."""
+    with _stock_leg():
+        return _wall_ms(torch, fn, reps)
+
+
+#: the device split of a mixed driver on either leg: the two product
+#: kernels, the LU panel kernel, cuBLAS's triangular solves (the κ·ε
+#: probe's and the refinement's), cuSOLVER's Cholesky leaves, and the
+#: elementwise passes (the bf16 split of each product's operands, the
+#: casts and the residuals)
+MIXED_SPLIT_KEYS = {"split_matmul kernel": "split_matmul",
+                    "matmul kernel (3xTF32)": "matmul_f32_kernel",
+                    "lu_panel kernel": "lu_panel",
+                    "trsm (cuBLAS)": "trsm",
+                    "potrf (cuSOLVER)": "potrf",
+                    "elementwise": "elementwise"}
+
+
+def _mixed_breakdown(torch, name, drive, leg, direct) -> dict:
+    """Where a mixed driver's split leg spends its time beside the stock
+    leg: each leg's wall (median of 3), its low leg alone (``leg``: the
+    factor and, on the split leg, the κ·ε probe; median of 3), one fp32
+    factor alone (``direct``; under ``split_factor_leg`` and stock, median
+    of 3), the probe as the split leg's low leg less its factor, and a
+    ``torch.profiler`` device split of one call of the driver on each
+    leg."""
+    from slate_tpu_torch.linalg._refine import split_factor_leg
+
+    def split_direct():
+        with split_factor_leg():
+            return direct()
+
+    out = {"split": {"wall_ms": _wall_ms(torch, drive, 3),
+                     "low_leg_ms": _wall_ms(torch, leg, 3),
+                     "factor_ms": _wall_ms(torch, split_direct, 3),
+                     "device": device_split(torch, name + " split leg", drive,
+                                            MIXED_SPLIT_KEYS)}}
+    with _stock_leg():
+        out["stock"] = {"wall_ms": _wall_ms(torch, drive, 3),
+                        "low_leg_ms": _wall_ms(torch, leg, 3),
+                        "factor_ms": _wall_ms(torch, direct, 3),
+                        "device": device_split(torch, name + " stock leg",
+                                               drive, MIXED_SPLIT_KEYS)}
+    out["probe_ms"] = out["split"]["low_leg_ms"] - out["split"]["factor_ms"]
+    print("%s breakdown (ms, medians of 3): split leg wall %.1f, low leg "
+          "%.1f = fp32 factor %.1f + kappa probe %.1f; stock leg wall %.1f, "
+          "low leg %.1f, fp32 factor %.1f"
+          % (name, out["split"]["wall_ms"], out["split"]["low_leg_ms"],
+             out["split"]["factor_ms"], out["probe_ms"],
+             out["stock"]["wall_ms"], out["stock"]["low_leg_ms"],
+             out["stock"]["factor_ms"]), flush=True)
+    return out
 
 
 def main_path_aux(torch, st, kernels, dev) -> dict:
@@ -4442,41 +4592,70 @@ def main_path_aux(torch, st, kernels, dev) -> dict:
     rhs = torch.randn((m, NRHS), generator=gen, device=dev, dtype=f64)
     H = st.HermitianMatrix(h, uplo=st.Uplo.Lower, nb=NB)
     G = st.Matrix.from_array(g, nb=NB)
+    anorm_g = float(st.norm(inf_, g))
+
+    def chol32():
+        return blocks.potrf_rec(h.float(), NB, nan_on_fail=True)
+
+    def lu32():
+        return tlu.getrf_rec(g.float(), NB)
     legs = {
         "posv_mixed": (lambda: tchol._posv_mixed_setup(H, rhs, None, None),
-                       lambda: blocks.potrf_rec(h.float(), NB)),
-        "gesv_mixed": (lambda: tlu._getrf_lo(g, torch.float32, NB, None),
-                       lambda: tlu.getrf_rec(g.float(), NB))}
-    for name, (leg, direct) in legs.items():
-        _leg_launches(torch, kernels, name, leg, direct)
+                       chol32, chol32),
+        "gesv_mixed": (lambda: tlu._getrf_lo(g, torch.float32, NB, anorm_g),
+                       lu32, lu32)}
+    split = {}
+    for name, (leg, direct, stock) in legs.items():
+        split[name] = _leg_launches(torch, kernels, name, leg, direct, stock)
+        # the split leg is the card's default; on these inputs it stays
+        if split[name]["demoted"]:
+            fail("%s: the split leg was demoted (kappa*n*eps32 %.4g)"
+                 % (name, split[name]["kappa_eps"]))
     for name, a_, ref_fn in (
             ("posv_mixed", H, lambda: torch.cholesky_solve(
                 rhs, torch.linalg.cholesky(h))),
             ("gesv_mixed", G, lambda: torch.linalg.solve(g, rhs))):
-        x, iters = path(name, lambda: getattr(st, name)(a_, rhs))
+        def drive():
+            return getattr(st, name)(a_, rhs)
+        x, iters = path(name, drive)
         dense = h if name == "posv_mixed" else g
         rres = _scaled_resid(torch, dense, x, rhs)
         lib_ms = _wall_ms(torch, ref_fn, 3)
-        print("%s n=%d fp64, %d rhs: %d iterations, residual %.3g (gate 3, "
-              "eps64), %.1f ms; launches %s; %s fp64 %.1f ms"
+        brk = _mixed_breakdown(torch, name, drive, legs[name][0],
+                               legs[name][1])
+        print("%s n=%d fp64, %d rhs, split leg: %d iterations, residual %.3g "
+              "(gate 3, eps64), %.1f ms first call, %.1f ms median of 3 "
+              "(stock fp32 leg %.1f ms median of 3); launches %s; %s fp64 "
+              "%.1f ms"
               % (name, m, NRHS, iters, rres, walls[name],
+                 brk["split"]["wall_ms"], brk["stock"]["wall_ms"],
                  {k: v for k, v in launches[name].items() if v},
                  "cholesky + cholesky_solve" if name == "posv_mixed"
                  else "torch.linalg.solve", lib_ms), flush=True)
         if not (iters >= 0 and rres <= 3):
             fail("%s: iters %d, residual %.3f" % (name, iters, rres))
         res[name] = dict(iters=iters, residual=rres, ms=walls[name],
-                         library_ms=lib_ms)
+                         median_ms=brk["split"]["wall_ms"],
+                         stock_leg_ms=brk["stock"]["wall_ms"],
+                         library_ms=lib_ms, breakdown=brk,
+                         kappa_eps=split[name]["kappa_eps"],
+                         demoted=split[name]["demoted"])
     for name, a_, dense in (("posv_mixed_gmres", H, h),
                             ("gesv_mixed_gmres", G, g)):
         b4 = rhs[:, :GMRES_NRHS].contiguous()
         x, iters = path(name, lambda: getattr(st, name)(a_, b4))
         rres = _scaled_resid(torch, dense, x, b4)
-        print("%s n=%d fp64, %d rhs: %d iterations, residual %.3g, %.1f ms"
-              % (name, m, GMRES_NRHS, iters, rres, walls[name]), flush=True)
+        med_ms = _wall_ms(torch, lambda: getattr(st, name)(a_, b4), 3)
+        stock_ms = _stock_leg_ms(torch, lambda: getattr(st, name)(a_, b4))
+        print("%s n=%d fp64, %d rhs, split leg: %d iterations, residual %.3g,"
+              " %.1f ms first call, %.1f ms median of 3 (stock fp32 leg %.1f "
+              "ms median of 3)"
+              % (name, m, GMRES_NRHS, iters, rres, walls[name], med_ms,
+                 stock_ms), flush=True)
         if not (iters >= 0 and rres <= 3):
             fail("%s: iters %d, residual %.3f" % (name, iters, rres))
-        res[name] = dict(iters=iters, residual=rres, ms=walls[name])
+        res[name] = dict(iters=iters, residual=rres, ms=walls[name],
+                         median_ms=med_ms, stock_leg_ms=stock_ms)
     del h, g, rhs, H, G
     torch.cuda.empty_cache()
 
@@ -4487,21 +4666,34 @@ def main_path_aux(torch, st, kernels, dev) -> dict:
         np.float32)).to(dev).double()
     bq = torch.from_numpy(rng.standard_normal(QR_M).astype(np.float32)).to(
         dev).double()
-    got = _leg_launches(torch, kernels, "gels_mixed",
+    def qr32():
+        return tqr.geqrf_rec(aq.float(), NB)
+    # the semi-normal equations' probe is κ₁(R)²·n·ε₃₂: it is reported,
+    # and a demotion (with its stock refactor) accounted for, not gated
+    leg = _leg_launches(torch, kernels, "gels_mixed",
                         lambda: tqr._gels_lo_factor(aq, torch.float32, NB),
-                        lambda: tqr.geqrf_rec(aq.float(), NB))
-    x, iters = path("gels_mixed", lambda: st.gels_mixed(
-        st.Matrix.from_array(aq, nb=NB), bq))
+                        qr32, qr32)
+    Aq = st.Matrix.from_array(aq, nb=NB)
+    x, iters = path("gels_mixed", lambda: st.gels_mixed(Aq, bq))
     eps64 = float(torch.finfo(f64).eps)
     ne = float((aq.T @ (aq @ x - bq)).norm()
                / (aq.norm() ** 2 * x.norm() * eps64 * QR_M ** 0.5))
-    print("gels_mixed (%d, %d) fp64: %d iterations, normal-equations "
-          "residual %.3g (gate 3, eps64), %.1f ms; low leg launches %s"
-          % (QR_M, QR_N, iters, ne, walls["gels_mixed"],
-             {k: v for k, v in got.items() if v}), flush=True)
+    med_ms = _wall_ms(torch, lambda: st.gels_mixed(Aq, bq), 3)
+    stock_ms = _stock_leg_ms(torch, lambda: st.gels_mixed(Aq, bq))
+    print("gels_mixed (%d, %d) fp64, split leg: %d iterations, "
+          "normal-equations residual %.3g (gate 3, eps64), %.1f ms first "
+          "call, %.1f ms median of 3 (stock fp32 leg %.1f ms median of 3); "
+          "kappa^2*n*eps32 %.4g, demoted %s; low leg launches %s"
+          % (QR_M, QR_N, iters, ne, walls["gels_mixed"], med_ms, stock_ms,
+             leg["kappa_eps"], leg["demoted"],
+             {k: v for k, v in leg["launches"].items() if v}), flush=True)
     if not (iters >= 0 and ne <= 3 and tuple(x.shape) == (QR_N,)):
         fail("gels_mixed: iters %d, residual %.3f" % (iters, ne))
-    res["gels_mixed"] = dict(iters=iters, residual=ne, ms=walls["gels_mixed"])
+    res["gels_mixed"] = dict(iters=iters, residual=ne, ms=walls["gels_mixed"],
+                             median_ms=med_ms, stock_leg_ms=stock_ms,
+                             kappa_eps=leg["kappa_eps"],
+                             demoted=leg["demoted"])
+    del Aq
     del aq, bq
     torch.cuda.empty_cache()
 
@@ -4551,6 +4743,375 @@ def main_path_aux(torch, st, kernels, dev) -> dict:
     del pb, gb, rb, f, x, a
     torch.cuda.empty_cache()
     res.update(launches=launches, walls=walls)
+    return res
+
+
+def _split_envelope(grade: str, k: int) -> float:
+    """The JAX tests' componentwise envelope of a split product, in units
+    of |A||B| (``tests/test_split_gemm.py:44-49``)."""
+    eps = 2.0 ** -23
+    return 4 * ((2 ** 7 + 3 * k) if grade == "split3" else 3 * k) * eps
+
+
+#: split6 keeps every bit of the fp32 operands: its error to the fp64
+#: product stays within 8 eps32 of |A||B|, which split3's dropped pairs
+#: pass at phase 2k's k (~16 eps32 on the card), so the gate tells the two
+#: grades apart where the envelope (~6000 eps32) cannot
+SPLIT6_TIGHT = 8 * 2.0 ** -23
+
+
+def _split_accumulation(k: int) -> float:
+    """|kernel - plain| of a split product in units of |A||B|: both sum the
+    same exact bf16 slice products in fp32, in different orders."""
+    return 4 * k ** 0.5 * 2.0 ** -23
+
+
+def check_split_kernels(torch, kernels, dev) -> dict:
+    """Phase 2k: ``split_matmul`` and ``ozaki_matmul`` alone, each shape
+    gated and timed (CUDA events) beside its bound, its plain version and
+    a library call.  ``split_matmul``: componentwise within the envelope
+    to the fp64 product at split3 and split6, the plain version too.
+    ``ozaki_matmul``: bitwise its plain version on the same planes (at the
+    chunked shape the whole ``ozaki.matmul_f64`` with the kernel, bitwise
+    the same with the plain version), within 1e-12 of |A||B| of the fp64
+    product."""
+    from slate_tpu_torch.ops import ozaki, split_gemm
+
+    gen = torch.Generator(device=dev).manual_seed(101)
+    rows = {}
+
+    # ---- split_matmul -------------------------------------------------
+    res = {}
+    for m, k, n in SPLIT_SHAPES:
+        main = (m, k, n) == SPLIT_SHAPES[0]
+        a = torch.randn((m, k), generator=gen, device=dev)
+        if main:      # the leg's strip: Bᵀ a view of the panel's rows
+            b = torch.randn((n, k), generator=gen, device=dev).mT
+        else:
+            b = torch.randn((k, n), generator=gen, device=dev)
+        sa, sb = split_gemm.split_slices(a), split_gemm.split_slices(b)
+        exact = a.double() @ b.double()
+        mag = a.double().abs() @ b.double().abs()
+        tag = "(%d,%d)x(%d,%d)%s" % (m, k, k, n,
+                                      " B transposed view" if main else "")
+        for grade in ("split3", "split6"):
+            got = kernels.split_matmul(sa, sb, grade)
+            ref = kernels.split_matmul_plain(sa, sb, grade)
+            torch.cuda.synchronize()
+            env = _split_envelope(grade, k)
+            err = float(((got.double() - exact).abs() / mag).max())
+            perr = float(((ref.double() - exact).abs() / mag).max())
+            max_abs = float((got - ref).abs().max())
+            kp_err = float(((got.double() - ref.double()).abs() / mag).max())
+            acc = _split_accumulation(k)
+            staging = kernels.split_matmul_staging(sa, sb, grade)
+            planes, passes = (2, 3) if grade == "split3" else (3, 6)
+            b_ms, b_by = bound(passes * 2.0 * m * n * k,
+                               2.0 * planes * (m * k + k * n) + 4.0 * m * n,
+                               PEAK_BF16_FLOPS)
+            r = dict(shape=tag, grade=grade, staging=staging,
+                     max_abs_err=max_abs, err_in_abab=err,
+                     plain_err_in_abab=perr, envelope=env,
+                     kernel_plain_in_abab=kp_err, accumulation_gate=acc,
+                     split6_gate=SPLIT6_TIGHT,
+                     ms=cuda_ms(torch, lambda: kernels.split_matmul(
+                         sa, sb, grade), 10 if main else 20),
+                     plain_ms=cuda_ms(torch, lambda: kernels.split_matmul_plain(
+                         sa, sb, grade), 3),
+                     library_ms=cuda_ms(torch, lambda: torch.matmul(a, b), 10),
+                     bound_ms=b_ms, bound_by=b_by)
+            if main:
+                r["matmul_3xtf32_ms"] = cuda_ms(
+                    torch, lambda: kernels.matmul(a, b), 10)
+            print("kernel split_matmul %s %s (%s): max|C - AB|/(|A||B|) %.3e, "
+                  "plain %.3e (envelope %.3e; %s %.3e); max|kernel - plain|/"
+                  "(|A||B|) %.3e (gate 4 sqrt(k) eps32 = %.3e), max abs "
+                  "%.3e; kernel %.4f ms, plain %.4f ms, torch.matmul fp32 "
+                  "%.4f ms%s, bound %.4f ms (%s)"
+                  % (grade, tag, staging, err, perr, env,
+                     "split6 gate" if grade == "split6"
+                     else "must exceed the split6 gate", SPLIT6_TIGHT,
+                     kp_err, acc, max_abs, r["ms"],
+                     r["plain_ms"], r["library_ms"],
+                     ", 3xTF32 matmul %.4f ms" % r["matmul_3xtf32_ms"]
+                     if main else "", b_ms, b_by), flush=True)
+            if not (err <= env and perr <= env
+                    and bool(torch.isfinite(got).all())):
+                fail("split_matmul %s %s: error %.3e (plain %.3e) past the "
+                     "envelope %.3e" % (grade, tag, err, perr, env))
+            if not kp_err <= acc:
+                fail("split_matmul %s %s: |kernel - plain| %.3e of |A||B| "
+                     "past 4 sqrt(k) eps32 = %.3e" % (grade, tag, kp_err,
+                                                       acc))
+            # split6 within the tight gate, split3 outside it: a split6
+            # kernel that returned the split3 sum (or lost its d2) fails
+            if grade == "split6" and not (err <= SPLIT6_TIGHT
+                                          and perr <= SPLIT6_TIGHT):
+                fail("split_matmul split6 %s: error %.3e (plain %.3e) past "
+                     "8 eps32" % (tag, err, perr))
+            if grade == "split3" and not err > SPLIT6_TIGHT:
+                fail("split_matmul split3 %s: error %.3e inside the split6 "
+                     "gate %.3e, which then cannot tell the grades apart"
+                     % (tag, err, SPLIT6_TIGHT))
+            res["%s %s" % (grade, tag)] = r
+        del a, b, sa, sb, exact, mag
+    main_row = res["split3 " + "(%d,%d)x(%d,%d) B transposed view"
+                   % (SPLIT_SHAPES[0][0], SPLIT_SHAPES[0][1],
+                      SPLIT_SHAPES[0][1], SPLIT_SHAPES[0][2])]
+    rows["split_matmul"] = dict(
+        main_row, library="torch.matmul fp32 (TF32 off)",
+        tol="componentwise |C - AB| <= 4(2^7 + 3k) eps32 |A||B| (split3), "
+        "4*3k eps32 |A||B| and 8 eps32 |A||B| (split6) against the fp64 "
+        "product; |kernel - plain| <= 4 sqrt(k) eps32 |A||B|",
+        shapes=res)
+
+    # ---- ozaki_matmul ---------------------------------------------------
+    res = {}
+    f64 = torch.float64
+    for m, k, n in OZAKI_SHAPES:
+        a = torch.randn((m, k), generator=gen, device=dev, dtype=f64)
+        b = torch.randn((k, n), generator=gen, device=dev, dtype=f64)
+        tag = "(%d,%d)x(%d,%d)" % (m, k, k, n)
+        exact = a @ b
+        mag = a.abs() @ b.abs()
+        if k <= ozaki._KMAX:
+            ea = ozaki._pow2_scale(a.abs().amax(dim=1))
+            eb = ozaki._pow2_scale(b.abs().amax(dim=0))
+            kp = -(-k // ozaki.KPAD) * ozaki.KPAD
+            ua = ozaki._planes(ozaki._split_int8(
+                ozaki._mul_pow2(a, -ea[:, None])), kp)
+            vb = ozaki._planes(ozaki._split_int8(
+                ozaki._mul_pow2(b, -eb[None, :]).T), kp)
+            got = kernels.ozaki_matmul(ua, vb, ea, eb)
+            ref = kernels.ozaki_matmul_plain(ua, vb, ea, eb)
+
+            def kern():
+                return kernels.ozaki_matmul(ua, vb, ea, eb)
+
+            def plain():
+                return kernels.ozaki_matmul_plain(ua, vb, ea, eb)
+            nbytes = ozaki._NSL * (m + n) * kp + 8.0 * (m + n + m * n)
+        else:
+            # chunked: the whole product with the kernel, then with the
+            # plain version in its place (the same planes, chunk by chunk)
+            got = ozaki.matmul_f64(a, b)
+            saved = kernels.ozaki_matmul
+            kernels.ozaki_matmul = kernels.ozaki_matmul_plain
+            try:
+                ref = ozaki.matmul_f64(a, b)
+            finally:
+                kernels.ozaki_matmul = saved
+
+            def kern():
+                return ozaki.matmul_f64(a, b)
+
+            def plain():
+                kernels.ozaki_matmul = kernels.ozaki_matmul_plain
+                try:
+                    return ozaki.matmul_f64(a, b)
+                finally:
+                    kernels.ozaki_matmul = saved
+            nchunks = -(-k // ozaki._KMAX)
+            nbytes = ozaki._NSL * (m + n) * k + 8.0 * nchunks * (
+                m + n + 2 * m * n)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, ref))
+        err = float(((got - exact).abs() / mag.clamp_min(1e-300)).max())
+        npairs = ozaki._NSL * (ozaki._NSL + 1) // 2
+        b_ms, b_by = bound(npairs * 2.0 * m * n * k, nbytes, PEAK_INT8_OPS)
+        r = dict(shape=tag, bitwise=same, max_abs_err=float(
+                     (got - ref).abs().max()), err_in_abab=err,
+                 ms=cuda_ms(torch, kern, 5), plain_ms=cuda_ms(torch, plain, 2),
+                 library_ms=cuda_ms(torch, lambda: torch.matmul(a, b), 5),
+                 matmul_f64_ms=cuda_ms(torch, lambda: ozaki.matmul_f64(a, b),
+                                       3),
+                 bound_ms=b_ms, bound_by=b_by)
+        print("kernel ozaki_matmul %s: bitwise its plain version %s, "
+              "max|C - AB|/(|A||B|) %.3e (gate 1e-12); kernel %.4f ms, plain "
+              "%.4f ms, torch.matmul fp64 (DGEMM) %.4f ms, matmul_f64 with the "
+              "split %.4f ms, bound %.4f ms (%s)"
+              % (tag, same, err, r["ms"], r["plain_ms"], r["library_ms"],
+                 r["matmul_f64_ms"], b_ms, b_by), flush=True)
+        if not (same and err < 1e-12):
+            fail("ozaki_matmul %s: bitwise %s, error %.3e" % (tag, same, err))
+        res[tag] = r
+        del a, b, exact, mag, got, ref
+    nine = _ozaki_nine_slices(torch, kernels, ozaki, gen, dev)
+    torch.cuda.empty_cache()
+    main_row = res["(%d,%d)x(%d,%d)" % (OZAKI_SHAPES[0][0], OZAKI_SHAPES[0][1],
+                                        OZAKI_SHAPES[0][1],
+                                        OZAKI_SHAPES[0][2])]
+    rows["ozaki_matmul"] = dict(
+        main_row, library="torch.matmul fp64 (cuBLAS DGEMM)",
+        tol="bitwise the plain version; componentwise 1e-12 of |A||B| to "
+        "the fp64 product", shapes=res, slices=ozaki._NSL,
+        nine_slices=nine)
+    return rows
+
+
+def _ozaki_nine_slices(torch, kernels, ozaki, gen, dev) -> dict:
+    """``ozaki_matmul`` at nsl = 9 (``SLATE_TPU_TORCH_F64_SLICES=9``: 45
+    pairs, the full 53-bit split) on (512, 512)·(512, 512): bitwise its
+    plain version on the same nine planes, within 1e-14 of |A||B| of the
+    fp64 product (the default eight slices give ~1e-13)."""
+    m = k = n = 512
+    f64 = torch.float64
+    a = torch.randn((m, k), generator=gen, device=dev, dtype=f64)
+    b = torch.randn((k, n), generator=gen, device=dev, dtype=f64)
+    ea = ozaki._pow2_scale(a.abs().amax(dim=1))
+    eb = ozaki._pow2_scale(b.abs().amax(dim=0))
+    ua = ozaki._planes(ozaki._split_int8(ozaki._mul_pow2(a, -ea[:, None]), 9),
+                       k)
+    vb = ozaki._planes(ozaki._split_int8(
+        ozaki._mul_pow2(b, -eb[None, :]).T, 9), k)
+    got = kernels.ozaki_matmul(ua, vb, ea, eb)
+    ref = kernels.ozaki_matmul_plain(ua, vb, ea, eb)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, ref))
+    err = float(((got - a @ b).abs() / (a.abs() @ b.abs())).max())
+    ms = cuda_ms(torch, lambda: kernels.ozaki_matmul(ua, vb, ea, eb), 5)
+    print("kernel ozaki_matmul nsl=9 (%d,%d)x(%d,%d): bitwise its plain "
+          "version %s, max|C - AB|/(|A||B|) %.3e (gate 1e-14); kernel %.4f ms"
+          % (m, k, k, n, same, err, ms), flush=True)
+    if not (same and err < 1e-14):
+        fail("ozaki_matmul nsl=9: bitwise %s, error %.3e" % (same, err))
+    return dict(shape="(%d,%d)x(%d,%d)" % (m, k, k, n), bitwise=same,
+                err_in_abab=err, ms=ms)
+
+
+def _tester_gemm_residual(torch, prod, a, b, eps: float) -> float:
+    """tester.py's gemm check with β = 0: ‖C − A·B‖/(‖A‖·‖B‖·ε·n) in
+    fp64 (here the fp64 reference is DGEMM's)."""
+    ref = a @ b
+    return float((prod - ref).norm() / (a.norm() * b.norm() * eps
+                                        * a.shape[0]))
+
+
+def main_path_fp64(torch, st, kernels, dev) -> dict:
+    """Phase 3m: the fp64 main path at full size.  ``gemm`` fp64 at
+    n = 2048 under ``f64_mxu`` (the ``ozaki_matmul`` kernel, no ``matmul``
+    launch), and ``posv`` fp64 at n = 8192, nb = 512, 128 right-hand sides
+    three ways: stock (cuSOLVER), the Newton panels pinned with DGEMM
+    products, and the Newton panels over ``ozaki_matmul``
+    (``f64_mxu``); each way's residual ≤ 3, the pinned ways 16
+    ``chol_inv_panel`` launches and no stock rerun, walls a median of 3,
+    and a device split of each pinned way."""
+    import os
+
+    from slate_tpu_torch import config
+    from slate_tpu_torch.perf import metrics
+
+    f64 = torch.float64
+    eps = float(torch.finfo(f64).eps)
+    gen = torch.Generator(device=dev).manual_seed(111)
+    res, launches = {}, {}
+    saved_mxu = config.f64_mxu
+
+    # ---- gemm fp64 (BASELINE.md config 1) ------------------------------
+    n = GEMM64_N
+    a = torch.randn((n, n), generator=gen, device=dev, dtype=f64)
+    b = torch.randn((n, n), generator=gen, device=dev, dtype=f64)
+    c = torch.zeros((n, n), device=dev, dtype=f64)
+    A, B = st.Matrix.from_array(a, nb=NB), st.Matrix.from_array(b, nb=NB)
+    config.f64_mxu = True
+    try:
+        st.gemm(1.0, A, B, 0.0, c)            # warm
+        torch.cuda.synchronize()
+        prod, ms, launches["gemm_fp64"] = run_path(
+            torch, kernels, "gemm_fp64", lambda: st.gemm(1.0, A, B, 0.0, c))
+        walls = sorted(once_ms(torch, lambda: st.gemm(1.0, A, B, 0.0, c))[0]
+                       for _ in range(POSV64_REPS))
+    finally:
+        config.f64_mxu = saved_mxu
+    pd = prod.array if hasattr(prod, "array") else prod
+    gres = _tester_gemm_residual(torch, pd, a, b, eps)
+    lib = sorted(once_ms(torch, lambda: torch.matmul(a, b))[0]
+                 for _ in range(POSV64_REPS))
+    print("gemm fp64 n=%d under f64_mxu: residual %.3g (gate 3, eps64), %.3f "
+          "ms (median of %d, CUDA events; first call's wall %.1f ms), "
+          "torch.matmul fp64 %.3f ms; launches %s"
+          % (n, gres, walls[len(walls) // 2], POSV64_REPS, ms,
+             lib[len(lib) // 2],
+             {k: v for k, v in launches["gemm_fp64"].items() if v}),
+          flush=True)
+    if not (gres <= 3 and launches["gemm_fp64"]["matmul"] == 0):
+        fail("gemm fp64: residual %.3f, matmul launches %d"
+             % (gres, launches["gemm_fp64"]["matmul"]))
+    res["gemm_fp64"] = dict(residual=gres, ms=walls[len(walls) // 2],
+                            library_ms=lib[len(lib) // 2])
+    del a, b, c, A, B, prod, pd
+
+    # ---- posv fp64 three ways (BASELINE.md config 2) ---------------------
+    n, nb = POSV64_N, POSV64_NB
+    r = torch.randn((n, n), generator=gen, device=dev, dtype=f64)
+    h = (r + r.T) / 2 + n * torch.eye(n, device=dev, dtype=f64)
+    rhs = torch.randn((n, NRHS), generator=gen, device=dev, dtype=f64)
+    del r
+    H = st.HermitianMatrix(h, uplo=st.Uplo.Lower, nb=nb)
+    ways = {"stock": ({}, False),
+            "newton_dgemm": ({FORCE: "potrf_panel_f64=ozaki_newton"}, False),
+            "newton_ozaki": ({}, True)}
+    was_on = metrics.enabled()
+    metrics.on()
+    for way, (env, mxu) in ways.items():
+        saved_env = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        config.f64_mxu = True if mxu else saved_mxu
+        try:
+            st.posv(H, rhs)                       # warm
+            torch.cuda.synchronize()
+            before = metrics.snapshot()
+            path = "posv_fp64_" + way
+            (fac, x), ms, launches[path] = run_path(
+                torch, kernels, path, lambda: st.posv(H, rhs))
+            rerun = metrics.snapshot_delta(before, metrics.snapshot())[
+                "counters"].get("potrf.f64_rerun", 0)
+            walls = sorted(once_ms(torch, lambda: st.posv(H, rhs))[0]
+                           for _ in range(POSV64_REPS))
+            split = {} if way == "stock" else device_split(
+                torch, "posv fp64 " + way, lambda: st.posv(H, rhs),
+                {"chol_inv_panel kernel": "chol_inv_panel_kernel",
+                 "ozaki_matmul kernel": "ozaki_matmul_kernel"})
+        finally:
+            config.f64_mxu = saved_mxu
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        pres = _scaled_resid(torch, h, x, rhs)
+        cip = launches[path]["chol_inv_panel"]
+        print("posv fp64 n=%d nb=%d %d rhs, %s: residual %.3g (gate 3, eps64), "
+              "%.1f ms (median of %d, CUDA events), chol_inv_panel %d, "
+              "potrf.f64_rerun %d; launches %s"
+              % (n, nb, NRHS, way, pres, walls[len(walls) // 2], POSV64_REPS,
+                 cip, rerun,
+                 {k: v for k, v in launches[path].items() if v}), flush=True)
+        if not pres <= 3:
+            fail("posv fp64 %s: residual %.3f" % (way, pres))
+        if way != "stock" and not (cip == n // nb and rerun == 0):
+            fail("posv fp64 %s: %d chol_inv_panel launches (want %d), %d "
+                 "stock reruns" % (way, cip, n // nb, rerun))
+        res["posv_fp64_" + way] = dict(residual=pres,
+                                       ms=walls[len(walls) // 2],
+                                       walls=walls, f64_rerun=rerun,
+                                       device_split=split)
+        del fac, x
+    if not was_on:
+        metrics.off()
+    lib = sorted(once_ms(torch, lambda: torch.cholesky_solve(
+        rhs, torch.linalg.cholesky(h)))[0] for _ in range(POSV64_REPS))
+    print("posv fp64 n=%d walls (ms, median of %d): stock %.1f, Newton panels "
+          "over DGEMM %.1f, Newton panels over ozaki_matmul %.1f; cholesky + "
+          "cholesky_solve %.1f"
+          % (n, POSV64_REPS, res["posv_fp64_stock"]["ms"],
+             res["posv_fp64_newton_dgemm"]["ms"],
+             res["posv_fp64_newton_ozaki"]["ms"], lib[len(lib) // 2]),
+          flush=True)
+    res["posv_fp64_library_ms"] = lib[len(lib) // 2]
+    del h, rhs, H
+    torch.cuda.empty_cache()
+    res["launches"] = launches
     return res
 
 
@@ -4659,7 +5220,10 @@ def main() -> int:
         "max_abs_err": max(c[k]["max_abs_err"] for c in shared["checks"])}
         for k in shared["checks"][0]}
     measured.update(phase("2j", check_tile_kernels, torch, kernels, dev))
+    measured.update(phase("2k", check_split_kernels, torch, kernels, dev))
     paths.update(phase("3l", main_path_aux, torch, st, kernels,
+                       dev)["launches"])
+    paths.update(phase("3m", main_path_fp64, torch, st, kernels,
                        dev)["launches"])
     print("phase walls (s): %s; total %.1f s since the build began"
           % (", ".join("%s %.1f" % kv for kv in spent.items()),
@@ -4699,7 +5263,10 @@ def main() -> int:
                       "cube_bound_fp32_ffma_ms", "l_bitwise_chol_inv_panel",
                       "cluster", "second_route", "chase_route",
                       "b16_ms", "b16_library_ms", "b16_bound_ms",
-                      "batched_route"):
+                      "batched_route", "shapes", "staging", "grade",
+                      "err_in_abab", "plain_err_in_abab", "envelope",
+                      "matmul_3xtf32_ms", "bitwise", "matmul_f64_ms",
+                      "slices"):
             if extra in r:
                 rows[-1][extra] = r[extra]
         for p, calls in path_checks.items():    # every call of one run

@@ -18,6 +18,8 @@ Stopping criterion (both loops, reference ``gesv_mixed.cc``):
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import numpy as np
 import torch
 
@@ -178,19 +180,57 @@ def lo_dtype(dtype):
     return dtype
 
 
-def use_split_leg(dtype) -> bool:
-    """Should an fp32 low leg factor under the split-precision (bf16x3)
-    products?  False, as the JAX package's ``auto`` answers everywhere
-    but on a TPU.  Forcing the leg on (``SLATE_TPU_TORCH_SPLIT_GEMM=1``
-    or ``config.split_gemm = True``) raises ``NotImplementedError``: the
-    leg needs ``ops/split_gemm.py``, which is not ported.  The JAX
-    package's own split branch of ``_getrf_lo`` calls itself without end
-    (``slate_tpu/linalg/lu.py:1043-1044``); the port has no such branch."""
+def use_split_leg(dtype, device=None) -> bool:
+    """Should a mixed driver factor its low leg of ``dtype`` on
+    ``device`` under :func:`split_factor_leg`
+    (``slate_tpu/linalg/_refine.py:191-232``)?  Real fp32 only:
+    ``SLATE_TPU_TORCH_SPLIT_GEMM=1`` answers True, ``0`` False, and
+    ``auto`` True on a CUDA device and False on the CPU, as the JAX
+    package's ``auto`` answers True on its TPU only.  False wherever the
+    kernels are switched off (``SLATE_TPU_TORCH_USE_KERNELS=0``): the leg
+    is the ``split_matmul`` kernel's."""
     from .. import config
 
-    if dtype != torch.float32 or config.split_gemm_mode() != "on":
+    if dtype != torch.float32 or config.use_kernels_mode() == "off":
         return False
-    raise NotImplementedError(
-        "the split-precision factor leg of the mixed drivers needs "
-        "ops/split_gemm.py, which is not ported yet "
-        "(SLATE_TPU_TORCH_SPLIT_GEMM=1)")
+    mode = config.split_gemm_mode()
+    if mode != "auto":
+        return mode == "on"
+    return device is not None and torch.device(device).type == "cuda"
+
+
+@contextmanager
+def split_factor_leg():
+    """Force the bf16x3 split backend at the ``matmul`` site for the scope
+    of a mixed driver's low-precision factor, in this thread only: every
+    fp32 product inside resolves to ``split3`` (any shape), and the
+    forced resolutions stay out of the census
+    (:func:`~slate_tpu_torch.perf.autotune.split_leg`).  No module global
+    changes, so another thread's products and a concurrent
+    :func:`~slate_tpu_torch.resilience.health.safe_backend` are left as
+    they are."""
+    from ..perf import autotune
+
+    with autotune.split_leg():
+        yield
+
+
+#: past this κ·n·ε₃₂ (κ² for the semi-normal equations) a split factor
+#: cannot seed a contracting refinement: the leg is demoted to the stock
+#: fp32 factor (the JAX package's gate)
+SPLIT_DEMOTE = 0.25
+
+
+def note_split_leg(driver: str, kappa_eps: float) -> bool:
+    """Record a split leg's κ·ε probe and say whether it demotes the leg
+    (``kappa_eps > 0.25``).  With metrics on: the gauge
+    ``mixed.<driver>.kappa_eps`` and the counters
+    ``mixed.<driver>.split_leg`` and ``mixed.<driver>.split_demoted``."""
+    from ..perf import metrics
+
+    demoted = not kappa_eps <= SPLIT_DEMOTE
+    metrics.set_gauge("mixed.%s.kappa_eps" % driver, kappa_eps)
+    metrics.inc("mixed.%s.split_leg" % driver)
+    if demoted:
+        metrics.inc("mixed.%s.split_demoted" % driver)
+    return demoted

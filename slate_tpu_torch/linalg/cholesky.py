@@ -7,12 +7,19 @@ The fp32 factorization runs at one of three depths, as the
 ``potrf_step`` site decides: the strip driver over the ``chol_inv_panel``
 kernel (``panels``, the default), one ``potrf_step_fused`` launch per
 step (``fused``) or one ``potrf_full_fused`` launch (``full``).
+Real fp64 takes the ``ozaki`` branch where the ``potrf_panel_f64`` site
+answers ``ozaki_newton`` (``SLATE_TPU_TORCH_F64_MXU=1`` or its pin): the
+strip driver over fp64 Newton panels seeded by the ``chol_inv_panel``
+kernel (:func:`slate_tpu_torch.ops.blocks.potrf_panels_f64`), rerun with
+``torch.linalg.cholesky`` where that factor is not finite.
 ``posv_mixed``/``posv_mixed_gmres`` factor in fp32 through
-``blocks.potrf_rec`` and refine in the working precision
+``blocks.potrf_rec`` — under the split-precision products where
+:func:`~slate_tpu_torch.linalg._refine.use_split_leg` says so, with the
+JAX package's κ·ε demotion — and refine in the working precision
 (:mod:`slate_tpu_torch.linalg._refine`).
-Branches of the JAX package not ported yet — out-of-core (``ooc``), the
-fp64 Ozaki/Newton panels (``ozaki``) and the ABFT checksum envelope (off
-by default there) — are queued in ROADMAP.md.
+Branches of the JAX package not ported yet — out-of-core (``ooc``) and
+the ABFT checksum envelope (off by default there) — are queued in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -65,8 +72,10 @@ def _potrf_branch(full, nb: int, nbsel: int, method) -> str:
     """Which potrf branch runs: ``"full"`` / ``"fused"`` (the whole
     factorization, or each whole step, one kernel launch), ``"panels"``
     (the strip driver over the ``chol_inv_panel`` kernel, fp32),
-    ``"recursive"`` (an explicit ``method_factor``: the nb recursion) or
-    ``"stock"`` (``torch.linalg.cholesky``: fp64, complex, or kernels
+    ``"ozaki"`` (real fp64 where the ``potrf_panel_f64`` site answers
+    ``ozaki_newton``: the Newton panels), ``"recursive"`` (an explicit
+    ``method_factor``: the nb recursion) or ``"stock"``
+    (``torch.linalg.cholesky``: fp64 by default, complex, or kernels
     switched off).  The ``potrf_step`` site is consulted first, with the
     shape gates of the fused kernels, as in the JAX package."""
     if method != "auto":
@@ -83,6 +92,10 @@ def _potrf_branch(full, nb: int, nbsel: int, method) -> str:
             "potrf_panel", n=n, nb=nbsel, dtype=full.dtype,
             device=full.device) in ("kernel", "plain"):
         return "panels"
+    if full.ndim == 2 and full.dtype == torch.float64 and select_backend(
+            "potrf_panel_f64", n=n, nb=nbsel,
+            device=full.device) == "ozaki_newton":
+        return "ozaki"
     return "stock"
 
 
@@ -94,6 +107,17 @@ def _potrf_dispatch(branch: str, full, nb: int, nbsel: int):
         return blocks.potrf_steps(full, nbsel)
     if branch == "panels":
         return blocks.potrf_panels(full, nbsel)
+    if branch == "ozaki":
+        # a panel whose fp32 seed breaks down (SPD but cond ≳ 1/ε₃₂) makes
+        # the factor NaN: rerun those inputs stock, as the JAX package's
+        # lax.cond does (a host read of one flag here); each rerun counted
+        from ..perf import metrics
+
+        fast = blocks.potrf_panels_f64(full, nbsel)
+        if bool(torch.isfinite(fast).all()):
+            return fast
+        metrics.inc("potrf.f64_rerun")
+        return torch.linalg.cholesky(full)
     if branch == "recursive":
         return blocks.potrf_rec(full, nb)
     return torch.linalg.cholesky(full)
@@ -180,11 +204,16 @@ def _posv_mixed_setup(a, b, opts, tol, device=None):
     leg is ``blocks.potrf_rec`` in fp32 (its products through the
     ``matmul`` site); a leaf that is not positive definite in fp32 comes
     back NaN, as the JAX package's does, so the loop never converges and
-    the fallback factors in full precision."""
+    the fallback factors in full precision.  Where
+    :func:`~._refine.use_split_leg` says so the leg factors once under
+    :func:`~._refine.split_factor_leg` (every product a bf16x3 split),
+    and a κ·n·ε₃₂ probe past 0.25 demotes it to the stock fp32 factor
+    (``slate_tpu/linalg/cholesky.py:268-295``)."""
     import math
 
     from .norms import norm as _norm
-    from ._refine import lo_dtype, use_split_leg
+    from ._refine import lo_dtype, note_split_leg, split_factor_leg, \
+        use_split_leg
 
     dev = _device_of(a, b, device=device)
     full = _hermitian_full(a, dev)
@@ -198,8 +227,21 @@ def _posv_mixed_setup(a, b, opts, tol, device=None):
     thresh = float(tol) if tol is not None else float(eps) * math.sqrt(n)
 
     lo = lo_dtype(full.dtype)
-    use_split_leg(lo)              # False; raises where the knob forces it
-    l_lo = blocks.potrf_rec(full.to(lo), nb, nan_on_fail=True)
+    a_lo = full.to(lo)
+    if use_split_leg(lo, dev):
+        from .condest import refine_kappa_eps
+
+        with split_factor_leg():
+            l_lo = blocks.potrf_rec(a_lo, nb, nan_on_fail=True)
+
+        def _solve(v):
+            return _chol_solve(l_lo, v.to(l_lo.device), nb)
+
+        ke = refine_kappa_eps(_solve, _solve, n, anorm, lo)
+        if note_split_leg("posv_mixed", ke):
+            l_lo = blocks.potrf_rec(a_lo, nb, nan_on_fail=True)
+    else:
+        l_lo = blocks.potrf_rec(a_lo, nb, nan_on_fail=True)
 
     def solve_lo(r):
         return _chol_solve(l_lo, r.to(lo), nb).to(full.dtype)

@@ -18,13 +18,14 @@ site:
   where the ``lu_panel`` site admits it, else ``torch.linalg.lu_factor``.
 
 ``gesv_mixed``/``gesv_mixed_gmres`` factor in fp32 through
-``getrf_rec`` and refine in the working precision
+``getrf_rec`` — under the split-precision products where
+:func:`~slate_tpu_torch.linalg._refine.use_split_leg` says so, with a
+κ·ε demotion — and refine in the working precision
 (:mod:`slate_tpu_torch.linalg._refine`).
 
 Not ported yet, each queued in ROADMAP.md: CALU (``_panel_lu_tntpiv``,
 ``getrf_tntpiv``), the tall-panel loop (``getrf_panels``,
-``_tall_panel_lu*``), the split-precision leg of the mixed drivers and
-the ABFT and out-of-core branches.
+``_tall_panel_lu*``) and the ABFT and out-of-core branches.
 """
 
 from __future__ import annotations
@@ -504,13 +505,30 @@ def _getrf_lo(av, lo, nb, anorm):
     """Low-precision LU leg of the mixed drivers: ``getrf_rec`` of ``av``
     in ``lo`` (fp32: its panels through the ``lu_panel`` site, the
     ``getrf_panel_linv`` kernel on the card, its products through the
-    ``matmul`` site).  The JAX package's split leg (bf16x3 products and
-    a κ·ε probe) waits for ``ops/split_gemm.py``; ``use_split_leg``
-    raises where the knob forces it."""
-    from ._refine import use_split_leg
+    ``matmul`` site).  Where :func:`~._refine.use_split_leg` says so it
+    factors ONCE under :func:`~._refine.split_factor_leg` (every product
+    a bf16x3 split), then a Higham–Tisseur probe of the fresh factor
+    demotes to the stock fp32 factor where κ(A)·n·ε₃₂ passes 0.25.  The
+    JAX package's branch calls itself instead of factoring
+    (``slate_tpu/linalg/lu.py:1027-1044``) and never ends; this one
+    factors once, twice when demoted."""
+    from ._refine import note_split_leg, split_factor_leg, use_split_leg
 
-    use_split_leg(lo)
-    return getrf_rec(av.to(lo), nb)
+    a_lo = av.to(lo)
+    if not use_split_leg(lo, av.device):
+        return getrf_rec(a_lo, nb)
+    from .condest import refine_kappa_eps
+
+    with split_factor_leg():
+        lu_lo, perm = getrf_rec(a_lo, nb)
+    dev = lu_lo.device
+    ke = refine_kappa_eps(
+        lambda v: getrs(lu_lo, perm, v.to(dev), device=dev),
+        lambda v: getrs(lu_lo, perm, v.to(dev), op=Op.ConjTrans, device=dev),
+        av.shape[-1], anorm, lo)
+    if note_split_leg("gesv_mixed", ke):
+        return getrf_rec(a_lo, nb)
+    return lu_lo, perm
 
 
 def _gesv_mixed_setup(a, b, opts, tol, device):

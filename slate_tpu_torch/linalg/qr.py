@@ -22,8 +22,8 @@ Pallas kernel in the JAX package (an XLA column loop there): here it is
 
 ``gels_mixed`` factors in fp32 through :func:`geqrf_rec` and refines
 the semi-normal equations in the working precision
-(:mod:`slate_tpu_torch.linalg._refine`); its split-precision leg waits
-for ``ops/split_gemm.py``.
+(:mod:`slate_tpu_torch.linalg._refine`), under the split-precision
+products where ``_refine.use_split_leg`` says so (a κ² probe demotes it).
 """
 
 from __future__ import annotations
@@ -479,14 +479,39 @@ def gels(a, b, opts: Optional[Options] = None, *, device=None):
 
 def _gels_lo_factor(av, lo, nb: int):
     """The low leg of :func:`gels_mixed`: R of ``geqrf_rec`` of ``av`` in
-    ``lo`` (fp32: its products through the ``matmul`` site).  The JAX
-    package's split leg waits for ``ops/split_gemm.py``; ``use_split_leg``
-    raises where the knob forces it."""
-    from ._refine import use_split_leg
+    ``lo`` (fp32: its products through the ``matmul`` site).  Where
+    :func:`~._refine.use_split_leg` says so it factors once under
+    :func:`~._refine.split_factor_leg` (every product a bf16x3 split),
+    and a κ₁(R)²·n·ε₃₂ probe past 0.25 — the semi-normal equations'
+    contraction bound — demotes it to the stock fp32 factor
+    (``slate_tpu/linalg/qr.py:605-628``)."""
+    from ..enums import Norm
+    from .norms import norm as _norm
+    from ._refine import note_split_leg, split_factor_leg, use_split_leg
 
-    use_split_leg(lo)
-    f, _taus = geqrf_rec(av.to(lo), nb)
-    return torch.triu(f[:av.shape[1]])
+    n = av.shape[1]
+    a_lo = av.to(lo)
+
+    def factor():
+        f, _taus = geqrf_rec(a_lo, nb)
+        return torch.triu(f[:n])
+
+    if not use_split_leg(lo, av.device):
+        return factor()
+    from .condest import refine_kappa_eps
+
+    with split_factor_leg():
+        r_lo = factor()
+    dev = r_lo.device
+    ke = refine_kappa_eps(
+        lambda v: blocks.trsm_rec(Side.Left, Uplo.Upper, Diag.NonUnit, r_lo,
+                                  v.to(dev), nb),
+        lambda v: blocks.trsm_rec(Side.Left, Uplo.Lower, Diag.NonUnit,
+                                  _ct(r_lo), v.to(dev), nb),
+        n, float(_norm(Norm.One, r_lo, device=dev)), lo, power=2)
+    if note_split_leg("gels_mixed", ke):
+        return factor()
+    return r_lo
 
 
 def gels_mixed(a, b, opts: Optional[Options] = None, *, tol=None,

@@ -57,6 +57,8 @@ SOURCES = {
     "tz": ("tz.cu", ("tile2d.cuh",)),
     "geadd": ("geadd.cu", ("tile2d.cuh",)),
     "gescale_row_col": ("gescale_row_col.cu", ("tile2d.cuh",)),
+    "split_matmul": ("split_matmul.cu", ()),
+    "ozaki_matmul": ("ozaki_matmul.cu", ()),
 }
 
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -21,8 +21,11 @@ def matmul(a, b):
     """2-D product dispatched by the ``matmul`` site
     (:func:`~slate_tpu_torch.perf.autotune.choose_matmul`): the
     hand-written kernel for 128-aligned fp32 shapes on the card, its
-    plain version on the CPU, ``torch.matmul`` otherwise (other dtypes,
-    ragged shapes, batched operands)."""
+    plain version on the CPU; ``"ozaki"`` (fp64,
+    :func:`slate_tpu_torch.ops.ozaki.matmul_f64`) and ``"split3"`` /
+    ``"split6"`` (fp32, :mod:`slate_tpu_torch.ops.split_gemm`) where a
+    knob or a pin asks for them; ``torch.matmul`` otherwise (other
+    dtypes, ragged shapes, batched operands)."""
     if a.ndim == 2 and b.ndim == 2 and a.dtype == b.dtype \
             and a.dtype.is_floating_point:
         from ..perf.autotune import choose_matmul
@@ -32,6 +35,15 @@ def matmul(a, b):
             return kernels.matmul(a, b)
         if backend == "plain":
             return kernels.matmul_plain(a, b)
+        if backend == "ozaki":
+            from .ozaki import matmul_f64
+
+            return matmul_f64(a, b)
+        if backend in ("split3", "split6"):
+            from .split_gemm import matmul_split3, matmul_split6
+
+            return (matmul_split3 if backend == "split3"
+                    else matmul_split6)(a, b)
     return torch.matmul(a, b)
 
 
@@ -346,6 +358,8 @@ def _potrf_strips(a, nb, panel):
     a new array per ``.at[].set/.add``): the diagonal block, the L21
     panel and each trailing strip are overwritten where they lie."""
     from ..perf import metrics
+    from ..perf.autotune import choose_matmul
+    from .split_gemm import matmul_sliced, split_slices
 
     a = a.clone()
     n = a.shape[-1]
@@ -366,9 +380,113 @@ def _potrf_strips(a, nb, panel):
                 l21.copy_(matmul(l21, _ct(linv)))
             nstrips = len(range(k0 + w, n, ws))
             metrics.count_hbm_roundtrips(1.0 + nstrips)
+            # LP-GEMM operand folding: where the strip products resolve to
+            # a split backend, the panel splits into its bf16 slices once
+            # a step and every strip reads windows of the same slices (the
+            # elementwise split commutes with slicing); the site is asked
+            # at the first strip's shape
+            sl = sr = None
+            if a.dtype == torch.float32:
+                mrem = n - (k0 + w)
+                sbk = choose_matmul((mrem, w), (w, min(ws, mrem)), a.dtype,
+                                    a.device)
+                if sbk in ("split3", "split6"):
+                    sl = split_slices(l21)
+                    sr = tuple(_ct(x) for x in sl)
             with metrics.step_timer("potrf", "update"):
                 for j0 in range(k0 + w, n, ws):
                     jw = min(ws, n - j0)
                     o = j0 - (k0 + w)
-                    a[j0:, j0:j0 + jw] -= matmul(l21[o:], _ct(l21[o:o + jw]))
+                    if sl is not None:
+                        upd = matmul_sliced(
+                            sbk, tuple(x[o:] for x in sl),
+                            tuple(x[:, o:o + jw] for x in sr))
+                    else:
+                        upd = matmul(l21[o:], _ct(l21[o:o + jw]))
+                    a[j0:, j0:j0 + jw] -= upd
     return a.tril_()
+
+
+# ---------------------------------------------------------------------------
+# fp64 strip Cholesky: the fp32 chol_inv_panel kernel as the seed, two fp64
+# Newton steps, the products through the fp64 matmul site
+# ---------------------------------------------------------------------------
+
+def _chol_panel_refine_f64(akk):
+    """fp64 (L, L⁻¹) of a power-of-two diagonal block
+    (``slate_tpu/ops/blocks.py:643-716``): the fp32 image factored by the
+    ``chol_inv_panel`` kernel, then one fp64 Newton step on the factor
+    (F = X₀(A − L₀L₀ᵀ)X₀ᵀ, L₁ = L₀(I + tril(F, −1) + diag(F)/2)) and one on
+    the inverse (X₁ = X₀ + X₀(I − L₁X₀)), then a second step of each from
+    residual-scale fp32 products (A − L₁L₁ᵀ = r − L₁ΔLᵀ − ΔL·L₀ᵀ and
+    I − L₂X₁ = (I − L₁X₁)² − ΔL₂X₁, identities).
+
+    Only the two products of fp32-exact operands against themselves at
+    full scale, L₀L₀ᵀ and L₀X₀, go through :func:`matmul` (the fp64 site:
+    the ``ozaki_matmul`` kernel or DGEMM); every other product multiplies
+    an O(ε₃₂) residual in fp32 ``torch.matmul`` (TF32 off), which gives
+    the O(ε₃₂²) absolute accuracy the correction needs.  A block whose fp32
+    image is not positive definite gives NaN, which the driver
+    (:func:`slate_tpu_torch.linalg.cholesky.potrf`) answers by rerunning
+    the stock factor."""
+    w = akk.shape[-1]
+    eye = torch.eye(w, dtype=torch.float64, device=akk.device)
+    asym = torch.tril(akk) + _ct(torch.tril(akk, -1))
+    l0_32, x0_32 = kernels.chol_inv_panel(asym.to(torch.float32))
+    l0_32 = torch.tril(l0_32)
+    x0_32 = torch.tril(x0_32)
+    l0 = l0_32.to(torch.float64)
+    x0 = x0_32.to(torch.float64)
+    mm32 = torch.matmul
+
+    def corr(f):
+        return torch.tril(f, -1) + torch.diag(0.5 * torch.diagonal(f))
+
+    # r = A − L₀L₀ᵀ: cancellation at full scale, the exact-product path
+    r = asym - matmul(l0, _ct(l0))
+    f1 = mm32(mm32(x0_32, r.to(torch.float32)), x0_32.T)
+    dl1 = mm32(l0_32, corr(f1))
+    l1 = torch.tril(l0 + dl1.to(torch.float64))
+    # I − L₁X₀ = (I − L₀X₀) − ΔL·X₀
+    e1 = (eye - matmul(l0, x0)) - mm32(dl1, x0_32).to(torch.float64)
+    e1_32 = e1.to(torch.float32)
+    x1 = torch.tril(x0 + mm32(x0_32, e1_32).to(torch.float64))
+
+    # the second step, on residual-scale fp32 products alone
+    l1_32 = l1.to(torch.float32)
+    x1_32 = x1.to(torch.float32)
+    r2 = r - (mm32(l1_32, dl1.T).to(torch.float64)
+              + mm32(dl1, l0_32.T).to(torch.float64))
+    f2 = mm32(mm32(x1_32, r2.to(torch.float32)), x1_32.T)
+    dl2 = mm32(l1_32, corr(f2))
+    l2 = torch.tril(l1 + dl2.to(torch.float64))
+    e2 = (mm32(e1_32, e1_32) - mm32(dl2, x1_32)).to(torch.float64)
+    x2 = torch.tril(x1 + mm32(x1_32, e2.to(torch.float32))
+                    .to(torch.float64))
+    return l2, x2
+
+
+def _chol_panel_nan(akk, w):
+    """:func:`_chol_panel_stock` for a panel of the fp64 driver, with a
+    factor that is not positive definite returned as NaN (as the JAX
+    package's XLA panel returns it) instead of raised."""
+    lkk, info = torch.linalg.cholesky_ex(akk)
+    lkk = torch.where(info == 0, lkk, torch.full_like(lkk, float("nan")))
+    linv = torch.linalg.solve_triangular(
+        lkk, torch.eye(w, dtype=akk.dtype, device=akk.device), upper=False)
+    return lkk, linv
+
+
+def potrf_panels_f64(a, nb: int = 512):
+    """fp64 :func:`potrf_panels` (``slate_tpu/ops/blocks.py:718-733``):
+    the same strips, each power-of-two panel
+    :func:`_chol_panel_refine_f64`, a ragged one
+    :func:`_chol_panel_nan`, the products through :func:`matmul`.  A block
+    whose fp32 seed breaks down propagates NaN to the driver."""
+
+    def panel(akk, w):
+        if w == nb and (nb & (nb - 1)) == 0:
+            return _chol_panel_refine_f64(akk)
+        return _chol_panel_nan(akk, w)
+
+    return _potrf_strips(a, nb, panel)

@@ -11,7 +11,9 @@ Each kernel has three things here:
   :func:`getrf_full_fused`, :func:`hb2st_wavefront`,
   :func:`tb2bd_wavefront`, :func:`chol_l21_panel`,
   :func:`lu_u12_panel`, :func:`tile_norms`, :func:`tzset`,
-  :func:`tzscale`, :func:`geadd`, :func:`gescale_row_col`) that checks device,
+  :func:`tzscale`, :func:`geadd`, :func:`gescale_row_col`, and the two
+  kernels that replace XLA dots rather than Pallas kernels,
+  :func:`split_matmul` and :func:`ozaki_matmul`) that checks device,
   dtype, shape and strides, allocates its outputs and scratch with
   ``torch.empty``, launches the kernel on the current CUDA stream and
   raises if the launch fails.  Given CPU tensors it runs the plain
@@ -46,7 +48,7 @@ launches = {"matmul": 0, "chol_inv_panel": 0, "trtri_panel": 0,
             "hb2st_wavefront": 0, "tb2bd_wavefront": 0,
             "chol_l21_panel": 0, "lu_u12_panel": 0,
             "tile_norms": 0, "tzset": 0, "tzscale": 0, "geadd": 0,
-            "gescale_row_col": 0}
+            "gescale_row_col": 0, "split_matmul": 0, "ozaki_matmul": 0}
 
 IB = 32
 
@@ -88,6 +90,10 @@ _SIGNATURES = {
     "tz": ("slate_tz_%s", [_P, _P] + [_I] * 4 + [_D, _D, _P]),
     "geadd": ("slate_geadd_%s", [_D, _P, _D, _P, _P, _I, _I, _P]),
     "gescale_row_col": ("slate_gescale_row_col_%s", [_P] * 4 + [_I, _I, _P]),
+    "split_matmul": ("slate_split_matmul",
+                     [_P] * 3 + [_I64] * 2 + [_P] * 3 + [_I64] * 2
+                     + [_P, _I, _I, _I, _P, _I, _I, _I, _P]),
+    "ozaki_matmul": ("slate_ozaki_matmul", [_P] * 5 + [_I] * 4 + [_P]),
 }
 _fns: dict = {}
 _fns_lock = threading.Lock()     # the entry-point cache; held across a build
@@ -332,14 +338,16 @@ def matmul_part_slabs(k: int, s: int) -> int:
     return -(-slabs // s)
 
 
-def matmul_splits(m: int, n: int, k: int, sms: int) -> int:
-    """The parts the matmul kernel cuts K into for an (m, k)·(k, n)
-    product on a card of ``sms`` SMs: 1 where the output's tiles fill the
-    SMs.  Else each s whose parts (:func:`matmul_part_slabs`) are none
-    empty costs ⌈tiles·s / sms⌉ waves × its slabs a part, and the
-    smallest s within 5 % of the least cost wins (each part's partial
-    tile costs a write and a read of workspace)."""
-    tiles = (m // MATMUL_TILE) * (n // MATMUL_TILE)
+def matmul_splits(m: int, n: int, k: int, sms: int, bm: int = MATMUL_TILE,
+                  bn: int = MATMUL_TILE) -> int:
+    """The parts the matmul kernel (or ``split_matmul``, whose output
+    tiles are ``bm`` × ``bn``) cuts K into for an (m, k)·(k, n) product
+    on a card of ``sms`` SMs: 1 where the output's tiles fill the SMs.
+    Else each s whose parts (:func:`matmul_part_slabs`) are none empty
+    costs ⌈tiles·s / sms⌉ waves × its slabs a part, and the smallest s
+    within 5 % of the least cost wins (each part's partial tile costs a
+    write and a read of workspace)."""
+    tiles = -(-m // bm) * -(-n // bn)
     slabs = -(-k // MATMUL_SLAB)
     if tiles >= sms:
         return 1
@@ -1862,3 +1870,191 @@ def gescale_row_col(r, c, a, bm: int = 256, bn: int = 256):
     _launch("gescale_row_col", a.device, r.data_ptr(), c.data_ptr(),
             a.data_ptr(), out.data_ptr(), m, n, dt=dt)
     return out
+
+
+# ---------------------------------------------------------------------------
+# split_matmul: the slice-pair products of the bf16x3 / bf16x6 split gemm
+# (replaces the XLA dots of slate_tpu/ops/split_gemm.py matmul_sliced3/6,
+# not a Pallas kernel)
+# ---------------------------------------------------------------------------
+
+#: the split_matmul kernel's output tile rows by grade, and its columns
+#: (csrc/split_matmul.cu Grade<G>::BM, BN); its K slab is MATMUL_SLAB
+SPLIT_TILE_M = {"split3": 128, "split6": 64}
+SPLIT_TILE_N = 128
+
+def _check_split(sa, sb, grade: str):
+    """The planes a grade reads (two of each operand for split3, three for
+    split6) and ``(m, k, n)``; raises on anything else."""
+    if grade not in SPLIT_TILE_M:
+        raise ValueError("split_matmul grade must be split3 or split6, got %r"
+                         % (grade,))
+    need = 2 if grade == "split3" else 3
+    if len(sa) < need or len(sb) < need:
+        raise ValueError("split_matmul %s reads %d planes of each operand"
+                         % (grade, need))
+    sa, sb = tuple(sa[:need]), tuple(sb[:need])
+    for t in sa + sb:
+        if t.dtype != torch.bfloat16 or t.ndim != 2:
+            raise ValueError("split_matmul takes 2-D bfloat16 planes, got %s %s"
+                             % (t.dtype, tuple(t.shape)))
+    m, k = sa[0].shape
+    k2, n = sb[0].shape
+    if any(t.shape != sa[0].shape for t in sa) or \
+            any(t.shape != sb[0].shape for t in sb) or k != k2:
+        raise ValueError("split_matmul: planes of %s · %s"
+                         % ([tuple(t.shape) for t in sa],
+                            [tuple(t.shape) for t in sb]))
+    return sa, sb, m, k, n
+
+
+def split_matmul_plain(sa, sb, grade: str = "split3"):
+    """Plain version of :func:`split_matmul`: K-folded ``torch.cat`` of the
+    planes as fp32, then one fp32 ``torch.matmul`` a diagonal (the
+    products of bf16 slices are exact in fp32), as the JAX package's
+    ``matmul_sliced3`` / ``matmul_sliced6`` fold them."""
+    sa, sb, _, _, _ = _check_split(sa, sb, grade)
+
+    def fold(xs, ys):
+        return (torch.cat(xs, dim=1).to(torch.float32)
+                @ torch.cat(ys, dim=0).to(torch.float32))
+
+    if grade == "split6":
+        d2 = fold(sa, sb[::-1])
+        d1 = fold(sa[:2], (sb[1], sb[0]))
+        d0 = sa[0].to(torch.float32) @ sb[0].to(torch.float32)
+        return (d2 + d1) + d0
+    return fold((sa[0], sa[0], sa[1]), (sb[0], sb[1], sb[0]))
+
+
+def _one_layout(planes):
+    """The planes with one set of strides, one of them unit (each plane
+    copied contiguous otherwise)."""
+    st = planes[0].stride()
+    if 1 in st and all(p.stride() == st for p in planes):
+        return planes
+    return tuple(p.contiguous() for p in planes)
+
+
+def split_matmul_staging(sa, sb, grade: str) -> str:
+    """``"async"`` where the kernel copies these CUDA planes by cp.async,
+    ``"registers"`` where it stages them through registers."""
+    fn = _fns.get("split_matmul_staging")
+    if fn is None:
+        from . import _build
+
+        fn = _build.library("split_matmul").slate_split_matmul_staging
+        fn.argtypes = [_P] * 3 + [_I64] * 2 + [_P] * 3 + [_I64] * 2 + [_I]
+        fn.restype = _I
+        _fns["split_matmul_staging"] = fn
+    pa = [t.data_ptr() for t in sa] + [None] * (3 - len(sa))
+    pb = [t.data_ptr() for t in sb] + [None] * (3 - len(sb))
+    regs = fn(*pa, sa[0].stride(0), sa[0].stride(1), *pb, sb[0].stride(0),
+              sb[0].stride(1), 6 if grade == "split6" else 3)
+    return "registers" if regs else "async"
+
+
+def split_matmul(sa, sb, grade: str = "split3"):
+    """fp32 ``C = Σ pairs sᵢ(A)·sⱼ(B)`` from bf16 slice planes
+    (:func:`slate_tpu_torch.ops.split_gemm.split_slices`): ``sa`` the
+    (m, k) planes of A, ``sb`` the (k, n) planes of B (a transposed view
+    is read where it lies), ``grade`` ``"split3"`` (the pairs (0,0),
+    (0,1), (1,0) in one accumulator) or ``"split6"`` (the diagonals
+    i + j ≤ 2, ``(d2 + d1) + d0``).  Any m, k, n.  One launch counted per
+    call, whether K is split or not."""
+    sa, sb, m, k, n = _check_split(sa, sb, grade)
+    if _on_cpu(*sa, *sb):
+        return split_matmul_plain(sa, sb, grade)
+    dev = sa[0].device
+    if m == 0 or n == 0 or k == 0:
+        return torch.zeros((m, n), dtype=torch.float32, device=dev)
+    sa, sb = _one_layout(sa), _one_layout(sb)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = matmul_splits(m, n, k, sms, SPLIT_TILE_M[grade], SPLIT_TILE_N)
+    c = torch.empty((m, n), dtype=torch.float32, device=dev)
+    w = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
+         if splits > 1 else None)
+    pa = [t.data_ptr() for t in sa] + [None] * (3 - len(sa))
+    pb = [t.data_ptr() for t in sb] + [None] * (3 - len(sb))
+    _launch("split_matmul", dev, *pa, sa[0].stride(0), sa[0].stride(1),
+            *pb, sb[0].stride(0), sb[0].stride(1), c.data_ptr(), m, n, k,
+            None if w is None else w.data_ptr(), splits,
+            matmul_part_slabs(k, splits), 6 if grade == "split6" else 3)
+    return c
+
+
+# ---------------------------------------------------------------------------
+# ozaki_matmul: the int8 pair products and fp64 combine of the Ozaki fp64
+# gemm (replaces the XLA dots and combine of slate_tpu/ops/ozaki.py
+# _chunk_matmul, not a Pallas kernel)
+# ---------------------------------------------------------------------------
+
+#: the ozaki_matmul kernel's output tile (csrc/ozaki_matmul.cu BM, BN)
+OZAKI_TILE = 64
+
+
+def _check_ozaki(ua, vb, ea, eb):
+    if ua.dtype != torch.int8 or vb.dtype != torch.int8 or ua.ndim != 3 \
+            or vb.ndim != 3:
+        raise ValueError("ozaki_matmul takes 3-D int8 planes, got %s %s, %s %s"
+                         % (ua.dtype, tuple(ua.shape), vb.dtype,
+                            tuple(vb.shape)))
+    nsl, m, kp = ua.shape
+    if vb.shape[0] != nsl or vb.shape[2] != kp or not 1 <= nsl <= 9 \
+            or kp % 32:
+        raise ValueError("ozaki_matmul: planes %s and %s (same slices 1-9, "
+                         "the same K, a multiple of 32)"
+                         % (tuple(ua.shape), tuple(vb.shape)))
+    kmax = 1 << (31 - 12 - max(1, (nsl - 1).bit_length()))
+    if kp > kmax:
+        raise ValueError("ozaki_matmul: K = %d passes %d, past which an int32 "
+                         "diagonal sum may overflow" % (kp, kmax))
+    n = vb.shape[1]
+    if ea.dtype != torch.float64 or eb.dtype != torch.float64 \
+            or tuple(ea.shape) != (m,) or tuple(eb.shape) != (n,):
+        raise ValueError("ozaki_matmul: exponents %s %s, %s %s for (%d, %d)"
+                         % (ea.dtype, tuple(ea.shape), eb.dtype,
+                            tuple(eb.shape), m, n))
+    return nsl, m, n, kp
+
+
+def ozaki_matmul_plain(ua, vb, ea, eb):
+    """Plain version of :func:`ozaki_matmul`: each diagonal's pair sums as
+    fp64 ``torch.matmul`` of the integer-valued planes (exact: every
+    partial sum is an integer below 2⁵³), combined in ascending order and
+    rescaled in the kernel's order of operations."""
+    nsl, m, n, kp = _check_ozaki(ua, vb, ea, eb)
+    a64, b64 = ua.to(torch.float64), vb.to(torch.float64)
+    acc = None
+    for tot in range(nsl):
+        g = None
+        for t in range(tot + 1):
+            p = a64[t] @ b64[tot - t].T
+            g = p if g is None else g + p
+        scaled = g * (2.0 ** (-6 * (tot + 2)))
+        acc = scaled if acc is None else acc + scaled
+    e = ea[:, None] + eb[None, :]
+    e1 = torch.trunc(e * 0.5)
+    return acc * torch.exp2(e1) * torch.exp2(e - e1)
+
+
+def ozaki_matmul(ua, vb, ea, eb):
+    """fp64 ``C`` from the int8 slice planes of the row-scaled A (``ua``,
+    (nsl, m, kp), K fast) and of the column-scaled B laid K-major (``vb``,
+    (nsl, n, kp)) with their exponents ``ea`` (m) and ``eb`` (n): the
+    diagonals t + s = tot of the pair products summed exactly in int32,
+    combined in fp64 with weights 2^(−6(tot+2)) in ascending order, then
+    scaled by 2^(ea[i] + eb[j]) (:mod:`slate_tpu_torch.ops.ozaki`).  kp a
+    multiple of 32 within the exact-sum bound; 1 ≤ nsl ≤ 9.  Bitwise
+    :func:`ozaki_matmul_plain` on the same inputs."""
+    nsl, m, n, kp = _check_ozaki(ua, vb, ea, eb)
+    if _on_cpu(ua, vb, ea, eb):
+        return ozaki_matmul_plain(ua, vb, ea, eb)
+    dev = ua.device
+    if m == 0 or n == 0:
+        return torch.zeros((m, n), dtype=torch.float64, device=dev)
+    ua, vb, ea, eb = (t.contiguous() for t in (ua, vb, ea, eb))
+    c = torch.empty((m, n), dtype=torch.float64, device=dev)
+    _launch("ozaki_matmul", dev, ua.data_ptr(), vb.data_ptr(), ea.data_ptr(),
+            eb.data_ptr(), c.data_ptr(), m, n, kp, nsl)
+    return c

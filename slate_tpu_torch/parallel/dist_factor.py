@@ -12,9 +12,13 @@ brought up to date with step k's rank-nb correction from replicated
 operands alone, and the column k + D is broadcast before the trailing
 update; the trailing update is one product over the stage's static
 window (:func:`~.dist_util.staged_fori`).  Every product goes through
-:func:`slate_tpu_torch.ops.blocks.matmul`.  The JAX package's split
-trailing product (``trail`` ∈ split3/split6) has no counterpart: the
-port's ``matmul`` site never answers split.
+:func:`slate_tpu_torch.ops.blocks.matmul`, unless the ``matmul`` site
+answers a split backend for fp32 at the local trailing shape (``trail``
+∈ split3/split6, ``slate_tpu/parallel/dist_factor.py:60-160``): then the
+replicated panel splits into its bf16 slices once a step and the ring
+corrections, the lookahead column and the trailing update all read
+windows of those slices (:func:`~slate_tpu_torch.ops.split_gemm.
+matmul_sliced`).
 
 Each rank runs this in its own process with its own (r, c); the
 JAX package's masks on ``k % q == c`` are Python branches here.
@@ -28,6 +32,8 @@ import torch
 from ..grid import ceildiv
 from ..ops import kernels
 from ..ops.blocks import matmul as _mm
+from ..ops.split_gemm import matmul_sliced, split_slices
+from ..perf.autotune import choose_matmul
 from .dist import DistMatrix, distribute, like
 from .dist_util import (bcast_block_col, bcast_block_row,
                         dist_chunk_slices, dist_lookahead_depth,
@@ -54,8 +60,10 @@ def _panel_factor(backend: str, d, panel):
 
 
 def _ppotrf(mesh, a_loc, nb: int, nt: int, backend: str, depth: int,
-            chunks: int):
-    """The step loop on this rank's shard ``a_loc``, in place."""
+            chunks: int, trail: str = "stock"):
+    """The step loop on this rank's shard ``a_loc``, in place; ``trail``
+    ``"split3"``/``"split6"`` folds every product of a step off one split
+    of its replicated panel."""
     p, q = mesh_grid_shape(mesh)
     r, c = mesh.r, mesh.c
     ml, nl = a_loc.shape[0] // nb, a_loc.shape[1] // nb
@@ -65,6 +73,7 @@ def _ppotrf(mesh, a_loc, nb: int, nt: int, backend: str, depth: int,
     grows_h = local_grows(ml, nb, p, r)
     grows = torch.as_tensor(grows_h, device=dev)
     depth = max(1, min(depth, nt))
+    split = trail in ("split3", "split6")
 
     def getcol(k):
         return a_loc[:, (k // q) * nb:(k // q + 1) * nb]
@@ -80,11 +89,25 @@ def _ppotrf(mesh, a_loc, nb: int, nt: int, backend: str, depth: int,
                                         panel)
             w_full[:(k + 1) * nb] = 0                     # L21 rows only
             w_rows = w_full.index_select(0, grows)
+            if split:
+                # LP-GEMM operand folding: the replicated panel splits
+                # once; the split is elementwise, so it commutes with the
+                # row gathers and windows below
+                s_full = split_slices(w_full)
+                s_rows = tuple(x.index_select(0, grows) for x in s_full)
+
+                def block_t(blk):
+                    return tuple(_ct(x[blk * nb:(blk + 1) * nb])
+                                 for x in s_full)
             new_ring = []
             for j in range(1, depth):
                 if k + j < nt:
-                    wj = w_full[(k + j) * nb:(k + j + 1) * nb]
-                    new_ring.append(ring[j] - _mm(w_full, _ct(wj)))
+                    if split:
+                        corr = matmul_sliced(trail, s_full, block_t(k + j))
+                    else:
+                        wj = w_full[(k + j) * nb:(k + j + 1) * nb]
+                        corr = _mm(w_full, _ct(wj))
+                    new_ring.append(ring[j] - corr)
             kn = k + depth
             if kn < nt:
                 # lookahead: column k + D with step k's correction,
@@ -92,8 +115,13 @@ def _ppotrf(mesh, a_loc, nb: int, nt: int, backend: str, depth: int,
                 own = kn % q == c
                 coln = getcol(kn)[row0:]
                 if own:
-                    wn = w_full[kn * nb:(kn + 1) * nb]
-                    coln = coln - _mm(w_rows[row0:], _ct(wn))
+                    if split:
+                        coln = coln - matmul_sliced(
+                            trail, tuple(x[row0:] for x in s_rows),
+                            block_t(kn))
+                    else:
+                        wn = w_full[kn * nb:(kn + 1) * nb]
+                        coln = coln - _mm(w_rows[row0:], _ct(wn))
                 new_ring.append(bcast_block_col(mesh, coln, grows_h[row0:],
                                                 own, M, chunks))
             if k % q == c:
@@ -105,12 +133,19 @@ def _ppotrf(mesh, a_loc, nb: int, nt: int, backend: str, depth: int,
                     col[(k // p) * nb:(k // p + 1) * nb] = l11
             live = torch.as_tensor(jblk[jblk > k], device=dev)
             if len(live):
-                w_cols = torch.zeros((len(jblk), nb, nb), dtype=w_full.dtype,
-                                     device=dev)
-                w_cols[len(jblk) - len(live):] = w_full.view(
-                    mtp, nb, nb).index_select(0, live)
+                def cols(x):
+                    out = torch.zeros((len(jblk), nb, nb), dtype=x.dtype,
+                                      device=dev)
+                    out[len(jblk) - len(live):] = x.view(
+                        mtp, nb, nb).index_select(0, live)
+                    return _ct(out.view(-1, nb))
                 win = a_loc[row0:, col0:]
-                win -= _mm(w_rows[row0:], _ct(w_cols.view(-1, nb)))
+                if split:
+                    win -= matmul_sliced(
+                        trail, tuple(x[row0:] for x in s_rows),
+                        tuple(cols(x) for x in s_full))
+                else:
+                    win -= _mm(w_rows[row0:], cols(w_full))
             return new_ring
 
         return body
@@ -145,8 +180,18 @@ def ppotrf(a: DistMatrix) -> DistMatrix:
                                  m=a.mtp * a.nb)
     depth = dist_lookahead_depth("potrf", nt, a.nb, a.dtype, a.device)
     chunks = dist_chunk_slices("potrf", a.nb, a.dtype, a.mesh)
+    # the trailing product rides the matmul site at the local trailing
+    # shape, asked before the step loop so that a split backend can fold
+    # a step's products off one split of its panel
+    trail = "stock"
+    if a.dtype == torch.float32:
+        ml, nl = a.mtp // a.grid_shape[0], a.ntp // a.grid_shape[1]
+        bk = choose_matmul((ml * a.nb, a.nb), (a.nb, nl * a.nb), a.dtype,
+                           a.device)
+        if bk in ("split3", "split6"):
+            trail = bk
     return like(a, _ppotrf(a.mesh, a.data.clone(), a.nb, nt, backend,
-                           depth, chunks))
+                           depth, chunks, trail))
 
 
 def _ptrsm(mesh, l_loc, b_loc, nb: int, nt: int, trans: bool, chunks: int):

@@ -157,8 +157,9 @@ def rank_drivers(mesh, a_spd, a_gen, b, nb: int) -> dict:
     of replicated numpy inputs on this rank's mesh, at the inputs' dtype.
     Returns numpy: the product, the lower Cholesky factor, both
     solutions, the LU factor and its permutation (all replicated through
-    :func:`~.dist.undistribute`), the site decisions and the kernel
-    launches of the run."""
+    :func:`~.dist.undistribute`), the ``dist_*`` site decisions, the
+    backends the ``matmul`` site answered and the kernel launches of the
+    run."""
     from ..ops import kernels
     from ..perf import autotune
     from . import pgemm_auto, pgesv, pposv, undistribute
@@ -175,6 +176,8 @@ def rank_drivers(mesh, a_spd, a_gen, b, nb: int) -> dict:
             "x_ge": _np(undistribute(x2)),
             "decisions": {k: v for k, v in autotune.decisions().items()
                           if k.startswith("dist_")},
+            "matmul": sorted({v for k, v in autotune.decisions().items()
+                              if k.startswith("matmul|")}),
             "launches": dict(kernels.launches)}
 
 

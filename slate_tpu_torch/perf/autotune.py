@@ -12,6 +12,15 @@ Each site returns one of:
   ``torch.linalg``), for shapes the kernel does not take or when
   ``SLATE_TPU_TORCH_USE_KERNELS=0``.
 
+The ``matmul`` site also answers ``"ozaki"`` (fp64, the ``ozaki_matmul``
+kernel) and ``"split3"`` / ``"split6"`` (fp32, the ``split_matmul``
+kernel) where a knob, a pin or this thread's :func:`split_leg` asks for
+them; ``potrf_panel_f64`` answers ``"ozaki_newton"`` (the fp64 Newton
+panels) or ``"stock"``.  :func:`suppress_knob_records` keeps a forced
+leg's resolutions out of :func:`decisions`.  Both are thread-local: a
+mixed driver's split leg in one thread changes neither the answers nor
+the census of another.
+
 The ``geqrf_panel`` site returns a driver instead: ``"cholqr2"`` (the
 CholQR² panel loop over the ``chol_inv_panel``, ``lu_inv_panel`` and
 ``trtri_panel`` kernels) or ``"stock"`` (``torch.geqrf``).
@@ -55,6 +64,7 @@ from __future__ import annotations
 import os
 import threading
 import warnings
+from contextlib import contextmanager
 
 import torch
 
@@ -64,6 +74,9 @@ from .sweep import pow2_bucket
 _decisions: dict = {}
 _reasons: dict = {}
 _lock = threading.Lock()
+#: this thread's scopes: ``suppress`` (:func:`suppress_knob_records`) and
+#: ``split_leg`` (:func:`split_leg`) nesting depths
+_local = threading.local()
 
 #: the pin variable, ``"<site>=<backend>,..."``
 FORCE_ENV = "SLATE_TPU_TORCH_AUTOTUNE_FORCE"
@@ -71,12 +84,47 @@ _warned_forces: set = set()
 
 
 def _record(site: str, key: tuple, backend: str, reason=None) -> str:
+    """Store the decision (unless :func:`suppress_knob_records` is active)
+    and return ``backend``."""
+    if getattr(_local, "suppress", 0):
+        return backend
     k = "%s|%s" % (site, ",".join(map(str, key)))
     with _lock:
         _decisions[k] = backend
         if reason is not None:
             _reasons[k] = reason
     return backend
+
+
+@contextmanager
+def suppress_knob_records():
+    """While active in this thread, its sites resolve as usual but leave
+    :func:`decisions` untouched: a leg that forces a knob for its scope
+    (the mixed drivers' split factor leg, the safe backend) must not
+    write its forced answers into the census.  Other threads record as
+    usual."""
+    _local.suppress = getattr(_local, "suppress", 0) + 1
+    try:
+        yield
+    finally:
+        _local.suppress -= 1
+
+
+@contextmanager
+def split_leg():
+    """While active in this thread, every fp32 product at the ``matmul``
+    site resolves to ``"split3"``, at any shape, as under
+    ``SLATE_TPU_TORCH_SPLIT_GEMM=1`` (``SLATE_TPU_TORCH_USE_KERNELS=0``
+    still answers stock), and the resolutions stay out of the census.
+    The mixed drivers' split factor leg
+    (:func:`slate_tpu_torch.linalg._refine.split_factor_leg`) writes no
+    module global, so it cannot race another thread's knobs."""
+    _local.split_leg = getattr(_local, "split_leg", 0) + 1
+    try:
+        with suppress_knob_records():
+            yield
+    finally:
+        _local.split_leg -= 1
 
 
 def decisions(with_reasons: bool = False) -> dict:
@@ -140,18 +188,48 @@ def _kernel_or_plain(device) -> str:
 
 
 def choose_matmul(shape_a, shape_b, dtype, device) -> str:
-    """2-D product: the kernel for fp32 shapes with every dim a multiple
-    of 128 (the eligibility of ``slate_tpu/perf/autotune.py:921-924``,
-    narrowed to fp32 because the kernel is an fp32 kernel), else
-    ``torch.matmul``."""
+    """2-D real product, with the JAX package's precedence
+    (``slate_tpu/perf/autotune.py:853-980``):
+
+    * fp64: ``"ozaki"`` (:func:`slate_tpu_torch.ops.ozaki.matmul_f64`, the
+      ``ozaki_matmul`` kernel) under ``SLATE_TPU_TORCH_F64_MXU=1`` or the
+      pin ``matmul=ozaki``, else ``"stock"`` (cuBLAS DGEMM: the int8 route
+      cannot beat it on an H100, see :mod:`~slate_tpu_torch.ops.ozaki`);
+    * fp32: ``"split3"`` (:mod:`slate_tpu_torch.ops.split_gemm`, the
+      ``split_matmul`` kernel) at any shape, ragged too, under
+      ``SLATE_TPU_TORCH_SPLIT_GEMM=1`` or in this thread's
+      :func:`split_leg`; else the pin ``matmul=split3`` or
+      ``matmul=split6`` unless the split knob is off; else the ``matmul``
+      kernel for shapes with every dim a multiple of 128 (the eligibility
+      of ``slate_tpu/perf/autotune.py:921-924``), its plain version on the
+      CPU, ``torch.matmul`` otherwise.
+
+    Every other dtype, and every product under
+    ``SLATE_TPU_TORCH_USE_KERNELS=0``, is ``"stock"``."""
     m, k = int(shape_a[0]), int(shape_a[1])
     n = int(shape_b[1])
     key = (m, k, n, str(dtype).replace("torch.", ""),
            torch.device(device).type)
-    eligible = (dtype == torch.float32 and m % 128 == 0 and k % 128 == 0
-                and n % 128 == 0)
-    if not eligible or config.use_kernels_mode() == "off":
-        return _record("matmul", key, "stock")
+    if config.use_kernels_mode() == "off":
+        return _record("matmul", key, "stock", "kernels off")
+    forced = _forced("matmul")
+    if dtype == torch.float64:
+        mode = config.f64_mxu_mode()
+        if mode == "on":
+            return _record("matmul", key, "ozaki", "forced-config")
+        if mode != "off" and forced == "ozaki":
+            return _record("matmul", key, "ozaki", "forced")
+        return _record("matmul", key, "stock", "default: cuBLAS DGEMM")
+    if dtype != torch.float32:
+        return _record("matmul", key, "stock", "ineligible")
+    smode = config.split_gemm_mode()
+    if smode == "on" or getattr(_local, "split_leg", 0):
+        # the split needs no tile alignment: ragged shapes take it too
+        return _record("matmul", key, "split3", "forced-config")
+    if smode != "off" and forced in ("split3", "split6"):
+        return _record("matmul", key, forced, "forced")
+    if m % 128 or k % 128 or n % 128:
+        return _record("matmul", key, "stock", "ineligible")
     return _record("matmul", key, _kernel_or_plain(device))
 
 
@@ -163,6 +241,30 @@ def choose_potrf_panel(n: int, nb: int, dtype, device) -> str:
     if dtype != torch.float32 or config.use_kernels_mode() == "off":
         return _record("potrf_panel", key, "stock")
     return _record("potrf_panel", key, _kernel_or_plain(device))
+
+
+def choose_potrf_panel_f64(n: int, nb: int, device) -> str:
+    """fp64 Cholesky driver (``slate_tpu/perf/autotune.py:1054-1097``):
+    ``"ozaki_newton"`` (:func:`slate_tpu_torch.ops.blocks.
+    potrf_panels_f64`: the fp32 ``chol_inv_panel`` kernel as the seed of
+    each panel, two fp64 Newton steps, the products through the fp64
+    ``matmul`` site) under ``SLATE_TPU_TORCH_F64_MXU=1`` or the pin
+    ``potrf_panel_f64=ozaki_newton``, else ``"stock"``
+    (``torch.linalg.cholesky``): the JAX package times the two on its
+    chip, and the port has no timing table yet."""
+    key = (n, nb, "float64", torch.device(device).type)
+    if config.use_kernels_mode() == "off":
+        return _record("potrf_panel_f64", key, "stock", "kernels off")
+    mode = config.f64_mxu_mode()
+    if mode == "on":
+        return _record("potrf_panel_f64", key, "ozaki_newton", "forced-config")
+    forced = _forced("potrf_panel_f64")
+    if forced is not None and mode != "off":
+        if forced in ("ozaki_newton", "stock"):
+            return _record("potrf_panel_f64", key, forced, "forced")
+        _warn_bad_force("potrf_panel_f64", forced, ("ozaki_newton", "stock"))
+    return _record("potrf_panel_f64", key, "stock",
+                   "default: no timed decision on this card yet")
 
 
 def choose_potrf_step(n: int, nb: int, dtype, device,
@@ -490,6 +592,7 @@ _SITES = {
     "lu_step": choose_lu_step,
     "matmul": choose_matmul,
     "potrf_panel": choose_potrf_panel,
+    "potrf_panel_f64": choose_potrf_panel_f64,
     "potrf_step": choose_potrf_step,
     "svd_driver": choose_svd_driver,
     "trtri_panel": choose_trtri_panel,

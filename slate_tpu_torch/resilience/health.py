@@ -30,18 +30,27 @@ _safe_lock = threading.RLock()
 
 @contextmanager
 def safe_backend():
-    """Force the stock backends for the body: ``config.use_kernels`` and
-    ``config.scattered_lu`` off, so every site resolves to its stock
-    PyTorch op (cuBLAS/cuSOLVER) and no hand-written kernel runs.
+    """Force the stock backends for the body: ``config.use_kernels``,
+    ``config.scattered_lu``, ``config.split_gemm`` and ``config.f64_mxu``
+    off (``slate_tpu/resilience/health.py:86-96``), so every site resolves
+    to its stock PyTorch op (cuBLAS/cuSOLVER) and no hand-written kernel
+    or split product runs; the forced resolutions stay out of the census
+    (:func:`~slate_tpu_torch.perf.autotune.suppress_knob_records`).
     Process-global, as the knobs are module globals: concurrent bodies
     serialize on one lock instead of racing the restore."""
     from .. import config
+    from ..perf import autotune
 
     with _safe_lock:
-        saved = (config.use_kernels, config.scattered_lu)
+        saved = (config.use_kernels, config.scattered_lu, config.split_gemm,
+                 config.f64_mxu)
         config.use_kernels = False
         config.scattered_lu = False
+        config.split_gemm = False
+        config.f64_mxu = False
         try:
-            yield
+            with autotune.suppress_knob_records():
+                yield
         finally:
-            config.use_kernels, config.scattered_lu = saved
+            (config.use_kernels, config.scattered_lu, config.split_gemm,
+             config.f64_mxu) = saved

@@ -133,6 +133,13 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     kernels.tzscale(a, False, 2.0, 1.0)
     kernels.geadd(1.0, a, 2.0, a)
     kernels.gescale_row_col(a[0], a[1], a)
+    planes = tuple(torch.zeros(64, 64, dtype=torch.bfloat16) for _ in range(3))
+    kernels.split_matmul(planes, planes, "split3")
+    kernels.split_matmul(planes, planes, "split6")
+    kernels.ozaki_matmul(torch.zeros((8, 64, 64), dtype=torch.int8),
+                         torch.zeros((8, 32, 64), dtype=torch.int8),
+                         torch.zeros(64, dtype=torch.float64),
+                         torch.zeros(32, dtype=torch.float64))
     assert set(kernels.launches) == {"matmul", "chol_inv_panel",
                                      "trtri_panel", "lu_inv_panel",
                                      "getrf_panel_linv",
@@ -142,7 +149,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                                      "getrf_full_fused", "hb2st_wavefront",
                                      "tb2bd_wavefront", "chol_l21_panel",
                                      "lu_u12_panel", "tile_norms", "tzset",
-                                     "tzscale", "geadd", "gescale_row_col"}
+                                     "tzscale", "geadd", "gescale_row_col",
+                                     "split_matmul", "ozaki_matmul"}
     assert all(v == 0 for v in kernels.launches.values())
 
 

@@ -26,7 +26,6 @@ import slate_tpu as jst
 from slate_tpu.linalg import _refine as jref
 from slate_tpu.ops import blocks as jblocks
 import slate_tpu_torch as tst
-from slate_tpu_torch import config as tcfg
 from slate_tpu_torch.linalg import _refine as tref
 from slate_tpu_torch.ops import blocks as tblocks
 
@@ -187,26 +186,6 @@ def test_low_cholesky_leg_returns_nan_where_not_positive_definite():
     np.testing.assert_array_equal(got, ref)
     with pytest.raises(torch.linalg.LinAlgError):
         tblocks.potrf_rec(_t(a), 2)
-
-
-def test_forcing_the_split_leg_raises(monkeypatch):
-    """The split-precision leg needs ops/split_gemm.py, not ported: a
-    forced knob raises instead of running a leg the port does not have
-    (the JAX package's own forced leg recurses in _getrf_lo)."""
-    monkeypatch.setattr(tcfg, "split_gemm", True)
-    assert tref.use_split_leg(torch.float64) is False
-    a = _spd(64, 23)
-    b = np.ones((64, 1))
-    for call in (
-            lambda: tst.gesv_mixed(_t(a), _t(b), device="cpu"),
-            lambda: tst.posv_mixed(_t(a), _t(b), device="cpu"),
-            lambda: tst.gels_mixed(_t(a), _t(b), device="cpu")):
-        with pytest.raises(NotImplementedError, match="split_gemm"):
-            call()
-    monkeypatch.setattr(tcfg, "split_gemm", "auto")
-    assert tref.use_split_leg(torch.float32) is False
-    x, iters = tst.gesv_mixed(_t(a), _t(b), device="cpu")
-    assert iters >= 0 and _resid(a, x.numpy(), b) <= 3
 
 
 def test_gels_mixed_refuses_wide_and_lo_dtype_pairs():
