@@ -262,6 +262,29 @@
      ``chol_inv_panel`` launches and no stock rerun (``potrf.f64_rerun``
      0), a median of 3 walls each and a profiler split of each pinned
      way.
+   * the rest of the single-device dense solvers (phase 3n): gesv of a
+     Gaussian n = 16384 (nb 512, 128 right-hand sides) through the
+     tall-panel loop under Auto (the tournament on the 16 panels taller
+     than 8192 rows) and under an explicit PartialPiv (the inner-blocked
+     loop): tester.py's residual ≤ 3, |L| ≤ 1 + 100ε under PartialPiv
+     (printed under Auto), one ``getrf_panel_linv`` launch a panel of
+     ≤ 8192 rows, each wall beside ``getrf_rec``'s on the same matrix and
+     the pp loop's device launches a column; ``getrf_tntpiv`` and gesv
+     under ``MethodLU.CALU`` at n = 8192, nb 256 (residuals ≤ 3);
+     ``polar`` of bench.py's svd_fp32 input (‖UᵀU − I‖ and ‖A − U·H‖/‖A‖
+     ≤ 3 in n·10ε units), ``svd_qdwh`` of it and ``heev_qdwh`` of the
+     heev_fp32 input at n = 8192, and both in fp64 at 4096, under phases
+     3h/3i's gates, their walls beside the two-stage walls of 3h/3i
+     (this run), the stage timers (the mixing draw included) and the step
+     counts; ``hesv`` of a symmetric Gaussian, fp32 at 8192 and fp64 at
+     4096 (128 right-hand sides): residual ≤ 3, hetrf's and hetrs' walls,
+     T's growth and hetrf's device launches a column.  One run of each
+     fp32 path with every ``matmul`` call (and on the tall loop and
+     ``getrf_rec`` at 16384 every ``getrf_panel_linv`` call, under phase
+     2b's panel gates) held to its plain version (heev_qdwh's and
+     svd_qdwh's at n = 4096); and every operand layout that the 8192
+     heev_qdwh and svd_qdwh runs gave ``matmul`` held to its plain
+     version on Gaussian operands.
    Every kernel's launch count is set to 0 just before each path (each
    LU driver, ``getri``, each batched driver, the served requests, each
    depth and each distributed driver a path of its own) and read just
@@ -384,7 +407,19 @@ PATHS = {"cholesky": ("matmul", "chol_inv_panel", "trtri_panel"),
          "gemm_fp64": ("ozaki_matmul",),
          "posv_fp64_stock": (),
          "posv_fp64_newton_dgemm": ("chol_inv_panel",),
-         "posv_fp64_newton_ozaki": ("chol_inv_panel", "ozaki_matmul")}
+         "posv_fp64_newton_ozaki": ("chol_inv_panel", "ozaki_matmul"),
+         "lu_tall_tournament": ("matmul", "getrf_panel_linv"),
+         "lu_tall_pp": ("matmul", "getrf_panel_linv"),
+         "lu_rec_tall": ("matmul", "getrf_panel_linv"),
+         "getrf_tntpiv": ("matmul",),
+         "gesv_calu": ("matmul",),
+         "polar": ("matmul",),
+         "svd_qdwh": ("matmul",),
+         "heev_qdwh": ("matmul",),
+         "heev_qdwh_fp64": (),
+         "svd_qdwh_fp64": (),
+         "hesv": ("matmul",),
+         "hesv_fp64": ()}
 #: the tile kernels, which no driver calls: their path is their own
 #: public entry, tied to the driver function computing the same thing
 TILE_KERNELS = PATHS["tile_ties"]
@@ -411,7 +446,8 @@ GUARD_M, GUARD_N, GUARD_COND = 8192, 1024, 1e6
 #: against its plain version, as in phases 2 and 2e
 CHECK_TOL = {"matmul": 1e-5, "chol_inv_panel": 1e-4,
                 "lu_inv_panel": 1e-4, "trtri_panel": 1e-4,
-                "chol_l21_panel": 1e-4, "lu_u12_panel": 1e-4}
+                "chol_l21_panel": 1e-4, "lu_u12_panel": 1e-4,
+                "getrf_panel_linv": 1e-4}
 FORCE = "SLATE_TPU_TORCH_AUTOTUNE_FORCE"
 PEAK_FP64_FLOPS = 34e12         # H100 SXM, fp64 FMA outside the tensor cores
 #: phase 2g's chase checks (n, kd), its range chunks at (1024, 64) and the
@@ -473,6 +509,19 @@ PEAK_INT8_OPS = 1979e12
 #: posv fp64 at config 2's n = 8192, nb = 512 (16 panels), 128 right-hand
 #: sides, the walls a median of this many calls
 GEMM64_N, POSV64_N, POSV64_NB, POSV64_REPS = 2048, 8192, 512, 3
+#: phase 3n's sizes: the tall-panel LU at BASELINE.md config 3's n = 16384
+#: (nb 512: 16 of its 32 panels taller than the loop's 8192 rows), CALU
+#: at 8192 with nb 256, hesv fp32 at 8192 and fp64 at 4096 (nb 256) and
+#: the n of hetrf's launch count; QDWH runs at the eigensolver paths'
+#: sizes (EIG_N, EIG_N64, SVD_N, SVD_N64)
+TALL_N, TALL_NB = 16384, 512
+CALU_N, CALU_NB = 8192, 256
+HESV_N, HESV_N64, HESV_NB, HESV_COUNT_N = 8192, 4096, 256, 520
+#: the size of heev_qdwh's and svd_qdwh's checked runs
+QDWH_CHECK_N = 4096
+#: the width of the tall panel whose pp loop's launches a column are
+#: counted (the count does not depend on it: two 64-wide slabs)
+PP_COUNT_W = 128
 
 
 def fail(msg: str):
@@ -2270,8 +2319,9 @@ def check_path_calls(torch, kernels, label: str, run, tols: dict,
     held to its plain version on the same arguments at the moment of the
     call (the wrappers are swapped for checking ones for this run only):
     each output within ``tols[name]`` (relative Frobenius; an all-zero
-    output exactly; ``lu_u12_panel``'s departure by :func:`same_departure`),
-    and for ``trtri_panel`` ‖L·L⁻¹ − I‖_F < ``ident_tol`` (phase 2's gate,
+    output exactly; ``lu_u12_panel``'s departure by :func:`same_departure`;
+    ``getrf_panel_linv`` by phase 2b's :func:`_panel_gates`, its slab and
+    linv compared where the pivots agree), and for ``trtri_panel`` ‖L·L⁻¹ − I‖_F < ``ident_tol`` (phase 2's gate,
     1e-4).  So the shapes and layouts a path gives the
     kernels are compared on the card, not only phase 2's.  Every kernel
     named must be called.  Returns per kernel the calls, distinct
@@ -2286,20 +2336,32 @@ def check_path_calls(torch, kernels, label: str, run, tols: dict,
                           for t in args)
 
     def checked(name):
-        def call(*args):
-            got = real[name](*args)
-            ref = plain[name](*args)
+        def call(*args, **kw):
+            got = real[name](*args, **kw)
+            ref = plain[name](*args, **kw)
             gots = got if isinstance(got, tuple) else (got,)
             refs = ref if isinstance(ref, tuple) else (ref,)
+            if name == "getrf_panel_linv":
+                # phase 2b's gates (pivots equal but for a printed
+                # near-tie, the panel's residual, L11·linv = I); the slab
+                # and linv compared where the pivots agree
+                _panel_gates(torch, "%s: getrf_panel_linv" % label,
+                             args[0].T, *got, ref)
+                if not torch.equal(gots[1], refs[1]):
+                    gots, refs = (), ()
+                else:
+                    gots, refs = (gots[0], gots[3]), (refs[0], refs[3])
             if name == "lu_u12_panel":
                 # the departure is rounding amplified by cond(L11): held
                 # to its plain value's magnitude and guard verdict
                 same_departure(label, float(gots[1]), float(refs[1]))
                 gots, refs = gots[:1], refs[:1]
             # an all-zero output is held exactly
-            rel = max(rel_err(g, r) if bool(r.any()) else
-                      float((g - r).abs().max()) for g, r in zip(gots, refs))
-            err = max(float((g - r).abs().max()) for g, r in zip(gots, refs))
+            rel = max([rel_err(g, r) if bool(r.any()) else
+                       float((g - r).abs().max()) for g, r in zip(gots, refs)],
+                      default=0.0)
+            err = max([float((g - r).abs().max()) for g, r in zip(gots, refs)],
+                      default=0.0)
             where = layout(args)
             rec = out[name]
             rec["calls"] += 1
@@ -3001,6 +3063,7 @@ def main_path_heev(torch, st, kernels, dev) -> dict:
     checks = {"heev": check_path_calls(
         torch, kernels, "heev path", lambda: st.heev(A),
         {"matmul": CHECK_TOL["matmul"]})}
+    res["fp32"]["lam"] = lam       # phase 3n's reference on the same input
     del A, a, lam
 
     rng = np.random.default_rng(7)
@@ -3012,10 +3075,10 @@ def main_path_heev(torch, st, kernels, dev) -> dict:
     if launches["heev_fp64"]["hb2st_wavefront"] != 1:
         fail("heev fp64 launched hb2st_wavefront %d times"
              % launches["heev_fp64"]["hb2st_wavefront"])
+    lam = torch.linalg.eigvalsh(a)
     res["fp64"] = _eig_gates(torch, "heev fp64 n=%d" % EIG_N64, a, w, z,
-                             torch.linalg.eigvalsh(a),
-                             10 * float(torch.finfo(torch.float64).eps))
-    res["fp64"]["wall_ms"] = ms
+                             lam, 10 * float(torch.finfo(torch.float64).eps))
+    res["fp64"].update(wall_ms=ms, lam=lam)
     print("heev fp64 n=%d: one call %.1f ms; launches %s"
           % (EIG_N64, ms, {k: v for k, v in launches["heev_fp64"].items() if v}),
           flush=True)
@@ -3523,6 +3586,7 @@ def main_path_svd(torch, st, kernels, dev) -> dict:
     sref = torch.linalg.svdvals(a.double())
     res = {"fp32": _svd_gates(torch, "svd fp32 n=%d" % SVD_N, a, s, u, vh,
                               10 * eps32, sref)}
+    res["fp32"]["sref"] = sref     # phase 3n's reference on the same input
     del s, u, vh, sref
     # the first call is the one timed (each call is ~32 s, mostly host)
     stages = {k: v["total_s"] * 1e3 / v["count"] for k, v in timers.items()
@@ -3556,10 +3620,11 @@ def main_path_svd(torch, st, kernels, dev) -> dict:
     (s, u, vh), ms, launches["svd_fp64"] = run_path(
         torch, kernels, "svd_fp64", lambda: st.svd(A))
     _svd_route_counters(metrics, "svd fp64", before, launches["svd_fp64"])
+    sref = torch.linalg.svdvals(a)
     res["fp64"] = _svd_gates(torch, "svd fp64 n=%d" % SVD_N64, a, s, u, vh,
                              10 * float(torch.finfo(torch.float64).eps),
-                             torch.linalg.svdvals(a))
-    res["fp64"]["wall_ms"] = ms
+                             sref)
+    res["fp64"].update(wall_ms=ms, sref=sref)
     print("svd fp64 n=%d: one call %.1f ms; launches %s"
           % (SVD_N64, ms, {k: v for k, v in launches["svd_fp64"].items() if v}),
           flush=True)
@@ -5115,6 +5180,393 @@ def main_path_fp64(torch, st, kernels, dev) -> dict:
     return res
 
 
+def _stage_ms(metrics, before, prefixes) -> dict:
+    """The stage timers under ``prefixes`` since the snapshot ``before``,
+    total ms each."""
+    timers = metrics.snapshot_delta(before, metrics.snapshot())["timers"]
+    return {k: round(v["total_s"] * 1e3, 2) for k, v in timers.items()
+            if k.startswith(prefixes)}
+
+
+def launches_per_column(torch, fn, columns: int) -> float:
+    """Device launches (kernels, copies and sets in a torch.profiler
+    trace) of one call of ``fn``, over ``columns``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(ev.count for ev in prof.key_averages()
+            if str(getattr(ev, "device_type", "")).endswith("CUDA"))
+    return n / columns
+
+
+def _polar_gates(torch, label, a, u, h, eps10) -> dict:
+    """‖UᵀU − I‖_F/(n·10ε) and ‖A − U·H‖_F/(‖A‖_F·n·10ε), each ≤ 3 (phase
+    3h's orthogonality and backward gates), finite values, H symmetric."""
+    n = a.shape[1]
+    for name, t in (("U", u), ("H", h)):
+        if not bool(torch.isfinite(t).all()):
+            fail("%s: %s has non-finite values" % (label, name))
+    ad, ud, hd = a.double(), u.double(), h.double()
+    out = dict(orthogonality=float(
+        (ud.T @ ud - torch.eye(n, dtype=torch.float64, device=a.device)).norm()
+        / (n * eps10)),
+        backward=float((ad - ud @ hd).norm() / (ad.norm() * n * eps10)))
+    print("%s: %s (n*10eps units, <= 3)" % (
+        label, {k: float("%.4g" % v) for k, v in out.items()}), flush=True)
+    if max(out.values()) > 3 or not torch.equal(h, h.T):
+        fail("%s: gates %s, H symmetric %s" % (label, out,
+                                               torch.equal(h, h.T)))
+    return out
+
+
+def record_layouts(kernels, name: str, into: set, run):
+    """``run()`` with each call of ``kernels.<name>`` noting its operands'
+    layouts (shape, strides, address mod 16 bytes) into ``into``: no host
+    read and no copy, the launches counted as usual."""
+    real = getattr(kernels, name)
+
+    def call(*args, **kw):
+        into.add(tuple((tuple(t.shape), t.stride(), t.data_ptr() % 16)
+                       for t in args))
+        return real(*args, **kw)
+
+    setattr(kernels, name, call)
+    try:
+        return run()
+    finally:
+        setattr(kernels, name, real)
+
+
+def hold_matmul_layouts(torch, kernels, dev, label: str, layouts) -> dict:
+    """``kernels.matmul`` against its plain version at each operand layout
+    in ``layouts`` (:func:`record_layouts`), on Gaussian operands laid out
+    as recorded (shape, strides, and the address's offset within 16
+    bytes, on which the kernel's staging turns), relative Frobenius
+    within ``CHECK_TOL["matmul"]``.  Returns what
+    :func:`check_path_calls` returns, a call a layout."""
+    gen = torch.Generator(device=dev).manual_seed(34)
+    worst, where, err = 0.0, "", 0.0
+    for lay in sorted(layouts):
+        ops = []
+        for shape, stride, mis in lay:
+            off = mis // 4
+            extent = off + 1 + sum((d - 1) * st for d, st in zip(shape, stride))
+            ops.append(torch.randn(extent, generator=gen, device=dev)
+                       .as_strided(shape, stride, off))
+        got, ref = kernels.matmul(*ops), kernels.matmul_plain(*ops)
+        rel = rel_err(got, ref)
+        err = max(err, float((got - ref).abs().max()))
+        if not rel <= CHECK_TOL["matmul"]:
+            fail("%s: matmul at %s is %.3e (relative) from its plain version "
+                 "(<= %.0e)" % (label, lay, rel, CHECK_TOL["matmul"]))
+        if rel >= worst:
+            worst, where = rel, lay
+        del ops, got, ref
+    print("%s: matmul held at all %d layouts of the run on Gaussian "
+          "operands, max rel %.3e (<= %.0e), max abs %.3e; worst at %s" % (
+              label, len(layouts), worst, CHECK_TOL["matmul"], err, where),
+          flush=True)
+    return {"matmul": {"calls": len(layouts), "layouts": len(layouts),
+                       "max_rel_err": worst, "max_abs_err": err}}
+
+
+def main_path_solvers(torch, st, kernels, dev, twostage) -> dict:
+    """Phase 3n: the nineteenth slice's drivers at full width, each a path
+    of its own (launch counts zeroed before, read after) and one checked
+    run each of the fp32 paths (every ``matmul`` call, and on the tall
+    loop and ``getrf_rec`` at 16384 every ``getrf_panel_linv`` call, held
+    to its plain version; heev_qdwh's and svd_qdwh's at n = 4096 on the
+    same generators, to keep the phase under 150 s).  The 8192 heev_qdwh
+    and svd_qdwh runs note every operand layout they give ``matmul``
+    (their divide and conquer's block sizes depend on the data, so the
+    4096 runs meet only some of them), and ``matmul`` is held to its
+    plain version at each of them on Gaussian operands.
+
+    * the tall-panel LU: gesv of a Gaussian n = 16384 (BASELINE.md config
+      3's n), nb 512, 128 right-hand sides, under Auto (the tournament on
+      the 16 panels taller than 8192 rows) and under an explicit
+      PartialPiv (the inner-blocked loop): tester.py's residual ≤ 3, |L|
+      printed for the tournament and ≤ 1 + 100ε for partial pivoting;
+      each first call's wall beside ``getrf_rec``'s on the same matrix;
+      the pp loop's device launches a column;
+    * CALU: ``getrf_tntpiv`` and gesv under ``MethodLU.CALU`` at n = 8192,
+      nb 256: residuals ≤ 3;
+    * QDWH on bench.py's inputs: ``polar`` of the svd_fp32 Gaussian
+      (n = 8192) under phase 3h's orthogonality and backward gates (n·10ε
+      units) with its qr/chol step counts; ``heev_qdwh`` of the heev_fp32
+      input and ``svd_qdwh`` of the svd_fp32 input, fp32 at 8192 and fp64
+      at 4096 (phases 3h/3i's generators), under phases 3h/3i's gates,
+      their walls beside the two-stage walls of phases 3h and 3i (this
+      run), the stage timers (the mixing draw ``stage.<ns>.draw``
+      included), and the other kernels' launches printed;
+    * hesv: a symmetric Gaussian (indefinite), fp32 at n = 8192 and fp64 at
+      4096, nb 256, 128 right-hand sides: tester.py's residual ≤ 3,
+      hetrf's and hetrs' walls, T's growth max|T|/max|A| and hetrf's
+      device launches a column; the fp32 path's check runs hetrs alone
+      (every matmul launch of the path is there)."""
+    import numpy as np
+    from slate_tpu_torch.linalg import lu as tlu
+    from slate_tpu_torch.perf import metrics
+
+    metrics.on()
+    eps32 = float(torch.finfo(torch.float32).eps)
+    eps64 = float(torch.finfo(torch.float64).eps)
+    launches, checks, res = {}, {}, {}
+    split, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        t = time.perf_counter()
+        split[name] = round(t - t_part[0], 1)
+        t_part[0] = t
+
+    def report(path, ms, extra="", label=None):
+        print("%s: %.1f ms%s; launches %s" % (label or path, ms, extra, {
+            k: v for k, v in launches[path].items() if v}), flush=True)
+
+    # --- the tall-panel LU loop ---------------------------------------
+    n = TALL_N
+    gen = torch.Generator(device=dev).manual_seed(31)
+    a = torch.randn((n, n), generator=gen, device=dev)
+    b = torch.randn((n, NRHS), generator=gen, device=dev)
+    A = st.Matrix.from_array(a, nb=TALL_NB, device=dev)
+    for path, method in (("lu_tall_tournament", st.MethodLU.Auto),
+                         ("lu_tall_pp", st.MethodLU.PartialPiv)):
+        opts = {"method_lu": method}
+        (lu, perm, x), ms, launches[path] = run_path(
+            torch, kernels, path, lambda: st.gesv(A, b, opts))
+        resid = _scaled_resid(torch, a, x, b)
+        lmax = float(torch.tril(lu.array, -1).abs().max())
+        res[path] = dict(wall_ms=ms, residual=resid, l_max=lmax)
+        report(path, ms, ", residual %.3g, max|L| %.6g" % (resid, lmax))
+        if not resid <= 3 or not (method is st.MethodLU.Auto
+                                  or lmax <= 1 + 100 * eps32):
+            fail("%s: residual %.3g (<= 3), max|L| %.6g" % (path, resid,
+                                                             lmax))
+        if launches[path]["getrf_panel_linv"] != n // TALL_NB // 2:
+            fail("%s: %d getrf_panel_linv launches, not one a panel of "
+                 "<= 8192 rows (%d)" % (path, launches[path][
+                     "getrf_panel_linv"], n // TALL_NB // 2))
+        del lu, perm, x
+        checks[path] = check_path_calls(
+            torch, kernels, "%s path" % path, lambda: st.gesv(A, b, opts),
+            {k: CHECK_TOL[k] for k in ("matmul", "getrf_panel_linv")})
+    (_, _), ms, launches["lu_rec_tall"] = run_path(
+        torch, kernels, "lu_rec_tall", lambda: tlu.getrf_rec(a, NB))
+    res["lu_rec_tall"] = dict(wall_ms=ms)
+    report("lu_rec_tall", ms, "",
+           "getrf_rec n=%d nb=%d (the recursion, for the walls)" % (n, NB))
+    checks["lu_rec_tall"] = check_path_calls(
+        torch, kernels, "lu_rec_tall path", lambda: tlu.getrf_rec(a, NB),
+        {k: CHECK_TOL[k] for k in ("matmul", "getrf_panel_linv")})
+    pan = a[:, :PP_COUNT_W].contiguous()
+    res["lu_tall_pp"]["launches_a_column"] = launches_per_column(
+        torch, lambda: tlu._tall_panel_lu_pp(pan), PP_COUNT_W)
+    print("tall LU n=%d: gesv walls tournament %.1f ms, pp %.1f ms, "
+          "getrf_rec %.1f ms (first calls); the pp loop's device launches a "
+          "column of a (%d, %d) panel %.2f" % (
+              n, res["lu_tall_tournament"]["wall_ms"],
+              res["lu_tall_pp"]["wall_ms"], ms, n, PP_COUNT_W,
+              res["lu_tall_pp"]["launches_a_column"]), flush=True)
+    del A, a, b, pan
+    part("tall LU")
+
+    # --- CALU -----------------------------------------------------------
+    n = CALU_N
+    gen = torch.Generator(device=dev).manual_seed(32)
+    a = torch.randn((n, n), generator=gen, device=dev)
+    b = torch.randn((n, NRHS), generator=gen, device=dev)
+    A = st.Matrix.from_array(a, nb=CALU_NB, device=dev)
+    (lu, perm), ms, launches["getrf_tntpiv"] = run_path(
+        torch, kernels, "getrf_tntpiv", lambda: st.getrf_tntpiv(A))
+    x = st.getrs(lu, perm, b)
+    resid = _scaled_resid(torch, a, x, b)
+    lmax = float(torch.tril(lu.array, -1).abs().max())
+    report("getrf_tntpiv", ms, ", getrs residual %.3g, max|L| %.6g"
+           % (resid, lmax), "getrf_tntpiv n=%d nb=%d" % (n, CALU_NB))
+    res["getrf_tntpiv"] = dict(wall_ms=ms, residual=resid, l_max=lmax)
+    opts = {"method_lu": st.MethodLU.CALU}
+    (_, _, x), ms, launches["gesv_calu"] = run_path(
+        torch, kernels, "gesv_calu", lambda: st.gesv(A, b, opts))
+    resid2 = _scaled_resid(torch, a, x, b)
+    report("gesv_calu", ms, ", residual %.3g" % resid2, "gesv CALU n=%d" % n)
+    res["gesv_calu"] = dict(wall_ms=ms, residual=resid2)
+    if not (resid <= 3 and resid2 <= 3):
+        fail("CALU: residuals %.3g, %.3g (<= 3)" % (resid, resid2))
+    checks["gesv_calu"] = check_path_calls(
+        torch, kernels, "gesv_calu path", lambda: st.gesv(A, b, opts),
+        {"matmul": CHECK_TOL["matmul"]})
+    del A, a, b, lu, perm, x
+    part("CALU")
+
+    # --- QDWH -----------------------------------------------------------
+    def qdwh_run(path, label, fn, ns, layouts=None):
+        before = metrics.snapshot()
+        if layouts is not None:
+            fn = (lambda f: lambda: record_layouts(kernels, "matmul",
+                                                   layouts, f))(fn)
+        out, ms, launches[path] = run_path(torch, kernels, path, fn)
+        stages = _stage_ms(metrics, before, (
+            "stage.%s." % ns, "chase.hb2st", "qdwh.draw_host"))
+        counters = metrics.snapshot_delta(before, metrics.snapshot())[
+            "counters"]
+        counts = {k: int(v) for k, v in counters.items()
+                  if k.startswith("qdwh.")}
+        report(path, ms, "; stage timers (ms) %s; counters %s" % (
+            stages, counts), label)
+        return out, dict(wall_ms=ms, stages_ms=stages, counters=counts)
+
+    rng = np.random.default_rng(10)                # bench.py's svd_fp32
+    g = torch.from_numpy(rng.standard_normal((SVD_N, SVD_N)).astype(
+        np.float32)).to(dev)
+    G = st.Matrix.from_array(g, nb=NB, device=dev)
+    (u, h), res["polar"] = qdwh_run("polar", "polar fp32 n=%d" % SVD_N,
+                                    lambda: st.polar(G), "polar")
+    res["polar"].update(_polar_gates(torch, "polar fp32 n=%d" % SVD_N, g, u,
+                                     h, 10 * eps32))
+    del u, h
+    checks["polar"] = check_path_calls(
+        torch, kernels, "polar path", lambda: st.polar(G),
+        {"matmul": CHECK_TOL["matmul"]})
+    lays = set()
+    (s, u, vh), res["svd_qdwh"] = qdwh_run(
+        "svd_qdwh", "svd_qdwh fp32 n=%d" % SVD_N, lambda: st.svd_qdwh(G),
+        "svd", lays)
+    res["svd_qdwh"].update(_svd_gates(
+        torch, "svd_qdwh fp32 n=%d" % SVD_N, g, s, u, vh, 10 * eps32,
+        twostage["svd"]["sref"]))
+    del s, u, vh, G, g
+    checks["svd_qdwh_layouts"] = hold_matmul_layouts(
+        torch, kernels, dev, "svd_qdwh fp32 n=%d" % SVD_N, lays)
+    g = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (QDWH_CHECK_N, QDWH_CHECK_N)).astype(np.float32)).to(dev)
+    checks["svd_qdwh"] = check_path_calls(
+        torch, kernels, "svd_qdwh path (n=%d)" % QDWH_CHECK_N,
+        lambda: st.svd_qdwh(g, opts={"block_size": NB}, device=dev),
+        {"matmul": CHECK_TOL["matmul"]})
+    del g
+    part("polar and svd_qdwh fp32")
+
+    rng = np.random.default_rng(9)                 # bench.py's heev_fp32
+    g = rng.standard_normal((EIG_N, EIG_N)).astype(np.float32)
+    a = torch.from_numpy(((g + g.T) / 2).astype(np.float32)).to(dev)
+    del g
+    A = st.HermitianMatrix(a, uplo=st.Uplo.Lower, nb=NB, device=dev)
+    lays = set()
+    (w, z), res["heev_qdwh"] = qdwh_run(
+        "heev_qdwh", "heev_qdwh fp32 n=%d" % EIG_N, lambda: st.heev_qdwh(A),
+        "heev", lays)
+    res["heev_qdwh"].update(_eig_gates(
+        torch, "heev_qdwh fp32 n=%d" % EIG_N, a, w, z,
+        twostage["heev"]["lam"], 10 * eps32))
+    del w, z, A, a
+    checks["heev_qdwh_layouts"] = hold_matmul_layouts(
+        torch, kernels, dev, "heev_qdwh fp32 n=%d" % EIG_N, lays)
+    g = np.random.default_rng(9).standard_normal(
+        (QDWH_CHECK_N, QDWH_CHECK_N)).astype(np.float32)
+    a = torch.from_numpy(((g + g.T) / 2).astype(np.float32)).to(dev)
+    checks["heev_qdwh"] = check_path_calls(
+        torch, kernels, "heev_qdwh path (n=%d)" % QDWH_CHECK_N,
+        lambda: st.heev_qdwh(a, opts={"block_size": NB}, device=dev),
+        {"matmul": CHECK_TOL["matmul"]})
+    del a, g
+    part("heev_qdwh fp32")
+
+    rng = np.random.default_rng(7)                 # heev_fp64's generator
+    g = rng.standard_normal((EIG_N64, EIG_N64))
+    a = torch.from_numpy((g + g.T) / 2).to(dev)
+    A = st.HermitianMatrix(a, uplo=st.Uplo.Lower, nb=NB, device=dev)
+    (w, z), res["heev_qdwh_fp64"] = qdwh_run(
+        "heev_qdwh_fp64", "heev_qdwh fp64 n=%d" % EIG_N64,
+        lambda: st.heev_qdwh(A), "heev")
+    res["heev_qdwh_fp64"].update(_eig_gates(
+        torch, "heev_qdwh fp64 n=%d" % EIG_N64, a, w, z,
+        twostage["heev64"]["lam"], 10 * eps64))
+    del A, a, w, z
+    g = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (SVD_N64, SVD_N64))).to(dev)               # svd_fp64's generator
+    G = st.Matrix.from_array(g, nb=NB, device=dev)
+    (s, u, vh), res["svd_qdwh_fp64"] = qdwh_run(
+        "svd_qdwh_fp64", "svd_qdwh fp64 n=%d" % SVD_N64,
+        lambda: st.svd_qdwh(G), "svd")
+    res["svd_qdwh_fp64"].update(_svd_gates(
+        torch, "svd_qdwh fp64 n=%d" % SVD_N64, g, s, u, vh, 10 * eps64,
+        twostage["svd64"]["sref"]))
+    del G, g, s, u, vh
+    part("QDWH fp64")
+    print("QDWH beside the two-stage drivers of phases 3h/3i (this run, "
+          "ms): heev fp32 n=%d qdwh %.1f / twostage %.1f (eigh %.1f); "
+          "fp64 n=%d %.1f / %.1f; svd fp32 n=%d %.1f / %.1f "
+          "(torch.linalg.svd %.1f); fp64 n=%d %.1f / %.1f; polar fp32 %.1f"
+          % (EIG_N, res["heev_qdwh"]["wall_ms"], twostage["heev"]["wall_ms"],
+             twostage["heev"]["eigh_ms"], EIG_N64,
+             res["heev_qdwh_fp64"]["wall_ms"], twostage["heev64"]["wall_ms"],
+             SVD_N, res["svd_qdwh"]["wall_ms"], twostage["svd"]["wall_ms"],
+             twostage["svd"]["library_ms"], SVD_N64,
+             res["svd_qdwh_fp64"]["wall_ms"], twostage["svd64"]["wall_ms"],
+             res["polar"]["wall_ms"]), flush=True)
+
+    # --- hesv -------------------------------------------------------------
+    for path, n, dt in (("hesv", HESV_N, torch.float32),
+                        ("hesv_fp64", HESV_N64, torch.float64)):
+        gen = torch.Generator(device=dev).manual_seed(33)
+        g = torch.randn((n, n), generator=gen, device=dev, dtype=dt)
+        a = (g + g.T) / 2
+        b = torch.randn((n, NRHS), generator=gen, device=dev, dtype=dt)
+        del g
+        opts = {"block_size": HESV_NB}
+        walls = {}
+
+        def drive():
+            t0 = time.perf_counter()
+            f = st.hetrf(a, opts, device=dev)
+            torch.cuda.synchronize()
+            walls["hetrf"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            x = st.hetrs(f, b, opts)
+            torch.cuda.synchronize()
+            walls["hetrs"] = (time.perf_counter() - t0) * 1e3
+            return f, x
+
+        (f, x), ms, launches[path] = run_path(torch, kernels, path, drive)
+        resid = _scaled_resid(torch, a, x, b)
+        growth = float(torch.maximum(f.d.abs().max(), f.e.abs().max())
+                       / a.abs().max())
+        res[path] = dict(wall_ms=ms, residual=resid, growth=growth, **walls)
+        report(path, ms, " (hetrf %.1f, hetrs %.1f), residual %.3g, "
+               "max|T|/max|A| %.4g" % (walls["hetrf"], walls["hetrs"], resid,
+                                       growth),
+               "%s n=%d nb=%d" % (path, n, HESV_NB))
+        if not (resid <= 3 and bool(torch.isfinite(x).all())):
+            fail("%s: residual %.3g (<= 3)" % (path, resid))
+        if path == "hesv":
+            # every matmul launch of the path is hetrs' (hetrf's products
+            # are ragged and go to torch.matmul): the check runs hetrs of
+            # the path's factor and must see as many calls
+            checks[path] = check_path_calls(
+                torch, kernels, "hesv path (hetrs)",
+                lambda: st.hetrs(f, b, opts),
+                {"matmul": CHECK_TOL["matmul"]})
+            if checks[path]["matmul"]["calls"] != launches[path]["matmul"]:
+                fail("hesv path: hetrs made %d matmul calls, the path "
+                     "launched %d" % (checks[path]["matmul"]["calls"],
+                                      launches[path]["matmul"]))
+            small = a[:HESV_COUNT_N, :HESV_COUNT_N].contiguous()
+            res[path]["launches_a_column"] = launches_per_column(
+                torch, lambda: st.hetrf(small, opts, device=dev),
+                HESV_COUNT_N - 2)
+            print("hetrf fp32 n=%d nb=%d: device launches a column %.2f"
+                  % (HESV_COUNT_N, HESV_NB, res[path]["launches_a_column"]),
+                  flush=True)
+        del a, b, f, x
+    part("hesv")
+    print("phase 3n split (s, each with its checked run): %s" % split,
+          flush=True)
+    res.update(launches=launches, path_checks=checks, split_s=split)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -5225,6 +5677,11 @@ def main() -> int:
                        dev)["launches"])
     paths.update(phase("3m", main_path_fp64, torch, st, kernels,
                        dev)["launches"])
+    solvers = phase("3n", main_path_solvers, torch, st, kernels, dev, {
+        "heev": heev["fp32"], "heev64": heev["fp64"], "svd": svd["fp32"],
+        "svd64": svd["fp64"]})
+    paths.update(solvers["launches"])
+    path_checks.update(solvers["path_checks"])
     print("phase walls (s): %s; total %.1f s since the build began"
           % (", ".join("%s %.1f" % kv for kv in spent.items()),
              time.perf_counter() - t0), flush=True)

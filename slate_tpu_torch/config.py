@@ -43,6 +43,13 @@ packages can run in one process):
   is shape-eligible, ``0`` forces the blocked recursion
   (:func:`slate_tpu_torch.linalg.lu.getrf_rec`) everywhere, to compare
   the two drivers on one shape.
+* ``SLATE_TPU_TORCH_QDWH`` ∈ {auto, 1, 0} — heev and svd through the
+  QDWH spectral tier (:mod:`slate_tpu_torch.linalg.polar`, the JAX
+  package's ``SLATE_TPU_QDWH``).  ``1`` answers ``qdwh`` at the
+  ``eig_driver`` / ``svd_driver`` sites wherever they are eligible,
+  ``0`` answers ``twostage`` everywhere, and ``auto`` answers
+  ``twostage`` unless a pin names ``qdwh`` (the JAX package times the two
+  on its chip and answers so off it).
 """
 
 from __future__ import annotations
@@ -115,3 +122,13 @@ def resolve_device(device=None) -> torch.device:
 #: Partial-pivot LU driver knob (a bool; tests and ``chip_smoke.py`` set
 #: it to False to force the blocked recursion); see the module docstring.
 scattered_lu = _tri_state("SLATE_TPU_TORCH_SCATTERED_LU") is not False
+
+
+#: heev and svd through the QDWH tier; see the module docstring.
+qdwh = _tri_state("SLATE_TPU_TORCH_QDWH")
+
+
+def qdwh_mode() -> str:
+    """Resolve :data:`qdwh` to ``"auto" | "on" | "off"``."""
+    v = qdwh
+    return "auto" if v == "auto" else ("on" if v else "off")

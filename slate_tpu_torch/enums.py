@@ -84,12 +84,15 @@ class Option(enum.Enum):
     MethodLU = "method_lu"
     MethodTrsm = "method_trsm"
     MethodSVD = "method_svd"
-    #: heev's whole-driver choice (``"twostage"``), bypassing the
-    #: ``eig_driver`` site
+    #: heev's whole-driver choice (``"twostage"`` or ``"qdwh"``),
+    #: bypassing the ``eig_driver`` site
     EigDriver = "eig_driver"
-    #: svd's whole-driver choice (``"twostage"``), bypassing the
-    #: ``svd_driver`` site
+    #: svd's whole-driver choice (``"twostage"`` or ``"qdwh"``), bypassing
+    #: the ``svd_driver`` site
     SvdDriver = "svd_driver"
+    #: QDWH divide-and-conquer crossover (default
+    #: ``linalg.polar.QDWH_CROSSOVER``, 128)
+    QdwhCrossover = "qdwh_crossover"
 
 
 class MethodEig(enum.Enum):

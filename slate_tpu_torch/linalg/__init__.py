@@ -1,4 +1,4 @@
-"""Drivers of the port (the slice ported so far)."""
+"""Drivers of the port (the slices ported so far)."""
 
 from .band import (  # noqa: F401
     gbmm, gbsv, gbtrf, gbtrs, hbmm, pbsv, pbtrf, pbtrs, tbsm,
@@ -20,13 +20,15 @@ from .eig import (  # noqa: F401
     hb2st, he2hb, heev, heev_vals, hegst, hegv, stedc, stemr, steqr, sterf,
     syev, sygst, sygv, unmtr_hb2st, unmtr_he2hb,
 )
+from .hesv import hesv, hetrf, hetrs, sysv, sytrf, sytrs  # noqa: F401
 from .lu import (  # noqa: F401
     gesv, gesvMixed, gesv_mixed, gesv_mixed_gmres, gesv_nopiv, getrf,
-    getrf_nopiv, getri, getrs, getrs_nopiv,
+    getrf_nopiv, getrf_tntpiv, getri, getrs, getrs_nopiv,
 )
 from .norms import (  # noqa: F401
     col_norms, gbnorm, genorm, hbnorm, henorm, norm, synorm, trnorm,
 )
+from .polar import heev_qdwh, polar, svd_qdwh  # noqa: F401
 from .qr import (  # noqa: F401
     cholqr, gelqf, gels, gels_cholqr, gels_mixed, gels_qr, geqrf, ungqr,
     unmlq, unmqr,
@@ -44,8 +46,10 @@ __all__ = ["gemm", "herk", "syrk", "trmm", "trsm",
            "posv", "posvMixed", "posv_mixed", "posv_mixed_gmres", "potrf",
            "potri", "potrs", "trtri", "trtrm",
            "gesv", "gesvMixed", "gesv_mixed", "gesv_mixed_gmres",
-           "gesv_nopiv", "getrf", "getrf_nopiv", "getri", "getrs",
-           "getrs_nopiv",
+           "gesv_nopiv", "getrf", "getrf_nopiv", "getrf_tntpiv", "getri",
+           "getrs", "getrs_nopiv",
+           "hesv", "hetrf", "hetrs", "sysv", "sytrf", "sytrs",
+           "heev_qdwh", "polar", "svd_qdwh",
            "cholqr", "gelqf", "gels", "gels_cholqr", "gels_mixed", "gels_qr",
            "geqrf", "ungqr", "unmlq", "unmqr",
            "hb2st", "he2hb", "heev", "heev_vals", "hegst", "hegv", "stedc",

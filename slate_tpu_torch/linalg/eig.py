@@ -22,8 +22,8 @@
 ``w`` and ``Z`` come back as tensors on the operand's device, ``w`` in
 its real dtype.  The tridiagonal eigenvectors enter the back-transform in
 the band's dtype (the JAX package's CPU tests run it in fp64 with x64 on).
-Not ported: the ``eig_driver=qdwh`` branch (ROADMAP.md, queue 1,
-``linalg/polar.py``).
+The ``eig_driver`` site's other answer, ``"qdwh"``, is QDWH-eig
+(:func:`slate_tpu_torch.linalg.polar.heev_qdwh`).
 """
 
 from __future__ import annotations
@@ -577,8 +577,9 @@ def heev(a, jobz: bool = True, opts: Optional[Options] = None, *,
     operand's device (``w`` in its real dtype); ``Z`` is None when
     ``jobz`` is False.  ``method_eig`` picks the tridiagonal solver
     (``MethodEig``: D&C under Auto, QR, MRRR, Bisection).  The
-    ``eig_driver`` site answers ``"twostage"``; an ``eig_driver="qdwh"``
-    option or pin raises ``NotImplementedError`` (not ported yet)."""
+    ``eig_driver`` site (or an ``eig_driver`` option) picks the driver:
+    ``"twostage"``, the chain below, or ``"qdwh"``, the spectral divide
+    and conquer of :func:`~slate_tpu_torch.linalg.polar.heev_qdwh`."""
     from ..perf import autotune
 
     dev = _device_of(a, device=device)
@@ -590,9 +591,9 @@ def heev(a, jobz: bool = True, opts: Optional[Options] = None, *,
                                  dtype=full.dtype, device=dev,
                                  eligible=method is MethodEig.Auto)
     if driver == "qdwh":
-        raise NotImplementedError(
-            "heev: eig_driver=%r is not ported (the QDWH driver waits for "
-            "linalg/polar.py, ROADMAP.md queue 1)" % (driver,))
+        from .polar import _heev_qdwh
+
+        return _heev_qdwh(a, jobz, opts, "heev", dev)
     return _heev_twostage(full, _nb(a, opts), jobz, method)
 
 

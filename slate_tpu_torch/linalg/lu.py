@@ -23,9 +23,16 @@ site:
 κ·ε demotion — and refine in the working precision
 (:mod:`slate_tpu_torch.linalg._refine`).
 
-Not ported yet, each queued in ROADMAP.md: CALU (``_panel_lu_tntpiv``,
-``getrf_tntpiv``), the tall-panel loop (``getrf_panels``,
-``_tall_panel_lu*``) and the ABFT and out-of-core branches.
+Matrices taller than :data:`_MAX_LU_PANEL_ROWS` factor through the
+tall-panel loop :func:`getrf_panels` (as in the JAX package): panels of
+up to that many rows take the ``lu_panel`` site's leaf, taller ones a
+tournament (:func:`_tall_panel_lu`, under ``MethodLU.Auto``) or the
+inner-blocked true partial pivoting of :func:`_tall_panel_lu_pp` (under
+an explicit ``MethodLU.PartialPiv``).  ``MethodLU.CALU`` is
+:func:`getrf_tntpiv`, the blocked recursion over the tournament panel
+:func:`_panel_lu_tntpiv`.
+
+Not ported yet, queued in ROADMAP.md: the ABFT and out-of-core branches.
 """
 
 from __future__ import annotations
@@ -75,6 +82,19 @@ def perm_to_ipiv(perm):
 
 def inverse_perm(perm):
     return torch.argsort(perm)
+
+
+def _lu_perm(a):
+    """``torch.linalg.lu_factor_ex`` of ``a`` (any leading batch) with its
+    pivots as permutations: ``(lu, perm)``, ``a[..., perm, :] = L·U``.
+    The swap sequences become permutations on the operand's device,
+    through ``torch.lu_unpack``'s permutation matrices, with no Python
+    loop over rows and no host read (a singular block, such as CALU's
+    zero padding, is factored without the error check's sync)."""
+    lu, ipiv, _ = torch.linalg.lu_factor_ex(a)
+    p = torch.lu_unpack(lu, ipiv, unpack_data=False)[0]
+    # a = P·L·U, so row i of L·U is row argmax_j P[j, i] of a
+    return lu, p.argmax(dim=-2)
 
 
 # ---------------------------------------------------------------------------
@@ -170,6 +190,49 @@ def _panel_lu_nopiv(a, ib: int = 128):
     return torch.cat([top, bot], dim=0)
 
 
+def _panel_lu_tntpiv(a, nb: int):
+    """CALU tournament-pivot panel (reference ``getrf_tntpiv``,
+    ``internal_getrf_tntpiv.cc``; ``slate_tpu/linalg/lu.py:273-328``):
+    round 0 factors every mb-row tile independently in ONE batched
+    ``torch.linalg.lu_factor`` over the (nt, mb, w) tile stack; each
+    tournament round stacks pairs of winner sets and factors them as one
+    batch, halving the candidates; the winning w rows lead, and the panel
+    factors against their block with one triangular solve.  Returns
+    ``(lu, perm)`` with ``a[perm] = L·U``, the contract of
+    :func:`_panel_lu` with a communication-avoiding pivot choice."""
+    m, n = a.shape
+    mb = max(nb, n)
+    nt = -(-m // mb)
+    pad_m = nt * mb
+    # padded rows are exact zeros and never win the tournament
+    apad = a.new_zeros((pad_m, n))
+    apad[:m] = a
+    _, perms = _lu_perm(apad.reshape(nt, mb, n))
+    offs = torch.arange(nt, device=a.device)[:, None] * mb
+    cand = (perms[:, :n] + offs).reshape(-1)
+    while cand.shape[0] > n:
+        bye = None
+        if (cand.shape[0] // n) % 2 == 1:      # odd contenders: a bye
+            bye, cand = cand[-n:], cand[:-n]
+        pairs = cand.reshape(-1, 2 * n)
+        _, sp = _lu_perm(apad[pairs.reshape(-1)].reshape(-1, 2 * n, n))
+        win = torch.gather(pairs, 1, sp[:, :n]).reshape(-1)
+        cand = torch.cat([win, bye]) if bye is not None else win
+    # the winners lead, the rest follow in their order; pivoting inside
+    # the winners' n×n block is local, then one solve gives L21
+    mask = torch.zeros(pad_m, dtype=torch.bool, device=a.device)
+    mask[cand] = True
+    order = torch.argsort((~mask).to(torch.int8), stable=True)
+    ap = apad[order]
+    lu_top, p2 = _lu_perm(ap[:n])
+    l21 = torch.linalg.solve_triangular(torch.triu(lu_top), ap[n:],
+                                        upper=True, left=False)
+    lu = torch.cat([lu_top, l21], dim=0)
+    order = torch.cat([order[:n][p2], order[n:]])
+    sel = torch.argsort((order >= m).to(torch.int8), stable=True)[:m]
+    return lu[sel], order[sel]
+
+
 # ---------------------------------------------------------------------------
 # Blocked factorization
 # ---------------------------------------------------------------------------
@@ -232,6 +295,132 @@ def getrf_rec(a, nb: int, panel=_panel_lu_auto):
     bot = torch.cat([lu1[n1:][perm2], lu2], dim=1)
     perm = torch.cat([perm1[:n1], perm1[n1:][perm2]])
     return torch.cat([top, bot], dim=0), perm
+
+
+#: tallest panel the loop factors with the ``lu_panel`` site's leaf; a
+#: taller one takes the tournament or the inner-blocked loop.  The JAX
+#: package's value (XLA's fused LU overflows v5e scoped VMEM past it),
+#: kept so both packages pivot alike; it is not this card's limit, whose
+#: leaf kernel admits 512-wide panels to 9768 rows at ib 32
+#: (``smem.lu_panel_fits``)
+_MAX_LU_PANEL_ROWS = 8192
+
+
+def _tall_panel_lu(pan, max_rows: int = _MAX_LU_PANEL_ROWS):
+    """Tournament (CALU) factorization of a panel taller than
+    :data:`_MAX_LU_PANEL_ROWS` — reference ``getrf_tntpiv``: round 0
+    factors each row chunk with ``torch.linalg.lu_factor``, knockout
+    rounds stack pairs of winner sets, the winner block leads and the
+    panel factors against it with one triangular solve.  Returns
+    ``(lu, pl)`` with ``pan[pl] = L·U``."""
+    m, w = pan.shape
+    dev = pan.device
+    cand = []
+    for c0 in range(0, m, max_rows):
+        chunk = pan[c0:c0 + max_rows]
+        if chunk.shape[0] <= w:
+            cand.append(c0 + torch.arange(chunk.shape[0], device=dev))
+            continue
+        cand.append(c0 + _lu_perm(chunk)[1][:w])
+    rows = torch.cat(cand)
+    while rows.shape[0] > w:
+        take = min(2 * w, rows.shape[0])
+        winners = rows[:take][_lu_perm(pan[rows[:take]])[1][:w]]
+        rows = torch.cat([winners, rows[take:]]) \
+            if rows.shape[0] > take else winners
+    # winners first in tournament order, the rest in their order
+    score = m + torch.arange(m, device=dev)
+    score[rows] = torch.arange(w, device=dev)
+    pl = torch.argsort(score)
+    permuted = pan[pl]
+    top, permw = _lu_perm(permuted[:w])
+    pl = torch.cat([pl[:w][permw], pl[w:]])
+    l21 = torch.linalg.solve_triangular(torch.triu(top), permuted[w:],
+                                        upper=True, left=False)
+    return torch.cat([top, l21], dim=0), pl
+
+
+def _tall_panel_lu_pp(pan, ib: int = 64):
+    """TRUE partial-pivot factorization of a panel taller than
+    :data:`_MAX_LU_PANEL_ROWS` (reference ``Tile_getrf.hh:154-320``:
+    per-column argmax, swap, rank-1 update), inner-blocked so each rank-1
+    update touches an ib-wide slab; every pivot is the argmax of the
+    fully updated column, so |L| ≤ 1.  Each column's pivot stays on the
+    device: the swap takes index tensors, with no ``.item()``.  Returns
+    ``(lu, pl)`` with ``pan[pl] = L·U``."""
+    m, w = pan.shape
+    a = pan.clone()
+    gperm = torch.arange(m, device=pan.device)
+    for b0 in range(0, w, ib):
+        bw = min(ib, w - b0)
+        slab = a[b0:, b0:b0 + bw].clone()
+        bperm = torch.arange(m - b0, device=pan.device)
+        for jj in range(bw):
+            p = torch.argmax(slab[jj:, jj].abs()) + jj
+            ij = torch.cat([bperm.new_full((1,), jj), p.view(1)])
+            pj = ij.flip(0)
+            for x in (slab, bperm):
+                x.index_copy_(0, ij, x.index_select(0, pj))
+            piv = slab[jj, jj]
+            slab[jj + 1:, jj] /= piv + (piv == 0)
+            slab[jj + 1:, jj + 1:].addr_(slab[jj + 1:, jj],
+                                         slab[jj, jj + 1:], alpha=-1)
+        body = a[b0:][bperm]
+        body[:, b0:b0 + bw] = slab
+        gperm[b0:] = gperm[b0:][bperm]
+        if b0 + bw < w:
+            u12 = torch.linalg.solve_triangular(
+                slab[:bw], body[:bw, b0 + bw:], upper=False,
+                unitriangular=True)
+            body[:bw, b0 + bw:] = u12
+            body[bw:, b0 + bw:] -= matmul(slab[bw:], u12)
+        a[b0:] = body
+    return a, gperm
+
+
+def getrf_panels(a, nb: int = 512, tall_panel: str = "tournament"):
+    """Right-looking blocked partial-pivot LU, loop form
+    (``slate_tpu/linalg/lu.py:514-583``): each panel through the
+    ``lu_panel`` site's leaf (:func:`_panel_lu_auto`: the
+    ``getrf_panel_linv`` kernel, whose L₁₁⁻¹ turns U₁₂'s solve into
+    products, :func:`_u12_with_linv`) or, taller than
+    :data:`_MAX_LU_PANEL_ROWS`, the tournament (``"tournament"``, the
+    Auto default) or the true partial-pivot loop (``"pp"``, what an
+    explicit ``MethodLU.PartialPiv`` gets); then ONE permutation gather
+    of the sub-matrix rows and one trailing product.  Returns
+    ``(lu, perm)`` with ``a[perm] = L·U``."""
+    if tall_panel not in ("tournament", "pp"):
+        raise ValueError("unknown tall_panel %r" % (tall_panel,))
+    m, n = a.shape
+    k = min(m, n)
+    a = a.clone()
+    gperm = torch.arange(m, device=a.device)
+    for k0 in range(0, k, nb):
+        w = min(nb, k - k0)
+        pan = a[k0:, k0:k0 + w]
+        linv = None
+        if pan.shape[0] > _MAX_LU_PANEL_ROWS:
+            lu_p, pl = (_tall_panel_lu_pp if tall_panel == "pp"
+                        else _tall_panel_lu)(pan)
+        else:
+            out = _panel_lu_auto(pan)
+            lu_p, pl = out[0], out[1]
+            linv = out[2] if len(out) > 2 else None
+        body = a[k0:][pl]
+        body[:, k0:k0 + w] = lu_p
+        gperm[k0:] = gperm[k0:][pl]
+        if k0 + w < n:
+            if linv is not None:
+                u12 = _u12_with_linv(lu_p[:w], linv, body[:w, k0 + w:])
+            else:
+                u12 = torch.linalg.solve_triangular(
+                    lu_p[:w], body[:w, k0 + w:], upper=False,
+                    unitriangular=True)
+            body[:w, k0 + w:] = u12
+            if w < body.shape[0]:
+                body[w:, k0 + w:] -= matmul(lu_p[w:], u12)
+        a[k0:] = body
+    return a, gperm
 
 
 def _scattered_tail(at, piv_all, act, m: int, k: int):
@@ -357,17 +546,20 @@ def _choose_lu_driver(av) -> str:
                           eligible=_use_scattered(av, _SCATTERED_NB))
 
 
-def _getrf_partial(av, nb: int):
-    """The PartialPiv dispatch: the scattered driver or the blocked
-    recursion, as the ``lu_driver`` site decides.  The JAX package wraps
-    this in an ABFT envelope (off by default) and an out-of-core gate
-    (``_getrf_partial_impl``, ``_getrf_incore``), both queued in
-    ROADMAP.md.  It also sends matrices taller than 8192 rows to a
-    tall-panel loop (tournament pivots under Auto) because XLA's fused
-    LU overflows v5e scoped VMEM there; the recursion here takes those
-    shapes with true partial pivoting."""
+def _getrf_partial(av, nb: int, raw_method=MethodLU.Auto):
+    """The PartialPiv dispatch in the JAX package's order
+    (``_getrf_incore``, ``slate_tpu/linalg/lu.py:874-894``): the
+    scattered driver where the ``lu_driver`` site picks it; else, for
+    matrices taller than :data:`_MAX_LU_PANEL_ROWS`, the tall-panel loop
+    (true partial pivoting under an explicit ``MethodLU.PartialPiv``,
+    the tournament under ``Auto``); else the blocked recursion.  The JAX
+    package wraps this in an ABFT envelope (off by default) and an
+    out-of-core gate, both queued in ROADMAP.md."""
     if _choose_lu_driver(av) == "scattered":
         return getrf_scattered(av, _SCATTERED_NB)
+    if av.ndim == 2 and av.shape[0] > _MAX_LU_PANEL_ROWS:
+        tall = "pp" if raw_method is MethodLU.PartialPiv else "tournament"
+        return getrf_panels(av, max(nb, 512), tall_panel=tall)
     return getrf_rec(av, nb)
 
 
@@ -376,20 +568,40 @@ def getrf(a, opts: Optional[Options] = None, *, device=None):
     """LU factorization with partial pivoting (reference ``slate::getrf``).
     Returns ``(LU, perm)`` with ``A[perm] = L·U``, LU packed in one
     matrix and perm an int64 tensor.  ``Option.MethodLU`` picks
-    PartialPiv (the default) or NoPiv; CALU is not ported yet."""
+    PartialPiv (the default), CALU (tournament pivots,
+    :func:`getrf_tntpiv`) or NoPiv."""
     dev = _device_of(a, device=device)
     av = _arr(a, dev)
     nb = _nb(a, opts)
-    method = select_lu(get_option(opts, "method_lu", MethodLU.Auto))
+    raw_method = get_option(opts, "method_lu", MethodLU.Auto)
+    method = select_lu(raw_method)
     if method is MethodLU.NoPiv:
         lu = getrf_nopiv_rec(av, nb, int(get_option(opts, "inner_blocking")))
         perm = torch.arange(av.shape[0], device=av.device)
+    elif method is MethodLU.CALU:
+        lu, perm = _getrf_calu(av, nb)
     elif method is MethodLU.PartialPiv:
-        lu, perm = _getrf_partial(av, nb)
+        lu, perm = _getrf_partial(av, nb, raw_method)
     else:
-        raise NotImplementedError(
-            f"MethodLU.{method.name} is not ported yet (supported: "
-            "PartialPiv, NoPiv; CALU is queued in ROADMAP.md)")
+        raise NotImplementedError(f"MethodLU.{method.name} is not "
+                                  "implemented (supported: PartialPiv, "
+                                  "CALU, NoPiv)")
+    return _wrap_like(a, lu), perm
+
+
+def _getrf_calu(av, nb: int):
+    """The blocked recursion over the tournament panel
+    :func:`_panel_lu_tntpiv`: ``(LU, perm)`` of a bare tensor."""
+    return getrf_rec(av, nb, panel=lambda p: _panel_lu_tntpiv(p, nb))
+
+
+def getrf_tntpiv(a, opts: Optional[Options] = None, *, device=None):
+    """CALU tournament-pivot LU — reference ``slate::getrf_tntpiv``
+    (``src/getrf_tntpiv.cc``): the blocked recursion over
+    :func:`_panel_lu_tntpiv`.  Returns ``(LU, perm)`` as :func:`getrf`."""
+    dev = _device_of(a, device=device)
+    av = _arr(a, dev)
+    lu, perm = _getrf_calu(av, _nb(a, opts))
     return _wrap_like(a, lu), perm
 
 

@@ -23,8 +23,8 @@
 ``σ``, ``U`` and ``Vᴴ`` come back as tensors on the operand's device, σ
 in its real dtype (economy sizes).  The bidiagonal's singular vectors
 enter the back-transform in the log's dtype (the JAX package's CPU tests
-run it in fp64 with x64 on).  Not ported: the ``svd_driver=qdwh`` branch
-(ROADMAP.md §1 item 3, ``linalg/polar.py``).
+run it in fp64 with x64 on).  The ``svd_driver`` site's other answer,
+``"qdwh"``, is QDWH-SVD (:func:`slate_tpu_torch.linalg.polar.svd_qdwh`).
 """
 
 from __future__ import annotations
@@ -520,9 +520,10 @@ def svd(a, jobu: bool = True, jobvt: bool = True,
     k = min(m, n)), tensors on the operand's device, σ descending in its
     real dtype; U/Vᴴ are None when not wanted.  For m < n it works on Aᴴ
     and swaps.  ``method_svd`` picks the bidiagonal solver (``MethodSVD``:
-    LAPACK ``bdsdc`` under Auto).  The ``svd_driver`` site answers
-    ``"twostage"``; an ``svd_driver="qdwh"`` option or pin raises
-    ``NotImplementedError`` (not ported yet)."""
+    LAPACK ``bdsdc`` under Auto).  The ``svd_driver`` site (or an
+    ``svd_driver`` option) picks the driver: ``"twostage"``, the chain
+    below, or ``"qdwh"``, the polar factor and QDWH-eig of its Hermitian
+    factor (:func:`~slate_tpu_torch.linalg.polar.svd_qdwh`)."""
     from ..perf import autotune
 
     dev = _device_of(a, device=device)
@@ -541,9 +542,9 @@ def svd(a, jobu: bool = True, jobvt: bool = True,
                                  device=dev,
                                  eligible=method is MethodSVD.Auto)
     if driver == "qdwh":
-        raise NotImplementedError(
-            "svd: svd_driver=%r is not ported (the QDWH driver waits for "
-            "linalg/polar.py, ROADMAP.md §1 item 3)" % (driver,))
+        from .polar import svd_qdwh
+
+        return svd_qdwh(a, jobu=jobu, jobvt=jobvt, opts=opts, device=dev)
     return _svd_twostage(av, _nb(a, opts), jobu, jobvt, method)
 
 

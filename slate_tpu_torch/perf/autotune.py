@@ -28,8 +28,8 @@ CholQR² panel loop over the ``chol_inv_panel``, ``lu_inv_panel`` and
 The ``chase`` site returns ``"kernel"`` (the ``hb2st_wavefront`` or
 ``tb2bd_wavefront`` kernel) or ``"host_native"`` (the host chase of
 :mod:`slate_tpu_torch.native`); ``eig_driver`` and ``svd_driver`` answer
-``"twostage"``, their one candidate ported, or the name a pin gives
-them.
+``"twostage"`` or ``"qdwh"`` (:func:`_driver_site`), and ``qdwh_step``
+the Halley variant of one QDWH iteration, ``"qr"`` or ``"chol"``.
 
 The four sites of the distributed drivers (:mod:`slate_tpu_torch.parallel`)
 keep the JAX package's rung names, so one pin string means the same
@@ -80,6 +80,11 @@ _local = threading.local()
 
 #: the pin variable, ``"<site>=<backend>,..."``
 FORCE_ENV = "SLATE_TPU_TORCH_AUTOTUNE_FORCE"
+
+#: Halley weight at or under which the ``qdwh_step`` site answers the
+#: Cholesky variant: κ(I + c·XᴴX) ≈ c near convergence (the JAX package's
+#: ``qdwh_switch_c`` default)
+QDWH_SWITCH_C = 100.0
 _warned_forces: set = set()
 
 
@@ -443,40 +448,77 @@ def choose_chase(kind: str, n: int, kd: int, dtype, device,
 
 
 def _driver_site(site: str, key: tuple, eligible: bool) -> str:
-    """The whole-driver ladder of heev and svd: ``"twostage"``, the one
-    candidate ported, and a :data:`FORCE_ENV` pin of ``"twostage"`` or
-    ``"qdwh"`` answered as it is where the call site is eligible; any
-    other pin is warned about and ignored."""
+    """The whole-driver ladder of heev and svd (``"twostage"``,
+    ``"qdwh"``), as the JAX package resolves it off its chip
+    (``slate_tpu/perf/autotune.py:2048-2065``): ineligible keys answer
+    ``"twostage"``; ``SLATE_TPU_TORCH_QDWH`` on or off
+    (:func:`slate_tpu_torch.config.qdwh_mode`) answers ``"qdwh"`` or
+    ``"twostage"``; under ``auto`` a :data:`FORCE_ENV` pin of either name
+    is answered as it is (any other pin is warned about and ignored), and
+    the default is ``"twostage"``: the JAX package times the two on its
+    chip, and the port has no timing table yet."""
     names = ("twostage", "qdwh")
     if not eligible:
         return _record(site, key, "twostage", "ineligible")
+    mode = config.qdwh_mode()
+    if mode == "off":
+        return _record(site, key, "twostage", "forced-config")
+    if mode == "on":
+        return _record(site, key, "qdwh", "forced-config")
     forced = _forced(site)
     if forced in names:
         return _record(site, key, forced, "forced")
     if forced is not None:
         _warn_bad_force(site, forced, names)
-    return _record(site, key, "twostage", "the one candidate ported")
+    return _record(site, key, "twostage",
+                   "default: no timed decision on this card yet")
 
 
 def choose_eig_driver(n: int, dtype, device, eligible: bool) -> str:
     """Whole-driver site of heev: ``"twostage"`` (he2hb → bulge chase →
-    tridiagonal solve), the one candidate ported.  ``eligible`` is the
-    call site's gate (``MethodEig.Auto`` only), under which the JAX
-    package also weighs ``"qdwh"`` (``slate_tpu/perf/autotune.py:2033``)
-    and a :data:`FORCE_ENV` pin of either name is answered as it is;
-    heev refuses ``"qdwh"`` until ``linalg/polar.py`` is ported."""
+    tridiagonal solve) or ``"qdwh"`` (spectral divide and conquer over
+    the QDWH polar factor, :mod:`slate_tpu_torch.linalg.polar`; all
+    geqrf/potrf/gemm work on the card), by :func:`_driver_site`.
+    ``eligible`` is the call site's gate (``MethodEig.Auto`` only); n < 4
+    is ineligible, as in the JAX package
+    (``slate_tpu/perf/autotune.py:2033``)."""
     return _driver_site("eig_driver", (pow2_bucket(n), str(dtype).replace(
-        "torch.", ""), torch.device(device).type), eligible)
+        "torch.", ""), torch.device(device).type), eligible and n >= 4)
 
 
 def choose_svd_driver(m: int, n: int, dtype, device, eligible: bool) -> str:
     """Whole-driver site of svd (callers guarantee m ≥ n), the ladder of
     :func:`choose_eig_driver` (``slate_tpu/perf/autotune.py:2107``);
-    n < 4 is ineligible, as there.  svd refuses ``"qdwh"`` until
-    ``linalg/polar.py`` is ported."""
+    ``"qdwh"`` is the polar factor, then QDWH-eig of its Hermitian
+    factor.  n < 4 is ineligible, as there."""
     key = (pow2_bucket(m), pow2_bucket(n), str(dtype).replace("torch.", ""),
            torch.device(device).type)
     return _driver_site("svd_driver", key, eligible and n >= 4)
+
+
+def choose_qdwh_step(n: int, c: float, dtype, device) -> str:
+    """The Halley variant of one QDWH iteration
+    (``slate_tpu/perf/autotune.py:2192-2220``): ``"qr"`` (the stacked-QR
+    step, backward stable at any conditioning) or ``"chol"``
+    (chol(I + c·XᴴX) and two triangular solves, about half the work, safe
+    once c is moderate since κ(I + c·XᴴX) ≈ c near convergence).  No
+    probe, as there: ``"chol"`` where c ≤ :data:`QDWH_SWITCH_C`, else
+    ``"qr"``; a :data:`FORCE_ENV` pin ``qdwh_step=qr|chol`` overrides.
+    The key holds the c-decade, as the JAX package's does."""
+    import math
+
+    cd = 0 if c <= 1.0 else min(17, int(math.log10(c)))
+    key = (pow2_bucket(n), "c1e%d" % cd, str(dtype).replace("torch.", ""),
+           torch.device(device).type)
+    names = ("qr", "chol")
+    forced = _forced("qdwh_step")
+    if forced is not None:
+        if forced in names:
+            return _record("qdwh_step", key, forced, "forced")
+        _warn_bad_force("qdwh_step", forced, names)
+    return _record("qdwh_step", key,
+                   "chol" if c <= QDWH_SWITCH_C else "qr",
+                   "heuristic: c against QDWH_SWITCH_C")
 
 
 def _dist_site(site: str, key: tuple, names, default: str,
@@ -594,6 +636,7 @@ _SITES = {
     "potrf_panel": choose_potrf_panel,
     "potrf_panel_f64": choose_potrf_panel_f64,
     "potrf_step": choose_potrf_step,
+    "qdwh_step": choose_qdwh_step,
     "svd_driver": choose_svd_driver,
     "trtri_panel": choose_trtri_panel,
 }

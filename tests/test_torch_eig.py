@@ -430,12 +430,19 @@ def test_band_storage_entry_routes(route, monkeypatch):
 
 
 def test_qdwh_driver_is_not_ported(monkeypatch):
+    """The QDWH driver is ported now (tests/test_torch_polar.py holds it
+    against the JAX package): an ``eig_driver="qdwh"`` option or pin
+    answers heev_qdwh's eigenpairs."""
     a = _herm(np.random.default_rng(1), 16, np.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.heev(a, True, {"eig_driver": "qdwh"}, device="cpu")
+    w0, z0 = tst.heev_qdwh(torch.from_numpy(a), True, {"qdwh_crossover": 4},
+                           device="cpu")
+    np.testing.assert_allclose(w0.numpy(), np.linalg.eigvalsh(a), atol=1e-12)
+    w, z = tst.heev(a, True, {"eig_driver": "qdwh", "qdwh_crossover": 4},
+                    device="cpu")
+    assert torch.equal(w, w0) and torch.equal(z, z0)
     monkeypatch.setenv(FORCE, "eig_driver=qdwh")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.heev(a, True, device="cpu")
+    w, _ = tst.heev(a, True, {"qdwh_crossover": 4}, device="cpu")
+    assert torch.equal(w, w0)
 
 
 def test_chase_site_answers(monkeypatch):

@@ -254,17 +254,25 @@ def test_lu_interop_round_trip():
 def test_fused_steps_and_calu_are_not_ported():
     """The fused step depths are ported now (tests/test_torch_fused.py
     holds them against the JAX package): on one 512-wide panel each picks
-    the composed depth's pivots.  An unknown depth is refused, and CALU
-    is still not ported."""
+    the composed depth's pivots.  An unknown depth is refused.  CALU is
+    ported now (tests/test_torch_lu_tall.py holds it against the JAX
+    package): ``getrf`` under ``MethodLU.CALU`` is ``getrf_tntpiv``."""
     a = torch.from_numpy(_gauss(512, 53))
     _, perm = tlu.getrf_scattered(a, 512, step="composed")
     for step in ("fused", "fused_trsm", "full"):
         assert torch.equal(tlu.getrf_scattered(a, 512, step=step)[1], perm)
     with pytest.raises(ValueError, match="unknown getrf_scattered step"):
         tlu.getrf_scattered(a, 512, step="panel")
-    with pytest.raises(NotImplementedError, match="CALU"):
-        tst.getrf(tst.Matrix.from_array(a, nb=256, device="cpu"),
-                  {"method_lu": tst.MethodLU.CALU})
+    lu, cperm = tst.getrf(tst.Matrix.from_array(a, nb=256, device="cpu"),
+                          {"method_lu": tst.MethodLU.CALU})
+    assert torch.equal(cperm, tst.getrf_tntpiv(
+        tst.Matrix.from_array(a, nb=256, device="cpu"))[1])
+    # the tournament does not bound |L| by 1: the residual gate alone
+    f = lu.array.numpy().astype(np.float64)
+    res = np.linalg.norm((np.tril(f, -1) + np.eye(512)) @ np.triu(f)
+                         - a.numpy()[cperm.numpy()]) / (
+        np.linalg.norm(a.numpy()) * EPS32 * 512)
+    assert res <= 3, res
 
 
 def test_cpu_lu_launches_nothing_and_counts_steps():

@@ -67,6 +67,23 @@ def test_linalg_surface_covers_the_stedc_family():
     assert port_linalg.stedc is eig.stedc     # as slate_tpu.linalg.stedc is eig's
 
 
+def test_linalg_surface_covers_the_dense_solver_slice():
+    """The tall LU, CALU, QDWH and hesv names: exported at both levels,
+    as the JAX package exports them, each the port's own module's."""
+    import slate_tpu
+
+    hesv, lu, polar = (importlib.import_module("slate_tpu_torch.linalg." + m)
+                       for m in ("hesv", "lu", "polar"))
+    for name, mod in (("getrf_tntpiv", lu), ("polar", polar),
+                      ("heev_qdwh", polar), ("svd_qdwh", polar),
+                      ("hetrf", hesv), ("hetrs", hesv), ("hesv", hesv),
+                      ("sytrf", hesv), ("sytrs", hesv), ("sysv", hesv)):
+        assert hasattr(slate_tpu, name) and hasattr(jax_linalg, name), name
+        got = getattr(port_linalg, name)
+        assert getattr(slate_tpu_torch, name) is got is getattr(mod, name)
+    assert port_linalg.sysv is hesv.hesv and port_linalg.sytrf is hesv.hetrf
+
+
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 

@@ -538,12 +538,19 @@ def test_band_storage_entry_routes(route, monkeypatch):
 
 
 def test_qdwh_driver_is_not_ported(monkeypatch):
+    """The QDWH driver is ported now (tests/test_torch_polar.py holds it
+    against the JAX package): an ``svd_driver="qdwh"`` option or pin
+    answers svd_qdwh's factors."""
     a = np.random.default_rng(1).standard_normal((16, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.svd(a, opts={"svd_driver": "qdwh"}, device="cpu")
+    s0, u0, v0 = tst.svd_qdwh(a, opts={"qdwh_crossover": 4}, device="cpu")
+    np.testing.assert_allclose(s0.numpy(), np.linalg.svd(a, compute_uv=False),
+                               atol=1e-12)
+    s, u, v = tst.svd(a, opts={"svd_driver": "qdwh", "qdwh_crossover": 4},
+                      device="cpu")
+    assert torch.equal(s, s0) and torch.equal(u, u0) and torch.equal(v, v0)
     monkeypatch.setenv(FORCE, "svd_driver=qdwh")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.svd(a, device="cpu")
+    s = tst.svd(a, opts={"qdwh_crossover": 4}, device="cpu")[0]
+    assert torch.equal(s, s0)
     # an ineligible call site never reaches qdwh
     s = tst.svd(a, opts={"method_svd": MethodSVD.QR}, device="cpu")[0]
     np.testing.assert_allclose(s.numpy(), np.linalg.svd(a, compute_uv=False),
