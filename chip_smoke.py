@@ -285,6 +285,32 @@
      svd_qdwh's at n = 4096); and every operand layout that the 8192
      heev_qdwh and svd_qdwh runs gave ``matmul`` held to its plain
      version on Gaussian operands.
+   * the distributed QR family, dist_aux and the layout moves (phase
+     3o, on a 1×1 NCCL grid): ``pgels`` at BASELINE.md config 4 uncut
+     (bench.py's (32768, 4096) Gaussian, one right-hand side, nb 256) at
+     the card's default ``dist_panel`` (``xla``: no panel kernel
+     launched) and under ``dist_panel=pallas_panel`` (the CholQR² panel:
+     exactly 32 ``chol_inv_panel``, 16 ``lu_inv_panel``, 16
+     ``trtri_panel``), each under phase 3f's QR gates through the
+     distributed factor (Gram identity, reconstruction Qᴴ·A = [R; 0],
+     orthogonality of Qᴴ·[I; 0], normal equations; ≤ 3) with pgeqrf's and
+     pgels' medians of 3 beside single-device ``geqrf``'s and a profiler
+     split of one pgeqrf under each rung; ``pgelqf`` + ``punmlq`` both
+     ways at (4096, 16384) (≤ 3 in ‖A‖·n·ε units); dist_aux at n = 16384
+     (``pnorm`` under tester.py's norm gates, ``pcolnorms`` bitwise
+     ``amax``, the layout moves' round trips and ``peye``/``phermitize``
+     bitwise, ``pherk``/``psyrk``/``pher2k`` of (16384, 4096) operands
+     and ``ptrmm``/``phemm`` under the tester's gemm residual, the 16
+     ``ptrsm`` combinations at 4096 with 128 right-hand sides under its
+     trsm residual, each ≤ 3); then checked runs, every call of every
+     kernel the path launched held to its plain version: pgeqrf + pgels
+     at config 4 under each rung and at (8192, 2048) under the pin,
+     pgelqf + punmlq, and the whole of dist_aux.  Phase 3k's spawn adds
+     one job (:func:`rank_dist_qr`): the same pgels at config 4 under
+     both rungs on its 2×2 grid, every rank gated; one checked pgeqrf +
+     pgels at (8192, 2048) under each rung; ``ptranspose`` and
+     ``predistribute`` (to nb 512, to a 1×4 grid) bitwise against
+     ``undistribute`` of the input.
    Every kernel's launch count is set to 0 just before each path (each
    LU driver, ``getri``, each batched driver, the served requests, each
    depth and each distributed driver a path of its own) and read just
@@ -395,6 +421,11 @@ PATHS = {"cholesky": ("matmul", "chol_inv_panel", "trtri_panel"),
          "dist_pgemm": ("matmul",),
          "dist_pposv": ("matmul", "chol_l21_panel"),
          "dist_pgesv": ("matmul", "lu_u12_panel"),
+         "dist_pgels": ("matmul",),
+         "dist_pgels_pallas_panel": ("matmul", "chol_inv_panel",
+                                     "lu_inv_panel", "trtri_panel"),
+         "dist_pgelqf": ("matmul",),
+         "dist_aux": ("matmul",),
          "tile_ties": ("tile_norms", "tzset", "tzscale", "geadd",
                        "gescale_row_col"),
          "posv_mixed": ("split_matmul",),
@@ -488,7 +519,25 @@ HEEV_REPS = 1
 #: at every step but the last)
 DIST_N, DIST_NRHS, DIST_CHECK_N = 16384, 128, 4096
 DIST_EXACT = {"dist_pposv": {"chol_l21_panel": 64},
-              "dist_pgesv": {"lu_u12_panel": 127}}
+              "dist_pgesv": {"lu_u12_panel": 127},
+              "dist_pgels": {"chol_inv_panel": 0, "lu_inv_panel": 0,
+                             "trtri_panel": 0},
+              "dist_pgels_pallas_panel": {"chol_inv_panel": 32,
+                                          "lu_inv_panel": 16,
+                                          "trtri_panel": 16},
+              "dist_pgelqf": {"chol_inv_panel": 0, "lu_inv_panel": 0,
+                              "trtri_panel": 0}}
+#: phase 3o's sizes (and the job phase 3k adds): pgels at BASELINE.md
+#: config 4 (QR_M, QR_N; nb NB, 16 panel steps, so 2 chol_inv_panel, 1
+#: lu_inv_panel and 1 trtri_panel a step under pallas_panel: DIST_EXACT),
+#: the checked run's shape, pgelqf's wide shape, dist_aux's n and the
+#: rank-k updates' k (also ptrmm/phemm's right-hand columns), and
+#: ptrsm's n and right-hand sides; the layout moves' shape in phase 3k
+DQR_CHECK = (8192, 2048)
+DLQ = (4096, 16384)
+DAUX_N, DAUX_K = 16384, 4096
+DTRSM_N, DTRSM_NRHS = 4096, 128
+PALLAS_PANEL = "dist_panel=pallas_panel"
 #: phase 2j's and 3l's sizes: the 16384² fp32 matrix and its 256² tiles,
 #: fp64 at 8192²; the mixed drivers' and condition estimates' n (128
 #: right-hand sides, 4 through GMRES), the forced fallback's n and the
@@ -1165,8 +1214,8 @@ def _panel_plan(kernels, dev, name: str, m: int, w: int, ib: int) -> dict:
 
 def device_split(torch, label: str, fn, kernels_by_key: dict) -> dict:
     """Where one call of ``fn`` spends device time, from a torch.profiler
-    trace: each kernel of ``kernels_by_key`` (key -> symbol substring)
-    and everything else (cuBLAS/cuSOLVER, copies, elementwise ops).
+    trace: each kernel of ``kernels_by_key`` (key -> symbol substring, or
+    a tuple of them) and everything else (cuBLAS/cuSOLVER, copies, elementwise ops).
     Printed and returned; a trace with no device time prints 'not
     measured' and returns {}.  A failure of ``fn`` fails the run."""
     from torch.profiler import ProfilerActivity, profile
@@ -1186,8 +1235,9 @@ def device_split(torch, label: str, fn, kernels_by_key: dict) -> dict:
             us = getattr(ev, "self_cuda_time_total", 0.0)
         if not us:
             continue
-        key = next((k for k, sym in kernels_by_key.items() if sym in ev.key),
-                   "other")
+        key = next((k for k, sym in kernels_by_key.items()
+                    if any(x in ev.key for x in (
+                        (sym,) if isinstance(sym, str) else sym))), "other")
         split[key] += us / 1e3
     total = sum(split.values())
     if not total:
@@ -2407,18 +2457,26 @@ def check_path_calls(torch, kernels, label: str, run, tols: dict,
     return out
 
 
+def _gram_identity(torch, a, r) -> float:
+    """bench.py's Gram identity ‖Aᵀ(A·x) − Rᵀ(R·x)‖/(‖A‖²·‖x‖·ε·√m) of A
+    and its n×n R, in float64, x from seed 8."""
+    eps = float(torch.finfo(torch.float32).eps)
+    ad, r = a.double(), r.double()
+    x = torch.randn(r.shape[1], dtype=torch.float64, device=a.device,
+                    generator=torch.Generator(device=a.device).manual_seed(8))
+    return float((ad.T @ (ad @ x) - r.T @ (r @ x)).norm()
+                 / (ad.norm() ** 2 * x.norm() * eps * a.shape[0] ** 0.5))
+
+
 def _qr_factor_gates(torch, label, a, f, q) -> dict:
-    """bench.py's Gram identity ‖Aᵀ(A·x) − Rᵀ(R·x)‖/(‖A‖²·‖x‖·ε·√m),
-    tester.py's orthogonality max|QᵀQ − I|/(ε·m) and the reconstruction
+    """bench.py's Gram identity (:func:`_gram_identity`), tester.py's
+    orthogonality max|QᵀQ − I|/(ε·m) and the reconstruction
     ‖A − Q·R‖/(‖A‖·ε·m), in float64, each ≤ 3."""
     eps = float(torch.finfo(torch.float32).eps)
     m, n = a.shape
     ad, qd = a.double(), q.double()
     r = torch.triu(f[:n].double())
-    x = torch.randn(n, dtype=torch.float64, device=a.device,
-                    generator=torch.Generator(device=a.device).manual_seed(8))
-    out = {"gram": float((ad.T @ (ad @ x) - r.T @ (r @ x)).norm()
-                         / (ad.norm() ** 2 * x.norm() * eps * m ** 0.5)),
+    out = {"gram": _gram_identity(torch, a, r),
            "orthogonality": float(
                (qd.T @ qd - torch.eye(n, dtype=torch.float64, device=a.device))
                .abs().max() / (eps * m)),
@@ -4078,8 +4136,9 @@ def main_path_dist_shared(torch) -> dict:
         "slate_tpu_torch.parallel.launch:rank_jobs", 2, 2,
         ([("slate_tpu_torch.parallel.launch:rank_baseline",
            (DIST_N, NB, DIST_NRHS, 50, ("pposv", "pgesv"))),
-          ("chip_smoke:rank_checked", (DIST_CHECK_N,))],),
-        backend="gloo", device="cuda:0", timeout=600)
+          ("chip_smoke:rank_checked", (DIST_CHECK_N,)),
+          ("chip_smoke:rank_dist_qr", ())],),
+        backend="gloo", device="cuda:0", timeout=900)
     wall = time.perf_counter() - t0
     ranks = [o[0] for o in out]
     for res in ranks:
@@ -4095,10 +4154,551 @@ def main_path_dist_shared(torch) -> dict:
         _dist_report("dist 2x2 checked, dist_chunk=2, rank %s n=%d"
                      % (chk["rank"], DIST_CHECK_N), chk["baseline"],
                      ("pposv", "pgesv"))
+    for qr in (o[2] for o in out):
+        for path in ("dist_pgels", "dist_pgels_pallas_panel"):
+            _pgels_report("dist 2x2 (4 processes sharing one card) rank %s "
+                          "%s (%d, %d) nb=%d" % (qr["rank"], path, QR_M, QR_N,
+                                                 NB), qr[path])
+        for key, rung in (("checked_xla", "xla"),
+                          ("checked", PALLAS_PANEL)):
+            _pgels_report("dist 2x2 checked rank %s %s" % (qr["rank"], rung),
+                          qr[key])
+        print("dist 2x2 rank %s layout moves bitwise: %s"
+              % (qr["rank"], ", ".join(qr["layout"])), flush=True)
     print("dist 2x2 site decisions (rank 0): %s; the spawn with its four "
           "processes took %.1f s" % (ranks[0]["decisions"], wall), flush=True)
     return {"ranks": ranks, "checks": [o[1]["checks"] for o in out],
-            "wall_s": wall}
+            "qr_checks": [o[2]["checks"] for o in out],
+            "qr_xla_checks": [o[2]["checks_xla"] for o in out],
+            "qr": [o[2] for o in out], "wall_s": wall}
+
+
+def _gather_top(torch, mesh, dm, n: int):
+    """The top-left n×n block of a DistMatrix, replicated: one ``psum`` of
+    this rank's part placed in an n×n zero buffer."""
+    from slate_tpu_torch.parallel.dist_aux import index_maps
+
+    gr, gc = index_maps(dm)
+    i, j = torch.nonzero(gr < n)[:, 0], torch.nonzero(gc < n)[:, 0]
+    full = torch.zeros((n, n), dtype=dm.dtype, device=dm.device)
+    full[gr[i][:, None], gc[j][None, :]] = dm.data[i][:, j]
+    return mesh.psum(full)
+
+
+def _pgels_gates(torch, mesh, a, ad, qr, tmats, b, x) -> dict:
+    """Phase 3f's QR gates on a distributed factor, in float64: the Gram
+    identity (:func:`_gram_identity`) of R gathered on every rank; the
+    reconstruction ‖Qᴴ·A − [R; 0]‖/(‖A‖·ε·m), Qᴴ·A through
+    ``punmqr_conj`` and the norm summed over the ranks; the orthogonality
+    max|XᴴX − I|/(ε·m) of X = Qᴴ·[I; 0]; the normal-equations residual
+    (:func:`_normal_eq_residual`)."""
+    from slate_tpu_torch.parallel import punmqr_conj, undistribute
+    from slate_tpu_torch.parallel.dist import like
+    from slate_tpu_torch.parallel.dist_aux import index_maps
+
+    m, n = a.shape
+    eps = float(torch.finfo(torch.float32).eps)
+    r = torch.triu(_gather_top(torch, mesh, qr, n))
+    gates = {"gram": _gram_identity(torch, a, r),
+             "normal_equations": _normal_eq_residual(torch, a, b, x)}
+    gr, gc = index_maps(qr)
+    gr, gc = gr[:, None], gc[None, :]
+    qha = punmqr_conj(qr, tmats, ad).data.double()
+    rz = torch.where(gr <= gc, qr.data.double(), 0.0)
+    diff = torch.where((gr < m) & (gc < n), qha - rz, 0.0)
+    ss = mesh.psum(diff.square().sum().reshape(1))
+    gates["reconstruction"] = float(ss.sqrt()[0]
+                                    / (a.double().norm() * eps * m))
+    del qha, rz, diff
+    eye = like(ad, ((gr == gc) & (gc < n)).to(ad.dtype))
+    xq = undistribute(punmqr_conj(qr, tmats, eye)).double()
+    gates["orthogonality"] = float(
+        (xq.T @ xq - torch.eye(n, dtype=torch.float64, device=a.device))
+        .abs().max() / (eps * m))
+    return gates
+
+
+def rank_pgels(mesh, m: int, n: int, nb: int, seed: int, reps: int = 3,
+               force=None) -> dict:
+    """BASELINE.md config 4 (geqrf + gels, fp32) on this rank's mesh under
+    the pins ``force``: bench.py's (m, n) Gaussian from numpy seed
+    ``seed`` and one right-hand side from seed + 1 (bench.py's geqrf and
+    gels inputs at seeds 3 and 4), made on every rank.  ``pgeqrf``'s
+    first call (its launches, the CholQR² guard's reruns and departure)
+    and the median wall of ``reps`` more; ``pgels``'s first call (its
+    launches) and the median of ``reps`` more (each median the first
+    call's wall where ``reps`` is 0); then :func:`_pgels_gates`, each
+    ≤ 3, and every output finite, or the run fails.  Walls are host
+    walls ending in a synchronize."""
+    import numpy as np
+    import torch
+    from slate_tpu_torch.ops import kernels
+    from slate_tpu_torch.parallel import (distribute, launch, pgels, pgeqrf,
+                                          undistribute)
+    from slate_tpu_torch.perf import autotune, metrics
+
+    dev = mesh.device
+    p, q = mesh.p, mesh.q
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    a = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (m, n)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (m, 1)).astype(np.float32)).to(dev)
+    metrics.on()
+    out = {"rank": (mesh.r, mesh.c), "grid": (p, q), "device": str(dev),
+           "shape": (m, n), "nb": nb}
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def median(fn, first):
+        walls = sorted(timed(fn)[1] for _ in range(reps))
+        return walls[reps // 2] if reps else first
+
+    with launch.pinned(force):
+        ad = distribute(a, mesh, nb, row_mult=q, col_mult=p)
+        before = metrics.snapshot()
+        kernels.reset_launches()
+        (qr, tmats, taus), out["pgeqrf_first_ms"] = timed(lambda: pgeqrf(ad))
+        out["pgeqrf_launches"] = {k: v for k, v in kernels.launches.items()
+                                  if v}
+        snap = metrics.snapshot()
+        out["reruns"] = metrics.snapshot_delta(before, snap)["counters"].get(
+            "pgeqrf.cholqr2.reruns", 0.0)
+        # the gauge holds the last CholQR² panel's departure, of this
+        # call only where this call ran the panel kernels
+        out["devmax"] = snap["gauges"].get("pgeqrf.cholqr2.devmax") \
+            if out["pgeqrf_launches"].get("chol_inv_panel") else None
+        out["pgeqrf_ms"] = median(lambda: pgeqrf(ad), out["pgeqrf_first_ms"])
+        kernels.reset_launches()
+        (_, _, x), out["pgels_first_ms"] = timed(lambda: pgels(a, b, mesh,
+                                                               nb=nb))
+        out["pgels_launches"] = {k: v for k, v in kernels.launches.items()
+                                 if v}
+        out["pgels_ms"] = median(lambda: pgels(a, b, mesh, nb=nb),
+                                 out["pgels_first_ms"])
+        out["decisions"] = {k: v for k, v in autotune.decisions().items()
+                            if k.startswith("dist_")}
+    label = "pgels (%d, %d) on %dx%d rank %s" % (m, n, p, q, out["rank"])
+    for name, t in (("factor", qr.data), ("tmats", tmats), ("taus", taus),
+                    ("x", x.data)):
+        if not bool(torch.isfinite(t).all()):
+            fail("%s: %s has non-finite values" % (label, name))
+    xs = undistribute(x)
+    if tuple(xs.shape) != (n, 1) or tuple(tmats.shape) != (
+            -(-n // nb), nb, nb):
+        fail("%s: x of shape %s, tmats of shape %s"
+             % (label, tuple(xs.shape), tuple(tmats.shape)))
+    out["gates"] = _pgels_gates(torch, mesh, a, ad, qr, tmats, b, xs)
+    for key, v in out["gates"].items():
+        if not v <= 3:
+            fail("%s: %s %.4g (<= 3)" % (label, key, v))
+    return out
+
+
+def _pgels_report(label: str, r: dict) -> None:
+    g = r["gates"]
+    print("%s: pgeqrf first call %.1f ms, median %.1f ms; pgels first call "
+          "%.1f ms, median %.1f ms; "
+          "CholQR2 departure %s, guard reruns %d; gates Gram identity %.3g, "
+          "reconstruction %.3g, orthogonality %.3g, normal equations %.3g "
+          "(each <= 3); pgeqrf launches %s, pgels launches %s; sites %s"
+          % (label, r["pgeqrf_first_ms"], r["pgeqrf_ms"],
+             r["pgels_first_ms"], r["pgels_ms"],
+             "%.4g" % r["devmax"] if r["devmax"] is not None else "-",
+             r["reruns"], g["gram"], g["reconstruction"], g["orthogonality"],
+             g["normal_equations"], r["pgeqrf_launches"],
+             r["pgels_launches"], r["decisions"]), flush=True)
+
+
+def _check_pgels_launches(label: str, path: str, r: dict) -> None:
+    """Every kernel of ``path`` launched by pgels, and DIST_EXACT's
+    counts on both pgeqrf's first call and pgels (which factors once)."""
+    got = r["pgels_launches"]
+    missing = [k for k in PATHS[path] if got.get(k, 0) <= 0]
+    if missing:
+        fail("%s: the %s path launched no %s kernel"
+             % (label, path, ", ".join(missing)))
+    for which in ("pgeqrf_launches", "pgels_launches"):
+        for k, want in DIST_EXACT[path].items():
+            if r[which].get(k, 0) != want:
+                fail("%s %s: %d %s launches, want %d"
+                     % (label, which.split("_")[0], r[which].get(k, 0), k,
+                        want))
+
+
+def _dist_lq(torch, st, mesh, dev, label: str = "dist 1x1") -> dict:
+    """pgelqf of a (DLQ) Gaussian and punmlq both ways: Q̃ᴴ·[Lᴴ; 0] = Aᴴ
+    and Q̃·Aᴴ = [Lᴴ; 0], each ‖·‖ relative to ‖A‖·n·ε (n the long
+    dimension) ≤ 3, with their walls (printed under ``label``)."""
+    par = st.parallel
+    m, n = DLQ
+    eps = float(torch.finfo(torch.float32).eps)
+    a = torch.randn((m, n), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(62))
+    ad = par.distribute(a, mesh, NB)
+    walls = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    lq, tmats, _ = timed("pgelqf", lambda: par.pgelqf(ad))
+    lh = torch.zeros((n, m), device=dev)
+    lh[:m] = torch.tril(par.undistribute(lq)[:, :m]).T
+    ah = timed("punmlq adjoint", lambda: par.punmlq(
+        lq, tmats, par.distribute(lh, mesh, NB), adjoint=True))
+    at = par.distribute(a.T.contiguous(), mesh, NB)
+    l2 = timed("punmlq", lambda: par.punmlq(lq, tmats, at))
+    scale = float(a.double().norm()) * n * eps
+    gates = {"Qh [Lh; 0] = Ah": float((par.undistribute(ah).double()
+                                       - a.T.double()).norm()) / scale,
+             "Q Ah = [Lh; 0]": float((par.undistribute(l2).double()
+                                      - lh.double()).norm()) / scale}
+    print("%s pgelqf (%d, %d) + punmlq both ways: %s (each <= 3, in "
+          "||A|| n eps units); walls (ms) %s"
+          % (label, m, n, ", ".join("%s %.3g" % kv for kv in gates.items()),
+             {k: round(v, 1) for k, v in walls.items()}), flush=True)
+    for k, v in gates.items():
+        if not v <= 3:
+            fail("pgelqf/punmlq: %s %.3f > 3" % (k, v))
+    return {"gates": gates, "walls": walls}
+
+
+def _trsm_triangle(torch, a, uplo, diag):
+    t = torch.tril(a) if uplo.name == "Lower" else torch.triu(a)
+    if diag.name == "Unit":
+        t = t - torch.diag(torch.diagonal(t)) + torch.eye(
+            a.shape[0], dtype=a.dtype, device=a.device)
+    return t
+
+
+def _dist_aux(torch, st, mesh, dev, label: str = "dist 1x1") -> dict:
+    """dist_aux at n = DAUX_N fp32 on the 1×1 grid, each call timed:
+    ``pnorm`` at the four norms (tester.py's norm gates against fp64),
+    ``pcolnorms`` bitwise ``amax``; the layout moves' round trips
+    (``ptranspose`` twice, ``predistribute`` to nb 512 and back) and
+    ``peye``, ``phermitize`` bitwise; ``pherk``/``psyrk``/``pher2k`` of
+    (n, DAUX_K) operands, ``ptrmm`` and ``phemm`` of (n, DAUX_K) right-hand
+    sides against fp64 products (the tester's gemm residual ≤ 3);
+    ``ptrsm`` at its 16 side/uplo/op/diag combinations at DTRSM_N with
+    DTRSM_NRHS right-hand sides (the tester's trsm residual ≤ 3).  The
+    summary line is printed under ``label``."""
+    par = st.parallel
+    n, k = DAUX_N, DAUX_K
+    eps = float(torch.finfo(torch.float32).eps)
+    gen = torch.Generator(device=dev).manual_seed(61)
+    walls, gates = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def gate(name, value, limit=3.0):
+        gates[name] = value
+        if not value <= limit:
+            fail("dist_aux %s: %.4g (<= %g)" % (name, value, limit))
+
+    def same(name, got, want):
+        if not torch.equal(got, want):
+            fail("dist_aux %s: not bitwise" % name)
+        gates[name] = "bitwise"
+
+    a = torch.randn((n, n), generator=gen, device=dev)
+    ad = par.distribute(a, mesh, NB)
+    norms = [st.Norm.Max, st.Norm.One, st.Norm.Inf, st.Norm.Fro]
+    got = timed("pnorm x4", lambda: [par.pnorm(ad, w) for w in norms])
+    _norm_gates(torch, st, "pnorm 16384^2 fp32", got,
+                _norm_refs(torch, a.double()))
+    same("pcolnorms", timed("pcolnorms", lambda: par.pcolnorms(ad)),
+         a.abs().amax(dim=0))
+    t = timed("ptranspose", lambda: par.ptranspose(ad))
+    same("ptranspose", par.undistribute(t), a.T)
+    same("ptranspose twice", par.undistribute(par.ptranspose(t)), a)
+    del t
+    r = timed("predistribute nb 512", lambda: par.predistribute(ad, 512))
+    same("predistribute 256 -> 512 -> 256",
+         par.undistribute(par.predistribute(r, NB)), a)
+    del r
+    same("peye", par.undistribute(timed("peye", lambda: par.peye(
+        n, NB, mesh))), torch.eye(n, device=dev))
+    same("phermitize", par.undistribute(timed("phermitize", lambda: (
+        par.phermitize(ad, st.Uplo.Lower)))),
+        torch.tril(a) + torch.tril(a, -1).T)
+    # ---- rank-k updates, multiplies -----------------------------------
+    x = torch.randn((n, k), generator=gen, device=dev)
+    y = torch.randn((n, k), generator=gen, device=dev)
+    xd, yd = par.distribute(x, mesh, NB), par.distribute(y, mesh, NB)
+    x64, y64 = x.double(), y.double()
+    alpha = 0.5
+    for name, fn, ref, scale in (
+            ("pherk", lambda: par.pherk(alpha, xd),
+             lambda: alpha * x64 @ x64.T, x64.norm() ** 2),
+            ("psyrk", lambda: par.psyrk(alpha, xd),
+             lambda: alpha * x64 @ x64.T, x64.norm() ** 2),
+            ("pher2k", lambda: par.pher2k(alpha, xd, yd),
+             lambda: alpha * (x64 @ y64.T + y64 @ x64.T),
+             2 * x64.norm() * y64.norm())):
+        c = par.undistribute(timed(name, fn)).double()
+        gate(name, float((c - ref()).norm()
+                         / (alpha * scale * eps * n)))
+        del c
+    del xd, yd, y, y64
+    tri = torch.tril(a).double()
+    got = par.undistribute(timed("ptrmm", lambda: par.ptrmm(
+        st.Uplo.Lower, st.Diag.NonUnit, ad, par.distribute(x, mesh, NB))))
+    gate("ptrmm", float((got.double() - tri @ x64).norm()
+                        / (tri.norm() * x64.norm() * eps * n)))
+    del tri
+    h = a + a.T
+    hd = par.distribute(h, mesh, NB)
+    got = par.undistribute(timed("phemm", lambda: par.phemm(
+        alpha, hd, par.distribute(x, mesh, NB))))
+    h64 = h.double()
+    gate("phemm", float((got.double() - alpha * h64 @ x64).norm()
+                        / (alpha * h64.norm() * x64.norm() * eps * n)))
+    del h, hd, h64, got, x, x64, a, ad
+    # ---- the 16 triangular solves ---------------------------------------
+    nt, nrhs = DTRSM_N, DTRSM_NRHS
+    s = torch.randn((nt, nt), generator=gen, device=dev) / nt ** 0.5 \
+        + 2 * torch.eye(nt, device=dev)
+    sd = par.distribute(s, mesh, NB)
+    bl = torch.randn((nt, nrhs), generator=gen, device=dev)
+    br = torch.randn((nrhs, nt), generator=gen, device=dev)
+    bld, brd = par.distribute(bl, mesh, NB), par.distribute(br, mesh, NB)
+    worst = 0.0
+    for side in (st.Side.Left, st.Side.Right):
+        for uplo in (st.Uplo.Lower, st.Uplo.Upper):
+            for op in (st.Op.NoTrans, st.Op.Trans, st.Op.ConjTrans):
+                for diag in (st.Diag.NonUnit, st.Diag.Unit):
+                    name = "ptrsm %s %s %s %s" % (side.name, uplo.name,
+                                                  op.name, diag.name)
+                    left = side is st.Side.Left
+                    xs = par.undistribute(timed(name, lambda: par.ptrsm(
+                        side, uplo, op, diag, sd, bld if left else brd)))
+                    t64 = _trsm_triangle(torch, s, uplo, diag).double()
+                    if op is not st.Op.NoTrans:
+                        t64 = t64.T
+                    x64 = xs.double()
+                    res = t64 @ x64 - bl.double() if left else \
+                        x64 @ t64 - br.double()
+                    r = float(res.norm() / (t64.norm() * x64.norm() * eps
+                                            * nt))
+                    gate(name, r)
+                    worst = max(worst, r)
+    print("%s dist_aux: pnorm/pcolnorms/layout at %d^2, rank-k "
+          "updates and multiplies at (%d, %d), ptrsm at %d with %d "
+          "right-hand sides (worst of 16: %.3g <= 3); gates %s; walls (ms) "
+          "%s" % (label, n, n, k, nt, nrhs, worst,
+                  {g: (v if isinstance(v, str) else float("%.3g" % v))
+                   for g, v in gates.items() if not g.startswith("ptrsm")},
+                  {w: round(v, 2) for w, v in walls.items()}), flush=True)
+    return {"gates": gates, "walls": walls, "trsm_worst": worst}
+
+
+def _launched_tols(label: str, launched: dict) -> dict:
+    """CHECK_TOL of every kernel that ``launched`` counts a launch of: a
+    checked run of the same calls holds each of them."""
+    names = [k for k, v in launched.items() if v]
+    missing = [k for k in names if k not in CHECK_TOL]
+    if missing:
+        fail("%s: no checked-run tolerance for %s" % (label,
+                                                        ", ".join(missing)))
+    return {k: CHECK_TOL[k] for k in names}
+
+
+def _path_launches(kernels, path: str) -> dict:
+    """The launch counts since the last reset as ``path``'s: every kernel
+    of PATHS[path] launched, DIST_EXACT's counts where it states them."""
+    got = dict(kernels.launches)
+    missing = [k for k in PATHS[path] if got.get(k, 0) <= 0]
+    if missing:
+        fail("the %s path launched no %s kernel" % (path, ", ".join(missing)))
+    for k, want in DIST_EXACT.get(path, {}).items():
+        if got.get(k, 0) != want:
+            fail("the %s path: %d %s launches, want %d"
+                 % (path, got.get(k, 0), k, want))
+    return got
+
+
+def main_path_dist_qr(torch, st, kernels, dev) -> dict:
+    """Phase 3o: the QR family, dist_aux and the layout moves of
+    ``slate_tpu_torch.parallel`` on a 1×1 grid, a ``torch.distributed``
+    world of one with NCCL.  :func:`rank_pgels` at BASELINE.md config 4
+    uncut (bench.py's (32768, 4096) Gaussian from numpy seed 3, one
+    right-hand side, nb 256, fp32) at the card's default sites (the
+    ``dist_pgels`` path: ``xla`` panels, no panel kernel) and under
+    ``dist_panel=pallas_panel`` (the ``dist_pgels_pallas_panel`` path,
+    DIST_EXACT's counts), each with the QR gates of phase 3f (Gram
+    identity, reconstruction, orthogonality, normal equations; ≤ 3) and
+    pgeqrf's median wall of 3 beside single-device ``geqrf``'s on the same
+    input; a profiler split of one pgeqrf under each rung; pgelqf +
+    punmlq both ways (:func:`_dist_lq`, the ``dist_pgelqf`` path); and
+    dist_aux at n = 16384 (:func:`_dist_aux`, the ``dist_aux`` path).
+    Each path's launches are counted from a reset just before it.  Then
+    checked runs (:func:`check_path_calls`), every call of every kernel
+    the path launched held to its plain version: pgeqrf + pgels (and the
+    gates' ``punmqr_conj``) at config 4 under each rung, and once more
+    at DQR_CHECK under the pin; pgelqf + punmlq; dist_aux."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from slate_tpu_torch.parallel import launch
+
+    launches, res, t_sub, checks = {}, {}, {}, {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = st.parallel.make_grid_mesh(1, 1)
+            print("phase 3o: %r" % (mesh,), flush=True)
+            m, n = QR_M, QR_N
+            rungs = (("dist_pgels", None),
+                     ("dist_pgels_pallas_panel", PALLAS_PANEL))
+            for path, force in rungs:
+                r = rank_pgels(mesh, m, n, NB, 3, reps=3, force=force)
+                label = "dist 1x1 %s (%d, %d) nb=%d" % (path, m, n, NB)
+                _pgels_report(label, r)
+                _check_pgels_launches(label, path, r)
+                launches[path] = dict.fromkeys(kernels.launches, 0)
+                launches[path].update(r["pgels_launches"])
+                res[path] = r
+            t_sub["pgels"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            a = torch.from_numpy(np.random.default_rng(3).standard_normal(
+                (m, n)).astype(np.float32)).to(dev)
+            A = st.Matrix.from_array(a, nb=NB, device=dev)
+            walls = {"geqrf (one device)": _wall_ms(torch, lambda: st.geqrf(A),
+                                                    3),
+                     "pgeqrf xla": res["dist_pgels"]["pgeqrf_ms"],
+                     "pgeqrf pallas_panel":
+                         res["dist_pgels_pallas_panel"]["pgeqrf_ms"],
+                     "pgels xla": res["dist_pgels"]["pgels_ms"],
+                     "pgels pallas_panel":
+                         res["dist_pgels_pallas_panel"]["pgels_ms"]}
+            print("dist 1x1 config 4 walls (ms; medians of 3): %s"
+                  % {k: round(v, 2) for k, v in walls.items()}, flush=True)
+            ad = st.parallel.distribute(a, mesh, NB)
+            splits = {}
+            for rung, force, panel in (
+                    ("xla", None, ("geqr", "larf")),
+                    ("pallas_panel", PALLAS_PANEL,
+                     ("chol_inv_panel_kernel", "lu_inv_panel_kernel",
+                      "trtri_panel_kernel"))):
+                with launch.pinned(force):
+                    splits[rung] = device_split(
+                        torch, "dist 1x1 pgeqrf (%d, %d) %s" % (m, n, rung),
+                        lambda: st.parallel.pgeqrf(ad),
+                        {"matmul kernel": "matmul_f32_kernel",
+                         "panel": panel, "nccl": "nccl"})
+            del a, A, ad
+            t_sub["walls_splits"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            kernels.reset_launches()
+            res["lq"] = _dist_lq(torch, st, mesh, dev)
+            torch.cuda.synchronize()
+            launches["dist_pgelqf"] = _path_launches(kernels, "dist_pgelqf")
+            t_sub["lq"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            kernels.reset_launches()
+            res["aux"] = _dist_aux(torch, st, mesh, dev)
+            torch.cuda.synchronize()
+            launches["dist_aux"] = _path_launches(kernels, "dist_aux")
+            t_sub["aux"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            for path, force in rungs:
+                label = "dist 1x1 %s pgeqrf+pgels (%d, %d)" % (path, m, n)
+                checks[path + "_config4"] = check_path_calls(
+                    torch, kernels, label,
+                    lambda force=force: rank_pgels(mesh, m, n, NB, 3, reps=0,
+                                                   force=force),
+                    _launched_tols(label, launches[path]))
+            mc, nc = DQR_CHECK
+            label = "dist 1x1 pgeqrf+pgels (%d, %d) %s" % (mc, nc,
+                                                           PALLAS_PANEL)
+            checks["dist_qr"] = check_path_calls(
+                torch, kernels, label, lambda: rank_pgels(
+                    mesh, mc, nc, NB, 5, reps=0, force=PALLAS_PANEL),
+                _launched_tols(label, launches["dist_pgels_pallas_panel"]))
+            label = "dist 1x1 pgelqf+punmlq %s" % (DLQ,)
+            checks["dist_pgelqf"] = check_path_calls(
+                torch, kernels, label, lambda: _dist_lq(
+                    torch, st, mesh, dev, "dist 1x1 checked"),
+                _launched_tols(label, launches["dist_pgelqf"]))
+            label = "dist 1x1 dist_aux"
+            checks["dist_aux"] = check_path_calls(
+                torch, kernels, label, lambda: _dist_aux(
+                    torch, st, mesh, dev, "dist 1x1 checked"),
+                _launched_tols(label, launches["dist_aux"]))
+            t_sub["checks"] = time.perf_counter() - t1
+        finally:
+            dist.destroy_process_group()
+    print("phase 3o's parts (s): %s" % {k: round(v, 1)
+                                        for k, v in t_sub.items()},
+          flush=True)
+    res.update(launches=launches, path_checks=checks, walls=walls,
+               splits=splits)
+    return res
+
+
+def rank_dist_qr(mesh) -> dict:
+    """Phase 3k's QR job on this rank's mesh of the 2×2 spawn: pgels at
+    BASELINE.md config 4 uncut under each rung (:func:`rank_pgels`: its
+    gates on every rank, DIST_EXACT's launches), one pgeqrf + pgels at
+    DQR_CHECK under each rung with every call of every kernel the rung
+    launched at config 4 held to its plain version, and the layout moves
+    at DQR_CHECK bitwise against ``undistribute`` of the input:
+    ``ptranspose``, ``predistribute`` to nb 512 and to a 1×4 grid over
+    the same ranks."""
+    import torch
+    import slate_tpu_torch.parallel as par
+    from slate_tpu_torch.ops import kernels
+
+    out = {"rank": (mesh.r, mesh.c)}
+    label = "dist 2x2 rank %s" % (out["rank"],)
+    rungs = (("dist_pgels", None, "checks_xla", "checked_xla"),
+             ("dist_pgels_pallas_panel", PALLAS_PANEL, "checks", "checked"))
+    for path, force, _, _ in rungs:
+        r = rank_pgels(mesh, QR_M, QR_N, NB, 3, reps=1, force=force)
+        _check_pgels_launches(label, path, r)
+        out[path] = r
+    for path, force, key, result in rungs:
+        checked = {}
+        where = "%s pgeqrf+pgels %s %s" % (label, DQR_CHECK, path)
+        out[key] = check_path_calls(
+            torch, kernels, where,
+            lambda force=force, checked=checked: checked.update(rank_pgels(
+                mesh, *DQR_CHECK, NB, 5, reps=0, force=force)),
+            _launched_tols(where, out[path]["pgels_launches"]))
+        out[result] = checked
+    dev = mesh.device
+    a = torch.randn(DQR_CHECK, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(63))
+    ad = par.distribute(a, mesh, NB, row_mult=mesh.q, col_mult=mesh.p)
+    wide = par.make_grid_mesh(1, mesh.p * mesh.q, device=dev)
+    moves = {"ptranspose": (par.ptranspose(ad), a.T),
+             "predistribute nb 512": (par.predistribute(ad, 512), a),
+             "predistribute 1x4": (par.predistribute(ad, mesh_new=wide), a)}
+    for name, (dm, want) in moves.items():
+        if not torch.equal(par.undistribute(dm), want):
+            fail("%s: %s is not bitwise the input" % (label, name))
+    out["layout"] = sorted(moves)
+    return out
 
 
 def _tiles(x, t: int):
@@ -5665,12 +6265,15 @@ def main() -> int:
     path_checks.update(dist1["path_checks"])
     shared = phase("3k", main_path_dist_shared, torch)
     # the four ranks' checked calls as one record per kernel
-    path_checks["dist_2x2"] = {k: {
-        "calls": sum(c[k]["calls"] for c in shared["checks"]),
-        "layouts": sum(c[k]["layouts"] for c in shared["checks"]),
-        "max_rel_err": max(c[k]["max_rel_err"] for c in shared["checks"]),
-        "max_abs_err": max(c[k]["max_abs_err"] for c in shared["checks"])}
-        for k in shared["checks"][0]}
+    for label, recs in (("dist_2x2", shared["checks"]),
+                        ("dist_qr_2x2", shared["qr_checks"]),
+                        ("dist_qr_xla_2x2", shared["qr_xla_checks"])):
+        path_checks[label] = {k: {
+            "calls": sum(c[k]["calls"] for c in recs),
+            "layouts": sum(c[k]["layouts"] for c in recs),
+            "max_rel_err": max(c[k]["max_rel_err"] for c in recs),
+            "max_abs_err": max(c[k]["max_abs_err"] for c in recs)}
+            for k in recs[0]}
     measured.update(phase("2j", check_tile_kernels, torch, kernels, dev))
     measured.update(phase("2k", check_split_kernels, torch, kernels, dev))
     paths.update(phase("3l", main_path_aux, torch, st, kernels,
@@ -5682,6 +6285,9 @@ def main() -> int:
         "svd64": svd["fp64"]})
     paths.update(solvers["launches"])
     path_checks.update(solvers["path_checks"])
+    dist_qr = phase("3o", main_path_dist_qr, torch, st, kernels, dev)
+    paths.update(dist_qr["launches"])
+    path_checks.update(dist_qr["path_checks"])
     print("phase walls (s): %s; total %.1f s since the build began"
           % (", ".join("%s %.1f" % kv for kv in spent.items()),
              time.perf_counter() - t0), flush=True)

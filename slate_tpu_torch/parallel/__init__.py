@@ -11,7 +11,11 @@ the serial stub (:func:`make_grid_mesh`).
 
 Ported: ``make_grid_mesh``, ``DistMatrix``, ``distribute``,
 ``undistribute``, ``pgemm`` (SUMMA and the A-stationary ``pgemm_a``),
-``ppotrf``/``ppotrs``/``pposv`` and ``pgetrf``/``pgetrs``/``pgesv``.
+``ppotrf``/``ppotrs``/``pposv``, ``pgetrf``/``pgetrs``/``pgesv``, the QR
+family ``pgeqrf``/``pgels``/``punmqr_conj``/``pgelqf``/``punmlq``, the
+distributed norms, rank-k updates, multiplies and triangular solves of
+``dist_aux`` and the layout moves ``peye``/``ptranspose``/
+``predistribute``/``phermitize``.
 """
 
 from .mesh import (default_mesh, grid_of, make_grid_mesh,  # noqa: F401
@@ -20,6 +24,14 @@ from .dist import DistMatrix, distribute, undistribute  # noqa: F401
 from .dist_blas3 import pgemm, pgemm_a, pgemm_auto  # noqa: F401
 from .dist_factor import ppotrf, ppotrs, pposv  # noqa: F401
 from .dist_lu import pgesv, pgetrf, pgetrs  # noqa: F401
+from .dist_qr import pgeqrf, pgels, punmqr_conj  # noqa: F401
+from .dist_aux import (  # noqa: F401
+    pcolnorms, phemm, pher2k, pherk, pnorm, psymm, psyr2k, psyrk,
+    ptri_mask, ptrmm, ptrsm,
+)
+from .dist_util import (peye, phermitize, predistribute,  # noqa: F401
+                        ptranspose)
+from .dist_qr import pgelqf, punmlq  # noqa: F401
 
 # ---------------------------------------------------------------------------
 # User-tile-map ingestion: every public driver re-grids a DistMatrix
@@ -28,14 +40,19 @@ from .dist_lu import pgesv, pgetrf, pgetrs  # noqa: F401
 # too so direct submodule imports are covered (as the JAX package does,
 # slate_tpu/parallel/__init__.py:40-76).
 # ---------------------------------------------------------------------------
-from . import (dist_blas3 as _m_blas3, dist_factor as _m_factor,  # noqa: E402
-               dist_lu as _m_lu)
+from . import (dist_aux as _m_aux, dist_blas3 as _m_blas3,  # noqa: E402
+               dist_factor as _m_factor, dist_lu as _m_lu,
+               dist_qr as _m_qr, dist_util as _m_util)
 from .dist import canonical_args as _canonical_args  # noqa: E402
 
 _DRIVER_NAMES = {
     _m_blas3: ["pgemm", "pgemm_a"],
     _m_factor: ["ppotrf", "ppotrs", "pposv"],
     _m_lu: ["pgetrf", "pgetrs", "pgesv"],
+    _m_qr: ["pgeqrf", "pgels", "pgelqf", "punmqr_conj", "punmlq"],
+    _m_aux: ["pcolnorms", "phemm", "pher2k", "pherk", "pnorm", "psymm",
+             "psyr2k", "psyrk", "ptri_mask", "ptrmm", "ptrsm"],
+    _m_util: ["predistribute", "ptranspose", "phermitize"],
 }
 for _mod, _names in _DRIVER_NAMES.items():
     for _nm in _names:

@@ -333,10 +333,15 @@ def pgetrf(a: DistMatrix):
     return like(a, lu), gperm
 
 
-def _plu_trsm(mesh, lu_loc, b_loc, nb: int, nt: int, upper: bool):
-    """Forward unit-lower (``upper`` False) or backward non-unit upper
-    solve of the LU factor on this rank's shards, in place on ``b_loc``
-    (the two halves of getrs, reference ``src/getrs.cc``)."""
+def _plu_trsm(mesh, lu_loc, b_loc, nb: int, nt: int, upper: bool,
+              unit=None):
+    """Forward lower (``upper`` False) or backward upper solve on this
+    rank's shards, in place on ``b_loc`` (the two halves of getrs,
+    reference ``src/getrs.cc``).  ``unit`` overrides the diagonal
+    convention; the default is the LU factor's, lower unit and upper
+    non-unit (``slate_tpu/parallel/dist_lu.py:598-606``)."""
+    if unit is None:
+        unit = not upper
     p, q = mesh_grid_shape(mesh)
     r, c = mesh.r, mesh.c
     ml = lu_loc.shape[0] // nb
@@ -367,7 +372,7 @@ def _plu_trsm(mesh, lu_loc, b_loc, nb: int, nt: int, upper: bool):
     for t in range(nt):
         k = nt - 1 - t if upper else t
         x = torch.linalg.solve_triangular(get_diag(k), get_brow(k),
-                                          upper=upper, unitriangular=not upper)
+                                          upper=upper, unitriangular=unit)
         if k % p == r:
             b_loc[(k // p) * nb:(k // p + 1) * nb] = x
         keep = iblk < k if upper else iblk > k

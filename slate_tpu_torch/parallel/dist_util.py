@@ -1,22 +1,34 @@
-"""Shared plumbing of the lookahead-pipelined distributed factorizations —
-the part of ``slate_tpu/parallel/dist_util.py`` that ppotrf, pgetrf and
-their solves run: the local↔global row map, the fused panel broadcasts,
-the staged step windows and the four ``dist_*`` site resolvers.
+"""Shared plumbing of the lookahead-pipelined distributed factorizations
+and the layout moves — the counterpart of
+``slate_tpu/parallel/dist_util.py``: the local↔global row map, the fused
+panel broadcasts, the staged step windows, the four ``dist_*`` site
+resolvers, and ``peye``, ``ptranspose``, ``predistribute`` and
+``phermitize``.
 
-The JAX package runs these inside ``shard_map`` with a traced step k and
-masks every rank-dependent choice (``jnp.where(k % q == c, ...)``); here
-k is a Python int and each rank knows its static (r, c), so those masks
-are plain branches.
+The JAX package runs the step plumbing inside ``shard_map`` with a traced
+step k and masks every rank-dependent choice
+(``jnp.where(k % q == c, ...)``); here k is a Python int and each rank
+knows its static (r, c), so those masks are plain branches.  Its layout
+moves are permutations of the whole array that XLA's partitioner lowers
+to collectives; here each is one ``psum`` of the placed storage
+(:func:`~.dist._storage`), which puts the whole padded matrix on every
+rank, and then each rank keeps its new blocks.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import numpy as np
 import torch
 
+from ..enums import Uplo
 from ..grid import ceildiv
 from ..ops import kernels
 from ..perf import metrics
+from .dist import (DistMatrix, _natural, _storage, _take, like,
+                   local_indices)
 from .mesh import BOTH, mesh_grid_shape
 
 
@@ -114,13 +126,17 @@ def dist_panel_backend(op: str, nb: int, dtype, device, m=None,
     shape rule (:func:`~slate_tpu_torch.ops.kernels.fused_panel_fits`) at
     the panel height ``m`` (ppotrf) or the widest block row ``w``
     (pgetrf).  The JAX package gates that rung on its VMEM budget
-    instead, which the port does not copy."""
+    instead, which the port does not copy.  ``"geqrf"``'s kernel rung is
+    the CholQR² panel (:func:`slate_tpu_torch.linalg.qr._cholqr2_panel`),
+    an fp32 path on either device, so its eligibility narrows to fp32
+    (``slate_tpu/parallel/dist_util.py:80-81``)."""
     from ..perf.autotune import choose_dist_panel
 
     dev = torch.device(device)
     real = dtype in (torch.float32, torch.float64)
     eligible = (real and 32 <= nb <= 1024 and nb & (nb - 1) == 0
-                and (dtype == torch.float32 or dev.type == "cpu"))
+                and (dtype == torch.float32 or dev.type == "cpu")
+                and (op != "geqrf" or dtype == torch.float32))
     dims = tuple(d for d in (m, w) if d is not None)
     return choose_dist_panel(op, nb, dtype, dev, eligible,
                              dtype == torch.float32,
@@ -153,3 +169,96 @@ def dist_lookahead_depth(op: str, nt: int, nb: int, dtype, device) -> int:
 
     name = choose_dist_lookahead(op, nt, nb, dtype, torch.device(device))
     return max(1, min(int(name), max(1, nt)))
+
+
+# ---------------------------------------------------------------------------
+# Layout moves
+# ---------------------------------------------------------------------------
+
+def peye(n: int, nb: int, mesh, dtype=torch.float32,
+         pad_mult: Optional[int] = None) -> DistMatrix:
+    """The n×n identity, each rank building its own shard (nothing is
+    communicated); the tile counts padded to a multiple of ``pad_mult``
+    (default lcm(p, q)), the padding zero."""
+    p, q = mesh_grid_shape(mesh)
+    mult = pad_mult or math.lcm(p, q)
+    ntp = ceildiv(ceildiv(n, nb), mult) * mult
+    dev = mesh.device
+    grows = torch.as_tensor(local_grows(ntp // p, nb, p, mesh.r), device=dev)
+    gcols = torch.as_tensor(local_grows(ntp // q, nb, q, mesh.c), device=dev)
+    eye = (grows[:, None] == gcols[None, :]) & (grows[:, None] < n)
+    return DistMatrix(eye.to(dtype), n, n, nb, mesh)
+
+
+def _square_tiles(name: str, dm: DistMatrix) -> None:
+    if dm.row_nb != dm.nb:
+        raise ValueError(f"{name} needs square tiles (mb == nb)")
+
+
+def _regrid(nat, mesh, mtp: int, ntp: int, nb: int) -> torch.Tensor:
+    """This rank's shard of the natural-order matrix ``nat`` laid out as
+    mtp×ntp tiles of nb on ``mesh``, zero past ``nat``'s extent."""
+    p, q = mesh_grid_shape(mesh)
+    rows = local_indices(mtp, p, mesh.r, nb)
+    cols = local_indices(ntp, q, mesh.c, nb)
+    return _take(nat, rows, cols, nat.shape[0], nat.shape[1], torch.zeros(
+        (len(rows), len(cols)), dtype=nat.dtype, device=mesh.device))
+
+
+def ptranspose(dm: DistMatrix, conj: bool = False) -> DistMatrix:
+    """Aᵀ (Aᴴ where ``conj``) as a DistMatrix on the same mesh, the whole
+    padded storage transposed (padding included) and its tile counts
+    padded to multiples of lcm(p, q), as the JAX package's
+    ``ptranspose`` lays it out (``slate_tpu/parallel/dist_util.py:596``)."""
+    _square_tiles("ptranspose", dm)
+    p, q = dm.grid_shape
+    lcm = math.lcm(p, q)
+    mtp2 = ceildiv(dm.ntp, lcm) * lcm      # new row tiles = old column tiles
+    ntp2 = ceildiv(dm.mtp, lcm) * lcm
+    nat = _natural(dm, _storage(dm), dm.mtp * dm.nb, dm.ntp * dm.nb)
+    at = nat.mT.conj().resolve_conj() if conj else nat.mT
+    return DistMatrix(_regrid(at, dm.mesh, mtp2, ntp2, dm.nb), dm.n, dm.m,
+                      dm.nb, dm.mesh)
+
+
+def _same_ranks(a, b) -> bool:
+    if a.p * a.q != b.p * b.q:
+        return False
+    if a.groups is None or b.groups is None:
+        return a.groups is b.groups
+    return a.groups[BOTH] is b.groups[BOTH]
+
+
+def predistribute(dm: DistMatrix, nb_new: Optional[int] = None,
+                  mesh_new=None) -> DistMatrix:
+    """Re-tile a distributed matrix to a new block size and/or a new grid
+    over the same ranks (reference ``slate::redistribute``,
+    ``src/redistribute.cc:20``): the m×n matrix (its padding dropped) in
+    tiles of ``nb_new``, the tile counts padded to multiples of the new
+    grid's lcm(p, q).  A grid over other ranks raises ``ValueError``."""
+    _square_tiles("predistribute", dm)
+    nb_new = nb_new or dm.nb
+    mesh_new = dm.mesh if mesh_new is None else mesh_new
+    if not _same_ranks(dm.mesh, mesh_new):
+        raise ValueError("predistribute moves a matrix between grids over "
+                         "the same ranks; %r is not over the ranks of %r"
+                         % (mesh_new, dm.mesh))
+    p2, q2 = mesh_grid_shape(mesh_new)
+    lcm2 = math.lcm(p2, q2)
+    mtp2 = ceildiv(ceildiv(dm.m, nb_new), lcm2) * lcm2
+    ntp2 = ceildiv(ceildiv(dm.n, nb_new), lcm2) * lcm2
+    nat = _natural(dm, _storage(dm), dm.m, dm.n).to(mesh_new.device)
+    return DistMatrix(_regrid(nat, mesh_new, mtp2, ntp2, nb_new), dm.m,
+                      dm.n, nb_new, mesh_new)
+
+
+def phermitize(a: DistMatrix, uplo: Uplo) -> DistMatrix:
+    """Fill the unreferenced triangle from the stored one:
+    A ← tri(A) + tri(A)ᴴ − diag (a single stored triangle made the full
+    Hermitian matrix the dense distributed kernels take)."""
+    from .dist_aux import ptri_mask
+
+    keep = ptri_mask(a, uplo)
+    mirror = ptranspose(keep, conj=True)
+    dmat = ptri_mask(ptri_mask(keep, Uplo.Lower), Uplo.Upper)
+    return like(a, keep.data + mirror.data - dmat.data.conj())

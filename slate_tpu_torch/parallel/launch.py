@@ -21,6 +21,7 @@ module.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import importlib
 import os
@@ -304,3 +305,168 @@ def rank_baseline(mesh, n: int, nb: int, nrhs: int, seed: int,
     out["decisions"] = {k: v for k, v in autotune.decisions().items()
                         if k.startswith("dist_")}
     return out
+
+
+# ---------------------------------------------------------------------------
+# Rank bodies of the QR family, dist_aux and the layout moves
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def pinned(force):
+    """The site pins ``force`` (a ``SLATE_TPU_TORCH_AUTOTUNE_FORCE`` value,
+    read at each call) in this process for the block; None leaves the
+    environment as it is."""
+    from ..perf.autotune import FORCE_ENV
+
+    if force is None:
+        yield
+        return
+    saved = os.environ.get(FORCE_ENV)
+    os.environ[FORCE_ENV] = force
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ[FORCE_ENV]
+        else:
+            os.environ[FORCE_ENV] = saved
+
+
+def _sites() -> dict:
+    from ..perf import autotune
+
+    return {k: v for k, v in autotune.decisions().items()
+            if k.startswith("dist_")}
+
+
+def rank_qr(mesh, a, b, wide, c, nb: int, force=None) -> dict:
+    """The QR family on replicated numpy inputs under the pins ``force``:
+    ``pgeqrf`` of the tall ``a`` (distributed with ``row_mult=q,
+    col_mult=p``), ``punmqr_conj`` of ``b`` (``row_mult=q``),
+    ``pgels(a, b)``, ``pgelqf`` of the wide ``wide`` and ``punmlq`` of
+    ``c`` both ways.  Returns numpy, replicated through
+    :func:`~.dist.undistribute`: the factors, T blocks and τ, Qᴴ·b, x,
+    Q̃·c and Q̃ᴴ·c; the ``dist_*`` site decisions, the kernel launches
+    and the CholQR² guard's reruns of the run."""
+    from ..ops import kernels
+    from ..perf import metrics
+    from . import (distribute, pgelqf, pgels, pgeqrf, punmlq, punmqr_conj,
+                   undistribute)
+
+    p, q = mesh.p, mesh.q
+    metrics.on()
+    with pinned(force):
+        before = metrics.snapshot()
+        kernels.reset_launches()
+        qr, tmats, taus = pgeqrf(distribute(a, mesh, nb, row_mult=q,
+                                            col_mult=p))
+        qtb = punmqr_conj(qr, tmats, distribute(b, mesh, nb, row_mult=q))
+        _, _, x = pgels(a, b, mesh, nb=nb)
+        lq, ltm, ltau = pgelqf(distribute(wide, mesh, nb, row_mult=q,
+                                          col_mult=p))
+        cd = distribute(c, mesh, nb, row_mult=q)
+        qc = punmlq(lq, ltm, cd)
+        qhc = punmlq(lq, ltm, cd, adjoint=True)
+        counters = metrics.snapshot_delta(before, metrics.snapshot())
+    return {"qr": _np(undistribute(qr)), "tmats": _np(tmats),
+            "taus": _np(taus), "qtb": _np(undistribute(qtb)),
+            "x": _np(undistribute(x)), "lq": _np(undistribute(lq)),
+            "lq_tmats": _np(ltm), "lq_taus": _np(ltau),
+            "qc": _np(undistribute(qc)), "qhc": _np(undistribute(qhc)),
+            "decisions": _sites(), "launches": dict(kernels.launches),
+            "reruns": counters.get("counters", {}).get(
+                "pgeqrf.cholqr2.reruns", 0.0)}
+
+
+def rank_aux(mesh, inp: dict, nb: int) -> dict:
+    """dist_aux on replicated numpy inputs: ``inp`` holds ``"rect"`` (m×n,
+    distributed with ``diag_pad=1``, its padding masked by the norms),
+    ``"tall"`` and ``"tall2"`` (m×k, the rank-k updates' A and B),
+    ``"sq"`` (n×n), ``"c"`` (m×m), ``"rhs"`` (n×r) and ``"rhs_right"``
+    (r×n), ``"alpha"`` and ``"beta"``.  Returns numpy: ``pnorm`` at each
+    of the four norms and ``pcolnorms`` of ``rect``; ``pherk``,
+    ``psyrk``, ``pher2k`` and ``psyr2k`` without and with C;
+    ``ptri_mask`` and ``ptrmm`` at each uplo and diag; ``phemm`` and
+    ``psymm`` without and with C; ``ptrsm`` at all 16 side/uplo/op/diag
+    combinations of the triangles of ``sq`` (keyed
+    ``"trsm/<side>/<uplo>/<op>/<diag>"``); the ``dist_*`` site decisions
+    and the kernel launches of the run."""
+    from ..enums import Diag, Norm, Op, Side, Uplo
+    from ..ops import kernels
+    from . import (distribute, pcolnorms, phemm, pher2k, pherk, pnorm,
+                   psymm, psyr2k, psyrk, ptri_mask, ptrmm, ptrsm,
+                   undistribute)
+
+    p, q = mesh.p, mesh.q
+    alpha, beta = inp["alpha"], inp["beta"]
+    sq = dict(row_mult=q, col_mult=p)
+    out = {}
+    kernels.reset_launches()
+    rect = distribute(inp["rect"], mesh, nb, diag_pad=1.0, **sq)
+    for norm in (Norm.Max, Norm.One, Norm.Inf, Norm.Fro):
+        out["norm/" + norm.value] = float(pnorm(rect, norm))
+    out["colnorms"] = _np(pcolnorms(rect))
+    a = distribute(inp["tall"], mesh, nb, row_mult=q)
+    b = distribute(inp["tall2"], mesh, nb, row_mult=q)
+    c = distribute(inp["c"], mesh, nb, **sq)
+    for name, fn, args in (("herk", pherk, (a,)), ("syrk", psyrk, (a,)),
+                           ("her2k", pher2k, (a, b)),
+                           ("syr2k", psyr2k, (a, b))):
+        out[name] = _np(undistribute(fn(alpha, *args)))
+        out[name + "/c"] = _np(undistribute(fn(alpha, *args, beta, c)))
+    s = distribute(inp["sq"], mesh, nb, **sq)
+    rhs = distribute(inp["rhs"], mesh, nb, row_mult=q)
+    for uplo in (Uplo.Lower, Uplo.Upper):
+        for diag in (Diag.NonUnit, Diag.Unit):
+            key = "%s/%s" % (uplo.name, diag.name)
+            out["tri_mask/" + key] = _np(undistribute(
+                ptri_mask(s, uplo, diag)))
+            out["trmm/" + key] = _np(undistribute(
+                ptrmm(uplo, diag, s, rhs, alpha)))
+    for name, fn in (("hemm", phemm), ("symm", psymm)):
+        out[name] = _np(undistribute(fn(alpha, s, rhs)))
+        out[name + "/c"] = _np(undistribute(fn(alpha, s, rhs, beta, rhs)))
+    rhs_right = distribute(inp["rhs_right"], mesh, nb, col_mult=p)
+    for side in (Side.Left, Side.Right):
+        for uplo in (Uplo.Lower, Uplo.Upper):
+            for op in (Op.NoTrans, Op.Trans, Op.ConjTrans):
+                for diag in (Diag.NonUnit, Diag.Unit):
+                    key = "trsm/%s/%s/%s/%s" % (side.name, uplo.name,
+                                                op.name, diag.name)
+                    out[key] = _np(undistribute(ptrsm(
+                        side, uplo, op, diag, s,
+                        rhs if side is Side.Left else rhs_right)))
+    out["decisions"] = _sites()
+    out["launches"] = dict(kernels.launches)
+    return out
+
+
+def rank_layout_moves(mesh, a, sq, nb: int, nb_new: int, regrid) -> dict:
+    """This rank's shards (numpy) of the layout moves: ``ptranspose`` of
+    the replicated numpy ``a`` (plain and conj), ``predistribute`` of it
+    to tile ``nb_new`` and to a ``regrid`` = (p2, q2) grid over the same
+    ranks, ``peye(n, nb)`` in ``a``'s dtype and ``phermitize`` of the
+    square ``sq`` from each triangle; ``a`` and ``sq`` distributed with
+    ``row_mult=q, col_mult=p``, ``sq`` with ``diag_pad=1``."""
+    from ..enums import Uplo
+    from . import (distribute, make_grid_mesh, peye, phermitize,
+                   predistribute, ptranspose)
+
+    p, q = mesh.p, mesh.q
+    ad = distribute(a, mesh, nb, row_mult=q, col_mult=p)
+    sd = distribute(sq, mesh, nb, diag_pad=1.0, row_mult=q, col_mult=p)
+    mesh2 = make_grid_mesh(*regrid, device=mesh.device)
+    moves = {"transpose": ptranspose(ad),
+             "conj_transpose": ptranspose(ad, conj=True),
+             "nb_new": predistribute(ad, nb_new),
+             "regrid": predistribute(ad, mesh_new=mesh2),
+             "eye": peye(sq.shape[0], nb, mesh,
+                         dtype=torch.as_tensor(sq).dtype),
+             "hermitize_lower": phermitize(sd, Uplo.Lower),
+             "hermitize_upper": phermitize(sd, Uplo.Upper)}
+    out = {k: _np(v.data) for k, v in moves.items()}
+    out["dims"] = {k: (v.m, v.n, v.nb, v.mtp, v.ntp)
+                   for k, v in moves.items()}
+    out["regrid_rank"] = (mesh2.r, mesh2.c)
+    return out
+

@@ -536,11 +536,13 @@ def _dist_site(site: str, key: tuple, names, default: str,
 def choose_dist_panel(op: str, nb: int, dtype, device, eligible: bool,
                       eligible_panel: bool, eligible_fused: bool,
                       m=None, w=None) -> str:
-    """Per-step panel solve of ppotrf (``op`` ``"potrf"``) and pgetrf
-    (``"getrf"``): ``"xla"`` (``torch.linalg`` cholesky and triangular
-    solves), ``"pallas_panel"`` (the ``chol_inv_panel`` / ``trtri_panel``
-    kernel and products around it) or ``"pallas_fused"`` (one
-    ``chol_l21_panel`` / ``lu_u12_panel`` launch a solve).  The call site
+    """Per-step panel solve of ppotrf (``op`` ``"potrf"``), pgetrf
+    (``"getrf"``) and pgeqrf (``"geqrf"``): ``"xla"`` (``torch.linalg``
+    cholesky and triangular solves; pgeqrf's Householder panel),
+    ``"pallas_panel"`` (the ``chol_inv_panel`` / ``trtri_panel`` kernel
+    and products around it; pgeqrf's CholQR² panel) or
+    ``"pallas_fused"`` (one ``chol_l21_panel`` / ``lu_u12_panel`` launch
+    a solve; not a rung of ``"geqrf"``).  The call site
     (:func:`slate_tpu_torch.parallel.dist_util.dist_panel_backend`) gives
     the three gates: ``eligible`` (a real float dtype and a power-of-two
     nb in [32, 1024], fp32 on the card), ``eligible_panel`` (fp32: the
@@ -552,7 +554,10 @@ def choose_dist_panel(op: str, nb: int, dtype, device, eligible: bool,
     eligible (``"pallas_fused"`` where it is: the JAX package's default
     on its chip, ``slate_tpu/perf/autotune.py:1481-1482``), else
     ``"xla"``, which is also the answer with kernels off unless a pin
-    names another rung."""
+    names another rung.  ``"geqrf"`` keeps ``"xla"`` on the card too, as
+    the JAX package does on its chip (``op != "geqrf"`` there); its
+    ``"pallas_panel"`` is taken under a pin or
+    ``SLATE_TPU_TORCH_USE_KERNELS=1``."""
     dt = str(dtype).replace("torch.", "")
     key = (op, nb, dt, torch.device(device).type) \
         + (() if m is None else ("m%d" % pow2_bucket(m),)) \
@@ -560,12 +565,15 @@ def choose_dist_panel(op: str, nb: int, dtype, device, eligible: bool,
     if not eligible:
         return _record("dist_panel", key, "xla", "ineligible")
     names = ["xla"] + (["pallas_panel"] if eligible_panel else []) \
-        + (["pallas_fused"] if eligible_fused else [])
+        + (["pallas_fused"] if eligible_fused and op != "geqrf" else [])
     mode = config.use_kernels_mode()
     if mode == "off":
         default, reason = "xla", "kernels off"
-    elif mode == "on" or (torch.device(device).type == "cuda"
-                          and dtype == torch.float32):
+    elif mode == "on":
+        default, reason = names[-1], "kernels on"
+    elif op == "geqrf":
+        default, reason = "xla", "geqrf keeps the Householder panel"
+    elif torch.device(device).type == "cuda" and dtype == torch.float32:
         default, reason = names[-1], "kernels on"
     else:
         default, reason = "xla", "default off the card"
