@@ -181,9 +181,10 @@
      byte between host and card (``chase.host_bytes`` 0), bench.py's
      residual ‖A·Z − Z·W‖/(‖A‖·n·10ε) and ‖ZᵀZ − I‖/(n·10ε) ≤ 3,
      eigenvalues within 1e-3 of eigvalsh; the wall of one more call with the
-     stage timers beside ``torch.linalg.eigh``'s, a profiler split; one
-     more heev with every ``matmul`` call held to its plain version, as
-     phase 2f does (and one more hegv with its ``matmul`` and
+     stage timers beside ``torch.linalg.eigh``'s, every ``matmul`` layout
+     of that call held to its plain version; at n = 4096 on the same
+     generator a profiler split and one heev with every ``matmul`` call
+     held to its plain version, as phase 2f does (and one more hegv with its ``matmul`` and
      ``chol_inv_panel`` calls); heev
      fp64 at n = 4096 under the same gates; ``heev_vals`` at n = 2048
      through the host Givens chase and ``hegv`` itype 1 at n = 2048
@@ -311,6 +312,34 @@
      pgels at (8192, 2048) under each rung; ``ptranspose`` and
      ``predistribute`` (to nb 512, to a 1×4 grid) bitwise against
      ``undistribute`` of the input.
+   * the distributed two-stage eigensolver and SVD (phase 3p, on a 1×1
+     NCCL grid, nb 256): ``pheev`` fp64 at n = 16384 (BASELINE.md config
+     5's dtype at half its n; a symmetric Gaussian from numpy seed 5) on
+     the distributed middle (``phe2hb``, the checkpointed chase, the
+     distributed D&C ``pstedc``, the regenerated logs' back-transform,
+     ``punmtr_he2hb``): ‖A·Z − Z·Λ‖/(‖A‖·n·ε) and ‖ZᵀZ − I‖/(n·ε) ≤ 10,
+     the values within 1e-10·max|λ| of ``eigvalsh`` (timed), exactly 16
+     ``hb2st_wavefront`` launches (two passes over 8 chunks),
+     ``chase.host_bytes`` 0; ``psvd`` fp64 of phase 3i's (8192, 8192)
+     Gaussian (its Golub–Kahan tridiagonal of order 16384):
+     ‖A − UΣVᴴ‖/(‖A‖·n·ε) and both orthogonalities ≤ 10, σ within
+     1e-10·σ₁ of phase 3i's fp64 ``svdvals``, exactly 8
+     ``tb2bd_wavefront`` launches; ``pheev`` fp32 of phase 3h's input
+     at 8192 (its band chased in fp64, Z back in fp32) under phase 3h's
+     gates, its wall beside 3h's, every ``matmul`` layout it made held to
+     its plain version and every chase call it launched replayed from its
+     input and held by its backward error; each call's wall, its stage
+     split and its peak device memory.  Then one checked run at n = 2048
+     in fp32 with the distributed middle forced on — pheev, psvd, and
+     pheev again under a 1-MB snapshot budget (the spill branch) —
+     every ``matmul`` call held to its plain version and every chase
+     call held by its backward error (the band before the call against
+     the band after it through the chunk's reflectors, ≤ 3 in n·ε
+     units), the held calls equal to the launches.  Phase 3k's spawn
+     adds one job
+     (:func:`rank_dist_twostage`): pheev and psvd fp64 at n = 2048 with
+     the distributed middle forced on, the gates above on every rank,
+     the values and σ bitwise equal across the four ranks.
    Every kernel's launch count is set to 0 just before each path (each
    LU driver, ``getri``, each batched driver, the served requests, each
    depth and each distributed driver a path of its own) and read just
@@ -450,7 +479,10 @@ PATHS = {"cholesky": ("matmul", "chol_inv_panel", "trtri_panel"),
          "heev_qdwh_fp64": (),
          "svd_qdwh_fp64": (),
          "hesv": ("matmul",),
-         "hesv_fp64": ()}
+         "hesv_fp64": (),
+         "dist_pheev": ("hb2st_wavefront",),
+         "dist_psvd": ("tb2bd_wavefront",),
+         "dist_pheev_fp32": ("matmul", "hb2st_wavefront")}
 #: the tile kernels, which no driver calls: their path is their own
 #: public entry, tied to the driver function computing the same thing
 TILE_KERNELS = PATHS["tile_ties"]
@@ -507,6 +539,13 @@ EIG_N, EIG_N64, EIG_HOST_N = 8192, 4096, 2048
 #: 2048; one tall operand and its transpose); phase 2h checks the chase at
 #: CHASE_CHECKS, in CHASE_CHUNKS and over CHASE_F32_SWEEPS as phase 2g
 SVD_N, SVD_N64, SVD_HOST_N, SVD_TALL = 8192, 4096, 2048, (8192, 2048)
+#: the size of phase 3i's profiler split (cut from SVD_N for the
+#: command's time: one svd at 8192 is ~32 s, mostly the host's dbdsdc)
+SVD_SPLIT_N = 4096
+#: the size of phase 3h's profiler split and checked run (cut from EIG_N
+#: for the command's time: each heev at 8192 is ~9.5 s; the timed 8192
+#: call's matmul layouts are held instead)
+HEEV_CHECK_N = 4096
 #: heev fp32's timed calls after its warm one (one: the svd path's host
 #: time leaves no room for more in the command's time)
 HEEV_REPS = 1
@@ -571,6 +610,24 @@ QDWH_CHECK_N = 4096
 #: the width of the tall panel whose pp loop's launches a column are
 #: counted (the count does not depend on it: two 64-wide slabs)
 PP_COUNT_W = 128
+#: phase 3p's sizes: pheev fp64 at half BASELINE.md config 5's n = 32768
+#: (the cut is the command's time: the back-transform applies one
+#: reflector sweep at a time, ~16·n³ bytes, ~20 s at 16384 and ~170 s at
+#: 32768 on 3.35 TB/s), psvd fp64 at 8192 (its Golub–Kahan tridiagonal
+#: has order 16384, pstedc's size in the pheev), pheev fp32 at EIG_N on
+#: phase 3h's input, the checked runs' and phase 3k's job's n; the
+#: snapshot budget (MB) of the spill branch's checked run
+TWO_N, TWO_SVD_N, TWO_CHECK_N, TWO_SPILL_MB = 16384, 8192, 2048, 1
+#: the exact chase launches of one call: two passes (pass 1 without a log,
+#: pass 2 regenerating each chunk's log in reverse) over the chunks of
+#: ``dist_twostage.chase_chunk_bounds`` that hold a sweep — hb2st 8 at
+#: 16384, 4 at 8192 and 2 at 2048 (kd 256); tb2bd 4 at 8192 and 2 at
+#: 2048 (its last chunk, [n − 2, n − 1), holds none and launches nothing)
+DIST_EXACT.update({"dist_pheev": {"hb2st_wavefront": 16},
+                   "dist_psvd": {"tb2bd_wavefront": 8},
+                   "dist_pheev_fp32": {"hb2st_wavefront": 8}})
+TWO_SHARED_EXACT = {"pheev": {"hb2st_wavefront": 4},
+                    "psvd": {"tb2bd_wavefront": 4}}
 
 
 def fail(msg: str):
@@ -3027,10 +3084,13 @@ def _hb2st_second_route(torch, kernels, eig, dev) -> dict:
     return out
 
 
-def _eig_gates(torch, label, a, w, z, lam, eps10):
+def _eig_gates(torch, label, a, w, z, lam, eps10, limit: float = 3,
+               val_tol: float = 1e-3):
     """bench.py's heev gates (bench.py:1509-1531): ‖A·Z − Z·W‖_F/(‖A‖_F·n·
     10ε) and ‖ZᵀZ − I‖_F/(n·10ε), each ≤ 3, and the eigenvalues within
-    1e-3 relative (to max|λ|) of the reference ``lam``."""
+    1e-3 relative (to max|λ|) of the reference ``lam``; ``eps10``,
+    ``limit`` and ``val_tol`` set the unit, the bound and the values'
+    tolerance (phase 3p's fp64 gates: ε, 10 and 1e-10)."""
     n = a.shape[0]
     for name, t in (("w", w), ("Z", z)):
         if not bool(torch.isfinite(t).all()):
@@ -3042,10 +3102,10 @@ def _eig_gates(torch, label, a, w, z, lam, eps10):
     orth = float((zd.T @ zd - torch.eye(n, dtype=torch.float64,
                                         device=a.device)).norm() / (n * eps10))
     lam_err = float((torch.sort(wd).values - lam).abs().max() / lam.abs().max())
-    print("%s: residual %.3g, orthogonality %.3g (n*10eps units), "
-          "eigenvalues %.3g relative" % (label, resid, orth, lam_err),
-          flush=True)
-    if not (resid <= 3 and orth <= 3 and lam_err <= 1e-3):
+    print("%s: residual %.3g, orthogonality %.3g (units of n*%.3g, <= %g), "
+          "eigenvalues %.3g relative (<= %.0e)"
+          % (label, resid, orth, eps10, limit, lam_err, val_tol), flush=True)
+    if not (resid <= limit and orth <= limit and lam_err <= val_tol):
         fail("%s: residual %.3g, orthogonality %.3g, eigenvalues %.3g"
              % (label, resid, orth, lam_err))
     return dict(residual=resid, orthogonality=orth, eig_rel_err=lam_err)
@@ -3057,10 +3117,12 @@ def main_path_heev(torch, st, kernels, dev) -> dict:
     jobz: exactly one hb2st_wavefront launch, chase.host_bytes 0 and
     chase.dispatch.kernel ≥ 1, bench.py's residual and orthogonality
     gates, eigenvalues against torch.linalg.eigvalsh; one warm call, the
-    median wall of HEEV_REPS with the stage timers, a profiler split, and
-    torch.linalg.eigh's wall as a yardstick (timed only); one more heev
-    with every matmul call held to its plain version
-    (:func:`check_path_calls`).  Then heev in
+    median wall of HEEV_REPS with the stage timers, every operand layout
+    those calls give ``matmul`` held to its plain version
+    (:func:`record_layouts`, :func:`hold_matmul_layouts`), and
+    torch.linalg.eigh's wall as a yardstick (timed only); at HEEV_CHECK_N
+    on the same generator a profiler split and one heev with every matmul
+    call held to its plain version (:func:`check_path_calls`).  Then heev in
     fp64 at n = 4096 (heev_fp64's generator, rng 7), one timed call; the
     host routes once each: heev_vals at n = 2048 through the native
     Givens chase, hegv itype 1 at n = 2048 (B = GᵀG + n·I) against
@@ -3102,7 +3164,9 @@ def main_path_heev(torch, st, kernels, dev) -> dict:
                               10 * eps32)}
     del w, z
     before = metrics.snapshot()
-    wall = _wall_ms(torch, lambda: st.heev(A), HEEV_REPS)
+    layouts = set()
+    wall = record_layouts(kernels, "matmul", layouts, lambda: _wall_ms(
+        torch, lambda: st.heev(A), HEEV_REPS))
     timers = metrics.snapshot_delta(before, metrics.snapshot())["timers"]
     stages = {k: v["total_s"] * 1e3 / v["count"] for k, v in timers.items()
               if k.startswith(("stage.heev", "chase.hb2st"))}
@@ -3114,15 +3178,22 @@ def main_path_heev(torch, st, kernels, dev) -> dict:
           % (EIG_N, HEEV_REPS, wall, {k: round(v, 2) for k, v in
                                      stages.items()}, eigh_ms), flush=True)
     res["fp32"]["eigh_ms"] = eigh_ms
-    res["fp32"]["split"] = device_split(
-        torch, "heev fp32", lambda: st.heev(A),
-        {"hb2st_wavefront kernel": "hb2st_wavefront_kernel",
-         "matmul kernel": "matmul_f32_kernel"})
-    checks = {"heev": check_path_calls(
-        torch, kernels, "heev path", lambda: st.heev(A),
-        {"matmul": CHECK_TOL["matmul"]})}
     res["fp32"]["lam"] = lam       # phase 3n's reference on the same input
     del A, a, lam
+    checks = {"heev_layouts": hold_matmul_layouts(
+        torch, kernels, dev, "heev fp32 n=%d" % EIG_N, layouts)}
+    g = np.random.default_rng(9).standard_normal(
+        (HEEV_CHECK_N, HEEV_CHECK_N)).astype(np.float32)
+    a = torch.from_numpy(((g + g.T) / 2).astype(np.float32)).to(dev)
+    A = st.HermitianMatrix(a, uplo=st.Uplo.Lower, nb=NB)
+    res["fp32"]["split"] = device_split(
+        torch, "heev fp32 n=%d" % HEEV_CHECK_N, lambda: st.heev(A),
+        {"hb2st_wavefront kernel": "hb2st_wavefront_kernel",
+         "matmul kernel": "matmul_f32_kernel"})
+    checks["heev"] = check_path_calls(
+        torch, kernels, "heev path (n=%d)" % HEEV_CHECK_N, lambda: st.heev(A),
+        {"matmul": CHECK_TOL["matmul"]})
+    del A, a, g
 
     rng = np.random.default_rng(7)
     g = rng.standard_normal((EIG_N64, EIG_N64))
@@ -3556,11 +3627,14 @@ def _tb2bd_second_route(torch, kernels, eig, dev) -> dict:
     return out
 
 
-def _svd_gates(torch, label, a, s, u, vh, eps10, sref=None):
+def _svd_gates(torch, label, a, s, u, vh, eps10, sref=None,
+               limit: float = 3, val_tol: float = 1e-3):
     """bench.py's svd residual ‖A − U·Σ·Vᴴ‖_F/(‖A‖_F·n·10ε)
     (bench.py:1534-1549), ‖UᵀU − I‖_F/(n·10ε) and ‖Vᴴ·V − I‖_F/(n·10ε),
     each ≤ 3, finite values of the economy shapes, σ descending; with
-    ``sref`` (torch.linalg.svdvals in fp64) σ within 1e-3·σ_max."""
+    ``sref`` (torch.linalg.svdvals in fp64) σ within 1e-3·σ_max;
+    ``eps10``, ``limit`` and ``val_tol`` set the unit, the bound and the
+    values' tolerance (phase 3p's fp64 gates: ε, 10 and 1e-10)."""
     m, n = a.shape
     k = min(m, n)
     for name, t in (("s", s), ("U", u), ("Vh", vh)):
@@ -3576,12 +3650,13 @@ def _svd_gates(torch, label, a, s, u, vh, eps10, sref=None):
                               / (ad.norm() * max(m, n) * eps10)),
                orth_u=float((ud.T @ ud - eye).norm() / (max(m, n) * eps10)),
                orth_v=float((vd @ vd.T - eye).norm() / (max(m, n) * eps10)))
-    bad = max(out.values()) > 3 or bool((sd[1:] > sd[:-1]).any())
+    bad = max(out.values()) > limit or bool((sd[1:] > sd[:-1]).any())
     if sref is not None:
         out["sigma_rel_err"] = float((sd - sref).abs().max() / sref.max())
-        bad = bad or out["sigma_rel_err"] > 1e-3
-    print("%s: %s (residual and orthogonality in n*10eps units, <= 3)"
-          % (label, {k2: float("%.4g" % v) for k2, v in out.items()}),
+        bad = bad or out["sigma_rel_err"] > val_tol
+    print("%s: %s (residual and orthogonality in units of n*%.3g, <= %g; "
+          "sigma <= %.0e)" % (label, {k2: float("%.4g" % v) for k2, v in
+                                     out.items()}, eps10, limit, val_tol),
           flush=True)
     if bad:
         fail("%s: gates %s" % (label, out))
@@ -3614,7 +3689,8 @@ def main_path_svd(torch, st, kernels, dev) -> dict:
     torch.linalg.svdvals in fp64; the first call's wall with the stage
     timers and chase.tb2bd (no timed repeats: each call is ~32 s, mostly
     host), torch.linalg.svd's wall as a
-    yardstick (timed only), a profiler split; one more stage 1 (ge2tb,
+    yardstick (timed only), a profiler split of svd at SVD_SPLIT_N; one
+    more stage 1 (ge2tb,
     where every matmul launch of the path is) with every matmul call held
     to its plain version (:func:`check_path_calls`), as many calls as the
     path launched.
@@ -3656,10 +3732,16 @@ def main_path_svd(torch, st, kernels, dev) -> dict:
               k: round(v, 2) for k, v in stages.items()}, lib_ms), flush=True)
     res["fp32"].update(wall_ms=ms0, first_ms=ms0, stages_ms=stages,
                        library_ms=lib_ms)
+    # the profiler split at SVD_SPLIT_N: one more call at 8192 is ~32 s
+    # of host bidiagonal solve, and phase 3p needed the command's time
+    g = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (SVD_SPLIT_N, SVD_SPLIT_N)).astype(np.float32)).to(dev)
+    G = st.Matrix.from_array(g, nb=NB, device=dev)
     res["fp32"]["split"] = device_split(
-        torch, "svd fp32", lambda: st.svd(A),
+        torch, "svd fp32 n=%d" % SVD_SPLIT_N, lambda: st.svd(G),
         {"tb2bd_wavefront kernel": "tb2bd_wavefront_kernel",
          "matmul kernel": "matmul_f32_kernel"})
+    del G, g
     # every matmul launch of the path is stage 1's (the back-transforms'
     # products go to torch.matmul): the check runs ge2tb alone and must
     # see as many calls as the path launched
@@ -4125,9 +4207,12 @@ def main_path_dist_shared(torch) -> dict:
     card defaults (tournament pivots, depth 2): every rank's residuals
     ≤ 3 and |L| ≤ 1 + 100ε (``launch.rank_baseline``), every rank
     launching both kernels; then, in the same processes, one checked run
-    at DIST_CHECK_N (:func:`rank_checked`).  A failing rank fails the
-    phase.  The walls are those of four processes on one card, not a
+    at DIST_CHECK_N (:func:`rank_checked`), the QR job
+    (:func:`rank_dist_qr`) and the two-stage job
+    (:func:`rank_dist_twostage`: its values and σ bitwise equal across
+    the ranks).  A failing rank fails the phase.  The walls are those of four processes on one card, not a
     multi-GPU number."""
+    import numpy as np
     from slate_tpu_torch.parallel import launch
 
     torch.cuda.empty_cache()
@@ -4137,7 +4222,8 @@ def main_path_dist_shared(torch) -> dict:
         ([("slate_tpu_torch.parallel.launch:rank_baseline",
            (DIST_N, NB, DIST_NRHS, 50, ("pposv", "pgesv"))),
           ("chip_smoke:rank_checked", (DIST_CHECK_N,)),
-          ("chip_smoke:rank_dist_qr", ())],),
+          ("chip_smoke:rank_dist_qr", ()),
+          ("chip_smoke:rank_dist_twostage", ())],),
         backend="gloo", device="cuda:0", timeout=900)
     wall = time.perf_counter() - t0
     ranks = [o[0] for o in out]
@@ -4165,12 +4251,25 @@ def main_path_dist_shared(torch) -> dict:
                           qr[key])
         print("dist 2x2 rank %s layout moves bitwise: %s"
               % (qr["rank"], ", ".join(qr["layout"])), flush=True)
+    two = [o[3] for o in out]
+    for name in ("pheev", "psvd"):
+        for r in two:
+            print("dist 2x2 (4 processes sharing one card) rank %s %s fp64 "
+                  "n=%d, the middle forced: wall %.1f ms, launches %s"
+                  % (r["rank"], name, TWO_CHECK_N, r[name]["wall_ms"],
+                     r[name]["launches"]), flush=True)
+        if not all(np.array_equal(r[name]["values"], two[0][name]["values"])
+                   for r in two):
+            fail("dist 2x2 %s: the ranks' values are not bitwise equal"
+                 % name)
+    print("dist 2x2 pheev and psvd: every rank's values and sigma bitwise "
+          "equal", flush=True)
     print("dist 2x2 site decisions (rank 0): %s; the spawn with its four "
           "processes took %.1f s" % (ranks[0]["decisions"], wall), flush=True)
     return {"ranks": ranks, "checks": [o[1]["checks"] for o in out],
             "qr_checks": [o[2]["checks"] for o in out],
             "qr_xla_checks": [o[2]["checks_xla"] for o in out],
-            "qr": [o[2] for o in out], "wall_s": wall}
+            "qr": [o[2] for o in out], "twostage": two, "wall_s": wall}
 
 
 def _gather_top(torch, mesh, dm, n: int):
@@ -4698,6 +4797,416 @@ def rank_dist_qr(mesh) -> dict:
         if not torch.equal(par.undistribute(dm), want):
             fail("%s: %s is not bitwise the input" % (label, name))
     out["layout"] = sorted(moves)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3p: the distributed two-stage eigensolver and SVD
+# ---------------------------------------------------------------------------
+
+def _sym_gauss(n: int, seed: int, dtype):
+    """(G + Gᵀ)/2 of a Gaussian from numpy ``seed``, as numpy ``dtype``."""
+    import numpy as np
+
+    g = np.random.default_rng(seed).standard_normal((n, n))
+    return ((g + g.T) / 2).astype(dtype)
+
+
+def _dense_wide(torch, abw):
+    """The dense symmetric matrix (fp64) of wide band storage with every
+    stored diagonal (``abw[c, d]`` = A[c+d, c], d < 2·kd + 2): between
+    chase chunks the matrix holds entries past the band."""
+    n, w = abw.shape
+    a = torch.zeros((n, n), dtype=torch.float64, device=abw.device)
+    for d in range(min(w, n)):
+        a.diagonal(-d).copy_(abw[:n - d, d])
+    return torch.tril(a) + torch.tril(a, -1).T
+
+
+def _tb_dense_wide(torch, st, kd: int):
+    """The dense matrix (fp64) of general band storage with every stored
+    diagonal (``st[r, c−r+kd]`` = A[r, c], −kd ≤ c − r < 2·kd + 2)."""
+    n, w = st.shape
+    b = torch.zeros((n, n), dtype=torch.float64, device=st.device)
+    for off in range(-kd, w - kd):
+        if abs(off) >= n:
+            continue
+        if off >= 0:
+            b.diagonal(off).copy_(st[:n - off, kd + off])
+        else:
+            b.diagonal(off).copy_(st[-off:, kd + off])
+    return b
+
+
+def hold_chases(torch, kernels, label: str, run,
+                names=("hb2st_wavefront", "tb2bd_wavefront")) -> dict:
+    """``run()`` once with the input band of every call of the chase
+    kernels ``names`` that launches (a sweep or more) copied to the host,
+    then each such call replayed on the card from its input and held by
+    its backward error, as phase 2g/2h hold fp64 chases: the chunk's
+    reflectors Q (and P) built from its log (the back-transform of I),
+    the matrix before the call B₀ and after it B₁ (dense, fp64, every
+    stored diagonal: a chunk leaves entries past the band):
+    ‖B₀·Q − Q·B₁‖_F/(‖B₀‖_F·n·ε) and ‖QᵀQ − I‖_F/(n·ε) (tb2bd: ‖B₀·P −
+    Q·B₁‖ and both orthogonalities), each ≤ 3.  The held calls must be
+    the launches counted in ``run()``, kernel by kernel (the launches are
+    zeroed before it).  ``run()`` pays only the copies, so a timed call
+    may be held.  Returns per kernel the calls, the distinct layouts and
+    the largest residual and orthogonality."""
+    from slate_tpu_torch.linalg import eig
+
+    real = {k: getattr(kernels, k) for k in names}
+    out = {k: {"calls": 0, "layouts": set(), "max_residual": 0.0,
+               "max_orthogonality": 0.0} for k in names}
+    inputs = []
+
+    def recorder(name):
+        def call(band, kd, lo=0, hi=None):
+            before = band.detach().to("cpu", copy=True)
+            got = real[name](band, kd, lo, hi)
+            if got[1].shape[0]:             # the wrapper launched
+                inputs.append((name, before, band.device, kd, lo, hi))
+            return got
+        return call
+
+    def record(name, band, res, orths):
+        rec = out[name]
+        rec["calls"] += 1
+        rec["layouts"].add("%s stride %s" % (tuple(band.shape),
+                                             band.stride()))
+        rec["max_residual"] = max(rec["max_residual"], res)
+        rec["max_orthogonality"] = max([rec["max_orthogonality"]] + orths)
+        if not (res <= 3 and max(orths) <= 3):
+            fail("%s: %s at %s: backward residual %.3g, orthogonality %s "
+                 "(<= 3)" % (label, name, tuple(band.shape), res, orths))
+
+    def q_of(log, j0, n, kd, dt, dev):
+        rows = list(range(j0 + 1, j0 + log.shape[0] + 1))
+        eye = torch.eye(n, dtype=dt, device=dev)
+        return eig.unmtr_hb2st_hh(log[:, :, 1:], log[:, :, 0], rows, eye,
+                                  kd).double()
+
+    def hb2st(abw, kd, j0, j1):
+        before = _dense_wide(torch, abw.double())
+        abw, vt = real["hb2st_wavefront"](abw, kd, j0, j1)
+        n = abw.shape[0]
+        eps = float(torch.finfo(abw.dtype).eps)
+        q = q_of(vt, j0, n, kd, abw.dtype, abw.device)
+        after = _dense_wide(torch, abw.double())
+        eye = torch.eye(n, dtype=torch.float64, device=abw.device)
+        res = float((before @ q - q @ after).norm()
+                    / (before.norm() * n * eps))
+        record("hb2st_wavefront", abw, res,
+               [float((q.T @ q - eye).norm() / (n * eps))])
+
+    def tb2bd(st_, kd, s0, s1):
+        before = _tb_dense_wide(torch, st_.double(), kd)
+        st_, ut, vt = real["tb2bd_wavefront"](st_, kd, s0, s1)
+        n = st_.shape[0]
+        eps = float(torch.finfo(st_.dtype).eps)
+        qu = q_of(ut, s0, n, kd, st_.dtype, st_.device)
+        qv = q_of(vt, s0, n, kd, st_.dtype, st_.device)
+        after = _tb_dense_wide(torch, st_.double(), kd)
+        eye = torch.eye(n, dtype=torch.float64, device=st_.device)
+        res = float((before @ qv - qu @ after).norm()
+                    / (before.norm() * n * eps))
+        record("tb2bd_wavefront", st_, res,
+               [float((x.T @ x - eye).norm() / (n * eps))
+                for x in (qu, qv)])
+
+    kernels.reset_launches()
+    try:
+        for k in names:
+            setattr(kernels, k, recorder(k))
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for k, fn in real.items():
+            setattr(kernels, k, fn)
+    launched = {k: kernels.launches.get(k, 0) for k in names}
+    replay = {"hb2st_wavefront": hb2st, "tb2bd_wavefront": tb2bd}
+    while inputs:
+        name, before, dev, kd, lo, hi = inputs.pop(0)
+        replay[name](before.to(dev), kd, lo, hi)
+        torch.cuda.empty_cache()
+    for name, rec in out.items():
+        if not rec["calls"]:
+            fail("%s: %s was not called in the checked run" % (label, name))
+        if rec["calls"] != launched[name]:
+            fail("%s: %d %s calls held, %d launched" % (
+                label, rec["calls"], name, launched[name]))
+        rec["layouts"] = len(rec["layouts"])
+        print("%s check %s: %d calls (every launch) at %d layouts, replayed "
+              "from their inputs, backward residual max %.3g, orthogonality "
+              "max %.3g (n*eps units, <= 3)"
+              % (label, name, rec["calls"], rec["layouts"],
+                 rec["max_residual"], rec["max_orthogonality"]), flush=True)
+    return out
+
+
+def _twostage_call(torch, kernels, metrics, dev, path: str, fn):
+    """One driver call as a path of its own: its launches from a reset
+    just before it, its wall (synchronized), its stage timers (ms), its
+    chase counters and its peak device memory (bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = metrics.snapshot()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    delta = metrics.snapshot_delta(before, metrics.snapshot())
+    rec = {"wall_ms": wall, "launches": _path_launches(kernels, path),
+           "stages_ms": {k: v["total_s"] * 1e3 for k, v in delta.get(
+               "timers", {}).items() if k.startswith(("stage.", "pstedc."))},
+           "host_bytes": delta.get("counters", {}).get("chase.host_bytes",
+                                                       0.0),
+           "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    return out, rec
+
+
+def _twostage_report(label: str, rec: dict, kernel: str) -> None:
+    print("%s: wall %.1f ms; stages (ms) %s; %s launches %d; "
+          "chase.host_bytes %.0f; peak device memory %.2f GiB"
+          % (label, rec["wall_ms"], {k: round(v, 1) for k, v in
+                                     rec["stages_ms"].items()},
+             kernel, rec["launches"].get(kernel, 0), rec["host_bytes"],
+             rec["peak_bytes"] / 2 ** 30), flush=True)
+
+
+def main_path_dist_twostage(torch, st, kernels, dev, refs) -> dict:
+    """Phase 3p: the distributed two-stage eigensolver and SVD on a 1×1
+    grid of a ``torch.distributed`` world of one (NCCL), nb 256, the
+    distributed middle taken by default (n ≥ 2048): pheev fp64 at TWO_N,
+    psvd fp64 at TWO_SVD_N on phase 3i's input (``refs["svd"]``: its fp64
+    ``sref``), pheev fp32 at EIG_N on phase 3h's input
+    (``refs["heev"]``: its ``lam`` and ``wall_ms``), each a path of its
+    own with exact chase launches (DIST_EXACT), ``chase.host_bytes`` 0,
+    the gates of :func:`_eig_gates` / :func:`_svd_gates` (ε units, ≤ 10,
+    values 1e-10; in fp32 phase 3h's), its wall, stage split and peak
+    memory.  The fp32 call notes every operand layout it gives ``matmul``
+    (:func:`record_layouts`), each held to its plain version after it
+    (:func:`hold_matmul_layouts`), and its chase calls (fp64: the band is
+    promoted) are replayed from their inputs and held by their backward
+    error (:func:`hold_chases`); neither moves its wall but for the
+    copies of the chase's inputs to the host.
+    Then the checked run at TWO_CHECK_N (fp32, the middle forced on):
+    pheev, psvd and pheev under a TWO_SPILL_MB snapshot budget, every
+    ``matmul`` call held to its plain version (:func:`check_path_calls`)
+    and every chase call by its backward error (:func:`hold_chases`)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from slate_tpu_torch.parallel import launch
+    from slate_tpu_torch.perf import metrics
+
+    metrics.on()
+    launches, res, checks, t_sub = {}, {}, {}, {}
+    eps64 = float(torch.finfo(torch.float64).eps)
+    eps32 = float(torch.finfo(torch.float32).eps)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = st.parallel.make_grid_mesh(1, 1)
+            print("phase 3p: %r" % (mesh,), flush=True)
+            # ---- pheev fp64 at TWO_N
+            n = TWO_N
+            a = torch.from_numpy(np.random.default_rng(5).standard_normal(
+                (n, n))).to(dev)
+            a = (a + a.T) / 2      # _sym_gauss(n, 5), formed on the card
+            (w, zd), rec = _twostage_call(
+                torch, kernels, metrics, dev, "dist_pheev",
+                lambda: st.parallel.pheev(a, mesh, NB))
+            label = "dist 1x1 pheev fp64 n=%d nb=%d" % (n, NB)
+            _twostage_report(label, rec, "hb2st_wavefront")
+            z = st.parallel.undistribute(zd)
+            del zd
+            t1 = time.perf_counter()
+            lam = torch.linalg.eigvalsh(a)
+            torch.cuda.synchronize()
+            rec["eigvalsh_ms"] = (time.perf_counter() - t1) * 1e3
+            rec["gates"] = _eig_gates(torch, label, a, w, z, lam, eps64,
+                                      limit=10, val_tol=1e-10)
+            print("%s: torch.linalg.eigvalsh (the values' reference) %.1f "
+                  "ms" % (label, rec["eigvalsh_ms"]), flush=True)
+            if rec["host_bytes"]:
+                fail("%s: chase.host_bytes %.0f, not 0" % (label,
+                                                           rec["host_bytes"]))
+            launches["dist_pheev"], res["dist_pheev"] = rec["launches"], rec
+            del a, w, z, lam
+            torch.cuda.empty_cache()
+            t_sub["pheev"] = time.perf_counter() - t0
+            # ---- psvd fp64 at TWO_SVD_N
+            t1 = time.perf_counter()
+            n = TWO_SVD_N
+            a = torch.from_numpy(np.random.default_rng(10).standard_normal(
+                (n, n)).astype(np.float32)).to(dev).double()
+            (s, ud, vd), rec = _twostage_call(
+                torch, kernels, metrics, dev, "dist_psvd",
+                lambda: st.parallel.psvd(a, mesh, NB))
+            label = "dist 1x1 psvd fp64 (%d, %d) nb=%d" % (n, n, NB)
+            _twostage_report(label, rec, "tb2bd_wavefront")
+            u, v = st.parallel.undistribute(ud), st.parallel.undistribute(vd)
+            del ud, vd
+            rec["gates"] = _svd_gates(torch, label, a, s, u, v.T, eps64,
+                                      refs["svd"]["sref"], limit=10,
+                                      val_tol=1e-10)
+            if rec["host_bytes"]:
+                fail("%s: chase.host_bytes %.0f, not 0" % (label,
+                                                           rec["host_bytes"]))
+            launches["dist_psvd"], res["dist_psvd"] = rec["launches"], rec
+            del a, s, u, v
+            torch.cuda.empty_cache()
+            t_sub["psvd"] = time.perf_counter() - t1
+            # ---- pheev fp32 on phase 3h's input
+            t1 = time.perf_counter()
+            n = EIG_N
+            a = torch.from_numpy(np.random.default_rng(9).standard_normal(
+                (n, n)).astype(np.float32)).to(dev)
+            a = (a + a.T) / 2
+            label = "dist 1x1 pheev fp32 n=%d nb=%d" % (n, NB)
+            layouts, call = set(), {}
+
+            def timed_fp32():
+                call["r"] = _twostage_call(
+                    torch, kernels, metrics, dev, "dist_pheev_fp32",
+                    lambda: record_layouts(
+                        kernels, "matmul", layouts,
+                        lambda: st.parallel.pheev(a, mesh, NB)))
+
+            checks["dist_pheev_fp32_chase"] = hold_chases(
+                torch, kernels, label, timed_fp32,
+                names=("hb2st_wavefront",))
+            (w, zd), rec = call.pop("r")
+            _twostage_report(label, rec, "hb2st_wavefront")
+            z = st.parallel.undistribute(zd)
+            del zd
+            if z.dtype != torch.float32:
+                fail("%s: Z came back %s, not float32" % (label, z.dtype))
+            rec["gates"] = _eig_gates(torch, label, a, w, z,
+                                      refs["heev"]["lam"], 10 * eps32)
+            print("%s: wall %.1f ms against single-device heev's %.1f ms "
+                  "(phase 3h)" % (label, rec["wall_ms"],
+                                  refs["heev"]["wall_ms"]), flush=True)
+            launches["dist_pheev_fp32"] = rec["launches"]
+            res["dist_pheev_fp32"] = rec
+            del a, w, z
+            torch.cuda.empty_cache()
+            checks["dist_pheev_fp32_layouts"] = hold_matmul_layouts(
+                torch, kernels, dev, label, layouts)
+            torch.cuda.empty_cache()
+            t_sub["pheev_fp32"] = time.perf_counter() - t1
+            # ---- the checked run at TWO_CHECK_N
+            t1 = time.perf_counter()
+            n = TWO_CHECK_N
+            a = torch.from_numpy(_sym_gauss(n, 5, np.float32)).to(dev)
+            g = torch.from_numpy(np.random.default_rng(6).standard_normal(
+                (n, n)).astype(np.float32)).to(dev)
+            dist_eig, dist_svd = {"stedc_dist": True}, {"svd_dist": True}
+            spilled = {}
+
+            def checked():
+                w, zd = st.parallel.pheev(a, mesh, NB, opts=dist_eig)
+                spilled["pheev"] = _eig_gates(
+                    torch, "dist 1x1 checked pheev fp32 n=%d" % n, a, w,
+                    st.parallel.undistribute(zd),
+                    torch.linalg.eigvalsh(a.double()), 10 * eps32)
+                s, ud, vd = st.parallel.psvd(g, mesh, NB, opts=dist_svd)
+                spilled["psvd"] = _svd_gates(
+                    torch, "dist 1x1 checked psvd fp32 n=%d" % n, g, s,
+                    st.parallel.undistribute(ud),
+                    st.parallel.undistribute(vd).T,
+                    10 * eps32, torch.linalg.svdvals(g.double()))
+                before = metrics.snapshot()
+                with launch.snapshot_budget(TWO_SPILL_MB):
+                    st.parallel.pheev(a, mesh, NB, opts=dist_eig)
+                spilled["host_bytes"] = metrics.snapshot_delta(
+                    before, metrics.snapshot())["counters"].get(
+                        "chase.host_bytes", 0.0)
+
+            label = ("dist 1x1 pheev+psvd fp32 n=%d, the middle forced "
+                     "(pheev again at a %g-MB snapshot budget)"
+                     % (n, TWO_SPILL_MB))
+            checks["dist_twostage"] = check_path_calls(
+                torch, kernels, label, lambda: checks.update(
+                    dist_twostage_chase=hold_chases(torch, kernels, label,
+                                                    checked)),
+                {"matmul": CHECK_TOL["matmul"]})
+            print("%s: the spill branch moved %.0f B through the host"
+                  % (label, spilled["host_bytes"]), flush=True)
+            if not spilled["host_bytes"] > 0:
+                fail("%s: the %g-MB budget spilled nothing" % (label,
+                                                               TWO_SPILL_MB))
+            res["checked"] = spilled
+            del a, g
+            t_sub["checks"] = time.perf_counter() - t1
+        finally:
+            dist.destroy_process_group()
+    print("phase 3p's parts (s): %s" % {k: round(v, 1)
+                                        for k, v in t_sub.items()},
+          flush=True)
+    res.update(launches=launches, path_checks=checks)
+    return res
+
+
+def rank_dist_twostage(mesh) -> dict:
+    """Phase 3k's two-stage job on this rank's mesh of the 2×2 spawn:
+    pheev of a symmetric Gaussian (numpy seed 5) and psvd of a Gaussian
+    (seed 6), fp64 at TWO_CHECK_N with the distributed middle forced on,
+    each under phase 3p's gates (:func:`_eig_gates` / :func:`_svd_gates`
+    in ε units, ≤ 10, values 1e-10) and TWO_SHARED_EXACT's chase
+    launches; returns the values and σ (for
+    the ranks' bitwise comparison), the walls and the launches."""
+    import numpy as np
+    import torch
+    import slate_tpu_torch.parallel as par
+    from slate_tpu_torch.ops import kernels
+
+    n, dev = TWO_CHECK_N, mesh.device
+    eps = float(torch.finfo(torch.float64).eps)
+    out = {"rank": (mesh.r, mesh.c)}
+    label = "dist 2x2 rank %s" % (out["rank"],)
+    a = torch.from_numpy(_sym_gauss(n, 5, np.float64)).to(dev)
+    g = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (n, n))).to(dev)
+    for name, run in (
+            ("pheev", lambda: par.pheev(a, mesh, NB,
+                                        opts={"stedc_dist": True})),
+            ("psvd", lambda: par.psvd(g, mesh, NB,
+                                      opts={"svd_dist": True}))):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        rec = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+               "launches": {k: v for k, v in kernels.launches.items() if v}}
+        for k, want in TWO_SHARED_EXACT[name].items():
+            if rec["launches"].get(k, 0) != want:
+                fail("%s %s: %d %s launches, want %d"
+                     % (label, name, rec["launches"].get(k, 0), k, want))
+        where = "%s %s fp64 n=%d" % (label, name, n)
+        if name == "pheev":
+            w, zd = got
+            rec["gates"] = _eig_gates(torch, where, a, w,
+                                      par.undistribute(zd),
+                                      torch.linalg.eigvalsh(a), eps,
+                                      limit=10, val_tol=1e-10)
+            rec["values"] = w.cpu().numpy()
+        else:
+            s, ud, vd = got
+            rec["gates"] = _svd_gates(torch, where, g, s,
+                                      par.undistribute(ud),
+                                      par.undistribute(vd).T, eps,
+                                      torch.linalg.svdvals(g), limit=10,
+                                      val_tol=1e-10)
+            rec["values"] = s.cpu().numpy()
+        out[name] = rec
     return out
 
 
@@ -5846,6 +6355,8 @@ def hold_matmul_layouts(torch, kernels, dev, label: str, layouts) -> dict:
     bytes, on which the kernel's staging turns), relative Frobenius
     within ``CHECK_TOL["matmul"]``.  Returns what
     :func:`check_path_calls` returns, a call a layout."""
+    if not layouts:
+        fail("%s: matmul was not called in the run" % label)
     gen = torch.Generator(device=dev).manual_seed(34)
     worst, where, err = 0.0, "", 0.0
     for lay in sorted(layouts):
@@ -6288,6 +6799,10 @@ def main() -> int:
     dist_qr = phase("3o", main_path_dist_qr, torch, st, kernels, dev)
     paths.update(dist_qr["launches"])
     path_checks.update(dist_qr["path_checks"])
+    twostage = phase("3p", main_path_dist_twostage, torch, st, kernels, dev,
+                     {"heev": heev["fp32"], "svd": svd["fp32"]})
+    paths.update(twostage["launches"])
+    path_checks.update(twostage["path_checks"])
     print("phase walls (s): %s; total %.1f s since the build began"
           % (", ".join("%s %.1f" % kv for kv in spent.items()),
              time.perf_counter() - t0), flush=True)
@@ -6335,8 +6850,10 @@ def main() -> int:
         for p, calls in path_checks.items():    # every call of one run
             if name in calls:
                 rows[-1][p + "_path_check"] = {
-                    k: calls[name][k] for k in ("calls", "layouts",
-                                                "max_rel_err", "max_abs_err")}
+                    k: v for k, v in calls[name].items()
+                    if k in ("calls", "layouts", "max_rel_err",
+                             "max_abs_err", "max_residual",
+                             "max_orthogonality")}
     print(card, flush=True)        # again, beside the numbers below
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

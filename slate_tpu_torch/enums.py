@@ -84,6 +84,12 @@ class Option(enum.Enum):
     MethodLU = "method_lu"
     MethodTrsm = "method_trsm"
     MethodSVD = "method_svd"
+    #: route pheev's tridiagonal stage through the distributed D&C
+    #: (``parallel.dist_stedc.pstedc``); default on for n ≥ 2048
+    StedcDist = "stedc_dist"
+    #: route psvd's bidiagonal stage through the checkpointed tb2bd and
+    #: the Golub–Kahan pstedc middle; default on for n ≥ 2048
+    SvdDist = "svd_dist"
     #: heev's whole-driver choice (``"twostage"`` or ``"qdwh"``),
     #: bypassing the ``eig_driver`` site
     EigDriver = "eig_driver"

@@ -1,6 +1,5 @@
 """Stage-2 bulge-chase dispatch of the two-stage eigensolver and SVD —
-``slate_tpu/linalg/_chase.py:77-272`` without the distributed drivers'
-snapshot helpers.
+``slate_tpu/linalg/_chase.py``.
 
 * :func:`backend` resolves the ``chase`` site
   (:func:`slate_tpu_torch.perf.autotune.choose_chase`): ``"kernel"`` (the
@@ -17,6 +16,10 @@ snapshot helpers.
   band upload the caller makes anyway is counted under
   ``chase.ingest_bytes``.  The O(n) (d, e) handoff to the host
   tridiagonal or bidiagonal solve is neither.
+* The distributed drivers' checkpointed chases keep one band snapshot
+  a sweep chunk (:func:`snapshots_fit_device`, :func:`snapshot_store`,
+  :func:`snapshot_restore`): on the card while they fit the budget, else
+  spilled to the host and counted into ``chase.host_bytes``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,34 @@ from ..perf.autotune import select as _select
 #: narrower windows take the host chase (the JAX kernel's patch needs
 #: kd ≥ 4, and the kernel keeps its gate)
 _MIN_KD = 4
+
+#: device-memory budget of the distributed drivers' checkpoint snapshots
+#: (all live from pass 1 until pass 2 consumes them in reverse); past it
+#: they spill to the host, an O(n·kd·nchunks) transfer counted into
+#: ``chase.host_bytes`` (the JAX package's default; tests lower it
+#: through :func:`slate_tpu_torch.parallel.launch.snapshot_budget`)
+_SNAP_BUDGET_BYTES = 2048e6
+
+
+def snapshots_fit_device(nbytes_one: int, nchunks: int) -> bool:
+    """True when every checkpoint snapshot of one chase can stay in
+    device memory at once."""
+    return float(nbytes_one) * max(nchunks, 1) <= _SNAP_BUDGET_BYTES
+
+
+def snapshot_store(band) -> np.ndarray:
+    """Spill one checkpoint snapshot to the host (counted as traffic); a
+    copy, so the caller may go on chasing ``band`` in place."""
+    arr = band.detach().cpu().numpy().copy()
+    _count_tunnel(arr.nbytes)
+    return arr
+
+
+def snapshot_restore(arr: np.ndarray, device):
+    """Upload one spilled snapshot to ``device`` for pass 2's log
+    regeneration (counted as traffic)."""
+    _count_tunnel(arr.nbytes)
+    return torch.from_numpy(arr).to(device)
 
 
 def eligible(n: int, kd: int, want_vectors: bool) -> bool:
@@ -166,10 +197,12 @@ def tb2bd_st_from_ab(ab: np.ndarray, kd_eff: int, device):
     return torch.from_numpy(st).to(device)
 
 
-def tb2bd_device(st, kd_eff: int, s0: int = 0, s1=None):
+def tb2bd_device(st, kd_eff: int, s0: int = 0, s1=None,
+                 want_log: bool = True):
     """One bidiagonal chase chunk over sweeps ``[s0, s1)`` on the band's
     device, in place: returns ``(st, ulog, vlog)`` with each log a
-    ``(v3, t2, s0)`` triple — ONE ``tb2bd_wavefront`` launch."""
+    ``(v3, t2, s0)`` triple (None when not ``want_log``) — ONE
+    ``tb2bd_wavefront`` launch."""
     n = st.shape[0]
     if s1 is None:
         s1 = max(n - 1, 0)
@@ -178,6 +211,8 @@ def tb2bd_device(st, kd_eff: int, s0: int = 0, s1=None):
         if metrics.enabled() and st.is_cuda:
             torch.cuda.synchronize(st.device)
     _mark_device_path()
+    if not want_log:
+        return st, None, None
     rows = _log_s0(n, s0, s1)
     return (st, split_hh_log(ut, kd_eff, rows),
             split_hh_log(vt, kd_eff, rows))

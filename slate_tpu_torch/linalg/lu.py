@@ -93,8 +93,10 @@ def _lu_perm(a):
     zero padding, is factored without the error check's sync)."""
     lu, ipiv, _ = torch.linalg.lu_factor_ex(a)
     p = torch.lu_unpack(lu, ipiv, unpack_data=False)[0]
-    # a = P·L·U, so row i of L·U is row argmax_j P[j, i] of a
-    return lu, p.argmax(dim=-2)
+    # a = P·L·U, so row i of L·U is row argmax_j P[j, i] of a; P has the
+    # operand's dtype, and argmax takes no complex input: its 0/1 entries
+    # are all in the real part
+    return lu, (p.real if p.is_complex() else p).argmax(dim=-2)
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,12 @@ Ported: ``make_grid_mesh``, ``DistMatrix``, ``distribute``,
 ``ppotrf``/``ppotrs``/``pposv``, ``pgetrf``/``pgetrs``/``pgesv``, the QR
 family ``pgeqrf``/``pgels``/``punmqr_conj``/``pgelqf``/``punmlq``, the
 distributed norms, rank-k updates, multiplies and triangular solves of
-``dist_aux`` and the layout moves ``peye``/``ptranspose``/
-``predistribute``/``phermitize``.
+``dist_aux``, the layout moves ``peye``/``ptranspose``/
+``predistribute``/``phermitize``, and the two-stage eigensolver and SVD
+``phe2hb``/``pge2tb``/``pheev``/``psvd`` with their back-transforms
+``punmtr_he2hb``/``punmbr_ge2tb_q``/``punmbr_ge2tb_p`` and band gathers
+``band_tiles_to_dense``/``band_tiles_to_banded`` (the distributed middle
+in :mod:`.dist_stedc` and :mod:`.dist_svd`).
 """
 
 from .mesh import (default_mesh, grid_of, make_grid_mesh,  # noqa: F401
@@ -32,6 +36,10 @@ from .dist_aux import (  # noqa: F401
 from .dist_util import (peye, phermitize, predistribute,  # noqa: F401
                         ptranspose)
 from .dist_qr import pgelqf, punmlq  # noqa: F401
+from .dist_twostage import (  # noqa: F401
+    band_tiles_to_banded, band_tiles_to_dense, pge2tb, phe2hb, pheev, psvd,
+    punmbr_ge2tb_p, punmbr_ge2tb_q, punmtr_he2hb,
+)
 
 # ---------------------------------------------------------------------------
 # User-tile-map ingestion: every public driver re-grids a DistMatrix
@@ -42,7 +50,8 @@ from .dist_qr import pgelqf, punmlq  # noqa: F401
 # ---------------------------------------------------------------------------
 from . import (dist_aux as _m_aux, dist_blas3 as _m_blas3,  # noqa: E402
                dist_factor as _m_factor, dist_lu as _m_lu,
-               dist_qr as _m_qr, dist_util as _m_util)
+               dist_qr as _m_qr, dist_twostage as _m_two,
+               dist_util as _m_util)
 from .dist import canonical_args as _canonical_args  # noqa: E402
 
 _DRIVER_NAMES = {
@@ -53,6 +62,8 @@ _DRIVER_NAMES = {
     _m_aux: ["pcolnorms", "phemm", "pher2k", "pherk", "pnorm", "psymm",
              "psyr2k", "psyrk", "ptri_mask", "ptrmm", "ptrsm"],
     _m_util: ["predistribute", "ptranspose", "phermitize"],
+    _m_two: ["phe2hb", "pge2tb", "pheev", "psvd", "punmbr_ge2tb_p",
+             "punmbr_ge2tb_q", "punmtr_he2hb"],
 }
 for _mod, _names in _DRIVER_NAMES.items():
     for _nm in _names:

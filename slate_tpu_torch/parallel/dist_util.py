@@ -2,8 +2,10 @@
 and the layout moves — the counterpart of
 ``slate_tpu/parallel/dist_util.py``: the local↔global row map, the fused
 panel broadcasts, the staged step windows, the four ``dist_*`` site
-resolvers, and ``peye``, ``ptranspose``, ``predistribute`` and
-``phermitize``.
+resolvers, ``peye``, ``ptranspose``, ``predistribute`` and
+``phermitize``, the placed move between any two layouts (``_move``: the
+two-stage middle's rows → column slabs → block-cyclic moves and its
+gathers) and the drivers' stage timer (``_stage``).
 
 The JAX package runs the step plumbing inside ``shard_map`` with a traced
 step k and masks every rank-dependent choice
@@ -17,6 +19,7 @@ rank, and then each rank keeps its new blocks.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -203,6 +206,68 @@ def _regrid(nat, mesh, mtp: int, ntp: int, nb: int) -> torch.Tensor:
     cols = local_indices(ntp, q, mesh.c, nb)
     return _take(nat, rows, cols, nat.shape[0], nat.shape[1], torch.zeros(
         (len(rows), len(cols)), dtype=nat.dtype, device=mesh.device))
+
+
+@contextlib.contextmanager
+def _stage(name: str, mesh):
+    """A metrics timer around one stage, synchronized with the card at
+    its end while metrics are on (host wall otherwise)."""
+    with metrics.timer(name):
+        yield
+        if metrics.enabled() and mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+
+
+def _col_bounds(n: int, mesh) -> list:
+    """Column slabs of the distributed middle: rank d (row-major grid
+    order) holds every row of columns [b[d], b[d+1])."""
+    nr = mesh.p * mesh.q
+    return [d * n // nr for d in range(nr + 1)]
+
+
+def _move(mesh, x, rows: np.ndarray, cols: np.ndarray, dst):
+    """Move a matrix between two layouts over the same ranks: this rank
+    holds ``x``, the entries at global ``rows`` × ``cols`` (each entry
+    held by one rank); ``dst(d)`` gives rank d's global (rows, cols),
+    ascending.  One psum a destination rank of a buffer its block's
+    size, each entry placed by its holder — one psum in all where every
+    rank's destination is the same (a gather); returns this rank's block
+    (zero where no rank held an entry)."""
+    me = mesh.r * mesh.q + mesh.c
+    dev = x.device
+    dsts = [dst(d) for d in range(mesh.p * mesh.q)]
+    shared = all(np.array_equal(dr, dsts[0][0]) and
+                 np.array_equal(dc, dsts[0][1]) for dr, dc in dsts)
+    out = None
+    for d in ([me] if shared else range(len(dsts))):
+        drows, dcols = dsts[d]
+        buf = torch.zeros((len(drows), len(dcols)), dtype=x.dtype,
+                          device=dev)
+        pr = np.searchsorted(drows, rows)
+        rin = np.flatnonzero((pr < len(drows)) & (drows[np.minimum(
+            pr, len(drows) - 1)] == rows)) if len(drows) else pr[:0]
+        pc = np.searchsorted(dcols, cols)
+        cin = np.flatnonzero((pc < len(dcols)) & (dcols[np.minimum(
+            pc, len(dcols) - 1)] == cols)) if len(dcols) else pc[:0]
+        if len(rin) and len(cin):
+            src = x.index_select(0, torch.as_tensor(rin, device=dev)) \
+                .index_select(1, torch.as_tensor(cin, device=dev))
+            buf[torch.as_tensor(pr[rin], device=dev)[:, None],
+                torch.as_tensor(pc[cin], device=dev)[None, :]] = src
+        mesh.psum(buf, BOTH)
+        if d == me:
+            out = buf
+    return out
+
+
+def _rows_to_cols(mesh, x, rows: np.ndarray, m: int, n: int):
+    """Rows → column slabs (:func:`_col_bounds`) of an (m, n) matrix whose
+    global ``rows`` this rank holds, each row whole: returns this rank's
+    (m, slab) block."""
+    b = _col_bounds(n, mesh)
+    allrows = np.arange(m)
+    return _move(mesh, x, rows, np.arange(n),
+                 lambda d: (allrows, np.arange(b[d], b[d + 1])))
 
 
 def ptranspose(dm: DistMatrix, conj: bool = False) -> DistMatrix:

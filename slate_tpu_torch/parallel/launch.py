@@ -470,3 +470,126 @@ def rank_layout_moves(mesh, a, sq, nb: int, nb_new: int, regrid) -> dict:
     out["regrid_rank"] = (mesh2.r, mesh2.c)
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# Rank body of the two-stage eigensolver and SVD
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def snapshot_budget(mb):
+    """The chase snapshots' device budget at ``mb`` megabytes in this
+    process for the block (None leaves it): the distributed middle's
+    spill branch at test sizes."""
+    from ..linalg import _chase
+
+    if mb is None:
+        yield
+        return
+    saved = _chase._SNAP_BUDGET_BYTES
+    _chase._SNAP_BUDGET_BYTES = float(mb) * 1e6
+    try:
+        yield
+    finally:
+        _chase._SNAP_BUDGET_BYTES = saved
+
+
+def _gather_rows(mesh, x, rows, m: int):
+    """The (m, ncols) matrix whose global ``rows`` this rank holds,
+    replicated: a move whose destination is every row on every rank."""
+    from .dist_util import _move
+
+    cols = np.arange(x.shape[1])
+    return _move(mesh, x, np.asarray(rows), cols,
+                 lambda d: (np.arange(m), cols))
+
+
+def rank_twostage(mesh, job: dict) -> dict:
+    """One job of the two-stage family on replicated numpy inputs, under
+    the job's pins ``job["force"]`` (a ``SLATE_TPU_TORCH_AUTOTUNE_FORCE``
+    value) and snapshot budget ``job["budget_mb"]``; ``job["op"]`` is
+
+    * ``"phe2hb"``: ``a`` (n×n Hermitian, distributed with ``row_mult=q,
+      col_mult=p``) at tile ``nb``; the factor, T blocks, band tiles, the
+      band through ``band_tiles_to_dense`` and ``band_tiles_to_banded``,
+      and ``punmtr_he2hb`` of ``z`` both ways;
+    * ``"pge2tb"``: ``a`` (m×n, m ≥ n); the factor, both T stacks, the
+      tiles and bands, ``punmbr_ge2tb_q`` of ``zq`` (m rows) and
+      ``punmbr_ge2tb_p`` of ``zp`` (n rows), both ways;
+    * ``"pheev"``: ``w`` and Z of ``pheev(a, mesh, nb, jobz, opts)``;
+    * ``"psvd"``: σ, U and V of ``psvd(a, mesh, nb, jobu, jobvt, opts)``;
+    * ``"pstedc"``: ``w`` and the whole Q of ``pstedc(d, e, mesh,
+      host_cutoff)``.
+
+    Returns numpy (each distributed result replicated through
+    :func:`~.dist.undistribute`), the ``chase`` site's decisions, the
+    kernel launches and ``chase.host_bytes`` of the run, and this rank's
+    coordinates."""
+    from ..ops import kernels
+    from ..perf import autotune, metrics
+    from . import (band_tiles_to_banded, band_tiles_to_dense, distribute,
+                   pge2tb, phe2hb, pheev, psvd, punmbr_ge2tb_p,
+                   punmbr_ge2tb_q, punmtr_he2hb, undistribute)
+    from .dist_stedc import pstedc, pstedc_rows
+
+    op, nb = job["op"], job.get("nb", 256)
+    p, q = mesh.p, mesh.q
+    sq = dict(row_mult=q, col_mult=p)
+    out = {"rank": (mesh.r, mesh.c)}
+    metrics.on()
+
+    def und(x):
+        return None if x is None else _np(undistribute(x))
+
+    with pinned(job.get("force")), snapshot_budget(job.get("budget_mb")):
+        before = metrics.snapshot()
+        kernels.reset_launches()
+        if op == "phe2hb":
+            a = job["a"]
+            n = a.shape[0]
+            fac, tmats, tiles = phe2hb(distribute(a, mesh, nb, **sq))
+            zd = distribute(job["z"], mesh, nb, **sq)
+            out.update(fac=und(fac), tmats=_np(tmats), tiles=_np(tiles),
+                       dense=band_tiles_to_dense(tiles, n, nb),
+                       banded=band_tiles_to_banded(tiles, n, nb),
+                       qz=und(punmtr_he2hb(fac, tmats, zd)),
+                       qhz=und(punmtr_he2hb(fac, tmats, zd, forward=False)))
+        elif op == "pge2tb":
+            a = job["a"]
+            n = a.shape[1]
+            fac, qt, pt, tiles = pge2tb(distribute(a, mesh, nb, **sq))
+            zq = distribute(job["zq"], mesh, nb, **sq)
+            zp = distribute(job["zp"], mesh, nb, **sq)
+            out.update(fac=und(fac), qtmats=_np(qt), ptmats=_np(pt),
+                       tiles=_np(tiles),
+                       dense=band_tiles_to_dense(tiles, n, nb, lower=False),
+                       banded=band_tiles_to_banded(tiles, n, nb,
+                                                   lower=False),
+                       qz=und(punmbr_ge2tb_q(fac, qt, zq)),
+                       qhz=und(punmbr_ge2tb_q(fac, qt, zq, forward=False)),
+                       pz=und(punmbr_ge2tb_p(fac, pt, zp)),
+                       phz=und(punmbr_ge2tb_p(fac, pt, zp, forward=False)))
+        elif op == "pheev":
+            w, z = pheev(job["a"], mesh, nb, job.get("jobz", True),
+                         job.get("opts"))
+            out.update(w=_np(w), z=und(z))
+        elif op == "psvd":
+            s, u, v = psvd(job["a"], mesh, nb, job.get("jobu", True),
+                           job.get("jobvt", True), job.get("opts"))
+            out.update(s=_np(s), u=und(u), v=und(v))
+        elif op == "pstedc":
+            d = job["d"]
+            w, qr = pstedc(d, job["e"], mesh, job.get("host_cutoff", 512))
+            out.update(w=np.asarray(w), q=_np(_gather_rows(
+                mesh, qr, pstedc_rows(d.size, mesh), d.size)))
+        else:
+            raise ValueError("rank_twostage: unknown op %r" % (op,))
+        counters = metrics.snapshot_delta(before, metrics.snapshot())
+    out["decisions"] = {k: v for k, v in autotune.decisions().items()
+                        if k.startswith("chase|")}
+    out["launches"] = {k: v for k, v in kernels.launches.items() if v}
+    out["host_bytes"] = counters.get("counters", {}).get("chase.host_bytes",
+                                                         0.0)
+    out["stages_s"] = {k: t["total_s"] for k, t in counters.get(
+        "timers", {}).items() if k.startswith("stage.")}
+    return out

@@ -86,15 +86,11 @@ def test_linalg_surface_covers_the_dense_solver_slice():
 
 
 #: public names of ``slate_tpu.parallel`` defined in a module the port has
-#: but queued for later slices of ROADMAP's queue 1 item 3 (sub-item 4:
-#: the two-stage drivers; sub-item 7: the mixed drivers, pgetri and
-#: pgecondest); the test fails when one of them lands unexported or this
-#: set goes stale
-PARALLEL_QUEUED = {"band_tiles_to_banded", "band_tiles_to_dense", "pge2tb",
-                   "phe2hb", "pheev", "psvd", "punmbr_ge2tb_p",
-                   "punmbr_ge2tb_q", "punmtr_he2hb", "pposv_mixed",
-                   "pposv_mixed_gmres", "pgesv_mixed", "pgetri",
-                   "pgecondest"}
+#: but queued for a later slice of ROADMAP's queue 1 item 3 (sub-item 7:
+#: the mixed drivers, pgetri and pgecondest); the test fails when one of
+#: them lands unexported or this set goes stale
+PARALLEL_QUEUED = {"pposv_mixed", "pposv_mixed_gmres", "pgesv_mixed",
+                   "pgetri", "pgecondest"}
 
 
 def test_parallel_surface_matches_the_ported_modules():
@@ -129,7 +125,10 @@ def test_parallel_surface_matches_the_ported_modules():
     for name in ("pgeqrf", "pgels", "punmqr_conj", "pgelqf", "punmlq",
                  "pnorm", "pcolnorms", "pherk", "psyrk", "pher2k", "psyr2k",
                  "ptri_mask", "ptrmm", "phemm", "psymm", "ptrsm", "peye",
-                 "ptranspose", "predistribute", "phermitize"):
+                 "ptranspose", "predistribute", "phermitize", "phe2hb",
+                 "pge2tb", "pheev", "psvd", "punmtr_he2hb", "punmbr_ge2tb_q",
+                 "punmbr_ge2tb_p", "band_tiles_to_dense",
+                 "band_tiles_to_banded"):
         assert callable(getattr(port_parallel, name)), name
 
 
