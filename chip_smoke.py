@@ -280,12 +280,12 @@
      counts; ``hesv`` of a symmetric Gaussian, fp32 at 8192 and fp64 at
      4096 (128 right-hand sides): residual ≤ 3, hetrf's and hetrs' walls,
      T's growth and hetrf's device launches a column.  One run of each
-     fp32 path with every ``matmul`` call (and on the tall loop and
-     ``getrf_rec`` at 16384 every ``getrf_panel_linv`` call, under phase
-     2b's panel gates) held to its plain version (heev_qdwh's and
-     svd_qdwh's at n = 4096); and every operand layout that the 8192
-     heev_qdwh and svd_qdwh runs gave ``matmul`` held to its plain
-     version on Gaussian operands.
+     fp32 path but heev_qdwh and svd_qdwh with every ``matmul`` call (and
+     on the tall loop and ``getrf_rec`` at 16384 every
+     ``getrf_panel_linv`` call, under phase 2b's panel gates) held to its
+     plain version; and every operand layout that the 8192 heev_qdwh and
+     svd_qdwh runs gave ``matmul`` held to its plain version on Gaussian
+     operands.
    * the distributed QR family, dist_aux and the layout moves (phase
      3o, on a 1×1 NCCL grid): ``pgels`` at BASELINE.md config 4 uncut
      (bench.py's (32768, 4096) Gaussian, one right-hand side, nb 256) at
@@ -303,25 +303,27 @@
      bitwise, ``pherk``/``psyrk``/``pher2k`` of (16384, 4096) operands
      and ``ptrmm``/``phemm`` under the tester's gemm residual, the 16
      ``ptrsm`` combinations at 4096 with 128 right-hand sides under its
-     trsm residual, each ≤ 3); then checked runs, every call of every
-     kernel the path launched held to its plain version: pgeqrf + pgels
-     at config 4 under each rung and at (8192, 2048) under the pin,
-     pgelqf + punmlq, and the whole of dist_aux.  Phase 3k's spawn adds
+     trsm residual, each ≤ 3); every ``matmul`` layout of the config-4
+     runs held to its plain version; then checked runs, every call of
+     every kernel the path launched held to its plain version: pgeqrf +
+     pgels at (8192, 2048) under the pin, pgelqf + punmlq, and the whole
+     of dist_aux.  Phase 3k's spawn adds
      one job (:func:`rank_dist_qr`): the same pgels at config 4 under
      both rungs on its 2×2 grid, every rank gated; one checked pgeqrf +
      pgels at (8192, 2048) under each rung; ``ptranspose`` and
      ``predistribute`` (to nb 512, to a 1×4 grid) bitwise against
      ``undistribute`` of the input.
    * the distributed two-stage eigensolver and SVD (phase 3p, on a 1×1
-     NCCL grid, nb 256): ``pheev`` fp64 at n = 16384 (BASELINE.md config
-     5's dtype at half its n; a symmetric Gaussian from numpy seed 5) on
+     NCCL grid, nb 256): ``pheev`` fp64 at n = 8192 (BASELINE.md config
+     5's dtype at a quarter of its n; a symmetric Gaussian from numpy
+     seed 5) on
      the distributed middle (``phe2hb``, the checkpointed chase, the
      distributed D&C ``pstedc``, the regenerated logs' back-transform,
      ``punmtr_he2hb``): ‖A·Z − Z·Λ‖/(‖A‖·n·ε) and ‖ZᵀZ − I‖/(n·ε) ≤ 10,
-     the values within 1e-10·max|λ| of ``eigvalsh`` (timed), exactly 16
-     ``hb2st_wavefront`` launches (two passes over 8 chunks),
-     ``chase.host_bytes`` 0; ``psvd`` fp64 of phase 3i's (8192, 8192)
-     Gaussian (its Golub–Kahan tridiagonal of order 16384):
+     the values within 1e-10·max|λ| of ``eigvalsh`` (timed), exactly 8
+     ``hb2st_wavefront`` launches (two passes over 4 chunks),
+     ``chase.host_bytes`` 0; ``psvd`` fp64 of phase 3i's fp64 (4096,
+     4096) Gaussian (its Golub–Kahan tridiagonal of order 8192):
      ‖A − UΣVᴴ‖/(‖A‖·n·ε) and both orthogonalities ≤ 10, σ within
      1e-10·σ₁ of phase 3i's fp64 ``svdvals``, exactly 8
      ``tb2bd_wavefront`` launches; ``pheev`` fp32 of phase 3h's input
@@ -340,6 +342,26 @@
      (:func:`rank_dist_twostage`): pheev and psvd fp64 at n = 2048 with
      the distributed middle forced on, the gates above on every rank,
      the values and σ bitwise equal across the four ranks.
+   * the distributed band, Hermitian-indefinite and QDWH drivers (phase
+     3q, on a 1×1 NCCL grid): ppbsv and pgbsv in fp32 at n = 16384
+     (BASELINE.md config 3's n; nb = kd = kl = ku = 256, 128 right-hand
+     sides) under the tester's residual ≤ 3, beside single-device
+     pbsv/gbsv on the same inputs; pgbmm, phbmm and ptbsm (pgbtrf's row
+     orders as its pivots) with a (16384, 512) B against fp64; phesv in
+     fp32 at 8192 and fp64 at 4096 (nb 256) on phase 3n's input under
+     phase 3n's gate, one swap collective a column, phetrf's device
+     launches a column; ppolar fp32 at 8192 on phase 3n's polar input
+     (one ``chol_l21_panel`` launch a tile a Cholesky step), pheev_qdwh
+     and psvd_qdwh fp32 at 4096 on the fp64 paths' inputs against their
+     fp64 ``eigvalsh``/``svdvals``; each a path with DIST_EXACT's
+     ``matmul`` counts where the loops fix them, its wall, stages,
+     counters and peak memory, every ``matmul`` layout held to its plain
+     version; then one checked run at 2048 of the band drivers, phesv (at
+     1024) and psvd_qdwh, every kernel call held to its plain version.
+     Phase 3k's spawn adds one job (:func:`rank_dist_solvers`): the band
+     drivers at 2048, phesv fp32 at 1024 (nb 128), ppolar and pheev_qdwh
+     fp32 at 512, gated on every rank, every rank's results bitwise
+     equal.
    Every kernel's launch count is set to 0 just before each path (each
    LU driver, ``getri``, each batched driver, the served requests, each
    depth and each distributed driver a path of its own) and read just
@@ -482,7 +504,15 @@ PATHS = {"cholesky": ("matmul", "chol_inv_panel", "trtri_panel"),
          "hesv_fp64": (),
          "dist_pheev": ("hb2st_wavefront",),
          "dist_psvd": ("tb2bd_wavefront",),
-         "dist_pheev_fp32": ("matmul", "hb2st_wavefront")}
+         "dist_pheev_fp32": ("matmul", "hb2st_wavefront"),
+         "dist_pbsv": ("matmul",),
+         "dist_gbsv": ("matmul",),
+         "dist_band_mm": ("matmul",),
+         "dist_phesv": ("matmul",),
+         "dist_phesv_fp64": (),
+         "dist_ppolar": ("matmul", "chol_l21_panel"),
+         "dist_pheev_qdwh": ("matmul", "chol_l21_panel"),
+         "dist_psvd_qdwh": ("matmul", "chol_l21_panel")}
 #: the tile kernels, which no driver calls: their path is their own
 #: public entry, tied to the driver function computing the same thing
 TILE_KERNELS = PATHS["tile_ties"]
@@ -605,29 +635,52 @@ GEMM64_N, POSV64_N, POSV64_NB, POSV64_REPS = 2048, 8192, 512, 3
 TALL_N, TALL_NB = 16384, 512
 CALU_N, CALU_NB = 8192, 256
 HESV_N, HESV_N64, HESV_NB, HESV_COUNT_N = 8192, 4096, 256, 520
-#: the size of heev_qdwh's and svd_qdwh's checked runs
-QDWH_CHECK_N = 4096
 #: the width of the tall panel whose pp loop's launches a column are
 #: counted (the count does not depend on it: two 64-wide slabs)
 PP_COUNT_W = 128
-#: phase 3p's sizes: pheev fp64 at half BASELINE.md config 5's n = 32768
-#: (the cut is the command's time: the back-transform applies one
-#: reflector sweep at a time, ~16·n³ bytes, ~20 s at 16384 and ~170 s at
-#: 32768 on 3.35 TB/s), psvd fp64 at 8192 (its Golub–Kahan tridiagonal
-#: has order 16384, pstedc's size in the pheev), pheev fp32 at EIG_N on
-#: phase 3h's input, the checked runs' and phase 3k's job's n; the
+#: phase 3p's sizes: pheev fp64 at a quarter of BASELINE.md config 5's
+#: n = 32768, psvd fp64 at SVD_N64 on phase 3i's fp64 input (its
+#: Golub–Kahan tridiagonal has order 8192, pstedc's size in the pheev);
+#: the cuts are the command's time (pheev 16384 took 50.6–56.9 s and
+#: psvd 8192 32.9–36.7 s, most of it pstedc's host leaves: the whole
+#: command neared its 1200 s when phase 3q came in); pheev fp32 at EIG_N
+#: on phase 3h's input, the checked runs' and phase 3k's job's n; the
 #: snapshot budget (MB) of the spill branch's checked run
-TWO_N, TWO_SVD_N, TWO_CHECK_N, TWO_SPILL_MB = 16384, 8192, 2048, 1
+TWO_N, TWO_SVD_N, TWO_CHECK_N, TWO_SPILL_MB = 8192, SVD_N64, 2048, 1
 #: the exact chase launches of one call: two passes (pass 1 without a log,
 #: pass 2 regenerating each chunk's log in reverse) over the chunks of
-#: ``dist_twostage.chase_chunk_bounds`` that hold a sweep — hb2st 8 at
-#: 16384, 4 at 8192 and 2 at 2048 (kd 256); tb2bd 4 at 8192 and 2 at
-#: 2048 (its last chunk, [n − 2, n − 1), holds none and launches nothing)
-DIST_EXACT.update({"dist_pheev": {"hb2st_wavefront": 16},
+#: ``dist_twostage.chase_chunk_bounds`` that hold a sweep — hb2st 4 at
+#: 8192 and 2 at 2048 (kd 256); tb2bd 4 at 4096 and 2 at 2048 (its last
+#: chunk, [n − 2, n − 1), holds none and launches nothing)
+DIST_EXACT.update({"dist_pheev": {"hb2st_wavefront": 8},
                    "dist_psvd": {"tb2bd_wavefront": 8},
                    "dist_pheev_fp32": {"hb2st_wavefront": 8}})
 TWO_SHARED_EXACT = {"pheev": {"hb2st_wavefront": 4},
                     "psvd": {"tb2bd_wavefront": 4}}
+#: phase 3q's sizes: the band drivers at BASELINE.md config 3's n
+#: (DBAND_N; nb = kd = kl = ku = BAND_KD, NRHS right-hand sides) and the
+#: band multiplies' B width; the checked run's n (phesv's apart); phase
+#: 3k's job: the band drivers' n, phesv's (n, nb) (the JAX package's test
+#: size) and QDWH's n.  phesv runs at phase 3n's HESV_N / HESV_N64 /
+#: HESV_NB, ppolar at SVD_N, pheev_qdwh / psvd_qdwh at EIG_N64 / SVD_N64
+DBAND_N, DBAND_BW = 16384, 512
+DSOLVE_CHECK_N, DHESV_CHECK_N = 2048, 1024
+SHARED_BAND_N, SHARED_HESV, SHARED_QDWH_N = 2048, (1024, 128), 512
+#: the exact matmul launches at those sizes: each band chain makes one
+#: product a step past the first (nt − 1; the padding's are skipped), so
+#: ppbsv and pgbsv 3·(nt − 1); pgbmm and phbmm nt SUMMA steps each,
+#: pgbtrf nt − 1, ptbsm's sweep 2·nt − 1; phesv fp32 one deferred product
+#: a full panel with trailing columns, and phetrs' two sweeps nt each
+_BAND_NT = DBAND_N // NB
+DIST_EXACT.update({
+    "dist_pbsv": {"matmul": 3 * (_BAND_NT - 1)},
+    "dist_gbsv": {"matmul": 3 * (_BAND_NT - 1)},
+    "dist_band_mm": {"matmul": 2 * _BAND_NT + (_BAND_NT - 1)
+                     + (2 * _BAND_NT - 1)},
+    "dist_phesv": {"matmul": sum(
+        1 for j0 in range(0, HESV_N - 2, HESV_NB)
+        if min(HESV_NB, HESV_N - 2 - j0) == HESV_NB
+        and j0 + HESV_NB + 1 < HESV_N) + 2 * (HESV_N // HESV_NB)}})
 
 
 def fail(msg: str):
@@ -4210,7 +4263,9 @@ def main_path_dist_shared(torch) -> dict:
     at DIST_CHECK_N (:func:`rank_checked`), the QR job
     (:func:`rank_dist_qr`) and the two-stage job
     (:func:`rank_dist_twostage`: its values and σ bitwise equal across
-    the ranks).  A failing rank fails the phase.  The walls are those of four processes on one card, not a
+    the ranks) and the band, hesv and QDWH job
+    (:func:`rank_dist_solvers`: every rank's results bitwise equal).  A
+    failing rank fails the phase.  The walls are those of four processes on one card, not a
     multi-GPU number."""
     import numpy as np
     from slate_tpu_torch.parallel import launch
@@ -4223,7 +4278,8 @@ def main_path_dist_shared(torch) -> dict:
            (DIST_N, NB, DIST_NRHS, 50, ("pposv", "pgesv"))),
           ("chip_smoke:rank_checked", (DIST_CHECK_N,)),
           ("chip_smoke:rank_dist_qr", ()),
-          ("chip_smoke:rank_dist_twostage", ())],),
+          ("chip_smoke:rank_dist_twostage", ()),
+          ("chip_smoke:rank_dist_solvers", ())],),
         backend="gloo", device="cuda:0", timeout=900)
     wall = time.perf_counter() - t0
     ranks = [o[0] for o in out]
@@ -4264,12 +4320,28 @@ def main_path_dist_shared(torch) -> dict:
                  % name)
     print("dist 2x2 pheev and psvd: every rank's values and sigma bitwise "
           "equal", flush=True)
+    solvers = [o[4] for o in out]
+    for r in solvers:
+        print("dist 2x2 (4 processes sharing one card) rank %s band n=%d, "
+              "phesv fp32 (n, nb) = %s, ppolar/pheev_qdwh fp32 n=%d: walls "
+              "(ms) %s" % (r["rank"], SHARED_BAND_N, SHARED_HESV,
+                           SHARED_QDWH_N, {k: round(v, 1) for k, v in
+                                           r["walls_ms"].items()}),
+              flush=True)
+    for key, val in solvers[0]["values"].items():
+        if not all(np.array_equal(r["values"][key], val) for r in solvers):
+            fail("dist 2x2 %s: the ranks' values are not bitwise equal"
+                 % key)
+    print("dist 2x2 band, phesv and QDWH: every rank's %s bitwise equal"
+          % ", ".join(sorted(solvers[0]["values"])), flush=True)
     print("dist 2x2 site decisions (rank 0): %s; the spawn with its four "
           "processes took %.1f s" % (ranks[0]["decisions"], wall), flush=True)
     return {"ranks": ranks, "checks": [o[1]["checks"] for o in out],
             "qr_checks": [o[2]["checks"] for o in out],
             "qr_xla_checks": [o[2]["checks_xla"] for o in out],
-            "qr": [o[2] for o in out], "twostage": two, "wall_s": wall}
+            "qr": [o[2] for o in out], "twostage": two,
+            "solvers": [{k: v for k, v in r.items() if k != "values"}
+                        for r in solvers], "wall_s": wall}
 
 
 def _gather_top(torch, mesh, dm, n: int):
@@ -4646,11 +4718,15 @@ def main_path_dist_qr(torch, st, kernels, dev) -> dict:
     input; a profiler split of one pgeqrf under each rung; pgelqf +
     punmlq both ways (:func:`_dist_lq`, the ``dist_pgelqf`` path); and
     dist_aux at n = 16384 (:func:`_dist_aux`, the ``dist_aux`` path).
-    Each path's launches are counted from a reset just before it.  Then
-    checked runs (:func:`check_path_calls`), every call of every kernel
-    the path launched held to its plain version: pgeqrf + pgels (and the
-    gates' ``punmqr_conj``) at config 4 under each rung, and once more
-    at DQR_CHECK under the pin; pgelqf + punmlq; dist_aux."""
+    Each path's launches are counted from a reset just before it; every
+    operand layout the config-4 runs give ``matmul`` is noted
+    (:func:`record_layouts`) and held to its plain version after them
+    (:func:`hold_matmul_layouts`; for the command's time, in place of a
+    checked run at config 4).  Then checked runs
+    (:func:`check_path_calls`), every call of every kernel the path
+    launched held to its plain version: pgeqrf + pgels (and the gates'
+    ``punmqr_conj``) at DQR_CHECK under the pin (the panel kernels at
+    config 4's tile); pgelqf + punmlq; dist_aux."""
     import os
     import tempfile
 
@@ -4669,8 +4745,13 @@ def main_path_dist_qr(torch, st, kernels, dev) -> dict:
             m, n = QR_M, QR_N
             rungs = (("dist_pgels", None),
                      ("dist_pgels_pallas_panel", PALLAS_PANEL))
+            layouts = {}
             for path, force in rungs:
-                r = rank_pgels(mesh, m, n, NB, 3, reps=3, force=force)
+                layouts[path] = set()
+                r = record_layouts(
+                    kernels, "matmul", layouts[path],
+                    lambda force=force: rank_pgels(mesh, m, n, NB, 3, reps=3,
+                                                   force=force))
                 label = "dist 1x1 %s (%d, %d) nb=%d" % (path, m, n, NB)
                 _pgels_report(label, r)
                 _check_pgels_launches(label, path, r)
@@ -4720,13 +4801,10 @@ def main_path_dist_qr(torch, st, kernels, dev) -> dict:
             launches["dist_aux"] = _path_launches(kernels, "dist_aux")
             t_sub["aux"] = time.perf_counter() - t1
             t1 = time.perf_counter()
-            for path, force in rungs:
-                label = "dist 1x1 %s pgeqrf+pgels (%d, %d)" % (path, m, n)
-                checks[path + "_config4"] = check_path_calls(
-                    torch, kernels, label,
-                    lambda force=force: rank_pgels(mesh, m, n, NB, 3, reps=0,
-                                                   force=force),
-                    _launched_tols(label, launches[path]))
+            for path, _ in rungs:
+                checks[path + "_config4"] = hold_matmul_layouts(
+                    torch, kernels, dev, "dist 1x1 %s pgeqrf+pgels (%d, %d)"
+                    % (path, m, n), layouts[path])
             mc, nc = DQR_CHECK
             label = "dist 1x1 pgeqrf+pgels (%d, %d) %s" % (mc, nc,
                                                            PALLAS_PANEL)
@@ -4962,6 +5040,8 @@ def _twostage_call(torch, kernels, metrics, dev, path: str, fn):
                "timers", {}).items() if k.startswith(("stage.", "pstedc."))},
            "host_bytes": delta.get("counters", {}).get("chase.host_bytes",
                                                        0.0),
+           "counters": {k: v for k, v in delta.get("counters", {}).items()
+                        if k.startswith(("collective.", "qdwh."))},
            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
     return out, rec
 
@@ -4979,8 +5059,8 @@ def main_path_dist_twostage(torch, st, kernels, dev, refs) -> dict:
     """Phase 3p: the distributed two-stage eigensolver and SVD on a 1×1
     grid of a ``torch.distributed`` world of one (NCCL), nb 256, the
     distributed middle taken by default (n ≥ 2048): pheev fp64 at TWO_N,
-    psvd fp64 at TWO_SVD_N on phase 3i's input (``refs["svd"]``: its fp64
-    ``sref``), pheev fp32 at EIG_N on phase 3h's input
+    psvd fp64 at TWO_SVD_N on phase 3i's fp64 input (``refs["svd64"]``:
+    its ``sref``), pheev fp32 at EIG_N on phase 3h's input
     (``refs["heev"]``: its ``lam`` and ``wall_ms``), each a path of its
     own with exact chase launches (DIST_EXACT), ``chase.host_bytes`` 0,
     the gates of :func:`_eig_gates` / :func:`_svd_gates` (ε units, ≤ 10,
@@ -5044,8 +5124,8 @@ def main_path_dist_twostage(torch, st, kernels, dev, refs) -> dict:
             # ---- psvd fp64 at TWO_SVD_N
             t1 = time.perf_counter()
             n = TWO_SVD_N
-            a = torch.from_numpy(np.random.default_rng(10).standard_normal(
-                (n, n)).astype(np.float32)).to(dev).double()
+            a = torch.from_numpy(np.random.default_rng(8).standard_normal(
+                (n, n))).to(dev)          # phase 3i's svd fp64 input
             (s, ud, vd), rec = _twostage_call(
                 torch, kernels, metrics, dev, "dist_psvd",
                 lambda: st.parallel.psvd(a, mesh, NB))
@@ -5054,7 +5134,7 @@ def main_path_dist_twostage(torch, st, kernels, dev, refs) -> dict:
             u, v = st.parallel.undistribute(ud), st.parallel.undistribute(vd)
             del ud, vd
             rec["gates"] = _svd_gates(torch, label, a, s, u, v.T, eps64,
-                                      refs["svd"]["sref"], limit=10,
+                                      refs["svd64"]["sref"], limit=10,
                                       val_tol=1e-10)
             if rec["host_bytes"]:
                 fail("%s: chase.host_bytes %.0f, not 0" % (label,
@@ -5207,6 +5287,457 @@ def rank_dist_twostage(mesh) -> dict:
                                       val_tol=1e-10)
             rec["values"] = s.cpu().numpy()
         out[name] = rec
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3q: the distributed band, Hermitian-indefinite and QDWH drivers
+# ---------------------------------------------------------------------------
+
+def _band_pivoting(torch, gen, n: int, kl: int, ku: int, dev):
+    """A random fp32 band (kl, ku) plus the identity: its LU pivots."""
+    g = torch.randn((n, n), generator=gen, device=dev)
+    return torch.triu(torch.tril(g, kl), -ku) + torch.eye(n, device=dev)
+
+
+def _band_row_order(piv, n: int, nb: int):
+    """The global row order that pgbtrf's window row orders make (window
+    k over rows [k·nb, k·nb + 2nb), in turn): A[order] = L̃·U, L̃ the
+    row-swapped multipliers.  Fails unless it orders rows [0, n)."""
+    import numpy as np
+
+    piv = piv.cpu().numpy()
+    order = np.arange((piv.shape[0] + 1) * nb)
+    for k in range(piv.shape[0]):
+        order[k * nb:(k + 2) * nb] = order[k * nb:(k + 2) * nb][piv[k]]
+    if not np.array_equal(np.sort(order[:n]), np.arange(n)):
+        fail("pgbtrf's row orders move a padded row into the matrix")
+    return order[:n]
+
+
+def _gemm_resid(torch, c, a, b) -> float:
+    """The tester's ‖C − A·B‖/(‖A‖·‖B‖·ε·n), the product in fp64."""
+    eps = float(torch.finfo(c.dtype).eps)
+    ad, bd = a.double(), b.double()
+    return float((c.double() - ad @ bd).norm()
+                 / (ad.norm() * bd.norm() * eps * a.shape[1]))
+
+
+def _dist_solver_report(label: str, rec: dict, extra: str = "") -> None:
+    print("%s: wall %.1f ms%s; launches %s; stages (ms) %s; counters %s; "
+          "peak device memory %.2f GiB"
+          % (label, rec["wall_ms"], extra, {k: v for k, v in
+                                            rec["launches"].items() if v},
+             {k: round(v, 1) for k, v in rec["stages_ms"].items()},
+             {k: round(v) for k, v in rec["counters"].items()
+              if not k.endswith(".bytes")},
+             rec["peak_bytes"] / 2 ** 30), flush=True)
+
+
+def _dist_band_run(torch, st, mesh, dev, n: int, nrhs: int, bw: int,
+                   seed: int, call=None, label: str = "") -> dict:
+    """The band drivers at n (nb = kd = kl = ku = BAND_KD) on ``mesh``:
+    ppbsv and pgbsv (``nrhs`` right-hand sides) under the tester's
+    residual ≤ 3, then pgbmm, phbmm (from the SPD band's lower triangle)
+    and ptbsm (the SPD band's lower triangle, B permuted by pgbtrf's row
+    orders) of a (n, ``bw``) B, each under the tester's gemm / trsm
+    residual ≤ 3 against fp64.  ``call(path, fn)`` runs each driver
+    (default: just ``fn()``).  Returns the residuals, the inputs' seeds
+    and each driver's solution (for the ranks' comparison)."""
+    par = st.parallel
+    from slate_tpu_torch.parallel import dist_band
+
+    call = call or (lambda path, fn: fn())
+    kd, p, q = BAND_KD, mesh.p, mesh.q
+    sq = dict(row_mult=q, col_mult=p)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pb = _band(torch, gen, n, kd, kd, dev, spd=True)
+    gb = _band_pivoting(torch, gen, n, kd, kd, dev)
+    rb = torch.randn((n, nrhs), generator=gen, device=dev)
+    bm = torch.randn((n, bw), generator=gen, device=dev)
+    pd, gd = par.distribute(pb, mesh, NB, **sq), par.distribute(gb, mesh, NB,
+                                                                **sq)
+    rd = par.distribute(rb, mesh, NB, row_mult=q)
+    bd = par.distribute(bm, mesh, NB, row_mult=q)
+    out = {}
+    x = par.undistribute(call("dist_pbsv", lambda: par.ppbsv(pd, kd, rd)))
+    out["pbsv"] = (_scaled_resid(torch, pb, x, rb), x)
+    x = par.undistribute(call("dist_gbsv",
+                              lambda: par.pgbsv(gd, kd, kd, rd)))
+    out["gbsv"] = (_scaled_resid(torch, gb, x, rb), x)
+    low = par.distribute(torch.tril(pb), mesh, NB, **sq)
+    got = {}
+
+    def band_mm():
+        got["gbmm"] = par.pgbmm(1.0, gd, kd, kd, bd)
+        got["hbmm"] = par.phbmm(1.0, low, kd, bd)
+        piv = dist_band.pgbtrf(gd, kd, kd)[2]
+        got["order"] = _band_row_order(piv, n, NB)
+        got["tbsm"] = par.ptbsm(st.Side.Left, st.Uplo.Lower, st.Op.NoTrans,
+                                st.Diag.NonUnit, low, kd, bd,
+                                pivots=got["order"])
+        return got["tbsm"]
+
+    call("dist_band_mm", band_mm)
+    y = par.undistribute(got["gbmm"])
+    out["gbmm"] = (_gemm_resid(torch, y, gb, bm), y)
+    y = par.undistribute(got["hbmm"])
+    out["hbmm"] = (_gemm_resid(torch, y, pb, bm), y)
+    x = par.undistribute(got["tbsm"])
+    order = torch.as_tensor(got["order"], device=dev)
+    out["tbsm"] = (_scaled_resid(torch, torch.tril(pb), x,
+                                 bm.index_select(0, order)), x)
+    bad = {k: v[0] for k, v in out.items()
+           if not (v[0] <= 3 and bool(torch.isfinite(v[1]).all()))}
+    print("%s band n=%d kd=%d: residuals (tester's units, <= 3) %s%s"
+          % (label, n, kd, {k: float("%.4g" % v[0]) for k, v in out.items()},
+             "; pgbtrf moved %d rows" % int((order.cpu() != torch.arange(
+                 n)).sum())), flush=True)
+    if bad:
+        fail("%s band n=%d: residuals %s" % (label, n, bad))
+    return out
+
+
+def _dist_hesv_run(torch, st, mesh, dev, n: int, nb: int, dt, call=None,
+                   label: str = "") -> dict:
+    """phesv on phase 3n's input (generator seed 33: A = (G + Gᵀ)/2, NRHS
+    right-hand sides) at n, nb on ``mesh``, under phase 3n's hesv gate
+    (the tester's residual ≤ 3, finite); returns the residual, T's growth
+    and the replicated results."""
+    call = call or (lambda path, fn: fn())
+    gen = torch.Generator(device=dev).manual_seed(33)
+    g = torch.randn((n, n), generator=gen, device=dev, dtype=dt)
+    a = (g + g.T) / 2
+    b = torch.randn((n, NRHS), generator=gen, device=dev, dtype=dt)
+    del g
+    path = "dist_phesv" if dt == torch.float32 else "dist_phesv_fp64"
+    (l, d, e, ipiv), x = call(path, lambda: st.parallel.phesv(a, b, mesh, nb))
+    resid = _scaled_resid(torch, a, x, b)
+    growth = float(torch.maximum(d.abs().max(), e.abs().max())
+                   / a.abs().max())
+    if not (resid <= 3 and bool(torch.isfinite(x).all())):
+        fail("%s phesv %s n=%d: residual %.3g (<= 3)" % (label, dt, n, resid))
+    return {"residual": resid, "growth": growth, "x": x, "d": d, "e": e,
+            "ipiv": ipiv}
+
+
+def _dist_qdwh_inputs(torch, dev, n: int, kind: str):
+    """QDWH's inputs in fp32 on the card: ``"polar"`` phase 3n's polar
+    input (bench.py's svd_fp32 generator, numpy seed 10), ``"heev"`` the
+    heev_fp64 generator's symmetric Gaussian (numpy seed 7), ``"svd"`` the
+    svd_fp64 generator's Gaussian (numpy seed 8), each n×n."""
+    import numpy as np
+
+    seed = {"polar": 10, "heev": 7, "svd": 8}[kind]
+    g = np.random.default_rng(seed).standard_normal((n, n))
+    if kind == "heev":
+        g = (g + g.T) / 2
+    return torch.from_numpy(g.astype(np.float32)).to(dev)
+
+
+def _phetrf_column_ms(torch, par, mesh, dev) -> dict:
+    """phetrf's host wall a column at DHESV_CHECK_N (fp32, nb HESV_NB)
+    on ``mesh`` and on the serial stub of the same device (no process
+    group: its psums are identities), and one swap-sized all-reduce on
+    ``mesh`` in a loop of its own: the collective's share of a column."""
+    from slate_tpu_torch.parallel.mesh import Mesh
+
+    n = DHESV_CHECK_N
+    g = torch.randn((n, n), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(33))
+    a = (g + g.T) / 2
+    out = {}
+    for name, m in (("world", mesh), ("stub", Mesh(1, 1, 0, 0, dev))):
+        par.phetrf(a[:600, :600].contiguous(), m, HESV_NB)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        par.phetrf(a, m, HESV_NB)
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3 / (n - 2)
+    buf = torch.zeros(3 * n, device=dev)
+    mesh.psum(buf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        mesh.psum(buf)
+    torch.cuda.synchronize()
+    out["psum_alone"] = (time.perf_counter() - t0) * 1e3 / 1000
+    print("dist 1x1 phetrf fp32 n=%d nb=%d: %.3f ms a column on the NCCL "
+          "world of one, %.3f on the serial stub; one swap-sized all-reduce "
+          "in a loop of its own %.4f ms" % (n, HESV_NB, out["world"],
+                                           out["stub"], out["psum_alone"]),
+          flush=True)
+    return out
+
+
+def _qdwh_counts(rec) -> str:
+    c = rec["counters"]
+    return ", qdwh.step.qr %d, qdwh.step.chol %d" % (
+        c.get("qdwh.step.qr", 0), c.get("qdwh.step.chol", 0))
+
+
+def main_path_dist_solvers(torch, st, kernels, dev, refs) -> dict:
+    """Phase 3q: the band, Hermitian-indefinite and QDWH drivers of
+    ``slate_tpu_torch.parallel`` on a 1×1 grid of a ``torch.distributed``
+    world of one (NCCL), each a path of its own (launch counts zeroed
+    before, read after; DIST_EXACT's counts where the loops fix them), its
+    wall, stage timers, counters and peak device memory printed:
+
+    * ppbsv and pgbsv in fp32 at DBAND_N (BASELINE.md config 3's n; nb =
+      kd = kl = ku = BAND_KD, NRHS right-hand sides), the tester's
+      residual ≤ 3, beside single-device ``pbsv``/``gbsv`` on the same
+      inputs (residuals and walls); pgbmm, phbmm and ptbsm (pgbtrf's row
+      orders as its pivots) with a (DBAND_N, DBAND_BW) B, each against
+      fp64 (:func:`_dist_band_run`);
+    * phesv in fp32 at HESV_N and fp64 at HESV_N64 (nb HESV_NB) on phase
+      3n's input under phase 3n's gate, beside phase 3n's hesv walls
+      (``refs["hesv"]``), with phetrf's collectives a column, its
+      device launches a column (at HESV_COUNT_N) and its host wall a
+      column on the NCCL world and on the serial stub
+      (:func:`_phetrf_column_ms`);
+    * ppolar in fp32 at SVD_N on phase 3n's polar input (phase 3n's polar
+      gates; its ``chol_l21_panel`` launches exactly one a tile a
+      Cholesky step), pheev_qdwh and psvd_qdwh in fp32 at EIG_N64 /
+      SVD_N64 on the fp64 paths' inputs under phase 3h/3i's gates against
+      their fp64 ``eigvalsh``/``svdvals`` (``refs["heev64"]``,
+      ``refs["svd64"]``); the qr/chol step counts printed.
+
+    Every operand layout these calls give ``matmul`` is noted
+    (:func:`record_layouts`) and held to its plain version after them
+    (:func:`hold_matmul_layouts`).  Then one checked run
+    (:func:`check_path_calls`) at DSOLVE_CHECK_N of the band drivers,
+    phesv (at DHESV_CHECK_N) and psvd_qdwh (ppolar's iteration, then
+    pheev_qdwh: every QDWH driver's code), every call of every kernel the
+    paths launched held to its plain version."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from slate_tpu_torch.perf import metrics
+
+    metrics.on()
+    par = st.parallel
+    launches, res, checks, t_sub = {}, {}, {}, {}
+    eps32 = float(torch.finfo(torch.float32).eps)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = par.make_grid_mesh(1, 1)
+            print("phase 3q: %r" % (mesh,), flush=True)
+            layouts = set()
+
+            def call(path, fn):
+                out, rec = _twostage_call(
+                    torch, kernels, metrics, dev, path,
+                    lambda: record_layouts(kernels, "matmul", layouts, fn))
+                launches[path], res[path] = rec["launches"], rec
+                return out
+
+            # ---- the band drivers at DBAND_N
+            n = DBAND_N
+            band = _dist_band_run(torch, st, mesh, dev, n, NRHS, DBAND_BW, 35,
+                                  call, "dist 1x1")
+            gen = torch.Generator(device=dev).manual_seed(35)
+            pb = _band(torch, gen, n, BAND_KD, BAND_KD, dev, spd=True)
+            gb = _band_pivoting(torch, gen, n, BAND_KD, BAND_KD, dev)
+            rb = torch.randn((n, NRHS), generator=gen, device=dev)
+            single = {}
+            for name, fn in (
+                    ("pbsv", lambda: st.pbsv(st.HermitianBandMatrix(
+                        pb, kd=BAND_KD, uplo=st.Uplo.Lower, nb=NB), rb)[-1]),
+                    ("gbsv", lambda: st.gbsv(st.BandMatrix(
+                        gb, kl=BAND_KD, ku=BAND_KD, nb=NB), rb)[-1])):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                x = fn()
+                torch.cuda.synchronize()
+                single[name] = ((time.perf_counter() - t1) * 1e3,
+                                _scaled_resid(torch, pb if name == "pbsv"
+                                              else gb, x, rb))
+            for name in ("pbsv", "gbsv", "band_mm"):
+                path = "dist_" + name
+                extra = ""
+                if name in single:
+                    extra = ("; residual %.4g, single-device %s %.1f ms "
+                             "residual %.4g (same input)"
+                             % (band[name][0], name, *single[name]))
+                _dist_solver_report("dist 1x1 %s n=%d kd=%d" % (
+                    {"band_mm": "pgbmm+phbmm+pgbtrf+ptbsm"}.get(
+                        name, "p" + name), n, BAND_KD), res[path], extra)
+            res["band"] = {k: v[0] for k, v in band.items()}
+            res["band_single"] = single
+            del band, pb, gb, rb, x
+            torch.cuda.empty_cache()
+            t_sub["band"] = time.perf_counter() - t0
+            # ---- phesv fp32 and fp64 on phase 3n's input
+            t1 = time.perf_counter()
+            for path, n, dt in (("dist_phesv", HESV_N, torch.float32),
+                                ("dist_phesv_fp64", HESV_N64,
+                                 torch.float64)):
+                h = _dist_hesv_run(torch, st, mesh, dev, n, HESV_NB, dt,
+                                   call, "dist 1x1")
+                rec = res[path]
+                rec.update(residual=h["residual"], growth=h["growth"])
+                rec["collectives_a_column"] = rec["counters"].get(
+                    "collective.hetrf_swap.count", 0) / (n - 2)
+                _dist_solver_report(
+                    "dist 1x1 phesv %s n=%d nb=%d" % (
+                        str(dt).replace("torch.", ""), n, HESV_NB), rec,
+                    "; residual %.4g, max|T|/max|A| %.4g, collectives a "
+                    "column %.3g (single-device hesv %.1f ms, phase 3n)"
+                    % (h["residual"], h["growth"],
+                       rec["collectives_a_column"], refs["hesv"][path]))
+                if rec["collectives_a_column"] != 1:
+                    fail("dist 1x1 phesv: %.3g swap collectives a column, "
+                         "want 1" % rec["collectives_a_column"])
+                del h
+            g = torch.Generator(device=dev).manual_seed(33)
+            g = torch.randn((HESV_COUNT_N, HESV_COUNT_N), generator=g,
+                            device=dev)
+            small = (g + g.T) / 2
+            res["dist_phesv"]["launches_a_column"] = launches_per_column(
+                torch, lambda: par.phetrf(small, mesh, HESV_NB),
+                HESV_COUNT_N - 2)
+            print("dist 1x1 phetrf fp32 n=%d nb=%d: device launches a "
+                  "column %.2f (the swap's all-reduce among them)"
+                  % (HESV_COUNT_N, HESV_NB,
+                     res["dist_phesv"]["launches_a_column"]), flush=True)
+            res["dist_phesv"]["column_ms"] = _phetrf_column_ms(
+                torch, par, mesh, dev)
+            del g, small
+            torch.cuda.empty_cache()
+            t_sub["phesv"] = time.perf_counter() - t1
+            # ---- QDWH
+            t1 = time.perf_counter()
+            n = SVD_N
+            a = _dist_qdwh_inputs(torch, dev, n, "polar")
+            u, h = call("dist_ppolar", lambda: par.ppolar(a, mesh, NB))
+            rec = res["dist_ppolar"]
+            rec["gates"] = _polar_gates(torch, "dist 1x1 ppolar fp32 n=%d"
+                                        % n, a, u, h, 10 * eps32)
+            _dist_solver_report("dist 1x1 ppolar fp32 n=%d nb=%d" % (n, NB),
+                                rec, _qdwh_counts(rec)
+                                + " (single-device polar %.1f ms, phase 3n)"
+                                % refs["polar"])
+            chol = rec["counters"].get("qdwh.step.chol", 0)
+            want = chol * (n // NB)
+            if not chol or launches["dist_ppolar"]["chol_l21_panel"] != want:
+                fail("dist 1x1 ppolar: %d chol_l21_panel launches over %d "
+                     "Cholesky steps, want %d (one a tile a step)"
+                     % (launches["dist_ppolar"]["chol_l21_panel"], chol,
+                        want))
+            del a, u, h
+            n = EIG_N64
+            a = _dist_qdwh_inputs(torch, dev, n, "heev")
+            w, zd = call("dist_pheev_qdwh",
+                         lambda: par.pheev_qdwh(a, mesh, NB))
+            rec = res["dist_pheev_qdwh"]
+            label = "dist 1x1 pheev_qdwh fp32 n=%d nb=%d" % (n, NB)
+            rec["gates"] = _eig_gates(torch, label, a, w,
+                                      par.undistribute(zd),
+                                      refs["heev64"]["lam"], 10 * eps32)
+            _dist_solver_report(label, rec, _qdwh_counts(rec))
+            del a, w, zd
+            n = SVD_N64
+            a = _dist_qdwh_inputs(torch, dev, n, "svd")
+            s, ud, vd = call("dist_psvd_qdwh",
+                             lambda: par.psvd_qdwh(a, mesh, NB))
+            rec = res["dist_psvd_qdwh"]
+            label = "dist 1x1 psvd_qdwh fp32 n=%d nb=%d" % (n, NB)
+            rec["gates"] = _svd_gates(torch, label, a, s,
+                                      par.undistribute(ud),
+                                      par.undistribute(vd), 10 * eps32,
+                                      refs["svd64"]["sref"])
+            _dist_solver_report(label, rec, _qdwh_counts(rec))
+            del a, s, ud, vd
+            torch.cuda.empty_cache()
+            checks["dist_solvers_layouts"] = hold_matmul_layouts(
+                torch, kernels, dev, "dist 1x1 phase 3q's drivers", layouts)
+            t_sub["qdwh"] = time.perf_counter() - t1
+            # ---- the checked run
+            t1 = time.perf_counter()
+            nc = DSOLVE_CHECK_N
+            qa = _dist_qdwh_inputs(torch, dev, nc, "polar")
+
+            def checked():
+                _dist_band_run(torch, st, mesh, dev, nc, NRHS, DBAND_BW, 37,
+                               label="dist 1x1 checked")
+                _dist_hesv_run(torch, st, mesh, dev, DHESV_CHECK_N, HESV_NB,
+                               torch.float32, label="dist 1x1 checked")
+                # ppolar's iteration, then pheev_qdwh of H: every QDWH
+                # driver's code
+                par.psvd_qdwh(qa, mesh, NB)
+
+            launched = {}
+            for path in ("dist_pbsv", "dist_gbsv", "dist_band_mm",
+                         "dist_phesv", "dist_ppolar", "dist_pheev_qdwh",
+                         "dist_psvd_qdwh"):
+                for k, v in launches[path].items():
+                    launched[k] = launched.get(k, 0) + v
+            label = ("dist 1x1 band n=%d, phesv n=%d, psvd_qdwh n=%d"
+                     % (nc, DHESV_CHECK_N, nc))
+            checks["dist_solvers"] = check_path_calls(
+                torch, kernels, label, checked,
+                _launched_tols(label, launched))
+            del qa
+            t_sub["checks"] = time.perf_counter() - t1
+        finally:
+            dist.destroy_process_group()
+    print("phase 3q's parts (s): %s" % {k: round(v, 1)
+                                        for k, v in t_sub.items()},
+          flush=True)
+    res.update(launches=launches, path_checks=checks)
+    return res
+
+
+def rank_dist_solvers(mesh) -> dict:
+    """Phase 3k's job of the band, Hermitian-indefinite and QDWH drivers
+    on this rank's mesh of the 2×2 spawn: the band drivers at
+    SHARED_BAND_N (:func:`_dist_band_run`: residuals ≤ 3), phesv fp32 at
+    SHARED_HESV (n, nb) on phase 3n's input, ppolar on phase 3n's polar
+    input and pheev_qdwh on the heev_fp64 generator's input, fp32 at
+    SHARED_QDWH_N (phase 3n's polar and eigen gates against
+    ``eigvalsh``); returns each driver's replicated results (for the
+    ranks' bitwise comparison) and walls."""
+    import torch
+    import slate_tpu_torch as st
+
+    dev = mesh.device
+    eps32 = float(torch.finfo(torch.float32).eps)
+    out = {"rank": (mesh.r, mesh.c), "walls_ms": {}, "values": {}}
+    label = "dist 2x2 rank %s" % (out["rank"],)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out["walls_ms"][name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    band = timed("band", lambda: _dist_band_run(
+        torch, st, mesh, dev, SHARED_BAND_N, NRHS, NRHS, 36, label=label))
+    out["values"].update({k: v[1].cpu().numpy() for k, v in band.items()})
+    n, nb = SHARED_HESV
+    h = timed("phesv", lambda: _dist_hesv_run(
+        torch, st, mesh, dev, n, nb, torch.float32, label=label))
+    out["values"].update({"phesv_" + k: h[k].cpu().numpy()
+                          for k in ("x", "d", "e", "ipiv")})
+    n = SHARED_QDWH_N
+    a = _dist_qdwh_inputs(torch, dev, n, "polar")
+    u, hh = timed("ppolar", lambda: st.parallel.ppolar(a, mesh, NB // 2))
+    _polar_gates(torch, "%s ppolar fp32 n=%d" % (label, n), a, u, hh,
+                 10 * eps32)
+    a = _dist_qdwh_inputs(torch, dev, n, "heev")
+    w, zd = timed("pheev_qdwh", lambda: st.parallel.pheev_qdwh(a, mesh,
+                                                              NB // 2))
+    _eig_gates(torch, "%s pheev_qdwh fp32 n=%d" % (label, n), a, w,
+               st.parallel.undistribute(zd),
+               torch.linalg.eigvalsh(a.double()), 10 * eps32)
+    out["values"].update(ppolar_u=u.cpu().numpy(), ppolar_h=hh.cpu().numpy(),
+                         pheev_qdwh_w=w.cpu().numpy())
     return out
 
 
@@ -6386,14 +6917,14 @@ def hold_matmul_layouts(torch, kernels, dev, label: str, layouts) -> dict:
 def main_path_solvers(torch, st, kernels, dev, twostage) -> dict:
     """Phase 3n: the nineteenth slice's drivers at full width, each a path
     of its own (launch counts zeroed before, read after) and one checked
-    run each of the fp32 paths (every ``matmul`` call, and on the tall
-    loop and ``getrf_rec`` at 16384 every ``getrf_panel_linv`` call, held
-    to its plain version; heev_qdwh's and svd_qdwh's at n = 4096 on the
-    same generators, to keep the phase under 150 s).  The 8192 heev_qdwh
-    and svd_qdwh runs note every operand layout they give ``matmul``
-    (their divide and conquer's block sizes depend on the data, so the
-    4096 runs meet only some of them), and ``matmul`` is held to its
-    plain version at each of them on Gaussian operands.
+    run each of the fp32 paths but QDWH-eig and QDWH-SVD (every ``matmul``
+    call, and on the tall loop and ``getrf_rec`` at 16384 every
+    ``getrf_panel_linv`` call, held to its plain version).  The 8192
+    heev_qdwh and svd_qdwh runs note every operand layout they give
+    ``matmul`` (their divide and conquer's block sizes depend on the
+    data), and ``matmul`` is held to its plain version at each of them on
+    Gaussian operands (their checked runs at 4096 went for the command's
+    time).
 
     * the tall-panel LU: gesv of a Gaussian n = 16384 (BASELINE.md config
       3's n), nb 512, 128 right-hand sides, under Auto (the tournament on
@@ -6550,13 +7081,6 @@ def main_path_solvers(torch, st, kernels, dev, twostage) -> dict:
     del s, u, vh, G, g
     checks["svd_qdwh_layouts"] = hold_matmul_layouts(
         torch, kernels, dev, "svd_qdwh fp32 n=%d" % SVD_N, lays)
-    g = torch.from_numpy(np.random.default_rng(10).standard_normal(
-        (QDWH_CHECK_N, QDWH_CHECK_N)).astype(np.float32)).to(dev)
-    checks["svd_qdwh"] = check_path_calls(
-        torch, kernels, "svd_qdwh path (n=%d)" % QDWH_CHECK_N,
-        lambda: st.svd_qdwh(g, opts={"block_size": NB}, device=dev),
-        {"matmul": CHECK_TOL["matmul"]})
-    del g
     part("polar and svd_qdwh fp32")
 
     rng = np.random.default_rng(9)                 # bench.py's heev_fp32
@@ -6574,14 +7098,6 @@ def main_path_solvers(torch, st, kernels, dev, twostage) -> dict:
     del w, z, A, a
     checks["heev_qdwh_layouts"] = hold_matmul_layouts(
         torch, kernels, dev, "heev_qdwh fp32 n=%d" % EIG_N, lays)
-    g = np.random.default_rng(9).standard_normal(
-        (QDWH_CHECK_N, QDWH_CHECK_N)).astype(np.float32)
-    a = torch.from_numpy(((g + g.T) / 2).astype(np.float32)).to(dev)
-    checks["heev_qdwh"] = check_path_calls(
-        torch, kernels, "heev_qdwh path (n=%d)" % QDWH_CHECK_N,
-        lambda: st.heev_qdwh(a, opts={"block_size": NB}, device=dev),
-        {"matmul": CHECK_TOL["matmul"]})
-    del a, g
     part("heev_qdwh fp32")
 
     rng = np.random.default_rng(7)                 # heev_fp64's generator
@@ -6800,9 +7316,16 @@ def main() -> int:
     paths.update(dist_qr["launches"])
     path_checks.update(dist_qr["path_checks"])
     twostage = phase("3p", main_path_dist_twostage, torch, st, kernels, dev,
-                     {"heev": heev["fp32"], "svd": svd["fp32"]})
+                     {"heev": heev["fp32"], "svd64": svd["fp64"]})
     paths.update(twostage["launches"])
     path_checks.update(twostage["path_checks"])
+    dsolve = phase("3q", main_path_dist_solvers, torch, st, kernels, dev, {
+        "heev64": heev["fp64"], "svd64": svd["fp64"],
+        "polar": solvers["polar"]["wall_ms"],
+        "hesv": {"dist_phesv": solvers["hesv"]["wall_ms"],
+                 "dist_phesv_fp64": solvers["hesv_fp64"]["wall_ms"]}})
+    paths.update(dsolve["launches"])
+    path_checks.update(dsolve["path_checks"])
     print("phase walls (s): %s; total %.1f s since the build began"
           % (", ".join("%s %.1f" % kv for kv in spent.items()),
              time.perf_counter() - t0), flush=True)

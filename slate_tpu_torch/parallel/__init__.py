@@ -19,7 +19,11 @@ distributed norms, rank-k updates, multiplies and triangular solves of
 ``phe2hb``/``pge2tb``/``pheev``/``psvd`` with their back-transforms
 ``punmtr_he2hb``/``punmbr_ge2tb_q``/``punmbr_ge2tb_p`` and band gathers
 ``band_tiles_to_dense``/``band_tiles_to_banded`` (the distributed middle
-in :mod:`.dist_stedc` and :mod:`.dist_svd`).
+in :mod:`.dist_stedc` and :mod:`.dist_svd`), the band solvers and
+multiplies ``ppbsv``/``pgbsv``/``pgbmm``/``phbmm``/``ptbsm`` (with
+``dist_band.ppbtrf``/``pgbtrf``), the Hermitian-indefinite
+``phetrf``/``phetrs``/``phesv``, and the QDWH tier
+``ppolar``/``pheev_qdwh``/``psvd_qdwh``.
 """
 
 from .mesh import (default_mesh, grid_of, make_grid_mesh,  # noqa: F401
@@ -40,6 +44,9 @@ from .dist_twostage import (  # noqa: F401
     band_tiles_to_banded, band_tiles_to_dense, pge2tb, phe2hb, pheev, psvd,
     punmbr_ge2tb_p, punmbr_ge2tb_q, punmtr_he2hb,
 )
+from .dist_qdwh import pheev_qdwh, ppolar, psvd_qdwh  # noqa: F401
+from .dist_band import pgbmm, pgbsv, phbmm, ppbsv, ptbsm  # noqa: F401
+from .dist_hesv import phesv, phetrf, phetrs  # noqa: F401
 
 # ---------------------------------------------------------------------------
 # User-tile-map ingestion: every public driver re-grids a DistMatrix
@@ -48,10 +55,11 @@ from .dist_twostage import (  # noqa: F401
 # too so direct submodule imports are covered (as the JAX package does,
 # slate_tpu/parallel/__init__.py:40-76).
 # ---------------------------------------------------------------------------
-from . import (dist_aux as _m_aux, dist_blas3 as _m_blas3,  # noqa: E402
-               dist_factor as _m_factor, dist_lu as _m_lu,
-               dist_qr as _m_qr, dist_twostage as _m_two,
-               dist_util as _m_util)
+from . import (dist_aux as _m_aux, dist_band as _m_band,  # noqa: E402
+               dist_blas3 as _m_blas3, dist_factor as _m_factor,
+               dist_hesv as _m_hesv, dist_lu as _m_lu,
+               dist_qdwh as _m_qdwh, dist_qr as _m_qr,
+               dist_twostage as _m_two, dist_util as _m_util)
 from .dist import canonical_args as _canonical_args  # noqa: E402
 
 _DRIVER_NAMES = {
@@ -62,8 +70,12 @@ _DRIVER_NAMES = {
     _m_aux: ["pcolnorms", "phemm", "pher2k", "pherk", "pnorm", "psymm",
              "psyr2k", "psyrk", "ptri_mask", "ptrmm", "ptrsm"],
     _m_util: ["predistribute", "ptranspose", "phermitize"],
+    _m_band: ["pgbsv", "ppbsv", "pgbmm", "phbmm", "ptbsm", "ppbtrf",
+              "pgbtrf"],
+    _m_hesv: ["phetrf", "phetrs", "phesv"],
     _m_two: ["phe2hb", "pge2tb", "pheev", "psvd", "punmbr_ge2tb_p",
              "punmbr_ge2tb_q", "punmtr_he2hb"],
+    _m_qdwh: ["pheev_qdwh", "ppolar", "psvd_qdwh"],
 }
 for _mod, _names in _DRIVER_NAMES.items():
     for _nm in _names:

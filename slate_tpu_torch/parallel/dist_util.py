@@ -42,13 +42,14 @@ def local_grows(ml: int, nb: int, p: int, r: int) -> np.ndarray:
     return ((lrows // nb) * p + r) * nb + lrows % nb
 
 
-def _count(kind: str, chunks: int, nbytes: int) -> None:
-    """One count per all-reduce issued and its bytes (the JAX package
-    counts once per compiled step body, at trace time; here every
-    executed broadcast counts)."""
+def count_collective(kind: str, nbytes: int, calls: int = 1) -> None:
+    """``calls`` all-reduces issued and their bytes, as
+    ``collective.<kind>.count`` / ``.bytes`` (the JAX package counts once
+    per compiled step body, at trace time; here every executed
+    collective counts)."""
     if metrics.enabled():
-        metrics.inc("collective.bcast_%s.count" % kind, float(chunks))
-        metrics.inc("collective.bcast_%s.bytes" % kind, float(nbytes))
+        metrics.inc("collective.%s.count" % kind, float(calls))
+        metrics.inc("collective.%s.bytes" % kind, float(nbytes))
 
 
 def bcast_block_col(mesh, col_loc, grows, own: bool, M: int,
@@ -64,7 +65,7 @@ def bcast_block_col(mesh, col_loc, grows, own: bool, M: int,
     dt, dev = col_loc.dtype, col_loc.device
     w = col_loc.shape[1]
     chunks = max(1, min(int(chunks), w))
-    _count("col", chunks, M * w * col_loc.element_size())
+    count_collective("bcast_col", M * w * col_loc.element_size(), chunks)
     idx = torch.as_tensor(grows, device=dev)
     csz = ceildiv(w, chunks)
     parts = []
@@ -84,7 +85,7 @@ def bcast_block_row(mesh, row_loc, gcols, own: bool, N: int,
     dt, dev = row_loc.dtype, row_loc.device
     w = row_loc.shape[0]
     chunks = max(1, min(int(chunks), w))
-    _count("row", chunks, w * N * row_loc.element_size())
+    count_collective("bcast_row", w * N * row_loc.element_size(), chunks)
     idx = torch.as_tensor(gcols, device=dev)
     csz = ceildiv(w, chunks)
     parts = []

@@ -593,3 +593,132 @@ def rank_twostage(mesh, job: dict) -> dict:
     out["stages_s"] = {k: t["total_s"] for k, t in counters.get(
         "timers", {}).items() if k.startswith("stage.")}
     return out
+
+
+# ---------------------------------------------------------------------------
+# Rank bodies of the band, Hermitian-indefinite and QDWH drivers
+# ---------------------------------------------------------------------------
+
+def _counted(run):
+    """``run()`` with metrics on: its result, the kernel launches and the
+    counters (``collective.*``, ``qdwh.*``) of the run."""
+    from ..ops import kernels
+    from ..perf import metrics
+
+    metrics.on()
+    before = metrics.snapshot()
+    kernels.reset_launches()
+    out = run()
+    counters = metrics.snapshot_delta(before, metrics.snapshot()).get(
+        "counters", {})
+    return out, {k: v for k, v in kernels.launches.items() if v}, {
+        k: v for k, v in counters.items()
+        if k.startswith(("collective.", "qdwh."))}
+
+
+def rank_band_hesv(mesh, job: dict) -> dict:
+    """One job of the band and Hermitian-indefinite drivers on replicated
+    numpy inputs (square operands distributed with ``row_mult=q,
+    col_mult=p``, right-hand sides with ``row_mult=q``), under the job's
+    pins ``job["force"]``; ``job["op"]`` is
+
+    * ``"band"``: ``spd`` (Hermitian, bandwidth ``kd``), ``gen`` (bands
+      ``kl``/``ku``), ``tri`` (lower triangular, bandwidth ``kd``,
+      distributed with ``diag_pad=1``), ``b`` and ``c`` (n×k), scalars
+      ``alpha``/``beta`` and a row order ``pivots``: ``ppbtrf`` both ways
+      (its stacks), ``ppbsv``, ``pgbtrf`` (its stacks and row orders),
+      ``pgbsv``, ``pgbmm`` with C, ``phbmm`` of ``spd``'s lower triangle,
+      ``ptbsm`` without and with the pivots;
+    * ``"hesv"``: ``a`` (Hermitian) and ``b``: ``phesv``'s factors (L, d,
+      e, ipiv) and x, and ``phetrs`` of b with those factors.
+
+    Returns numpy (distributed results replicated through
+    :func:`~.dist.undistribute`), the kernel launches and the
+    ``collective.*`` counters of the run."""
+    from ..enums import Diag, Op, Side, Uplo
+    from . import (distribute, pgbmm, pgbsv, phbmm, phesv, phetrs, ppbsv,
+                   ptbsm, undistribute)
+    from .dist_band import pgbtrf, ppbtrf
+
+    nb, p, q = job["nb"], mesh.p, mesh.q
+    sq = dict(row_mult=q, col_mult=p)
+
+    def und(x):
+        return _np(undistribute(x))
+
+    def run():
+        out = {}
+        if job["op"] == "band":
+            kd, kl, ku = job["kd"], job["kl"], job["ku"]
+            spd = distribute(job["spd"], mesh, nb, **sq)
+            gen = distribute(job["gen"], mesh, nb, **sq)
+            b = distribute(job["b"], mesh, nb, row_mult=q)
+            c = distribute(job["c"], mesh, nb, row_mult=q)
+            for lower in (True, False):
+                ld, ls = ppbtrf(spd, kd, lower)
+                out["pbtrf_%s" % ("lower" if lower else "upper")] = (
+                    _np(ld), _np(ls))
+            out["pbsv"] = und(ppbsv(spd, kd, b))
+            out["gbtrf"] = tuple(_np(t) for t in pgbtrf(gen, kl, ku))
+            out["gbsv"] = und(pgbsv(gen, kl, ku, b))
+            out["gbmm"] = und(pgbmm(job["alpha"], gen, kl, ku, b,
+                                    job["beta"], c))
+            low = distribute(np.tril(job["spd"]), mesh, nb, **sq)
+            out["hbmm"] = und(phbmm(job["alpha"], low, kd, b))
+            tri = distribute(job["tri"], mesh, nb, diag_pad=1.0, **sq)
+            args = (Side.Left, Uplo.Lower, Op.NoTrans, Diag.NonUnit, tri, kd)
+            out["tbsm"] = und(ptbsm(*args, b))
+            out["tbsm_pivots"] = und(ptbsm(*args, b, pivots=job["pivots"]))
+        elif job["op"] == "hesv":
+            (l, d, e, ipiv), x = phesv(job["a"], job["b"], mesh, nb)
+            out.update(l=und(l), d=_np(d), e=_np(e), ipiv=_np(ipiv),
+                       x=_np(x), x_trs=_np(phetrs(l, d, e, ipiv, job["b"])))
+        else:
+            raise ValueError("rank_band_hesv: unknown op %r" % (job["op"],))
+        return out
+
+    with pinned(job.get("force")):
+        out, launches, counters = _counted(run)
+    out.update(rank=(mesh.r, mesh.c), launches=launches,
+               collectives=counters)
+    return out
+
+
+def rank_qdwh(mesh, job: dict) -> dict:
+    """One job of the QDWH tier on a replicated numpy input ``job["a"]``
+    at tile ``job["nb"]`` and options ``job["opts"]``, under the job's
+    pins ``job["force"]``; ``job["op"]`` is ``"ppolar"`` (U, H),
+    ``"pheev_qdwh"`` (w, Z) or ``"psvd_qdwh"`` (σ, U, Vᴴ; a rectangular
+    input takes the single-device fallback, whose warnings are
+    returned).  Returns numpy (replicated), the ``qdwh.*`` counters (the
+    step variants taken), the ``collective.*`` counters and the kernel
+    launches of the run."""
+    import warnings
+
+    from . import pheev_qdwh, ppolar, psvd_qdwh, undistribute
+
+    op, nb, opts = job["op"], job["nb"], job.get("opts")
+
+    def und(x):
+        return None if x is None else _np(undistribute(x))
+
+    def run():
+        if op == "ppolar":
+            u, h = ppolar(job["a"], mesh, nb, opts)
+            return {"u": _np(u), "h": _np(h)}
+        if op == "pheev_qdwh":
+            w, z = pheev_qdwh(job["a"], mesh, nb, job.get("jobz", True),
+                              opts)
+            return {"w": _np(w), "z": und(z)}
+        if op == "psvd_qdwh":
+            s, u, vh = psvd_qdwh(job["a"], mesh, nb, opts=opts)
+            return {"s": _np(s), "u": und(u), "vh": und(vh)}
+        raise ValueError("rank_qdwh: unknown op %r" % (op,))
+
+    with pinned(job.get("force")), warnings.catch_warnings(record=True) as ws:
+        warnings.simplefilter("always")
+        out, launches, counters = _counted(run)
+    out.update(rank=(mesh.r, mesh.c), launches=launches, counters=counters,
+               warnings=[str(w.message) for w in ws
+                         if issubclass(w.category, RuntimeWarning)])
+    return out

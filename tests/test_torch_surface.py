@@ -128,7 +128,9 @@ def test_parallel_surface_matches_the_ported_modules():
                  "ptranspose", "predistribute", "phermitize", "phe2hb",
                  "pge2tb", "pheev", "psvd", "punmtr_he2hb", "punmbr_ge2tb_q",
                  "punmbr_ge2tb_p", "band_tiles_to_dense",
-                 "band_tiles_to_banded"):
+                 "band_tiles_to_banded", "ppbsv", "pgbsv", "pgbmm", "phbmm",
+                 "ptbsm", "phetrf", "phetrs", "phesv", "ppolar",
+                 "pheev_qdwh", "psvd_qdwh"):
         assert callable(getattr(port_parallel, name)), name
 
 
