@@ -576,9 +576,6 @@ SVD_SPLIT_N = 4096
 #: for the command's time: each heev at 8192 is ~9.5 s; the timed 8192
 #: call's matmul layouts are held instead)
 HEEV_CHECK_N = 4096
-#: heev fp32's timed calls after its warm one (one: the svd path's host
-#: time leaves no room for more in the command's time)
-HEEV_REPS = 1
 #: the distributed drivers' path (BASELINE.md config 3: gemm/posv/gesv,
 #: fp32, n = 16384, nb = 256, 128 right-hand sides) on a 1×1 NCCL grid
 #: (phase 3j) and on a 2×2 gloo grid of four processes sharing the card
@@ -629,12 +626,16 @@ PEAK_INT8_OPS = 1979e12
 GEMM64_N, POSV64_N, POSV64_NB, POSV64_REPS = 2048, 8192, 512, 3
 #: phase 3n's sizes: the tall-panel LU at BASELINE.md config 3's n = 16384
 #: (nb 512: 16 of its 32 panels taller than the loop's 8192 rows), CALU
-#: at 8192 with nb 256, hesv fp32 at 8192 and fp64 at 4096 (nb 256) and
-#: the n of hetrf's launch count; QDWH runs at the eigensolver paths'
-#: sizes (EIG_N, EIG_N64, SVD_N, SVD_N64)
+#: at 8192 with nb 256, hesv fp32 at 4096 and fp64 at 2048 (nb 256; cut
+#: from 8192 and 4096 for the command's time, phase 3q's phesv with
+#: them) and the n of hetrf's launch count; polar at SVD_N; the QDWH
+#: eigensolver and SVD fp32 at QDWH_N and fp64 at QDWH_N64 on the
+#: eigensolver paths' generators (cut from EIG_N / SVD_N and EIG_N64 /
+#: SVD_N64 for the same reason)
+QDWH_N, QDWH_N64 = 4096, 2048
 TALL_N, TALL_NB = 16384, 512
 CALU_N, CALU_NB = 8192, 256
-HESV_N, HESV_N64, HESV_NB, HESV_COUNT_N = 8192, 4096, 256, 520
+HESV_N, HESV_N64, HESV_NB, HESV_COUNT_N = 4096, 2048, 256, 520
 #: the width of the tall panel whose pp loop's launches a column are
 #: counted (the count does not depend on it: two 64-wide slabs)
 PP_COUNT_W = 128
@@ -666,6 +667,9 @@ TWO_SHARED_EXACT = {"pheev": {"hb2st_wavefront": 4},
 DBAND_N, DBAND_BW = 16384, 512
 DSOLVE_CHECK_N, DHESV_CHECK_N = 2048, 1024
 SHARED_BAND_N, SHARED_HESV, SHARED_QDWH_N = 2048, (1024, 128), 512
+#: phase 3k's pposv / pgesv n (config 3's 16384, cut for the command's
+#: time)
+SHARED_BASE_N = 8192
 #: the exact matmul launches at those sizes: each band chain makes one
 #: product a step past the first (nt − 1; the padding's are skipped), so
 #: ppbsv and pgbsv 3·(nt − 1); pgbmm and phbmm nt SUMMA steps each,
@@ -681,6 +685,50 @@ DIST_EXACT.update({
         1 for j0 in range(0, HESV_N - 2, HESV_NB)
         if min(HESV_NB, HESV_N - 2 - j0) == HESV_NB
         and j0 + HESV_NB + 1 < HESV_N) + 2 * (HESV_N // HESV_NB)}})
+
+#: phase 3r's sizes: ABFT at the main paths' n = 8192 with nb 512 (16
+#: steps), on the JAX package's ABFT test inputs (a Gaussian + 2√n·I from
+#: numpy seed 0, g·gᵀ/n + I from seed 1) and its bitflip seeds (composed
+#: getrf, composed potrf, the LU and Cholesky envelopes: each flip above
+#: the syndrome floor by PERF.md's CPU prediction); the single-device
+#: checkpoint cadence and the step of its loss; the distributed factors at
+#: DIST_N with a checkpoint every RDIST_EVERY of their 64 steps; the mixed
+#: drivers' n (fp64, one right-hand side) and pgetri's (fp32); phase 3k's
+#: job: the resilience job's n (fp32, nb SHARED_RES_NB) and the mixed
+#: job's (fp64)
+RES_N, RES_NB = 8192, 512
+RES_SEEDS = {"getrf": 7, "potrf": 3, "getrf_env": 11, "potrf_env": 13}
+RES_EVERY, RES_LOSS_STEP, RDIST_EVERY = 4, 6, 16
+RMIXED_N, GETRI_N = 16384, 8192
+SHARED_RES_N, SHARED_RES_NB, SHARED_MIXED_N = 1024, 128, 512
+#: the ABFT paths: the composed loops (the checksum-carried trailing
+#: products on the matmul kernel, the LU panels on getrf_panel_linv), the
+#: envelopes around the pinned full/fused Cholesky and the scattered LU,
+#: each invocation run twice (the bitflip's recompute)
+PATHS.update({
+    "abft_potrf": ("matmul",), "abft_getrf": ("matmul", "getrf_panel_linv"),
+    "abft_potrf_bitflip": ("matmul",),
+    "abft_getrf_bitflip": ("matmul", "getrf_panel_linv"),
+    "abft_potrf_loss": ("matmul",),
+    "abft_getrf_loss": ("matmul", "getrf_panel_linv"),
+    "abft_potrf_full": ("matmul", "potrf_full_fused"),
+    "abft_potrf_fused": ("matmul", "potrf_step_fused"),
+    "abft_getrf_scattered": ("matmul", "getrf_panel_fused"),
+    "dist_pgetrf": ("matmul", "lu_u12_panel"),
+    "dist_pgetrf_ckpt": ("matmul", "lu_u12_panel"),
+    "dist_ppotrf": ("matmul", "chol_l21_panel"),
+    "dist_ppotrf_timeline": ("matmul", "chol_l21_panel"),
+    "dist_pposv_mixed": ("matmul", "chol_l21_panel"),
+    "dist_pposv_mixed_gmres": ("matmul", "chol_l21_panel"),
+    "dist_pgesv_mixed": ("matmul", "lu_u12_panel"),
+    "dist_pgetri": ("matmul", "lu_u12_panel"),
+    "dist_pgecondest": ()})
+DIST_EXACT.update({
+    "abft_potrf_full": {"potrf_full_fused": 2},
+    "abft_potrf_fused": {"potrf_step_fused": 2 * (RES_N // RES_NB)},
+    "abft_getrf_scattered": {"getrf_panel_fused": 2 * (RES_N // RES_NB)},
+    "dist_ppotrf": {"chol_l21_panel": DIST_N // NB},
+    "dist_ppotrf_timeline": {"chol_l21_panel": DIST_N // NB}})
 
 
 def fail(msg: str):
@@ -3169,9 +3217,10 @@ def main_path_heev(torch, st, kernels, dev) -> dict:
     rng 9, (G + Gᵀ)/2, n = 8192) as an fp32 HermitianMatrix, nb = 256,
     jobz: exactly one hb2st_wavefront launch, chase.host_bytes 0 and
     chase.dispatch.kernel ≥ 1, bench.py's residual and orthogonality
-    gates, eigenvalues against torch.linalg.eigvalsh; one warm call, the
-    median wall of HEEV_REPS with the stage timers, every operand layout
-    those calls give ``matmul`` held to its plain version
+    gates, eigenvalues against torch.linalg.eigvalsh; the first call's
+    wall with the stage timers (no second call: cut for the command's
+    time), every operand layout the call
+    gives ``matmul`` held to its plain version
     (:func:`record_layouts`, :func:`hold_matmul_layouts`), and
     torch.linalg.eigh's wall as a yardstick (timed only); at HEEV_CHECK_N
     on the same generator a profiler split and one heev with every matmul
@@ -3195,10 +3244,13 @@ def main_path_heev(torch, st, kernels, dev) -> dict:
     eps32 = float(torch.finfo(torch.float32).eps)
     launches = {}
     before = metrics.snapshot()
-    (w, z), ms0, launches["heev"] = run_path(torch, kernels, "heev",
-                                             lambda: st.heev(A))
+    layouts = set()
+    (w, z), ms0, launches["heev"] = run_path(
+        torch, kernels, "heev", lambda: record_layouts(
+            kernels, "matmul", layouts, lambda: st.heev(A)))
     after = metrics.snapshot()
-    delta = metrics.snapshot_delta(before, after)["counters"]
+    delta = metrics.snapshot_delta(before, after)
+    timers, delta = delta["timers"], delta["counters"]
     host = after["counters"].get("chase.host_bytes")
     print("heev fp32 n=%d nb=%d: first call %.1f ms; launches %s; chase "
           "counters host_bytes %s, dispatch %s"
@@ -3216,20 +3268,15 @@ def main_path_heev(torch, st, kernels, dev) -> dict:
     res = {"fp32": _eig_gates(torch, "heev fp32 n=%d" % EIG_N, a, w, z, lam,
                               10 * eps32)}
     del w, z
-    before = metrics.snapshot()
-    layouts = set()
-    wall = record_layouts(kernels, "matmul", layouts, lambda: _wall_ms(
-        torch, lambda: st.heev(A), HEEV_REPS))
-    timers = metrics.snapshot_delta(before, metrics.snapshot())["timers"]
     stages = {k: v["total_s"] * 1e3 / v["count"] for k, v in timers.items()
               if k.startswith(("stage.heev", "chase.hb2st"))}
-    res["fp32"].update(wall_ms=wall, stages_ms=stages)
+    res["fp32"].update(wall_ms=ms0, stages_ms=stages)
     torch.linalg.eigh(a)
     eigh_ms = _wall_ms(torch, lambda: torch.linalg.eigh(a), 1)
-    print("heev fp32 n=%d: median wall of %d %.1f ms (host timers, mean ms a "
-          "call: %s); torch.linalg.eigh (library yardstick) %.1f ms"
-          % (EIG_N, HEEV_REPS, wall, {k: round(v, 2) for k, v in
-                                     stages.items()}, eigh_ms), flush=True)
+    print("heev fp32 n=%d: first call %.1f ms (host timers, ms: %s); "
+          "torch.linalg.eigh (library yardstick) %.1f ms"
+          % (EIG_N, ms0, {k: round(v, 2) for k, v in stages.items()},
+             eigh_ms), flush=True)
     res["fp32"]["eigh_ms"] = eigh_ms
     res["fp32"]["lam"] = lam       # phase 3n's reference on the same input
     del A, a, lam
@@ -4253,9 +4300,9 @@ def rank_checked(mesh, n: int) -> dict:
 
 
 def main_path_dist_shared(torch) -> dict:
-    """Phase 3k: pposv and pgesv at n = 16384, nb = 256 (BASELINE.md
-    config 3's size and 2×2 grid, uncut) on four processes that SHARE the
-    one card, through ``launch.run_spmd`` with the gloo backend on CUDA
+    """Phase 3k: pposv and pgesv at n = SHARED_BASE_N, nb = 256 (BASELINE.md
+    config 3's 2×2 grid; its n = 16384 cut to 8192 for the command's
+    time) on four processes that SHARE the one card, through ``launch.run_spmd`` with the gloo backend on CUDA
     tensors (NCCL refuses two ranks on one card), the sites at their
     card defaults (tournament pivots, depth 2): every rank's residuals
     ≤ 3 and |L| ≤ 1 + 100ε (``launch.rank_baseline``), every rank
@@ -4264,8 +4311,9 @@ def main_path_dist_shared(torch) -> dict:
     (:func:`rank_dist_qr`) and the two-stage job
     (:func:`rank_dist_twostage`: its values and σ bitwise equal across
     the ranks) and the band, hesv and QDWH job
-    (:func:`rank_dist_solvers`: every rank's results bitwise equal).  A
-    failing rank fails the phase.  The walls are those of four processes on one card, not a
+    (:func:`rank_dist_solvers`: every rank's results bitwise equal), and
+    the mixed-driver and resilience jobs (``launch.rank_dist_mixed``:
+    :func:`_shared_resilience_gates`).  A failing rank fails the phase.  The walls are those of four processes on one card, not a
     multi-GPU number."""
     import numpy as np
     from slate_tpu_torch.parallel import launch
@@ -4275,17 +4323,21 @@ def main_path_dist_shared(torch) -> dict:
     out = launch.run_spmd(
         "slate_tpu_torch.parallel.launch:rank_jobs", 2, 2,
         ([("slate_tpu_torch.parallel.launch:rank_baseline",
-           (DIST_N, NB, DIST_NRHS, 50, ("pposv", "pgesv"))),
+           (SHARED_BASE_N, NB, DIST_NRHS, 50, ("pposv", "pgesv"))),
           ("chip_smoke:rank_checked", (DIST_CHECK_N,)),
           ("chip_smoke:rank_dist_qr", ()),
           ("chip_smoke:rank_dist_twostage", ()),
-          ("chip_smoke:rank_dist_solvers", ())],),
+          ("chip_smoke:rank_dist_solvers", ()),
+          ("slate_tpu_torch.parallel.launch:rank_dist_mixed",
+           (_shared_mixed_job(),)),
+          ("slate_tpu_torch.parallel.launch:rank_dist_mixed",
+           (_shared_resilience_job(),))],),
         backend="gloo", device="cuda:0", timeout=900)
     wall = time.perf_counter() - t0
     ranks = [o[0] for o in out]
     for res in ranks:
         _dist_report("dist 2x2 (4 processes sharing one card) rank %s n=%d"
-                     % (res["rank"], DIST_N), res, ("pposv", "pgesv"))
+                     % (res["rank"], SHARED_BASE_N), res, ("pposv", "pgesv"))
         for name in ("pposv", "pgesv"):
             missing = [k for k in PATHS["dist_" + name]
                        if res[name]["launches"].get(k, 0) <= 0]
@@ -4334,6 +4386,7 @@ def main_path_dist_shared(torch) -> dict:
                  % key)
     print("dist 2x2 band, phesv and QDWH: every rank's %s bitwise equal"
           % ", ".join(sorted(solvers[0]["values"])), flush=True)
+    _shared_resilience_gates([o[5] for o in out], [o[6] for o in out])
     print("dist 2x2 site decisions (rank 0): %s; the spawn with its four "
           "processes took %.1f s" % (ranks[0]["decisions"], wall), flush=True)
     return {"ranks": ranks, "checks": [o[1]["checks"] for o in out],
@@ -4343,6 +4396,107 @@ def main_path_dist_shared(torch) -> dict:
             "solvers": [{k: v for k, v in r.items() if k != "values"}
                         for r in solvers], "wall_s": wall}
 
+
+def _shared_mixed_job() -> dict:
+    """Phase 3k's mixed job: pposv_mixed, pposv_mixed_gmres, pgesv_mixed,
+    pgetri and pgecondest in fp64 at SHARED_MIXED_N (nb NB // 2) on
+    numpy inputs from seed 73 (an SPD g·gᵀ/n + I, a Gaussian + 2√n·I, one
+    right-hand side)."""
+    import numpy as np
+
+    n = SHARED_MIXED_N
+    rng = np.random.default_rng(73)
+    g = rng.standard_normal((n, n))
+    return {"op": "mixed", "spd": g @ g.T / n + np.eye(n),
+            "gen": rng.standard_normal((n, n)) + 2 * n ** 0.5 * np.eye(n),
+            "b": rng.standard_normal((n, 1)), "nb": NB // 2}
+
+
+def _shared_resilience_job() -> dict:
+    """Phase 3k's resilience job: pgetrf and ppotrf fp32 at SHARED_RES_N,
+    nb SHARED_RES_NB (the card's sites: tournament pivots, depth 2),
+    under the timeline (windows of 3 steps), a checkpoint every 2 steps
+    with one device loss at the second boundary, and the ABFT envelopes;
+    numpy inputs from seed 74."""
+    import numpy as np
+
+    n = SHARED_RES_N
+    rng = np.random.default_rng(74)
+    g = rng.standard_normal((n, n)).astype(np.float32)
+    return {"op": "resilience", "spd": g @ g.T / n + np.eye(
+        n, dtype=np.float32), "gen": rng.standard_normal((n, n)).astype(
+        np.float32), "nb": SHARED_RES_NB, "window": 3, "every": 2,
+        "seed": _first_loss_seed(1, 0.5)}
+
+
+def _shared_resilience_gates(mixed, resil) -> None:
+    """Phase 3k's gates of the two jobs above, every rank's: the mixed
+    drivers' residuals ≤ 3 (ε₆₄) with positive iteration counts,
+    pgetri's ‖A·X − I‖_F / (‖A‖_F·‖X‖_F·n·ε₆₄) ≤ 3, pgecondest in
+    [0.1, 3]·κ₁, each replicated result bitwise equal across the ranks;
+    each rank's timeline, checkpointed (``ckpt.restored`` = 1) and
+    ABFT-verified factors bitwise its monolithic ones, and both envelopes
+    detecting rank (0, 0)'s flipped element on every rank."""
+    import numpy as np
+
+    job = _shared_mixed_job()
+    spd, gen, b = job["spd"], job["gen"], job["b"]
+    n = SHARED_MIXED_N
+    eps = np.finfo(np.float64).eps
+
+    def resid(a, x):
+        return float(np.linalg.norm(a @ x - b)
+                     / (np.linalg.norm(a) * np.linalg.norm(x) * n * eps))
+
+    kappa = np.linalg.norm(gen, 1) * np.linalg.norm(np.linalg.inv(gen), 1)
+    for r in mixed:
+        label = "dist 2x2 rank %s mixed fp64 n=%d" % (r["rank"], n)
+        gates = {k: resid(spd if k != "gesv" else gen, r[k][0])
+                 for k in ("posv", "posv_gmres", "gesv")}
+        iters = {k: r[k][1] for k in gates}
+        inv = r["getri"]
+        gates["getri"] = float(np.linalg.norm(gen @ inv - np.eye(n)) / (
+            np.linalg.norm(gen) * np.linalg.norm(inv) * n * eps))
+        ratio = 1.0 / r["condest"][0] / kappa
+        print("%s: residuals %s (gate 3), iterations %s, 1/rcond / kappa1 "
+              "%.3f (gate [0.1, 3]); job wall %.1f s" % (
+                  label, {k: "%.3g" % v for k, v in gates.items()}, iters,
+                  ratio, r["wall_s"]), flush=True)
+        if not (all(v <= 3 for v in gates.values())
+                and all(v > 0 for v in iters.values())
+                and 0.1 <= ratio <= 3):
+            fail("%s: a gate failed" % label)
+        for k in ("posv", "posv_gmres", "gesv"):
+            if not np.array_equal(r[k][0], mixed[0][k][0]):
+                fail("dist 2x2 mixed %s: the ranks' x are not bitwise equal"
+                     % k)
+        if not (np.array_equal(inv, mixed[0]["getri"])
+                and r["condest"] == mixed[0]["condest"]):
+            fail("dist 2x2 pgetri/pgecondest: the ranks' results differ")
+    for r in resil:
+        label = "dist 2x2 rank %s resilience fp32 n=%d" % (r["rank"],
+                                                           SHARED_RES_N)
+        for path in ("timeline", "ckpt", "abft"):
+            if not all(np.array_equal(x, y)
+                       for x, y in zip(r[path], r["mono"])):
+                fail("%s: the %s factors are not bitwise the monolithic "
+                     "ones" % (label, path))
+        c = r["ckpt_counters"]
+        if c.get("ckpt.restored") != 1 or r["abft_counters"] != {
+                "abft.checks": 2}:
+            fail("%s: counters ckpt %s, abft %s" % (label, c,
+                                                    r["abft_counters"]))
+        for name in ("abft_lu_detect", "abft_chol_detect"):
+            if r[name + "_counters"] != {"abft.checks": 2,
+                                         "abft.detected": 1,
+                                         "abft.recomputed": 1}:
+                fail("%s: %s counters %s" % (label, name,
+                                             r[name + "_counters"]))
+        print("%s: timeline (%d rows), checkpointed (a device loss "
+              "restored) and ABFT-verified factors bitwise the monolithic "
+              "ones; both envelopes detected rank (0, 0)'s flip and "
+              "recomputed; job wall %.1f s" % (label, r["timeline_rows"],
+                                               r["wall_s"]), flush=True)
 
 def _gather_top(torch, mesh, dm, n: int):
     """The top-left n×n block of a DistMatrix, replicated: one ``psum`` of
@@ -5741,6 +5895,503 @@ def rank_dist_solvers(mesh) -> dict:
     return out
 
 
+def _first_loss_seed(index: int, rate: float) -> int:
+    """The first fault-plan seed whose ``step.boundary`` site fires first
+    at event ``index`` at ``rate`` (the plan's own draw): a loss after a
+    checkpoint, not at the start."""
+    import random
+
+    return next(s for s in range(10000) if [
+        random.Random("%d|step.boundary|%d" % (s, i)).random() < rate
+        for i in range(index + 1)] == [False] * index + [True])
+
+
+def _count_trailing(kernels, counts: dict, run):
+    """``run()`` with each ``kernels.matmul`` call counted by its operands'
+    shapes into ``counts``, launches counted as usual."""
+    real = kernels.matmul
+
+    def call(a, b, *args, **kw):
+        key = (tuple(a.shape), tuple(b.shape))
+        counts[key] = counts.get(key, 0) + 1
+        return real(a, b, *args, **kw)
+
+    kernels.matmul = call
+    try:
+        return run()
+    finally:
+        kernels.matmul = real
+
+
+def _abft_inputs(torch, dev, n: int):
+    """The JAX package's ABFT test inputs at n: a Gaussian + 2√n·I (numpy
+    seed 0) and g·gᵀ/n + I (g from seed 1), fp32, on the card, with
+    NRHS Gaussian right-hand sides."""
+    import numpy as np
+
+    a = np.random.default_rng(0).standard_normal((n, n), dtype=np.float32)
+    a[np.arange(n), np.arange(n)] += np.float32(2 * n ** 0.5)
+    gen = torch.from_numpy(a).to(dev)
+    g = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (n, n), dtype=np.float32)).to(dev)
+    spd = g @ g.T / n
+    spd = (spd + spd.T) / 2 + torch.eye(n, device=dev)
+    b = torch.randn((n, NRHS), generator=torch.Generator(
+        device=dev).manual_seed(71), device=dev)
+    return gen, spd, b
+
+
+def _res_call(torch, kernels, metrics, path: str, fn):
+    """One call as a path of its own: its result, wall (synchronized),
+    launches (:func:`_path_launches`) and ``abft.*``/``ckpt.*`` counters."""
+    torch.cuda.synchronize()
+    before = metrics.snapshot()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    c = metrics.snapshot_delta(before, metrics.snapshot())["counters"]
+    return out, {"wall_ms": wall, "launches": _path_launches(kernels, path),
+                 "counters": {k: v for k, v in c.items()
+                              if k.startswith(("abft.", "ckpt."))}}
+
+
+def _res_report(label: str, rec: dict, extra: str = "") -> None:
+    print("%s: wall %.1f ms%s; launches %s; counters %s" % (
+        label, rec["wall_ms"], extra,
+        {k: v for k, v in rec["launches"].items() if v},
+        {k: int(v) for k, v in sorted(rec["counters"].items())}),
+        flush=True)
+
+
+def _want_counters(label: str, got: dict, want: dict) -> None:
+    """Fail unless every counter of ``want`` has its value (0: absent)."""
+    bad = {k: (got.get(k, 0), v) for k, v in want.items()
+           if got.get(k, 0) != v}
+    if bad:
+        fail("%s: counters (got, want) %s" % (label, bad))
+
+
+def _abft_single(torch, st, kernels, metrics, dev, res: dict) -> dict:
+    """Phase 3r's single-device part (see :func:`main_path_resilience`)."""
+    import os
+
+    from slate_tpu_torch import config
+    from slate_tpu_torch.resilience import abft, checkpoint, inject
+
+    n, nb = RES_N, RES_NB
+    steps = n // nb
+    eps = float(torch.finfo(torch.float32).eps)
+    cb = 128                            # ops.smem.checksum_block_rows on the card
+    gen, spd, b = _abft_inputs(torch, dev, n)
+    launches, layouts = {}, set()
+    A = st.Matrix.from_array(gen, nb=nb)
+    H = st.HermitianMatrix(spd, uplo=st.Uplo.Lower, nb=nb)
+    solve = {"getrf": lambda: st.gesv(A, b), "potrf": lambda: st.posv(H, b)}
+    amat = {"getrf": gen, "potrf": spd}
+
+    def factor_of(name, out):
+        return (out[0].data, out[1]) if name == "getrf" else (out[0].data,)
+
+    def gates(name, label, out):
+        x = out[-1]
+        a = amat[name]
+        r = _scaled_resid(torch, a, x, b)
+        f = out[0].data.double()
+        if name == "getrf":
+            lmat = torch.tril(f, -1) + torch.eye(n, device=dev,
+                                                 dtype=torch.float64)
+            fr = float((a.double()[out[1]] - lmat @ torch.triu(f)).norm()
+                       / (a.double().norm() * eps * n))
+        else:
+            fr = float((f @ f.T - a.double()).norm()
+                       / (a.double().norm() * eps * n))
+        if not (r <= 3 and fr <= 3):
+            fail("%s: residual %.3g, factor residual %.3g (gate 3)"
+                 % (label, r, fr))
+        return r, fr
+
+    # the composed loops: potrf through the stock branch (the pin), getrf
+    # through the recursion's branch (scattered_lu off)
+    force = {"potrf": "potrf_panel=stock", "getrf": None}
+    saved = (os.environ.get(FORCE), config.scattered_lu)
+    config.scattered_lu = False
+    try:
+        for name in ("potrf", "getrf"):
+            if force[name]:
+                os.environ[FORCE] = force[name]
+            else:
+                os.environ.pop(FORCE, None)
+            label = "abft %s fp32 n=%d nb=%d" % (name, n, nb)
+            # the unguarded wall: a warm-up, then the timed call
+            solve[name]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solve[name]()
+            torch.cuda.synchronize()
+            bare_ms = (time.perf_counter() - t0) * 1e3
+            os.environ[abft.ENV_ABFT] = "correct"
+            try:
+                solve[name]()               # the guarded call's warm-up
+                # (a) clean: a check a step with a trailing block, nothing
+                # detected; the checksum-carried trailing products counted
+                # on the matmul kernel by shape
+                shapes = {}
+                out, rec = _res_call(
+                    torch, kernels, metrics, "abft_" + name,
+                    lambda: record_layouts(
+                        kernels, "matmul", layouts, lambda: _count_trailing(
+                            kernels, shapes, solve[name])))
+                launches["abft_" + name] = rec["launches"]
+                trail = {}
+                for k in range(steps if name == "getrf" else steps - 1):
+                    rows = n - (k + 1) * nb + cb
+                    key = ((rows, nb), (nb, rows if name == "getrf"
+                                        else rows - cb))
+                    trail[rows] = shapes.get(key, 0)
+                if any(v != 1 for v in trail.values()):
+                    fail("%s: the checksum-carried trailing products on the "
+                         "matmul kernel by rows %s, want one each" % (
+                             label, trail))
+                _want_counters(label, rec["counters"], {
+                    "abft.checks": steps - 1, "abft.detected": 0})
+                r = gates(name, label, out)
+                clean = factor_of(name, out)
+                rec.update(residual=r[0], factor_residual=r[1],
+                           unguarded_ms=bare_ms,
+                           trailing_products=len(trail))
+                _res_report(label + " clean", rec,
+                            "; unguarded %.1f ms (ABFT %.2fx); residual "
+                            "%.3g, factor %.3g; %d checksum-carried trailing "
+                            "products on the matmul kernel" % (
+                                bare_ms, rec["wall_ms"] / bare_ms, r[0],
+                                r[1], len(trail)))
+                res["abft_" + name] = rec
+                # (b) one seeded bitflip at the trailing-update seam
+                inject.install(inject.FaultPlan(seed=RES_SEEDS[name]).add(
+                    "driver.update", "bitflip", rate=1.0, count=1))
+                try:
+                    out, rec = _res_call(torch, kernels, metrics,
+                                         "abft_%s_bitflip" % name,
+                                         solve[name])
+                finally:
+                    inject.clear_plan()
+                launches["abft_%s_bitflip" % name] = rec["launches"]
+                _want_counters(label + " bitflip", rec["counters"], {
+                    "abft.detected": 1, "abft.corrected": 1,
+                    "abft.recomputed": 0})
+                r = gates(name, label + " bitflip", out)
+                rec.update(residual=r[0], factor_residual=r[1])
+                _res_report(label + " bitflip (seed %d)" % RES_SEEDS[name],
+                            rec, "; residual %.3g, factor %.3g" % r)
+                res["abft_%s_bitflip" % name] = rec
+                # (c) a device loss after a checkpoint: bitwise (a)
+                os.environ[checkpoint.ENV_EVERY] = str(RES_EVERY)
+                seed = _first_loss_seed(RES_LOSS_STEP, 0.25)
+                inject.install(inject.FaultPlan(seed=seed).add(
+                    "step.boundary", "device_loss", rate=0.25, count=1))
+                try:
+                    out, rec = _res_call(torch, kernels, metrics,
+                                         "abft_%s_loss" % name, solve[name])
+                finally:
+                    inject.clear_plan()
+                    os.environ.pop(checkpoint.ENV_EVERY, None)
+                launches["abft_%s_loss" % name] = rec["launches"]
+                _want_counters(label + " device loss", rec["counters"], {
+                    "ckpt.restored": 1, "abft.restarted": 1,
+                    "abft.detected": 0})
+                if not all(torch.equal(x, y) for x, y in
+                           zip(factor_of(name, out), clean)):
+                    fail("%s: the factors after the device loss are not "
+                         "bitwise the clean run's" % label)
+                gates(name, label + " device loss", out)
+                _res_report(label + " device loss at step %d (seed %d, "
+                            "checkpoint every %d)" % (RES_LOSS_STEP, seed,
+                                                      RES_EVERY), rec,
+                            "; factors bitwise the clean run's")
+                res["abft_%s_loss" % name] = rec
+            finally:
+                os.environ.pop(abft.ENV_ABFT, None)
+    finally:
+        if saved[0] is None:
+            os.environ.pop(FORCE, None)
+        else:
+            os.environ[FORCE] = saved[0]
+        config.scattered_lu = saved[1]
+    # (d) the envelopes around the kernel-owned invocations
+    os.environ[abft.ENV_ABFT] = "correct"
+    try:
+        for path, name, pin, seed in (
+                ("abft_potrf_full", "potrf", "potrf_step=full",
+                 RES_SEEDS["potrf_env"]),
+                ("abft_potrf_fused", "potrf", "potrf_step=fused",
+                 RES_SEEDS["potrf_env"]),
+                ("abft_getrf_scattered", "getrf", None,
+                 RES_SEEDS["getrf_env"])):
+            label = "abft envelope %s" % path[5:]
+            if pin:
+                os.environ[FORCE] = pin
+            inject.install(inject.FaultPlan(seed=seed).add(
+                "driver.update", "bitflip", rate=1.0, count=1))
+            try:
+                out, rec = _res_call(torch, kernels, metrics, path,
+                                     solve[name])
+            finally:
+                inject.clear_plan()
+                os.environ.pop(FORCE, None)
+            launches[path] = rec["launches"]
+            _want_counters(label, rec["counters"], {
+                "abft.checks": 2, "abft.detected": 1, "abft.recomputed": 1,
+                "abft.unrecovered": 0})
+            r = gates(name, label, out)
+            rec.update(residual=r[0], factor_residual=r[1])
+            _res_report(label + " (seed %d)" % seed, rec,
+                        "; residual %.3g, factor %.3g" % r)
+            res[path] = rec
+    finally:
+        os.environ.pop(abft.ENV_ABFT, None)
+    checks = hold_matmul_layouts(torch, kernels, dev,
+                                 "phase 3r's composed ABFT loops", layouts)
+    del gen, spd, b, A, H
+    torch.cuda.empty_cache()
+    return launches, checks
+
+
+def _dist_resilience(torch, st, kernels, metrics, dev, mesh, res: dict):
+    """Phase 3r's distributed part (see :func:`main_path_resilience`)."""
+    import os
+
+    from slate_tpu_torch.parallel import dist_util
+    from slate_tpu_torch.perf import blackbox
+    from slate_tpu_torch.resilience import abft, checkpoint, inject
+
+    par = st.parallel
+    launches = {}
+    n, nb = DIST_N, NB
+    nt = n // nb
+    a_spd, a_gen, _ = _dist_inputs(torch, n, dev)
+    sq = dict(diag_pad=1.0, row_mult=1, col_mult=1)
+    gd = par.distribute(a_gen, mesh, nb, **sq)
+    sd = par.distribute(a_spd, mesh, nb, **sq)
+    del a_spd, a_gen
+    torch.cuda.empty_cache()
+
+    def call(path, fn):
+        out, rec = _res_call(torch, kernels, metrics, path, fn)
+        launches[path] = rec["launches"]
+        res[path] = rec
+        return out
+
+    lu0, g0 = call("dist_pgetrf", lambda: par.pgetrf(gd))
+    seed = _first_loss_seed(1, 0.5)
+    os.environ[checkpoint.ENV_EVERY] = str(RDIST_EVERY)
+    os.environ[abft.ENV_ABFT] = "correct"
+    inject.install(inject.FaultPlan(seed=seed).add(
+        "step.boundary", "device_loss", rate=0.5, count=1))
+    try:
+        lu1, g1 = call("dist_pgetrf_ckpt", lambda: par.pgetrf(gd))
+    finally:
+        inject.clear_plan()
+        os.environ.pop(checkpoint.ENV_EVERY, None)
+    label = "dist 1x1 pgetrf fp32 n=%d nb=%d" % (n, nb)
+    rec = res["dist_pgetrf_ckpt"]
+    _want_counters(label + " checkpointed", rec["counters"], {
+        "ckpt.restored": 1, "abft.restarted": 1, "abft.checks": 1,
+        "abft.detected": 0, "ckpt.saved": nt // RDIST_EVERY - 1})
+    if not (torch.equal(lu1.data, lu0.data) and torch.equal(g1, g0)):
+        fail("%s: the checkpointed run with a device loss is not bitwise "
+             "the clean run (gperm equal: %s)" % (label,
+                                                  torch.equal(g1, g0)))
+    _res_report(label + " monolithic", res["dist_pgetrf"])
+    _res_report(label + " checkpoint every %d steps, one device loss (seed "
+                "%d), ABFT verify" % (RDIST_EVERY, seed), rec,
+                "; factor and gperm bitwise the monolithic run's")
+    del lu0, lu1, g0, g1
+    os.environ.pop(abft.ENV_ABFT, None)
+    torch.cuda.empty_cache()
+    l0 = call("dist_ppotrf", lambda: par.ppotrf(sd))
+    os.environ[blackbox.ENV_TIMELINE] = "1"
+    os.environ[abft.ENV_ABFT] = "correct"
+    dist_util.clear_timeline()
+    try:
+        l1 = call("dist_ppotrf_timeline", lambda: par.ppotrf(sd))
+    finally:
+        os.environ.pop(blackbox.ENV_TIMELINE, None)
+        os.environ.pop(abft.ENV_ABFT, None)
+    rows = dist_util.timeline_steps()
+    label = "dist 1x1 ppotrf fp32 n=%d nb=%d" % (n, nb)
+    rec = res["dist_ppotrf_timeline"]
+    _want_counters(label + " timeline", rec["counters"], {
+        "abft.checks": 1, "abft.detected": 0})
+    if len(rows) != nt or not torch.equal(l1.data, l0.data):
+        fail("%s: %d timeline rows (want %d), factors bitwise the "
+             "monolithic run's: %s" % (label, len(rows), nt,
+                                       torch.equal(l1.data, l0.data)))
+    walls = [r["wall_s"] * 1e3 for r in rows]
+    rec["timeline_ms"] = walls
+    _res_report(label + " monolithic", res["dist_ppotrf"])
+    _res_report(label + " timeline (one row a step), ABFT verify", rec,
+                "; factors bitwise the monolithic run's; step walls (ms) "
+                "first %.2f, median %.2f, last %.2f, sum %.1f; broadcast "
+                "bytes a step %.0f" % (walls[0], sorted(walls)[nt // 2],
+                                       walls[-1], sum(walls),
+                                       rows[0]["bcast_bytes"]))
+    del l0, l1, gd, sd
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _dist_mixed(torch, st, kernels, metrics, dev, mesh, res: dict):
+    """Phase 3r's mixed drivers, pgetri and pgecondest (see
+    :func:`main_path_resilience`)."""
+    par = st.parallel
+    launches = {}
+    eps32 = float(torch.finfo(torch.float32).eps)
+
+    def call(path, fn):
+        out, rec = _res_call(torch, kernels, metrics, path, fn)
+        launches[path] = rec["launches"]
+        res[path] = rec
+        return out
+
+    n = RMIXED_N
+    gen = torch.Generator(device=dev).manual_seed(72)
+    r = torch.randn((n, n), generator=gen, device=dev, dtype=torch.float64)
+    spd = (r + r.T) / 2 + n * torch.eye(n, device=dev, dtype=torch.float64)
+    b = torch.randn((n, 1), generator=gen, device=dev, dtype=torch.float64)
+    for path, fn, a in (
+            ("dist_pposv_mixed", lambda: par.pposv_mixed(spd, b, mesh, NB),
+             spd),
+            ("dist_pposv_mixed_gmres",
+             lambda: par.pposv_mixed_gmres(spd, b, mesh, NB), spd)):
+        x, it = call(path, fn)
+        x = par.undistribute(x) if path == "dist_pposv_mixed" else x
+        resid = _scaled_resid(torch, a, x, b)
+        res[path].update(residual=resid, iters=it)
+        _res_report("dist 1x1 %s fp64 n=%d nb=%d, 1 rhs" % (path[5:], n, NB),
+                    res[path], "; %d iterations; residual %.3g (gate 3, "
+                    "eps64)" % (it, resid))
+        if not (resid <= 3 and it > 0):
+            fail("%s: residual %.3g, iterations %d (want <= 3 and > 0: no "
+                 "fallback)" % (path, resid, it))
+    del spd
+    torch.cuda.empty_cache()
+    gd = r + 2 * n ** 0.5 * torch.eye(n, device=dev, dtype=torch.float64)
+    del r
+    x, it = call("dist_pgesv_mixed", lambda: par.pgesv_mixed(gd, b, mesh,
+                                                              NB))
+    x = par.undistribute(x)
+    resid = _scaled_resid(torch, gd, x, b)
+    res["dist_pgesv_mixed"].update(residual=resid, iters=it)
+    _res_report("dist 1x1 pgesv_mixed fp64 n=%d nb=%d, 1 rhs" % (n, NB),
+                res["dist_pgesv_mixed"], "; %d iterations; residual %.3g "
+                "(gate 3, eps64)" % (it, resid))
+    if not (resid <= 3 and it > 0):
+        fail("dist_pgesv_mixed: residual %.3g, iterations %d (want <= 3 and "
+             "> 0: no fallback)" % (resid, it))
+    del gd, x, b
+    torch.cuda.empty_cache()
+    # pgetri and pgecondest of one Gaussian
+    n = GETRI_N
+    a = torch.randn((n, n), generator=gen, device=dev)
+    ad = par.distribute(a, mesh, NB, diag_pad=1.0, row_mult=1, col_mult=1)
+    xd = call("dist_pgetri", lambda: par.pgetri(ad))
+    x = par.undistribute(xd).double()
+    a64 = a.double()
+    eye = torch.eye(n, device=dev, dtype=torch.float64)
+    resid = float((a64 @ x - eye).norm()
+                  / (a64.norm() * x.norm() * n * eps32))
+    res["dist_pgetri"]["residual"] = resid
+    _res_report("dist 1x1 pgetri fp32 n=%d nb=%d" % (n, NB),
+                res["dist_pgetri"], "; ||A X - I||_F / (||A||_F ||X||_F n "
+                "eps32) %.3g (gate 3)" % resid)
+    if not resid <= 3:
+        fail("dist_pgetri: scaled residual %.3g > 3" % resid)
+    del xd, x
+    lu, gperm = par.pgetrf(ad)
+    anorm = float(par.pnorm(ad, st.Norm.One))
+    rcond, est = call("dist_pgecondest",
+                      lambda: par.pgecondest(lu, gperm, anorm))
+    kappa = float(torch.linalg.matrix_norm(a64, 1)
+                  * torch.linalg.matrix_norm(torch.linalg.inv(a64), 1))
+    res["dist_pgecondest"].update(rcond=rcond, est=est, kappa1=kappa)
+    _res_report("dist 1x1 pgecondest fp32 n=%d" % n, res["dist_pgecondest"],
+                "; 1/rcond %.4g, kappa1 (fp64) %.4g, ratio %.3f (gate "
+                "[0.1, 3])" % (1 / rcond, kappa, 1 / rcond / kappa))
+    if not 0.1 * kappa <= 1.0 / rcond <= 3.0 * kappa:
+        fail("dist_pgecondest: 1/rcond %.4g outside [0.1, 3]·kappa1 %.4g"
+             % (1 / rcond, kappa))
+    del a, ad, a64, eye, lu
+    torch.cuda.empty_cache()
+    return launches
+
+
+def main_path_resilience(torch, st, kernels, dev) -> dict:
+    """Phase 3r: fault injection, ABFT, checkpoint/restart and the step
+    timeline, and the distributed mixed drivers, pgetri and pgecondest,
+    each call a path of its own (launches zeroed before, read after):
+
+    * single device, fp32 n = RES_N, nb = RES_NB, under
+      ``SLATE_TPU_TORCH_ABFT=correct``, for posv and gesv: (a) the
+      composed checksum loops (potrf pinned to its stock branch, getrf
+      through the recursion's): the tester's residual ≤ 3 and the factor
+      residual ≤ 3, one ``abft.checks`` a step with a trailing block,
+      nothing detected, one checksum-carried trailing product a step on
+      the ``matmul`` kernel (counted by shape), the wall beside the
+      unguarded call's; (b) one seeded bitflip at ``driver.update``:
+      ``abft.detected`` = ``abft.corrected`` = 1 and the same gates; (c)
+      one ``device_loss`` at step RES_LOSS_STEP with a checkpoint every
+      RES_EVERY steps: the factors bitwise (a)'s; (d) the envelope around
+      potrf pinned ``full`` and ``fused`` and around the scattered getrf,
+      a bitflip detected and recomputed, the pinned kernel launched for
+      two invocations (DIST_EXACT).  Every ``matmul`` layout of (a)–(c)
+      held to its plain version.
+    * On a 1×1 NCCL world at DIST_N, nb NB: pgetrf monolithic, then with
+      a checkpoint every RDIST_EVERY steps, one injected device loss and
+      the ABFT verify: bitwise factor and gperm, ``ckpt.restored`` = 1,
+      the verify clean; ppotrf monolithic, then under
+      ``SLATE_TPU_TORCH_DIST_TIMELINE=1`` and the ABFT verify: one
+      timeline row a step, the factor bitwise, the verify clean.
+    * pposv_mixed, pposv_mixed_gmres and pgesv_mixed in fp64 at RMIXED_N
+      with one right-hand side: the tester's residual ≤ 3 in ε₆₄ units,
+      the iteration counts > 0 (no fallback); pgetri fp32 at GETRI_N:
+      ‖A·X − I‖_F / (‖A‖_F·‖X‖_F·n·ε₃₂) ≤ 3; pgecondest on the same
+      matrix: 0.1·κ₁ ≤ 1/rcond ≤ 3·κ₁ (κ₁ in fp64)."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from slate_tpu_torch.perf import metrics
+
+    metrics.on()
+    res, t_sub = {}, {}
+    t0 = time.perf_counter()
+    launches, checks = _abft_single(torch, st, kernels, metrics, dev, res)
+    t_sub["abft"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = st.parallel.make_grid_mesh(1, 1)
+            print("phase 3r: %r" % (mesh,), flush=True)
+            t1 = time.perf_counter()
+            launches.update(_dist_resilience(torch, st, kernels, metrics,
+                                             dev, mesh, res))
+            t_sub["dist"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            launches.update(_dist_mixed(torch, st, kernels, metrics, dev,
+                                        mesh, res))
+            t_sub["mixed"] = time.perf_counter() - t1
+        finally:
+            dist.destroy_process_group()
+    print("phase 3r's parts (s): %s" % {k: round(v, 1)
+                                        for k, v in t_sub.items()},
+          flush=True)
+    res.update(launches=launches, path_checks={"abft": checks})
+    return res
+
+
 def _tiles(x, t: int):
     """The (nt, t, t) tile batch of a square matrix, tile-row-major (a
     contiguous copy)."""
@@ -6914,12 +7565,12 @@ def hold_matmul_layouts(torch, kernels, dev, label: str, layouts) -> dict:
                        "max_rel_err": worst, "max_abs_err": err}}
 
 
-def main_path_solvers(torch, st, kernels, dev, twostage) -> dict:
+def main_path_solvers(torch, st, kernels, dev) -> dict:
     """Phase 3n: the nineteenth slice's drivers at full width, each a path
     of its own (launch counts zeroed before, read after) and one checked
     run each of the fp32 paths but QDWH-eig and QDWH-SVD (every ``matmul``
     call, and on the tall loop and ``getrf_rec`` at 16384 every
-    ``getrf_panel_linv`` call, held to its plain version).  The 8192
+    ``getrf_panel_linv`` call, held to its plain version).  The fp32
     heev_qdwh and svd_qdwh runs note every operand layout they give
     ``matmul`` (their divide and conquer's block sizes depend on the
     data), and ``matmul`` is held to its plain version at each of them on
@@ -6937,14 +7588,14 @@ def main_path_solvers(torch, st, kernels, dev, twostage) -> dict:
       nb 256: residuals ≤ 3;
     * QDWH on bench.py's inputs: ``polar`` of the svd_fp32 Gaussian
       (n = 8192) under phase 3h's orthogonality and backward gates (n·10ε
-      units) with its qr/chol step counts; ``heev_qdwh`` of the heev_fp32
-      input and ``svd_qdwh`` of the svd_fp32 input, fp32 at 8192 and fp64
-      at 4096 (phases 3h/3i's generators), under phases 3h/3i's gates,
-      their walls beside the two-stage walls of phases 3h and 3i (this
-      run), the stage timers (the mixing draw ``stage.<ns>.draw``
-      included), and the other kernels' launches printed;
-    * hesv: a symmetric Gaussian (indefinite), fp32 at n = 8192 and fp64 at
-      4096, nb 256, 128 right-hand sides: tester.py's residual ≤ 3,
+      units) with its qr/chol step counts; ``heev_qdwh`` and ``svd_qdwh``,
+      fp32 at QDWH_N and fp64 at QDWH_N64 on phases 3h/3i's generators,
+      under phases 3h/3i's gates against fp64 references of the same
+      inputs (``eigvalsh``; σ from the fp64 Gram matrix's eigenvalues),
+      the stage timers (the mixing draw ``stage.<ns>.draw`` included),
+      and the other kernels' launches printed;
+    * hesv: a symmetric Gaussian (indefinite), fp32 at n = HESV_N and fp64
+      at HESV_N64, nb 256, 128 right-hand sides: tester.py's residual ≤ 3,
       hetrf's and hetrs' walls, T's growth max|T|/max|A| and hetrf's
       device launches a column; the fp32 path's check runs hetrs alone
       (every matmul launch of the path is there)."""
@@ -7071,68 +7722,78 @@ def main_path_solvers(torch, st, kernels, dev, twostage) -> dict:
     checks["polar"] = check_path_calls(
         torch, kernels, "polar path", lambda: st.polar(G),
         {"matmul": CHECK_TOL["matmul"]})
+    del G, g
+
+    def eig_ref(a):
+        return torch.linalg.eigvalsh(a.double())
+
+    def sv_ref(g):
+        # σ from the fp64 Gram matrix's eigenvalues: σ's absolute error
+        # ~ε₆₄·σ_max, far inside the 1e-3·σ_max gate
+        return torch.linalg.eigvalsh(g.double().T @ g.double()).clamp(
+            min=0).sqrt().flip(0)
+
+    n = QDWH_N
+    g = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (n, n)).astype(np.float32)).to(dev)        # bench.py's svd_fp32 rng
+    G = st.Matrix.from_array(g, nb=NB, device=dev)
     lays = set()
     (s, u, vh), res["svd_qdwh"] = qdwh_run(
-        "svd_qdwh", "svd_qdwh fp32 n=%d" % SVD_N, lambda: st.svd_qdwh(G),
+        "svd_qdwh", "svd_qdwh fp32 n=%d" % n, lambda: st.svd_qdwh(G),
         "svd", lays)
     res["svd_qdwh"].update(_svd_gates(
-        torch, "svd_qdwh fp32 n=%d" % SVD_N, g, s, u, vh, 10 * eps32,
-        twostage["svd"]["sref"]))
+        torch, "svd_qdwh fp32 n=%d" % n, g, s, u, vh, 10 * eps32,
+        sv_ref(g)))
     del s, u, vh, G, g
     checks["svd_qdwh_layouts"] = hold_matmul_layouts(
-        torch, kernels, dev, "svd_qdwh fp32 n=%d" % SVD_N, lays)
+        torch, kernels, dev, "svd_qdwh fp32 n=%d" % n, lays)
     part("polar and svd_qdwh fp32")
 
-    rng = np.random.default_rng(9)                 # bench.py's heev_fp32
-    g = rng.standard_normal((EIG_N, EIG_N)).astype(np.float32)
+    rng = np.random.default_rng(9)                 # bench.py's heev_fp32 rng
+    g = rng.standard_normal((n, n)).astype(np.float32)
     a = torch.from_numpy(((g + g.T) / 2).astype(np.float32)).to(dev)
     del g
     A = st.HermitianMatrix(a, uplo=st.Uplo.Lower, nb=NB, device=dev)
     lays = set()
     (w, z), res["heev_qdwh"] = qdwh_run(
-        "heev_qdwh", "heev_qdwh fp32 n=%d" % EIG_N, lambda: st.heev_qdwh(A),
+        "heev_qdwh", "heev_qdwh fp32 n=%d" % n, lambda: st.heev_qdwh(A),
         "heev", lays)
     res["heev_qdwh"].update(_eig_gates(
-        torch, "heev_qdwh fp32 n=%d" % EIG_N, a, w, z,
-        twostage["heev"]["lam"], 10 * eps32))
+        torch, "heev_qdwh fp32 n=%d" % n, a, w, z, eig_ref(a), 10 * eps32))
     del w, z, A, a
     checks["heev_qdwh_layouts"] = hold_matmul_layouts(
-        torch, kernels, dev, "heev_qdwh fp32 n=%d" % EIG_N, lays)
+        torch, kernels, dev, "heev_qdwh fp32 n=%d" % n, lays)
     part("heev_qdwh fp32")
 
+    n = QDWH_N64
     rng = np.random.default_rng(7)                 # heev_fp64's generator
-    g = rng.standard_normal((EIG_N64, EIG_N64))
+    g = rng.standard_normal((n, n))
     a = torch.from_numpy((g + g.T) / 2).to(dev)
     A = st.HermitianMatrix(a, uplo=st.Uplo.Lower, nb=NB, device=dev)
     (w, z), res["heev_qdwh_fp64"] = qdwh_run(
-        "heev_qdwh_fp64", "heev_qdwh fp64 n=%d" % EIG_N64,
+        "heev_qdwh_fp64", "heev_qdwh fp64 n=%d" % n,
         lambda: st.heev_qdwh(A), "heev")
     res["heev_qdwh_fp64"].update(_eig_gates(
-        torch, "heev_qdwh fp64 n=%d" % EIG_N64, a, w, z,
-        twostage["heev64"]["lam"], 10 * eps64))
+        torch, "heev_qdwh fp64 n=%d" % n, a, w, z, eig_ref(a), 10 * eps64))
     del A, a, w, z
     g = torch.from_numpy(np.random.default_rng(8).standard_normal(
-        (SVD_N64, SVD_N64))).to(dev)               # svd_fp64's generator
+        (n, n))).to(dev)                           # svd_fp64's generator
     G = st.Matrix.from_array(g, nb=NB, device=dev)
     (s, u, vh), res["svd_qdwh_fp64"] = qdwh_run(
-        "svd_qdwh_fp64", "svd_qdwh fp64 n=%d" % SVD_N64,
+        "svd_qdwh_fp64", "svd_qdwh fp64 n=%d" % n,
         lambda: st.svd_qdwh(G), "svd")
     res["svd_qdwh_fp64"].update(_svd_gates(
-        torch, "svd_qdwh fp64 n=%d" % SVD_N64, g, s, u, vh, 10 * eps64,
-        twostage["svd64"]["sref"]))
+        torch, "svd_qdwh fp64 n=%d" % n, g, s, u, vh, 10 * eps64, sv_ref(g)))
     del G, g, s, u, vh
     part("QDWH fp64")
-    print("QDWH beside the two-stage drivers of phases 3h/3i (this run, "
-          "ms): heev fp32 n=%d qdwh %.1f / twostage %.1f (eigh %.1f); "
-          "fp64 n=%d %.1f / %.1f; svd fp32 n=%d %.1f / %.1f "
-          "(torch.linalg.svd %.1f); fp64 n=%d %.1f / %.1f; polar fp32 %.1f"
-          % (EIG_N, res["heev_qdwh"]["wall_ms"], twostage["heev"]["wall_ms"],
-             twostage["heev"]["eigh_ms"], EIG_N64,
-             res["heev_qdwh_fp64"]["wall_ms"], twostage["heev64"]["wall_ms"],
-             SVD_N, res["svd_qdwh"]["wall_ms"], twostage["svd"]["wall_ms"],
-             twostage["svd"]["library_ms"], SVD_N64,
-             res["svd_qdwh_fp64"]["wall_ms"], twostage["svd64"]["wall_ms"],
-             res["polar"]["wall_ms"]), flush=True)
+    print("QDWH walls (ms): heev fp32 n=%d %.1f, fp64 n=%d %.1f; svd fp32 "
+          "n=%d %.1f, fp64 n=%d %.1f; polar fp32 n=%d %.1f (phases 3h/3i "
+          "time the two-stage drivers at n=%d / %d)"
+          % (QDWH_N, res["heev_qdwh"]["wall_ms"], QDWH_N64,
+             res["heev_qdwh_fp64"]["wall_ms"], QDWH_N,
+             res["svd_qdwh"]["wall_ms"], QDWH_N64,
+             res["svd_qdwh_fp64"]["wall_ms"], SVD_N, res["polar"]["wall_ms"],
+             EIG_N, EIG_N64), flush=True)
 
     # --- hesv -------------------------------------------------------------
     for path, n, dt in (("hesv", HESV_N, torch.float32),
@@ -7307,9 +7968,7 @@ def main() -> int:
                        dev)["launches"])
     paths.update(phase("3m", main_path_fp64, torch, st, kernels,
                        dev)["launches"])
-    solvers = phase("3n", main_path_solvers, torch, st, kernels, dev, {
-        "heev": heev["fp32"], "heev64": heev["fp64"], "svd": svd["fp32"],
-        "svd64": svd["fp64"]})
+    solvers = phase("3n", main_path_solvers, torch, st, kernels, dev)
     paths.update(solvers["launches"])
     path_checks.update(solvers["path_checks"])
     dist_qr = phase("3o", main_path_dist_qr, torch, st, kernels, dev)
@@ -7326,6 +7985,9 @@ def main() -> int:
                  "dist_phesv_fp64": solvers["hesv_fp64"]["wall_ms"]}})
     paths.update(dsolve["launches"])
     path_checks.update(dsolve["path_checks"])
+    resil = phase("3r", main_path_resilience, torch, st, kernels, dev)
+    paths.update(resil["launches"])
+    path_checks.update(resil["path_checks"])
     print("phase walls (s): %s; total %.1f s since the build began"
           % (", ".join("%s %.1f" % kv for kv in spent.items()),
              time.perf_counter() - t0), flush=True)

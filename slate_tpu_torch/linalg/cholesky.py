@@ -17,9 +17,11 @@ kernel (:func:`slate_tpu_torch.ops.blocks.potrf_panels_f64`), rerun with
 :func:`~slate_tpu_torch.linalg._refine.use_split_leg` says so, with the
 JAX package's κ·ε demotion — and refine in the working precision
 (:mod:`slate_tpu_torch.linalg._refine`).
-Branches of the JAX package not ported yet — out-of-core (``ooc``) and
-the ABFT checksum envelope (off by default there) — are queued in
-ROADMAP.md.
+With ``SLATE_TPU_TORCH_ABFT`` on, potrf runs under the ABFT layer
+(:mod:`slate_tpu_torch.resilience.abft`): the ``stock`` branch as the
+checksum-carried step loop, every other branch inside the checksum
+envelope; off, that is one environment read.  The JAX package's
+out-of-core branch (``ooc``) is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -61,7 +63,18 @@ def potrf(a, opts: Optional[Options] = None, *, device=None):
         raise SlateError(f"potrf requires a square matrix, got {tuple(full.shape)}")
     method = get_option(opts, "method_factor", "auto")
     nbsel = 512 if nb <= 256 else nb
-    l = _potrf_dispatch(_potrf_branch(full, nb, nbsel, method), full, nb, nbsel)
+    branch = _potrf_branch(full, nb, nbsel, method)
+    from ..resilience import abft as _abft
+
+    if _abft.eligible(full):
+        # the stock branch runs the checksum-carried loop at the caller's
+        # nb (finer steps, finer verify and recompute); the kernel-owned
+        # branches run at nbsel inside the checksum envelope
+        l = _abft.potrf_guarded(
+            full, nb, branch,
+            lambda: _potrf_dispatch(branch, full, nb, nbsel))
+    else:
+        l = _potrf_dispatch(branch, full, nb, nbsel)
     fac = l if uplo is Uplo.Lower else l.mH.resolve_conj().contiguous()
     return TriangularMatrix(fac, uplo=uplo, diag=Diag.NonUnit,
                             mb=getattr(a, "mb", nb), nb=nb,

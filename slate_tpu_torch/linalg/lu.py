@@ -32,7 +32,9 @@ an explicit ``MethodLU.PartialPiv``).  ``MethodLU.CALU`` is
 :func:`getrf_tntpiv`, the blocked recursion over the tournament panel
 :func:`_panel_lu_tntpiv`.
 
-Not ported yet, queued in ROADMAP.md: the ABFT and out-of-core branches.
+With ``SLATE_TPU_TORCH_ABFT`` on, the partial-pivot driver runs under
+the ABFT layer (:func:`_getrf_partial`).  The out-of-core branch is
+queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -549,14 +551,27 @@ def _choose_lu_driver(av) -> str:
 
 
 def _getrf_partial(av, nb: int, raw_method=MethodLU.Auto):
-    """The PartialPiv dispatch in the JAX package's order
+    """The PartialPiv dispatch.  With ``SLATE_TPU_TORCH_ABFT`` on, square
+    real operands go through the ABFT layer
+    (:func:`slate_tpu_torch.resilience.abft.getrf_guarded`: the
+    checksum-carried loop in place of the recursion, the checksum
+    envelope around the scattered driver); off, this is one environment
+    read and :func:`_getrf_partial_impl`."""
+    from ..resilience import abft as _abft
+
+    if _abft.eligible(av):
+        return _abft.getrf_guarded(av, nb, raw_method)
+    return _getrf_partial_impl(av, nb, raw_method)
+
+
+def _getrf_partial_impl(av, nb: int, raw_method=MethodLU.Auto):
+    """The PartialPiv drivers in the JAX package's order
     (``_getrf_incore``, ``slate_tpu/linalg/lu.py:874-894``): the
     scattered driver where the ``lu_driver`` site picks it; else, for
     matrices taller than :data:`_MAX_LU_PANEL_ROWS`, the tall-panel loop
     (true partial pivoting under an explicit ``MethodLU.PartialPiv``,
     the tournament under ``Auto``); else the blocked recursion.  The JAX
-    package wraps this in an ABFT envelope (off by default) and an
-    out-of-core gate, both queued in ROADMAP.md."""
+    package's out-of-core gate is queued in ROADMAP.md."""
     if _choose_lu_driver(av) == "scattered":
         return getrf_scattered(av, _SCATTERED_NB)
     if av.ndim == 2 and av.shape[0] > _MAX_LU_PANEL_ROWS:

@@ -420,3 +420,33 @@ def chase_plan(kind: str, kd: int, dtype, nl: int, clusters) -> tuple:
     if best is None:
         raise ValueError(f"{kind} at kd = {kd} {dtype}: no cluster fits a block")
     return best[1], best[2], route
+
+
+# ---------------------------------------------------------------------------
+# ABFT checksum blocks
+# ---------------------------------------------------------------------------
+
+#: rows of the JAX package's checksum block-row, by itemsize: one checksum
+#: lane padded to the TPU's sublane tile (``slate_tpu/ops/vmem.py:85``)
+_SUBLANE_ROWS = {4: 8, 8: 4}
+#: the ``matmul`` site's alignment: the kernel takes a product only when
+#: every dimension is a multiple of it
+#: (:func:`slate_tpu_torch.perf.autotune.choose_matmul`)
+MATMUL_ALIGN = 128
+
+
+def checksum_block_rows(dtype, device=None) -> int:
+    """Height of the ABFT checksum block-row and width of its block-column
+    (:mod:`slate_tpu_torch.resilience.abft`): ONE checksum lane, the rest
+    zero.  On the card the block is :data:`MATMUL_ALIGN` wide, so an
+    augmented trailing product keeps every dimension a multiple of 128
+    and rides the ``matmul`` kernel, as the JAX package's checksum rides
+    its trailing product (about 1.6 % more trailing work at n = 8192,
+    nb = 512).  Elsewhere it is the JAX package's sublane-padded height
+    (8 rows fp32, 4 fp64), so the CPU's augmented operands are the JAX
+    package's."""
+    import numpy as np
+
+    if device is not None and torch.device(device).type == "cuda":
+        return MATMUL_ALIGN
+    return _SUBLANE_ROWS.get(np.dtype(str(dtype).replace("torch.", "")).itemsize, 8)

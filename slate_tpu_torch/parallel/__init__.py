@@ -22,16 +22,23 @@ distributed norms, rank-k updates, multiplies and triangular solves of
 in :mod:`.dist_stedc` and :mod:`.dist_svd`), the band solvers and
 multiplies ``ppbsv``/``pgbsv``/``pgbmm``/``phbmm``/``ptbsm`` (with
 ``dist_band.ppbtrf``/``pgbtrf``), the Hermitian-indefinite
-``phetrf``/``phetrs``/``phesv``, and the QDWH tier
-``ppolar``/``pheev_qdwh``/``psvd_qdwh``.
+``phetrf``/``phetrs``/``phesv``, the QDWH tier
+``ppolar``/``pheev_qdwh``/``psvd_qdwh``, and the mixed-precision
+drivers ``pposv_mixed``/``pposv_mixed_gmres``/``pgesv_mixed`` with
+``pgetri`` and ``pgecondest``.  ``pgetrf``/``ppotrf`` also run under the
+resilience layer: step checkpoints (``SLATE_TPU_TORCH_CKPT_EVERY_STEPS``,
+pgetrf), the measured step timeline (``SLATE_TPU_TORCH_DIST_TIMELINE``)
+and the ABFT envelope (``SLATE_TPU_TORCH_ABFT``).
 """
 
 from .mesh import (default_mesh, grid_of, make_grid_mesh,  # noqa: F401
                    mesh_grid_shape)
 from .dist import DistMatrix, distribute, undistribute  # noqa: F401
 from .dist_blas3 import pgemm, pgemm_a, pgemm_auto  # noqa: F401
-from .dist_factor import ppotrf, ppotrs, pposv  # noqa: F401
-from .dist_lu import pgesv, pgetrf, pgetrs  # noqa: F401
+from .dist_factor import (ppotrf, ppotrs, pposv,  # noqa: F401
+                          pposv_mixed, pposv_mixed_gmres)
+from .dist_lu import (pgecondest, pgesv, pgesv_mixed,  # noqa: F401
+                      pgetrf, pgetri, pgetrs)
 from .dist_qr import pgeqrf, pgels, punmqr_conj  # noqa: F401
 from .dist_aux import (  # noqa: F401
     pcolnorms, phemm, pher2k, pherk, pnorm, psymm, psyr2k, psyrk,
@@ -64,8 +71,10 @@ from .dist import canonical_args as _canonical_args  # noqa: E402
 
 _DRIVER_NAMES = {
     _m_blas3: ["pgemm", "pgemm_a"],
-    _m_factor: ["ppotrf", "ppotrs", "pposv"],
-    _m_lu: ["pgetrf", "pgetrs", "pgesv"],
+    _m_factor: ["ppotrf", "ppotrs", "pposv", "pposv_mixed",
+                "pposv_mixed_gmres"],
+    _m_lu: ["pgetrf", "pgetrs", "pgesv", "pgesv_mixed", "pgetri",
+            "pgecondest"],
     _m_qr: ["pgeqrf", "pgels", "pgelqf", "punmqr_conj", "punmlq"],
     _m_aux: ["pcolnorms", "phemm", "pher2k", "pherk", "pnorm", "psymm",
              "psyr2k", "psyrk", "ptri_mask", "ptrmm", "ptrsm"],

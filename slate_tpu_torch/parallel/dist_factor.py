@@ -33,11 +33,13 @@ from ..grid import ceildiv
 from ..ops import kernels
 from ..ops.blocks import matmul as _mm
 from ..ops.split_gemm import matmul_sliced, split_slices
+from ..perf import blackbox
 from ..perf.autotune import choose_matmul
-from .dist import DistMatrix, distribute, like
-from .dist_util import (bcast_block_col, bcast_block_row,
-                        dist_chunk_slices, dist_lookahead_depth,
-                        dist_panel_backend, local_grows, stage_bounds,
+from .dist import DistMatrix, distribute, like, undistribute
+from .dist_util import (_natural_padded, agree_flag, bcast_block_col,
+                        bcast_block_row, dist_chunk_slices,
+                        dist_lookahead_depth, dist_panel_backend,
+                        local_grows, run_timeline, stage_bounds,
                         staged_fori)
 from .mesh import AXIS_P, mesh_grid_shape
 
@@ -60,8 +62,11 @@ def _panel_factor(backend: str, d, panel):
 
 
 def _ppotrf(mesh, a_loc, nb: int, nt: int, backend: str, depth: int,
-            chunks: int, trail: str = "stock"):
-    """The step loop on this rank's shard ``a_loc``, in place; ``trail``
+            chunks: int, trail: str = "stock", k_lo: int = 0,
+            k_hi=None, ring=None):
+    """Steps [k_lo, k_hi) of the step loop on this rank's shard ``a_loc``,
+    in place; ``ring`` is the in-flight panel ring a previous chunk
+    returned (None: broadcast it).  Returns ``(a_loc, ring)``.  ``trail``
     ``"split3"``/``"split6"`` folds every product of a step off one split
     of its replicated panel."""
     p, q = mesh_grid_shape(mesh)
@@ -150,10 +155,13 @@ def _ppotrf(mesh, a_loc, nb: int, nt: int, backend: str, depth: int,
 
         return body
 
-    ring = [bcast_block_col(mesh, getcol(j), grows_h, j % q == c, M, chunks)
-            for j in range(depth)]
-    staged_fori(stage_bounds(nt), p, q, nb, make_body, ring)
-    return a_loc
+    if ring is None:
+        ring = [bcast_block_col(mesh, getcol(k_lo + j), grows_h,
+                                (k_lo + j) % q == c, M, chunks)
+                for j in range(min(depth, nt - k_lo))]
+    ring = staged_fori(stage_bounds(nt), p, q, nb, make_body, ring, k_lo,
+                       k_hi)
+    return a_loc, ring
 
 
 def _check_square(name: str, a: DistMatrix) -> None:
@@ -190,8 +198,49 @@ def ppotrf(a: DistMatrix) -> DistMatrix:
                            a.device)
         if bk in ("split3", "split6"):
             trail = bk
-    return like(a, _ppotrf(a.mesh, a.data.clone(), a.nb, nt, backend,
-                           depth, chunks, trail))
+    knobs = (backend, depth, chunks, trail)
+
+    def run():
+        return _ppotrf(a.mesh, a.data.clone(), a.nb, nt, *knobs)[0]
+
+    if blackbox.timeline_wanted() and nt > 1:
+        # the measured step timeline: the same steps one window at a time
+        def run_chunk(carry, k0, k1):
+            if carry is None:
+                return _ppotrf(a.mesh, a.data.clone(), a.nb, nt, *knobs,
+                               0, k1)
+            return _ppotrf(a.mesh, carry[0], a.nb, nt, *knobs, k0, k1,
+                           carry[1])
+
+        out = run_timeline("ppotrf", nt, blackbox.timeline_window(),
+                           run_chunk, a.device)[0]
+    else:
+        out = run()
+    return like(a, _ppotrf_abft_check(a, run, out))
+
+
+def _ppotrf_abft_check(a: DistMatrix, run, out):
+    """The distributed Cholesky's ABFT envelope: with
+    ``SLATE_TPU_TORCH_ABFT`` on, verify ``(eᵀL)·Lᴴ = eᵀA`` on the padded
+    natural-order operands after the run (on every rank, the verdict
+    agreed over the grid) and recompute once through ``run`` on a
+    detection; off, one environment read."""
+    from ..resilience import abft as _abft
+
+    if not _abft.enabled():
+        return out
+    # the reference checksums off the hermitized STORED triangle (the
+    # upper triangle of a ppotrf operand may be junk)
+    a_nat = _natural_padded(a)
+    cs_row0 = (torch.tril(a_nat) + torch.tril(a_nat, -1).mH).sum(dim=0)
+    del a_nat
+
+    def verify(o):
+        ok, detail = _abft.verify_chol_factors(
+            cs_row0, torch.tril(_natural_padded(a, o)))
+        return not agree_flag(a.mesh, not ok, "abft_agree"), detail
+
+    return _abft._envelope("ppotrf", run, lambda o: o, verify, out=out)
 
 
 def _ptrsm(mesh, l_loc, b_loc, nb: int, nt: int, trans: bool, chunks: int):
@@ -283,3 +332,110 @@ def pposv(a, b, mesh, nb: int = 256):
         distribute(b, mesh, nb, row_mult=q)
     l = ppotrf(ad)
     return l, ppotrs(l, bd)
+
+
+# ---------------------------------------------------------------------------
+# Mixed precision over the grid
+# ---------------------------------------------------------------------------
+
+def _mixed_setup(a, b, mesh, nb: int, tol):
+    """``(ad, b, mesh, anorm, thresh, lo)`` of a distributed mixed
+    driver (``b`` a tensor on the mesh's device): ``a`` dense (replicated; distributed here with ``diag_pad=1``
+    and square padding) or a ready DistMatrix; ‖A‖∞ of the dense matrix,
+    or :func:`~.dist_aux.pnorm` of a DistMatrix (agreed over the grid);
+    the stopping threshold ε·√n unless ``tol`` is given."""
+    from ..enums import Norm
+    from ..linalg._refine import lo_dtype
+    from .dist_aux import pnorm
+    from .mesh import mesh_grid_shape
+
+    if isinstance(a, DistMatrix):
+        ad, mesh = a, a.mesh
+        anorm = float(pnorm(ad, Norm.Inf))
+    else:
+        p, q = mesh_grid_shape(mesh)
+        a = torch.as_tensor(a, device=mesh.device)
+        ad = distribute(a, mesh, nb, diag_pad=1.0, row_mult=q, col_mult=p)
+        anorm = float(a.abs().sum(dim=1).max())
+    b = torch.as_tensor(b, device=mesh.device, dtype=ad.dtype)
+    eps = float(torch.finfo(ad.dtype).eps)
+    thresh = float(tol) if tol is not None else eps * float(ad.n) ** 0.5
+    return ad, b, mesh, anorm, thresh, lo_dtype(ad.dtype)
+
+
+def _grid_absmax(v: DistMatrix) -> float:
+    """max |v| over the whole grid (one pmax: every rank reads the same
+    value)."""
+    m = v.data.abs().amax().reshape(1).to(torch.float64)
+    return float(v.mesh.pmax(m)[0])
+
+
+def pposv_mixed(a, b, mesh=None, nb: int = 256, *, tol=None,
+                itermax: int = 30, use_fallback: bool = True):
+    """Distributed mixed-precision Cholesky solve with iterative refinement
+    (reference ``src/posv_mixed.cc``): one low-precision :func:`ppotrf`,
+    working-precision residuals through ``pgemm``, corrections solved
+    against the low factor; the loop is
+    :func:`~slate_tpu_torch.linalg._refine.ir_refine_core` with
+    DistMatrix hooks, its norms agreed over the grid.  Returns ``(x,
+    iters)``, ``x`` a DistMatrix, ``iters`` negative after the fallback
+    (the reference's convention)."""
+    from ..linalg._refine import ir_refine_core
+    from .dist_blas3 import pgemm
+    from .mesh import mesh_grid_shape
+
+    ad, b, mesh, anorm, thresh, lo = _mixed_setup(a, b, mesh, nb, tol)
+    bd = distribute(b if b.ndim == 2 else b[:, None], mesh, ad.nb,
+                    row_mult=mesh_grid_shape(mesh)[1])
+    l_lo = ppotrf(like(ad, ad.data.to(lo)))
+
+    def solve_lo(rd):
+        xc = ppotrs(l_lo, like(rd, rd.data.to(lo)))
+        return like(rd, xc.data.to(ad.dtype))
+
+    def solve_full(bd2):
+        return ppotrs(ppotrf(ad), bd2)
+
+    def residual(x):
+        return like(bd, bd.data - pgemm(1.0, ad, x).data)
+
+    return ir_refine_core(
+        bd, solve_lo, solve_full, residual, anorm=anorm, thresh=thresh,
+        itermax=itermax, use_fallback=use_fallback,
+        add=lambda x, d: like(x, x.data + d.data), absmax=_grid_absmax)
+
+
+def pposv_mixed_gmres(a, b, mesh=None, nb: int = 256, *, tol=None,
+                      itermax: int = 30, restart: int = 30,
+                      use_fallback: bool = True):
+    """Distributed FGMRES-IR over a low-precision distributed Cholesky
+    preconditioner (reference ``src/posv_mixed_gmres.cc``): the Krylov
+    vectors are replicated (O(n·restart), each the result of a psum, so
+    the same bits on every rank and every host decision the same); each
+    matvec and preconditioner apply runs on the grid (``pgemm`` /
+    :func:`ppotrs`).  Returns ``(x, iters)`` with ``x`` replicated."""
+    from ..linalg._refine import fgmres_refine
+    from .dist_blas3 import pgemm
+    from .mesh import mesh_grid_shape
+
+    ad, b, mesh, anorm, thresh, lo = _mixed_setup(a, b, mesh, nb, tol)
+    q = mesh_grid_shape(mesh)[1]
+    l_lo = ppotrf(like(ad, ad.data.to(lo)))
+
+    def dvec(v):
+        return distribute(v.to(ad.dtype), mesh, ad.nb, row_mult=q)
+
+    def precond(vcol):
+        rd = dvec(vcol)
+        xc = ppotrs(l_lo, like(rd, rd.data.to(lo)))
+        return undistribute(like(rd, xc.data.to(ad.dtype)))
+
+    def matvec(v):
+        return undistribute(pgemm(1.0, ad, dvec(v[:, None])))[:, 0]
+
+    def solve_full(bv2):
+        return undistribute(ppotrs(ppotrf(ad), dvec(bv2)))
+
+    return fgmres_refine(None, b, precond, solve_full, anorm=anorm,
+                         thresh=thresh, itermax=itermax, restart=restart,
+                         use_fallback=use_fallback, matvec=matvec)

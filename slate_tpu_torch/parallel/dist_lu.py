@@ -33,11 +33,14 @@ import torch
 from ..grid import ceildiv
 from ..ops import kernels
 from ..ops.blocks import matmul as _mm
-from .dist import DistMatrix, distribute, like
-from .dist_util import (bcast_block_col, dist_chunk_slices,
+from ..perf import blackbox
+from ..resilience import checkpoint as _ckpt
+from .dist import DistMatrix, distribute, like, undistribute
+from .dist_util import (_natural_padded, agree_flag, agree_values,
+                        bcast_block_col, dist_chunk_slices,
                         dist_lookahead_depth, dist_panel_backend,
-                        dist_pivot_backend, local_grows, stage_bounds,
-                        staged_fori)
+                        dist_pivot_backend, local_grows, peye,
+                        run_timeline, stage_bounds, staged_fori)
 from .mesh import AXIS_P, AXIS_Q, BOTH, mesh_grid_shape
 
 
@@ -172,9 +175,12 @@ def _u12_solve(backend: str, l11, rowblk):
 
 
 def _pgetrf(mesh, a_loc, nb: int, nt: int, backend: str, pivot: str,
-            depth: int, chunks: int):
-    """The step loop on this rank's shard ``a_loc``, in place; returns
-    ``(a_loc, gperm)``."""
+            depth: int, chunks: int, k_lo: int = 0, k_hi=None, gperm=None,
+            ring=None):
+    """Steps [k_lo, k_hi) of the step loop on this rank's shard ``a_loc``,
+    in place, from the pivot vector ``gperm`` and panel ring ``ring`` a
+    previous chunk returned (None: the identity and a fresh broadcast);
+    returns ``(a_loc, gperm, ring)``."""
     p, q = mesh_grid_shape(mesh)
     r, c = mesh.r, mesh.c
     ml, nl = a_loc.shape[0] // nb, a_loc.shape[1] // nb
@@ -301,12 +307,15 @@ def _pgetrf(mesh, a_loc, nb: int, nt: int, backend: str, pivot: str,
 
         return body
 
-    ring = [bcast_block_col(mesh, getcol(j), grows_h, j % q == c, M, chunks)
-            for j in range(depth)]
-    gperm = torch.arange(M, device=dev)
-    gperm, _ = staged_fori(stage_bounds(nt), p, q, nb, make_body,
-                           (gperm, ring))
-    return a_loc, gperm
+    if ring is None:
+        ring = [bcast_block_col(mesh, getcol(k_lo + j), grows_h,
+                                (k_lo + j) % q == c, M, chunks)
+                for j in range(min(depth, nt - k_lo))]
+    if gperm is None:
+        gperm = torch.arange(M, device=dev)
+    gperm, ring = staged_fori(stage_bounds(nt), p, q, nb, make_body,
+                              (gperm, ring), k_lo, k_hi)
+    return a_loc, gperm, ring
 
 
 def pgetrf(a: DistMatrix):
@@ -328,9 +337,61 @@ def pgetrf(a: DistMatrix):
     pivot = dist_pivot_backend(a.nb, p, a.dtype, a.device)
     depth = dist_lookahead_depth("getrf", nt, a.nb, a.dtype, a.device)
     chunks = dist_chunk_slices("getrf", a.nb, a.dtype, a.mesh)
-    lu, gperm = _pgetrf(a.mesh, a.data.clone(), a.nb, nt, backend, pivot,
-                        depth, chunks)
+    knobs = (backend, pivot, depth, chunks)
+
+    def run():
+        return _pgetrf(a.mesh, a.data.clone(), a.nb, nt, *knobs)[:2]
+
+    def run_chunk(carry, k0, k1):
+        if carry is None:
+            return _pgetrf(a.mesh, a.data.clone(), a.nb, nt, *knobs, 0, k1)
+        # a restored carry is a host snapshot: back onto the device
+        a_loc, gperm, ring = carry
+        return _pgetrf(a.mesh, a_loc.to(a.device), a.nb, nt, *knobs, k0,
+                       k1, gperm.to(a.device), [r.to(a.device) for r in ring])
+
+    every = _ckpt.every_steps()
+    if 0 < every < nt:
+        # step-cadence checkpoint/restart: the same steps in every-step
+        # chunks, the carry (window, pivots, panel ring) snapshotted at
+        # each boundary; a loss on any rank rewinds every rank one chunk
+        out = _ckpt.run_checkpointed(
+            nt, every, run_chunk, label="pgetrf",
+            agree=lambda lost: agree_flag(a.mesh, lost, "ckpt_agree"))
+        lu, gperm = out[0], out[1]
+    elif blackbox.timeline_wanted() and nt > 1:
+        # the measured step timeline (checkpointing takes precedence)
+        out = run_timeline("pgetrf", nt, blackbox.timeline_window(),
+                           run_chunk, a.device)
+        lu, gperm = out[0], out[1]
+    else:
+        lu, gperm = run()
+    lu, gperm = _pgetrf_abft_check(a, lu, gperm, run)
     return like(a, lu), gperm
+
+
+def _pgetrf_abft_check(a: DistMatrix, lu, gperm, run):
+    """The distributed LU's ABFT envelope: with ``SLATE_TPU_TORCH_ABFT``
+    on, verify ``(eᵀL)·U = eᵀA`` and ``L·(U·e) = (A·e)[gperm]`` on the
+    padded natural-order operands (on every rank, the verdict agreed
+    over the grid) and recompute once through ``run`` on a detection
+    (``abft.recomputed``); a second failure flows to the caller's
+    residual gates (``abft.unrecovered``).  Off: one environment read."""
+    from ..resilience import abft as _abft
+
+    if not _abft.enabled():
+        return lu, gperm
+    a_nat = _natural_padded(a)
+    cs_row0, cs_col0 = a_nat.sum(dim=0), a_nat.sum(dim=1)
+    del a_nat
+
+    def verify(out):
+        ok, detail = _abft.verify_lu_factors(
+            cs_row0, cs_col0, _natural_padded(a, out[0]), out[1])
+        return not agree_flag(a.mesh, not ok, "abft_agree"), detail
+
+    return _abft._envelope("pgetrf", run, lambda out: out, verify,
+                           out=(lu, gperm))
 
 
 def _plu_trsm(mesh, lu_loc, b_loc, nb: int, nt: int, upper: bool,
@@ -424,3 +485,97 @@ def pgesv(a, b, mesh, nb: int = 256):
         distribute(b, mesh, nb, row_mult=q)
     lu, gperm = pgetrf(ad)
     return lu, gperm, pgetrs(lu, gperm, bd)
+
+
+def pgesv_mixed(a, b, mesh, nb: int = 256, *, tol=None, itermax: int = 30,
+                use_fallback: bool = True):
+    """Distributed mixed-precision LU solve with iterative refinement
+    (reference ``src/gesv_mixed.cc``): one low-precision :func:`pgetrf`,
+    working-precision residuals through ``pgemm``, corrections solved
+    against the low factor, the loop
+    :func:`~slate_tpu_torch.linalg._refine.ir_refine_core` with its norms
+    agreed over the grid.  Returns ``(x, iters)``, ``x`` a DistMatrix."""
+    from ..linalg._refine import ir_refine_core
+    from .dist_blas3 import pgemm
+    from .dist_factor import _grid_absmax, _mixed_setup
+
+    ad, b, mesh, anorm, thresh, lo = _mixed_setup(a, b, mesh, nb, tol)
+    bd = distribute(b if b.ndim == 2 else b[:, None], mesh, ad.nb,
+                    row_mult=mesh_grid_shape(mesh)[1])
+    lu_lo, gperm = pgetrf(like(ad, ad.data.to(lo)))
+
+    def solve_lo(rd):
+        xc = pgetrs(lu_lo, gperm, like(rd, rd.data.to(lo)))
+        return like(rd, xc.data.to(ad.dtype))
+
+    def solve_full(bd2):
+        lu_full, gperm_f = pgetrf(ad)
+        return pgetrs(lu_full, gperm_f, bd2)
+
+    def residual(x):
+        # diag_pad keeps the padded rows of r at exact zero
+        return like(bd, bd.data - pgemm(1.0, ad, x).data)
+
+    return ir_refine_core(
+        bd, solve_lo, solve_full, residual, anorm=anorm, thresh=thresh,
+        itermax=itermax, use_fallback=use_fallback,
+        add=lambda x, d: like(x, x.data + d.data), absmax=_grid_absmax)
+
+
+def pgetri(a: DistMatrix) -> DistMatrix:
+    """Distributed inverse from LU (reference ``src/getri.cc``): factor,
+    then solve A·X = I against the identity each rank builds for itself
+    (:func:`~.dist_util.peye`)."""
+    lu, gperm = pgetrf(a)
+    eye = peye(a.n, a.nb, a.mesh, dtype=a.dtype, pad_mult=a.mtp)
+    if eye.mtp != lu.mtp:
+        raise ValueError("identity padding mismatch")
+    return pgetrs(lu, gperm, eye)
+
+
+def pgecondest(lu: DistMatrix, gperm, anorm: float, iters: int = 5):
+    """1-norm reciprocal condition estimate from a distributed LU factor
+    (reference ``src/gecondest.cc``): Hager/Higham iterations on ‖A⁻¹‖₁
+    with distributed solves, A through :func:`pgetrs` and Aᴴ through
+    :func:`~.dist_aux.ptrsm`.  The estimate, the stopping test and the
+    next unit vector are rank (0, 0)'s, agreed over the grid
+    (``collective.condest_agree``).  Returns ``(rcond, est)``."""
+    from ..enums import Diag, Op, Side, Uplo
+    from .dist_aux import ptrsm
+
+    n = lu.n
+    q = lu.grid_shape[1]
+    mesh = lu.mesh
+    dev = lu.device
+    gperm = torch.as_tensor(gperm, device=dev).long()
+    M = lu.mtp * lu.nb
+    gp = torch.arange(M, device=dev)
+    gp[:n] = torch.argsort(gperm[:n])
+
+    def solve_ah(xd):
+        # Aᴴ z = x with A[gperm] = L·U: Aᴴ = Uᴴ·Lᴴ·P, so w = U⁻ᴴ x,
+        # v = L⁻ᴴ w, z = Pᵀ v = v[argsort(gperm)]
+        w = ptrsm(Side.Left, Uplo.Upper, Op.ConjTrans, Diag.NonUnit, lu, xd)
+        v = ptrsm(Side.Left, Uplo.Lower, Op.ConjTrans, Diag.Unit, lu, w)
+        return like(v, _permute_rows(mesh, v.data, gp, lu.nb))
+
+    def dvec(x):
+        return distribute(torch.as_tensor(x, dtype=lu.dtype, device=dev),
+                          mesh, lu.nb, row_mult=q)
+
+    x = np.full((n, 1), 1.0 / n)
+    est = 0.0
+    for _ in range(max(iters, 1)):
+        y = undistribute(pgetrs(lu, gperm, dvec(x))).cpu().numpy()
+        xi = np.sign(y) + (y == 0)
+        z = undistribute(solve_ah(dvec(xi))).cpu().numpy()
+        j = int(np.argmax(np.abs(z)))
+        stop = np.abs(z).max() <= float(np.real((z.conj() * x).sum()))
+        est, j, stop = agree_values(mesh, float(np.abs(y).sum()), j,
+                                    float(stop), kind="condest_agree")
+        if stop:
+            break
+        x = np.zeros((n, 1))
+        x[int(j)] = 1.0
+    rcond = 0.0 if est == 0 or anorm == 0 else 1.0 / (est * float(anorm))
+    return rcond, est

@@ -48,7 +48,7 @@ from .dist_aux import ptrsm
 from .dist_blas3 import pgemm
 from .dist_factor import ppotrf
 from .dist_qr import pgeqrf, punmqr_conj
-from .dist_util import _stage, count_collective, peye
+from .dist_util import _stage, agree_values, peye
 from .mesh import BOTH, mesh_grid_shape
 
 __all__ = ["pheev_qdwh", "ppolar", "psvd_qdwh"]
@@ -68,13 +68,9 @@ def _dist(av, mesh, nb):
 
 
 def _agree(mesh, *values):
-    """Rank (0, 0)'s ``values`` on every rank: one psum of a buffer that
-    only rank (0, 0) fills.  Returns Python floats."""
-    mine = (mesh.r, mesh.c) == (0, 0)
-    buf = torch.tensor([float(v) if mine else 0.0 for v in values],
-                       dtype=torch.float64, device=mesh.device)
-    count_collective("qdwh_agree", 8 * len(values))
-    return mesh.psum(buf, BOTH).tolist()
+    """Rank (0, 0)'s ``values`` on every rank (:func:`~.dist_util.
+    agree_values`, counted as ``collective.qdwh_agree``)."""
+    return agree_values(mesh, *values, kind="qdwh_agree")
 
 
 def _pgemm_dense(alpha, a_h, b_h, beta, c_h, mesh, nb):

@@ -5,7 +5,11 @@ panel broadcasts, the staged step windows, the four ``dist_*`` site
 resolvers, ``peye``, ``ptranspose``, ``predistribute`` and
 ``phermitize``, the placed move between any two layouts (``_move``: the
 two-stage middle's rows → column slabs → block-cyclic moves and its
-gathers) and the drivers' stage timer (``_stage``).
+gathers), the drivers' stage timer (``_stage``), the agreement helpers
+(``agree_flag``, ``agree_values``), the measured step timeline
+(``run_timeline``, ``timeline_steps``, ``clear_timeline``), the
+broadcasts' fault seam (``_inject_bcast``) and the ABFT layout
+(``_natural_padded``).
 
 The JAX package runs the step plumbing inside ``shard_map`` with a traced
 step k and masks every rank-dependent choice
@@ -52,6 +56,23 @@ def count_collective(kind: str, nbytes: int, calls: int = 1) -> None:
         metrics.inc("collective.%s.bytes" % kind, float(nbytes))
 
 
+def _inject_bcast(out):
+    """The fused broadcasts' fault seam (site ``dist.bcast``,
+    :mod:`slate_tpu_torch.resilience.inject`): with no plan, one
+    environment read; an ``error`` raises, ``nan``/``inf`` poisons one
+    element of the replicated buffer (the corruption the drivers'
+    residual gates must catch)."""
+    from ..resilience import inject
+
+    kind = inject.poll("dist.bcast")
+    if kind == "error":
+        raise inject.InjectedFault("dist.bcast")
+    if kind in ("nan", "inf"):
+        out[(0,) * out.ndim] = float("nan") if kind == "nan" \
+            else float("inf")
+    return out
+
+
 def bcast_block_col(mesh, col_loc, grows, own: bool, M: int,
                     chunks: int = 1):
     """Fused panel broadcast, one collective a step: the owner column's
@@ -74,7 +95,8 @@ def bcast_block_col(mesh, col_loc, grows, own: bool, M: int,
         if own:
             buf[idx] = col_loc[:, i:i + csz]
         parts.append(mesh.psum(buf, BOTH))
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return _inject_bcast(parts[0] if len(parts) == 1
+                         else torch.cat(parts, dim=1))
 
 
 def bcast_block_row(mesh, row_loc, gcols, own: bool, N: int,
@@ -94,7 +116,8 @@ def bcast_block_row(mesh, row_loc, gcols, own: bool, N: int,
         if own:
             buf[:, idx] = row_loc[i:i + csz]
         parts.append(mesh.psum(buf, BOTH))
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+    return _inject_bcast(parts[0] if len(parts) == 1
+                         else torch.cat(parts, dim=0))
 
 
 def stage_bounds(nt: int, nstages: int = 4):
@@ -104,18 +127,124 @@ def stage_bounds(nt: int, nstages: int = 4):
     return [round(i * nt / s) for i in range(s + 1)]
 
 
-def staged_fori(bounds, p: int, q: int, nb: int, make_body, carry):
+def staged_fori(bounds, p: int, q: int, nb: int, make_body, carry,
+                k_lo: int = 0, k_hi: Optional[int] = None):
     """Run the staged factorization loop: steps [ks, ke) of a stage touch
     only global blocks ≥ ks, so every live local row sits at offset ≥
     ``(ks // p)·nb`` and every live local column at ≥ ``(ks // q)·nb``;
     ``make_body(row0, col0)`` returns the stage's step body, called as
-    ``carry = body(k, carry)``."""
+    ``carry = body(k, carry)``.  ``k_lo``/``k_hi`` run only steps
+    [k_lo, k_hi) from ``carry`` (the chunked runners: checkpoints and the
+    measured timeline).  Each step keeps its stage's window, so a run in
+    chunks does the monolithic run's products at their shapes and its
+    factors are bitwise the monolithic ones.  (The JAX package clips the
+    stage bounds to the chunk, ``_range_bounds``, and so starts a chunk's
+    window at its first step; a product at another shape may take
+    another kernel configuration here.)"""
+    k_hi = bounds[-1] if k_hi is None else k_hi
     for s in range(len(bounds) - 1):
-        ks, ke = bounds[s], bounds[s + 1]
-        body = make_body((ks // p) * nb, (ks // q) * nb)
+        ks, ke = max(bounds[s], k_lo), min(bounds[s + 1], k_hi)
+        if ks >= ke:
+            continue
+        body = make_body((bounds[s] // p) * nb, (bounds[s] // q) * nb)
         for k in range(ks, ke):
             carry = body(k, carry)
     return carry
+
+
+def agree_flag(mesh, flag: bool, kind: str = "agree") -> bool:
+    """True on every rank when ``flag`` is true on any: one psum of a
+    one-element buffer (``collective.<kind>``).  The serial stub returns
+    ``flag``."""
+    buf = torch.tensor([1.0 if flag else 0.0], dtype=torch.float64,
+                       device=mesh.device)
+    count_collective(kind, 8)
+    return bool(mesh.psum(buf, BOTH)[0] > 0)
+
+
+def agree_values(mesh, *values, kind: str = "agree"):
+    """Rank (0, 0)'s ``values`` on every rank: one psum of a buffer only
+    rank (0, 0) fills (``collective.<kind>``).  Returns Python floats."""
+    mine = (mesh.r, mesh.c) == (0, 0)
+    buf = torch.tensor([float(v) if mine else 0.0 for v in values],
+                       dtype=torch.float64, device=mesh.device)
+    count_collective(kind, 8 * len(values))
+    return mesh.psum(buf, BOTH).tolist()
+
+
+# ---------------------------------------------------------------------------
+# The measured step timeline
+# ---------------------------------------------------------------------------
+
+_timeline_steps: list = []
+
+
+def timeline_steps() -> list:
+    """Copies of the latest timeline run's rows (``{"driver", "k0", "k1",
+    "wall_s", "bcast_bytes", "bcast_count"}``); empty before one."""
+    return [dict(r) for r in _timeline_steps]
+
+
+def clear_timeline() -> None:
+    del _timeline_steps[:]
+
+
+def run_timeline(driver: str, nt: int, window: int, run_chunk,
+                 device=None):
+    """Drive ``run_chunk(carry, k0, k1)`` over ``[0, nt)`` one
+    ``window``-step chunk at a time, measuring each: its host wall
+    (synchronized with the card when ``device`` is a CUDA device), its
+    ``collective.bcast_*`` byte and count deltas (while metrics are on),
+    a ``dist.step.<driver>`` timer, a :class:`slate_tpu_torch.trace.Block`
+    span and a ``dist.step`` flight-recorder event.  The chunks run the
+    monolithic driver's steps (:func:`staged_fori`), so the factors are
+    bitwise the monolithic ones.  Returns the final carry; the rows land
+    in :func:`timeline_steps`."""
+    import time as _time
+
+    from .. import trace as _trace
+    from ..perf import blackbox
+
+    cuda = device is not None and torch.device(device).type == "cuda"
+    window = max(1, int(window))
+    steps = []
+    carry = None
+    k = 0
+    while k < nt:
+        k1 = min(k + window, nt)
+        before = metrics.snapshot()
+        if cuda:
+            torch.cuda.synchronize(device)
+        t0 = _time.perf_counter()
+        with _trace.Block("dist.%s.k%d" % (driver, k)):
+            carry = run_chunk(carry, k, k1)
+            if cuda:
+                torch.cuda.synchronize(device)
+        wall = _time.perf_counter() - t0
+        c = metrics.snapshot_delta(before, metrics.snapshot())["counters"]
+        row = {"driver": driver, "k0": int(k), "k1": int(k1),
+               "wall_s": wall,
+               "bcast_bytes": float(
+                   c.get("collective.bcast_col.bytes", 0.0)
+                   + c.get("collective.bcast_row.bytes", 0.0)),
+               "bcast_count": float(
+                   c.get("collective.bcast_col.count", 0.0)
+                   + c.get("collective.bcast_row.count", 0.0))}
+        steps.append(row)
+        metrics.observe_time("dist.step.%s" % driver, wall)
+        blackbox.record("dist.step", **row)
+        k = k1
+    _timeline_steps[:] = steps
+    return carry
+
+
+def _natural_padded(dm: DistMatrix, data=None):
+    """The whole padded matrix in natural (unshuffled) order on every rank
+    (``data`` in place of ``dm.data``): the layout the ABFT factor
+    identities are verified in, since the drivers factor the padded
+    matrix.  One psum of the placed storage."""
+    x = dm if data is None else like(dm, data)
+    return _natural(x, _storage(x), dm.mtp * dm.row_nb, dm.ntp * dm.nb)
 
 
 def dist_panel_backend(op: str, nb: int, dtype, device, m=None,

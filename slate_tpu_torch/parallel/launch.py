@@ -722,3 +722,127 @@ def rank_qdwh(mesh, job: dict) -> dict:
                warnings=[str(w.message) for w in ws
                          if issubclass(w.category, RuntimeWarning)])
     return out
+
+
+# ---------------------------------------------------------------------------
+# Rank body of the mixed drivers, pgetri, pgecondest and the resilience
+# paths of pgetrf/ppotrf
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _env(**kw):
+    """Environment variables set for the block (None unsets one)."""
+    saved = {k: os.environ.get(k) for k in kw}
+    try:
+        for k, v in kw.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def rank_dist_mixed(mesh, job: dict) -> dict:
+    """One job on replicated numpy inputs under the job's pins
+    ``job["force"]``; ``job["op"]`` is
+
+    * ``"mixed"``: ``spd``, ``gen`` (square) and ``b``: ``pposv_mixed``,
+      ``pposv_mixed_gmres`` and ``pgesv_mixed`` of b (solutions and
+      iteration counts), ``pgetri`` of gen and ``pgecondest`` of its LU
+      with ‖gen‖₁ (``rcond``, ``est``);
+    * ``"resilience"``: ``gen`` and ``spd``: pgetrf and ppotrf
+      monolithic, under ``SLATE_TPU_TORCH_DIST_TIMELINE`` (window
+      ``job["window"]``; the timeline's rows), pgetrf under
+      ``SLATE_TPU_TORCH_CKPT_EVERY_STEPS=job["every"]`` with one injected
+      ``step.boundary`` device loss (seed ``job["seed"]``), both under
+      ``SLATE_TPU_TORCH_ABFT=correct`` (clean), and each ABFT envelope
+      handed a factor with one exponent bit flipped on rank (0, 0)'s
+      shard (it must detect and recompute).
+
+    Returns numpy (this rank's shards for the bitwise comparisons,
+    replicated results through :func:`~.dist.undistribute`), each
+    path's ``abft.*`` / ``ckpt.*`` counters and the job's host wall
+    (``wall_s``)."""
+    from ..enums import Norm
+    from ..perf import metrics
+    from ..resilience import inject
+    from . import (distribute, pgecondest, pgesv_mixed, pgetrf, pgetri,
+                   pnorm, ppotrf, pposv_mixed, pposv_mixed_gmres,
+                   undistribute)
+    from .dist_factor import _ppotrf_abft_check
+    from .dist_lu import _pgetrf_abft_check
+    from .dist_util import timeline_steps
+
+    nb, p, q = job["nb"], mesh.p, mesh.q
+    sq = dict(diag_pad=1.0, row_mult=q, col_mult=p)
+    out = {"rank": (mesh.r, mesh.c)}
+    t0 = time.perf_counter()
+
+    def counted(name, fn):
+        metrics.on()
+        before = metrics.snapshot()
+        r = fn()
+        c = metrics.snapshot_delta(before, metrics.snapshot())["counters"]
+        out[name + "_counters"] = {k: v for k, v in c.items()
+                                   if k.startswith(("abft.", "ckpt."))}
+        return r
+
+    with pinned(job.get("force")):
+        if job["op"] == "mixed":
+            spd, gen, b = job["spd"], job["gen"], job["b"]
+            x, it = pposv_mixed(spd, b, mesh, nb)
+            out["posv"] = (_np(undistribute(x)), it)
+            x, it = pposv_mixed_gmres(spd, b, mesh, nb)
+            out["posv_gmres"] = (_np(x), it)
+            x, it = pgesv_mixed(gen, b, mesh, nb)
+            out["gesv"] = (_np(undistribute(x)), it)
+            gd = distribute(gen, mesh, nb, **sq)
+            out["getri"] = _np(undistribute(pgetri(gd)))
+            lu, gperm = pgetrf(gd)
+            out["condest"] = pgecondest(lu, gperm,
+                                        float(pnorm(gd, Norm.One)))
+            out["wall_s"] = time.perf_counter() - t0
+            return out
+        if job["op"] != "resilience":
+            raise ValueError("rank_dist_mixed: unknown op %r" % (job["op"],))
+        gd = distribute(job["gen"], mesh, nb, **sq)
+        sd = distribute(job["spd"], mesh, nb, **sq)
+
+        def factors():
+            lu, gperm = pgetrf(gd)
+            return _np(lu.data), _np(gperm), _np(ppotrf(sd).data)
+
+        out["mono"] = factors()
+        with _env(SLATE_TPU_TORCH_DIST_TIMELINE=1,
+                  SLATE_TPU_TORCH_DIST_TIMELINE_WINDOW=job["window"]):
+            out["timeline"] = factors()
+        out["timeline_rows"] = len(timeline_steps())
+        with _env(SLATE_TPU_TORCH_CKPT_EVERY_STEPS=job["every"]):
+            inject.install(inject.FaultPlan(seed=job["seed"]).add(
+                "step.boundary", "device_loss", rate=0.5, count=1))
+            try:
+                lu, gperm = counted("ckpt", lambda: pgetrf(gd))
+            finally:
+                inject.clear_plan()
+            out["ckpt"] = (_np(lu.data), _np(gperm))
+        with _env(SLATE_TPU_TORCH_ABFT="correct"):
+            out["abft"] = counted("abft", factors)
+            lu, gperm, l = (torch.as_tensor(x, device=mesh.device)
+                            for x in out["mono"])
+            bad_lu, bad_l = lu.clone(), l.clone()
+            if (mesh.r, mesh.c) == (0, 0):
+                for t in (bad_lu, bad_l):
+                    t[nb + 3, 1] *= 256.0      # in the lower triangle
+            out["abft_lu_detect"] = counted("abft_lu_detect", lambda: _np(
+                _pgetrf_abft_check(gd, bad_lu, gperm,
+                                   lambda: (lu.clone(), gperm))[0]))
+            out["abft_chol_detect"] = counted("abft_chol_detect", lambda: _np(
+                _ppotrf_abft_check(sd, lambda: l.clone(), bad_l)))
+    out["wall_s"] = time.perf_counter() - t0
+    return out

@@ -241,10 +241,13 @@ def choose_matmul(shape_a, shape_b, dtype, device) -> str:
 def choose_potrf_panel(n: int, nb: int, dtype, device) -> str:
     """f32 Cholesky driver: the strip driver over the ``chol_inv_panel``
     kernel (``"kernel"``/``"plain"``) or ``torch.linalg.cholesky``
-    (``"stock"``)."""
+    (``"stock"``, also where :data:`FORCE_ENV` pins ``potrf_panel=stock``:
+    the ABFT layer's checksum-carried loop takes that branch)."""
     key = (n, nb, str(dtype).replace("torch.", ""), torch.device(device).type)
     if dtype != torch.float32 or config.use_kernels_mode() == "off":
         return _record("potrf_panel", key, "stock")
+    if _forced("potrf_panel") == "stock":
+        return _record("potrf_panel", key, "stock", "forced")
     return _record("potrf_panel", key, _kernel_or_plain(device))
 
 

@@ -1,8 +1,9 @@
 """Process-wide metrics registry — the part of
 ``slate_tpu/perf/metrics.py`` that the drivers and the serving queue
 call: counters, gauges, named timers, log2 histograms with their
-quantile readback, the driver decorator, :func:`snapshot` and
-:func:`snapshot_delta`.
+quantile readback, the driver decorator (which also runs the resilience
+post-conditions when they are wanted, :func:`resilience_wanted`),
+:func:`snapshot` and :func:`snapshot_delta`.
 
 Off by default (``SLATE_TPU_TORCH_METRICS=1`` or :func:`on` enables it).
 While off, every entry point is one attribute read and returns, and a
@@ -27,10 +28,15 @@ _ENV = "SLATE_TPU_TORCH_METRICS"
 STEP_HBM_ROUNDTRIPS = "step.hbm_roundtrips"
 
 
+def env_flag(name: str, default: str = "") -> bool:
+    """A truthy environment knob (``1``/``true``/``on``/``yes``)."""
+    return os.environ.get(name, default).strip().lower() in (
+        "1", "true", "on", "yes")
+
+
 class _Registry:
     def __init__(self):
-        self.enabled = os.environ.get(_ENV, "").strip().lower() in (
-            "1", "true", "on", "yes")
+        self.enabled = env_flag(_ENV)
         self.lock = threading.Lock()
         self.counters: dict = {}
         self.gauges: dict = {}
@@ -269,22 +275,51 @@ def snapshot_delta(before: dict, after: dict) -> dict:
             "hists": hists}
 
 
+_resilience_hint = [False]
+
+
+def set_resilience_hint(on: bool) -> None:
+    """Flag that a programmatic fault plan is installed (called by
+    :func:`slate_tpu_torch.resilience.inject.install` / ``clear_plan``)."""
+    _resilience_hint[0] = bool(on)
+
+
+def resilience_wanted() -> bool:
+    """Should the driver facades run the resilience post-conditions (fault
+    injection at ``driver.output`` and the health gate)?  True when a plan
+    is installed, ``SLATE_TPU_TORCH_FAULT_INJECT`` names one, or
+    ``SLATE_TPU_TORCH_HEALTH`` names an active tier."""
+    return (_resilience_hint[0]
+            or bool(os.environ.get("SLATE_TPU_TORCH_FAULT_INJECT",
+                                   "").strip())
+            or os.environ.get("SLATE_TPU_TORCH_HEALTH", "").strip().lower()
+            in ("warn", "retry", "strict"))
+
+
 def instrument_driver(name: str):
     """Decorator for a public driver: counts calls (``driver.<name>.calls``)
     and host wall time (timer ``driver.<name>``) while the registry is
-    on; a plain call-through while it is off."""
+    on, and runs :func:`slate_tpu_torch.resilience.health.driver_gate`
+    after the call while :func:`resilience_wanted`; a plain call-through
+    while neither is."""
 
     label = "driver.%s" % name
 
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            if not _registry.enabled:
+            resil = resilience_wanted()
+            if not (_registry.enabled or resil):
                 return fn(*args, **kwargs)
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
-            inc(label + ".calls")
-            observe_time(label, time.perf_counter() - t0)
+            if _registry.enabled:
+                inc(label + ".calls")
+                observe_time(label, time.perf_counter() - t0)
+            if resil:
+                from ..resilience import health as _health
+
+                out = _health.driver_gate(name, fn, args, kwargs, out)
             return out
 
         wrapper.__metrics_driver__ = name

@@ -1,19 +1,19 @@
 """Per-key circuit breaker — the port of
-``slate_tpu/resilience/breaker.py`` without its flight-recorder records
-(``perf/blackbox.py`` is not ported yet).
+``slate_tpu/resilience/breaker.py``.
 
 ``threshold`` consecutive failures OPEN it; after ``cooldown_s`` it goes
 HALF-OPEN and admits one trial — success closes it, failure re-opens.
-Transitions count ``<prefix>.open`` / ``.half_open`` / ``.close``.
-The forced open (``trip``) of the JAX package serves its telemetry
-sentinel, which is not ported yet."""
+Transitions count ``<prefix>.open`` / ``.half_open`` / ``.close`` and are
+flight-recorder events (:mod:`slate_tpu_torch.perf.blackbox`); an open
+is a trigger.  The forced open (``trip``) of the JAX package serves its
+telemetry sentinel, which is not ported yet."""
 
 from __future__ import annotations
 
 import threading
 import time
 
-from ..perf import metrics
+from ..perf import blackbox, metrics
 
 __all__ = ["CircuitBreaker"]
 
@@ -50,6 +50,7 @@ class CircuitBreaker:
                     and self._clock() - self._opened_at >= self.cooldown_s:
                 self._state = HALF_OPEN
                 metrics.inc(self._prefix + ".half_open")
+                blackbox.record("breaker.half_open", name=self.name)
                 return True
             return False
 
@@ -57,18 +58,22 @@ class CircuitBreaker:
         with self._lock:
             if self._state == HALF_OPEN:
                 metrics.inc(self._prefix + ".close")
+                blackbox.record("breaker.close", name=self.name)
             self._state = CLOSED
             self._failures = 0
 
     def failure(self) -> None:
         with self._lock:
-            if self._state == HALF_OPEN:
-                self._state = OPEN           # the trial failed: re-open
-                self._opened_at = self._clock()
-                metrics.inc(self._prefix + ".open")
-                return
-            self._failures += 1
-            if self._state == CLOSED and self._failures >= self.threshold:
+            opened = self._state == HALF_OPEN    # the trial failed
+            if not opened:
+                self._failures += 1
+                opened = (self._state == CLOSED
+                          and self._failures >= self.threshold)
+            if opened:
                 self._state = OPEN
                 self._opened_at = self._clock()
                 metrics.inc(self._prefix + ".open")
+        if opened:
+            # outside the lock: a dump writes a file
+            blackbox.record("breaker.open", name=self.name)
+            blackbox.trigger("breaker.open", self.name)

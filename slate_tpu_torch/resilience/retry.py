@@ -2,8 +2,8 @@
 errors — the port of ``slate_tpu/resilience/retry.py``.  The serving
 queue retries a batch dispatch only when :func:`transient_infra` says
 the failure is infrastructure trouble, never a numerical or programming
-error.  The JAX package also treats its injected faults as transient;
-fault injection is not ported yet (ROADMAP.md, queue 1 item 10)."""
+error.  An injected fault (:class:`~.inject.InjectedFault`, and so an
+injected :class:`~.inject.DeviceLoss`) is always transient."""
 
 from __future__ import annotations
 
@@ -34,6 +34,10 @@ _NEVER_TRANSIENT = (TypeError, AttributeError, NameError, KeyError,
 def transient_infra(e: BaseException) -> bool:
     """True when ``e`` looks like transient infrastructure trouble — the
     only class of failure a retry may absorb."""
+    from .inject import InjectedFault
+
+    if isinstance(e, InjectedFault):
+        return True
     if getattr(e, "retryable", False):
         return True
     if isinstance(e, _NEVER_TRANSIENT):

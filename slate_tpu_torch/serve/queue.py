@@ -36,9 +36,9 @@ circuit breaker whose open state — and any transient batch failure —
 serves the batch problem by problem on the stock backend
 (:func:`slate_tpu_torch.resilience.health.safe_backend`), explicit
 :class:`Backpressure` past ``max_queue_depth``, ``close()`` failing (never
-stranding) queued futures and ``flush(timeout)`` raising on expiry.  With
-``SLATE_TPU_TORCH_HEALTH=1``, a non-finite batch result counts as a
-transient failure.  A failure that is not transient (a kernel launch
+stranding) queued futures and ``flush(timeout)`` raising on expiry.  Under
+every ``SLATE_TPU_TORCH_HEALTH`` tier but ``off``, a non-finite batch
+result counts as a transient failure.  A failure that is not transient (a kernel launch
 error among them) fails the batch's futures with that error.
 
 Counters (:mod:`slate_tpu_torch.perf.metrics`, while it is on):
@@ -47,14 +47,22 @@ Counters (:mod:`slate_tpu_torch.perf.metrics`, while it is on):
 ``serve.singles``, ``serve.singles.batches``, ``serve.breaker.*``,
 ``serve.deadline_expired``, ``serve.backpressure``,
 ``serve.closed_undispatched``, ``serve.health.batch_nonfinite``,
-``serve.compile.on_demand`` and ``serve.warm_start.compiled``; the
+``serve.device_loss``, ``serve.compile.on_demand`` and
+``serve.warm_start.compiled``; the
 ``serve.queue.depth`` gauge, the ``serve.wait`` and ``serve.dispatch``
 timers and the ``serve.batch.occupancy`` histogram.
 
-Not ported yet (ROADMAP.md, queue 1 items 10, 11 and 13): request
-telemetry and SLO histograms, the flight recorder, fault injection, the
-fleet knobs (``inject_site``, ``preempt``, ``drain_queued``, fault
-listeners) and warm-start specs from the autotune cache or a bundle.
+**Fault injection** (:mod:`slate_tpu_torch.resilience.inject`): each
+batch dispatch polls the queue's own site (``ServeConfig.inject_site``,
+so a plan can target one replica) and then ``serve.dispatch``: ``error``
+and ``device_loss`` raise transient failures (the retry and singles
+ladder absorbs them; a device loss also counts ``serve.device_loss``),
+``slow`` sleeps, ``nan``/``inf`` poison the batch result.
+
+Not ported yet (ROADMAP.md, queue 1, "Perf tooling" and "Fleet serving,
+the APIs and the examples"): request telemetry and SLO histograms, the
+fleet knobs (``preempt``, ``drain_queued``, fault listeners) and
+warm-start specs from the autotune cache or a bundle.
 """
 
 from __future__ import annotations
@@ -73,6 +81,7 @@ from ..exceptions import SlateError
 from ..perf import metrics
 from ..perf.sweep import pow2_bucket as _pow2_bucket
 from ..resilience import health as _health
+from ..resilience import inject as _inject
 from ..resilience.breaker import CircuitBreaker
 from ..resilience.retry import transient_infra, with_backoff
 
@@ -122,6 +131,8 @@ class ServeConfig:
       submit` raises :class:`Backpressure`.
     * ``device`` — where the executables run (``"cuda"``; the tests pass
       ``"cpu"``).
+    * ``inject_site`` — a fault-injection site polled before
+      ``serve.dispatch`` on each batch dispatch (None: none).
     """
 
     max_batch: int = 64
@@ -134,6 +145,7 @@ class ServeConfig:
     breaker_cooldown_s: float = 0.25
     max_queue_depth: int = 4096
     device: object = "cuda"
+    inject_site: Optional[str] = None
 
 
 @dataclass(eq=False)
@@ -578,12 +590,30 @@ class BatchQueue:
         up to ``max_retries`` times with exponential backoff; the last
         one propagates to :meth:`_dispatch`."""
         def attempt():
+            # the queue's own site first, so a plan can target one replica
+            # while a serve.dispatch schedule runs on every dispatch
+            kind, site = None, "serve.dispatch"
+            if self.config.inject_site:
+                kind = _inject.poll(self.config.inject_site)
+                if kind is not None:
+                    site = self.config.inject_site
+            if kind is None:
+                kind = _inject.poll("serve.dispatch")
+            if kind == "error":
+                raise _inject.InjectedFault(site)
+            if kind == "device_loss":
+                metrics.inc("serve.device_loss")
+                raise _inject.DeviceLoss(site)
+            if kind == "slow":
+                time.sleep(_inject.slow_seconds())
             cap = _bucket(self.config.max_batch, "pow2", floor=1)
             bexec = min(_bucket(len(reqs), "pow2", floor=1), cap)
             ex, _ = self._get_executable(key, bexec)
             stacked = self._pad_stack(key, reqs, bexec)
             with metrics.timer("serve.dispatch"), self._device_scope():
                 out = ex(*stacked)
+            if kind in ("nan", "inf"):
+                out = _inject.corrupt_outputs(out, kind)
             if _health.mode() != "off" and not _finite_arrays(out):
                 metrics.inc("serve.health.batch_nonfinite")
                 raise _UnhealthyBatch(
@@ -713,7 +743,8 @@ def warm_start(server: Optional[BatchQueue] = None,
     if specs is None:
         raise NotImplementedError(
             "warm_start needs explicit specs: specs from the autotune cache "
-            "or a bundle are not ported yet (ROADMAP.md, queue 1 item 11)")
+            "or a bundle are not ported yet (ROADMAP.md, queue 1, \"Perf "
+            "tooling\")")
     srv = server or get_server()
     done = 0
     with metrics.timer("serve.warm_start"):

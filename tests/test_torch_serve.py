@@ -358,7 +358,7 @@ def test_a_failure_that_is_not_transient_fails_the_futures(monkeypatch):
 
 
 def test_nonfinite_batch_under_health_goes_to_singles(monkeypatch):
-    monkeypatch.setenv(health.ENV_HEALTH, "1")
+    monkeypatch.setenv(health.ENV_HEALTH, "warn")
     srv = _queue(max_batch=2, max_wait_s=0.001, max_retries=1,
                  retry_backoff_s=0.001)
     srv.warm("posv", 2, 16)

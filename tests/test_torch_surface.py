@@ -86,11 +86,10 @@ def test_linalg_surface_covers_the_dense_solver_slice():
 
 
 #: public names of ``slate_tpu.parallel`` defined in a module the port has
-#: but queued for a later slice of ROADMAP's queue 1 item 3 (sub-item 7:
-#: the mixed drivers, pgetri and pgecondest); the test fails when one of
-#: them lands unexported or this set goes stale
-PARALLEL_QUEUED = {"pposv_mixed", "pposv_mixed_gmres", "pgesv_mixed",
-                   "pgetri", "pgecondest"}
+#: but queued for a later slice; empty since the mixed drivers, pgetri and
+#: pgecondest landed.  The test fails when a queued name lands unexported
+#: or this set goes stale
+PARALLEL_QUEUED = set()
 
 
 def test_parallel_surface_matches_the_ported_modules():
@@ -130,8 +129,36 @@ def test_parallel_surface_matches_the_ported_modules():
                  "punmbr_ge2tb_p", "band_tiles_to_dense",
                  "band_tiles_to_banded", "ppbsv", "pgbsv", "pgbmm", "phbmm",
                  "ptbsm", "phetrf", "phetrs", "phesv", "ppolar",
-                 "pheev_qdwh", "psvd_qdwh"):
+                 "pheev_qdwh", "psvd_qdwh", "pposv_mixed",
+                 "pposv_mixed_gmres", "pgesv_mixed", "pgetri",
+                 "pgecondest"):
         assert callable(getattr(port_parallel, name)), name
+
+
+def test_resilience_surface_matches_the_jax_package():
+    """Every public name of ``slate_tpu.resilience`` is exported by
+    ``slate_tpu_torch.resilience`` (the submodules included), and each
+    function or class is the port's own, from the module of the same
+    name."""
+    import slate_tpu.resilience as jax_res
+    import slate_tpu_torch.resilience as port_res
+
+    missing, astray = [], []
+    for name in sorted(n for n in dir(jax_res) if not n.startswith("_")):
+        obj = getattr(jax_res, name)
+        if inspect.ismodule(obj):
+            # a submodule is an attribute once something imported it
+            importlib.import_module("slate_tpu_torch.resilience." + name)
+        got = getattr(port_res, name, None)
+        if got is None:
+            missing.append(name)
+            continue
+        if inspect.isfunction(obj) or inspect.isclass(obj):
+            want = obj.__module__.replace("slate_tpu.", "slate_tpu_torch.", 1)
+            if getattr(got, "__module__", None) != want:
+                astray.append(name)
+    assert not missing, "not exported: %s" % missing
+    assert not astray, "not the port's namesake module's: %s" % astray
 
 
 def test_row_mapped_operand_reaches_pgeqrf_canonicalized(monkeypatch):
