@@ -362,6 +362,15 @@
      drivers at 2048, phesv fp32 at 1024 (nb 128), ppolar and pheev_qdwh
      fp32 at 512, gated on every rank, every rank's results bitwise
      equal.
+   * fault injection, ABFT and checkpoints (phase 3r,
+     :func:`main_path_resilience`).
+   * the out-of-core drivers (phase 3s, :func:`main_path_ooc`): gesv and
+     posv at n = 16384 through the forced ``ooc`` site in the default
+     64-tile window of 512² tiles, every tile crossing the host link;
+     the JAX package's traffic exactly, the factors of the all-resident
+     window and of the window with prefetch off bitwise equal, a lost
+     checkpointed chunk replayed bitwise, the link rate beside a pinned
+     1 GiB copy, and the site's unforced answer on this card.
    Every kernel's launch count is set to 0 just before each path (each
    LU driver, ``getri``, each batched driver, the served requests, each
    depth and each distributed driver a path of its own) and read just
@@ -376,6 +385,7 @@ is present, or when run without the rest of the repository.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import json
 import subprocess
 import sys
@@ -540,7 +550,7 @@ GUARD_M, GUARD_N, GUARD_COND = 8192, 1024, 1e6
 CHECK_TOL = {"matmul": 1e-5, "chol_inv_panel": 1e-4,
                 "lu_inv_panel": 1e-4, "trtri_panel": 1e-4,
                 "chol_l21_panel": 1e-4, "lu_u12_panel": 1e-4,
-                "getrf_panel_linv": 1e-4}
+                "getrf_panel_linv": 1e-4, "getrf_panel_fused": 1e-4}
 FORCE = "SLATE_TPU_TORCH_AUTOTUNE_FORCE"
 PEAK_FP64_FLOPS = 34e12         # H100 SXM, fp64 FMA outside the tensor cores
 #: phase 2g's chase checks (n, kd), its range chunks at (1024, 64) and the
@@ -569,8 +579,9 @@ EIG_N, EIG_N64, EIG_HOST_N = 8192, 4096, 2048
 #: 2048; one tall operand and its transpose); phase 2h checks the chase at
 #: CHASE_CHECKS, in CHASE_CHUNKS and over CHASE_F32_SWEEPS as phase 2g
 SVD_N, SVD_N64, SVD_HOST_N, SVD_TALL = 8192, 4096, 2048, (8192, 2048)
-#: the size of phase 3i's profiler split (cut from SVD_N for the
-#: command's time: one svd at 8192 is ~32 s, mostly the host's dbdsdc)
+#: the size of phase 3i's profiler split and its library yardstick
+#: (``library_ms_split_n``; cut from SVD_N for the command's time: one
+#: svd at 8192 is ~32 s, mostly the host's dbdsdc)
 SVD_SPLIT_N = 4096
 #: the size of phase 3h's profiler split and checked run (cut from EIG_N
 #: for the command's time: each heev at 8192 is ~9.5 s; the timed 8192
@@ -730,6 +741,42 @@ DIST_EXACT.update({
     "dist_ppotrf": {"chol_l21_panel": DIST_N // NB},
     "dist_ppotrf_timeline": {"chol_l21_panel": DIST_N // NB}})
 
+
+#: phase 3s's sizes: the out-of-core drivers at n = OOC_N with OOC_NB
+#: tiles (a 32×32 grid, 1 GiB of fp32) in the default 64-tile window and
+#: prefetch depth 4, on the JAX package's tilepool test kinds; the
+#: all-resident window; the tile moves (fetches, write-backs) that the
+#: JAX package's access order gives each (driver, window, depth); the
+#: checkpointed run's n, cadence and lost chunk (the one holding step 6);
+#: the n the site must send to the pool on this card (not run)
+OOC_N, OOC_NB, OOC_RESIDENT = 16384, 512, 1024
+OOC_TRAFFIC = {("getrf", 64, 4): 16858, ("getrf", OOC_RESIDENT, 4): 1024,
+               ("getrf", 64, 0): 16858, ("potrf", 64, 4): 5764,
+               ("potrf", OOC_RESIDENT, 4): 528, ("potrf", 64, 0): 5764}
+OOC_CKPT_N, OOC_CKPT_EVERY, OOC_LOST_CHUNK = 8192, 4, 1
+OOC_BIG_N = 131072
+#: the device memory a driver call may add to what was allocated before
+#: it: its result (n² words), the window's tiles and OOC_PANELS
+#: (m, nb) column panels of working set (the step's panel or strip, its
+#: row gather and the panel factor's copies); a pool that staged the
+#: matrix through the card whole, at either end, adds n² more.  The
+#: entry points may add one copy of the operand (posv's full Hermitian
+#: matrix)
+OOC_PANELS = 16
+#: the out-of-core paths: LU panels of m_k ≤ 12144 rows through the
+#: scattered driver (getrf_panel_fused), taller ones (at OOC_N: the 9 of
+#: 12288 rows and up) through the recursion on 256-wide getrf_panel_linv
+#: leaves, true partial pivoting as the JAX package's fused panel; every
+#: strip and tile update on matmul.  The checkpointed runs' panels are at
+#: most OOC_CKPT_N rows: all scattered
+PATHS.update({
+    "ooc_gesv": ("matmul", "getrf_panel_fused", "getrf_panel_linv"),
+    "ooc_posv": ("matmul",),
+    "ooc_getrf_resident": ("matmul", "getrf_panel_fused",
+                           "getrf_panel_linv"),
+    "ooc_potrf_resident": ("matmul",),
+    "ooc_getrf_ckpt": ("matmul", "getrf_panel_fused"),
+    "ooc_getrf_ckpt_loss": ("matmul", "getrf_panel_fused")})
 
 def fail(msg: str):
     raise RuntimeError("chip_smoke: " + msg)
@@ -2528,8 +2575,10 @@ def check_path_calls(torch, kernels, label: str, run, tols: dict,
     call (the wrappers are swapped for checking ones for this run only):
     each output within ``tols[name]`` (relative Frobenius; an all-zero
     output exactly; ``lu_u12_panel``'s departure by :func:`same_departure`;
-    ``getrf_panel_linv`` by phase 2b's :func:`_panel_gates`, its slab and
-    linv compared where the pivots agree), and for ``trtri_panel`` ‖L·L⁻¹ − I‖_F < ``ident_tol`` (phase 2's gate,
+    ``getrf_panel_linv`` and ``getrf_panel_fused`` (in place on its
+    carry: the plain version factors a copy of the panel's rows) by phase
+    2b's :func:`_panel_gates`, the slab and linv compared where the
+    pivots agree), and for ``trtri_panel`` ‖L·L⁻¹ − I‖_F < ``ident_tol`` (phase 2's gate,
     1e-4).  So the shapes and layouts a path gives the
     kernels are compared on the card, not only phase 2's.  Every kernel
     named must be called.  Returns per kernel the calls, distinct
@@ -2541,24 +2590,43 @@ def check_path_calls(torch, kernels, label: str, run, tols: dict,
 
     def layout(args) -> str:
         return " x ".join("%s stride %s" % (tuple(t.shape), t.stride())
-                          for t in args)
+                          for t in args if hasattr(t, "stride"))
+
+    def fused_panel(args, kw):
+        """``getrf_panel_fused`` works in place on rows [k0, k0 + nb) of
+        its carry: the call, its plain version on a copy of those rows as
+        they were, and (panel, rows after, piv, act_out, linv)."""
+        bound = inspect.signature(real["getrf_panel_fused"]).bind(*args,
+                                                                  **kw)
+        bound.apply_defaults()
+        a = bound.arguments
+        k0, nbk = a["k0"], a["nb"]
+        before = a["carry"][k0:k0 + nbk].clone()
+        got = real["getrf_panel_fused"](*args, **kw)
+        ref = plain["getrf_panel_fused"](before.clone(), a["act"], 0,
+                                         nb=nbk, bb=a["bb"], ib=a["ib"])
+        return got, ref, (before.T, got[0][k0:k0 + nbk]) + got[1:]
 
     def checked(name):
         def call(*args, **kw):
-            got = real[name](*args, **kw)
-            ref = plain[name](*args, **kw)
+            if name == "getrf_panel_fused":
+                got, ref, panel = fused_panel(args, kw)
+            else:
+                got = real[name](*args, **kw)
+                ref = plain[name](*args, **kw)
+                panel = (args[0].T,) + got \
+                    if name == "getrf_panel_linv" else None
             gots = got if isinstance(got, tuple) else (got,)
             refs = ref if isinstance(ref, tuple) else (ref,)
-            if name == "getrf_panel_linv":
+            if panel is not None:
                 # phase 2b's gates (pivots equal but for a printed
                 # near-tie, the panel's residual, L11·linv = I); the slab
                 # and linv compared where the pivots agree
-                _panel_gates(torch, "%s: getrf_panel_linv" % label,
-                             args[0].T, *got, ref)
+                _panel_gates(torch, "%s: %s" % (label, name), *panel, ref)
                 if not torch.equal(gots[1], refs[1]):
                     gots, refs = (), ()
                 else:
-                    gots, refs = (gots[0], gots[3]), (refs[0], refs[3])
+                    gots, refs = (panel[1], panel[4]), (refs[0], refs[3])
             if name == "lu_u12_panel":
                 # the departure is rounding amplified by cond(L11): held
                 # to its plain value's magnitude and guard verdict
@@ -3825,17 +3893,19 @@ def main_path_svd(torch, st, kernels, dev) -> dict:
     # the first call is the one timed (each call is ~32 s, mostly host)
     stages = {k: v["total_s"] * 1e3 / v["count"] for k, v in timers.items()
               if k.startswith(("stage.svd", "chase.tb2bd"))}
-    lib_ms = _wall_ms(torch, lambda: torch.linalg.svd(a, full_matrices=False), 1)
-    print("svd fp32 n=%d: first call %.1f ms (host timers, ms: %s); "
-          "torch.linalg.svd(full_matrices=False) (library yardstick, one "
-          "call) %.1f ms" % (SVD_N, ms0, {
-              k: round(v, 2) for k, v in stages.items()}, lib_ms), flush=True)
-    res["fp32"].update(wall_ms=ms0, first_ms=ms0, stages_ms=stages,
-                       library_ms=lib_ms)
-    # the profiler split at SVD_SPLIT_N: one more call at 8192 is ~32 s
-    # of host bidiagonal solve, and phase 3p needed the command's time
+    # the profiler split and the library yardstick at SVD_SPLIT_N: one
+    # more call at 8192 is ~32 s of host bidiagonal solve (the yardstick
+    # ~7.4 s), and phases 3p and 3s needed the command's time
     g = torch.from_numpy(np.random.default_rng(10).standard_normal(
         (SVD_SPLIT_N, SVD_SPLIT_N)).astype(np.float32)).to(dev)
+    lib_ms = _wall_ms(torch, lambda: torch.linalg.svd(g, full_matrices=False), 1)
+    print("svd fp32 n=%d: first call %.1f ms (host timers, ms: %s); "
+          "torch.linalg.svd(full_matrices=False) at n=%d (library "
+          "yardstick, one call) %.1f ms" % (SVD_N, ms0, {
+              k: round(v, 2) for k, v in stages.items()}, SVD_SPLIT_N,
+              lib_ms), flush=True)
+    res["fp32"].update(wall_ms=ms0, first_ms=ms0, stages_ms=stages,
+                       library_ms_split_n=lib_ms)
     G = st.Matrix.from_array(g, nb=NB, device=dev)
     res["fp32"]["split"] = device_split(
         torch, "svd fp32 n=%d" % SVD_SPLIT_N, lambda: st.svd(G),
@@ -6392,6 +6462,287 @@ def main_path_resilience(torch, st, kernels, dev) -> dict:
     return res
 
 
+def _pinned_gbs(torch, dev) -> dict:
+    """A 1 GiB copy between pinned host memory and the card, each way:
+    GB/s from CUDA events (the mean of 3 after one untimed)."""
+    nbytes = 1 << 30
+    host = torch.empty(nbytes // 4, dtype=torch.float32, pin_memory=True)
+    card = torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
+    out = {"h2d": nbytes / 1e6 / event_ms(
+        torch, lambda: card.copy_(host, non_blocking=True)),
+        "d2h": nbytes / 1e6 / event_ms(
+        torch, lambda: host.copy_(card, non_blocking=True))}
+    del host, card
+    return out
+
+
+def _ooc_record(torch, kernels, metrics, path, fn):
+    """``fn()`` as a path of its own (launches zeroed before, read after
+    when ``path`` is a PATHS entry): its result, wall (synchronized),
+    launches, ``ooc.*``/``ckpt.*`` counters, the ``step.*.host`` seconds,
+    the copy stream's busy seconds (timer ``ooc.link``) and the device
+    memory the call added at its peak (``peak_bytes``: the allocator's
+    peak, reset just before, less what was allocated then)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = metrics.snapshot()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    d = metrics.snapshot_delta(before, metrics.snapshot())
+    launches = _path_launches(kernels, path) if path in PATHS \
+        else dict(kernels.launches)
+    timers = d.get("timers", {})
+
+    def secs(name):
+        return float(timers[name]["total_s"]) if name in timers else 0.0
+
+    c = d["counters"]
+    rec = {"wall_ms": wall, "launches": launches,
+           "peak_bytes": torch.cuda.max_memory_allocated() - base,
+           "counters": {k: v for k, v in c.items()
+                        if k.startswith(("ooc.", "ckpt."))},
+           "host_s": sum(secs(k) for k in timers
+                         if k.startswith("step.") and k.endswith(".host")),
+           "link_s": secs("ooc.link")}
+    rec["fetches"] = int(c.get("ooc.prefetch.hits", 0)
+                         + c.get("ooc.prefetch.misses", 0))
+    rec["write_backs"] = int(c.get("ooc.write_backs", 0))
+    rec["gbs"] = (c.get("ooc.host_bytes", 0.0) / 1e9 / rec["link_s"]
+                  if rec["link_s"] else 0.0)
+    return out, rec
+
+
+def _ooc_report(label: str, rec: dict) -> None:
+    print("%s: wall %.1f ms; fetches %d, write-backs %d; counters %s; "
+          "host stage %.3f s (enqueue); copy stream busy %.3f s, %.2f GB/s; "
+          "device memory added at the peak %d B; launches %s" % (
+              label, rec["wall_ms"], rec["fetches"], rec["write_backs"],
+              {k: int(v) for k, v in sorted(rec["counters"].items())},
+              rec["host_s"], rec["link_s"], rec["gbs"], rec["peak_bytes"],
+              {k: v for k, v in rec["launches"].items() if v}), flush=True)
+
+
+def _ooc_memory(label: str, rec: dict, cap: int, copies: int = 0) -> None:
+    """The call's added peak within its result, window, OOC_PANELS
+    panels and ``copies`` copies of its operand (fp32 at OOC_N, OOC_NB;
+    an entry point may hold one: posv's full Hermitian matrix)."""
+    g = OOC_N // OOC_NB
+    bound = 4 * ((1 + copies) * OOC_N ** 2 + min(cap, g * g) * OOC_NB ** 2
+                 + OOC_PANELS * OOC_N * OOC_NB)
+    rec["peak_bound_bytes"] = bound
+    if rec["peak_bytes"] > bound:
+        fail("%s: the call added %d B of device memory at its peak, more "
+             "than its result, window and %d panels (%d B)"
+             % (label, rec["peak_bytes"], OOC_PANELS, bound))
+
+
+def _ooc_traffic(label, rec, driver, cap, depth) -> None:
+    want = OOC_TRAFFIC[driver, cap, depth]
+    if (rec["fetches"], rec["write_backs"]) != (want, want):
+        fail("%s: %d fetches and %d write-backs, want %d of each (the JAX "
+             "package's access order)" % (label, rec["fetches"],
+                                          rec["write_backs"], want))
+
+
+def main_path_ooc(torch, st, kernels, dev) -> dict:
+    """Phase 3s: the out-of-core drivers through the entry points, each
+    call a path of its own (launches zeroed before, read after):
+
+    * ``st.gesv`` and ``st.posv`` at OOC_N, nb OOC_NB, NRHS right-hand
+      sides on the JAX package's tilepool test kinds (a Gaussian + 2√n·I
+      from numpy seed 0, g·gᵀ/n + I from seed 1), the ``ooc`` site forced
+      (``config.ooc``, the in-process form of ``SLATE_TPU_TORCH_OOC=1``)
+      with the default 64-tile window and depth 4: the census
+      ``ooc|…→pool``, the tester's residual and the factor residual ≤ 3,
+      the fetches and write-backs of OOC_TRAFFIC, the device memory added
+      at the peak within one copy of the operand more than the driver
+      calls' bound below; the wall, counters,
+      host stage, the copy stream's busy time and link rate beside a
+      pinned 1 GiB copy each way;
+    * the contract: ``getrf_ooc``/``potrf_ooc`` all resident and in the
+      64-tile window with prefetch off give the factors and permutation
+      bitwise the main runs', with their traffic, each adding at its
+      peak no more device memory than its result, window and OOC_PANELS
+      panels; getrf's depth-0 run holds every LU panel kernel call to its
+      plain version (``check_path_calls``), and every ``matmul`` layout
+      of the phase is held (``hold_matmul_layouts``; potrf's 5,456 tile
+      products a run share one layout);
+    * ``getrf_ooc`` at OOC_CKPT_N with a checkpoint every OOC_CKPT_EVERY
+      steps and one ``device_loss`` at the end of the chunk holding step
+      6: bitwise the uninterrupted run, ``ckpt.restored`` = 1;
+    * the site's unforced answer on this card for fp32 OOC_N (incore) and
+      OOC_BIG_N (pool), not run."""
+    import os
+
+    from slate_tpu_torch import config
+    from slate_tpu_torch.linalg import ooc
+    from slate_tpu_torch.ops import tilepool
+    from slate_tpu_torch.perf import autotune, metrics
+    from slate_tpu_torch.resilience import checkpoint, inject
+
+    metrics.on()
+    n, nb = OOC_N, OOC_NB
+    eps = float(torch.finfo(torch.float32).eps)
+    res, launches, checks, layouts = {}, {}, {}, set()
+    knobs = ("SLATE_TPU_TORCH_OOC_NB", "SLATE_TPU_TORCH_OOC_WINDOW_TILES",
+             "SLATE_TPU_TORCH_OOC_PREFETCH_DEPTH",
+             "SLATE_TPU_TORCH_OOC_HBM_MB", checkpoint.ENV_EVERY, FORCE)
+    saved = ({k: os.environ.pop(k, None) for k in knobs}, config.ooc)
+    try:
+        res["pinned_gbs"] = _pinned_gbs(torch, dev)
+        print("ooc: pinned 1 GiB copy %.2f GB/s host to card, %.2f card to "
+              "host" % (res["pinned_gbs"]["h2d"], res["pinned_gbs"]["d2h"]),
+              flush=True)
+        gen, spd, b = _abft_inputs(torch, dev, n)
+        config.ooc = True
+        A = st.Matrix.from_array(gen, nb=nb, device=dev)
+        H = st.HermitianMatrix(spd, uplo=st.Uplo.Lower, nb=nb, device=dev)
+        key = "ooc|%d,%d,float32,%s" % (n, nb, torch.device(dev).type)
+        main = {}
+        for name, driver, amat, solve in (
+                ("gesv", "getrf", gen, lambda: st.gesv(A, b)),
+                ("posv", "potrf", spd, lambda: st.posv(H, b))):
+            label = "ooc %s fp32 n=%d nb=%d window 64 depth 4" % (name, n, nb)
+            out, rec = _ooc_record(
+                torch, kernels, metrics, "ooc_" + name,
+                lambda solve=solve: record_layouts(kernels, "matmul",
+                                                   layouts, solve))
+            launches["ooc_" + name] = rec["launches"]
+            if autotune.decisions().get(key) != "pool":
+                fail("%s: the census has %s = %r, not pool"
+                     % (label, key, autotune.decisions().get(key)))
+            _ooc_traffic(label, rec, driver, 64, 4)
+            _ooc_memory(label, rec, 64, copies=1)
+            x = out[-1]
+            f = out[0].data.double()
+            ad = amat.double()
+            if name == "gesv":
+                lmat = torch.tril(f, -1) + torch.eye(n, device=dev,
+                                                     dtype=torch.float64)
+                fr = float((ad[out[1]] - lmat @ torch.triu(f)).norm()
+                           / (ad.norm() * eps * n))
+                main[driver] = (out[0].data, out[1])
+            else:
+                fr = float((f @ f.T - ad).norm() / (ad.norm() * eps * n))
+                main[driver] = (out[0].data,)
+            del f, ad
+            r = _scaled_resid(torch, amat, x, b)
+            if not (r <= 3 and fr <= 3):
+                fail("%s: residual %.3g, factor residual %.3g (gate 3)"
+                     % (label, r, fr))
+            rec.update(residual=r, factor_residual=fr)
+            _ooc_report(label + " (residual %.3g, factor %.3g)" % (r, fr),
+                        rec)
+            res["ooc_" + name] = rec
+        config.ooc = saved[1]
+        del A, H
+        # the contract: all resident, and the window with prefetch off
+        for driver, amat, fn in (("getrf", gen, ooc.getrf_ooc),
+                                 ("potrf", spd, ooc.potrf_ooc)):
+            for cap, depth in ((OOC_RESIDENT, 4), (64, 0)):
+                label = "ooc %s_ooc window %d depth %d" % (driver, cap, depth)
+                path = "ooc_%s_resident" % driver if cap == OOC_RESIDENT \
+                    else "ooc_%s_depth0" % driver
+                run = (lambda fn=fn, amat=amat, cap=cap, depth=depth:
+                       fn(amat, nb=nb, capacity=cap, depth=depth))
+                if depth == 0 and driver == "getrf":
+                    # every LU panel kernel call held to its plain
+                    # version (the wall counts the plain versions too),
+                    # the matmul calls by layout with the others
+                    tols = {k: CHECK_TOL[k] for k in PATHS["ooc_gesv"]
+                            if k != "matmul"}
+                    got = []
+                    out, rec = _ooc_record(
+                        torch, kernels, metrics, path,
+                        lambda run=run, label=label, tols=tols, path=path:
+                        checks.__setitem__(path, check_path_calls(
+                            torch, kernels, label,
+                            lambda: got.append(record_layouts(
+                                kernels, "matmul", layouts, run)), tols)))
+                    out = got.pop()
+                    label += " (checked run)"
+                else:
+                    out, rec = _ooc_record(
+                        torch, kernels, metrics, path,
+                        lambda run=run: record_layouts(kernels, "matmul",
+                                                       layouts, run))
+                    if path in PATHS:
+                        launches[path] = rec["launches"]
+                _ooc_traffic(label, rec, driver, cap, depth)
+                _ooc_memory(label, rec, cap)
+                out = out if isinstance(out, tuple) else (out,)
+                if not all(torch.equal(x, y)
+                           for x, y in zip(out, main[driver])):
+                    fail("%s: the factors are not bitwise the 64-tile "
+                         "window's" % label)
+                _ooc_report(label + ", factors bitwise the 64-tile "
+                            "window's", rec)
+                res[path] = rec
+                del out
+        del main
+        # checkpoints: one lost chunk, replayed bitwise
+        a8 = gen[:OOC_CKPT_N, :OOC_CKPT_N].contiguous()
+        del gen, spd, b
+        torch.cuda.empty_cache()
+        clean, rec = _ooc_record(torch, kernels, metrics, "ooc_getrf_ckpt",
+                                 lambda: ooc.getrf_ooc(a8))
+        launches["ooc_getrf_ckpt"] = rec["launches"]
+        res["ooc_getrf_ckpt"] = rec
+        os.environ[checkpoint.ENV_EVERY] = str(OOC_CKPT_EVERY)
+        seed = _first_loss_seed(OOC_LOST_CHUNK, 0.5)
+        inject.install(inject.FaultPlan(seed=seed).add(
+            "step.boundary", "device_loss", rate=0.5, count=1))
+        try:
+            lost, rec = _ooc_record(torch, kernels, metrics,
+                                    "ooc_getrf_ckpt_loss",
+                                    lambda: ooc.getrf_ooc(a8))
+        finally:
+            inject.clear_plan()
+            os.environ.pop(checkpoint.ENV_EVERY, None)
+        launches["ooc_getrf_ckpt_loss"] = rec["launches"]
+        label = ("ooc getrf_ooc n=%d, a checkpoint every %d steps, the "
+                 "chunk holding step 6 lost (seed %d)"
+                 % (OOC_CKPT_N, OOC_CKPT_EVERY, seed))
+        if rec["counters"].get("ckpt.restored") != 1 or \
+                rec["counters"].get("ckpt.saved", 0) < 3:
+            fail("%s: counters %s" % (label, rec["counters"]))
+        if not (torch.equal(lost[0], clean[0])
+                and torch.equal(lost[1], clean[1])):
+            fail("%s: the factors are not bitwise the uninterrupted run's"
+                 % label)
+        _ooc_report(label + "; bitwise the uninterrupted run (%.1f ms)"
+                    % res["ooc_getrf_ckpt"]["wall_ms"], rec)
+        res["ooc_getrf_ckpt_loss"] = rec
+        del a8, clean, lost
+        # the site's own answer on this card, unforced
+        budget = tilepool.hbm_budget_bytes(dev)
+        answers = {m: autotune.choose_ooc(m, nb, torch.float32, dev, True)
+                   for m in (OOC_N, OOC_BIG_N)}
+        print("ooc site unforced on this card (budget %d B): fp32 %d -> %s, "
+              "%d -> %s (3n^2 itemsize %.1f / %.1f GB; not run)" % (
+                  budget, OOC_N, answers[OOC_N], OOC_BIG_N,
+                  answers[OOC_BIG_N], 12 * OOC_N ** 2 / 1e9,
+                  12 * OOC_BIG_N ** 2 / 1e9), flush=True)
+        if answers != {OOC_N: "incore", OOC_BIG_N: "pool"}:
+            fail("the ooc site answers %s on this card" % answers)
+        res["site"] = answers
+    finally:
+        config.ooc = saved[1]
+        for k, v in saved[0].items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    checks["ooc_layouts"] = hold_matmul_layouts(
+        torch, kernels, dev, "phase 3s's timed runs", layouts)
+    torch.cuda.empty_cache()
+    res.update(launches=launches, path_checks=checks)
+    return res
+
 def _tiles(x, t: int):
     """The (nt, t, t) tile batch of a square matrix, tile-row-major (a
     contiguous copy)."""
@@ -7988,6 +8339,9 @@ def main() -> int:
     resil = phase("3r", main_path_resilience, torch, st, kernels, dev)
     paths.update(resil["launches"])
     path_checks.update(resil["path_checks"])
+    ooc_res = phase("3s", main_path_ooc, torch, st, kernels, dev)
+    paths.update(ooc_res["launches"])
+    path_checks.update(ooc_res["path_checks"])
     print("phase walls (s): %s; total %.1f s since the build began"
           % (", ".join("%s %.1f" % kv for kv in spent.items()),
              time.perf_counter() - t0), flush=True)

@@ -39,20 +39,29 @@ with the mixed-precision solvers on them, ``posv_mixed``,
 factor, refined in the working precision).  The tile kernels
 ``tile_norms``, ``tzset``/``tzscale``, ``geadd`` and
 ``gescale_row_col`` are :mod:`slate_tpu_torch.ops.kernels`' public
-entries, as in the JAX package no driver calls them.
+entries, as in the JAX package no driver calls them.  Square fp32/fp64
+``getrf``/``gesv`` and ``potrf``/``posv`` run out of core where the
+``ooc`` site says so (:mod:`slate_tpu_torch.linalg.ooc` over the pinned
+host tile pool of :mod:`slate_tpu_torch.ops.tilepool`).  The rest of the
+core surface: ``symm``, ``hemm``, ``syr2k``, ``her2k`` and the
+data-placement variants (``gemmA`` … ``trsmB``), the ``method.select_*``
+heuristics, ``TrapezoidMatrix``, :mod:`.printing` (``print_matrix``,
+``sprint_matrix``, ``redistribute``), :mod:`.debug` and
+``testing.generate_matrix``.
 """
 
 from . import config  # noqa: F401
 from .enums import (  # noqa: F401
-    Diag, GridOrder, MethodEig, MethodGels, MethodLU, MethodSVD, Norm, Op,
-    Option, Side, Target, Uplo,
+    Diag, GridOrder, Layout, MethodCholQR, MethodEig, MethodGels, MethodGemm,
+    MethodHemm, MethodLU, MethodSVD, MethodTrsm, Norm, Op, Option, Side,
+    Target, TileKind, Uplo,
 )
 from .exceptions import SlateError  # noqa: F401
 from .grid import ProcessGrid  # noqa: F401
 from .matrix import (  # noqa: F401
     BandMatrix, BaseBandMatrix, BaseMatrix, BaseTrapezoidMatrix,
     HermitianBandMatrix, HermitianMatrix, Matrix, SymmetricMatrix,
-    TriangularBandMatrix, TriangularMatrix, as_array,
+    TrapezoidMatrix, TriangularBandMatrix, TriangularMatrix, as_array,
 )
 from .options import Options, get_option  # noqa: F401
 from . import method  # noqa: F401
@@ -63,5 +72,6 @@ from .interop import (  # noqa: F401
     matrix_to_numpy,
 )
 from . import parallel, serve  # noqa: F401
+from .printing import print_matrix, redistribute, sprint_matrix  # noqa: F401
 
 __version__ = "0.1.0"

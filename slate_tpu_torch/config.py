@@ -50,6 +50,18 @@ packages can run in one process):
   ``0`` answers ``twostage`` everywhere, and ``auto`` answers
   ``twostage`` unless a pin names ``qdwh`` (the JAX package times the two
   on its chip and answers so off it).
+* ``SLATE_TPU_TORCH_OOC`` ∈ {auto, 1, 0} — square fp32/fp64
+  factorizations through the out-of-core tile pool
+  (:mod:`slate_tpu_torch.linalg.ooc` over
+  :mod:`slate_tpu_torch.ops.tilepool`: a pinned host tile grid, a bounded
+  window of tiles on the card, LRU eviction, dirty write-back and
+  prefetch on a side stream; the JAX package's ``SLATE_TPU_OOC``).  ``1``
+  takes the pool wherever the ``ooc`` site's shape gate admits it, ``0``
+  never; ``auto`` weighs 3·n²·itemsize against the card's memory
+  (``SLATE_TPU_TORCH_OOC_HBM_MB`` overrides it) on a CUDA operand and
+  stays in core elsewhere unless a pin names ``pool``.  The pool's own
+  knobs, ``SLATE_TPU_TORCH_OOC_{NB,WINDOW_TILES,PREFETCH_DEPTH}``, are
+  read at each call.
 """
 
 from __future__ import annotations
@@ -131,4 +143,14 @@ qdwh = _tri_state("SLATE_TPU_TORCH_QDWH")
 def qdwh_mode() -> str:
     """Resolve :data:`qdwh` to ``"auto" | "on" | "off"``."""
     v = qdwh
+    return "auto" if v == "auto" else ("on" if v else "off")
+
+
+#: Out-of-core tile-pool drivers; see the module docstring.
+ooc = _tri_state("SLATE_TPU_TORCH_OOC")
+
+
+def ooc_mode() -> str:
+    """Resolve :data:`ooc` to ``"auto" | "on" | "off"``."""
+    v = ooc
     return "auto" if v == "auto" else ("on" if v else "off")

@@ -51,9 +51,37 @@ class Norm(enum.Enum):
     Max = "max"
 
 
+class Layout(enum.Enum):
+    """Tile element layout (reference ``Tile.hh`` layout_); advisory here,
+    kept for the LAPACK/ScaLAPACK layers, whose host buffers are
+    ColMajor."""
+
+    ColMajor = "colmajor"
+    RowMajor = "rowmajor"
+
+
 class GridOrder(enum.Enum):
     Col = "col"
     Row = "row"
+
+
+class TileKind(enum.Enum):
+    """Reference ``Tile.hh:120-124``; kept for the compat layers."""
+
+    Workspace = "workspace"
+    SlateOwned = "slate_owned"
+    UserOwned = "user_owned"
+
+
+class MOSI(enum.Enum):
+    """Tile coherence states (reference ``MatrixStorage.hh:33-38``).  The
+    caching allocator owns placement here, so they drive no copy; they
+    name states for debugging tools."""
+
+    Modified = "modified"
+    Shared = "shared"
+    Invalid = "invalid"
+    OnHold = "onhold"
 
 
 class Option(enum.Enum):
@@ -137,3 +165,37 @@ class MethodLU(enum.Enum):
     NoPiv = "nopiv"
     RBT = "rbt"
     BEAM = "beam"
+
+
+class MethodGemm(enum.Enum):
+    """gemm variant (reference ``method.hh:77-126``)."""
+
+    Auto = "auto"
+    GemmA = "A"
+    GemmC = "C"
+
+
+class MethodHemm(enum.Enum):
+    """hemm variant (reference ``method.hh:128-160``)."""
+
+    Auto = "auto"
+    HemmA = "A"
+    HemmC = "C"
+
+
+class MethodTrsm(enum.Enum):
+    """trsm variant (reference ``method.hh:25-66``)."""
+
+    Auto = "auto"
+    TrsmA = "A"
+    TrsmB = "B"
+
+
+class MethodCholQR(enum.Enum):
+    """How CholQR forms its Gram matrix (reference ``method.hh:180-224``)."""
+
+    Auto = "auto"
+    GemmA = "gemmA"
+    GemmC = "gemmC"
+    HerkA = "herkA"
+    HerkC = "herkC"

@@ -7,7 +7,10 @@ from .batched import (  # noqa: F401
     gels_batched, geqrf_batched, gesv_batched, getrf_batched, getrs_batched,
     heev_batched, posv_batched, potrf_batched, potrs_batched,
 )
-from .blas3 import gemm, herk, syrk, trmm, trsm  # noqa: F401
+from .blas3 import (  # noqa: F401
+    gemm, gemmA, gemmC, hemm, hemmA, hemmC, her2k, herk, symm, syr2k, syrk,
+    trmm, trsm, trsmA, trsmB,
+)
 from .cholesky import (  # noqa: F401
     posv, posvMixed, posv_mixed, posv_mixed_gmres, potrf, potri, potrs,
     trtri, trtrm,
@@ -42,7 +45,8 @@ from ._stedc import (  # noqa: F401
     stedc_z_vector,
 )
 
-__all__ = ["gemm", "herk", "syrk", "trmm", "trsm",
+__all__ = ["gemm", "gemmA", "gemmC", "hemm", "hemmA", "hemmC", "her2k",
+           "herk", "symm", "syr2k", "syrk", "trmm", "trsm", "trsmA", "trsmB",
            "posv", "posvMixed", "posv_mixed", "posv_mixed_gmres", "potrf",
            "potri", "potrs", "trtri", "trtrm",
            "gesv", "gesvMixed", "gesv_mixed", "gesv_mixed_gmres",

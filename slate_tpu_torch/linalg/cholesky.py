@@ -20,8 +20,12 @@ JAX package's κ·ε demotion — and refine in the working precision
 With ``SLATE_TPU_TORCH_ABFT`` on, potrf runs under the ABFT layer
 (:mod:`slate_tpu_torch.resilience.abft`): the ``stock`` branch as the
 checksum-carried step loop, every other branch inside the checksum
-envelope; off, that is one environment read.  The JAX package's
-out-of-core branch (``ooc``) is queued in ROADMAP.md.
+envelope; off, that is one environment read.  Under ``auto`` the ``ooc``
+site is asked first: where it answers ``"pool"`` the factor is computed
+out of core (``ooc``, :func:`slate_tpu_torch.linalg.ooc.potrf_ooc`: the
+matrix in a host tile grid, a bounded window of tiles on the card),
+outside the ABFT layer, as in the JAX package (its resilience is the
+pool's window-boundary checkpoints).
 """
 
 from __future__ import annotations
@@ -66,7 +70,11 @@ def potrf(a, opts: Optional[Options] = None, *, device=None):
     branch = _potrf_branch(full, nb, nbsel, method)
     from ..resilience import abft as _abft
 
-    if _abft.eligible(full):
+    if branch == "ooc":
+        # the pool's own resilience is its window-boundary checkpoints:
+        # the ABFT checksum loop does not wrap it
+        l = _potrf_dispatch(branch, full, nb, nbsel)
+    elif _abft.eligible(full):
         # the stock branch runs the checksum-carried loop at the caller's
         # nb (finer steps, finer verify and recompute); the kernel-owned
         # branches run at nbsel inside the checksum envelope
@@ -82,7 +90,9 @@ def potrf(a, opts: Optional[Options] = None, *, device=None):
 
 
 def _potrf_branch(full, nb: int, nbsel: int, method) -> str:
-    """Which potrf branch runs: ``"full"`` / ``"fused"`` (the whole
+    """Which potrf branch runs: ``"ooc"`` (the out-of-core driver, where
+    the ``ooc`` site answers ``"pool"``; asked first), ``"full"`` /
+    ``"fused"`` (the whole
     factorization, or each whole step, one kernel launch), ``"panels"``
     (the strip driver over the ``chol_inv_panel`` kernel, fp32),
     ``"ozaki"`` (real fp64 where the ``potrf_panel_f64`` site answers
@@ -93,6 +103,10 @@ def _potrf_branch(full, nb: int, nbsel: int, method) -> str:
     shape gates of the fused kernels, as in the JAX package."""
     if method != "auto":
         return "recursive"
+    from . import ooc as _ooc
+
+    if _ooc.choose(full) == "pool":
+        return "ooc"
     n = int(full.shape[-1])
     if full.ndim == 2 and full.dtype.is_floating_point:
         depth = select_backend(
@@ -131,6 +145,10 @@ def _potrf_dispatch(branch: str, full, nb: int, nbsel: int):
             return fast
         metrics.inc("potrf.f64_rerun")
         return torch.linalg.cholesky(full)
+    if branch == "ooc":
+        from . import ooc as _ooc
+
+        return _ooc.potrf_ooc(full)
     if branch == "recursive":
         return blocks.potrf_rec(full, nb)
     return torch.linalg.cholesky(full)

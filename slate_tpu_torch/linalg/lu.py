@@ -33,8 +33,13 @@ an explicit ``MethodLU.PartialPiv``).  ``MethodLU.CALU`` is
 :func:`_panel_lu_tntpiv`.
 
 With ``SLATE_TPU_TORCH_ABFT`` on, the partial-pivot driver runs under
-the ABFT layer (:func:`_getrf_partial`).  The out-of-core branch is
-queued in ROADMAP.md.
+the ABFT layer (:func:`_getrf_partial`).  Where the ``ooc`` site answers
+``"pool"`` (:func:`slate_tpu_torch.linalg.ooc.choose`), partial pivoting
+runs out of core instead (:func:`slate_tpu_torch.linalg.ooc.getrf_ooc`:
+the matrix in a host tile grid, the panels through
+:func:`slate_tpu_torch.linalg.ooc._panel_lu`, which calls
+:func:`_getrf_incore` or, for a panel too tall for the scattered
+driver, :func:`getrf_rec` on ``getrf_panel_linv`` leaves).
 """
 
 from __future__ import annotations
@@ -565,13 +570,28 @@ def _getrf_partial(av, nb: int, raw_method=MethodLU.Auto):
 
 
 def _getrf_partial_impl(av, nb: int, raw_method=MethodLU.Auto):
-    """The PartialPiv drivers in the JAX package's order
-    (``_getrf_incore``, ``slate_tpu/linalg/lu.py:874-894``): the
-    scattered driver where the ``lu_driver`` site picks it; else, for
-    matrices taller than :data:`_MAX_LU_PANEL_ROWS`, the tall-panel loop
-    (true partial pivoting under an explicit ``MethodLU.PartialPiv``,
-    the tournament under ``Auto``); else the blocked recursion.  The JAX
-    package's out-of-core gate is queued in ROADMAP.md."""
+    """The PartialPiv drivers behind the ``ooc`` gate
+    (``slate_tpu/linalg/lu.py:862-871``): the out-of-core driver
+    :func:`slate_tpu_torch.linalg.ooc.getrf_ooc` where the ``ooc`` site
+    answers ``"pool"`` (same ``(lu, perm)`` contract, tile edge
+    ``SLATE_TPU_TORCH_OOC_NB``), else :func:`_getrf_incore`."""
+    from . import ooc as _ooc
+
+    if _ooc.choose(av) == "pool":
+        return _ooc.getrf_ooc(av)
+    return _getrf_incore(av, nb, raw_method)
+
+
+def _getrf_incore(av, nb: int, raw_method=MethodLU.Auto):
+    """The in-core PartialPiv drivers in the JAX package's order
+    (``slate_tpu/linalg/lu.py:874-894``): the scattered driver where the
+    ``lu_driver`` site picks it; else, for matrices taller than
+    :data:`_MAX_LU_PANEL_ROWS`, the tall-panel loop (true partial
+    pivoting under an explicit ``MethodLU.PartialPiv``, the tournament
+    under ``Auto``); else the blocked recursion.  Also what the
+    out-of-core driver's panel factor calls
+    (:func:`slate_tpu_torch.linalg.ooc._panel_lu`), which must never
+    re-enter the ``ooc`` gate (a forced pool would recurse)."""
     if _choose_lu_driver(av) == "scattered":
         return getrf_scattered(av, _SCATTERED_NB)
     if av.ndim == 2 and av.shape[0] > _MAX_LU_PANEL_ROWS:

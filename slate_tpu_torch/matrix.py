@@ -176,6 +176,11 @@ class BaseTrapezoidMatrix(BaseMatrix):
             else torch.triu(a)
 
 
+class TrapezoidMatrix(BaseTrapezoidMatrix):
+    """Trapezoid (possibly rectangular) matrix, one triangle stored
+    (reference ``TrapezoidMatrix.hh``)."""
+
+
 class TriangularMatrix(BaseTrapezoidMatrix):
     """Square triangular."""
 

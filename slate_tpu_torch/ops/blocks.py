@@ -205,6 +205,41 @@ def herk_rec(uplo: Uplo, alpha, a, beta, c, nb: int, conj: bool = True):
     return torch.cat([top, bot], dim=-2)
 
 
+def _conj_scalar(x):
+    """ᾱ of a Python/numpy scalar or a 0-d tensor (a real one unchanged)."""
+    if isinstance(x, torch.Tensor):
+        return x.conj()
+    c = complex(x)
+    return c.conjugate() if c.imag else x
+
+
+def her2k_rec(uplo: Uplo, alpha, a, b, beta, c, nb: int, conj: bool = True):
+    """C ← α·A·Bᴴ + ᾱ·B·Aᴴ + β·C on the ``uplo`` triangle (full tiles at
+    the base; the caller restores the other triangle).  ``conj=False`` is
+    syr2k, with ᾱ → α."""
+    alpha2 = _conj_scalar(alpha) if conj else alpha
+    n = c.shape[-1]
+    if n <= nb:
+        return (alpha * matmul(a, _t(b, conj))
+                + alpha2 * matmul(b, _t(a, conj)) + beta * c)
+    n1 = _split(n, nb)
+    a1, a2 = a[..., :n1, :], a[..., n1:, :]
+    b1, b2 = b[..., :n1, :], b[..., n1:, :]
+    c11 = her2k_rec(uplo, alpha, a1, b1, beta, c[..., :n1, :n1], nb, conj)
+    c22 = her2k_rec(uplo, alpha, a2, b2, beta, c[..., n1:, n1:], nb, conj)
+    if uplo is Uplo.Lower:
+        c21 = (alpha * matmul(a2, _t(b1, conj))
+               + alpha2 * matmul(b2, _t(a1, conj)) + beta * c[..., n1:, :n1])
+        top = torch.cat([c11, c[..., :n1, n1:]], dim=-1)
+        bot = torch.cat([c21, c22], dim=-1)
+    else:
+        c12 = (alpha * matmul(a1, _t(b2, conj))
+               + alpha2 * matmul(b1, _t(a2, conj)) + beta * c[..., :n1, n1:])
+        top = torch.cat([c11, c12], dim=-1)
+        bot = torch.cat([c[..., n1:, :n1], c22], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
 # ---------------------------------------------------------------------------
 # Triangular inverse and L^H·L / U·U^H products (potri)
 # ---------------------------------------------------------------------------

@@ -138,9 +138,13 @@ def symmetrize(uplo: Uplo, a):
 
 
 def hermitize(uplo: Uplo, a):
-    """Reflect with conjugation; the diagonal is forced real."""
+    """Reflect with conjugation; the diagonal is forced real.  Two
+    matrices at the peak (the triangle and the result), the diagonal
+    written in place."""
     t = torch.tril(a, -1) if uplo is Uplo.Lower else torch.triu(a, 1)
     d = torch.diagonal(a, dim1=-2, dim2=-1)
     if d.is_complex():
         d = d.real.to(a.dtype)
-    return t + t.mH + torch.diag_embed(d)
+    out = t + t.mH
+    out.diagonal(dim1=-2, dim2=-1).copy_(d)
+    return out

@@ -471,6 +471,39 @@ def rank_layout_moves(mesh, a, sq, nb: int, nb_new: int, regrid) -> dict:
     return out
 
 
+def rank_surface(mesh, a, nb: int, nb_new: int, regrid) -> dict:
+    """The core surface on a grid: ``printing.redistribute`` of the
+    replicated numpy ``a`` (distributed at ``nb``) to tile ``nb_new`` and
+    to a ``regrid`` = (p2, q2) grid over the same ranks (this rank's
+    shards, numpy), ``debug.check_dist_layout`` of each (None when it
+    passes) and of a shard cut short (its message), and
+    ``printing.sprint_matrix`` of the distributed ``a`` at verbose 4."""
+    from ..debug import check_dist_layout
+    from ..exceptions import SlateError
+    from ..printing import redistribute, sprint_matrix
+    from . import distribute, make_grid_mesh
+    from .dist import DistMatrix
+
+    ad = distribute(a, mesh, nb)
+    mesh2 = make_grid_mesh(*regrid, device=mesh.device)
+    moves = {"nb_new": redistribute(ad, nb=nb_new),
+             "regrid": redistribute(ad, mesh=mesh2)}
+    out = {k: _np(v.data) for k, v in moves.items()}
+    out["dims"] = {k: (v.m, v.n, v.nb, v.mtp, v.ntp)
+                   for k, v in moves.items()}
+    out["regrid_rank"] = (mesh2.r, mesh2.c)
+    out["layout"] = {}
+    short = DistMatrix(ad.data[:-1], ad.m, ad.n, ad.nb, mesh)
+    for k, v in (("a", ad), ("short", short), *moves.items()):
+        try:
+            check_dist_layout(v)
+            out["layout"][k] = None
+        except SlateError as e:
+            out["layout"][k] = str(e)
+    out["text"] = sprint_matrix("D", ad, verbose=4)
+    return out
+
+
 
 # ---------------------------------------------------------------------------
 # Rank body of the two-stage eigensolver and SVD

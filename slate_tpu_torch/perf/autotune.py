@@ -30,6 +30,8 @@ The ``chase`` site returns ``"kernel"`` (the ``hb2st_wavefront`` or
 :mod:`slate_tpu_torch.native`); ``eig_driver`` and ``svd_driver`` answer
 ``"twostage"`` or ``"qdwh"`` (:func:`_driver_site`), and ``qdwh_step``
 the Halley variant of one QDWH iteration, ``"qr"`` or ``"chol"``.
+The ``ooc`` site answers ``"pool"`` (the out-of-core tile pool) or
+``"incore"`` (:func:`choose_ooc`).
 
 The four sites of the distributed drivers (:mod:`slate_tpu_torch.parallel`)
 keep the JAX package's rung names, so one pin string means the same
@@ -628,6 +630,47 @@ def choose_dist_lookahead(op: str, nt: int, nb: int, dtype, device) -> str:
     return _dist_site("dist_lookahead", key, names, "1", "default")
 
 
+def choose_ooc(n: int, nb: int, dtype, device, eligible: bool) -> str:
+    """Residency of one square factorization on one card
+    (``slate_tpu/perf/autotune.py:1378-1423``): ``"pool"`` (the
+    out-of-core drivers of :mod:`slate_tpu_torch.linalg.ooc` over the
+    pinned host tile grid of :mod:`slate_tpu_torch.ops.tilepool`) or
+    ``"incore"`` (every other driver; the matrix stays on the card).
+    ``eligible`` is the call site's gate (``linalg.ooc.pool_eligible``).
+    ``SLATE_TPU_TORCH_OOC`` on or off answers ``"pool"`` or
+    ``"incore"``; under ``auto`` a :data:`FORCE_ENV` pin of either name is
+    answered as it is, and otherwise the answer is analytic, as the JAX
+    package's on its chip: on a CUDA operand ``"pool"`` where operand,
+    factor and workspace, 3·n²·itemsize, exceed the card's memory
+    (:func:`slate_tpu_torch.ops.tilepool.hbm_budget_bytes`), else
+    ``"incore"``; off the card ``"incore"``."""
+    dt = str(dtype).replace("torch.", "")
+    key = (n, nb, dt, torch.device(device).type)
+    names = ("incore", "pool")
+    if not eligible:
+        return _record("ooc", key, "incore", "ineligible")
+    mode = config.ooc_mode()
+    if mode == "off":
+        return _record("ooc", key, "incore", "forced-config")
+    if mode == "on":
+        return _record("ooc", key, "pool", "forced-config")
+    forced = _forced("ooc")
+    if forced is not None:
+        if forced in names:
+            return _record("ooc", key, forced, "forced")
+        _warn_bad_force("ooc", forced, names)
+    if torch.device(device).type != "cuda":
+        return _record("ooc", key, "incore", "default off the card")
+    from ..ops import tilepool
+
+    need = 3.0 * n * n * dtype.itemsize
+    if need > tilepool.hbm_budget_bytes(device):
+        return _record("ooc", key, "pool",
+                       "analytic: 3*n^2*itemsize over the card's memory")
+    return _record("ooc", key, "incore",
+                   "analytic: 3*n^2*itemsize within the card's memory")
+
+
 _SITES = {
     "batched_heev": choose_batched_heev,
     "batched_lu": choose_batched_lu,
@@ -644,6 +687,7 @@ _SITES = {
     "lu_driver": choose_lu_driver,
     "lu_step": choose_lu_step,
     "matmul": choose_matmul,
+    "ooc": choose_ooc,
     "potrf_panel": choose_potrf_panel,
     "potrf_panel_f64": choose_potrf_panel_f64,
     "potrf_step": choose_potrf_step,

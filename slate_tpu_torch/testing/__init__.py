@@ -1,3 +1,3 @@
 """Test matrix generation."""
 
-from .matgen import random_spd  # noqa: F401
+from .matgen import generate_matrix, random_spd  # noqa: F401

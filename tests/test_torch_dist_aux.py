@@ -17,6 +17,10 @@ JAX package's, on the same numpy inputs made from seeds.
   ``predistribute`` (a new nb, and a new grid over the same ranks: 2×2 →
   1×4, 1×3 → 3×1), ``peye`` and ``phermitize`` bitwise the JAX
   ``DistMatrix``'s block, on 2×2 and 1×3 gloo grids.
+* The core surface on the 2×2 spawn: ``printing.redistribute`` (a new
+  nb, and the 1×4 grid) bitwise the JAX package's shards,
+  ``debug.check_dist_layout`` on each shard, and ``sprint_matrix`` of the
+  DistMatrix equal to the JAX package's text.
 * The serial stub (1×1, no process group) in process, and the refusals.
 """
 
@@ -147,6 +151,24 @@ def _jax_layout(p, q, a, sq):
             for k, (v, grid) in moves.items()}
 
 
+def _jax_surface(a):
+    """The JAX package's ``redistribute`` of ``a`` (2×2, nb 16) to nb 32
+    and to the 1×4 grid, and ``sprint_matrix`` of it at verbose 4."""
+    from slate_tpu.parallel.dist import distribute
+    from slate_tpu.printing import redistribute, sprint_matrix
+
+    devs = np.asarray(jax.devices()[:4])
+    jm = jmake_grid_mesh(2, 2, devices=devs)
+    jm2 = jmake_grid_mesh(*LAYOUT[2, 2], devices=devs)
+    ad = distribute(jnp.asarray(a), jm, LAYOUT["nb"])
+    moves = {"nb_new": (redistribute(ad, nb=LAYOUT["nb_new"]), (2, 2)),
+             "regrid": (redistribute(ad, mesh=jm2), LAYOUT[2, 2])}
+    out = {k: (np.asarray(v.data), grid, (v.m, v.n, v.nb, v.mtp, v.ntp))
+           for k, (v, grid) in moves.items()}
+    out["text"] = sprint_matrix("D", ad, verbose=4)
+    return out
+
+
 def _layout_inputs():
     rng = np.random.default_rng(95)
     m, n = LAYOUT["shape"]
@@ -163,6 +185,9 @@ def runs():
     a, sq = _layout_inputs()
     lay = (a, sq, LAYOUT["nb"], LAYOUT["nb_new"])
     jobs = [(LAUNCH + ":rank_aux", (_aux_inputs(dt), NB)) for dt in TOL]
+    jobs.append((LAUNCH + ":rank_surface", (a.real.copy(), LAYOUT["nb"],
+                                            LAYOUT["nb_new"],
+                                            LAYOUT[2, 2])))
     jobs.append((LAUNCH + ":rank_layout_moves", lay + (LAYOUT[2, 2],)))
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         grid22 = pool.submit(run_spmd, LAUNCH + ":rank_jobs", 2, 2, (jobs,),
@@ -174,9 +199,12 @@ def runs():
         ref = {dt: _jax_aux(jm, _aux_inputs(dt)) for dt in TOL}
         layout_ref = {(2, 2): _jax_layout(2, 2, a, sq),
                       (1, 3): _jax_layout(1, 3, a, sq)}
+        surface_ref = _jax_surface(a.real.copy())
         out22, out13 = grid22.result(), grid13.result()
     return {"ref": ref, "aux": {dt: [rank[i] for rank in out22]
                                 for i, dt in enumerate(TOL)},
+            "surface_ref": surface_ref,
+            "surface": [rank[len(TOL)] for rank in out22],
             "layout_ref": layout_ref,
             "layout": {(2, 2): [rank[-1] for rank in out22], (1, 3): out13}}
 
@@ -244,6 +272,29 @@ def test_layout_moves_bitwise_jax(runs, grid, move):
         assert np.array_equal(got[move],
                               data[r * h:(r + 1) * h, c * w:(c + 1) * w]), \
             (move, rank)
+
+
+@pytest.mark.parametrize("move", ["nb_new", "regrid"])
+def test_redistribute_bitwise_jax(runs, move):
+    """``printing.redistribute`` on the 2×2 grid: every rank's shard
+    bitwise the JAX package's block, each shard's layout checked."""
+    data, (p, q), dims = runs["surface_ref"][move]
+    h, w = data.shape[0] // p, data.shape[1] // q
+    for rank, got in enumerate(runs["surface"]):
+        r, c = got["regrid_rank"] if move == "regrid" else divmod(rank, 2)
+        assert tuple(got["dims"][move]) == dims
+        assert np.array_equal(got[move],
+                              data[r * h:(r + 1) * h, c * w:(c + 1) * w])
+        assert got["layout"][move] is None
+
+
+def test_dist_layout_check_and_print_on_the_grid(runs):
+    want = runs["surface_ref"]["text"]
+    assert want.startswith("% D: DistMatrix 100x70, nb=16, grid=2x2")
+    for got in runs["surface"]:
+        assert got["layout"]["a"] is None
+        assert "not a multiple of the tile" in got["layout"]["short"]
+        assert got["text"] == want
 
 
 def test_serial_stub_matches_jax(runs):

@@ -85,6 +85,52 @@ def test_linalg_surface_covers_the_dense_solver_slice():
     assert port_linalg.sysv is hesv.hesv and port_linalg.sytrf is hesv.hetrf
 
 
+#: the rest of the core surface (ROADMAP queue 1 item 4), by module: each
+#: name is exported where the JAX package exports it
+CORE_SURFACE = {
+    "": ("symm", "hemm", "syr2k", "her2k", "gemmA", "gemmC", "hemmA",
+         "hemmC", "trsmA", "trsmB", "Layout", "TileKind", "MethodGemm",
+         "MethodHemm", "MethodTrsm", "MethodCholQR", "TrapezoidMatrix",
+         "print_matrix", "sprint_matrix", "redistribute", "MOSI"),
+    ".linalg": ("symm", "hemm", "syr2k", "her2k", "gemmA", "gemmC",
+                "hemmA", "hemmC", "trsmA", "trsmB"),
+    ".enums": ("Layout", "TileKind", "MOSI", "MethodGemm", "MethodHemm",
+               "MethodTrsm", "MethodCholQR"),
+    ".method": ("select_gemm", "select_trsm", "select_hemm",
+                "select_cholqr", "select_eig", "select_svd"),
+    ".matrix": ("TrapezoidMatrix",),
+    ".printing": ("print_matrix", "sprint_matrix", "redistribute"),
+    ".debug": ("check_finite", "check_dist_layout", "check_pool_leaks",
+               "device_memory_stats", "memory_stats"),
+    ".testing": ("generate_matrix", "random_spd"),
+    ".testing.matgen": ("generate_matrix", "random_spd"),
+    ".ops.tilepool": ("TilePool", "window_tiles", "prefetch_depth",
+                      "hbm_budget_bytes", "ooc_nb"),
+    ".linalg.ooc": ("getrf_ooc", "potrf_ooc", "ooc_nb", "pool_eligible",
+                    "choose"),
+}
+
+
+@pytest.mark.parametrize("sub", sorted(CORE_SURFACE))
+def test_core_surface_exported_where_jax_exports_it(sub):
+    """Each name of :data:`CORE_SURFACE` that ``slate_tpu<sub>`` has,
+    ``slate_tpu_torch<sub>`` has too (and no JAX-side name is missing from
+    the list's module, so the list stays true); a name at the top level is
+    the same object as in its defining module."""
+    jmod = importlib.import_module("slate_tpu" + sub)
+    pmod = importlib.import_module("slate_tpu_torch" + sub)
+    for name in CORE_SURFACE[sub]:
+        if not hasattr(jmod, name):
+            assert name == "MOSI" and sub == "", (sub, name)
+            continue
+        assert hasattr(pmod, name), (sub, name)
+        obj = getattr(pmod, name)
+        if inspect.isfunction(obj) or inspect.isclass(obj):
+            owner = importlib.import_module(obj.__module__)
+            assert getattr(owner, name) is obj, (sub, name)
+            assert owner.__name__.startswith("slate_tpu_torch."), (sub, name)
+
+
 #: public names of ``slate_tpu.parallel`` defined in a module the port has
 #: but queued for a later slice; empty since the mixed drivers, pgetri and
 #: pgecondest landed.  The test fails when a queued name lands unexported
